@@ -1,0 +1,201 @@
+"""PyTorch port of parallel/mesh: the fusion and the doc-sharded step.
+
+The JAX side runs on the 8-device virtual CPU mesh (conftest), where
+fused_gather_topk takes its lax path, which shares the tie_topk epilogue
+the Pallas kernel is pinned to. The port runs one card's worth of the
+step with its plain versions (device="cpu") and must be bit-identical;
+BM25 agrees to rtol=1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as PS
+
+from yacy_search_server_tpu.index import postings as JP
+from yacy_search_server_tpu.ops import ranking as JR
+from yacy_search_server_tpu.parallel import mesh as JM
+from yacy_search_server_tpu_torch import convert
+from yacy_search_server_tpu_torch.index import postings as TP
+from yacy_search_server_tpu_torch.kernels import gather_topk
+from yacy_search_server_tpu_torch.parallel import mesh as TM
+
+
+def _cpu8():
+    devs = jax.devices("cpu")
+    if len(devs) < 8:
+        pytest.skip("needs 8 virtual CPU devices")
+    return devs
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _scores(n, dtype, rng):
+    if dtype == np.int32:
+        return rng.integers(0, 6, n).astype(np.int32) * 1000
+    s = rng.integers(0, 6, n).astype(np.float32) * 0.5
+    s[::11] = -0.0
+    s[::13] = 0.0
+    s[::17] = -np.inf
+    return s
+
+
+def _random_postings(n, seed=0):
+    rng = np.random.default_rng(seed)
+    docids = np.arange(n, dtype=np.int32)
+    feats = rng.integers(0, 500, (n, JP.NF)).astype(np.int32)
+    feats[:, JP.F_FLAGS] = rng.integers(0, 2**20, n)
+    feats[:, JP.F_LANGUAGE] = np.where(rng.random(n) < 0.5,
+                                       JP.pack_language("en"),
+                                       JP.pack_language("de"))
+    feats[:, JP.F_DOMLENGTH] = rng.integers(0, 256, n)
+    hosts = [bytes([i % 13, 7]) for i in range(n)]
+    return feats, docids, hosts
+
+
+def test_pad_to_shards_matches():
+    for n, s in ((1, 8), (1024, 8), (1025, 8), (5000, 1), (1, 1)):
+        assert TM.pad_to_shards(n, s) == JM.pad_to_shards(n, s)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("k", [1, 20, 500])
+def test_tie_topk_bit_identical(dtype, k):
+    rng = np.random.default_rng(1)
+    s = _scores(300, dtype, rng)
+    if dtype == np.int32:
+        s[5] = -(2**31)          # negation wraps: sorts first in lax.sort
+    else:
+        s[7] = np.nan
+    d = rng.permutation(300).astype(np.int32)
+    d[::9] = -1                   # duplicate docids (pad rows)
+    ws, wd = jax.jit(lambda a, b: JM.tie_topk(a, b, k))(s, d)
+    gs, gd = TM.tie_topk(_t(s), _t(d), k)
+    np.testing.assert_array_equal(np.asarray(ws), gs.numpy())
+    np.testing.assert_array_equal(np.asarray(wd), gd.numpy())
+
+
+def _jax_gather(mesh, local_s, local_d, k, full=False):
+    def body(s, d):
+        if full:
+            return JM.all_gather_topk_full(s, d, "doc")
+        return JM.all_gather_topk(s, d, "doc", k)
+    fn = jax.jit(JM.shard_map(body, mesh=mesh,
+                              in_specs=(PS("doc"), PS("doc")),
+                              out_specs=(PS(), PS()), check_vma=False))
+    sh = NamedSharding(mesh, PS("doc"))
+    ws, wd = fn(jax.device_put(local_s, sh), jax.device_put(local_d, sh))
+    return np.asarray(ws), np.asarray(wd)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("rows,k", [(16, 10), (4, 10), (32, 32)])
+def test_gather_topk_matches_jax_all_gather_topk(dtype, rows, k):
+    """Eight shards' local tie-ordered top-k blocks (rows < k: shards
+    shorter than k) with equal scores across shards: the plain kernel-4
+    merge of the gathered block equals the JAX collective."""
+    devs = _cpu8()
+    mesh = JM.make_mesh(n_doc=8, devices=devs)
+    rng = np.random.default_rng(2)
+    local_s, local_d = [], []
+    for _shard in range(8):
+        s = _scores(rows, dtype, rng)
+        d = rng.choice(10_000, rows, replace=False).astype(np.int32)
+        ts, td = JM.tie_topk(s, d, rows)
+        local_s.append(np.asarray(ts))
+        local_d.append(np.asarray(td))
+    ls, ld = np.concatenate(local_s), np.concatenate(local_d)
+    ws, wd = _jax_gather(mesh, ls, ld, k)
+    col = ls.view(np.int32)
+    block = _t(np.stack([col, ld], axis=1))
+    kk = min(k, len(ls))
+    gs, gd = gather_topk(block, kk, dtype == np.float32)
+    got_s = gs.numpy().view(np.float32) if dtype == np.float32 else gs.numpy()
+    np.testing.assert_array_equal(ws, got_s)
+    np.testing.assert_array_equal(wd, gd.numpy())
+    # the one-card collective and its all-gather twins agree too
+    one = TM.make_mesh(device="cpu")
+    fs, fd = TM.fused_gather_topk(_t(ls), _t(ld), one, k)
+    as_, ad = TM.all_gather_topk(_t(ls), _t(ld), one, k)
+    np.testing.assert_array_equal(fs.numpy(), ws)
+    np.testing.assert_array_equal(fd.numpy(), wd)
+    np.testing.assert_array_equal(as_.numpy(), ws)
+    np.testing.assert_array_equal(ad.numpy(), wd)
+    full_s, full_d = _jax_gather(mesh, ls, ld, k, full=True)
+    ts, td = TM.all_gather_topk_full(_t(ls), _t(ld), one)
+    np.testing.assert_array_equal(ts.numpy(), full_s)
+    np.testing.assert_array_equal(td.numpy(), full_d)
+
+
+@pytest.mark.parametrize("n_term,n_doc", [(1, 8), (2, 4)])
+@pytest.mark.parametrize("profile", [{}, {"authority": 15, "language": 5}])
+def test_mesh_ranker_bit_identical_to_jax_mesh(n_term, n_doc, profile):
+    devs = _cpu8()
+    feats, docids, hosts = _random_postings(1000, seed=3)
+    jp = JR.RankingProfile(**profile)
+    mesh = JM.make_mesh(n_doc=n_doc, n_term=n_term, devices=devs)
+    ws, wd = JM.MeshRanker(mesh, jp).rank(JP.PostingsList(docids, feats),
+                                          hosts, k=20)
+    tp = convert.profile_from_jax(jp.to_external_string())
+    gs, gd = TM.MeshRanker(TM.make_mesh(device="cpu"), tp).rank(
+        TP.PostingsList(docids, feats), hosts, k=20)
+    np.testing.assert_array_equal(ws, gs)
+    np.testing.assert_array_equal(wd, gd)
+
+
+def test_mesh_ranker_small_and_empty():
+    mesh = TM.make_mesh(device="cpu")
+    feats, docids, hosts = _random_postings(5, seed=4)
+    s, d = TM.MeshRanker(mesh).rank(TP.PostingsList(docids, feats), hosts,
+                                    k=10)
+    assert len(s) == 5 and set(d.tolist()) <= set(range(5))
+    s, d = TM.MeshRanker(mesh).rank(TP.PostingsList.empty(), None, k=10)
+    assert len(s) == 0 and len(d) == 0
+
+
+def test_placed_from_numpy_carries_the_jax_placement():
+    """The slice as a whole: the arrays a JAX MeshRanker.place builds,
+    carried over by convert.placed_from_numpy, rank identically."""
+    devs = _cpu8()
+    feats, docids, hosts = _random_postings(2000, seed=5)
+    jp = JR.RankingProfile(authority=14)
+    jr = JM.MeshRanker(JM.make_mesh(n_doc=8, devices=devs), jp)
+    jplaced = jr.place(JP.PostingsList(docids, feats), hosts)
+    ws, wd = jr.rank_placed(jplaced, k=50)
+    arrays = [np.asarray(a) for a in jplaced[:4]]
+    tplaced = convert.placed_from_numpy(*arrays, jplaced[4], device="cpu")
+    tr = TM.MeshRanker(TM.make_mesh(device="cpu"),
+                       convert.profile_from_jax(jp.to_external_string()))
+    gs, gd = tr.rank_placed(tplaced, k=50)
+    np.testing.assert_array_equal(ws, gs)
+    np.testing.assert_array_equal(wd, gd)
+
+
+def test_mesh_bm25_matches_jax():
+    devs = _cpu8()
+    rng = np.random.default_rng(6)
+    n, t, k = 777, 6, 15
+    tf = rng.integers(0, 9, (n, t)).astype(np.float32)
+    dl = rng.integers(40, 800, n).astype(np.int32)
+    df = rng.integers(1, n, t).astype(np.int32)
+    docids = np.arange(n, dtype=np.int32)
+    mesh = JM.make_mesh(n_doc=4, n_term=2, devices=devs)
+    ws, wd = JM.MeshBM25(mesh).topk(tf, dl, df, n, docids, k=k)
+    gs, gd = TM.MeshBM25(TM.make_mesh(device="cpu")).topk(tf, dl, df, n,
+                                                          docids, k=k)
+    np.testing.assert_allclose(gs, ws, rtol=1e-5)
+    gap = np.abs(np.diff(ws)) > 1e-5 * np.abs(ws[1:])
+    sep = np.ones(k, bool)
+    sep[1:] &= gap
+    sep[:-1] &= gap
+    np.testing.assert_array_equal(gd[sep], wd[sep])
+
+
+def test_multi_card_mesh_not_yet_ported():
+    with pytest.raises(NotImplementedError):
+        TM.make_mesh(n_doc=2, device="cpu")

@@ -1,0 +1,134 @@
+"""Kernels 3 and 4: exact tie-ordered top-k and the fusion merge.
+
+`tie_topk` (csrc/tie_topk.cu) replaces lax.top_k in the JAX package's
+score_topk16 / score_topk / streaming merge (index mode: descending
+score, ties by the lower row index) and parallel/mesh.tie_topk (tie mode:
+lax.sort ascending on (-score, docid)). `gather_topk` (csrc/gather_topk.cu)
+replaces the merge of the Pallas kernel parallel/mesh._all_gather_topk_pallas.
+Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
+PyTorch version only for CPU tensors.
+
+Orders, shared with csrc/common.cuh: scores are int32 or f32. Index mode
+sorts f32 by the IEEE total order (NaN first, -NaN last, +0 before -0),
+as lax.top_k does. Tie mode sorts by lax.sort's canonical order of the
+negated score: -0 equals +0, every NaN sorts last, and an int32 score of
+-2^31 (whose negation wraps) sorts first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build as B
+
+_SCORE_DTYPES = (torch.int32, torch.float32)
+
+
+def _float_order(bits: torch.Tensor) -> torch.Tensor:
+    """f32 bits (int64 values of int32) -> signed total-order key."""
+    return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
+
+
+def _hi_key(scores: torch.Tensor, tie: bool) -> torch.Tensor:
+    """Ascending uint32 key (in int64) of the score half: smaller is
+    better."""
+    if scores.dtype == torch.int32:
+        s = scores.to(torch.int64)
+        if tie:
+            neg = ((-s + 2**31) & 0xFFFFFFFF) - 2**31     # wrapping negation
+            return neg + 2**31
+        return 2**31 - 1 - s
+    if tie:
+        v = -scores
+        bits = v.view(torch.int32).to(torch.int64)
+        bits = torch.where(v == 0, 0, bits)
+        bits = torch.where(torch.isnan(v), 0x7FC00000, bits)
+        return _float_order(bits) + 2**31
+    return 2**31 - 1 - _float_order(scores.view(torch.int32).to(torch.int64))
+
+
+def tie_topk_plain(scores, k: int, secondary=None, payload=None):
+    """Plain PyTorch version of kernel 3: (scores, secondary-or-payload,
+    row index) of the k best rows."""
+    n = scores.shape[0]
+    hi = _hi_key(scores, secondary is not None)
+    lo = (secondary.to(torch.int64) + 2**31 if secondary is not None
+          else torch.arange(n, dtype=torch.int64, device=scores.device))
+    key = (hi - 2**31) * 2**32 + lo
+    idx = torch.argsort(key, stable=True)[:k]
+    if payload is not None:
+        sec = payload[idx]
+    elif secondary is not None:
+        sec = secondary[idx]
+    else:
+        sec = idx.to(torch.int32)
+    return scores[idx], sec, idx.to(torch.int32)
+
+
+def tie_topk(scores, k: int, secondary=None, payload=None):
+    """Kernel 3: exact top-k of `scores` ([n] int32 or f32), 1 <= k <= n.
+
+    Without `secondary`: lax.top_k order (ties by lower row index). With
+    `secondary` ([n] int32 docids): lax.sort order on (-score, docid).
+    Returns (scores [k], payload[row] or secondary[row] or row [k] int32,
+    row [k] int32)."""
+    n = scores.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"tie_topk: k={k} outside [1, {n}]")
+    if scores.device.type == "cpu":
+        return tie_topk_plain(scores, k, secondary, payload)
+    dev = scores.device
+    B.require(scores, "scores", _SCORE_DTYPES, 1, dev)
+    for name, t in (("secondary", secondary), ("payload", payload)):
+        if t is not None:
+            B.require(t, name, (torch.int32,), 1, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"{name}: one entry per score expected")
+    lib = B.library()
+    scratch = torch.empty(int(lib.yt_tie_topk_scratch_bytes(k)),
+                          dtype=torch.uint8, device=dev)
+    out_s = torch.empty(k, dtype=torch.int32, device=dev)
+    out_sec = torch.empty(k, dtype=torch.int32, device=dev)
+    out_idx = torch.empty(k, dtype=torch.int32, device=dev)
+    is_float = scores.dtype == torch.float32
+    rc = lib.yt_tie_topk(
+        scores.data_ptr(), int(is_float),
+        secondary.data_ptr() if secondary is not None else None,
+        payload.data_ptr() if payload is not None else None,
+        n, k, scratch.data_ptr(), out_s.data_ptr(), out_sec.data_ptr(),
+        out_idx.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "tie_topk")
+    B.LAUNCHES["tie_topk"] += 1
+    return (out_s.view(torch.float32) if is_float else out_s), out_sec, out_idx
+
+
+def gather_topk_plain(block, k: int, is_float: bool):
+    """Plain PyTorch version of kernel 4: (score bits [k], docids [k])."""
+    col = block[:, 0].contiguous()
+    s = col.view(torch.float32) if is_float else col
+    top_s, top_d, _ = tie_topk_plain(s, k, secondary=block[:, 1].contiguous())
+    return (top_s.view(torch.int32) if is_float else top_s), top_d
+
+
+def gather_topk(block, k: int, is_float: bool):
+    """Kernel 4: merge a gathered [m, 2] int32 block of shard-local top-k
+    rows (column 0 the score, f32 bits when is_float; column 1 the docid)
+    into the first k rows of the (score DESC, docid ASC) order,
+    1 <= k <= m. Returns (score column [k] int32, docids [k] int32)."""
+    m = block.shape[0]
+    if not 1 <= k <= m:
+        raise ValueError(f"gather_topk: k={k} outside [1, {m}]")
+    if block.device.type == "cpu":
+        return gather_topk_plain(block, k, is_float)
+    dev = block.device
+    B.require(block, "block", (torch.int32,), 2, dev)
+    if block.shape[1] != 2:
+        raise ValueError("block must be [m, 2]")
+    out_s = torch.empty(k, dtype=torch.int32, device=dev)
+    out_d = torch.empty(k, dtype=torch.int32, device=dev)
+    rc = B.library().yt_gather_topk(block.data_ptr(), m, int(is_float), k,
+                                    out_s.data_ptr(), out_d.data_ptr(),
+                                    B.stream_ptr(dev))
+    B.check(rc, "gather_topk")
+    B.LAUNCHES["gather_topk"] += 1
+    return out_s, out_d
