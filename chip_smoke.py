@@ -8,8 +8,13 @@ Phases, each of which exits non-zero on failure:
 1. build the port's CUDA kernels from kernels/csrc (nvcc, sm_90a);
 2. hold every kernel against its plain PyTorch version on the card:
    kernels 1-2 on a 10M-row compact block and a 10M-row int32 block under
-   the default and authority=15 profiles; kernel 3 at k = 10, 100, 1000
-   with int32 and f32 scores and constructed ties; kernel 4 over 1, 8 and
+   the default and authority=15 profiles, a ragged last tile, a view
+   that starts off 16 bytes, a block with no valid row, and column bounds
+   and features at the edges of the int32 arithmetic; kernel 3 at
+   k = 10, 100, 1000 with int32 and f32 scores and constructed ties, 10M
+   equal scores, scores on which the sampled guess misses, k = n,
+   k = 2049, n = 1, 7, 1023, int32 -2^31 and f32 NaN, -0.0 and -inf in
+   both modes; kernel 4 over 1, 8 and
    16 shards' blocks, f32 and int32, with cross-shard ties;
 3. drive the main path at the headline size, a 10M-posting term:
    CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and 50
@@ -17,8 +22,21 @@ Phases, each of which exits non-zero on failure:
    stream_score_topk over the 10M block in 2M-row chunks; every result is
    checked against the port's numpy twins, and every kernel's launch
    count must move;
-4. time each kernel at the main path's shapes (CUDA events, median),
-   beside its plain version, its bound and, for kernel 3, torch.topk.
+4. check kernel 3 on the inputs it is timed on (the step's scores and
+   the default profile's scores of the compact block, k = 10, 100, 1000,
+   both modes), then time each kernel at the main path's shapes beside
+   its plain version, its bound and, for kernel 3, torch.topk: `ms` is
+   the call time (the median of 20 calls, each between two CUDA events
+   from an idle queue, kernels/bench.call_ms), `device_ms`
+   the device time (the calls queued behind a spin kernel,
+   kernels/bench.device_ms). First at the shapes of
+   MeshRanker.rank_placed (the int32 block under authority=15 with 10M
+   host bins; tie_topk in tie mode on that step's scores at k = 10, 100,
+   1000, and in index mode), then at the compact shapes; and
+   rank_placed's wall per query over 50 queries after a warm-up.
+
+With YT_KERNEL_TRACE=1 the kernels are built with tie_topk's per-pass
+trace, which phase 4 prints.
 
 Prints the card's name and power limit, one JSON line of kernel
 measurements, and last `{"ok": true, "device": {...}}`. Needs a CUDA
@@ -40,7 +58,6 @@ N = 10_000_000            # postings of the headline term
 CHUNK = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak (simple-op bound)
-SEED = 20261016
 
 
 def log(*a):
@@ -60,6 +77,7 @@ def main() -> int:
         return 2
     from yacy_search_server_tpu_torch.index import postings as P
     from yacy_search_server_tpu_torch.kernels import LAUNCHES, build
+    from yacy_search_server_tpu_torch.kernels import bench as KB
     from yacy_search_server_tpu_torch.kernels import cardinal as KC
     from yacy_search_server_tpu_torch.kernels import reset_launches
     from yacy_search_server_tpu_torch.kernels import topk as KT
@@ -81,18 +99,9 @@ def main() -> int:
         f"{len(list(build.CSRC.glob('*.cu')))} sources in parallel)")
 
     # -- data: a 10M-posting term from the seed ----------------------------
-    rng = np.random.default_rng(SEED)
-    feats = rng.integers(0, 30000, (N, P.NF), dtype=np.int32)
-    feats[:, P.F_FLAGS] = rng.integers(0, 2**30, N, dtype=np.int32)
-    feats[:, P.F_HITCOUNT] = rng.integers(0, 256, N, dtype=np.int32)
-    feats[:, P.F_DOMLENGTH] = rng.integers(0, 256, N, dtype=np.int32)
-    feats[:, P.F_LANGUAGE] = np.where(rng.random(N) < 0.5, 0x656E, 0x6465)
-    docids = np.arange(N, dtype=np.int32) * 2 + 1
-    hostids = rng.integers(0, 50_000, N, dtype=np.int32)
-    # the best row repeated: equal scores reach the top-k on purpose
-    best = np.argmax(R.cardinal_scores_host(feats[:100_000],
-                                            R.RankingProfile()))
-    feats[::500_009] = feats[best]
+    # random columns in their real ranges, 50,000 hosts, and the best row
+    # repeated: equal scores reach the top-k on purpose
+    feats, docids, hostids, rng = KB.make_term(N)
     feats16, flags = R.compact_feats(feats)
     valid = np.ones(N, bool)
     valid[::1013] = False
@@ -138,7 +147,6 @@ def main() -> int:
             err["cardinal_stats"] = max(err["cardinal_stats"], e1)
             err["cardinal_score"] = max(err["cardinal_score"], e2)
             del psc, pst
-    scores_main = sc
 
     tie_scores = {
         "int32": (torch.from_numpy(rng.integers(0, 5000, N, dtype=np.int32))
@@ -162,6 +170,92 @@ def main() -> int:
                 if e:
                     fail(f"tie_topk disagrees ({dname}, k={k}, {mode})")
                 err["tie_topk"] = max(err["tie_topk"], e)
+
+    # the new paths of kernel 3: the candidate buffer's overflow (10M
+    # equal scores), k = n, k = 2049 (the sort in device memory), tiny n,
+    # and the special values in both modes
+    def check_topk(label, s, k, sec_all):
+        for mode in ("index", "tie"):
+            sec = sec_all if mode == "tie" else None
+            pay = None if mode == "tie" else sec_all
+            g = KT.tie_topk(s, k, secondary=sec, payload=pay)
+            w = KT.tie_topk_plain(s, k, secondary=sec, payload=pay)
+            torch.cuda.synchronize()
+            e = max(diff(g[0], w[0]), diff(g[1], w[1]),
+                    diff(g[2], w[2]) if mode == "index" else 0.0)
+            log(f"check tie_topk {label} k={k} {mode}: err {e}")
+            if e:
+                fail(f"tie_topk disagrees ({label}, k={k}, {mode})")
+            err["tie_topk"] = max(err["tie_topk"], e)
+
+    check_topk("10M equal int32", torch.full((N,), 7, dtype=torch.int32,
+                                             device=dev), 100, d_d)
+    # scores rising with the row: the bucket guessed from the sample (the
+    # first round of each block's share) misses the k-th key's
+    rising = (torch.arange(2_000_000, dtype=torch.int64, device=dev)
+              * 1024).to(torch.int32)
+    check_topk("2M rising int32 (sample guess misses)", rising, 100,
+               d_d[:2_000_000])
+    for n_e, k_e in ((1, 1), (7, 7), (7, 3), (1023, 1023), (1023, 1),
+                     (5000, 2049), (2049, 2049)):
+        si = rng.integers(-3, 4, n_e).astype(np.int32)
+        si[::3] = -(2**31)
+        sf = (rng.integers(-3, 4, n_e) * 0.5).astype(np.float32)
+        sf[::3] = np.nan
+        sf[1::4] = -0.0
+        sf[2::5] = -np.inf
+        de = rng.permutation(n_e).astype(np.int32)
+        de[::4] = 5
+        for lbl, arr in (("int32 -2^31", si), ("f32 nan/-0/-inf", sf)):
+            check_topk(f"{lbl} n={n_e}", put(arr), k_e, put(de))
+
+    # the tile edges of kernel 2: a ragged last tile, a view that starts
+    # 34 / 68 bytes into its storage, and a block with no valid row
+    c15 = consts["authority15"]
+    nr = 100_003
+    for label, f_d, flg, fast in (("compact", f16_d, fl_d, True),
+                                  ("int32", f32_d, None, False)):
+        no_valid = torch.zeros(nr, dtype=torch.bool, device=dev)
+        for case, sl, vv in (("ragged", slice(0, nr), v_d[:nr]),
+                             ("offset view", slice(1, nr + 1),
+                              v_d[1:nr + 1]),
+                             ("all invalid", slice(0, nr), no_valid)):
+            fv = f_d[sl]
+            fg = flg[sl] if flg is not None else None
+            hv = h_d[sl]
+            if case == "offset view" and fv.data_ptr() % 16 == 0:
+                fail("the offset view starts on 16 bytes")
+            st, cnt = KC.cardinal_stats_plain(fv, vv, hv, 50_000)
+            sc = KC.cardinal_score(fv, fg, vv, hv, st, cnt, c15, fast)
+            psc = KC.cardinal_score_plain(fv, fg, vv, hv, st, cnt, c15, fast)
+            torch.cuda.synchronize()
+            e2 = diff(sc, psc)
+            log(f"check cardinal_score {label} {case} n={nr}: err {e2}")
+            if e2:
+                fail(f"cardinal_score disagrees ({label}, {case})")
+            err["cardinal_score"] = max(err["cardinal_score"], e2)
+
+    # the int32 arithmetic's edges: column spans of 0, 1, 2, 2^31-1 and
+    # wrapped ones, and (f - min) * 256 on and beside both wrap boundaries
+    ef, emin, emax = KB.edge_block(nr)
+    ef_d = put(ef)
+    st, cnt = KC.cardinal_stats_plain(ef_d, v_d[:nr], h_d[:nr], 50_000)
+    st[KC.S_COL_MIN:KC.S_COL_MIN + P.NF] = put(emin)
+    st[KC.S_COL_MAX:KC.S_COL_MAX + P.NF] = put(emax)
+    for pname, c in consts.items():
+        for fast in (False, True):
+            sc = KC.cardinal_score(ef_d, None, v_d[:nr], h_d[:nr], st, cnt, c,
+                                   fast)
+            psc = KC.cardinal_score_plain(ef_d, None, v_d[:nr], h_d[:nr], st,
+                                          cnt, c, fast)
+            torch.cuda.synchronize()
+            e2 = diff(sc, psc)
+            log(f"check cardinal_score int32 edges {pname} fast_div={fast}: "
+                f"err {e2}")
+            if e2:
+                fail(f"cardinal_score disagrees (int32 edges, {pname})")
+            err["cardinal_score"] = max(err["cardinal_score"], e2)
+    del ef_d
 
     for shards in (1, 8, 16):
         for is_float in (False, True):
@@ -269,68 +363,49 @@ def main() -> int:
         fail(f"kernels never launched on the main path: {missing}")
 
     # -- phase 4: kernel times at the main path's shapes ---------------------
-    def cuda_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            out.append(a.elapsed_time(b))
-        return float(np.median(out))
-
+    # `ms`: the call time, the median of 20 calls each between two CUDA
+    # events from an idle queue (the device time plus the host's issue
+    # time); `device_ms`: the median of 20 calls queued
+    # behind a spin kernel, so that the host's issue time is not counted.
+    # The shapes of MeshRanker.rank_placed, which makes 50 of the 57
+    # score/stats launches and 50 of the 63 top-k launches: the int32
+    # block under authority=15 with one host bin per padded row, and
+    # tie_topk in tie mode on that step's scores, keyed on the docids
+    pf, pd, pv, ph, npad = placed
+    pst, pcnt = KC.cardinal_stats(pf, pv, ph, npad)
+    p_scores = KC.cardinal_score(pf, None, pv, ph, pst, pcnt, mr._consts,
+                                 False)
+    hosts_used = int(torch.unique(ph[pv]).numel())
     c0 = consts["default"]
     st, cnt = KC.cardinal_stats(f16_d, v_d, h_d, 0)
-    k_main = 100
-    bm = torch.from_numpy(rng.random(k_main).astype(np.float32)).to(dev)
-    g_block = torch.stack([bm.view(torch.int32), d_d[:k_main]], 1)
+    # the default profile's scores of the compact block (CardinalRanker,
+    # the streaming path), whose top digit holds half the rows
+    sc16 = KC.cardinal_score(f16_d, fl_d, v_d, h_d, st, cnt, c0, True)
+    # kernel 3 on the very inputs it is timed on (launches after the main
+    # path's run do not count)
+    for k in (10, 100, 1000):
+        check_topk(f"rank_placed scores n={npad}", p_scores, k, pd)
+        check_topk("compact default-profile scores", sc16, k, d_d)
+    bm = torch.from_numpy(rng.random(100).astype(np.float32)).to(dev)
+    g_block = torch.stack([bm.view(torch.int32), d_d[:100]], 1)
     n16 = N * P.NF * 2
+    n32 = npad * P.NF * 4
     rows = []
-    specs = [
-        ("cardinal_stats", "yacy_search_server_tpu/ops/ranking.py:193",
-         "cardinal_stats.cu",
-         lambda: KC.cardinal_stats(f16_d, v_d, h_d, 0),
-         lambda: KC.cardinal_stats_plain(f16_d, v_d, h_d, 0),
-         None, n16 + N + KC.STATS_LEN * 4 + 4, 0.0,
-         "10M x 17 int16 + valid, no host counts (default profile)"),
-        ("cardinal_score", "yacy_search_server_tpu/ops/ranking.py:242",
-         "cardinal_score.cu",
-         lambda: KC.cardinal_score(f16_d, fl_d, v_d, h_d, st, cnt, c0, True),
-         lambda: KC.cardinal_score_plain(f16_d, fl_d, v_d, h_d, st, cnt, c0,
-                                         True),
-         None, n16 + 4 * N + N + 4 * N, 0.0,
-         "10M compact rows + flags + valid -> int32 scores"),
-        ("tie_topk", "yacy_search_server_tpu/ops/ranking.py:410",
-         "tie_topk.cu",
-         lambda: KT.tie_topk(scores_main, k_main, payload=d_d),
-         lambda: KT.tie_topk_plain(scores_main, k_main, payload=d_d),
-         lambda: torch.topk(scores_main, k_main),
-         4 * N + 4 * k_main + 12 * k_main, 0.0,
-         "10M int32 scores, k=100, docid payload"),
-        ("gather_topk", "yacy_search_server_tpu/parallel/mesh.py:147",
-         "gather_topk.cu",
-         lambda: KT.gather_topk(g_block, k_main, True),
-         lambda: KT.gather_topk_plain(g_block, k_main, True),
-         None, 8 * k_main + 8 * k_main, 2.0 * k_main * k_main,
-         "one shard's (100, 2) f32 block, k=100"),
-    ]
-    for (name, replaces, src, kern, plain, lib, nbytes, nops,
-         shape) in specs:
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, reps=5)
-        lib_ms = cuda_ms(lib) if lib is not None else None
+
+    def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape):
+        ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
+        plain_ms = KB.call_ms(plain, reps=5)
+        lib_ms = KB.call_ms(lib) if lib is not None else None
+        lib_dev = KB.device_ms(lib) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"kernel {name} [{shape}]: {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        log(f"kernel {name} [{shape}]: {ms:.4f} ms a call (device "
+            f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms"
             f", bound {bound:.4f} ms ({nbytes} bytes / 3.35 TB/s"
             f"{'' if not nops else f', {nops:.0f} ops / 67 Tops/s'})"
-            + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""))
+            + (f", library {lib_ms:.4f} ms a call (device {lib_dev:.4f} ms)"
+               if lib_ms is not None else ""))
         rows.append({
             "name": name, "route": "cuda",
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
@@ -338,7 +413,104 @@ def main() -> int:
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev, "shape": shape})
+
+    def topk_bytes(sc, k, mode, ids):
+        """The bytes tie_topk must move: the scores, in tie mode the docids
+        of the rows whose score equals the k-th (only those are ranked by
+        docid), and 16 a winner (its payload in, three words out)."""
+        if mode == "index":
+            return 4 * sc.numel() + 16 * k
+        kth = KT.tie_topk_plain(sc, k, secondary=ids)[0][-1]
+        return 4 * sc.numel() + 4 * int((sc == kth).sum()) + 16 * k
+
+    def log_trace(label):
+        passes = KB.topk_trace()
+        if passes:
+            log(f"tie_topk passes [{label}]: {passes}")
+
+    def topk_fns(sc, k, mode, ids):
+        sec = ids if mode == "tie" else None
+        pay = None if mode == "tie" else ids
+        return (lambda: KT.tie_topk(sc, k, secondary=sec, payload=pay),
+                lambda: KT.tie_topk_plain(sc, k, secondary=sec, payload=pay),
+                lambda: torch.topk(sc, k))
+
+    stats_src = ("cardinal_stats", "yacy_search_server_tpu/ops/ranking.py:193",
+                 "cardinal_stats.cu")
+    score_src = ("cardinal_score", "yacy_search_server_tpu/ops/ranking.py:242",
+                 "cardinal_score.cu")
+    topk_src = ("tie_topk", "yacy_search_server_tpu/parallel/mesh.py:115",
+                "tie_topk.cu")
+    # one row per kernel at the main path's dominant shape ...
+    measure(*stats_src,
+            lambda: KC.cardinal_stats(pf, pv, ph, npad),
+            lambda: KC.cardinal_stats_plain(pf, pv, ph, npad), None,
+            n32 + npad + 4 * npad + 4 * npad + KC.STATS_LEN * 4, 0.0,
+            f"{npad} x 17 int32 + valid + host ids, {npad} host bins "
+            "(rank_placed, authority=15)")
+    measure(*score_src,
+            lambda: KC.cardinal_score(pf, None, pv, ph, pst, pcnt,
+                                      mr._consts, False),
+            lambda: KC.cardinal_score_plain(pf, None, pv, ph, pst, pcnt,
+                                            mr._consts, False), None,
+            n32 + npad + 4 * npad + 4 * npad + 4 * hosts_used
+            + (KC.STATS_LEN + KC.CONSTS_LEN) * 4, 0.0,
+            f"{npad} x 17 int32 + valid + host ids -> int32, authority=15 "
+            f"over {npad} host bins ({hosts_used} used) (rank_placed)")
+    measure(*topk_src, *topk_fns(p_scores, 100, "tie", pd),
+            topk_bytes(p_scores, 100, "tie", pd), 0.0,
+            f"{npad} int32 scores of rank_placed, k=100, tie mode (docids)")
+    log_trace("rank_placed, k=100, tie mode")
+    measure("gather_topk", "yacy_search_server_tpu/parallel/mesh.py:147",
+            "gather_topk.cu",
+            lambda: KT.gather_topk(g_block, 100, True),
+            lambda: KT.gather_topk_plain(g_block, 100, True),
+            None, 8 * 100 + 8 * 100, 2.0 * 100 * 100,
+            "one shard's (100, 2) f32 block, k=100")
+    # ... and extra rows: the compact shapes, and tie_topk at every k in
+    # both modes, beside torch.topk
+    measure(*stats_src,
+            lambda: KC.cardinal_stats(f16_d, v_d, h_d, 0),
+            lambda: KC.cardinal_stats_plain(f16_d, v_d, h_d, 0), None,
+            n16 + N + KC.STATS_LEN * 4 + 4, 0.0,
+            "10M x 17 int16 + valid, no host counts (default profile)")
+    measure(*score_src,
+            lambda: KC.cardinal_score(f16_d, fl_d, v_d, h_d, st, cnt, c0,
+                                      True),
+            lambda: KC.cardinal_score_plain(f16_d, fl_d, v_d, h_d, st, cnt,
+                                            c0, True), None,
+            n16 + 4 * N + N + 4 * N, 0.0,
+            "10M compact rows + flags + valid -> int32 scores")
+    for mode in ("tie", "index"):
+        for k in (10, 100, 1000):
+            if mode == "tie" and k == 100:
+                continue
+            measure(*topk_src, *topk_fns(p_scores, k, mode, pd),
+                    topk_bytes(p_scores, k, mode, pd), 0.0,
+                    f"{npad} int32 scores of rank_placed, k={k}, {mode} mode")
+    # the compact block's default-profile scores; index mode, docids as
+    # payload
+    measure(*topk_src, *topk_fns(sc16, 100, "index", d_d),
+            topk_bytes(sc16, 100, "index", d_d), 0.0,
+            "10M int32 scores of the compact block, default profile, k=100, "
+            "index mode")
+    log_trace("compact default profile, k=100, index mode")
+
+    # the step itself: rank_placed's wall per query after a warm-up
+    for q in range(5):
+        mr.rank_placed(placed, k=100)
+    q_walls = []
+    for q in range(50):
+        tq = time.perf_counter()
+        mr.rank_placed(placed, k=10 if q % 2 else 100)
+        q_walls.append((time.perf_counter() - tq) * 1e3)
+    log(f"rank_placed per query: {walls['MeshRanker.rank_placed x50'] * 20:.4f}"
+        f" ms over the main path's 50 (first queries included); over 50 "
+        f"after a warm-up: median "
+        f"{float(np.median(q_walls)):.4f} ms, mean "
+        f"{float(np.mean(q_walls)):.4f} ms, min {min(q_walls):.4f} ms")
     # extra shapes of the other paths, for PERF.md
     for shards in (8, 16):
         blk = torch.stack([
@@ -346,14 +518,7 @@ def main() -> int:
                           dtype=torch.int32),
             torch.arange(shards * 1000, device=dev, dtype=torch.int32)], 1)
         log(f"kernel gather_topk [{shards} shards x 1000, k=1000]: "
-            f"{cuda_ms(lambda: KT.gather_topk(blk, 1000, False)):.4f} ms")
-    for k in (10, 1000):
-        log(f"kernel tie_topk [10M int32, k={k}]: "
-            f"{cuda_ms(lambda: KT.tie_topk(scores_main, k, payload=d_d)):.4f}"
-            f" ms, torch.topk "
-            f"{cuda_ms(lambda: torch.topk(scores_main, k)):.4f} ms")
-    log("kernel cardinal_stats [10M x 17 int32, 10M host bins]: "
-        f"{cuda_ms(lambda: KC.cardinal_stats(f32_d, v_d, h_d, N)):.4f} ms")
+            f"{KB.device_ms(lambda: KT.gather_topk(blk, 1000, False)):.4f} ms")
 
     log(f"total: {time.time() - t0:.1f} s")
     log(card)

@@ -139,6 +139,33 @@ def test_cardinal_from_stats_bit_identical(profile, case, compact):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_cardinal_from_stats_int32_edges_bit_identical(profile):
+    """The int32 path against column bounds at int32's edges: spans of 0,
+    1, 2, 2^31-1 and wrapped ones, and (f - min) * 256 on and beside both
+    wrap boundaries (the block the card tests hold the kernel to)."""
+    from yacy_search_server_tpu_torch.kernels import bench as KB
+    jp, tp = _profiles(profile)
+    feats, cmin, cmax = KB.edge_block(4000, seed=5)
+    rng = np.random.default_rng(5)
+    valid = rng.random(4000) < 0.9
+    hostids = rng.integers(0, 37, 4000).astype(np.int32)
+    jst = dict(JR.local_stats(jnp.asarray(feats), jnp.asarray(valid),
+                              jnp.asarray(hostids), num_hosts=4000))
+    jst["col_min"], jst["col_max"] = jnp.asarray(cmin), jnp.asarray(cmax)
+    want = JR.cardinal_from_stats(jnp.asarray(feats), jnp.asarray(valid),
+                                  jnp.asarray(hostids), jst,
+                                  *_jax_consts(jp))
+    tst = TR.local_stats(_t(feats), _t(valid), _t(hostids), num_hosts=4000)
+    st = tst["stats"].clone()
+    st[0:JP.NF], st[JP.NF:2 * JP.NF] = _t(cmin), _t(cmax)
+    consts = TR.profile_consts(tp, TP.pack_language("en"), "cpu")
+    got = TR.cardinal_from_stats(_t(feats), _t(valid), _t(hostids),
+                                 {"stats": st,
+                                  "host_counts": tst["host_counts"]}, consts)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
 def test_fast_div_equals_floor_div_at_int16_extremes():
     """The compact path's reciprocal division equals floor division over
     every int16 difference against every span."""

@@ -27,8 +27,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libyacytorch.so"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# YT_KERNEL_TRACE=1 compiles tie_topk's per-pass trace in (read by
+# kernels/bench.topk_trace); the stamp holds the flags, so switching it
+# rebuilds
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-                     "-Xcompiler", "-fPIC"]
+                     "-Xcompiler", "-fPIC"] + (
+    ["-DYT_TRACE"] if os.environ.get("YT_KERNEL_TRACE") == "1" else [])
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,8 +42,9 @@ SIGNATURES = {
     "yt_cardinal_stats": [_P, _I, _P, _P, _I64, _I64, _P, _P, _P],
     "yt_cardinal_score": [_P, _I, _P, _P, _P, _I64, _P, _P, _I64, _P, _I,
                           _P, _P],
-    "yt_tie_topk_scratch_bytes": [_I64],
+    "yt_tie_topk_scratch_bytes": [_I64, _I64],
     "yt_tie_topk": [_P, _I, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+    "yt_tie_topk_trace": [_P],
     "yt_gather_topk": [_P, _I64, _I, _I64, _P, _P, _P],
 }
 

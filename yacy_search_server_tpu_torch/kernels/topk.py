@@ -85,7 +85,7 @@ def tie_topk(scores, k: int, secondary=None, payload=None):
             if t.shape[0] != n:
                 raise ValueError(f"{name}: one entry per score expected")
     lib = B.library()
-    scratch = torch.empty(int(lib.yt_tie_topk_scratch_bytes(k)),
+    scratch = torch.empty(int(lib.yt_tie_topk_scratch_bytes(n, k)),
                           dtype=torch.uint8, device=dev)
     out_s = torch.empty(k, dtype=torch.int32, device=dev)
     out_sec = torch.empty(k, dtype=torch.int32, device=dev)
