@@ -14,8 +14,15 @@ Phases, each of which exits non-zero on failure:
    k = 10, 100, 1000 with int32 and f32 scores and constructed ties, 10M
    equal scores, scores on which the sampled guess misses, k = n,
    k = 2049, n = 1, 7, 1023, int32 -2^31 and f32 NaN, -0.0 and -inf in
-   both modes; kernel 4 over 1, 8 and
-   16 shards' blocks, f32 and int32, with cross-shard ties;
+   both modes; kernel 1 at n = 0, 1, 63, 64, 65, 257 and 200,003 with
+   0, 1, 1000, n and 4M host bins (more than a cluster's shared bins)
+   and ids outside them, an offset view, no valid row, one host inside
+   and beyond the shared bins, NaN and +-inf term frequencies, each call
+   twice;
+   kernel 4 over 1, 2, 8, 16 and 32 sorted runs (one a shard; 32,000
+   rows are more than a block stages), f32 and int32, runs shorter than
+   k, ties and padding rows across runs, special values, and a run out
+   of order;
 3. drive the main path at the headline size, a 10M-posting term:
    CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and 50
    rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (k = 100), and
@@ -32,8 +39,13 @@ Phases, each of which exits non-zero on failure:
    kernels/bench.device_ms). First at the shapes of
    MeshRanker.rank_placed (the int32 block under authority=15 with 10M
    host bins; tie_topk in tie mode on that step's scores at k = 10, 100,
-   1000, and in index mode), then at the compact shapes; and
-   rank_placed's wall per query over 50 queries after a warm-up.
+   1000, and in index mode; gather_topk on one shard's run of 100 beside
+   an empty kernel's launch), then at the compact shapes, kernel 4 on
+   8 and 16 sorted runs of 1000, and kernel 1 at the rank_placed shape
+   with its host ids drawn Zipf (s = 1.1) over 50,000 hosts and all on
+   one host (each checked first); rank_placed's wall per query over 50
+   queries after a warm-up; and, last, the device operations one call of
+   each timed kernel issues (a profiler trace).
 
 With YT_KERNEL_TRACE=1 the kernels are built with tie_topk's per-pass
 trace, which phase 4 prints.
@@ -46,6 +58,7 @@ device and the repository around it; imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -209,10 +222,73 @@ def main() -> int:
         for lbl, arr in (("int32 -2^31", si), ("f32 nan/-0/-inf", sf)):
             check_topk(f"{lbl} n={n_e}", put(arr), k_e, put(de))
 
+    # kernel 1 one pass: row counts around the 64-row chunk and the
+    # block, host bins from none to one a row, ids below 0 and at or above
+    # num_hosts, an offset view, no valid row, one host, NaN and +-inf term
+    # frequencies; every call twice (its accumulator and ticket reset)
+    def stats_diff(a, b):
+        a, b = a.cpu().clone(), b.cpu().clone()
+        tf = slice(KC.S_TF_MIN, KC.S_TF_MAX + 1)
+        both = torch.isnan(a[tf].view(torch.float32)) & torch.isnan(
+            b[tf].view(torch.float32))
+        a[tf][both] = 0
+        b[tf][both] = 0
+        return diff(a, b)
+
+    def check_stats(label, f, v, h, nh):
+        got = [KC.cardinal_stats(f, v, h, nh) for _ in range(2)]
+        pst, pcnt = KC.cardinal_stats_plain(f, v, h, nh)
+        torch.cuda.synchronize()
+        e = max(max(stats_diff(st, pst), diff(cnt, pcnt)) for st, cnt in got)
+        log(f"check cardinal_stats {label} num_hosts={nh}: err {e}")
+        if e:
+            fail(f"cardinal_stats disagrees ({label}, num_hosts={nh})")
+        err["cardinal_stats"] = max(err["cardinal_stats"], e)
+        return got[0]
+
+    # 4M host bins: more than a cluster's shared bins hold (~300,000), so
+    # the ids above them are added in device memory
+    many = 4_000_000
+    for label, f_d in (("compact", f16_d), ("int32", f32_d)):
+        for n_s in (0, 1, 63, 64, 65, 257, 200_003):
+            for nh in (0, 1, 1000, n_s, many):
+                hh = (torch.remainder(h_d[:n_s].to(torch.int64) * 97,
+                                      max(nh, 1) + 6) - 3).to(torch.int32)
+                check_stats(f"{label} n={n_s}", f_d[:n_s], v_d[:n_s], hh, nh)
+    nr = 100_003
+    ef = feats[:nr].copy()
+    ef[::101, P.F_WORDS_IN_TEXT] = -1
+    ef[::101, P.F_WORDS_IN_TITLE] = 0
+    ef[::101, P.F_HITCOUNT] = np.where(np.arange(len(ef[::101])) % 2, 5, -5)
+    ef_nan = ef.copy()
+    ef_nan[202, P.F_HITCOUNT] = 0
+    all_v = torch.ones(nr, dtype=torch.bool, device=dev)
+    compact = lambda a: R.compact_feats(a)[0]  # noqa: E731
+    for label, f_d, conv in (("compact", f16_d, compact),
+                             ("int32", f32_d, lambda a: a)):
+        fv = f_d[1:nr + 1]
+        if fv.data_ptr() % 16 == 0:
+            fail("the offset view starts on 16 bytes")
+        check_stats(f"{label} offset view n={nr}", fv, v_d[1:nr + 1],
+                    h_d[1:nr + 1], 50_000)
+        check_stats(f"{label} all invalid n={nr}", f_d[:nr],
+                    torch.zeros(nr, dtype=torch.bool, device=dev), h_d[:nr],
+                    50_000)
+        for host, nh in ((17, 1000), (many - 1, many)):
+            st, _ = check_stats(f"{label} one host ({host}) n={nr}",
+                                f_d[:nr], v_d[:nr],
+                                torch.full((nr,), host, dtype=torch.int32,
+                                           device=dev), nh)
+            if int(st[KC.S_HOST_MAX]) != int(v_d[:nr].sum()):
+                fail("cardinal_stats: one host's count is not the valid "
+                     "count")
+        for tf_label, arr in (("+-inf tf", ef), ("NaN tf", ef_nan)):
+            check_stats(f"{label} {tf_label} n={nr}", put(conv(arr)), all_v,
+                        h_d[:nr], 1000)
+
     # the tile edges of kernel 2: a ragged last tile, a view that starts
     # 34 / 68 bytes into its storage, and a block with no valid row
     c15 = consts["authority15"]
-    nr = 100_003
     for label, f_d, flg, fast in (("compact", f16_d, fl_d, True),
                                   ("int32", f32_d, None, False)):
         no_valid = torch.zeros(nr, dtype=torch.bool, device=dev)
@@ -257,23 +333,39 @@ def main() -> int:
             err["cardinal_score"] = max(err["cardinal_score"], e2)
     del ef_d
 
-    for shards in (1, 8, 16):
-        for is_float in (False, True):
-            k = 1000
-            vals = rng.integers(0, 40, shards * k)
-            col = ((vals * 0.5).astype(np.float32).view(np.int32)
-                   if is_float else vals.astype(np.int32))
-            dids = rng.integers(-1, 100_000, shards * k, dtype=np.int32)
-            block = put(np.stack([col, dids], 1))
-            g = KT.gather_topk(block, k, is_float)
-            w = KT.gather_topk_plain(block, k, is_float)
-            torch.cuda.synchronize()
-            e = max(diff(g[0], w[0]), diff(g[1], w[1]))
-            log(f"check gather_topk shards={shards} float={is_float}: "
-                f"err {e}")
-            if e:
-                fail(f"gather_topk disagrees (shards={shards})")
-            err["gather_topk"] = max(err["gather_topk"], e)
+    # kernel 4 on sorted runs, one a shard, as the fusion gathers them:
+    # 1, 2, 8, 16 and 32 runs, runs shorter than k, ties across runs, padding
+    # rows repeated in every run, f32 NaN / -0.0 / +0.0 / -inf and int32
+    # -2^31, and a run out of order (the kernel's all-pairs path)
+    def check_gather(label, block, k, is_float, run_len):
+        b = block.to(dev)
+        g = KT.gather_topk(b[:, 0], b[:, 1], k, is_float, run_len=run_len)
+        w = KT.gather_topk_plain(b[:, 0], b[:, 1], k, is_float,
+                                 run_len=run_len)
+        torch.cuda.synchronize()
+        e = max(diff(g[0], w[0]), diff(g[1], w[1]))
+        log(f"check gather_topk {label} k={k} float={is_float}: err {e}")
+        if e:
+            fail(f"gather_topk disagrees ({label}, k={k})")
+        err["gather_topk"] = max(err["gather_topk"], e)
+
+    for is_float in (False, True):
+        for shards, rows, k in ((1, 1000, 1000), (1, 100, 7), (2, 1000, 1000),
+                                (8, 1000, 1000), (16, 1000, 1000),
+                                (8, 30, 100), (32, 1000, 1000)):
+            check_gather(f"{shards} sorted runs x {rows}",
+                         KB.sorted_runs(shards, rows, is_float, rng),
+                         min(k, shards * rows), is_float, rows)
+        for shards in (1, 2, 8, 16):
+            blk = KB.sorted_runs(shards, 64, is_float, rng, pad=20,
+                                 special=True)
+            for k in (1, 50, shards * 64):
+                check_gather(f"{shards} runs x 64, padding and special "
+                             "values", blk, k, is_float, 64)
+        blk = KB.sorted_runs(8, 100, is_float, rng, pad=10, special=True)
+        blk[700:] = blk[700:][torch.from_numpy(rng.permutation(100))]
+        check_gather("8 runs x 100, the last out of order", blk, 100,
+                     is_float, 100)
     del tie_scores
 
     # -- phase 3: the main path ---------------------------------------------
@@ -386,11 +478,25 @@ def main() -> int:
     for k in (10, 100, 1000):
         check_topk(f"rank_placed scores n={npad}", p_scores, k, pd)
         check_topk("compact default-profile scores", sc16, k, d_d)
-    bm = torch.from_numpy(rng.random(100).astype(np.float32)).to(dev)
-    g_block = torch.stack([bm.view(torch.int32), d_d[:100]], 1)
+    # one shard's sorted run (its local tie_topk) of 100 f32 rows, as
+    # rank_placed's fusion hands it to kernel 4 in two columns
+    bm, bd, _ = KT.tie_topk_plain(
+        torch.from_numpy(rng.random(100).astype(np.float32)).to(dev), 100,
+        secondary=d_d[:100])
+    g_s, g_d = bm.view(torch.int32), bd
     n16 = N * P.NF * 2
     n32 = npad * P.NF * 4
     rows = []
+    timed = []  # each row's kernel call, traced once all timing is done
+
+    def ops_per_call(fn):
+        """The device operations one call issues (kernels and memsets),
+        from a profiler trace; None where the trace shows none."""
+        try:
+            names = KB.device_ops(fn)
+        except Exception as ex:  # noqa: BLE001 - a reading aid, not a phase
+            return None, [f"profiler failed: {ex!r}"]
+        return len(names) or None, names
 
     def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape):
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
@@ -406,6 +512,7 @@ def main() -> int:
             f"{'' if not nops else f', {nops:.0f} ops / 67 Tops/s'})"
             + (f", library {lib_ms:.4f} ms a call (device {lib_dev:.4f} ms)"
                if lib_ms is not None else ""))
+        timed.append(kern)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
@@ -415,6 +522,14 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "device_ms": dev_ms,
             "library_device_ms": lib_dev, "shape": shape})
+
+    def gather_work(m, run_len, k):
+        """kernel 4's bytes (8 a row in, 8 a winner out) and the merge's
+        comparisons: m * ceil(log2 run_len) for each other run"""
+        runs = m // run_len
+        return (8 * m + 8 * k,
+                m * (runs - 1) * math.ceil(math.log2(run_len))
+                if runs > 1 else 0)
 
     def topk_bytes(sc, k, mode, ids):
         """The bytes tie_topk must move: the scores, in tie mode the docids
@@ -463,12 +578,32 @@ def main() -> int:
             topk_bytes(p_scores, 100, "tie", pd), 0.0,
             f"{npad} int32 scores of rank_placed, k=100, tie mode (docids)")
     log_trace("rank_placed, k=100, tie mode")
-    measure("gather_topk", "yacy_search_server_tpu/parallel/mesh.py:147",
-            "gather_topk.cu",
-            lambda: KT.gather_topk(g_block, 100, True),
-            lambda: KT.gather_topk_plain(g_block, 100, True),
-            None, 8 * 100 + 8 * 100, 2.0 * 100 * 100,
-            "one shard's (100, 2) f32 block, k=100")
+    gather_src = ("gather_topk", "yacy_search_server_tpu/parallel/mesh.py:147",
+                  "gather_topk.cu")
+    measure(*gather_src,
+            lambda: KT.gather_topk(g_s, g_d, 100, True, run_len=100),
+            lambda: KT.gather_topk_plain(g_s, g_d, 100, True, run_len=100),
+            None, *gather_work(100, 100, 100),
+            "one shard's sorted run of 100 f32 rows, k=100 (two columns)")
+    # the floor of a call that the 1,600-byte bound cannot show
+    e_call, e_dev = KB.call_ms(KB.empty_launch), KB.device_ms(KB.empty_launch)
+    log(f"empty kernel launch: {e_call:.4f} ms a call (device {e_dev:.4f} "
+        "ms)")
+    # the multi-card merge's shapes: 8 and 16 cards' sorted runs of 1000
+    for shards in (8, 16):
+        blk = KB.sorted_runs(shards, 1000, False, rng).to(dev)
+        measure(*gather_src,
+                lambda b=blk: KT.gather_topk(b[:, 0], b[:, 1], 1000, False,
+                                             run_len=1000),
+                lambda b=blk: KT.gather_topk_plain(b[:, 0], b[:, 1], 1000,
+                                                   False, run_len=1000),
+                None, *gather_work(shards * 1000, 1000, 1000),
+                f"{shards} sorted int32 runs x 1000 rows ([m, 2] block), "
+                "k=1000")
+    for row in rows:
+        if row["name"] == "gather_topk":
+            row["empty_launch_ms"] = e_call
+            row["empty_launch_device_ms"] = e_dev
     # ... and extra rows: the compact shapes, and tie_topk at every k in
     # both modes, beside torch.topk
     measure(*stats_src,
@@ -476,6 +611,18 @@ def main() -> int:
             lambda: KC.cardinal_stats_plain(f16_d, v_d, h_d, 0), None,
             n16 + N + KC.STATS_LEN * 4 + 4, 0.0,
             "10M x 17 int16 + valid, no host counts (default profile)")
+    # the host counts under skew: rank_placed's block with its host ids
+    # drawn Zipf (s = 1.1) over 50,000 hosts, and all on one host
+    for mix, hosts in (("zipf", "Zipf over 50,000 hosts"),
+                       ("one", "all on one host")):
+        hm = put(KB.host_mix(mix, npad, rng))
+        check_stats(f"int32 rank_placed, host ids {hosts}", pf, pv, hm, npad)
+        measure(*stats_src,
+                lambda h=hm: KC.cardinal_stats(pf, pv, h, npad),
+                lambda h=hm: KC.cardinal_stats_plain(pf, pv, h, npad), None,
+                n32 + npad + 4 * npad + 4 * npad + KC.STATS_LEN * 4, 0.0,
+                f"{npad} x 17 int32 + valid + host ids, {npad} host bins, "
+                f"host ids {hosts}")
     measure(*score_src,
             lambda: KC.cardinal_score(f16_d, fl_d, v_d, h_d, st, cnt, c0,
                                       True),
@@ -511,14 +658,14 @@ def main() -> int:
         f"after a warm-up: median "
         f"{float(np.median(q_walls)):.4f} ms, mean "
         f"{float(np.mean(q_walls)):.4f} ms, min {min(q_walls):.4f} ms")
-    # extra shapes of the other paths, for PERF.md
-    for shards in (8, 16):
-        blk = torch.stack([
-            torch.randint(0, 40, (shards * 1000,), device=dev,
-                          dtype=torch.int32),
-            torch.arange(shards * 1000, device=dev, dtype=torch.int32)], 1)
-        log(f"kernel gather_topk [{shards} shards x 1000, k=1000]: "
-            f"{KB.device_ms(lambda: KT.gather_topk(blk, 1000, False)):.4f} ms")
+
+    # the device operations one call of each timed kernel issues, from a
+    # profiler trace: traced last, since after a trace the host's launch
+    # path may stay slower for the rest of the process
+    for row, kern in zip(rows, timed):
+        row["device_ops_per_call"], names = ops_per_call(kern)
+        log(f"device ops a call, {row['name']} [{row['shape']}]: "
+            f"{row['device_ops_per_call']} {names}")
 
     log(f"total: {time.time() - t0:.1f} s")
     log(card)

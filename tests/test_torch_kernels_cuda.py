@@ -81,6 +81,98 @@ def test_cardinal_kernels_match_plain(dev, compact, edge, authority):
     assert torch.equal(got, want)
 
 
+def _stats_agree(f_d, v_d, h_d, num_hosts):
+    """Kernel 1 against its plain version, called twice (the second call
+    must see its accumulator and ticket zeroed again)."""
+    before = LAUNCHES["cardinal_stats"]
+    got = [KC.cardinal_stats(f_d, v_d, h_d, num_hosts) for _ in range(2)]
+    pst, pcounts = KC.cardinal_stats_plain(f_d, v_d, h_d, num_hosts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cardinal_stats"] == before + 2
+    for st, counts in got:
+        _stats_equal(st, pst)
+        assert torch.equal(counts, pcounts)
+    return got[0]
+
+
+def _dev_block(dev, feats, valid, hostids, compact):
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    f = R.compact_feats(feats)[0] if compact else feats
+    return t(f), t(valid), t(hostids)
+
+
+# more host bins than a cluster's shared memory holds (~300,000): ids
+# above its bins are added to the counts in device memory
+MANY_HOSTS = 4_000_000
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 257, 200_003])
+@pytest.mark.parametrize("hosts", [0, 1, 1000, "n", MANY_HOSTS])
+def test_cardinal_stats_matches_plain(dev, compact, n, hosts):
+    """Row counts around the 64-row chunk and the block, host bins from
+    none to one a row and beyond the cluster's shared bins, host ids below
+    0 and at or above num_hosts (dropped, as segment_sum drops them)."""
+    num_hosts = n if hosts == "n" else hosts
+    feats, valid, _ = _block(max(n, 1), seed=n + 7, edge=True)
+    rng = np.random.default_rng(n)
+    hostids = rng.integers(-3, max(num_hosts, 1) + 3, max(n, 1)).astype(
+        np.int32)
+    f_d, v_d, h_d = _dev_block(dev, feats[:n], valid[:n], hostids[:n],
+                               compact)
+    _stats_agree(f_d, v_d, h_d, num_hosts)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("case", ["offset_view", "all_invalid", "one_host",
+                                  "one_host_beyond_bins", "zipf_hosts",
+                                  "nan_tf", "inf_tf"])
+def test_cardinal_stats_cases(dev, compact, case):
+    """A view that starts 34 or 68 bytes into its storage, a block with no
+    valid row, every row on one host (the maximum is the valid count),
+    in a cluster's shared bins or beyond them, host ids drawn Zipf over
+    1000 hosts, and term frequencies of NaN (0 / 0) or of +-inf only
+    (+-h / 0)."""
+    n = 100_003
+    feats, valid, hostids = _block(n + 1, seed=5, edge=False)
+    num_hosts = 1000
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "one_host":
+        hostids[:] = 17
+    if case == "one_host_beyond_bins":
+        num_hosts = MANY_HOSTS
+        hostids[:] = MANY_HOSTS - 1
+    if case == "zipf_hosts":
+        hostids = KBench.host_mix("zipf", n + 1, np.random.default_rng(6),
+                                  hosts=num_hosts)
+    if case in ("nan_tf", "inf_tf"):
+        feats[::101, P.F_WORDS_IN_TEXT] = -1
+        feats[::101, P.F_WORDS_IN_TITLE] = 0
+        feats[::101, P.F_HITCOUNT] = np.where(
+            np.arange(len(feats[::101])) % 2, 5, -5)
+        valid[::101] = True
+        if case == "nan_tf":
+            feats[202, P.F_HITCOUNT] = 0
+    f_d, v_d, h_d = _dev_block(dev, feats, valid, hostids, compact)
+    if case == "offset_view":
+        f_d, v_d, h_d = f_d[1:], v_d[1:], h_d[1:]
+        assert f_d.data_ptr() % 16 != 0
+    else:
+        f_d, v_d, h_d = f_d[:n], v_d[:n], h_d[:n]
+    st, counts = _stats_agree(f_d, v_d, h_d, num_hosts)
+    if case in ("one_host", "one_host_beyond_bins"):
+        assert int(st[KC.S_HOST_MAX]) == int(v_d.sum())
+    if case == "all_invalid":
+        assert int(st[KC.S_HOST_MAX]) == 0 and int(counts.sum()) == 0
+    if case == "nan_tf":
+        assert bool(torch.isnan(st[KC.S_TF_MIN:KC.S_TF_MAX + 1]
+                                .view(torch.float32)).all())
+    if case == "inf_tf":
+        tf = st[KC.S_TF_MIN:KC.S_TF_MAX + 1].view(torch.float32).cpu()
+        assert tf.tolist() == [float("-inf"), float("inf")]
+
+
 @pytest.mark.parametrize("compact", [True, False])
 @pytest.mark.parametrize("case", ["ragged", "offset_view", "all_invalid"])
 @pytest.mark.parametrize("n", [1, 257, 100_003])
@@ -236,22 +328,69 @@ def test_tie_topk_matches_plain(dev, dtype, tie, n, k, values):
                  torch.from_numpy(docids).to(dev), k, tie)
 
 
-@pytest.mark.parametrize("is_float", [False, True])
-@pytest.mark.parametrize("shards,rows,k", [(1, 100, 100), (8, 1000, 1000),
-                                           (16, 1000, 1000), (8, 30, 100)])
-def test_gather_topk_matches_plain(dev, is_float, shards, rows, k):
-    rng = np.random.default_rng(shards * rows)
-    m = shards * rows
-    if is_float:
-        col = (rng.integers(0, 50, m) * 0.5).astype(np.float32).view(np.int32)
-    else:
-        col = rng.integers(0, 50, m).astype(np.int32)
-    block = np.stack([col, rng.integers(-1, 5000, m).astype(np.int32)], 1)
-    block = torch.from_numpy(np.ascontiguousarray(block)).to(dev)
-    kk = min(k, m)
+def _gather_agrees(dev, block, k, is_float, run_len):
+    b = block.to(dev)
     before = LAUNCHES["gather_topk"]
-    gs, gd = KT.gather_topk(block, kk, is_float)
-    ps, pd = KT.gather_topk_plain(block, kk, is_float)
+    gs, gd = KT.gather_topk(b[:, 0], b[:, 1], k, is_float, run_len=run_len)
+    ps, pd = KT.gather_topk_plain(b[:, 0], b[:, 1], k, is_float,
+                                  run_len=run_len)
     torch.cuda.synchronize()
     assert LAUNCHES["gather_topk"] == before + 1
     assert torch.equal(gs, ps) and torch.equal(gd, pd)
+
+
+@pytest.mark.parametrize("is_float", [False, True])
+@pytest.mark.parametrize("shards,rows,k", [(1, 100, 100), (1, 100, 7),
+                                           (2, 500, 1000), (8, 1000, 1000),
+                                           (16, 1000, 1000), (8, 30, 100),
+                                           (16, 7, 100), (32, 1000, 1000)])
+def test_gather_topk_matches_plain(dev, is_float, shards, rows, k):
+    """Sorted runs, one per shard (tie_topk_plain of each shard), as the
+    fusion gathers them; runs shorter than k; 32,000 rows, more than a
+    block stages in shared memory."""
+    rng = np.random.default_rng(shards * rows)
+    block = KBench.sorted_runs(shards, rows, is_float, rng)
+    _gather_agrees(dev, block, min(k, shards * rows), is_float, rows)
+
+
+@pytest.mark.parametrize("is_float", [False, True])
+@pytest.mark.parametrize("shards", [1, 2, 8, 16])
+def test_gather_topk_ties_padding_special(dev, is_float, shards):
+    """Ties across runs, padding rows repeated in every run, and f32 NaN,
+    -0.0, +0.0 and -inf or int32 -2^31 among the scores."""
+    rng = np.random.default_rng(100 + shards)
+    block = KBench.sorted_runs(shards, 64, is_float, rng, pad=20,
+                               special=True)
+    for k in (1, 50, shards * 64):
+        _gather_agrees(dev, block, k, is_float, 64)
+
+
+@pytest.mark.parametrize("is_float", [False, True])
+@pytest.mark.parametrize("shards", [1, 8])
+def test_gather_topk_run_out_of_order(dev, is_float, shards):
+    """A run that breaks the sorted-run contract: the kernel detects it
+    and ranks by the all-pairs count, so the answer is still the plain
+    version's."""
+    rng = np.random.default_rng(7 + shards)
+    block = KBench.sorted_runs(shards, 100, is_float, rng, pad=10,
+                               special=True)
+    last = block[(shards - 1) * 100:]
+    block[(shards - 1) * 100:] = last[torch.from_numpy(rng.permutation(100))]
+    _gather_agrees(dev, block, 100, is_float, 100)
+
+
+def test_fused_gather_topk_columns(dev):
+    """The one-card fusion hands the kernel its two columns (stride 1, no
+    stacked block) and counts one launch."""
+    from yacy_search_server_tpu_torch.parallel import mesh as M
+    rng = np.random.default_rng(3)
+    block = KBench.sorted_runs(1, 300, True, rng, pad=30, special=True)
+    s = block[:, 0].contiguous().view(torch.float32).to(dev)
+    d = block[:, 1].contiguous().to(dev)
+    before = LAUNCHES["gather_topk"]
+    fs, fd = M.fused_gather_topk(s, d, M.make_mesh(device=dev), 100)
+    ps, pd = KT.gather_topk_plain(block[:, 0], block[:, 1], 100, True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gather_topk"] == before + 1
+    assert torch.equal(fs.view(torch.int32).cpu(), ps)
+    assert torch.equal(fd.cpu(), pd)

@@ -21,6 +21,7 @@ from yacy_search_server_tpu.parallel import mesh as JM
 from yacy_search_server_tpu_torch import convert
 from yacy_search_server_tpu_torch.index import postings as TP
 from yacy_search_server_tpu_torch.kernels import gather_topk
+from yacy_search_server_tpu_torch.kernels.topk import gather_topk_plain
 from yacy_search_server_tpu_torch.parallel import mesh as TM
 
 
@@ -111,10 +112,10 @@ def test_gather_topk_matches_jax_all_gather_topk(dtype, rows, k):
         local_d.append(np.asarray(td))
     ls, ld = np.concatenate(local_s), np.concatenate(local_d)
     ws, wd = _jax_gather(mesh, ls, ld, k)
-    col = ls.view(np.int32)
-    block = _t(np.stack([col, ld], axis=1))
+    block = _t(np.stack([ls.view(np.int32), ld], axis=1))
     kk = min(k, len(ls))
-    gs, gd = gather_topk(block, kk, dtype == np.float32)
+    gs, gd = gather_topk(block[:, 0], block[:, 1], kk, dtype == np.float32,
+                         run_len=rows)
     got_s = gs.numpy().view(np.float32) if dtype == np.float32 else gs.numpy()
     np.testing.assert_array_equal(ws, got_s)
     np.testing.assert_array_equal(wd, gd.numpy())
@@ -130,6 +131,66 @@ def test_gather_topk_matches_jax_all_gather_topk(dtype, rows, k):
     ts, td = TM.all_gather_topk_full(_t(ls), _t(ld), one)
     np.testing.assert_array_equal(ts.numpy(), full_s)
     np.testing.assert_array_equal(td.numpy(), full_d)
+
+
+def _padded_runs(dtype, rows, pad, rng):
+    """Eight shards' local tie_topk runs of `rows` rows whose last `pad`
+    rows are padding (docid -1, score -inf or -(2^31-1)), the same rows in
+    every shard, with f32 NaN / -0.0 / +0.0 or int32 -2^31 among the real
+    scores and scores equal across shards."""
+    pad_s = -np.inf if dtype == np.float32 else TM.NEG_INF_I32
+    runs_s, runs_d = [], []
+    for shard in range(8):
+        s = _scores(rows, dtype, rng)
+        if rows - pad >= 5 and dtype == np.float32:
+            s[shard % 3] = np.nan
+            s[3] = -0.0
+            s[4] = 0.0
+        elif rows - pad >= 5:
+            s[shard % 3] = -(2**31)
+        d = rng.choice(10_000, rows, replace=False).astype(np.int32)
+        s[rows - pad:] = pad_s
+        d[rows - pad:] = -1
+        ts, td = JM.tie_topk(s, d, rows)
+        runs_s.append(np.asarray(ts))
+        runs_d.append(np.asarray(td))
+    return np.concatenate(runs_s), np.concatenate(runs_d)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("rows,pad,k", [(16, 5, 10), (16, 5, 128),
+                                        (12, 12, 20), (1, 1, 8)])
+def test_gather_topk_sorted_runs_with_padding_match_jax(dtype, rows, pad, k):
+    """Eight sorted shard runs (JAX tie_topk output) whose padding rows
+    repeat across shards: the plain kernel-4 merge, told the run length,
+    and the one-card fusion equal the JAX all_gather_topk on the 8-device
+    mesh, bit for bit."""
+    mesh = JM.make_mesh(n_doc=8, devices=_cpu8())
+    ls, ld = _padded_runs(dtype, rows, pad, np.random.default_rng(rows + k))
+    kk = min(k, len(ls))
+    ws, wd = _jax_gather(mesh, ls, ld, kk)
+    is_float = dtype == np.float32
+    ps, pd = gather_topk_plain(_t(ls.view(np.int32)), _t(ld), kk, is_float,
+                               run_len=rows)
+    np.testing.assert_array_equal(ps.numpy(), ws.view(np.int32))
+    np.testing.assert_array_equal(pd.numpy(), wd)
+    fs, fd = TM.fused_gather_topk(_t(ls), _t(ld), TM.make_mesh(device="cpu"),
+                                  kk)
+    np.testing.assert_array_equal(fs.numpy(), ws)
+    np.testing.assert_array_equal(fd.numpy(), wd)
+
+
+@pytest.mark.parametrize("run_len,k", [(3, 4), (0, 4), (-8, 4), (33, 4),
+                                       (8, 0), (8, 33), (None, -1)])
+def test_gather_topk_rejects_bad_run_len_and_k(run_len, k):
+    """m = 32 rows: a run length that does not divide m, or a k outside
+    [1, m], is refused before the CPU branch."""
+    s = torch.arange(32, dtype=torch.int32)
+    d = torch.arange(32, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather_topk(s, d, k, False, run_len=run_len)
+    with pytest.raises(ValueError):
+        gather_topk_plain(s, d, k, False, run_len=run_len)
 
 
 @pytest.mark.parametrize("n_term,n_doc", [(1, 8), (2, 4)])

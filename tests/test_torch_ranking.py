@@ -102,6 +102,21 @@ def test_local_stats_bit_identical(compact, with_hosts):
     _assert_stats_equal(jst, tst)
 
 
+@pytest.mark.parametrize("mix", ["uniform", "zipf", "one"])
+def test_local_stats_host_mix_bit_identical(mix):
+    """The host counts with hosts drawn evenly, Zipf-skewed and all on one
+    host (kernels/bench.host_mix, the mixes the card times)."""
+    from yacy_search_server_tpu_torch.kernels import bench as KB
+    feats, valid, _ = _block(5000, seed=3)
+    hostids = KB.host_mix(mix, 5000, np.random.default_rng(4), hosts=1000)
+    jst = JR.local_stats(jnp.asarray(feats), jnp.asarray(valid),
+                         jnp.asarray(hostids), num_hosts=1000)
+    tst = TR.local_stats(_t(feats), _t(valid), _t(hostids), num_hosts=1000)
+    _assert_stats_equal(jst, tst)
+    top = int(np.bincount(hostids[valid], minlength=1000).max())
+    assert int(TR.stats_fields(tst)["host_counts"].max()) == top
+
+
 def test_local_stats_no_valid_rows_gives_sentinels():
     feats, _, hostids = _block(256, seed=2)
     valid = np.zeros(256, bool)

@@ -1,11 +1,14 @@
 """The smoke's data and timers for the port's kernels on one CUDA card.
 
-`make_term` makes the smoke's 10M-posting term from its seed, and
+`make_term` makes the smoke's 10M-posting term from its seed,
 `edge_block` a block at the edges of `cardinal_score`'s int32
-arithmetic. `call_ms` times one call between two CUDA events as the host
+arithmetic, and `sorted_runs` the gathered block of a fusion (one sorted
+run a shard). `call_ms` times one call between two CUDA events as the host
 issues it from an idle queue (the `ms` of chip_smoke.py);
 `device_ms` times the device alone, the calls queued behind a spin
-kernel. `topk_trace` reads `tie_topk`'s per-pass trace, which the kernel
+kernel. `empty_launch` launches an empty kernel (the floor of a call),
+`device_ops` lists the device operations one call issues (a profiler
+trace). `topk_trace` reads `tie_topk`'s per-pass trace, which the kernel
 library holds only when built with YT_KERNEL_TRACE=1.
 """
 
@@ -38,6 +41,22 @@ def make_term(n: int, seed: int = SEED):
                                             R.RankingProfile()))
     feats[::500_009] = feats[best]
     return feats, docids, hostids, rng
+
+
+def host_mix(mix: str, n: int, rng, hosts: int = 50_000):
+    """int32 host ids of n postings, each drawn on its own: "uniform" over
+    `hosts` hosts (make_term's), "zipf" over `hosts` hosts with
+    P(rank r) ~ r^-1.1 (the exponent of the repo's Zipf query mixes,
+    CHAOS_r02.json) and the ranks given random ids, or "one" host."""
+    if mix == "uniform":
+        return rng.integers(0, hosts, n, dtype=np.int32)
+    if mix == "zipf":
+        p = np.arange(1, hosts + 1, dtype=np.float64) ** -1.1
+        ids = rng.permutation(hosts).astype(np.int32)
+        return ids[rng.choice(hosts, n, p=p / p.sum())]
+    if mix == "one":
+        return np.full(n, hosts // 2, np.int32)
+    raise ValueError(f"unknown host mix {mix!r}")
 
 
 # cardinal_score's int32 edges: column spans (max - min, wrapping), column
@@ -76,6 +95,40 @@ def edge_block(n: int, seed: int = SEED):
         d[wild] = rng.integers(-2**31, 2**31, int(wild.sum()))
         feats[:, c] = wrap(cmin[c] + d)
     return feats, cmin.astype(np.int32), cmax.astype(np.int32)
+
+
+def sorted_runs(shards: int, rows: int, is_float: bool, rng, pad: int = 0,
+                special: bool = False):
+    """A gathered [shards * rows, 2] int32 block (CPU) of `shards` sorted
+    runs, as the fusion gathers them: each run the tie_topk_plain of
+    random scores with few values (so that scores tie within and across
+    runs), its last `pad` rows padding (docid -1, score -inf or
+    -(2^31-1)), and with `special` f32 NaN, -0.0, +0.0 and -inf or int32
+    -2^31 among the scores."""
+    import torch
+    from .topk import tie_topk_plain
+    cols = []
+    for _ in range(shards):
+        if is_float:
+            s = (rng.integers(0, 50, rows) * 0.5).astype(np.float32)
+            if special:
+                s[::5] = np.nan
+                s[1::7] = -0.0
+                s[2::7] = 0.0
+                s[3::11] = -np.inf
+        else:
+            s = rng.integers(0, 50, rows).astype(np.int32)
+            if special:
+                s[::5] = -(2**31)
+        d = rng.integers(0, 5000, rows).astype(np.int32)
+        if pad:
+            s[rows - pad:] = -np.inf if is_float else -(2**31 - 1)
+            d[rows - pad:] = -1
+        ts, td, _ = tie_topk_plain(torch.from_numpy(s), rows,
+                                   secondary=torch.from_numpy(d))
+        cols.append(torch.stack([ts.view(torch.int32) if is_float else ts,
+                                 td], 1))
+    return torch.cat(cols)
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -123,6 +176,29 @@ def call_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def empty_launch() -> None:
+    """One launch of an empty kernel on the current stream: the floor of
+    any kernel's call and device time."""
+    import torch
+    from . import build as B
+    B.check(B.library().yt_empty_launch(
+        B.stream_ptr(torch.device("cuda"))), "empty")
+
+
+def device_ops(fn) -> list:
+    """Names of the device operations (kernels, memsets, copies) one call
+    of `fn` issues, read from a torch.profiler trace of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def topk_trace() -> list:

@@ -39,13 +39,14 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream as void*)
 SIGNATURES = {
-    "yt_cardinal_stats": [_P, _I, _P, _P, _I64, _I64, _P, _P, _P],
+    "yt_cardinal_stats": [_P, _I, _P, _P, _I64, _I64, _P, _P],
     "yt_cardinal_score": [_P, _I, _P, _P, _P, _I64, _P, _P, _I64, _P, _I,
                           _P, _P],
     "yt_tie_topk_scratch_bytes": [_I64, _I64],
     "yt_tie_topk": [_P, _I, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "yt_tie_topk_trace": [_P],
-    "yt_gather_topk": [_P, _I64, _I, _I64, _P, _P, _P],
+    "yt_gather_topk": [_P, _P, _I64, _I64, _I64, _I, _I64, _P, _P],
+    "yt_empty_launch": [_P],
 }
 
 _lock = threading.Lock()

@@ -126,15 +126,17 @@ def cardinal_stats(feats, valid, hostids, num_hosts: int):
     B.require(hostids, "hostids", (torch.int32,), 1, dev)
     if valid.shape[0] != n or hostids.shape[0] != n:
         raise ValueError("valid/hostids must have one entry per row")
-    stats = torch.empty(STATS_LEN, dtype=torch.int32, device=dev)
-    counts = torch.empty(max(num_hosts, 1), dtype=torch.int32, device=dev)
+    # one allocation: the statistics, the counts, then the kernel's
+    # accumulator and ticket (csrc/cardinal_stats.cu)
+    cnt = max(num_hosts, 1)
+    out = torch.empty(STATS_LEN + cnt + STATS_LEN + 1, dtype=torch.int32,
+                      device=dev)
     rc = B.library().yt_cardinal_stats(
         feats.data_ptr(), feats.element_size(), valid.data_ptr(),
-        hostids.data_ptr(), n, num_hosts, stats.data_ptr(),
-        counts.data_ptr(), B.stream_ptr(dev))
+        hostids.data_ptr(), n, num_hosts, out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "cardinal_stats")
     B.LAUNCHES["cardinal_stats"] += 1
-    return stats, counts
+    return out[:STATS_LEN], out[STATS_LEN:STATS_LEN + cnt]
 
 
 # ---------------------------------------------------------------------------

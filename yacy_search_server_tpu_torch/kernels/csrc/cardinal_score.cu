@@ -32,7 +32,9 @@
 // conflict; an int16 row is read as 2-byte values at a 8.5-word stride,
 // which puts the 32 lanes on 32 distinct words (no conflict either).
 // Scores are stored coalesced; the authority gather reads the host
-// counts through the L2 (40 MB at 10M bins, never staged).
+// counts through the L2 (40 MB at 10M bins, never staged). The staging
+// helpers (issue_chunk, copy_span, Stage) live in common.cuh, shared with
+// cardinal_stats.
 //
 // Three rewrites of the first version's row body, each exact:
 //   - the int32 path's floor(prod / safe) is a double estimate (prod
@@ -58,7 +60,6 @@
 namespace yt {
 
 constexpr int WARPS = 4;               // warps per block
-constexpr int CH = 64;                 // rows per chunk (two per lane)
 constexpr int MIN_BLOCKS = 4;          // resident blocks an SM, at least
 
 struct ScoreConsts {
@@ -181,89 +182,6 @@ __device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
   return (int32_t)score;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
-  unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <int ES> struct Elem;
-template <> struct Elem<1> { using T = uint8_t; };
-template <> struct Elem<2> { using T = uint16_t; };
-template <> struct Elem<4> { using T = uint32_t; };
-
-// One warp copies the bytes [a, b) (whole elements of ES bytes) so that
-// byte x lands at dst + (x - floor16(a)): the 16-byte aligned body by
-// cp.async, the ragged head (lanes 0-15) and tail (lanes 16-31) by
-// element loads.
-template <int ES>
-__device__ __forceinline__ void copy_span(unsigned char* dst, uintptr_t a,
-                                         uintptr_t b, int lane) {
-  using E = typename Elem<ES>::T;
-  const uintptr_t a0 = a & ~(uintptr_t)15;
-  const uintptr_t body0 = (a + 15) & ~(uintptr_t)15;
-  const uintptr_t body1 = b & ~(uintptr_t)15;
-  if (body0 < body1) {
-    const int chunks = (int)((body1 - body0) >> 4);
-    for (int c = lane; c < chunks; c += 32)
-      cp_async16(dst + (body0 - a0) + 16 * c,
-                 (const void*)(body0 + 16 * (uintptr_t)c));
-  }
-  const uintptr_t h1 = body0 < b ? body0 : b;
-  const uintptr_t t0 = body1 > body0 ? body1 : body0;
-  const int nh = (int)((h1 - a) / ES);
-  const int nt = b > t0 ? (int)((b - t0) / ES) : 0;
-  if (lane < nh)
-    *(E*)(dst + (a - a0) + lane * ES) = *(const E*)(a + lane * ES);
-  else if (lane >= 16 && lane - 16 < nt)
-    *(E*)(dst + (t0 - a0) + (lane - 16) * ES) =
-        *(const E*)(t0 + (lane - 16) * ES);
-}
-
-// byte sizes of one stage's regions: the span of a chunk plus 16 bytes
-// of alignment slack
-template <typename T>
-__host__ __device__ constexpr int feat_region() {
-  return CH * NF * (int)sizeof(T) + 16;
-}
-constexpr int WORD_REGION = CH * 4 + 16;
-constexpr int BYTE_REGION = CH + 16;
-template <typename T>
-__host__ __device__ constexpr int stage_bytes() {
-  return feat_region<T>() + 2 * WORD_REGION + BYTE_REGION;
-}
-
-// One warp starts the copies of chunk c into stage st. A chunk's bytes
-// start at a multiple of 16 from each array's start, so every chunk of
-// an array sits at the same offset (its start mod 16) in its region.
-template <typename T>
-__device__ __forceinline__ void issue_chunk(
-    const T* feats, const int32_t* flags, const uint8_t* valid,
-    const int32_t* hostids, bool use_auth, int64_t n, int64_t c,
-    unsigned char* st, int lane) {
-  const int64_t r0 = c * CH;
-  const int64_t r1 = r0 + CH < n ? r0 + CH : n;
-  copy_span<sizeof(T)>(st, (uintptr_t)(feats + r0 * NF),
-                       (uintptr_t)(feats + r1 * NF), lane);
-  st += feat_region<T>();
-  if (flags)
-    copy_span<4>(st, (uintptr_t)(flags + r0), (uintptr_t)(flags + r1), lane);
-  st += WORD_REGION;
-  if (use_auth)
-    copy_span<4>(st, (uintptr_t)(hostids + r0), (uintptr_t)(hostids + r1),
-                 lane);
-  st += WORD_REGION;
-  copy_span<1>(st, (uintptr_t)(valid + r0), (uintptr_t)(valid + r1), lane);
-}
-
 template <typename T, bool FAST>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
@@ -283,10 +201,10 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
   // authority is decided from the constants in device memory, so the
   // first copy can go out before the block's constants are ready
   const bool use_auth = num_hosts > 1 && consts[C_AUTHORITY] > 12;
+  const int32_t* hsrc = use_auth ? hostids : nullptr;
 
   int64_t c = (int64_t)blockIdx.x * WARPS + warp;
-  if (c < chunks)
-    issue_chunk(feats, flags, valid, hostids, use_auth, n, c, mine, lane);
+  if (c < chunks) issue_chunk(feats, flags, valid, hsrc, n, c, mine, lane);
   cp_async_commit();
 
   if (t < CONSTS_LEN) k.c[t] = consts[t];
@@ -315,31 +233,24 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
   for (int i = 0; c < chunks; ++i, c += step) {
     const int cur = i & 1;
     if (c + step < chunks)
-      issue_chunk(feats, flags, valid, hostids, use_auth, n, c + step,
+      issue_chunk(feats, flags, valid, hsrc, n, c + step,
                   mine + (cur ^ 1) * SB, lane);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
-    const unsigned char* s = mine + cur * SB;
-    const unsigned char* sf = s + (uintptr_t)feats % 16;
-    const unsigned char* sfl = s + feat_region<T>() + (uintptr_t)flags % 16;
-    const unsigned char* sh =
-        s + feat_region<T>() + WORD_REGION + (uintptr_t)hostids % 16;
-    const unsigned char* sv =
-        s + feat_region<T>() + 2 * WORD_REGION + (uintptr_t)valid % 16;
+    const Stage<T> sg(mine + cur * SB, feats, flags, hostids, valid);
 #pragma unroll
     for (int m = 0; m < CH / 32; ++m) {
       const int j = lane + 32 * m;
       const int64_t r = c * CH + j;
       if (r < n) {
         int32_t score = SMALL;
-        if (sv[j]) {
-          const T* f = (const T*)(sf + j * NF * (int)sizeof(T));
-          const int32_t fl =
-              flags ? ((const int32_t*)sfl)[j] : (int32_t)f[F_FLAGS];
+        if (sg.v[j]) {
+          const T* f = sg.row(j);
+          const int32_t fl = flags ? sg.flag(j) : (int32_t)f[F_FLAGS];
           int32_t cnt = 0;
           if (use_auth) {
-            int64_t h = ((const int32_t*)sh)[j];
+            int64_t h = sg.host(j);
             h = h < 0 ? 0 : (h >= num_hosts ? num_hosts - 1 : h);
             cnt = __ldg(counts + h);
           }
@@ -361,24 +272,10 @@ static cudaError_t launch(const void* feats, const void* flags,
                           cudaStream_t s) {
   const int smem = WARPS * 2 * stage_bytes<T>();
   static int cached[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int limit = 0;
+  cudaError_t e = resident_blocks(score_chunks<T, FAST>, WARPS * 32, smem,
+                                  cached, &limit);
   if (e != cudaSuccess) return e;
-  int limit = dev >= 0 && dev < 64 ? cached[dev] : 0;
-  if (limit <= 0) {
-    e = cudaFuncSetAttribute(score_chunks<T, FAST>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, score_chunks<T, FAST>, WARPS * 32, smem);
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    limit = (per_sm < 1 ? 1 : per_sm) * sms;
-    if (dev >= 0 && dev < 64) cached[dev] = limit;
-  }
   const int64_t blocks = ((n + CH - 1) / CH + WARPS - 1) / WARPS;
   const int grid = (int)(blocks < limit ? blocks : limit);
   score_chunks<T, FAST><<<grid, WARPS * 32, smem, s>>>(

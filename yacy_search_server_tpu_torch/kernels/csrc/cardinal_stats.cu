@@ -1,191 +1,344 @@
 // Kernel 1 `cardinal_stats`: the normalisation statistics of a postings
-// block. Replaces ops/ranking.local_stats (+ _masked_minmax and
-// _term_frequency) of the JAX package: masked per-column min/max over
-// valid rows (sentinels +-(2^31-1)), the f32 term-frequency min/max, and,
-// when asked, the per-host valid counts and their maximum.
+// block. Replaces ops/ranking.local_stats (+ _masked_minmax,
+// _term_frequency and the segment_sum of the host counts) of the JAX
+// package: masked per-column min/max over valid rows (sentinels
+// +-(2^31-1)), the f32 term-frequency min/max, and, when asked, the
+// per-host valid counts and their maximum.
 //
-// Bound: bytes. Every row of the block is read once (34 B of int16 or
-// 68 B of int32 features, 1 B valid, 4 B hostid when counting); the
-// output is a few dozen words. Each thread folds its rows into register
-// minima/maxima, a warp reduces by shuffles, a block through shared
-// memory, and blocks combine with integer atomics into the statistics
-// vector, which is order-free and so deterministic. Floats are folded as
-// order-preserving integers; a NaN term frequency is only flagged, and
-// the finalise step makes both tf bounds NaN as XLA's NaN-propagating
-// min/max would. Host counts are integer atomics (exact, order-free).
+// Bound: bytes. Every input byte is read once (34 B of int16 or 68 B of
+// int32 features, 1 B valid and, when counting, 4 B host id a row) and
+// the counts (4 B a host bin) are written once.
+//
+// What held the first version back: six operations a call (init, main,
+// memset, host count, host max, finalize), `valid` read twice, the count
+// array read back in full to find its maximum, and one thread per row
+// making 17 scalar loads at a 34- or 68-byte stride. This design is one
+// memset and one persistent kernel:
+//   - the warps stage 64-row chunks of features, valid bytes and host ids
+//     into shared memory by 16-byte cp.async, two stages deep, with the
+//     helpers cardinal_score uses (common.cuh); a view that does not
+//     start on 16 bytes (feats[1:]) and a ragged last chunk are copied as
+//     there. Lane l folds rows l and l + 32 of a chunk: an int32 row is 17
+//     words, an odd stride, so the column reads meet no bank conflict;
+//   - the host counts are taken in the same pass. Where hosts are
+//     counted the kernel runs in clusters of 8 blocks, one block an SM,
+//     and the shared memory a block does not stage rows in holds host
+//     bins (38,104 a block beside int32 rows, 46,808 beside int16): ids
+//     below 8 times that (`priv`) are added in the cluster's bins, bin h
+//     in block h % 8, over distributed shared memory (the ids of
+//     hostid_array are dense from 0, so all of a term's hosts fit unless
+//     it has more than ~300,000); after a cluster barrier each block adds
+//     its non-zero bins to the counts in device memory, so 10M rows over
+//     50,000 hosts make ~0.8M device-memory adds, not 10M. Ids at or
+//     above `priv` are added to the counts directly. Either way the lanes
+//     of a warp that hold the same host (__match_any_sync) add once for
+//     all of them, so a host that holds most of a term's rows does not
+//     queue one add a row on one word. atomicAdd returns
+//     the old count, and old + (what it added) folded into a running
+//     maximum is exactly the final maximum (the add that brings a bin to
+//     its final count returns that count minus what it adds; no add
+//     returns more), so no pass reads the counts back. Ids outside
+//     [0, num_hosts) are dropped, as segment_sum drops them;
+//   - a block folds its warps' minima, maxima, NaN flag and host maximum
+//     in shared memory and adds them to a 38-word accumulator in device
+//     memory by unsigned atomicMax. Each statistic is stored mapped so
+//     that 0 is its identity (a minimum v as 0x7fffffff - v, a maximum as
+//     v - SMALL, the f32 bounds as order keys offset from +-inf), so the
+//     memset that zeroes the counts zeroes the accumulator and the ticket
+//     too: no init kernel. A maximum does not depend on the order of its
+//     operands, so the result is deterministic;
+//   - the last block to finish (an atomic ticket after __threadfence, as
+//     in tie_topk) reads the accumulator back and writes the statistics in
+//     final form, with the NaN rule of XLA's NaN-propagating min/max (a
+//     NaN term frequency makes both tf bounds NaN): no finalize kernel.
+//
+// Why the cluster bins: 10M adds straight to the counts in device memory
+// (the first one-pass design) cost ~0.15 ms that did not overlap the row
+// stream, and a returning add cost no more than a fire-and-forget one.
+// A block alone sees ~1.5 rows a host, too few to gain from bins of its
+// own; a cluster's bins take every add of its 8 SMs. Why the warp
+// aggregation: without it, 10M rows on one host take ~0.6 ms, the adds
+// queueing on one shared word a cluster. Timed on an H100 with host ids
+// drawn evenly, Zipf-skewed and all on one host (PERF.md), the kernel
+// beats the same aggregation in device memory alone on every mix.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace yt {
 
-__global__ void stats_init(int32_t* st) {
-  int t = threadIdx.x;
-  if (t < NF) {
-    st[S_COL_MIN + t] = BIG;
-    st[S_COL_MAX + t] = SMALL;
-  }
-  if (t == 0) {
-    st[S_TF_MIN] = float_order(0x7f800000);           // +inf
-    st[S_TF_MAX] = float_order((int32_t)0xff800000);  // -inf
-    st[S_HOST_MAX] = 0;
-    st[S_NAN] = 0;
-  }
+constexpr int S_WARPS = 8;      // warps per block
+constexpr int S_MIN_BLOCKS = 2; // resident blocks an SM, at least
+constexpr int H_CLUSTER = 8;    // blocks that share their host bins
+
+constexpr int32_t TF_POS_INF = 0x7f800000;        // order key of +inf
+constexpr int32_t TF_NEG_INF = (int32_t)0x807fffff;  // order key of -inf
+
+// statistic -> accumulator word, monotone (a better value is a larger
+// word) and 0 for the statistic's identity
+__device__ __forceinline__ uint32_t to_acc(int s, int32_t v) {
+  if (s < S_COL_MAX) return 0x7fffffffu - (uint32_t)v;          // min
+  if (s < S_TF_MIN) return (uint32_t)v - (uint32_t)SMALL;       // max
+  if (s == S_TF_MIN) return (uint32_t)TF_POS_INF - (uint32_t)v;
+  if (s == S_TF_MAX) return (uint32_t)v - (uint32_t)TF_NEG_INF;
+  return (uint32_t)v;                                           // host, NaN
 }
 
-template <typename T>
-__global__ void stats_main(const T* __restrict__ feats,
-                           const uint8_t* __restrict__ valid, int64_t n,
-                           int32_t* st) {
-  __shared__ int32_t s_min[NF], s_max[NF];
-  __shared__ int32_t s_tmin, s_tmax, s_nan;
-  if (threadIdx.x < NF) {
-    s_min[threadIdx.x] = BIG;
-    s_max[threadIdx.x] = SMALL;
+__device__ __forceinline__ int32_t from_acc(int s, uint32_t u) {
+  if (s < S_COL_MAX) return (int32_t)(0x7fffffffu - u);
+  if (s < S_TF_MIN) return (int32_t)(u + (uint32_t)SMALL);
+  if (s == S_TF_MIN) return (int32_t)((uint32_t)TF_POS_INF - u);
+  if (s == S_TF_MAX) return (int32_t)(u + (uint32_t)TF_NEG_INF);
+  return (int32_t)u;
+}
+
+// HOSTS: launched in clusters of H_CLUSTER blocks, one block an SM; host
+// ids below `priv` are counted in the cluster's shared bins (bin h in
+// block h % H_CLUSTER, word h / H_CLUSTER, after the stages), the others
+// by atomicAdd on `counts`
+template <typename T, bool HOSTS>
+__global__ void __launch_bounds__(S_WARPS * 32, HOSTS ? 1 : S_MIN_BLOCKS)
+stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
+           const int32_t* __restrict__ hostids, int64_t n, int64_t num_hosts,
+           int64_t priv, int32_t* __restrict__ counts,
+           uint32_t* __restrict__ acc, uint32_t* __restrict__ ticket,
+           int32_t* __restrict__ st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  constexpr int SB = stage_bytes<T>();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t chunks = (n + CH - 1) / CH;
+  const int64_t step = (int64_t)gridDim.x * S_WARPS;
+  unsigned char* mine = smem + warp * 2 * SB;
+  uint32_t* bins = (uint32_t*)(smem + S_WARPS * 2 * SB);
+  const unsigned rank = HOSTS ? cg::this_cluster().block_rank() : 0u;
+  // this block's bins: ids rank, rank + H_CLUSTER, ... below priv
+  const int64_t nbins =
+      HOSTS && priv > rank ? (priv - rank + H_CLUSTER - 1) / H_CLUSTER : 0;
+
+  int64_t c = (int64_t)blockIdx.x * S_WARPS + warp;
+  if (c < chunks)
+    issue_chunk<T>(feats, nullptr, valid, HOSTS ? hostids : nullptr, n, c,
+                   mine, lane);
+  cp_async_commit();
+  if (t < STATS_LEN) s_acc[t] = 0u;
+  if (HOSTS) {
+    for (int64_t b = t; b < nbins; b += S_WARPS * 32) bins[b] = 0u;
+    cg::this_cluster().sync();  // every block's bins zeroed
   }
-  if (threadIdx.x == 0) {
-    s_tmin = float_order(0x7f800000);
-    s_tmax = float_order((int32_t)0xff800000);
-    s_nan = 0;
-  }
-  __syncthreads();
 
   int32_t lmin[NF], lmax[NF];
 #pragma unroll
-  for (int c = 0; c < NF; ++c) {
-    lmin[c] = BIG;
-    lmax[c] = SMALL;
+  for (int k = 0; k < NF; ++k) {
+    lmin[k] = BIG;
+    lmax[k] = SMALL;
   }
-  int32_t tmin = float_order(0x7f800000);
-  int32_t tmax = float_order((int32_t)0xff800000);
-  int32_t nan = 0;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    if (!valid[r]) continue;
-    const T* f = feats + r * NF;
+  int32_t tmin = TF_POS_INF, tmax = TF_NEG_INF, nan = 0, hmax = 0;
+
+  for (int i = 0; c < chunks; ++i, c += step) {
+    const int cur = i & 1;
+    if (c + step < chunks)
+      issue_chunk<T>(feats, nullptr, valid, HOSTS ? hostids : nullptr, n,
+                     c + step, mine + (cur ^ 1) * SB, lane);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const Stage<T> sg(mine + cur * SB, feats, nullptr, hostids, valid);
 #pragma unroll
-    for (int c = 0; c < NF; ++c) {
-      int32_t v = (int32_t)f[c];
-      lmin[c] = min(lmin[c], v);
-      lmax[c] = max(lmax[c], v);
+    for (int m = 0; m < CH / 32; ++m) {
+      const int j = lane + 32 * m;
+      const bool live = c * CH + j < n && sg.v[j];
+      if (live) {
+        const T* f = sg.row(j);
+#pragma unroll
+        for (int k = 0; k < NF; ++k) {
+          const int32_t v = (int32_t)f[k];
+          lmin[k] = min(lmin[k], v);
+          lmax[k] = max(lmax[k], v);
+        }
+        const float tf = term_frequency(f);
+        if (tf != tf) {
+          nan = 1;
+        } else {
+          const int32_t key = float_order(__float_as_int(tf));
+          tmin = min(tmin, key);
+          tmax = max(tmax, key);
+        }
+      }
+      if (HOSTS) {
+        // the lanes that hold one host add once for all of them (-1: the
+        // row is not counted)
+        int32_t h = live ? sg.host(j) : -1;
+        if (h >= num_hosts) h = -1;
+        const unsigned same = __match_any_sync(0xffffffffu, h);
+        if (h >= 0 && lane == __ffs(same) - 1) {
+          const int k = __popc(same);
+          if (h < priv)
+            atomicAdd(cg::this_cluster().map_shared_rank(
+                          bins + h / H_CLUSTER, h % H_CLUSTER),
+                      (uint32_t)k);
+          else
+            hmax = max(hmax, atomicAdd(counts + h, k) + k);
+        }
+      }
     }
-    float tf = term_frequency(f);
-    if (tf != tf) {
-      nan = 1;
-    } else {
-      int32_t k = float_order(__float_as_int(tf));
-      tmin = min(tmin, k);
-      tmax = max(tmax, k);
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  if (HOSTS) {
+    cg::this_cluster().sync();  // every add to this block's bins landed
+    for (int64_t b = t; b < nbins; b += S_WARPS * 32) {
+      const int32_t k = (int32_t)bins[b];
+      if (k)
+        hmax = max(hmax, atomicAdd(counts + rank + b * H_CLUSTER, k) + k);
     }
   }
+
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
-    for (int c = 0; c < NF; ++c) {
-      lmin[c] = min(lmin[c], __shfl_xor_sync(0xffffffffu, lmin[c], o));
-      lmax[c] = max(lmax[c], __shfl_xor_sync(0xffffffffu, lmax[c], o));
+    for (int k = 0; k < NF; ++k) {
+      lmin[k] = min(lmin[k], __shfl_xor_sync(0xffffffffu, lmin[k], o));
+      lmax[k] = max(lmax[k], __shfl_xor_sync(0xffffffffu, lmax[k], o));
     }
     tmin = min(tmin, __shfl_xor_sync(0xffffffffu, tmin, o));
     tmax = max(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
     nan |= __shfl_xor_sync(0xffffffffu, nan, o);
+    hmax = max(hmax, __shfl_xor_sync(0xffffffffu, hmax, o));
   }
-  if ((threadIdx.x & 31) == 0) {
+  __syncthreads();  // s_acc zeroed
+  if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < NF; ++c) {
-      atomicMin(&s_min[c], lmin[c]);
-      atomicMax(&s_max[c], lmax[c]);
+    for (int k = 0; k < NF; ++k) {
+      atomicMax(&s_acc[S_COL_MIN + k], to_acc(S_COL_MIN + k, lmin[k]));
+      atomicMax(&s_acc[S_COL_MAX + k], to_acc(S_COL_MAX + k, lmax[k]));
     }
-    atomicMin(&s_tmin, tmin);
-    atomicMax(&s_tmax, tmax);
-    atomicOr(&s_nan, nan);
+    atomicMax(&s_acc[S_TF_MIN], to_acc(S_TF_MIN, tmin));
+    atomicMax(&s_acc[S_TF_MAX], to_acc(S_TF_MAX, tmax));
+    atomicMax(&s_acc[S_HOST_MAX], to_acc(S_HOST_MAX, hmax));
+    atomicMax(&s_acc[S_NAN], to_acc(S_NAN, nan));
   }
   __syncthreads();
-  int t = threadIdx.x;
-  if (t < NF) {
-    atomicMin(&st[S_COL_MIN + t], s_min[t]);
-    atomicMax(&st[S_COL_MAX + t], s_max[t]);
-  } else if (t == NF) {
-    atomicMin(&st[S_TF_MIN], s_tmin);
-    atomicMax(&st[S_TF_MAX], s_tmax);
-    if (s_nan) atomicOr(&st[S_NAN], 1);
+  if (t < STATS_LEN && s_acc[t]) atomicMax(acc + t, s_acc[t]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (t < STATS_LEN) s_acc[t] = __ldcg(acc + t);
+  __syncthreads();
+  if (t < STATS_LEN) {
+    int32_t v = from_acc(t, s_acc[t]);
+    if (t == S_TF_MIN || t == S_TF_MAX)
+      v = s_acc[S_NAN] ? 0x7fc00000 : float_order(v);
+    st[t] = v;
   }
 }
 
-// segment sum of valid rows into num_hosts bins (out-of-range ids drop,
-// as jax.ops.segment_sum drops them)
-__global__ void host_count(const uint8_t* __restrict__ valid,
-                           const int32_t* __restrict__ hostids, int64_t n,
-                           int64_t num_hosts, int32_t* counts) {
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    int32_t h = hostids[r];
-    if (valid[r] && h >= 0 && h < num_hosts) atomicAdd(&counts[h], 1);
+template <typename T>
+static cudaError_t launch(const void* feats, const void* valid,
+                          const void* hostids, int64_t n, int64_t num_hosts,
+                          int32_t* counts, uint32_t* acc, uint32_t* ticket,
+                          int32_t* st, cudaStream_t s) {
+  const int64_t chunks = (n + CH - 1) / CH;
+  const int stages = S_WARPS * 2 * stage_bytes<T>();
+  if (num_hosts <= 0) {
+    static int cached[64];
+    int limit = 0;
+    cudaError_t e = resident_blocks(stats_pass<T, false>, S_WARPS * 32,
+                                    stages, cached, &limit);
+    if (e != cudaSuccess) return e;
+    const int64_t blocks = (chunks + S_WARPS - 1) / S_WARPS;
+    const int grid =
+        (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
+    stats_pass<T, false><<<grid, S_WARPS * 32, stages, s>>>(
+        (const T*)feats, (const uint8_t*)valid, (const int32_t*)hostids, n,
+        0, 0, counts, acc, ticket, st);
+    return cudaGetLastError();
   }
-}
-
-__global__ void host_max(const int32_t* __restrict__ counts,
-                         int64_t num_hosts, int32_t* st) {
-  int32_t m = 0;
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < num_hosts; i += stride)
-    m = max(m, counts[i]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) atomicMax(&st[S_HOST_MAX], m);
-}
-
-__global__ void stats_finalize(int32_t* st) {
-  if (threadIdx.x != 0) return;
-  if (st[S_NAN]) {
-    st[S_TF_MIN] = 0x7fc00000;
-    st[S_TF_MAX] = 0x7fc00000;
-  } else {
-    st[S_TF_MIN] = float_order(st[S_TF_MIN]);
-    st[S_TF_MAX] = float_order(st[S_TF_MAX]);
+  // host counts: one block an SM, the rest of its shared memory bins;
+  // per device, the bins a block holds and the clusters resident at once
+  auto kern = stats_pass<T, true>;
+  static int bins_of[64], clusters_of[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = H_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(S_WARPS * 32);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters_of[dev] <= 0) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kern);
+    if (e != cudaSuccess) return e;
+    const int bins = (optin - (int)fa.sharedSizeBytes - stages) / 4;
+    if (bins < 1) return cudaErrorInvalidConfiguration;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             stages + 4 * bins);
+    if (e != cudaSuccess) return e;
+    cfg.gridDim = dim3(H_CLUSTER);
+    cfg.dynamicSmemBytes = stages + 4 * bins;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kern, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    bins_of[dev] = bins;
+    clusters_of[dev] = clusters;
   }
-}
-
-static int grid_for(int64_t n, int threads) {
-  int64_t g = (n + threads - 1) / threads;
-  if (g > 132 * 16) g = 132 * 16;
-  return g < 1 ? 1 : (int)g;
+  const int64_t want = (chunks + S_WARPS * H_CLUSTER - 1) /
+                       (S_WARPS * H_CLUSTER);
+  const int64_t cl = want < 1 ? 1
+                     : (want < clusters_of[dev] ? want : clusters_of[dev]);
+  const int64_t cap = (int64_t)H_CLUSTER * bins_of[dev];
+  cfg.gridDim = dim3((unsigned)(cl * H_CLUSTER));
+  cfg.dynamicSmemBytes = stages + 4 * bins_of[dev];
+  return cudaLaunchKernelEx(&cfg, kern, (const T*)feats,
+                            (const uint8_t*)valid, (const int32_t*)hostids, n,
+                            num_hosts, num_hosts < cap ? num_hosts : cap,
+                            counts, acc, ticket, st);
 }
 
 }  // namespace yt
 
 using namespace yt;
 
-// feats: [n, 17] int16 (feat_bytes 2) or int32 (4); valid: [n] bool;
-// hostids: [n] int32; stats: int32[38]; counts: int32[max(num_hosts, 1)],
-// zeroed, then counted when num_hosts > 0 (0 skips the per-host scatter).
+// feats: [n, 17] int16 (feat_bytes 2) or int32 (4), at any address aligned
+// to its element; valid: [n] bool; hostids: [n] int32 (read only when
+// num_hosts > 0). out: int32[38 + cnt + 39] with cnt = max(num_hosts, 1):
+// the statistics (written), then the counts, the accumulator and the
+// ticket, which this call zeroes with its one memset and then fills.
 extern "C" int yt_cardinal_stats(const void* feats, int feat_bytes,
                                  const void* valid, const void* hostids,
-                                 int64_t n, int64_t num_hosts, void* stats,
-                                 void* counts, void* stream) {
+                                 int64_t n, int64_t num_hosts, void* out,
+                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int32_t* st = (int32_t*)stats;
-  const uint8_t* v = (const uint8_t*)valid;
-  stats_init<<<1, 32, 0, s>>>(st);
-  const int threads = 256;
-  int grid = grid_for(n, threads);
-  if (n > 0) {
-    if (feat_bytes == 2)
-      stats_main<int16_t><<<grid, threads, 0, s>>>(
-          (const int16_t*)feats, v, n, st);
-    else
-      stats_main<int32_t><<<grid, threads, 0, s>>>(
-          (const int32_t*)feats, v, n, st);
-  }
-  cudaMemsetAsync(counts, 0, (size_t)(num_hosts > 0 ? num_hosts : 1) * 4, s);
-  if (num_hosts > 0) {
-    if (n > 0)
-      host_count<<<grid, threads, 0, s>>>(v, (const int32_t*)hostids, n,
-                                          num_hosts, (int32_t*)counts);
-    host_max<<<grid_for(num_hosts, threads), threads, 0, s>>>(
-        (const int32_t*)counts, num_hosts, st);
-  }
-  stats_finalize<<<1, 32, 0, s>>>(st);
-  return (int)cudaGetLastError();
+  int32_t* st = (int32_t*)out;
+  int32_t* counts = st + STATS_LEN;
+  const int64_t cnt = num_hosts > 0 ? num_hosts : 1;
+  uint32_t* acc = (uint32_t*)(counts + cnt);
+  uint32_t* ticket = acc + STATS_LEN;
+  cudaError_t e =
+      cudaMemsetAsync(counts, 0, (size_t)(cnt + STATS_LEN + 1) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  e = feat_bytes == 2
+          ? launch<int16_t>(feats, valid, hostids, n, num_hosts, counts, acc,
+                            ticket, st, s)
+          : launch<int32_t>(feats, valid, hostids, n, num_hosts, counts, acc,
+                            ticket, st, s);
+  return (int)e;
 }

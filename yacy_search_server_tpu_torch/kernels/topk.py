@@ -102,33 +102,54 @@ def tie_topk(scores, k: int, secondary=None, payload=None):
     return (out_s.view(torch.float32) if is_float else out_s), out_sec, out_idx
 
 
-def gather_topk_plain(block, k: int, is_float: bool):
-    """Plain PyTorch version of kernel 4: (score bits [k], docids [k])."""
-    col = block[:, 0].contiguous()
-    s = col.view(torch.float32) if is_float else col
-    top_s, top_d, _ = tie_topk_plain(s, k, secondary=block[:, 1].contiguous())
+def _runs(m: int, k: int, run_len) -> int:
+    """Check gather_topk's k and run length (default: one run of m)."""
+    run_len = m if run_len is None else int(run_len)
+    if not 1 <= k <= m:
+        raise ValueError(f"gather_topk: k={k} outside [1, {m}]")
+    if run_len < 1 or m % run_len:
+        raise ValueError(f"gather_topk: run_len={run_len} does not divide "
+                         f"m={m}")
+    return run_len
+
+
+def gather_topk_plain(scores, docids, k: int, is_float: bool, run_len=None):
+    """Plain PyTorch version of kernel 4: (score bits [k], docids [k]).
+    Ranks all m rows, so the runs' order does not matter to it."""
+    _runs(scores.shape[0], k, run_len)
+    s = scores.contiguous()
+    s = s.view(torch.float32) if is_float else s
+    top_s, top_d, _ = tie_topk_plain(s, k, secondary=docids.contiguous())
     return (top_s.view(torch.int32) if is_float else top_s), top_d
 
 
-def gather_topk(block, k: int, is_float: bool):
-    """Kernel 4: merge a gathered [m, 2] int32 block of shard-local top-k
-    rows (column 0 the score, f32 bits when is_float; column 1 the docid)
-    into the first k rows of the (score DESC, docid ASC) order,
-    1 <= k <= m. Returns (score column [k] int32, docids [k] int32)."""
-    m = block.shape[0]
-    if not 1 <= k <= m:
-        raise ValueError(f"gather_topk: k={k} outside [1, {m}]")
-    if block.device.type == "cpu":
-        return gather_topk_plain(block, k, is_float)
-    dev = block.device
-    B.require(block, "block", (torch.int32,), 2, dev)
-    if block.shape[1] != 2:
-        raise ValueError("block must be [m, 2]")
-    out_s = torch.empty(k, dtype=torch.int32, device=dev)
-    out_d = torch.empty(k, dtype=torch.int32, device=dev)
-    rc = B.library().yt_gather_topk(block.data_ptr(), m, int(is_float), k,
-                                    out_s.data_ptr(), out_d.data_ptr(),
-                                    B.stream_ptr(dev))
+def gather_topk(scores, docids, k: int, is_float: bool, run_len=None):
+    """Kernel 4: merge m gathered rows of shard-local top-k into the first
+    k rows of the (score DESC, docid ASC) order, 1 <= k <= m.
+
+    `scores` (int32, f32 bits when is_float) and `docids` (int32) are [m]
+    columns with one stride, e.g. the columns of a gathered [m, 2] block.
+    The rows are m / run_len runs (default one run of m), each in that
+    order, as a local tie_topk leaves them; a run out of order is ranked
+    by the kernel's slow all-pairs path, never answered wrongly. Returns
+    (score column [k] int32, docids [k] int32)."""
+    m = scores.shape[0]
+    run_len = _runs(m, k, run_len)
+    if scores.device.type == "cpu":
+        return gather_topk_plain(scores, docids, k, is_float, run_len)
+    dev = scores.device
+    for name, t in (("scores", scores), ("docids", docids)):
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"{name}: expected a tensor on {dev}")
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] != m:
+            raise ValueError(f"{name}: expected int32 [{m}]")
+    stride = scores.stride(0)
+    if docids.stride(0) != stride or stride < 1:
+        raise ValueError("scores and docids must share one positive stride")
+    out = torch.empty((2, k), dtype=torch.int32, device=dev)
+    rc = B.library().yt_gather_topk(scores.data_ptr(), docids.data_ptr(),
+                                    stride, m, run_len, int(is_float), k,
+                                    out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "gather_topk")
     B.LAUNCHES["gather_topk"] += 1
-    return out_s, out_d
+    return out[0], out[1]

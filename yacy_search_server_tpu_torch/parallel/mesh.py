@@ -11,7 +11,8 @@ one card (n_doc = n_term = 1), where pmin/pmax/psum are identities and the
 gather is the local block itself; the fusion merge is the hand-written
 kernel 4 (`kernels.gather_topk`), the counterpart of the Pallas ring
 `_all_gather_topk_pallas`. Across cards the gather becomes an NCCL
-all-gather feeding the same kernel (not yet ported: larger meshes raise).
+all-gather feeding the same kernel, one sorted run per card (not yet
+ported: larger meshes raise).
 
 Parity contract, as in the JAX package: results are identical to the
 single-device CardinalRanker on the same postings.
@@ -89,14 +90,14 @@ def all_gather_topk_full(local_s, local_d, mesh: DocMesh):
 
 
 def fused_gather_topk(local_s, local_d, mesh: DocMesh, k: int):
-    """The fusion collective: each shard's (k, 2) int32 block (scores
-    bit-cast next to docids) is gathered and merged by kernel 4. A
-    failure raises; there is no other path."""
+    """The fusion collective: each shard's tie-ordered local top-k (scores
+    as int32, f32 bit-cast) is gathered, one run per shard, and merged by
+    kernel 4. A failure raises; there is no other path."""
     is_float = local_s.dtype != torch.int32
     col = local_s.to(torch.float32).view(torch.int32) if is_float else local_s
-    block = _gather(mesh, torch.stack([col, local_d], dim=1))
-    kk = min(k, block.shape[0])
-    gs, gd = gather_topk(block, kk, is_float)
+    gs, gd = _gather(mesh, col), _gather(mesh, local_d)
+    kk = min(k, gs.shape[0])
+    gs, gd = gather_topk(gs, gd, kk, is_float, run_len=col.shape[0])
     return (gs.view(torch.float32) if is_float else gs), gd
 
 
