@@ -22,13 +22,26 @@ Phases, each of which exits non-zero on failure:
    kernel 4 over 1, 2, 8, 16 and 32 sorted runs (one a shard; 32,000
    rows are more than a block stages), f32 and int32, runs shorter than
    k, ties and padding rows across runs, special values, and a run out
-   of order;
-3. drive the main path at the headline size, a 10M-posting term:
-   CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and 50
-   rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (k = 100), and
-   stream_score_topk over the 10M block in 2M-row chunks; every result is
-   checked against the port's numpy twins, and every kernel's launch
-   count must move;
+   of order; the devstore kernels on an edge store
+   (kernels/bench.devstore_edges): K5 pruned_tile at bs = 1, 16 and 20
+   with pad slots and kk = 16, 128, 1024, 2048 in both forms, under the
+   default profile and one whose bound fails, K6 span_stats and K7
+   span_score over 1, 2 and 8 extents (offset, ragged, all dead, empty),
+   and topk_finish in both forms;
+3. drive two main paths at the headline size, a 10M-posting term, each
+   with the launch counts reset before it and read after: the placed
+   step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
+   50 rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (k = 100),
+   and stream_score_topk over the 10M block in 2M-row chunks; every
+   result checked against the port's numpy twins); then the device
+   store: an RWIIndex run of the 10M term and terms of 1M, 100k and 20k
+   postings packed into a DeviceSegmentStore on the card and a twin on
+   the CPU, and rank_term's 50 pruned queries (k = 10 and 100), a query
+   on each other term, the escalating profile, k = 1000, a delete (the
+   exact scan over one span) and a second run (over two), every answer
+   equal to the twin's and to the numpy oracle
+   (kernels/bench.devstore_oracle); every kernel of each path must have
+   launched;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -43,9 +56,14 @@ Phases, each of which exits non-zero on failure:
    an empty kernel's launch), then at the compact shapes, kernel 4 on
    8 and 16 sorted runs of 1000, and kernel 1 at the rank_placed shape
    with its host ids drawn Zipf (s = 1.1) over 50,000 hosts and all on
-   one host (each checked first); rank_placed's wall per query over 50
-   queries after a warm-up; and, last, the device operations one call of
-   each timed kernel issues (a profiler trace).
+   one host (each checked first); then, on a fresh store of the 10M term,
+   K5 at bs = 1 and 16, K7 over the escalating profile's prefix, and the
+   exact scan's K6, K7, kernel 3 and topk_finish (each checked first),
+   and rank_term's wall per query (median of 50 after a warm-up) pruned,
+   escalating and, after a tombstone, the exact scan; rank_placed's wall
+   per query over 50 queries after a warm-up; and, last, the device
+   operations one call of each timed kernel issues, with their device
+   times (a profiler trace).
 
 With YT_KERNEL_TRACE=1 the kernels are built with tie_topk's per-pass
 trace, which phase 4 prints.
@@ -71,6 +89,16 @@ N = 10_000_000            # postings of the headline term
 CHUNK = 2_000_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak (simple-op bound)
+# the profile of the JAX package's devstore tests whose pruning bound fails
+# at one tile (tests/test_devstore.py), so its queries escalate
+ESCALATING = dict(worddistance=2, appemph=15, urllength=12, tf=3)
+DS_TERMS = (1_000_000, 100_000, 20_000)   # the run's terms beside the 10M
+SECOND_RUN = 100_000                      # the 10M term's second run
+# the kernels each main path must launch
+PLACED_KERNELS = ("cardinal_stats", "cardinal_score", "tie_topk",
+                  "gather_topk")
+DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
+                    "topk_finish")
 
 
 def log(*a):
@@ -88,10 +116,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from yacy_search_server_tpu_torch.index import devstore as TD
     from yacy_search_server_tpu_torch.index import postings as P
+    from yacy_search_server_tpu_torch.index.rwi import RWIIndex
     from yacy_search_server_tpu_torch.kernels import LAUNCHES, build
     from yacy_search_server_tpu_torch.kernels import bench as KB
     from yacy_search_server_tpu_torch.kernels import cardinal as KC
+    from yacy_search_server_tpu_torch.kernels import devstore as KD
     from yacy_search_server_tpu_torch.kernels import reset_launches
     from yacy_search_server_tpu_torch.kernels import topk as KT
     from yacy_search_server_tpu_torch.ops import ranking as R
@@ -368,6 +399,86 @@ def main() -> int:
                      is_float, 100)
     del tie_scores
 
+    # the devstore kernels on an edge store (kernels/bench.devstore_edges:
+    # a ragged last tile, a term one tile short, docids past the bitmap
+    # that stay alive, tombstones in the first tile and on every row of a
+    # term, a constant column, the best row repeated so that scores tie):
+    # K5 at bs = 1, 16 and 20 (two pad slots; 20 slots take two launches)
+    # and kk = 16, 128, 1024, 2048,
+    # with and without the init entries, under the default profile and
+    # one whose bound fails; K6 and K7 over 1, 2 and 8 extents (whole,
+    # offset, ragged, all dead, empty) and buffers longer than the rows;
+    # topk_finish in both forms
+    edge, _edge_idx = KB.devstore_edges(dev)
+    ea = (*edge.arena.arrays(), edge.arena.dead_array(), edge.arena._pmax)
+    ds_profiles = {"default": R.RankingProfile(),
+                   "escalating": R.RankingProfile(**ESCALATING)}
+    ds_consts = {k: R.profile_consts(p, lang, dev)
+                 for k, p in ds_profiles.items()}
+
+    def note(name, label, e):
+        log(f"check {name} {label}: err {e}")
+        if e:
+            fail(f"{name} disagrees ({label})")
+        err[name] = max(err[name], e)
+
+    for pname, prof in ds_profiles.items():
+        shift, lterm = (int(v) for v in TD.prune_bound_consts(prof))
+        for bs in (1, 16, 20):
+            desc = KD.pack_desc(KB.edge_slots(edge, bs), shift, lterm)
+            for kk in (16, 128, 1024, 2048):
+                for init in (False, True):
+                    g = KD.pruned_tile(*ea, desc, kk, ds_consts[pname], init)
+                    w = KD.pruned_tile_plain(*ea, desc, kk, ds_consts[pname],
+                                             init)
+                    torch.cuda.synchronize()
+                    note("pruned_tile", f"edges {pname} bs={bs} kk={kk} "
+                         f"init={init}", diff(g, w))
+                    if pname == "escalating" and kk == 16 \
+                            and int(g[0, 2 * kk]) != 0:
+                        fail("pruned_tile: the big edge term's bound "
+                             "should fail under the escalating profile")
+    for n_ext in (1, 2, 8):
+        ext = KB.edge_extents(edge, n_ext)
+        st = KD.span_stats(ea[0], ea[2], ea[3], ext)
+        note("span_stats", f"edges {n_ext} extents",
+             stats_diff(st, KD.span_stats_plain(ea[0], ea[2], ea[3], ext)))
+        rows_e = sum(c for _s, c in ext)
+        for pname, c in ds_consts.items():
+            for out_len in (rows_e, rows_e + 1000):
+                g = KD.span_score(*ea[:4], ext, st, c, out_len)
+                w = KD.span_score_plain(*ea[:4], ext, st, c, out_len)
+                torch.cuda.synchronize()
+                note("span_score", f"edges {n_ext} extents {pname} "
+                     f"out_len={out_len}", diff(g, w))
+    for ext in ([], KB.edge_extents(edge, 8)[3:5]):
+        st = KD.span_stats(ea[0], ea[2], ea[3], ext)
+        note("span_stats", f"no live row ({len(ext)} extents)",
+             stats_diff(st, KD.span_stats_plain(ea[0], ea[2], ea[3], ext)))
+        if int(st[KC.S_COL_MIN]) != KC.BIG:
+            fail("span_stats: no live row must leave the identity")
+    ext = KB.edge_extents(edge, 8)
+    big = edge.spans_for(b"bigAAAAAAAAA")[0]
+    st = KD.span_stats(ea[0], ea[2], ea[3], ext)
+    for kk in (16, 1024, 4096):
+        buf = KD.span_score(*ea[:4], ext, st, ds_consts["default"],
+                            max(sum(c for _s, c in ext), kk))
+        top_s, top_r, _ = KT.tie_topk(buf, kk)
+        g = KD.topk_finish(top_s, top_r, ea[2], ext, stats=st)
+        w = KD.topk_finish_plain(top_s, top_r, ea[2], ext, stats=st)
+        torch.cuda.synchronize()
+        note("topk_finish", f"edges scan kk={kk}", diff(g, w))
+        for j0 in (0, 1, big.tcount):
+            tail = (big.tstart, j0, big.tcount, *map(
+                int, TD.prune_bound_consts(ds_profiles["default"])))
+            g = KD.topk_finish(top_s, top_r, ea[2], ext, pmax=ea[4],
+                               tail=tail)
+            w = KD.topk_finish_plain(top_s, top_r, ea[2], ext, pmax=ea[4],
+                                     tail=tail)
+            torch.cuda.synchronize()
+            note("topk_finish", f"edges tail kk={kk} j0={j0}", diff(g, w))
+    del edge, _edge_idx, ea
+
     # -- phase 3: the main path ---------------------------------------------
     ref_scores = {}
     for pname, prof in profiles.items():
@@ -450,9 +561,119 @@ def main() -> int:
     log(f"main path: {time.time() - tm:.1f} s; launches {launches}")
     for name, w in walls.items():
         log(f"  wall {name}: {w * 1e3:.2f} ms")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PLACED_KERNELS if launches[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+
+    # -- phase 3, the device store's path: DeviceSegmentStore.rank_term ----
+    # a port RWIIndex whose one run holds the 10M-posting term and terms
+    # of 1M, 100k and 20k postings; a store on the card and its twin on
+    # the CPU (the plain versions) fed by one listener. Every answer must
+    # equal the twin's and the numpy oracle's (kernels/bench.
+    # devstore_oracle: all rows scored against their statistics, ranked
+    # by score then arena position)
+    hl = b"headlineAAAA"
+    ds_terms = {hl: (feats, docids)}
+    for i, n_t in enumerate(DS_TERMS):
+        f_t, d_t, _h, _r = KB.make_term(n_t, KB.SEED + 1 + i)
+        ds_terms[b"term%08d" % n_t] = (f_t, d_t)
+    idx = RWIIndex()
+    for th, (f_t, d_t) in ds_terms.items():
+        idx.add_many(th, P.PostingsList(d_t, f_t))
+    tq = time.time()
+    idx.flush()
+    ds_walls = {"flush (host)": time.time() - tq}
+    tq = time.time()
+    gs = TD.DeviceSegmentStore(idx, device=dev)
+    torch.cuda.synchronize()
+    ds_walls["pack, store on the card"] = time.time() - tq
+    tq = time.time()
+    hs = TD.DeviceSegmentStore(idx, device="cpu")
+    ds_walls["pack, twin on the CPU"] = time.time() - tq
+    idx.listener = KB.Fanout(gs, hs)
+    sp_hl = gs.spans_for(hl)[0]
+    log(f"devstore: {gs.arena.used_rows} rows packed, the 10M term in "
+        f"{sp_hl.tcount} tiles; " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in ds_walls.items()))
+    tq = time.time()
+    hl_rows = KB.arena_rows(feats, docids)
+    oracles = {pname: KB.devstore_oracle([hl_rows], prof, 1000)
+               for pname, prof in ds_profiles.items()}
+    log(f"devstore oracles: {time.time() - tq:.1f} s")
+    ended, ends = {}, {}
+
+    def ds_query(label, th, pname, k, want):
+        """One rank_term on the card and on the twin: equal answers, equal
+        to the oracle's `want` (scores, docids); returns where it ended."""
+        r0, t0s = gs.prune_rounds, gs.stream_scans
+        tq = time.perf_counter()
+        got = gs.rank_term(th, ds_profiles[pname], k=k)
+        wall = (time.perf_counter() - tq) * 1e3
+        twin = hs.rank_term(th, ds_profiles[pname], k=k)
+        if got is None or twin is None:
+            fail(f"rank_term {label}: no answer")
+        if not (np.array_equal(got[0], twin[0])
+                and np.array_equal(got[1], twin[1]) and got[2] == twin[2]):
+            fail(f"rank_term {label}: the card and the CPU twin differ")
+        expect(f"rank_term {label}", got[0], got[1], want[0][:k],
+               want[1][:k])
+        rounds = gs.prune_rounds - r0
+        end = ("exact scan" if gs.stream_scans > t0s
+               else f"b={TD._PRUNE_B[rounds - 1]}")
+        ended.setdefault(f"{label} -> {end}", []).append(wall)
+        ends[label] = end
+        return got
+
+    torch.cuda.synchronize()
+    reset_launches()
+    tm = time.time()
+    for q in range(50):
+        k = 10 if q % 2 else 100
+        ds_query(f"10M default k={k}", hl, "default", k, oracles["default"])
+    for i, n_t in enumerate(DS_TERMS):
+        th = b"term%08d" % n_t
+        ds_query(f"{n_t} default k=10", th, "default", 10,
+                 KB.devstore_oracle([KB.arena_rows(*ds_terms[th])],
+                                    ds_profiles["default"], 10))
+    ds_query("10M escalating k=100", hl, "escalating", 100,
+             oracles["escalating"])
+    got = ds_query("10M default k=1000", hl, "default", 1000,
+                   oracles["default"])
+    # a tombstone newer than the span: the exact scan over one extent
+    gone = int(got[1][0])
+    idx.delete_doc(gone)
+    live = hl_rows[2] != gone
+    hl_live = tuple(a[live] for a in hl_rows)
+    ds_query("10M after a delete, default k=100", hl, "default", 100,
+             KB.devstore_oracle([hl_live], ds_profiles["default"], 100))
+    # a second run of the 10M term: two spans, the exact scan over both
+    f2, _d, _h, _r = KB.make_term(SECOND_RUN, KB.SEED + 9)
+    d2 = (2 * np.arange(SECOND_RUN)).astype(np.int32)  # even: new docids
+    idx.add_many(hl, P.PostingsList(d2, f2))
+    idx.flush()
+    two = [hl_live, KB.arena_rows(f2, d2)]
+    for pname, k in (("default", 100), ("escalating", 1000)):
+        ds_query(f"10M + {SECOND_RUN} (2 runs), {pname} k={k}", hl, pname,
+                 k, KB.devstore_oracle(two, ds_profiles[pname], k))
+    torch.cuda.synchronize()
+    launches_ds = dict(LAUNCHES)
+    log(f"devstore main path: {time.time() - tm:.1f} s (the CPU twin's "
+        f"answers included); launches {launches_ds}")
+    counters = lambda s: (s.prune_rounds, s.pruned_tiles,  # noqa: E731
+                          s.stream_scans, s.queries_served, s.fallbacks)
+    log(f"devstore counters: prune_rounds {gs.prune_rounds}, pruned_tiles "
+        f"{gs.pruned_tiles}, stream_scans {gs.stream_scans}, "
+        f"queries_served {gs.queries_served}, fallbacks {gs.fallbacks}")
+    if counters(gs) != counters(hs):
+        fail(f"devstore counters differ: card {counters(gs)}, CPU twin "
+             f"{counters(hs)}")
+    for label, ws in ended.items():
+        log(f"  rank_term {label}: {len(ws)} queries, wall median "
+            f"{float(np.median(ws)):.3f} ms (the first {ws[0]:.3f} ms)")
+    missing = [k for k in DEVSTORE_KERNELS if launches_ds[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the devstore path: {missing}")
+    del gs, hs, idx, hl_live, two, oracles
 
     # -- phase 4: kernel times at the main path's shapes ---------------------
     # `ms`: the call time, the median of 20 calls each between two CUDA
@@ -490,15 +711,17 @@ def main() -> int:
     timed = []  # each row's kernel call, traced once all timing is done
 
     def ops_per_call(fn):
-        """The device operations one call issues (kernels and memsets),
-        from a profiler trace; None where the trace shows none."""
+        """The device operations one call issues (kernels and memsets) with
+        their device times, from a profiler trace; None where the trace
+        shows none."""
         try:
             names = KB.device_ops(fn)
         except Exception as ex:  # noqa: BLE001 - a reading aid, not a phase
             return None, [f"profiler failed: {ex!r}"]
         return len(names) or None, names
 
-    def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape):
+    def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape,
+                path="placed"):
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
         plain_ms = KB.call_ms(plain, reps=5)
         lib_ms = KB.call_ms(lib) if lib is not None else None
@@ -516,12 +739,13 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda",
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if path == "placed" else launches_ds)[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev, "shape": shape})
+            "library_device_ms": lib_dev, "shape": shape, "path": path})
 
     def gather_work(m, run_len, k):
         """kernel 4's bytes (8 a row in, 8 a winner out) and the merge's
@@ -644,6 +868,145 @@ def main() -> int:
             "10M int32 scores of the compact block, default profile, k=100, "
             "index mode")
     log_trace("compact default profile, k=100, index mode")
+
+    # the device store's kernels at the shapes of rank_term's queries on a
+    # fresh store holding the 10M term alone (the main path's store has a
+    # tombstone, which turns pruning off): K5 at bs = 1 and at bs = 16
+    # (slots on the span's first 16 tiles), K7 over the escalating
+    # profile's prefix, and the exact scan's K6, K7, kernel 3 and
+    # topk_finish over the 10M rows; each checked first on the inputs it
+    # is timed on
+    ti = RWIIndex()
+    ti.add_many(hl, P.PostingsList(docids, feats))
+    ti.flush()
+    ts = TD.DeviceSegmentStore(ti, device=dev)
+    sp = ts.spans_for(hl)[0]
+    ta = (*ts.arena.arrays(), ts.arena.dead_array(), ts.arena._pmax)
+    cd = ds_consts["default"]
+    shift, lterm = (int(v) for v in TD.prune_bound_consts(
+        ds_profiles["default"]))
+    kk = 128                               # rank_term's kk at k = 100
+    src_k5 = ("pruned_tile", "yacy_search_server_tpu/index/devstore.py:897",
+              "pruned_tile.cu")
+    src_k6 = ("span_stats", "yacy_search_server_tpu/index/devstore.py:338",
+              "cardinal_stats.cu")
+    src_k7 = ("span_score", "yacy_search_server_tpu/index/devstore.py:338",
+              "cardinal_score.cu")
+    src_fin = ("topk_finish", "yacy_search_server_tpu/index/devstore.py:799",
+               "pruned_tile.cu")
+    row_b = P.NF * 2 + 4 + 4 + 1      # features, flags, docid, dead byte
+    for bs in (1, 16):
+        desc = KD.pack_desc(KB.tile_slots(sp, bs), shift, lterm)
+        k5 = lambda d=desc: KD.pruned_tile(*ta, d, kk, cd, True)  # noqa: E731
+        k5p = lambda d=desc: KD.pruned_tile_plain(*ta, d, kk, cd,  # noqa: E731
+                                                  True)
+        g, w = k5(), k5p()
+        torch.cuda.synchronize()
+        note("pruned_tile", f"10M term bs={bs} kk={kk}", diff(g, w))
+        measure(*src_k5, k5, k5p, None,
+                bs * (TD.TILE * row_b + 4 * (sp.tcount - 1)
+                      + 4 * KD.DESC_SLOT_WORDS + 4 * (2 * kk + 1))
+                + 8 + 4 * KC.CONSTS_LEN, 0.0,
+                f"{bs} slot(s) x one 32,768-row tile of the 10M term, "
+                f"kk={kk}, {sp.tcount}-tile pmax tail (rank_term, pruned)",
+                path="devstore")
+    esc_end = ends["10M escalating k=100"]
+    b_esc = (int(esc_end[2:]) if esc_end.startswith("b=")
+             else TD._PRUNE_B[-1])
+    ext_p = [(sp.start, min(sp.count, b_esc * TD.TILE))]
+    frozen = put(sp.stats38())
+    ce = ds_consts["escalating"]
+    scan_ext = [(sp.start, sp.count)]
+    st10 = KD.span_stats(ta[0], ta[2], ta[3], scan_ext)
+    note("span_stats", "10M term", stats_diff(
+        st10, KD.span_stats_plain(ta[0], ta[2], ta[3], scan_ext)))
+    for label, ext, st_x, c_x in (
+            (f"escalating prefix of {b_esc} tiles", ext_p, frozen, ce),
+            ("exact scan", scan_ext, st10, cd)):
+        n_x = ext[0][1]
+        k7 = lambda e=ext, s_=st_x, c_=c_x: KD.span_score(  # noqa: E731
+            *ta[:4], e, s_, c_, n_x)
+        k7p = lambda e=ext, s_=st_x, c_=c_x: KD.span_score_plain(  # noqa: E731
+            *ta[:4], e, s_, c_, n_x)
+        g, w = k7(), k7p()
+        torch.cuda.synchronize()
+        note("span_score", f"10M term, {label}", diff(g, w))
+        measure(*src_k7, k7, k7p, None,
+                n_x * (row_b + 4) + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+                f"{n_x} rows of the 10M term in place ({label})",
+                path="devstore")
+    measure(*src_k6, lambda: KD.span_stats(ta[0], ta[2], ta[3], scan_ext),
+            lambda: KD.span_stats_plain(ta[0], ta[2], ta[3], scan_ext), None,
+            sp.count * (P.NF * 2 + 4 + 1) + 4 * KC.STATS_LEN, 0.0,
+            f"{sp.count} rows of the 10M term in place (exact scan)",
+            path="devstore")
+    buf10 = KD.span_score(*ta[:4], scan_ext, st10, cd, sp.count)
+    check_topk("exact scan buffer of the 10M term", buf10, kk,
+               ta[2][sp.start:sp.start + sp.count])
+    measure(*topk_src, *topk_fns(buf10, kk, "index", None),
+            4 * sp.count + 16 * kk, 0.0,
+            f"{sp.count} int32 scores of the exact scan, k={kk}, index mode",
+            path="devstore")
+    top_s, top_r, _ = KT.tie_topk(buf10, kk)
+    for label, kw in (("the exact scan's statistics", dict(stats=st10)),
+                      ("the tail check of a 1-tile prefix", dict(
+                          pmax=ta[4], tail=(sp.tstart, 1, sp.tcount, shift,
+                                            lterm)))):
+        fin = lambda kw=kw: KD.topk_finish(top_s, top_r, ta[2],  # noqa: E731
+                                           scan_ext, **kw)
+        finp = lambda kw=kw: KD.topk_finish_plain(  # noqa: E731
+            top_s, top_r, ta[2], scan_ext, **kw)
+        g, w = fin(), finp()
+        torch.cuda.synchronize()
+        note("topk_finish", f"10M term, kk={kk}, {label}", diff(g, w))
+        extra = (4 * (2 * P.NF + 2) if "stats" in kw
+                 else 4 * (sp.tcount - 1))
+        measure(*src_fin, fin, finp, None,
+                kk * 12 + 4 * g.numel() + extra, 0.0,
+                f"kk={kk} winners of the 10M term's exact scan, {label}",
+                path="devstore")
+    del buf10
+
+    # rank_term's wall per query (median of 50 after a warm-up) for the
+    # three kinds of query, the same store: pruned, escalating, and, after
+    # a tombstone, the exact scan
+    def rank_walls(label, prof, k):
+        for _ in range(5):
+            ts.rank_term(hl, prof, k=k)
+        r0, t0s, p0 = ts.prune_rounds, ts.stream_scans, ts.pruned_tiles
+        w = []
+        for _ in range(50):
+            tq = time.perf_counter()
+            ts.rank_term(hl, prof, k=k)
+            w.append((time.perf_counter() - tq) * 1e3)
+        log(f"rank_term per query, 10M term, {label}, k={k}: median "
+            f"{float(np.median(w)):.4f} ms, mean {float(np.mean(w)):.4f} ms,"
+            f" min {min(w):.4f} ms over 50 after 5; per query "
+            f"{(ts.prune_rounds - r0) / 50:g} prune rounds, "
+            f"{(ts.pruned_tiles - p0) / 50:g} pruned tiles, "
+            f"{(ts.stream_scans - t0s) / 50:g} exact scans")
+
+    # the device part of the pruned and the exact-scan query: the store's
+    # dispatch functions and the one fetch, without rank_term's host work
+    # around them (profile, spans, descriptor, the answer's filtering)
+    for label, fn in (
+            ("pruned_query (K5) + fetch", lambda: TD.pruned_query(
+                ta, sp, shift, lterm, cd, kk, 1).cpu()),
+            ("scan_query (K6, K7, kernel 3, topk_finish) + fetch",
+             lambda: TD.scan_query(ta, scan_ext, cd, kk).cpu())):
+        for _ in range(5):
+            fn()
+        w = []
+        for _ in range(50):
+            tq = time.perf_counter()
+            fn()
+            w.append((time.perf_counter() - tq) * 1e3)
+        log(f"{label}, 10M term, kk={kk}: median {float(np.median(w)):.4f}"
+            f" ms, min {min(w):.4f} ms over 50 after 5")
+    rank_walls("pruned (default profile)", ds_profiles["default"], 100)
+    rank_walls("escalating profile", ds_profiles["escalating"], 100)
+    ti.delete_doc(int(docids[7]))
+    rank_walls("after a tombstone: exact scan", ds_profiles["default"], 100)
 
     # the step itself: rank_placed's wall per query after a warm-up
     for q in range(5):

@@ -61,6 +61,10 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.parallel.mesh\n"
         "import yacy_search_server_tpu_torch.convert\n"
         "import yacy_search_server_tpu_torch.kernels\n"
+        "import yacy_search_server_tpu_torch.kernels.devstore\n"
+        "import yacy_search_server_tpu_torch.kernels.bench\n"
+        "import yacy_search_server_tpu_torch.index.rwi\n"
+        "import yacy_search_server_tpu_torch.index.devstore\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )

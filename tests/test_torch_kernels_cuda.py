@@ -10,7 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from yacy_search_server_tpu_torch.index import devstore as TD
 from yacy_search_server_tpu_torch.index import postings as P
+from yacy_search_server_tpu_torch.index.rwi import RWIIndex
+from yacy_search_server_tpu_torch.kernels import devstore as KD
 from yacy_search_server_tpu_torch.kernels import (LAUNCHES, bench as KBench,
                                                   cardinal as KC, topk as KT)
 from yacy_search_server_tpu_torch.ops import ranking as R
@@ -394,3 +397,149 @@ def test_fused_gather_topk_columns(dev):
     assert LAUNCHES["gather_topk"] == before + 1
     assert torch.equal(fs.view(torch.int32).cpu(), ps)
     assert torch.equal(fd.cpu(), pd)
+
+
+# ---------------------------------------------------------------------------
+# the devstore kernels: K5 pruned_tile, K6 span_stats, K7 span_score,
+# topk_finish, and the store's routes through them
+# ---------------------------------------------------------------------------
+
+NONDEFAULT = dict(worddistance=2, appemph=15, urllength=12, tf=3)
+
+
+@pytest.fixture(scope="module")
+def edge_store():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return KBench.devstore_edges("cuda")[0]
+
+
+def _arena(store):
+    f, fl, d = store.arena.arrays()
+    return f, fl, d, store.arena.dead_array(), store.arena._pmax
+
+
+def _consts(prof):
+    return R.profile_consts(prof, 0x656E, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("kk", [16, 128, 1024, 2048])
+@pytest.mark.parametrize("bs", [1, 16, 20])
+@pytest.mark.parametrize("nondefault", [False, True])
+def test_pruned_tile_matches_plain(edge_store, nondefault, bs, kk, init):
+    """Pad slots, a ragged last tile, dead rows, live docids past the
+    bitmap, ties; the non-default profile's bound fails on the big term;
+    20 slots take two launches of 16 and 4."""
+    prof = R.RankingProfile(**NONDEFAULT) if nondefault else R.RankingProfile()
+    shift, lang = TD.prune_bound_consts(prof)
+    desc = KD.pack_desc(KBench.edge_slots(edge_store, bs), int(shift),
+                        int(lang))
+    a, c = _arena(edge_store), _consts(prof)
+    before = LAUNCHES["pruned_tile"]
+    got = KD.pruned_tile(*a, desc, kk, c, init)
+    want = KD.pruned_tile_plain(*a, desc, kk, c, init)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pruned_tile"] == before + 1
+    assert torch.equal(got, want)
+    if nondefault and kk == 16:
+        assert int(got[0, 2 * kk]) == 0, "the big term's bound should fail"
+
+
+@pytest.mark.parametrize("n", [1, 2, 8])
+def test_span_stats_and_score_match_plain(edge_store, n):
+    """1, 2 and 8 extents: whole, offset, ragged, all dead, empty."""
+    f, fl, d, dead, _pm = _arena(edge_store)
+    ext = KBench.edge_extents(edge_store, n)
+    st = KD.span_stats(f, d, dead, ext)
+    _stats_equal(st, KD.span_stats_plain(f, d, dead, ext))
+    rows = sum(c for _s, c in ext)
+    for prof in (R.RankingProfile(), R.RankingProfile(**NONDEFAULT)):
+        c = _consts(prof)
+        for out_len in (rows, rows + 1_000):
+            got = KD.span_score(f, fl, d, dead, ext, st, c, out_len)
+            want = KD.span_score_plain(f, fl, d, dead, ext, st, c, out_len)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+def test_span_stats_of_no_live_row(edge_store):
+    f, _fl, d, dead, _pm = _arena(edge_store)
+    for ext in ([], KBench.edge_extents(edge_store, 8)[3:5]):
+        got = KD.span_stats(f, d, dead, ext)
+        _stats_equal(got, KD.span_stats_plain(f, d, dead, ext))
+        assert int(got[KC.S_COL_MIN]) == KC.BIG
+
+
+@pytest.mark.parametrize("kk", [16, 1024, 4096])
+def test_topk_finish_matches_plain(edge_store, kk):
+    f, fl, d, dead, pm = _arena(edge_store)
+    ext = KBench.edge_extents(edge_store, 8)
+    st = KD.span_stats(f, d, dead, ext)
+    c = _consts(R.RankingProfile())
+    buf = KD.span_score(f, fl, d, dead, ext, st, c,
+                        max(sum(n for _s, n in ext), kk))
+    s, rows, _ = KT.tie_topk(buf, kk)
+    got = KD.topk_finish(s, rows, d, ext, stats=st)
+    want = KD.topk_finish_plain(s, rows, d, ext, stats=st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    big = edge_store.spans_for(b"bigAAAAAAAAA")[0]
+    for j0 in (0, 1, big.tcount):
+        tail = (big.tstart, j0, big.tcount,
+                *map(int, TD.prune_bound_consts(R.RankingProfile())))
+        got = KD.topk_finish(s, rows, d, ext, pmax=pm, tail=tail)
+        want = KD.topk_finish_plain(s, rows, d, ext, pmax=pm, tail=tail)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kk", [16, 1024, 4096])
+@pytest.mark.parametrize("nondefault", [False, True])
+def test_store_routes_match_cpu(edge_store, nondefault, kk):
+    """The store's pruned route at b = 1, 8, 64 and its exact scan on the
+    card against the same routes on a CPU copy of the arena."""
+    prof = R.RankingProfile(**NONDEFAULT) if nondefault else R.RankingProfile()
+    shift, lang = TD.prune_bound_consts(prof)
+    a = _arena(edge_store)
+    a_cpu = tuple(t.cpu() for t in a)
+    c = _consts(prof)
+    for th in KBench.EDGE_TERMS:
+        sp = edge_store.spans_for(th)[0]
+        for b in (1, 8, 64):
+            got = TD.pruned_query(a, sp, shift, lang, c, kk, b)
+            want = TD.pruned_query(a_cpu, sp, shift, lang, c.cpu(), kk, b)
+            assert torch.equal(got.cpu(), want)
+    for n in (1, 2, 8):
+        ext = KBench.edge_extents(edge_store, n)
+        got = TD.scan_query(a, ext, c, kk)
+        want = TD.scan_query(a_cpu, ext, c.cpu(), kk)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_rank_term_on_the_card_matches_cpu():
+    """A store on the card and its twin on the CPU over one RWI: pruned,
+    escalated and exact-scan answers equal, with equal counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    feats, docids, _h, _rng = KBench.make_term(300_000)
+    idx = RWIIndex()
+    th = b"termAAAAAAAA"
+    idx.add_many(th, P.PostingsList(docids, feats))
+    idx.flush()
+    g = TD.DeviceSegmentStore(idx, device="cuda")
+    h = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KBench.Fanout(g, h)
+    counters = lambda s: (s.prune_rounds, s.pruned_tiles,  # noqa: E731
+                          s.stream_scans, s.queries_served)
+    for prof, k in ((R.RankingProfile(), 10), (R.RankingProfile(), 1000),
+                    (R.RankingProfile(**NONDEFAULT), 100)):
+        a, b = g.rank_term(th, prof, k=k), h.rank_term(th, prof, k=k)
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        assert a[2] == b[2]
+    idx.delete_doc(int(docids[5]))
+    a, b = g.rank_term(th, R.RankingProfile(), k=100), \
+        h.rank_term(th, R.RankingProfile(), k=100)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    assert counters(g) == counters(h) and g.stream_scans == 1

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the query-time ranking step of yacy_search_server_tpu.
 
 The layout mirrors the JAX package so each module has an obvious
-counterpart (`utils/bitfield.py`, `index/postings.py`, `ops/ranking.py`,
-`ops/streaming.py`, `parallel/mesh.py`). Device kernels are hand-written
+counterpart (`utils/bitfield.py`, `index/postings.py`, `index/rwi.py`,
+`index/devstore.py`, `ops/ranking.py`, `ops/streaming.py`,
+`parallel/mesh.py`). Device kernels are hand-written
 CUDA C++ for sm_90a under `kernels/`; each has a plain PyTorch version
 that runs only for tensors on the CPU.
 

@@ -3,7 +3,8 @@
 Copy of yacy_search_server_tpu/index/postings.py (numpy only): a term's
 postings are `docids` int32 [n] (ascending, unique) and `feats` int32
 [n, NF], one column per posting attribute of the reference's
-WordReferenceRow.
+WordReferenceRow. `sort_dedupe`, `merge` and `remove_docids` are the
+in-memory index's helpers (index/rwi.py), the JAX package's numpy path.
 """
 
 from __future__ import annotations
@@ -58,3 +59,41 @@ class PostingsList:
     @staticmethod
     def empty() -> "PostingsList":
         return PostingsList(np.empty(0, np.int32), np.empty((0, NF), np.int32))
+
+    def select(self, mask: np.ndarray) -> "PostingsList":
+        return PostingsList(self.docids[mask], self.feats[mask])
+
+
+def sort_dedupe(docids: np.ndarray, feats: np.ndarray) -> PostingsList:
+    """Sort by docid; on duplicates the *last* row wins (newest write)."""
+    order = np.argsort(docids, kind="stable")
+    d, f = docids[order], feats[order]
+    if len(d) > 1:
+        # keep last of each run of equal ids
+        keep = np.empty(len(d), dtype=bool)
+        keep[:-1] = d[1:] != d[:-1]
+        keep[-1] = True
+        d, f = d[keep], f[keep]
+    return PostingsList(d.astype(np.int32, copy=False),
+                        f.astype(np.int32, copy=False))
+
+
+def merge(lists: list[PostingsList]) -> PostingsList:
+    """Merge runs; later lists override earlier ones on docid collision."""
+    lists = [p for p in lists if len(p)]
+    if not lists:
+        return PostingsList.empty()
+    if len(lists) == 1:
+        return lists[0]
+    d = np.concatenate([p.docids for p in lists])
+    f = np.concatenate([p.feats for p in lists])
+    return sort_dedupe(d, f)
+
+
+def remove_docids(p: PostingsList, dead: np.ndarray) -> PostingsList:
+    """Drop postings whose docid is in the sorted `dead` array (tombstones)."""
+    if len(p) == 0 or len(dead) == 0:
+        return p
+    idx = np.searchsorted(dead, p.docids)
+    idx = np.clip(idx, 0, len(dead) - 1)
+    return p.select(dead[idx] != p.docids)

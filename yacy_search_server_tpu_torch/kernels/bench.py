@@ -2,13 +2,17 @@
 
 `make_term` makes the smoke's 10M-posting term from its seed,
 `edge_block` a block at the edges of `cardinal_score`'s int32
-arithmetic, and `sorted_runs` the gathered block of a fusion (one sorted
-run a shard). `call_ms` times one call between two CUDA events as the host
-issues it from an idle queue (the `ms` of chip_smoke.py);
+arithmetic, `sorted_runs` the gathered block of a fusion (one sorted
+run a shard), `devstore_edges` a device store whose arena holds the
+devstore kernels' edge cases (`edge_slots`, `edge_extents`,
+`tile_slots` address it), and `arena_rows` / `devstore_oracle` the
+numpy answer `rank_term` must give. `call_ms` times one call between two
+CUDA events as the host issues it from an idle queue (the `ms` of
+chip_smoke.py);
 `device_ms` times the device alone, the calls queued behind a spin
 kernel. `empty_launch` launches an empty kernel (the floor of a call),
-`device_ops` lists the device operations one call issues (a profiler
-trace). `topk_trace` reads `tie_topk`'s per-pass trace, which the kernel
+`device_ops` lists the device operations one call issues with their
+device times (a profiler trace). `topk_trace` reads `tie_topk`'s per-pass trace, which the kernel
 library holds only when built with YT_KERNEL_TRACE=1.
 """
 
@@ -131,6 +135,134 @@ def sorted_runs(shards: int, rows: int, is_float: bool, rng, pad: int = 0,
     return torch.cat(cols)
 
 
+# the spans of devstore_edges: rows, docid start and step, tie period
+EDGE_TERMS = {
+    b"bigAAAAAAAAA": (3 * 32_768 + 123, 0, 2, 97),   # ragged last tile
+    b"almostAAAAAA": (32_768 - 5, 1, 2, 31),
+    b"shortAAAAAAA": (700, 200_001, 5, 0),
+    b"deadAAAAAAAA": (40, 3, 1000, 0),               # every row tombstoned
+}
+EDGE_DEAD = (0, 2, 4, 64, 1_000, 3_003, 40_003)
+
+
+def devstore_edges(device, seed: int = SEED):
+    """(store, rwi) over EDGE_TERMS in one run on `device`: make_term's
+    columns with one column constant, the best row repeated every `tie`
+    rows (equal scores ranked by arena position), docids past the
+    bitmap's 65,536 slots that stay alive, and tombstones after the pack
+    (EDGE_DEAD and every row of the dead term)."""
+    from ..index.devstore import DeviceSegmentStore
+    from ..index.postings import F_LASTMOD, PostingsList
+    from ..index.rwi import RWIIndex
+    from ..ops import ranking as R
+    idx = RWIIndex()
+    for i, (th, (n, base, step, tie)) in enumerate(EDGE_TERMS.items()):
+        feats, _, _, _ = make_term(n, seed + i)
+        feats[:, F_LASTMOD] = 4321
+        if tie:
+            feats[::tie] = feats[np.argmax(R.cardinal_scores_host(
+                feats, R.RankingProfile()))]
+        idx.add_many(th, PostingsList(
+            (base + step * np.arange(n)).astype(np.int32), feats))
+    idx.flush()
+    store = DeviceSegmentStore(idx, device=device)
+    n, base, step, _ = EDGE_TERMS[b"deadAAAAAAAA"]
+    for d in EDGE_DEAD + tuple(range(base, base + n * step, step)):
+        idx.delete_doc(d)
+    return store, idx
+
+
+def edge_slots(store, bs: int):
+    """K5 slots over the edge spans, repeated to bs - 2, then two pad
+    slots (all fields 0, tcount 0)."""
+    spans = [store.spans_for(th)[0] for th in EDGE_TERMS]
+    zero = np.zeros(17, np.int32)
+    out = []
+    for i in range(max(bs - 2, 1)):
+        sp = spans[i % len(spans)]
+        st = sp.stats
+        out.append((sp.start, sp.count, sp.tstart, sp.tcount,
+                    st["col_min"], st["col_max"], st["tf_min"],
+                    st["tf_max"]))
+    return (out + [(0, 0, 0, 0, zero, zero, np.float32(0),
+                    np.float32(0))] * 2)[:bs]
+
+
+def edge_extents(store, n: int):
+    """1, 2 or 8 arena extents over the edge spans: whole, offset and
+    ragged, all dead, and empty ones."""
+    sp = {th: store.spans_for(th)[0] for th in EDGE_TERMS}
+    big, almost = sp[b"bigAAAAAAAAA"], sp[b"almostAAAAAA"]
+    short, dead = sp[b"shortAAAAAAA"], sp[b"deadAAAAAAAA"]
+    pool = [(big.start, big.count), (almost.start + 7, 5_001),
+            (short.start, short.count), (dead.start, dead.count),
+            (big.start + 3, 0), (big.start + 70_001, 1),
+            (almost.start, almost.count), (short.start + 1, 63)]
+    return pool[:n]
+
+
+class Fanout:
+    """One RWIIndex listener that forwards every call to several stores:
+    a store on the card and its twin on the CPU, or the JAX package's
+    store and the port's."""
+
+    def __init__(self, *stores):
+        self.stores = stores
+
+    def __getattr__(self, name):
+        return lambda *a: [getattr(s, name)(*a) for s in self.stores]
+
+
+def tile_slots(span, bs: int):
+    """bs K5 slots over consecutive tiles of one span: slot i the span's
+    rows from its tile i on (a proxy-sorted extent of its own, bounded by
+    the same pmax rows), each under the span's frozen statistics."""
+    TILE = 32_768
+    if span.tcount < bs:
+        raise ValueError(f"span of {span.tcount} tiles, {bs} slots")
+    st = span.stats
+    return [(span.start + i * TILE, span.count - i * TILE, span.tstart + i,
+             span.tcount - i, st["col_min"], st["col_max"], st["tf_min"],
+             st["tf_max"]) for i in range(bs)]
+
+
+def arena_rows(feats, docids):
+    """(feats16, flags, docids) of one term's postings (ascending unique
+    docids) in the order the device store packs them: compact, sorted by
+    the pack-time proxy score, best first, ties in docid order."""
+    from ..index.devstore import pack_prune_stats
+    from ..ops import ranking as R
+    f16, fl = R.compact_feats(feats)
+    _st, proxy = pack_prune_stats(f16, fl)
+    order = np.argsort(-proxy, kind="stable")
+    return f16[order], fl[order], docids[order]
+
+
+def devstore_oracle(parts, prof, k: int, language: str = "en"):
+    """numpy (scores, docids) that DeviceSegmentStore.rank_term must
+    return over the rows of `parts` (each (feats16, flags, docids) of a
+    span in arena order, tombstoned rows removed, spans oldest first):
+    statistics over all those rows, the kk = max(16, pow2(k)) best by
+    (score descending, position ascending), those above -(2^31-1), the
+    first of each docid, then k."""
+    from ..index import postings as P
+    from ..ops import ranking as R
+    f16 = np.concatenate([a for a, _, _ in parts])
+    fl = np.concatenate([b for _, b, _ in parts])
+    dd = np.concatenate([c for _, _, c in parts])
+    st = R.pack_stats_host(f16, fl)
+    sc = R.cardinal_from_stats_host(f16, fl, st, prof,
+                                    P.pack_language(language))
+    kk = max(16, 1 << (max(k, 1) - 1).bit_length())
+    top = np.argsort(-sc.astype(np.int64), kind="stable")[:kk]
+    s, d = sc[top].astype(np.int32), dd[top]
+    keep = s > -(2**31 - 1)
+    s, d = s[keep], d[keep]
+    _, first = np.unique(d, return_index=True)
+    sel = np.sort(first)
+    return s[sel][:k], d[sel][:k]
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Median device time of one call of `fn`, in ms.
 
@@ -188,8 +320,9 @@ def empty_launch() -> None:
 
 
 def device_ops(fn) -> list:
-    """Names of the device operations (kernels, memsets, copies) one call
-    of `fn` issues, read from a torch.profiler trace of the call."""
+    """The device operations (kernels, memsets, copies) one call of `fn`
+    issues, each as "name: its device time in us", read from a
+    torch.profiler trace of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -197,7 +330,8 @@ def device_ops(fn) -> list:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
+    return [f"{e.name}: {e.time_range.elapsed_us():.1f} us"
+            for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 

@@ -34,7 +34,8 @@
 // Scores are stored coalesced; the authority gather reads the host
 // counts through the L2 (40 MB at 10M bins, never staged). The staging
 // helpers (issue_chunk, copy_span, Stage) live in common.cuh, shared with
-// cardinal_stats.
+// cardinal_stats, and so does the row scorer (score_row), shared with the
+// devstore kernels.
 //
 // Three rewrites of the first version's row body, each exact:
 //   - the int32 path's floor(prod / safe) is a double estimate (prod
@@ -62,126 +63,6 @@ namespace yt {
 constexpr int WARPS = 4;               // warps per block
 constexpr int MIN_BLOCKS = 4;          // resident blocks an SM, at least
 
-struct ScoreConsts {
-  int32_t cmin[NF], span[NF], safe[NF], shift[NF];
-  float rcp[NF];
-  int32_t c[CONSTS_LEN];
-  float tmin, tspan, tden;
-  int32_t hmax;
-};
-
-// The block's constants in registers, each constant-only subexpression
-// folded once. A shift amount outside [0, 32) becomes 32 and the shift a
-// clamping funnel shift, which gives 0 there as XLA's shift does; a
-// column whose span is 0 gets shift 32 (its term is 0, as when skipped);
-// (f - cmin) * 256 is f * 256 + (-cmin * 256) in uint32; a flag bit
-// outside [0, 32) tests bit 31 (fl < 0); a flag or language hit adds its
-// shl(255, s).
-struct RegConsts {
-  uint32_t cneg[NF];
-  int32_t safe[NF];
-  uint32_t shift[NF];
-  float rcp[NF];
-  double rcp64[NF];
-  uint32_t flag_bit[N_FLAG_TERMS], flag_val[N_FLAG_TERMS];
-  uint32_t dl_shift, tf_shift, auth_shift, lang_val;
-  int32_t lang_pref, hmax;
-  float tmin, tspan, tden;
-};
-
-__device__ __forceinline__ uint32_t clamp_shift(int32_t s) {
-  return (s < 0 || s >= 32) ? 32u : (uint32_t)s;
-}
-
-// x << s for s in [0, 32), 0 for s == 32
-__device__ __forceinline__ uint32_t shl32(uint32_t x, uint32_t s) {
-  return __funnelshift_lc(0u, x, s);
-}
-
-__device__ __forceinline__ void load_consts(const ScoreConsts& k,
-                                            RegConsts& r) {
-#pragma unroll
-  for (int c = 0; c < NF; ++c) {
-    if (!is_active(c)) continue;
-    r.cneg[c] = (0u - (uint32_t)k.cmin[c]) * 256u;
-    r.safe[c] = k.safe[c];
-    r.shift[c] = k.span[c] == 0 ? 32u : clamp_shift(k.shift[c]);
-    r.rcp[c] = k.rcp[c];
-    r.rcp64[c] = __ddiv_rn(1.0, (double)k.safe[c]);
-  }
-#pragma unroll
-  for (int j = 0; j < N_FLAG_TERMS; ++j) {
-    const int32_t b = k.c[C_BITS + j];
-    r.flag_bit[j] = (b < 0 || b >= 32) ? 31u : (uint32_t)b;
-    r.flag_val[j] = shl(255u, k.c[C_SHIFTS + j]);
-  }
-  r.dl_shift = clamp_shift(k.c[C_DOMLENGTH]);
-  r.tf_shift = clamp_shift(k.c[C_TF]);
-  r.auth_shift = clamp_shift(k.c[C_AUTHORITY]);
-  r.lang_val = shl(255u, k.c[C_LANGUAGE]);
-  r.lang_pref = k.c[C_LANG_PREF];
-  r.hmax = k.hmax;
-  r.tmin = k.tmin;
-  r.tspan = k.tspan;
-  r.tden = k.tden;
-}
-
-// floor(a / d) for 1 <= d < 2^31, rcp = 1.0 / d rounded to nearest: the
-// estimate is within one of the floor (head note), the remainder fixes it
-__device__ __forceinline__ int32_t floordiv64(int32_t a, int32_t d,
-                                              double rcp) {
-  long long q = __double2ll_rd(__dmul_rn((double)a, rcp));
-  const long long r = (long long)a - q * d;
-  q += (r >= d ? 1 : 0) - (r < 0 ? 1 : 0);
-  return (int32_t)q;
-}
-
-// One row's score with the constants in registers: every float step is
-// the first version's intrinsic, every integer step its value mod 2^32.
-template <typename T, bool FAST>
-__device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
-                                             const RegConsts& k,
-                                             bool use_auth,
-                                             int32_t count_h) {
-  uint32_t score = 0;
-#pragma unroll
-  for (int c = 0; c < NF; ++c) {
-    if (!is_active(c)) continue;
-    const int32_t safe = k.safe[c];
-    const int32_t prod = (int32_t)((uint32_t)(int32_t)f[c] * 256u + k.cneg[c]);
-    int32_t norm;
-    if (FAST) {
-      int32_t q0 = __float2int_rz(__fmul_rn(__int2float_rn(prod), k.rcp[c]));
-      int32_t rem =
-          (int32_t)((uint32_t)prod - (uint32_t)q0 * (uint32_t)safe);
-      norm = q0 + (rem >= safe ? 1 : 0) - (rem < 0 ? 1 : 0);
-    } else {
-      norm = floordiv64(prod, safe, k.rcp64[c]);
-    }
-    uint32_t contrib = is_direct(c) ? (uint32_t)norm : 256u - (uint32_t)norm;
-    score += shl32(contrib, k.shift[c]);
-  }
-  score += shl32(256u - (uint32_t)(int32_t)f[F_DOMLENGTH], k.dl_shift);
-
-  if (k.tspan > 0.0f) {
-    float tf = term_frequency(f);
-    float x = __fdiv_rn(__fmul_rn(__fsub_rn(tf, k.tmin), 256.0f), k.tden);
-    score += shl32((uint32_t)__float2int_rz(x), k.tf_shift);
-  }
-
-  if ((int32_t)f[F_LANGUAGE] == k.lang_pref) score += k.lang_val;
-
-#pragma unroll
-  for (int j = 0; j < N_FLAG_TERMS; ++j)
-    score += (((uint32_t)fl >> k.flag_bit[j]) & 1u) * k.flag_val[j];
-
-  if (use_auth) {
-    int32_t a = floordiv((int32_t)((uint32_t)count_h << 8), 1 + k.hmax);
-    score += shl32((uint32_t)a, k.auth_shift);
-  }
-  return (int32_t)score;
-}
-
 template <typename T, bool FAST>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
@@ -207,25 +88,7 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
   if (c < chunks) issue_chunk(feats, flags, valid, hsrc, n, c, mine, lane);
   cp_async_commit();
 
-  if (t < CONSTS_LEN) k.c[t] = consts[t];
-  if (t < NF) {
-    int32_t cmin = st[S_COL_MIN + t];
-    int32_t span = (int32_t)((uint32_t)st[S_COL_MAX + t] - (uint32_t)cmin);
-    int32_t safe = max(span, 1);
-    k.cmin[t] = cmin;
-    k.span[t] = span;
-    k.safe[t] = safe;
-    k.rcp[t] = __fdiv_rn(1.0f, __int2float_rn(safe));
-    int32_t cc = consts[C_NORM + t];
-    k.shift[t] = cc < 0 ? -cc : cc;
-  }
-  if (t == 0) {
-    float tmin = __int_as_float(st[S_TF_MIN]);
-    k.tmin = tmin;
-    k.tspan = __fsub_rn(__int_as_float(st[S_TF_MAX]), tmin);
-    k.tden = fmaxf(k.tspan, 1e-9f);
-    k.hmax = st[S_HOST_MAX];
-  }
+  fill_consts(k, st, consts, t);
   __syncthreads();
   RegConsts rk;
   load_consts(k, rk);
@@ -262,6 +125,80 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
     __syncwarp();
   }
   cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// K7 `span_score`: pass 2 of the devstore's exact scan, minus its top-k
+// ---------------------------------------------------------------------------
+// Replaces the scoring pass of index/devstore._rank_spans_kernel (JAX
+// package, devstore.py:425-459): the rows of up to 8 arena extents scored
+// in place against given statistics (span_stats' or a span's frozen
+// ones) with the compact path's division, into one contiguous buffer in
+// extent order; kernel 3 then selects from it in index mode, which is the
+// order of the JAX running merge (score descending, then the row's place
+// in the sequence). Liveness is decided here from the docids and the
+// tombstone bitmap (row_live), so the host sends no counts and no mask.
+// Rows [rows, out_len) of the buffer get -(2^31-1): a top-k of kk > rows
+// reads them as the JAX merge reads its init entries.
+//
+// Bound: bytes, 34 B of features + 4 B flags + 4 B docid read and 4 B
+// written a row. The row pipeline is score_chunks': persistent warps, 64-
+// row chunks staged by cp.async two stages deep, the docids in the host-id
+// region; a chunk never straddles two extents.
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_extents(const int16_t* __restrict__ feats,
+              const int32_t* __restrict__ flags,
+              const int32_t* __restrict__ docids,
+              const uint8_t* __restrict__ dead, int64_t doc_cap,
+              const Extents x, const int32_t* __restrict__ st,
+              const int32_t* __restrict__ consts,
+              int32_t* __restrict__ out, int64_t out_len) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ScoreConsts k;
+  constexpr int SB = stage_bytes<int16_t>();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t chunks = x.cbase[x.n];
+  const int64_t step = (int64_t)gridDim.x * WARPS;
+  unsigned char* mine = smem + warp * 2 * SB;
+
+  int64_t c = (int64_t)blockIdx.x * WARPS + warp;
+  if (c < chunks) issue_extent_chunk(x, feats, flags, docids, c, mine, lane);
+  cp_async_commit();
+  fill_consts(k, st, consts, t);
+  __syncthreads();
+  RegConsts rk;
+  load_consts(k, rk);
+
+  for (int i = 0; c < chunks; ++i, c += step) {
+    const int cur = i & 1;
+    if (c + step < chunks)
+      issue_extent_chunk(x, feats, flags, docids, c + step,
+                         mine + (cur ^ 1) * SB, lane);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int e = extent_of_chunk(x, c);
+    const int64_t s = x.start[e];
+    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF, flags + s,
+                            docids + s, nullptr);
+    const int64_t r0 = (c - x.cbase[e]) * CH;
+#pragma unroll
+    for (int m = 0; m < CH / 32; ++m) {
+      const int j = lane + 32 * m;
+      if (r0 + j < x.count[e]) {
+        int32_t score = SMALL;
+        if (row_live(sg.host(j), dead, doc_cap))
+          score = score_row<int16_t, true>(sg.row(j), sg.flag(j), rk, false,
+                                           0);
+        out[x.obase[e] + r0 + j] = score;
+      }
+    }
+    __syncwarp();
+  }
+  cp_async_wait<0>();
+  for (int64_t r = x.obase[x.n] + (int64_t)blockIdx.x * blockDim.x + t;
+       r < out_len; r += (int64_t)gridDim.x * blockDim.x)
+    out[r] = SMALL;
 }
 
 template <typename T, bool FAST>
@@ -310,5 +247,32 @@ extern "C" int yt_cardinal_score(const void* feats, int feat_bytes,
                       num_hosts, consts, out, s);
     if (e != cudaSuccess) return (int)e;
   }
+  return (int)cudaGetLastError();
+}
+
+// K7: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
+// feats [cap, 17] int16, flags/docids [cap] int32, dead [doc_cap] bool;
+// stats int32[38]; consts int32[44]; out [out_len] int32, out_len >= the
+// extents' rows.
+extern "C" int yt_span_score(const void* feats, const void* flags,
+                             const void* docids, const void* dead,
+                             int64_t doc_cap, const int64_t* ext, int n_ext,
+                             const void* stats, const void* consts, void* out,
+                             int64_t out_len, void* stream) {
+  if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
+  const Extents x = make_extents(ext, n_ext);
+  if (out_len < x.obase[n_ext]) return (int)cudaErrorInvalidValue;
+  const int smem = WARPS * 2 * stage_bytes<int16_t>();
+  static int cached[64];
+  int limit = 0;
+  cudaError_t e =
+      resident_blocks(score_extents, WARPS * 32, smem, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (x.cbase[n_ext] + WARPS - 1) / WARPS;
+  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
+  score_extents<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, x, (const int32_t*)stats,
+      (const int32_t*)consts, (int32_t*)out, out_len);
   return (int)cudaGetLastError();
 }

@@ -94,6 +94,90 @@ __device__ __forceinline__ int32_t from_acc(int s, uint32_t u) {
   return (int32_t)u;
 }
 
+// One thread's running statistics: column minima and maxima, the tf
+// bounds as order keys, the NaN flag and the host maximum.
+struct Fold {
+  int32_t lmin[NF], lmax[NF];
+  int32_t tmin = TF_POS_INF, tmax = TF_NEG_INF, nan = 0, hmax = 0;
+
+  __device__ __forceinline__ Fold() {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      lmin[k] = BIG;
+      lmax[k] = SMALL;
+    }
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void row(const T* f) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      const int32_t v = (int32_t)f[k];
+      lmin[k] = min(lmin[k], v);
+      lmax[k] = max(lmax[k], v);
+    }
+    const float tf = term_frequency(f);
+    if (tf != tf) {
+      nan = 1;
+    } else {
+      const int32_t key = float_order(__float_as_int(tf));
+      tmin = min(tmin, key);
+      tmax = max(tmax, key);
+    }
+  }
+};
+
+// The block folds its threads' statistics (warp shuffles, then s_acc,
+// zeroed by the caller before a __syncthreads) into the accumulator in
+// device memory; the last block to finish writes st in final form.
+__device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
+                                             bool* s_last,
+                                             uint32_t* __restrict__ acc,
+                                             uint32_t* __restrict__ ticket,
+                                             int32_t* __restrict__ st) {
+  const int t = threadIdx.x, lane = t & 31;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      a.lmin[k] = min(a.lmin[k], __shfl_xor_sync(0xffffffffu, a.lmin[k], o));
+      a.lmax[k] = max(a.lmax[k], __shfl_xor_sync(0xffffffffu, a.lmax[k], o));
+    }
+    a.tmin = min(a.tmin, __shfl_xor_sync(0xffffffffu, a.tmin, o));
+    a.tmax = max(a.tmax, __shfl_xor_sync(0xffffffffu, a.tmax, o));
+    a.nan |= __shfl_xor_sync(0xffffffffu, a.nan, o);
+    a.hmax = max(a.hmax, __shfl_xor_sync(0xffffffffu, a.hmax, o));
+  }
+  __syncthreads();  // s_acc zeroed
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      atomicMax(&s_acc[S_COL_MIN + k], to_acc(S_COL_MIN + k, a.lmin[k]));
+      atomicMax(&s_acc[S_COL_MAX + k], to_acc(S_COL_MAX + k, a.lmax[k]));
+    }
+    atomicMax(&s_acc[S_TF_MIN], to_acc(S_TF_MIN, a.tmin));
+    atomicMax(&s_acc[S_TF_MAX], to_acc(S_TF_MAX, a.tmax));
+    atomicMax(&s_acc[S_HOST_MAX], to_acc(S_HOST_MAX, a.hmax));
+    atomicMax(&s_acc[S_NAN], to_acc(S_NAN, a.nan));
+  }
+  __syncthreads();
+  if (t < STATS_LEN && s_acc[t]) atomicMax(acc + t, s_acc[t]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) *s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!*s_last) return;
+  __threadfence();
+  if (t < STATS_LEN) s_acc[t] = __ldcg(acc + t);
+  __syncthreads();
+  if (t < STATS_LEN) {
+    int32_t v = from_acc(t, s_acc[t]);
+    if (t == S_TF_MIN || t == S_TF_MAX)
+      v = s_acc[S_NAN] ? 0x7fc00000 : float_order(v);
+    st[t] = v;
+  }
+}
+
 // HOSTS: launched in clusters of H_CLUSTER blocks, one block an SM; host
 // ids below `priv` are counted in the cluster's shared bins (bin h in
 // block h % H_CLUSTER, word h / H_CLUSTER, after the stages), the others
@@ -130,13 +214,7 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
     cg::this_cluster().sync();  // every block's bins zeroed
   }
 
-  int32_t lmin[NF], lmax[NF];
-#pragma unroll
-  for (int k = 0; k < NF; ++k) {
-    lmin[k] = BIG;
-    lmax[k] = SMALL;
-  }
-  int32_t tmin = TF_POS_INF, tmax = TF_NEG_INF, nan = 0, hmax = 0;
+  Fold a;
 
   for (int i = 0; c < chunks; ++i, c += step) {
     const int cur = i & 1;
@@ -151,23 +229,7 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
     for (int m = 0; m < CH / 32; ++m) {
       const int j = lane + 32 * m;
       const bool live = c * CH + j < n && sg.v[j];
-      if (live) {
-        const T* f = sg.row(j);
-#pragma unroll
-        for (int k = 0; k < NF; ++k) {
-          const int32_t v = (int32_t)f[k];
-          lmin[k] = min(lmin[k], v);
-          lmax[k] = max(lmax[k], v);
-        }
-        const float tf = term_frequency(f);
-        if (tf != tf) {
-          nan = 1;
-        } else {
-          const int32_t key = float_order(__float_as_int(tf));
-          tmin = min(tmin, key);
-          tmax = max(tmax, key);
-        }
-      }
+      if (live) a.row(sg.row(j));
       if (HOSTS) {
         // the lanes that hold one host add once for all of them (-1: the
         // row is not counted)
@@ -181,7 +243,7 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
                           bins + h / H_CLUSTER, h % H_CLUSTER),
                       (uint32_t)k);
           else
-            hmax = max(hmax, atomicAdd(counts + h, k) + k);
+            a.hmax = max(a.hmax, atomicAdd(counts + h, k) + k);
         }
       }
     }
@@ -193,50 +255,69 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
     for (int64_t b = t; b < nbins; b += S_WARPS * 32) {
       const int32_t k = (int32_t)bins[b];
       if (k)
-        hmax = max(hmax, atomicAdd(counts + rank + b * H_CLUSTER, k) + k);
+        a.hmax = max(a.hmax, atomicAdd(counts + rank + b * H_CLUSTER, k) + k);
     }
   }
 
+  finish_stats(a, s_acc, &s_last, acc, ticket, st);
+}
+
+// ---------------------------------------------------------------------------
+// K6 `span_stats`: pass 1 of the devstore's exact scan
+// ---------------------------------------------------------------------------
+// Replaces the statistics pass of index/devstore._rank_spans_kernel (JAX
+// package, devstore.py:378-423): the column min/max and tf min/max of the
+// live rows of up to 8 arena extents, read in place; liveness (row_live)
+// from the docids and the tombstone bitmap, no host counts. The row
+// pipeline, the fold and the last block's finish are stats_pass'.
+//
+// Bound: bytes, 34 B of features and 4 B of docid read a row (and the
+// tombstone bytes the docids hit, from the L2).
+__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
+stats_extents(const int16_t* __restrict__ feats,
+              const int32_t* __restrict__ docids,
+              const uint8_t* __restrict__ dead, int64_t doc_cap,
+              const Extents x, uint32_t* __restrict__ acc,
+              uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  constexpr int SB = stage_bytes<int16_t>();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t chunks = x.cbase[x.n];
+  const int64_t step = (int64_t)gridDim.x * S_WARPS;
+  unsigned char* mine = smem + warp * 2 * SB;
+
+  int64_t c = (int64_t)blockIdx.x * S_WARPS + warp;
+  if (c < chunks)
+    issue_extent_chunk(x, feats, nullptr, docids, c, mine, lane);
+  cp_async_commit();
+  if (t < STATS_LEN) s_acc[t] = 0u;
+  Fold a;
+
+  for (int i = 0; c < chunks; ++i, c += step) {
+    const int cur = i & 1;
+    if (c + step < chunks)
+      issue_extent_chunk(x, feats, nullptr, docids, c + step,
+                         mine + (cur ^ 1) * SB, lane);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int e = extent_of_chunk(x, c);
+    const int64_t s = x.start[e];
+    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF, nullptr,
+                            docids + s, nullptr);
+    const int64_t r0 = (c - x.cbase[e]) * CH;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      lmin[k] = min(lmin[k], __shfl_xor_sync(0xffffffffu, lmin[k], o));
-      lmax[k] = max(lmax[k], __shfl_xor_sync(0xffffffffu, lmax[k], o));
+    for (int m = 0; m < CH / 32; ++m) {
+      const int j = lane + 32 * m;
+      if (r0 + j < x.count[e] && row_live(sg.host(j), dead, doc_cap))
+        a.row(sg.row(j));
     }
-    tmin = min(tmin, __shfl_xor_sync(0xffffffffu, tmin, o));
-    tmax = max(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    nan |= __shfl_xor_sync(0xffffffffu, nan, o);
-    hmax = max(hmax, __shfl_xor_sync(0xffffffffu, hmax, o));
+    __syncwarp();
   }
-  __syncthreads();  // s_acc zeroed
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      atomicMax(&s_acc[S_COL_MIN + k], to_acc(S_COL_MIN + k, lmin[k]));
-      atomicMax(&s_acc[S_COL_MAX + k], to_acc(S_COL_MAX + k, lmax[k]));
-    }
-    atomicMax(&s_acc[S_TF_MIN], to_acc(S_TF_MIN, tmin));
-    atomicMax(&s_acc[S_TF_MAX], to_acc(S_TF_MAX, tmax));
-    atomicMax(&s_acc[S_HOST_MAX], to_acc(S_HOST_MAX, hmax));
-    atomicMax(&s_acc[S_NAN], to_acc(S_NAN, nan));
-  }
-  __syncthreads();
-  if (t < STATS_LEN && s_acc[t]) atomicMax(acc + t, s_acc[t]);
-  __threadfence();
-  __syncthreads();
-  if (t == 0) s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  if (t < STATS_LEN) s_acc[t] = __ldcg(acc + t);
-  __syncthreads();
-  if (t < STATS_LEN) {
-    int32_t v = from_acc(t, s_acc[t]);
-    if (t == S_TF_MIN || t == S_TF_MAX)
-      v = s_acc[S_NAN] ? 0x7fc00000 : float_order(v);
-    st[t] = v;
-  }
+  cp_async_wait<0>();
+  finish_stats(a, s_acc, &s_last, acc, ticket, st);
 }
 
 template <typename T>
@@ -341,4 +422,33 @@ extern "C" int yt_cardinal_stats(const void* feats, int feat_bytes,
           : launch<int32_t>(feats, valid, hostids, n, num_hosts, counts, acc,
                             ticket, st, s);
   return (int)e;
+}
+
+// K6: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
+// feats [cap, 17] int16, docids [cap] int32, dead [doc_cap] bool. out:
+// int32[38 + 39]: the statistics (written, host maximum 0), then the
+// accumulator and the ticket, which this call zeroes with its one memset.
+extern "C" int yt_span_stats(const void* feats, const void* docids,
+                             const void* dead, int64_t doc_cap,
+                             const int64_t* ext, int n_ext, void* out,
+                             void* stream) {
+  if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Extents x = make_extents(ext, n_ext);
+  int32_t* st = (int32_t*)out;
+  uint32_t* acc = (uint32_t*)(st + STATS_LEN);
+  uint32_t* ticket = acc + STATS_LEN;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (STATS_LEN + 1) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  const int stages = S_WARPS * 2 * stage_bytes<int16_t>();
+  static int cached[64];
+  int limit = 0;
+  e = resident_blocks(stats_extents, S_WARPS * 32, stages, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (x.cbase[n_ext] + S_WARPS - 1) / S_WARPS;
+  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
+  stats_extents<<<grid, S_WARPS * 32, stages, s>>>(
+      (const int16_t*)feats, (const int32_t*)docids, (const uint8_t*)dead,
+      doc_cap, x, acc, ticket, st);
+  return (int)cudaGetLastError();
 }

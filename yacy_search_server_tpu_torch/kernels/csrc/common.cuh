@@ -1,6 +1,8 @@
 // Shared definitions of the port's CUDA kernels: the posting column
-// layout, the packed profile-constant and statistics vectors, and the
-// order-preserving integer keys the selection kernels sort by.
+// layout, the packed profile-constant and statistics vectors, the
+// order-preserving integer keys the selection kernels sort by, the
+// staged row chunks and the row scorer, and the arena extents and row
+// liveness of the devstore kernels.
 //
 // Layouts (mirrored in kernels/cardinal.py):
 //   consts int32[44]: [0,17) norm coeffs, [17,28) flag bits,
@@ -184,8 +186,8 @@ struct Stage {
   }
 };
 
-// One warp starts the copies of chunk c into stage st (flags and host ids
-// only when given). A chunk's bytes start at a multiple of 16 from each
+// One warp starts the copies of chunk c into stage st (flags, host ids
+// and valid bytes only when given). A chunk's bytes start at a multiple of 16 from each
 // array's start, so every chunk of an array sits at the same offset (its
 // start mod 16) in its region.
 template <typename T>
@@ -205,7 +207,222 @@ __device__ __forceinline__ void issue_chunk(
     copy_span<4>(st, (uintptr_t)(hostids + r0), (uintptr_t)(hostids + r1),
                  lane);
   st += WORD_REGION;
-  copy_span<1>(st, (uintptr_t)(valid + r0), (uintptr_t)(valid + r1), lane);
+  if (valid)
+    copy_span<1>(st, (uintptr_t)(valid + r0), (uintptr_t)(valid + r1), lane);
+}
+
+// ---------------------------------------------------------------------------
+// The row scorer of kernel 2, shared with the devstore kernels
+// (pruned_tile.cu, span_score in cardinal_score.cu)
+// ---------------------------------------------------------------------------
+
+struct ScoreConsts {
+  int32_t cmin[NF], span[NF], safe[NF], shift[NF];
+  float rcp[NF];
+  int32_t c[CONSTS_LEN];
+  float tmin, tspan, tden;
+  int32_t hmax;
+};
+
+// The block's constants in registers, each constant-only subexpression
+// folded once. A shift amount outside [0, 32) becomes 32 and the shift a
+// clamping funnel shift, which gives 0 there as XLA's shift does; a
+// column whose span is 0 gets shift 32 (its term is 0, as when skipped);
+// (f - cmin) * 256 is f * 256 + (-cmin * 256) in uint32; a flag bit
+// outside [0, 32) tests bit 31 (fl < 0); a flag or language hit adds its
+// shl(255, s).
+struct RegConsts {
+  uint32_t cneg[NF];
+  int32_t safe[NF];
+  uint32_t shift[NF];
+  float rcp[NF];
+  double rcp64[NF];
+  uint32_t flag_bit[N_FLAG_TERMS], flag_val[N_FLAG_TERMS];
+  uint32_t dl_shift, tf_shift, auth_shift, lang_val;
+  int32_t lang_pref, hmax;
+  float tmin, tspan, tden;
+};
+
+__device__ __forceinline__ uint32_t clamp_shift(int32_t s) {
+  return (s < 0 || s >= 32) ? 32u : (uint32_t)s;
+}
+
+// x << s for s in [0, 32), 0 for s == 32
+__device__ __forceinline__ uint32_t shl32(uint32_t x, uint32_t s) {
+  return __funnelshift_lc(0u, x, s);
+}
+
+__device__ __forceinline__ void load_consts(const ScoreConsts& k,
+                                            RegConsts& r) {
+#pragma unroll
+  for (int c = 0; c < NF; ++c) {
+    if (!is_active(c)) continue;
+    r.cneg[c] = (0u - (uint32_t)k.cmin[c]) * 256u;
+    r.safe[c] = k.safe[c];
+    r.shift[c] = k.span[c] == 0 ? 32u : clamp_shift(k.shift[c]);
+    r.rcp[c] = k.rcp[c];
+    r.rcp64[c] = __ddiv_rn(1.0, (double)k.safe[c]);
+  }
+#pragma unroll
+  for (int j = 0; j < N_FLAG_TERMS; ++j) {
+    const int32_t b = k.c[C_BITS + j];
+    r.flag_bit[j] = (b < 0 || b >= 32) ? 31u : (uint32_t)b;
+    r.flag_val[j] = shl(255u, k.c[C_SHIFTS + j]);
+  }
+  r.dl_shift = clamp_shift(k.c[C_DOMLENGTH]);
+  r.tf_shift = clamp_shift(k.c[C_TF]);
+  r.auth_shift = clamp_shift(k.c[C_AUTHORITY]);
+  r.lang_val = shl(255u, k.c[C_LANGUAGE]);
+  r.lang_pref = k.c[C_LANG_PREF];
+  r.hmax = k.hmax;
+  r.tmin = k.tmin;
+  r.tspan = k.tspan;
+  r.tden = k.tden;
+}
+
+// Thread t of a block fills its part of the block's constants from the
+// statistics int32[38] and the profile int32[44] (threads 0-43 take
+// part); the block then syncs and each thread loads them (load_consts).
+__device__ __forceinline__ void fill_consts(ScoreConsts& k,
+                                            const int32_t* st,
+                                            const int32_t* consts, int t) {
+  if (t < CONSTS_LEN) k.c[t] = consts[t];
+  if (t < NF) {
+    int32_t cmin = st[S_COL_MIN + t];
+    int32_t span = (int32_t)((uint32_t)st[S_COL_MAX + t] - (uint32_t)cmin);
+    int32_t safe = max(span, 1);
+    k.cmin[t] = cmin;
+    k.span[t] = span;
+    k.safe[t] = safe;
+    k.rcp[t] = __fdiv_rn(1.0f, __int2float_rn(safe));
+    int32_t cc = consts[C_NORM + t];
+    k.shift[t] = cc < 0 ? -cc : cc;
+  }
+  if (t == 0) {
+    float tmin = __int_as_float(st[S_TF_MIN]);
+    k.tmin = tmin;
+    k.tspan = __fsub_rn(__int_as_float(st[S_TF_MAX]), tmin);
+    k.tden = fmaxf(k.tspan, 1e-9f);
+    k.hmax = st[S_HOST_MAX];
+  }
+}
+
+// floor(a / d) for 1 <= d < 2^31, rcp = 1.0 / d rounded to nearest: the
+// estimate is within one of the floor (head note), the remainder fixes it
+__device__ __forceinline__ int32_t floordiv64(int32_t a, int32_t d,
+                                              double rcp) {
+  long long q = __double2ll_rd(__dmul_rn((double)a, rcp));
+  const long long r = (long long)a - q * d;
+  q += (r >= d ? 1 : 0) - (r < 0 ? 1 : 0);
+  return (int32_t)q;
+}
+
+// One row's score with the constants in registers: every float step is
+// the first version's intrinsic, every integer step its value mod 2^32.
+template <typename T, bool FAST>
+__device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
+                                             const RegConsts& k,
+                                             bool use_auth,
+                                             int32_t count_h) {
+  uint32_t score = 0;
+#pragma unroll
+  for (int c = 0; c < NF; ++c) {
+    if (!is_active(c)) continue;
+    const int32_t safe = k.safe[c];
+    const int32_t prod = (int32_t)((uint32_t)(int32_t)f[c] * 256u + k.cneg[c]);
+    int32_t norm;
+    if (FAST) {
+      int32_t q0 = __float2int_rz(__fmul_rn(__int2float_rn(prod), k.rcp[c]));
+      int32_t rem =
+          (int32_t)((uint32_t)prod - (uint32_t)q0 * (uint32_t)safe);
+      norm = q0 + (rem >= safe ? 1 : 0) - (rem < 0 ? 1 : 0);
+    } else {
+      norm = floordiv64(prod, safe, k.rcp64[c]);
+    }
+    uint32_t contrib = is_direct(c) ? (uint32_t)norm : 256u - (uint32_t)norm;
+    score += shl32(contrib, k.shift[c]);
+  }
+  score += shl32(256u - (uint32_t)(int32_t)f[F_DOMLENGTH], k.dl_shift);
+
+  if (k.tspan > 0.0f) {
+    float tf = term_frequency(f);
+    float x = __fdiv_rn(__fmul_rn(__fsub_rn(tf, k.tmin), 256.0f), k.tden);
+    score += shl32((uint32_t)__float2int_rz(x), k.tf_shift);
+  }
+
+  if ((int32_t)f[F_LANGUAGE] == k.lang_pref) score += k.lang_val;
+
+#pragma unroll
+  for (int j = 0; j < N_FLAG_TERMS; ++j)
+    score += (((uint32_t)fl >> k.flag_bit[j]) & 1u) * k.flag_val[j];
+
+  if (use_auth) {
+    int32_t a = floordiv((int32_t)((uint32_t)count_h << 8), 1 + k.hmax);
+    score += shl32((uint32_t)a, k.auth_shift);
+  }
+  return (int32_t)score;
+}
+
+// ---------------------------------------------------------------------------
+// Arena extents read in place (the devstore kernels)
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_EXT = 8;  // DeviceSegmentStore.MAX_SPANS
+
+// Up to MAX_EXT extents of the arena (first row, row count), read in
+// place as one row sequence in extent order: row r of extent e is row
+// obase[e] + r of the sequence, and CH-row chunk c of the sequence is
+// chunk c - cbase[e] of extent e (cbase[n] chunks, obase[n] rows in all).
+struct Extents {
+  int64_t start[MAX_EXT], count[MAX_EXT], obase[MAX_EXT + 1];
+  int64_t cbase[MAX_EXT + 1];
+  int n;
+};
+
+// from n (start, count) pairs in host memory
+__host__ inline Extents make_extents(const int64_t* sc, int n) {
+  Extents x = {};
+  x.n = n;
+  for (int e = 0; e < n; ++e) {
+    x.start[e] = sc[2 * e];
+    x.count[e] = sc[2 * e + 1];
+    x.obase[e + 1] = x.obase[e] + x.count[e];
+    x.cbase[e + 1] = x.cbase[e] + (x.count[e] + CH - 1) / CH;
+  }
+  return x;
+}
+
+// the extent of chunk c < cbase[n] (empty extents are skipped)
+__device__ __forceinline__ int extent_of_chunk(const Extents& x, int64_t c) {
+  int e = 0;
+  while (e + 1 < x.n && c >= x.cbase[e + 1]) ++e;
+  return e;
+}
+
+// the arena row of sequence row r, or -1 past the last extent
+__device__ __forceinline__ int64_t arena_row(const Extents& x, int64_t r) {
+  for (int e = 0; e < x.n; ++e)
+    if (r < x.obase[e + 1]) return x.start[e] + (r - x.obase[e]);
+  return -1;
+}
+
+// One warp starts the copies of sequence chunk c into stage st: the
+// extent's features, flags and docids (in the host-id region).
+__device__ __forceinline__ void issue_extent_chunk(
+    const Extents& x, const int16_t* feats, const int32_t* flags,
+    const int32_t* docids, int64_t c, unsigned char* st, int lane) {
+  const int e = extent_of_chunk(x, c);
+  const int64_t s = x.start[e];
+  issue_chunk<int16_t>(feats + s * NF, flags ? flags + s : nullptr, nullptr,
+                       docids + s, x.count[e], c - x.cbase[e], st, lane);
+}
+
+// Liveness of an arena row (devstore _tile_valid): a docid (pad rows hold
+// -1) that is not tombstoned. Docids at or past the bitmap are alive: it
+// grows to cover every tombstone.
+__device__ __forceinline__ bool row_live(int32_t d, const uint8_t* dead,
+                                         int64_t doc_cap) {
+  return d >= 0 && !(d < doc_cap && dead[d]);
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds
