@@ -27,8 +27,14 @@ Phases, each of which exits non-zero on failure:
    with pad slots and kk = 16, 128, 1024, 2048 in both forms, under the
    default profile and one whose bound fails, K6 span_stats and K7
    span_score over 1, 2 and 8 extents (offset, ragged, all dead, empty),
-   and topk_finish in both forms;
-3. drive two main paths at the headline size, a 10M-posting term, each
+   and topk_finish in both forms; K8 join_member on a join edge store
+   (kernels/bench.join_edges: excludes only, a partner meeting no row
+   and one holding every row, bitmap, sort and mixed partners, five
+   partners and six excludes, tombstoned rare rows, docids past the
+   bitmaps' coverage and at and above 2^29, each filter alone and all
+   four) and K6/K7 under each filter, K7 also on statistics handed in
+   as a filtered-stats cache hit does;
+3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
    50 rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (k = 100),
@@ -36,12 +42,24 @@ Phases, each of which exits non-zero on failure:
    result checked against the port's numpy twins); then the device
    store: an RWIIndex run of the 10M term and terms of 1M, 100k and 20k
    postings packed into a DeviceSegmentStore on the card and a twin on
-   the CPU, and rank_term's 50 pruned queries (k = 10 and 100), a query
-   on each other term, the escalating profile, k = 1000, a delete (the
-   exact scan over one span) and a second run (over two), every answer
-   equal to the twin's and to the numpy oracle
-   (kernels/bench.devstore_oracle); every kernel of each path must have
-   launched;
+   the CPU; first the conjunctions (the run also holds joinA, 4M
+   postings drawn from [0, 40M), joinB, 30,000 drawn the same way, and
+   joinC, 2M drawn from [0, 80M), past the join bitmaps' coverage):
+   K8 at a rare span of MAX_JOIN_ROWS against its plain version, then
+   rank_join over joinA & headline, joinA & headline & term1000000,
+   term1000000 & headline & -joinB, joinA & joinB, term1000000 & joinC
+   (a sort-mode partner of 2M rows), joinA & headline under a language
+   and date filter, a "plain" degraded join and a join a RAM delta
+   declines, and filtered rank_term on the headline term cold and from
+   the filtered-stats cache, each equal to the twin's and to the numpy
+   oracle (kernels/bench.devjoin_oracle, devstore_oracle), with their
+   walls (median of 50 after a warm-up) after the counts are read; then
+   rank_term's 50 pruned queries (k = 10 and 100), a query on each
+   other term, the escalating profile, k = 1000, a delete (the exact
+   scan over one span) and a second run (over two), every answer equal
+   to the twin's and to the numpy oracle (kernels/bench.devstore_oracle),
+   and the filtered query after them; every kernel of each path must
+   have launched;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -60,8 +78,11 @@ Phases, each of which exits non-zero on failure:
    K5 at bs = 1 and 16, K7 over the escalating profile's prefix, and the
    exact scan's K6, K7, kernel 3 and topk_finish (each checked first),
    and rank_term's wall per query (median of 50 after a warm-up) pruned,
-   escalating and, after a tombstone, the exact scan; rank_placed's wall
-   per query over 50 queries after a warm-up; and, last, the device
+   escalating and, after a tombstone, the exact scan; K6 and K7 under a
+   filter over the 10M term, and K8 at the joinA & headline shape beside
+   torch.searchsorted and a gather on the same partner segment;
+   rank_placed's wall per query over 50 queries after a warm-up; and,
+   last, the device
    operations one call of each timed kernel issues, with their device
    times (a profiler trace).
 
@@ -94,11 +115,21 @@ OPS_PER_S = 67e12          # H100 SXM non-tensor f32 peak (simple-op bound)
 ESCALATING = dict(worddistance=2, appemph=15, urllength=12, tf=3)
 DS_TERMS = (1_000_000, 100_000, 20_000)   # the run's terms beside the 10M
 SECOND_RUN = 100_000                      # the 10M term's second run
+# the run's join terms: postings, docid draw range. joinA meets about a
+# quarter of the headline term's odd docids; joinB is below
+# JOIN_BITMAP_MIN (a sort-mode partner); joinC reaches past the bitmaps'
+# coverage, which the headline term sets (2^21 words), so it is a
+# sort-mode partner of 2M rows
+JOIN_TERMS = {b"joinAAAAAAAA": (4_000_000, 40_000_000),
+              b"joinBAAAAAAA": (30_000, 40_000_000),
+              b"joinCAAAAAAA": (2_000_000, 80_000_000)}
 # the kernels each main path must launch
 PLACED_KERNELS = ("cardinal_stats", "cardinal_score", "tie_topk",
                   "gather_topk")
 DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
                     "topk_finish")
+JOIN_KERNELS = ("join_member", "cardinal_stats", "cardinal_score",
+                "tie_topk", "topk_finish", "span_stats", "span_score")
 
 
 def log(*a):
@@ -479,6 +510,47 @@ def main() -> int:
             note("topk_finish", f"edges tail kk={kk} j0={j0}", diff(g, w))
     del edge, _edge_idx, ea
 
+    # K8 on the join edge store (kernels/bench.join_edges; each case's
+    # partner modes as the store chose them), every output twice, and K6
+    # and K7 under each filter over 1 and 3 of its extents (random
+    # languages, lastmods and flags), K7 on K6's statistics and on a copy
+    # of the plain ones, as a filtered-stats cache hit hands them in
+    jstore, _jidx = KB.join_edges(dev)
+    ja = (*jstore.arena.arrays(), jstore.arena.dead_array())
+    jt = (*jstore.arena.join_arrays(), jstore.arena.bitmap_array())
+    for label, rare, parts, n_inc, filt in KB.join_edge_cases(jstore):
+        w = KD.join_member_plain(*ja, rare.start, rare.count, *jt, parts,
+                                 n_inc, filt)
+        for rep in range(2):
+            g = KD.join_member(*ja, rare.start, rare.count, *jt, parts,
+                               n_inc, filt)
+            torch.cuda.synchronize()
+            note("join_member", f"edges, {label} ({int(w[2].sum())} of "
+                 f"{rare.count} rows valid, modes "
+                 f"{['bitmap' if p[2] >= 0 else 'sort' for p in parts]}) "
+                 f"call {rep + 1}", max(diff(a, b) for a, b in zip(g, w)))
+    jsp = [jstore.spans_for(th)[0] for th in KB.JOIN_EDGE_TERMS]
+    for name, filt in KB.JOIN_EDGE_FILTERS.items():
+        for ext in ([(jsp[1].start, jsp[1].count)],
+                    [(jsp[0].start + 5, 70_001), (jsp[1].start, jsp[1].count),
+                     (jsp[5].start, jsp[5].count)]):
+            st = KD.span_stats(ja[0], ja[2], ja[3], ext, flags=ja[1],
+                               filt=filt)
+            pst = KD.span_stats_plain(ja[0], ja[2], ja[3], ext, flags=ja[1],
+                                      filt=filt)
+            note("span_stats", f"filter {name}, {len(ext)} extents",
+                 stats_diff(st, pst))
+            rows_j = sum(c for _s, c in ext)
+            for pname, c in ds_consts.items():
+                for slabel, stx in (("K6's", st), ("cached", pst.clone())):
+                    g = KD.span_score(*ja, ext, stx, c, rows_j + 7, filt=filt)
+                    w = KD.span_score_plain(*ja, ext, stx, c, rows_j + 7,
+                                            filt=filt)
+                    torch.cuda.synchronize()
+                    note("span_score", f"filter {name}, {len(ext)} extents, "
+                         f"{pname}, {slabel} statistics", diff(g, w))
+    del jstore, _jidx, ja, jt
+
     # -- phase 3: the main path ---------------------------------------------
     ref_scores = {}
     for pname, prof in profiles.items():
@@ -577,6 +649,10 @@ def main() -> int:
     for i, n_t in enumerate(DS_TERMS):
         f_t, d_t, _h, _r = KB.make_term(n_t, KB.SEED + 1 + i)
         ds_terms[b"term%08d" % n_t] = (f_t, d_t)
+    jrng = np.random.default_rng(KB.SEED + 20)
+    for i, (th, (n_t, hi)) in enumerate(JOIN_TERMS.items()):
+        f_t, _d, _h, _r = KB.make_term(n_t, KB.SEED + 21 + i)
+        ds_terms[th] = (f_t, KB.draw_docids(n_t, hi, jrng))
     idx = RWIIndex()
     for th, (f_t, d_t) in ds_terms.items():
         idx.add_many(th, P.PostingsList(d_t, f_t))
@@ -602,6 +678,173 @@ def main() -> int:
     log(f"devstore oracles: {time.time() - tq:.1f} s")
     ended, ends = {}, {}
 
+    # -- phase 3, the device store's join path: DeviceSegmentStore.rank_join
+    # K8 first at a rare span of MAX_JOIN_ROWS rows of the headline term's
+    # extent against joinA (bitmap) and joinB (sort), beside its plain
+    # version (not counted); then, counts reset, the conjunctions and the
+    # filtered single-term queries on the card and on the twin, each
+    # equal to the numpy oracle
+    jA, jB, jC = JOIN_TERMS
+    t1m = b"term%08d" % DS_TERMS[0]
+    nslots = gs.arena.bitmap_array().shape[0]
+    modes = {}
+    for th in [hl, t1m, *JOIN_TERMS]:
+        sp_t = gs.spans_for(th)[0]
+        modes[th] = ("bitmap" if 0 <= sp_t.jslot < nslots else "sort",
+                     sp_t.count)
+    log("join partner modes as the store chose them: " + ", ".join(
+        f"{th.decode()} {m} ({n} rows)" for th, (m, n) in modes.items()))
+    if not any(m == "bitmap" and n >= 1_000_000 for m, n in modes.values()) \
+            or not any(m == "sort" and n >= 1_000_000
+                       for m, n in modes.values()):
+        fail("both membership modes must occur at >= 1M partner rows")
+    garr = (*gs.arena.arrays(), gs.arena.dead_array())
+    gjoin = (*gs.arena.join_arrays(), gs.arena.bitmap_array())
+
+    def jpart(th):
+        sp_t = gs.spans_for(th)[0]
+        return (sp_t.jstart, sp_t.count,
+                sp_t.jslot if 0 <= sp_t.jslot < nslots else -1)
+    nmax = TD.DeviceSegmentStore.MAX_JOIN_ROWS
+    for label, parts, n_inc in (
+            ("joinA (bitmap), joinB (sort)", [jpart(jA), jpart(jB)], 2),
+            ("joinC (sort), exclude term1000000 (bitmap)",
+             [jpart(jC), jpart(t1m)], 1)):
+        g = KD.join_member(*garr, sp_hl.start, nmax, *gjoin, parts, n_inc)
+        w = KD.join_member_plain(*garr, sp_hl.start, nmax, *gjoin, parts,
+                                 n_inc)
+        torch.cuda.synchronize()
+        note("join_member", f"a rare span of MAX_JOIN_ROWS = {nmax} rows "
+             f"of the headline extent, {label} ({int(w[2].sum())} valid)",
+             max(diff(a, b) for a, b in zip(g, w)))
+    del g, w
+    join_rows = {th: hl_rows if th == hl else KB.arena_rows(*ds_terms[th])
+                 for th in (hl, t1m, *JOIN_TERMS)}
+    dead_docs: set[int] = set()
+    de, en = P.pack_language("de"), P.pack_language("en")
+    jfilt = (de, TD.NO_FLAG, 8_000, 24_000)
+    filt_kw = dict(lang_filter=de, from_days=8_000, to_days=24_000)
+    hfilt = (en, 5, 3_000, 27_000)         # the filtered rank_term's
+    hfilt_kw = dict(lang_filter=en, flag_bit=5, from_days=3_000,
+                    to_days=27_000)
+
+    def filtered(parts, filt):
+        """Rows of (feats16, flags, docids) parts that pass `filt`."""
+        out = []
+        for f_p, fl_p, d_p in parts:
+            ok = KD.constraint_valid(torch.from_numpy(f_p),
+                                     torch.from_numpy(fl_p), filt).numpy()
+            out.append((f_p[ok], fl_p[ok], d_p[ok]))
+        return out
+    join_walls = {}
+
+    def same(label, got, twin, want):
+        if got is None or twin is None:
+            fail(f"{label}: no answer")
+        if not (np.array_equal(got[0], twin[0])
+                and np.array_equal(got[1], twin[1]) and got[2] == twin[2]):
+            fail(f"{label}: the card and the CPU twin differ")
+        expect(label, got[0], got[1], want[0], want[1])
+        if len(want) > 2 and got[2] != want[2]:
+            fail(f"{label}: considered {got[2]}, the oracle {want[2]}")
+
+    def join_q(label, inc, exc, k=100, filt=None, **kw):
+        tq = time.perf_counter()
+        got = gs.rank_join(inc, exc, ds_profiles["default"], k=k, **kw)
+        wall = (time.perf_counter() - tq) * 1e3
+        twin = hs.rank_join(inc, exc, ds_profiles["default"], k=k, **kw)
+        want = KB.devjoin_oracle(join_rows, inc, exc, dead_docs,
+                                 ds_profiles["default"], k,
+                                 filt or KD.NO_FILTER)
+        same(f"rank_join {label}", got, twin, want)
+        log(f"  rank_join {label}: {len(got[1])} answers of "
+            f"{got[2]} rare rows, first wall {wall:.3f} ms")
+        return got
+
+    torch.cuda.synchronize()
+    reset_launches()
+    tm = time.time()
+    join_q("joinA & headline", [jA, hl], [])
+    join_q("joinA & headline & term1000000", [jA, hl, t1m], [], k=10)
+    join_q("term1000000 & headline & -joinB", [t1m, hl], [jB])
+    join_q("joinA & joinB", [jA, jB], [], k=1000)
+    join_q("term1000000 & joinC (sort partner)", [t1m, jC], [])
+    join_q("joinA & headline, lang de, days 8000-24000", [jA, hl], [],
+           filt=jfilt, **filt_kw)
+    # every exclude names a term with no postings: rank_term serves it
+    nowhere = b"nowhereAAAAA"
+    got = gs.rank_join([jB], [nowhere], ds_profiles["default"], k=10)
+    twin = hs.rank_join([jB], [nowhere], ds_profiles["default"], k=10)
+    same("rank_join joinB & -nowhere (plain)", got, twin,
+         KB.devstore_oracle([join_rows[jB]], ds_profiles["default"], 10))
+    # filtered rank_term on the headline term: cold, then from the cache
+    k6_0 = LAUNCHES["span_stats"]
+    for label in ("cold", "filtered-stats cache hit"):
+        got = gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
+        twin = hs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
+        same(f"filtered rank_term {label}", got, twin, KB.devstore_oracle(
+            filtered([hl_rows], hfilt), ds_profiles["default"], 100))
+    if LAUNCHES["span_stats"] != k6_0 + 1:
+        fail("the filtered-stats cache hit ran K6")
+    # a RAM delta declines (the caller's host join serves)
+    idx.add_many(jB, P.PostingsList(np.array([39_999_999], np.int32),
+                                    ds_terms[jB][0][:1]))
+    if (gs.rank_join([jA, jB], [], ds_profiles["default"]) is not None
+            or hs.rank_join([jA, jB], [], ds_profiles["default"])
+            is not None):
+        fail("rank_join with a RAM delta must decline")
+    torch.cuda.synchronize()
+    launches_join = dict(LAUNCHES)
+    jc = lambda s_: (s_.join_served, s_.join_fallbacks,  # noqa: E731
+                     s_.join_degraded_plain, s_.queries_served,
+                     s_.stream_scans, s_.fallbacks)
+    log(f"join main path: {time.time() - tm:.1f} s (the CPU twin's and the "
+        f"oracle's answers included); launches {launches_join}; counters "
+        f"join_served, join_fallbacks, join_degraded_plain, queries_served, "
+        f"stream_scans, fallbacks: {jc(gs)}")
+    if jc(gs) != jc(hs):
+        fail(f"join counters differ: card {jc(gs)}, CPU twin {jc(hs)}")
+    if jc(gs)[:3] != (6, 1, 1):
+        fail(f"join counters {jc(gs)[:3]}, expected (6, 1, 1)")
+    missing = [k for k in JOIN_KERNELS if launches_join[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the join path: {missing}")
+    # walls, card store only (median of 50 after a warm-up of 5); the
+    # counts are read
+    for label, fn in (
+            ("rank_join joinA & headline", lambda: gs.rank_join(
+                [jA, hl], [], ds_profiles["default"], k=100)),
+            ("rank_join joinA & headline & term1000000", lambda: gs.rank_join(
+                [jA, hl, t1m], [], ds_profiles["default"], k=100)),
+            ("rank_join term1000000 & joinC (sort partner, 1M lanes)",
+             lambda: gs.rank_join([t1m, jC], [], ds_profiles["default"],
+                                  k=100)),
+            ("filtered rank_term, cold (K6 each query)", lambda: (
+                gs._span_stats_cache.clear(),
+                gs.rank_term(hl, ds_profiles["default"], k=100,
+                             **hfilt_kw))),
+            ("filtered rank_term, filtered-stats cache hit", lambda:
+             gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw))):
+        for _ in range(5):
+            fn()
+        w = []
+        for _ in range(50):
+            tq = time.perf_counter()
+            fn()
+            w.append((time.perf_counter() - tq) * 1e3)
+        join_walls[label] = w
+        log(f"{label}, per query: median {float(np.median(w)):.4f} ms, "
+            f"mean {float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 "
+            "after 5")
+    # the three joins' shapes (rare span, partners), kept for phase 4:
+    # the arena's rows and join tables stay where they are
+    join_shapes = {
+        "joinA & headline": (gs.spans_for(jA)[0], [jpart(hl)], 1),
+        "joinA & headline & term1000000": (gs.spans_for(t1m)[0],
+                                           [jpart(jA), jpart(hl)], 2),
+        "term1000000 & joinC (sort partner)": (gs.spans_for(t1m)[0],
+                                               [jpart(jC)], 1)}
+
     def ds_query(label, th, pname, k, want):
         """One rank_term on the card and on the twin: equal answers, equal
         to the oracle's `want` (scores, docids); returns where it ended."""
@@ -624,6 +867,11 @@ def main() -> int:
         ends[label] = end
         return got
 
+    # the counters compared below are this path's own: the join path's
+    # walls ran on the card store alone
+    counters = lambda s_: (s_.prune_rounds, s_.pruned_tiles,  # noqa: E731
+                           s_.stream_scans, s_.queries_served, s_.fallbacks)
+    base_g, base_h = counters(gs), counters(hs)
     torch.cuda.synchronize()
     reset_launches()
     tm = time.time()
@@ -659,21 +907,30 @@ def main() -> int:
     launches_ds = dict(LAUNCHES)
     log(f"devstore main path: {time.time() - tm:.1f} s (the CPU twin's "
         f"answers included); launches {launches_ds}")
-    counters = lambda s: (s.prune_rounds, s.pruned_tiles,  # noqa: E731
-                          s.stream_scans, s.queries_served, s.fallbacks)
-    log(f"devstore counters: prune_rounds {gs.prune_rounds}, pruned_tiles "
-        f"{gs.pruned_tiles}, stream_scans {gs.stream_scans}, "
-        f"queries_served {gs.queries_served}, fallbacks {gs.fallbacks}")
-    if counters(gs) != counters(hs):
-        fail(f"devstore counters differ: card {counters(gs)}, CPU twin "
-             f"{counters(hs)}")
+    dg = tuple(a - b for a, b in zip(counters(gs), base_g))
+    dh = tuple(a - b for a, b in zip(counters(hs), base_h))
+    log(f"devstore counters of this path: prune_rounds, pruned_tiles, "
+        f"stream_scans, queries_served, fallbacks {dg}")
+    if dg != dh:
+        fail(f"devstore counters differ: card {dg}, CPU twin {dh}")
     for label, ws in ended.items():
         log(f"  rank_term {label}: {len(ws)} queries, wall median "
             f"{float(np.median(ws)):.3f} ms (the first {ws[0]:.3f} ms)")
     missing = [k for k in DEVSTORE_KERNELS if launches_ds[k] == 0]
     if missing:
         fail(f"kernels never launched on the devstore path: {missing}")
-    del gs, hs, idx, hl_live, two, oracles
+    # the join path's filtered query after that delete and second run:
+    # its cached statistics are stale (K6 runs again), the answer the
+    # twin's and the oracle's over both spans
+    k6_0 = LAUNCHES["span_stats"]
+    got = gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
+    twin = hs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
+    same("filtered rank_term after a delete and a second run", got, twin,
+         KB.devstore_oracle(filtered(two, hfilt), ds_profiles["default"],
+                            100))
+    if LAUNCHES["span_stats"] != k6_0 + 1:
+        fail("a stale filtered-stats cache entry was served")
+    del hs, idx, hl_live, two, oracles, join_rows
 
     # -- phase 4: kernel times at the main path's shapes ---------------------
     # `ms`: the call time, the median of 20 calls each between two CUDA
@@ -740,7 +997,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": (launches if path == "placed" else launches_ds)[name],
+            "launches": {"placed": launches, "devstore": launches_ds,
+                         "join": launches_join}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -967,6 +1225,100 @@ def main() -> int:
                 path="devstore")
     del buf10
 
+    # K6 and K7 under the filtered rank_term's filter over the 10M term
+    # (K7 on statistics handed in, as a filtered-stats cache hit runs it)
+    stf = KD.span_stats(ta[0], ta[2], ta[3], scan_ext, flags=ta[1],
+                        filt=hfilt)
+    note("span_stats", "10M term, filtered", stats_diff(
+        stf, KD.span_stats_plain(ta[0], ta[2], ta[3], scan_ext, flags=ta[1],
+                                 filt=hfilt)))
+    measure(*src_k6, lambda: KD.span_stats(ta[0], ta[2], ta[3], scan_ext,
+                                           flags=ta[1], filt=hfilt),
+            lambda: KD.span_stats_plain(ta[0], ta[2], ta[3], scan_ext,
+                                        flags=ta[1], filt=hfilt), None,
+            sp.count * (P.NF * 2 + 4 + 4 + 1) + 4 * KC.STATS_LEN, 0.0,
+            f"{sp.count} rows of the 10M term in place, filter lang en, flag "
+            "5, days 3000-27000 (filtered exact scan, cold)", path="join")
+    k7f = lambda: KD.span_score(*ta[:4], scan_ext, stf, cd,  # noqa: E731
+                                sp.count, filt=hfilt)
+    k7fp = lambda: KD.span_score_plain(*ta[:4], scan_ext, stf,  # noqa: E731
+                                       cd, sp.count, filt=hfilt)
+    g, w = k7f(), k7fp()
+    torch.cuda.synchronize()
+    note("span_score", "10M term, filtered", diff(g, w))
+    measure(*src_k7, k7f, k7fp, None,
+            sp.count * (row_b + 4) + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+            f"{sp.count} rows of the 10M term in place, the same filter, "
+            "statistics handed in (filtered exact scan, cache hit)",
+            path="join")
+
+    # K8 at the joinA & headline shape of the join path's store (its arena
+    # rows and join tables are where the join path left them): 4M rare
+    # rows against the headline term's bitmap, beside torch.searchsorted
+    # and a gather of the partner rows on the headline's sorted segment
+    rare, k8_parts, k8_inc = join_shapes["joinA & headline"]
+    garr = (*gs.arena.arrays(), gs.arena.dead_array())
+    gjoin = (*gs.arena.join_arrays(), gs.arena.bitmap_array())
+    k8 = lambda: KD.join_member(*garr, rare.start, rare.count,  # noqa: E731
+                                *gjoin, k8_parts, k8_inc)
+    k8p = lambda: KD.join_member_plain(  # noqa: E731
+        *garr, rare.start, rare.count, *gjoin, k8_parts, k8_inc)
+    g, w = k8(), k8p()
+    torch.cuda.synchronize()
+    note("join_member", "joinA & headline shape (timed inputs)",
+         max(diff(a, b) for a, b in zip(g, w)))
+    found = int(w[2].sum())
+    del g, w
+    js, jn = k8_parts[0][0], k8_parts[0][1]
+    seg_d, seg_p = gjoin[0][js:js + jn], gjoin[1][js:js + jn]
+    keys = garr[2][rare.start:rare.start + rare.count]
+
+    def k8_library():
+        i = torch.searchsorted(seg_d, keys).clamp_(max=jn - 1)
+        return seg_p[i]
+    # bytes: the rare rows' features, flags, docid and tombstone byte;
+    # for each live lane, its bitmap pair (8 B), and for each lane found,
+    # the partner's arena row, posintext, hitcount and flags (12 B); the
+    # merged block, flags and valid byte written
+    lanes = int(KD.live_rows(keys, garr[3]).sum())
+    k8_bytes = (rare.count * (P.NF * 2 + 4 + 4 + 1) + lanes * 8 + found * 12
+                + rare.count * (P.NF * 4 + 4 + 1))
+    measure("join_member", "yacy_search_server_tpu/index/devstore.py:736",
+            "join.cu", k8, k8p, k8_library, k8_bytes, 0.0,
+            f"{rare.count} rare rows (joinA) against the headline term's "
+            f"bitmap ({jn} rows), {lanes} live lanes, {found} found "
+            "(rank_join joinA & headline); library: torch.searchsorted of "
+            "the rare docids in the headline's sorted segment + the jpos "
+            "gather", path="join")
+    del seg_d, seg_p, keys
+
+    # the device part of the join and the filtered scan: the store's
+    # dispatch functions and the one fetch, without the host work of
+    # rank_join / rank_term around them; each one's device operations
+    # are traced at the end
+    routes = {}
+    for label, (r_sp, r_parts, r_inc) in join_shapes.items():
+        routes[f"join_query {label} + fetch"] = (
+            lambda a=r_sp, b=r_parts, c=r_inc: TD.join_query(
+                (*garr, None), gjoin, a.start, a.count, b, c, cd,
+                kk).cpu())
+    routes["scan_query filtered, cold (K6, K7, kernel 3, topk_finish) + "
+           "fetch"] = lambda: TD.scan_query(ta, scan_ext, cd, kk,
+                                            hfilt).cpu()
+    routes["scan_query filtered, statistics handed in (K7, kernel 3, "
+           "topk_finish) + fetch"] = lambda: TD.scan_query(
+               ta, scan_ext, cd, kk, hfilt, stf).cpu()
+    for label, fn in routes.items():
+        for _ in range(5):
+            fn()
+        w = []
+        for _ in range(50):
+            tq = time.perf_counter()
+            fn()
+            w.append((time.perf_counter() - tq) * 1e3)
+        log(f"{label}, kk={kk}: median {float(np.median(w)):.4f} ms, min "
+            f"{min(w):.4f} ms over 50 after 5")
+
     # rank_term's wall per query (median of 50 after a warm-up) for the
     # three kinds of query, the same store: pruned, escalating, and, after
     # a tombstone, the exact scan
@@ -1029,7 +1381,12 @@ def main() -> int:
         row["device_ops_per_call"], names = ops_per_call(kern)
         log(f"device ops a call, {row['name']} [{row['shape']}]: "
             f"{row['device_ops_per_call']} {names}")
+    for label, fn in routes.items():
+        log(f"device ops of one {label}: {ops_per_call(fn)[1]}")
 
+    for label, w in join_walls.items():
+        log(f"wall {label}: median {float(np.median(w)):.4f} ms over 50 "
+            "after 5 (join path)")
     log(f"total: {time.time() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

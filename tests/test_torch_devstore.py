@@ -464,19 +464,212 @@ def test_rank_term_after_ingest_and_term_removal_matches_jax():
 
 
 def test_rank_term_declines_filters_and_delta():
-    """Filters and a RAM delta are later slices: None and a fallback."""
+    """A facet-bitmap filter and a RAM delta are later slices: None and a
+    fallback, with or without a constraint filter beside them (constraint
+    filters alone are served: the tests below)."""
     rng = np.random.default_rng(5)
     idx = JRWI()
     idx.add_many(TH, _plist(rng, 400))
     idx.flush()
     t = TD.DeviceSegmentStore(idx, device="cpu")
-    assert t.rank_term(TH, JProf(), lang_filter=0x6465) is None
-    assert t.rank_term(TH, JProf(), from_days=3) is None
+    allow = np.full(64, 0xFFFFFFFF, np.uint32)
+    assert t.rank_term(TH, JProf(), allow_bitmap=allow) is None
     idx.add_many(TH, _plist(rng, 7, base=5_000))
+    assert t.rank_term(TH, JProf(), lang_filter=0x6465) is None
     assert t.rank_term(TH, JProf()) is None
     assert t.fallbacks == 3 and t.queries_served == 0
     assert t.rank_join([TH], [], JProf()) is None
     assert t.rank_term(b"missingAAAAA", JProf())[2] == 0
+
+
+# ---------------------------------------------------------------------------
+# constraint filters (the exact scan with the filter in K6 and K7) and the
+# filtered-stats cache, against the JAX store
+# ---------------------------------------------------------------------------
+
+DE, EN = JP.pack_language("de"), JP.pack_language("en")
+FILTERS = {
+    "language": dict(lang_filter=DE),
+    "flag": dict(flag_bit=3),
+    "flag_sign": dict(flag_bit=40),
+    "from_days": dict(from_days=150),
+    "date_range": dict(from_days=150, to_days=200),
+    "all_four": dict(lang_filter=DE, flag_bit=5, from_days=120,
+                     to_days=260),
+}
+
+
+def _filter_corpus(idx, rng, n=400):
+    p = _plist(rng, n)
+    p.feats[:n // 2, JP.F_LANGUAGE] = DE
+    p.feats[:, JP.F_LASTMOD] = rng.integers(100, 300, n)
+    p.feats[::7, JP.F_FLAGS] |= -(2 ** 31)     # sign bit set
+    idx.add_many(TH, p)
+    idx.flush()
+    return p
+
+
+@pytest.mark.parametrize("name", list(FILTERS))
+def test_constraint_filters_match_jax(name):
+    """tests/test_devstore.py::test_constraint_filters_in_kernel's checks,
+    each filter alone and all four together, on one span and after a
+    tombstone and a second run (two spans): the JAX store's answer and
+    counters, and only rows that pass the filter."""
+    rng = np.random.default_rng(5)
+    idx = JRWI()
+    j, t = _stores(idx)
+    p = _filter_corpus(idx, rng)
+    kw = FILTERS[name]
+    got = _rank_both(j, t, TH, JProf(), k=400, **kw)
+    fl = p.feats[:, JP.F_FLAGS].astype(np.int64)
+    lastmod = p.feats[:, JP.F_LASTMOD]
+    ok = np.ones(len(p), bool)
+    if "lang_filter" in kw:
+        ok &= p.feats[:, JP.F_LANGUAGE] == kw["lang_filter"]
+    if "flag_bit" in kw:
+        ok &= ((fl >> min(kw["flag_bit"], 31)) & 1) == 1
+    ok &= lastmod >= kw.get("from_days", -(2 ** 30))
+    ok &= lastmod <= kw.get("to_days", 2 ** 30)
+    assert set(got[1].tolist()) == set(p.docids[ok].tolist())
+    assert t.stream_scans == 1 and t.prune_rounds == 0
+    idx.delete_doc(int(got[1][0]))
+    _rank_both(j, t, TH, JProf(**NONDEFAULT), k=50, **kw)
+    idx.add_many(TH, _plist(rng, 300, base=10_000))
+    idx.flush()
+    _rank_both(j, t, TH, JProf(), k=60, language="de", **kw)
+    assert t.stream_scans == 3
+
+
+def test_constraint_filter_of_no_row_matches_jax():
+    """A filter no row passes: an empty answer, as the JAX store's."""
+    rng = np.random.default_rng(6)
+    idx = JRWI()
+    j, t = _stores(idx)
+    _filter_corpus(idx, rng)
+    got = _rank_both(j, t, TH, JProf(), k=10, from_days=500)
+    assert len(got[1]) == 0 and got[2] == 400
+
+
+def _count_k6(monkeypatch):
+    calls = []
+    real = KD.span_stats
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    monkeypatch.setattr(KD, "span_stats", counted)
+    return calls
+
+
+def test_filtered_stats_cache_hit_matches_jax(monkeypatch):
+    """tests/test_devstore.py::test_filtered_stats_cache_hit_is_bit_identical
+    against the JAX store: a repeat of a filtered query skips K6 and gives
+    the cold answer; a tombstone makes the entry stale."""
+    rng = np.random.default_rng(9)
+    idx = JRWI()
+    p = _plist(rng, 3000)
+    p.feats[:1500, JP.F_LANGUAGE] = DE
+    idx.add_many(TH, p)
+    idx.flush()
+    j, t = _stores(idx)
+    k6 = _count_k6(monkeypatch)
+    cold = _rank_both(j, t, TH, JProf(), k=50, lang_filter=DE)
+    assert t._span_stats_cache and len(k6) == 1
+    hot = _rank_both(j, t, TH, JProf(), k=50, lang_filter=DE)
+    assert len(k6) == 1, "the repeat must skip K6"
+    np.testing.assert_array_equal(hot[0], cold[0])
+    np.testing.assert_array_equal(hot[1], cold[1])
+    victim = int(cold[1][0])
+    idx.delete_doc(victim)
+    after = _rank_both(j, t, TH, JProf(), k=50, lang_filter=DE)
+    assert victim not in after[1].tolist() and len(k6) == 2
+    # another filter is another entry; the first one stays
+    _rank_both(j, t, TH, JProf(), k=50, lang_filter=EN)
+    _rank_both(j, t, TH, JProf(), k=50, lang_filter=DE)
+    assert len(k6) == 3
+
+
+def test_filtered_stats_cache_under_threads():
+    """16 threads run two filtered queries at once on one store, with a
+    short switch interval: every answer equals the solo one, and the
+    cache holds one entry a filter."""
+    import sys
+    import threading
+    rng = np.random.default_rng(15)
+    idx = JRWI()
+    p = _plist(rng, 3_000)
+    p.feats[:1500, JP.F_LANGUAGE] = DE
+    idx.add_many(TH, p)
+    idx.flush()
+    t = TD.DeviceSegmentStore(idx, device="cpu")
+    kws = [dict(lang_filter=DE), dict(from_days=100, to_days=800)]
+    solo = [t.rank_term(TH, JProf(), k=40, **kw) for kw in kws]
+    t._span_stats_cache.clear()
+    out, errors = [], []
+
+    def worker(i):
+        try:
+            for q in range(4):
+                kw = kws[(i + q) % 2]
+                out.append(((i + q) % 2, t.rank_term(TH, JProf(), k=40,
+                                                     **kw)))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ts = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in ts) and not errors
+    assert len(out) == 64 and len(t._span_stats_cache) == 2
+    for which, got in out:
+        np.testing.assert_array_equal(got[0], solo[which][0])
+        np.testing.assert_array_equal(got[1], solo[which][1])
+    assert t.queries_served == 66 and t.stream_scans == 66
+
+
+@pytest.mark.parametrize("change", ["flush_same_term", "flush_other_term",
+                                    "delete", "merge"])
+def test_filtered_stats_cache_stale_after_in_place_change(monkeypatch,
+                                                          change):
+    """The arena appends and tombstones in place, so the cache must not
+    trust the tensors' identity: between two equal filtered queries a
+    flush (rows of this term, or of another term written past the used
+    mark of the same tensors), a tombstone or a merge; each answer equal
+    to the JAX store's, K6 run again."""
+    rng = np.random.default_rng(14)
+    idx = JRWI()
+    idx.add_many(TH, _plist(rng, 2_000))
+    idx.add_many(b"otherAAAAAAA", _plist(rng, 500))
+    idx.flush()
+    j, t = _stores(idx)
+    kw = dict(from_days=200, to_days=700)
+    k6 = _count_k6(monkeypatch)
+    first = _rank_both(j, t, TH, JProf(), k=30, **kw)
+    feats_before = t.arena.arrays()[0]
+    if change == "flush_same_term":
+        idx.add_many(TH, _plist(rng, 900, base=50_000))
+        idx.flush()
+    elif change == "flush_other_term":
+        idx.add_many(b"otherAAAAAAA", _plist(rng, 900, base=50_000))
+        idx.flush()
+    elif change == "delete":
+        idx.delete_doc(int(first[1][0]))
+    else:
+        idx.add_many(TH, _plist(rng, 900, base=50_000))
+        idx.flush()
+        assert idx.merge_runs(max_runs=1)
+    if change.startswith("flush"):
+        assert t.arena.arrays()[0] is feats_before, "appended in place"
+    _rank_both(j, t, TH, JProf(), k=30, **kw)
+    assert len(k6) == 2
+    _rank_both(j, t, TH, JProf(), k=30, **kw)
+    assert len(k6) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -543,3 +543,138 @@ def test_rank_term_on_the_card_matches_cpu():
         h.rank_term(th, R.RankingProfile(), k=100)
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
     assert counters(g) == counters(h) and g.stream_scans == 1
+
+
+# ---------------------------------------------------------------------------
+# K8 join_member and the filtered K6 / K7 (kernels/bench.join_edges)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def join_store():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return KBench.join_edges("cuda")[0]
+
+
+def _join_cases():
+    # the cases' labels, from a CPU store (cheap: 300k rows)
+    return list(range(13))
+
+
+@pytest.mark.parametrize("case", _join_cases())
+def test_join_member_matches_plain(join_store, case):
+    """Excludes only, a partner meeting no row and one holding every row,
+    bitmap and sort partners in one call, docids at and above 2^29 and
+    past the bitmaps' coverage, five partners and six excludes,
+    tombstoned rare rows, each filter alone and all four; every output
+    equal to the plain version's, and equal again on a second call."""
+    cases = KBench.join_edge_cases(join_store)
+    assert len(cases) == len(_join_cases())
+    label, rare, parts, n_inc, filt = cases[case]
+    f, fl, d, dead, _pm = _arena(join_store)
+    jd, jp = join_store.arena.join_arrays()
+    bm = join_store.arena.bitmap_array()
+    before = LAUNCHES["join_member"]
+    outs = [KD.join_member(f, fl, d, dead, rare.start, rare.count, jd, jp,
+                           bm, parts, n_inc, filt) for _ in range(2)]
+    want = KD.join_member_plain(f, fl, d, dead, rare.start, rare.count, jd,
+                                jp, bm, parts, n_inc, filt)
+    torch.cuda.synchronize()
+    assert LAUNCHES["join_member"] == before + 2
+    for got in outs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), label
+
+
+def test_join_member_at_max_join_rows(dev):
+    """A rare span of MAX_JOIN_ROWS rows against a bitmap partner and a
+    sort partner of a third of them each, and a sort exclude."""
+    n = TD.DeviceSegmentStore.MAX_JOIN_ROWS
+    rng = np.random.default_rng(5)
+    feats, _v, _h = _block(n + KD.TILE, seed=6)
+    f16, flags = R.compact_feats(feats)
+    docids = (2 * np.arange(n + KD.TILE) + 1).astype(np.int32)
+    segs, pos = [], []
+    for step in (3, 5, 7):
+        rows = np.arange(0, n, step) + rng.integers(0, step)
+        rows = rows[rows < n].astype(np.int32)
+        segs.append(docids[rows])
+        pos.append(rows)
+    jd = np.concatenate(segs)
+    jp = np.concatenate(pos)
+    nwords = 1 << (2 * n + 32 - 1).bit_length() >> 5
+    bm = TD.join_bitmap(segs[0], nwords)[None]
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    args = (t(f16), t(flags), t(docids), t(np.zeros(1 << 16, bool)), 0, n,
+            t(jd), t(jp), t(bm))
+    off = [0, len(segs[0]), len(segs[0]) + len(segs[1])]
+    parts = [(off[0], len(segs[0]), 0), (off[1], len(segs[1]), -1),
+             (off[2], len(segs[2]), -1)]
+    got = KD.join_member(*args, parts, 2, None)
+    want = KD.join_member_plain(*args, parts, 2, None)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2].sum()) > 0
+
+
+@pytest.mark.parametrize("name", list(KBench.JOIN_EDGE_FILTERS))
+def test_filtered_span_stats_and_score_match_plain(join_store, name):
+    """K6 and K7 under each filter over 1 and 3 extents of the join edge
+    store (random languages, lastmods and flags, tombstoned rows); K7 also
+    with statistics handed in, as a filtered-stats cache hit does."""
+    filt = KBench.JOIN_EDGE_FILTERS[name]
+    f, fl, d, dead, _pm = _arena(join_store)
+    sp = [join_store.spans_for(th)[0] for th in KBench.JOIN_EDGE_TERMS]
+    for ext in ([(sp[1].start, sp[1].count)],
+                [(sp[0].start + 5, 70_001), (sp[1].start, sp[1].count),
+                 (sp[5].start, sp[5].count)]):
+        st = KD.span_stats(f, d, dead, ext, flags=fl, filt=filt)
+        pst = KD.span_stats_plain(f, d, dead, ext, flags=fl, filt=filt)
+        _stats_equal(st, pst)
+        rows = sum(c for _s, c in ext)
+        for prof in (R.RankingProfile(), R.RankingProfile(**NONDEFAULT)):
+            c = _consts(prof)
+            for stats in (st, pst.clone()):
+                got = KD.span_score(f, fl, d, dead, ext, stats, c, rows + 7,
+                                    filt=filt)
+                want = KD.span_score_plain(f, fl, d, dead, ext, stats, c,
+                                           rows + 7, filt=filt)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+
+
+def test_rank_join_and_filtered_rank_term_on_the_card_match_cpu():
+    """A store on the card and its twin on the CPU over the join edge
+    terms: conjunctions in bitmap, sort and mixed mode with and without
+    filters, filtered rank_term cold, cached and after a delete; equal
+    answers and counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, idx = KBench.join_edges("cuda")
+    h = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KBench.Fanout(g, h)
+    names = list(KBench.JOIN_EDGE_TERMS)
+    counters = lambda s: (s.join_served, s.join_fallbacks,  # noqa: E731
+                          s.join_degraded_plain, s.stream_scans,
+                          s.queries_served, s.fallbacks)
+    prof = R.RankingProfile()
+    for inc, exc in (([names[1], names[0]], []),
+                     ([names[1], names[0], names[2]], [names[5]]),
+                     ([names[5], names[1]], [names[4]]),
+                     ([names[1]], [names[3]])):
+        for kw in ({}, dict(lang_filter=0x6465, from_days=3_000)):
+            a = g.rank_join(inc, exc, prof, k=100, **kw)
+            b = h.rank_join(inc, exc, prof, k=100, **kw)
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            assert a[2] == b[2]
+    for _ in range(2):
+        a = g.rank_term(names[0], prof, k=50, flag_bit=4, to_days=20_000)
+        b = h.rank_term(names[0], prof, k=50, flag_bit=4, to_days=20_000)
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    idx.delete_doc(int(a[1][0]))
+    a = g.rank_term(names[0], prof, k=50, flag_bit=4, to_days=20_000)
+    b = h.rank_term(names[0], prof, k=50, flag_bit=4, to_days=20_000)
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    assert counters(g) == counters(h) and g.join_served == 8

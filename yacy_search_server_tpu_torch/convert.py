@@ -4,10 +4,11 @@ A search engine's "weights" are its index blocks and its ranking profile.
 `placed_from_numpy` turns the padded arrays that the JAX package's
 MeshRanker.place / CardinalRanker.rank build (as numpy) into the port's
 placed tensors; `profile_from_jax` turns a JAX RankingProfile, through its
-external string, into the port's. `arena_from_numpy` and `span_from_fields`
-carry a JAX DeviceSegmentStore's arena (fetched as numpy) and its spans
-into the port, so the devstore kernels of both read the same bytes. Both
-sides then score identical bytes under an identical profile.
+external string, into the port's. `arena_from_numpy`, `join_from_numpy`
+and `span_from_fields` carry a JAX DeviceSegmentStore's arena and join
+side-tables (fetched as numpy) and its spans into the port, so the
+devstore kernels of both read the same bytes. Both sides then score
+identical bytes under an identical profile.
 """
 
 from __future__ import annotations
@@ -61,12 +62,32 @@ def arena_from_numpy(feats16, flags, docids, dead, pmax, device=None):
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
-def span_from_fields(start, count, tstart, tcount, stats, dead_seq):
+def join_from_numpy(jdocids, jpos, bmtab, device=None):
+    """(jdocids int32 [jcap], jpos int32 [jcap], bmtab int32 [slots,
+    nwords, 2]) on `device` (None: the CUDA device): a DeviceArena's join
+    side-tables as K8 reads them."""
+    dev = resolve_device(device)
+    jdocids, jpos = (np.require(a, np.int32, ["C", "W"])
+                     for a in (jdocids, jpos))
+    bmtab = np.require(bmtab, np.int32, ["C", "W"])
+    if jdocids.ndim != 1 or jpos.shape != jdocids.shape:
+        raise ValueError("jdocids/jpos must be one-dimensional and equal "
+                         "in length")
+    if bmtab.ndim != 3 or bmtab.shape[2] != 2:
+        raise ValueError(f"bmtab shape {bmtab.shape}, expected "
+                         "(slots, nwords, 2)")
+    return tuple(torch.from_numpy(a).to(dev) for a in (jdocids, jpos, bmtab))
+
+
+def span_from_fields(start, count, tstart, tcount, stats, dead_seq,
+                     jstart=-1, jslot=-1):
     """The port's Span from a JAX Span's fields (`stats`: its frozen
-    pack-time dict of col_min, col_max, tf_min, tf_max)."""
+    pack-time dict of col_min, col_max, tf_min, tf_max; `jstart`,
+    `jslot`: its join segment and bitmap slot)."""
     from .index.devstore import Span
     return Span(int(start), int(count), int(tstart), int(tcount),
                 {"col_min": np.asarray(stats["col_min"], np.int32),
                  "col_max": np.asarray(stats["col_max"], np.int32),
                  "tf_min": np.float32(stats["tf_min"]),
-                 "tf_max": np.float32(stats["tf_max"])}, int(dead_seq))
+                 "tf_max": np.float32(stats["tf_max"])}, int(dead_seq),
+                int(jstart), int(jslot))

@@ -1,7 +1,8 @@
 """Device-resident postings serving: queries rank placed blocks in place.
 
-Port of yacy_search_server_tpu/index/devstore.py, slice A: the device
-arena, packing at `on_run_added`, and solo unfiltered `rank_term`.
+Port of yacy_search_server_tpu/index/devstore.py: the device arena with
+its join side-tables, packing at `on_run_added`, solo `rank_term` with
+constraint filters, and solo `rank_join`.
 
 - `DeviceArena`: growable int16 features, int32 flags, int32 docids (-1
   on pad rows), a tombstone bitmap and the per-tile bound rows `pmax`.
@@ -17,23 +18,31 @@ arena, packing at `on_run_added`, and solo unfiltered `rank_term`.
   Where pruning cannot be used (several spans, a tombstone newer than
   the span) or fails at every size, the exact scan runs: K6
   `span_stats` over the live rows, K7, kernel 3, `topk_finish`. One
-  device -> host copy a dispatch.
+  device -> host copy a dispatch. A constraint filter (language, content
+  flag, lastmod range) always takes the exact scan, with the filter in
+  K6 and K7; K6's statistics are cached per (term, filter) and reused
+  while the snapshot they were taken on stands (`rank_term`).
+- `DeviceSegmentStore.rank_join`: the conjunction streams the rarest
+  include term's span through K8 `join_member` (membership in every
+  other include and every exclude by each term's docid-sorted segment or
+  docid bitmap, partner rows merged, the filter applied), then kernels
+  1-3 and `topk_finish` rank the merged rows.
 
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
 extents in span order), never the docid.
 
-Queries with a constraint filter, a RAM delta or a facet bitmap return
-None (the caller's host path serves them) and count a fallback; so do
-packed spans, which this arena never holds, and `rank_join` declines
-every conjunction. Left out: the query batcher, the top-k result cache,
-device-loss handling, the join, bitmap and packed-word side tables, and
-the JAX package's tracing and profiler hooks.
+Queries with a RAM delta or a facet bitmap return None (the caller's host
+path serves them) and count a fallback; so do packed spans, which this
+arena never holds. Left out: the query batcher, the top-k result cache,
+device-loss handling, the packed-word side table, and the JAX package's
+tracing and profiler hooks.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 
 import numpy as np
 import torch
@@ -41,8 +50,8 @@ import torch
 from .. import resolve_device
 from ..convert import profile_from_jax
 from ..kernels import cardinal as KC
+from ..kernels import cardinal_score, cardinal_stats, tie_topk
 from ..kernels import devstore as KD
-from ..kernels import tie_topk
 from ..ops.ranking import (_ACTIVE_COLS, RankingProfile,
                            cardinal_from_stats_host, compact_feats,
                            pack_stats_host, profile_consts)
@@ -51,10 +60,14 @@ from . import postings as P
 # the kernels read one TILE from a span's start; extents are not aligned,
 # so the arena keeps at least one spare tile past its used rows
 TILE = KD.TILE
-NO_LANG = 0          # language filter sentinel (pack_language('') == 0)
-NO_FLAG = -1         # contentdom flag sentinel
+NO_LANG = KD.NO_LANG            # language filter sentinel
+NO_FLAG = KD.NO_FLAG            # contentdom flag sentinel
+DAYS_NONE_LO = KD.DAYS_NONE_LO  # lastmod range sentinels
+DAYS_NONE_HI = KD.DAYS_NONE_HI
 NEG_INF32 = -(2 ** 31 - 1)
 INT32_MAX = 2 ** 31 - 1
+# entries of the filtered-stats cache (FIFO beyond)
+_STATS_CACHE_CAP = 256
 
 # prune-prefix escalation buckets (tiles scored before tail verification)
 _PRUNE_B = (1, 8, 64, 512, 4096)
@@ -69,12 +82,14 @@ _PMAX_MARGIN_EXTRA = 64
 
 
 class Span:
-    """One packed extent of a (run, term): arena rows + prune side-table."""
+    """One packed extent of a (run, term): arena rows + prune and join
+    side-tables."""
 
-    __slots__ = ("start", "count", "tstart", "tcount", "stats", "dead_seq")
+    __slots__ = ("start", "count", "tstart", "tcount", "stats", "dead_seq",
+                 "jstart", "jslot")
 
     def __init__(self, start, count, tstart=-1, tcount=0, stats=None,
-                 dead_seq=-1):
+                 dead_seq=-1, jstart=-1, jslot=-1):
         self.start = start        # first arena row
         self.count = count
         self.tstart = tstart      # first row in the pmax side-table
@@ -84,6 +99,9 @@ class Span:
         # stats) is exact only while no tombstone postdates the span;
         # -1 = unknown, never prunable until the next merge
         self.dead_seq = dead_seq
+        self.jstart = jstart      # first entry of its docid-sorted view in
+        #                           the join side-table (-1: none)
+        self.jslot = jslot        # its join-bitmap slot (-1: none)
 
     def stats38(self) -> np.ndarray:
         """The frozen stats as the kernels' int32[38] (tf bounds as f32
@@ -147,6 +165,40 @@ def _bucket_rows(n: int) -> int:
     return p
 
 
+def _bucket_rows_join(n: int) -> int:
+    """The reference's rare-span window of a join (pow2 steps at 1/2, 5/8,
+    3/4, 7/8, 1): a join declines where it does not fit the arena."""
+    p = 1 << max(8, (n - 1).bit_length())
+    for step in (p // 2, p // 2 + p // 8, p // 2 + p // 4,
+                 p // 2 + p // 4 + p // 8, p):
+        if n <= step:
+            return step
+    return p
+
+
+def _side_bucket(n: int) -> int:
+    return 1 << max(8, (n - 1).bit_length())  # min bucket 256 rows
+
+
+_POPC8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None],
+                       axis=1).sum(1).astype(np.int32)
+
+
+def join_bitmap(sorted_docids: np.ndarray, nwords: int) -> np.ndarray:
+    """A term's join bitmap row: [nwords, 2] int32 of (word bits, set bits
+    in the words before), over docids sorted ascending, all below
+    32 nwords."""
+    words = (sorted_docids >> 5).astype(np.int64)
+    bits = np.uint32(1) << (sorted_docids & 31).astype(np.uint32)
+    uw, starts = np.unique(words, return_index=True)
+    bm = np.zeros(nwords, np.uint32)
+    bm[uw] = np.bitwise_or.reduceat(bits, starts)
+    pc = _POPC8[bm.view(np.uint8)].reshape(-1, 4).sum(1)
+    prefix = np.zeros(nwords, np.int32)
+    np.cumsum(pc[:-1], out=prefix[1:])
+    return np.stack([bm.view(np.int32), prefix], axis=1)
+
+
 def pruned_query(arrays, sp: Span, shift: int, lang_term: int, consts,
                  kk: int, b: int) -> torch.Tensor:
     """One pruned query over the first min(b, tcount) tiles of a span, in
@@ -174,16 +226,40 @@ def pruned_query(arrays, sp: Span, shift: int, lang_term: int, consts,
                                 lang_term))
 
 
-def scan_query(arrays, extents, consts, kk: int) -> torch.Tensor:
+def scan_query(arrays, extents, consts, kk: int, filt=None,
+               stats=None) -> torch.Tensor:
     """The exact two-pass scan over up to 8 extents: the [2kk + 36] vector
-    of _rank_spans_packed_kernel (scores, docids, the live rows'
-    col_min/col_max and tf bounds as f32 bits), left on the device."""
+    of _rank_spans_packed_kernel (scores, docids, the statistics'
+    col_min/col_max and tf bounds as f32 bits), left on the device. The
+    rows are the live ones that pass the filter `filt`; `stats` (int32[38]
+    of those rows, from an earlier K6) skips K6."""
     feats16, flags, docids, dead, _pmax = arrays
-    stats = KD.span_stats(feats16, docids, dead, extents)
+    if stats is None:
+        stats = KD.span_stats(feats16, docids, dead, extents, flags=flags,
+                              filt=filt)
     buf = KD.span_score(feats16, flags, docids, dead, extents, stats, consts,
-                        max(sum(c for _s, c in extents), kk))
+                        max(sum(c for _s, c in extents), kk), filt=filt)
     top_s, top_rows, _ = tie_topk(buf, kk)
     return KD.topk_finish(top_s, top_rows, docids, extents, stats=stats)
+
+
+def join_query(arrays, join, start: int, count: int, parts, n_inc: int,
+               consts, kk: int, filt=None) -> torch.Tensor:
+    """One conjunction over the rare span's rows [start, start + count):
+    K8, then kernel 1 (no host counts: the reference's num_hosts = 1 adds
+    no authority term), kernel 2 on the int32 path, kernel 3 in index
+    mode for min(kk, count) winners (ties by the row's place in the rare
+    span) and topk_finish: the [2 min(kk, count) + 36] vector, left on
+    the device. `join` is (jdocids, jpos, bmtab); `parts` as K8 takes
+    them."""
+    feats16, flags, docids, dead, _pmax = arrays
+    merged, fo, v = KD.join_member(feats16, flags, docids, dead, start,
+                                   count, *join, parts, n_inc, filt)
+    stats, counts = cardinal_stats(merged, v, None, 0)
+    sc = cardinal_score(merged, fo, v, None, stats, counts, consts, False)
+    top_s, top_rows, _ = tie_topk(sc, min(kk, count))
+    return KD.topk_finish(top_s, top_rows, docids, [(start, count)],
+                          stats=stats)
 
 
 class DeviceArena:
@@ -195,7 +271,18 @@ class DeviceArena:
     them, so it is unaffected. Growth allocates new tensors and copies,
     so a query holding the old ones keeps a consistent snapshot, as the
     reference's `jnp.pad` did; so does a tombstone update of the bitmap.
+
+    Side-tables: the per-tile bound rows `pmax`, and for joins each span's
+    docid-sorted view (`jdocids`, the arena row of each in `jpos`; pads
+    INT32_MAX / 0) and, for big terms, a docid bitmap slot in `bmtab`
+    [slots, nwords, 2] (word bits, rank prefix). nwords is fixed at the
+    first bitmap (pow2 words over twice that term's largest docid); a
+    term with a docid past it, or over the slot budget, gets no slot.
     """
+
+    # bitmap budget: slots are (nwords, 2) int32 rows
+    JOIN_BITMAP_BYTES = 256 << 20
+    JOIN_BITMAP_SLOTS = 64
 
     def __init__(self, device=None, budget_bytes: int = 2 << 30,
                  initial_rows: int = 4 * TILE):
@@ -218,6 +305,17 @@ class DeviceArena:
         self._tused = 0
         self._pmax = torch.full((self._tcap,), INT32_MAX, dtype=torch.int32,
                                 device=dev)
+        # join side-table: the spans' docid-sorted views
+        self._jcap = 1 << 12
+        self._jused = 0
+        self._jdocids = torch.full((self._jcap,), INT32_MAX,
+                                   dtype=torch.int32, device=dev)
+        self._jpos = torch.zeros(self._jcap, dtype=torch.int32, device=dev)
+        # join-bitmap side-table (nwords fixed at the first bitmap)
+        self._bm_nwords = 0
+        self._bm_cap = 0
+        self._bm_used = 0
+        self._bmtab = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -285,25 +383,98 @@ class DeviceArena:
         self._used += n
         return base
 
+    def _side_write(self, arrays, fills, bufs, used: int, cap: int):
+        """Write equal-length host buffers at `used` of 1-d side-tables of
+        capacity `cap`, grown by doubling (new tensors, pads `fills`);
+        returns (the arrays, their capacity)."""
+        b = len(bufs[0])
+        new_cap = cap
+        while new_cap < used + b:
+            new_cap *= 2
+        if new_cap != cap:
+            grown = []
+            for a, fill in zip(arrays, fills):
+                g = torch.full((new_cap,), fill, dtype=torch.int32,
+                               device=self.device)
+                g[:cap].copy_(a)
+                grown.append(g)
+            arrays = grown
+        for a, buf in zip(arrays, bufs):
+            a[used:used + b].copy_(self._put(buf))
+        return arrays, new_cap
+
     def append_pmax(self, pmax: np.ndarray) -> int:
         """Add a span's per-tile bound rows to the side-table; returns
         their start. Growth doubles, pad slots INT32_MAX."""
         n = len(pmax)
-        b = 1 << max(8, (n - 1).bit_length())  # min bucket 256 rows
-        buf = np.full(b, INT32_MAX, np.int32)
+        buf = np.full(_side_bucket(n), INT32_MAX, np.int32)
         buf[:n] = pmax
-        cap = self._tcap
-        while cap < self._tused + b:
-            cap *= 2
-        if cap != self._tcap:
-            grown = torch.full((cap,), INT32_MAX, dtype=torch.int32,
-                               device=self.device)
-            grown[:self._tcap].copy_(self._pmax)
-            self._pmax, self._tcap = grown, cap
         start = self._tused
-        self._pmax[start:start + b].copy_(self._put(buf))
+        (self._pmax,), self._tcap = self._side_write(
+            [self._pmax], [INT32_MAX], [buf], start, self._tcap)
         self._tused += n
         return start
+
+    def append_join_index(self, sorted_docids: np.ndarray,
+                          sorted_pos: np.ndarray) -> int:
+        """Add spans' docid-sorted (docid, arena row) views, each term's
+        segment sorted, concatenated; returns their start."""
+        n = len(sorted_docids)
+        start = self._jused
+        if n == 0:
+            return start
+        b = _side_bucket(n)
+        dbuf = np.full(b, INT32_MAX, np.int32)
+        pbuf = np.zeros(b, np.int32)
+        dbuf[:n], pbuf[:n] = sorted_docids, sorted_pos
+        (self._jdocids, self._jpos), self._jcap = self._side_write(
+            [self._jdocids, self._jpos], [INT32_MAX, 0], [dbuf, pbuf], start,
+            self._jcap)
+        self._jused += n
+        return start
+
+    def join_arrays(self):
+        return self._jdocids, self._jpos
+
+    def bitmap_array(self):
+        return self._bmtab
+
+    def append_join_bitmaps(self, segs: list[np.ndarray]) -> list[int]:
+        """Build the join bitmaps of docid-sorted segments and write them
+        in one update; returns a slot a segment (-1: past the coverage,
+        a negative docid, or no slot left)."""
+        out: list[int] = []
+        bufs: list[np.ndarray] = []
+        for sorted_docids in segs:
+            maxdoc = int(sorted_docids[-1])
+            if self._bm_nwords == 0:
+                # coverage: pow2 words over 2x the current docid space
+                need = (2 * maxdoc + 32) // 32
+                self._bm_nwords = 1 << max(15, (need - 1).bit_length())
+            nbits = self._bm_nwords * 32
+            max_slots = min(self.JOIN_BITMAP_SLOTS,
+                            self.JOIN_BITMAP_BYTES // (self._bm_nwords * 8))
+            if (maxdoc >= nbits or int(sorted_docids[0]) < 0
+                    or self._bm_used + len(bufs) >= max_slots):
+                out.append(-1)
+                continue
+            bufs.append(join_bitmap(sorted_docids, self._bm_nwords))
+            out.append(self._bm_used + len(bufs) - 1)
+        if bufs:
+            need = self._bm_used + len(bufs)
+            cap = max(self._bm_cap, 1)
+            while cap < need:
+                cap *= 2
+            if cap != self._bm_cap or self._bmtab.shape[1] != self._bm_nwords:
+                # growth: a new table, the old slots copied over
+                fresh = torch.zeros((cap, self._bm_nwords, 2),
+                                    dtype=torch.int32, device=self.device)
+                if self._bm_used:
+                    fresh[:self._bm_used].copy_(self._bmtab[:self._bm_used])
+                self._bmtab, self._bm_cap = fresh, cap
+            self._bmtab[self._bm_used:need].copy_(self._put(np.stack(bufs)))
+            self._bm_used = need
+        return out
 
     def mark_dead(self, docid: int) -> None:
         self._pending_dead.append(docid)
@@ -335,6 +506,12 @@ class DeviceSegmentStore:
     `term_hashes` and `n_postings`)."""
 
     MAX_SPANS = KD.MAX_EXTENTS  # matches the RWI merge policy's max_runs
+    # a join's terms (includes and excludes each), and its rare span's
+    # rows (the merged int32 block is 68 B a row: 4M rows ~ 285 MB)
+    MAX_JOIN_TERMS = 6
+    MAX_JOIN_ROWS = 4_194_304
+    # terms of at least this many rows get a join bitmap at pack time
+    JOIN_BITMAP_MIN = 65_536
 
     def __init__(self, rwi, device=None, budget_bytes: int = 2 << 30):
         self.rwi = rwi
@@ -356,6 +533,15 @@ class DeviceSegmentStore:
         self.prune_rounds = 0    # pruned dispatches (incl. escalations)
         self.pruned_tiles = 0    # tiles skipped by bound verification
         self.stream_scans = 0    # exact full-stream scans (no pruning)
+        # every join-shaped query lands in exactly one of these three
+        self.join_served = 0
+        self.join_fallbacks = 0
+        self.join_degraded_plain = 0
+        # a multi-span term declined a join: a merge would serve it
+        self.merge_wanted = False
+        # (termhash, lang, flag, from, to) -> (snapshot, tombstone bitmap
+        # weakref, K6 statistics int32[38] on the device), FIFO-capped
+        self._span_stats_cache: dict[tuple, tuple] = {}
         # seed tombstones recorded before this store existed
         for docid in rwi._tombstones:
             self.arena.mark_dead(docid)
@@ -393,8 +579,13 @@ class DeviceSegmentStore:
                 return  # over budget: the run's terms stay host-served
             base = self.arena.used_rows
             meta: list[tuple] = []   # (th, rel_off, n, rel_toff, n_tiles,
-            #                           stats)
+            #                           stats); rel_off is the join
+            #                           segment's offset too
             pmax_parts: list[np.ndarray] = []
+            join_dd: list[np.ndarray] = []
+            join_pos: list[np.ndarray] = []
+            bm_segs: list[np.ndarray] = []     # big terms' sorted docids
+            bm_at: list[int] = []              # their index into meta
             pending: list[tuple[np.ndarray, np.ndarray]] = []
             off = toff = 0
             for th in list(run.term_hashes()):
@@ -407,19 +598,35 @@ class DeviceSegmentStore:
                 n = len(p)
                 n_tiles = (n + TILE - 1) // TILE
                 pmax_parts.append(pmax_table(proxy[order]))
+                packed_dd = p.docids[order]
+                # the docid-sorted view of the packed rows (absolute arena
+                # rows): the join's lookup table
+                jorder = np.argsort(packed_dd, kind="stable")
+                sorted_dd = packed_dd[jorder].astype(np.int32)
+                join_dd.append(sorted_dd)
+                join_pos.append((base + off + jorder).astype(np.int32))
+                if n >= self.JOIN_BITMAP_MIN:
+                    bm_segs.append(sorted_dd)
+                    bm_at.append(len(meta))
                 meta.append((th, off, n, toff, n_tiles, stats))
                 off += n
                 toff += n_tiles
-                pending.append((p.docids[order], p.feats[order]))
+                pending.append((packed_dd, p.feats[order]))
             if pending:
                 self.arena.append_block(pending)
+            empty = np.empty(0, np.int32)
             tbase = self.arena.append_pmax(
-                np.concatenate(pmax_parts) if pmax_parts
-                else np.empty(0, np.int32))
+                np.concatenate(pmax_parts) if pmax_parts else empty)
+            jbase = self.arena.append_join_index(
+                np.concatenate(join_dd) if join_dd else empty,
+                np.concatenate(join_pos) if join_pos else empty)
+            slots = dict(zip(bm_at, self.arena.append_join_bitmaps(bm_segs)
+                             if bm_segs else []))
             dseq = getattr(run, "dead_seq", -1)
             self._packed[rid] = {
-                th: Span(base + o, n, tbase + to, nt, st, dseq)
-                for th, o, n, to, nt, st in meta}
+                th: Span(base + o, n, tbase + to, nt, st, dseq, jbase + o,
+                         slots.get(i, -1))
+                for i, (th, o, n, to, nt, st) in enumerate(meta)}
 
     # epoch bumps land after their mutation, as in the reference
 
@@ -504,10 +711,133 @@ class DeviceSegmentStore:
             return self._consts
 
     def rank_join(self, include_hashes, exclude_hashes, profile,
-                  language: str = "en", k: int = 100, **_filters):
-        """Conjunctions are not served here yet: the caller's host join
-        answers them."""
-        return None
+                  language: str = "en", k: int = 100,
+                  lang_filter: int = NO_LANG, flag_bit: int = NO_FLAG,
+                  from_days: int | None = None, to_days: int | None = None):
+        """Conjunctive ranked top-k on the device: (scores, docids,
+        considered) best-first, or None where the caller's host join
+        serves. Every join-shaped query (two or more includes, or one with
+        excludes) lands in exactly one of join_served, join_fallbacks and
+        join_degraded_plain; a query whose excludes all name terms with no
+        postings is a single-term query and goes to rank_term."""
+        out = self._rank_join_impl(include_hashes, exclude_hashes, profile,
+                                   language, k, lang_filter, flag_bit,
+                                   from_days, to_days)
+        if out == "declined":
+            with self._lock:
+                self.join_fallbacks += 1
+            return None
+        if out == "plain":
+            with self._lock:
+                self.join_degraded_plain += 1
+            return self.rank_term(
+                include_hashes[0], profile, language, k=k,
+                lang_filter=lang_filter, flag_bit=flag_bit,
+                from_days=from_days, to_days=to_days)
+        if out is not None:
+            with self._lock:
+                self.join_served += 1
+        return out
+
+    def _join_span_locked(self, termhash: bytes):
+        """The single joinable span of a term; None and `merge_wanted`
+        where it has several, None where it has no join view, [] where no
+        run holds it (caller holds the lock)."""
+        spans = self.spans_for(termhash)
+        if spans is None:
+            return None
+        if len(spans) > 1:
+            # a merge returns the term to one (joinable) span
+            self.merge_wanted = True
+            return None
+        if spans and spans[0].jstart < 0:
+            return None
+        return spans
+
+    def _rank_join_impl(self, include_hashes, exclude_hashes, profile,
+                        language, k, lang_filter, flag_bit, from_days,
+                        to_days):
+        """The join itself: None for a shape that is not a join, "plain",
+        "declined" (a counted fallback), or the answer."""
+        include_hashes = list(include_hashes)
+        exclude_hashes = list(exclude_hashes or [])
+        if (not include_hashes
+                or (len(include_hashes) == 1 and not exclude_hashes)
+                or len(include_hashes) > self.MAX_JOIN_TERMS
+                or len(exclude_hashes) > self.MAX_JOIN_TERMS):
+            return None
+        prof = profile_from_jax(profile.to_external_string())
+        with self._lock:
+            inc_spans = []
+            for th in include_hashes:
+                spans = self._join_span_locked(th)
+                if not spans:
+                    self.fallbacks += 1
+                    return "declined"
+                inc_spans.append(spans[0])
+            exc_spans = []
+            for th in exclude_hashes:
+                spans = self.spans_for(th)
+                if spans is None:
+                    # not packed: a term with no postings excludes nothing
+                    if self.rwi.has_term(th):
+                        self.fallbacks += 1
+                        return "declined"
+                    continue
+                spans = self._join_span_locked(th)
+                if spans is None:
+                    self.fallbacks += 1
+                    return "declined"
+                exc_spans += spans
+            feats16, flags, docids = self.arena.arrays()
+            arrays = (feats16, flags, docids, self.arena.dead_array(),
+                      self.arena._pmax)
+            join = (*self.arena.join_arrays(), self.arena.bitmap_array())
+        # RAM deltas are not joinable on the device; the counter bump
+        # happens outside the rwi lock (the store -> rwi lock order)
+        with self.rwi._lock:
+            ram_delta = any(self.rwi._ram_postings(th) is not None
+                            for th in include_hashes + exclude_hashes)
+        if ram_delta:
+            with self._lock:
+                self.fallbacks += 1
+            return "declined"
+        if len(inc_spans) == 1 and not exc_spans:
+            return "plain"   # every exclude named a term with no postings
+        rare_i = min(range(len(inc_spans)), key=lambda i: inc_spans[i].count)
+        rare = inc_spans[rare_i]
+        partners = [sp for i, sp in enumerate(inc_spans) if i != rare_i]
+        # the reference's static rare window must fit the arena
+        r = min(_bucket_rows_join(rare.count), feats16.shape[0] - rare.start)
+        jcap, nslots = join[0].shape[0], join[2].shape[0]
+
+        def part(sp):
+            """(jstart, count, bitmap slot or -1), None where the
+            reference's sorted-segment window does not fit the table."""
+            if 0 <= sp.jslot < nslots:
+                return sp.jstart, sp.count, sp.jslot
+            m = min(_bucket_rows(sp.count), jcap - sp.jstart)
+            return (sp.jstart, sp.count, -1) if m >= sp.count else None
+
+        parts = [part(sp) for sp in partners + exc_spans]
+        if (r < rare.count or rare.count > self.MAX_JOIN_ROWS
+                or any(p is None for p in parts)):
+            with self._lock:
+                self.fallbacks += 1
+            return "declined"
+        consts = self._profile_consts(prof, language)
+        kk = max(16, 1 << (max(k, 1) - 1).bit_length())
+        filt = (lang_filter, flag_bit,
+                DAYS_NONE_LO if from_days is None else from_days,
+                DAYS_NONE_HI if to_days is None else to_days)
+        host = join_query(arrays, join, rare.start, rare.count, parts,
+                          len(partners), consts, kk, filt).cpu().numpy()
+        n = min(kk, rare.count)
+        s, d = host[:n], host[n:2 * n]
+        keep = (d >= 0) & (s > NEG_INF32)
+        with self._lock:
+            self.queries_served += 1
+        return s[keep][:k], d[keep][:k], rare.count
 
     def rank_term(self, termhash: bytes, profile, language: str = "en",
                   k: int = 100, lang_filter: int = NO_LANG,
@@ -515,10 +845,11 @@ class DeviceSegmentStore:
                   to_days: int | None = None, allow_bitmap=None):
         """Single-term ranked top-k from placed blocks: (scores, docids,
         considered) best-first, or None when the term is not fully
-        resident or the query needs a filter, a RAM delta or a facet
-        bitmap (the caller's host path serves it). `profile` is any
-        ranking profile with `to_external_string()`; `considered` counts
-        candidate rows before tombstone masking."""
+        resident or the query needs a RAM delta or a facet bitmap (the
+        caller's host path serves it). `profile` is any ranking profile
+        with `to_external_string()`; `considered` counts candidate rows
+        before tombstone and filter masking. A constraint filter takes
+        the exact scan (statistics over the filtered rows)."""
         prof = profile_from_jax(profile.to_external_string())
         with self._lock:
             spans = self.spans_for(termhash)
@@ -528,23 +859,26 @@ class DeviceSegmentStore:
             feats16, flags, docids = self.arena.arrays()
             arrays = (feats16, flags, docids, self.arena.dead_array(),
                       self.arena._pmax)
+            # the snapshot the filtered-stats cache validates against
+            epoch0 = self.arena_epoch
+            dead0 = len(self.rwi._tombstones)
         with self.rwi._lock:
             delta = self.rwi._ram_postings(termhash)
         if not spans and delta is None:
             return np.empty(0, np.int32), np.empty(0, np.int32), 0
-        filtered = (lang_filter != NO_LANG or flag_bit != NO_FLAG
-                    or from_days is not None or to_days is not None
-                    or allow_bitmap is not None)
-        if filtered or (delta is not None and len(delta)):
+        if allow_bitmap is not None or (delta is not None and len(delta)):
             with self._lock:
                 self.fallbacks += 1
             return None
+        no_filters = (lang_filter == NO_LANG and flag_bit == NO_FLAG
+                      and from_days is None and to_days is None)
         considered = sum(sp.count for sp in spans)
         consts = self._profile_consts(prof, language)
         kk = max(16, 1 << (max(k, 1) - 1).bit_length())  # bucket k: pow2
         s = d = None
-        # pruned fast path: one span whose frozen stats are still exact
-        if (len(spans) == 1 and spans[0].tcount > 0
+        # pruned fast path: one span whose frozen stats are still exact,
+        # no filter (the bound holds in the unfiltered score domain only)
+        if (no_filters and len(spans) == 1 and spans[0].tcount > 0
                 and spans[0].dead_seq == len(self.rwi._tombstones)):
             sp = spans[0]
             shift, lang_term = prune_bound_consts(prof)
@@ -563,8 +897,35 @@ class DeviceSegmentStore:
         if s is None:
             with self._lock:
                 self.stream_scans += 1
-            host = scan_query(arrays, [(sp.start, sp.count) for sp in spans],
-                              consts, kk).cpu().numpy()
+            filt = (lang_filter, flag_bit,
+                    DAYS_NONE_LO if from_days is None else from_days,
+                    DAYS_NONE_HI if to_days is None else to_days)
+            # the statistics of a (term, filter) stand while its rows and
+            # their tombstones do: a repeat skips K6. The arena appends in
+            # place, so the feature tensors' identity proves nothing: an
+            # entry holds its snapshot's epoch (every flush, merge,
+            # delete and term drop bumps it after the change), tombstone
+            # count, extents and tombstone bitmap (a new tensor whenever
+            # tombstones land), and serves only a snapshot equal in all
+            # four, which also covers a query taken between a change and
+            # its epoch bump
+            skey = (termhash, *filt)
+            ext = [(sp.start, sp.count) for sp in spans]
+            snap = (epoch0, dead0, tuple(ext))
+            got = self._span_stats_cache.get(skey)
+            if got is not None and got[0] == snap and got[1]() is arrays[3]:
+                stats = got[2]
+            else:
+                stats = KD.span_stats(arrays[0], arrays[2], arrays[3], ext,
+                                      flags=arrays[1], filt=filt)
+                with self._lock:
+                    while len(self._span_stats_cache) >= _STATS_CACHE_CAP:
+                        self._span_stats_cache.pop(
+                            next(iter(self._span_stats_cache)))
+                    self._span_stats_cache[skey] = (
+                        snap, weakref.ref(arrays[3]), stats)
+            host = scan_query(arrays, ext, consts, kk, filt,
+                              stats).cpu().numpy()
             s, d = host[:kk], host[kk:2 * kk]
         keep = (d >= 0) & (s > NEG_INF32)
         s, d = s[keep], d[keep]

@@ -180,6 +180,13 @@ class RWIIndex:
 
     # -- read path ------------------------------------------------------------
 
+    def has_term(self, termhash: bytes) -> bool:
+        """Whether the term has postings in RAM or in any run."""
+        with self._lock:
+            if termhash in self._ram:
+                return True
+            return any(r.has(termhash) for r in self._runs)
+
     def _ram_postings(self, termhash: bytes) -> PostingsList | None:
         with self._lock:
             blocks = [b for b in self._ram.get(termhash) or () if len(b[0])]

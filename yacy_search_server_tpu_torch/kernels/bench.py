@@ -5,8 +5,10 @@
 arithmetic, `sorted_runs` the gathered block of a fusion (one sorted
 run a shard), `devstore_edges` a device store whose arena holds the
 devstore kernels' edge cases (`edge_slots`, `edge_extents`,
-`tile_slots` address it), and `arena_rows` / `devstore_oracle` the
-numpy answer `rank_term` must give. `call_ms` times one call between two
+`tile_slots` address it), `join_edges` a store whose join tables hold
+K8's edge cases (`join_edge_cases` lists them), `arena_rows` /
+`devstore_oracle` the numpy answer `rank_term` must give and
+`devjoin_oracle` the one `rank_join` must give. `call_ms` times one call between two
 CUDA events as the host issues it from an idle queue (the `ms` of
 chip_smoke.py);
 `device_ms` times the device alone, the calls queued behind a spin
@@ -213,6 +215,112 @@ class Fanout:
         return lambda *a: [getattr(s, name)(*a) for s in self.stores]
 
 
+def draw_docids(n: int, hi: int, rng) -> np.ndarray:
+    """n distinct docids drawn from [0, hi), sorted: a term's postings
+    meeting another term's only in part."""
+    return np.sort(rng.choice(hi, n, replace=False)).astype(np.int32)
+
+
+# join_edges' terms, packed in this order: rows, docid draw range (the
+# first big term sets the bitmaps' coverage: 2^15 words over [0, 200,000))
+JOIN_EDGE_TERMS = {
+    b"jbitmapAAAAA": (100_000, 200_000),   # bitmap partner
+    b"jrareAAAAAAA": (40_000, 200_000),    # the streamed side
+    b"jsortbigAAAA": (80_000, 200_000),    # big, 2^29 past the coverage
+    b"jallAAAAAAAA": (0, 0),               # every rare docid and more
+    b"jnoneAAAAAAA": (70_000, 0),          # bitmap, meets no rare docid
+    b"jsmallAAAAAA": (5_000, 200_000),     # sort partner
+}
+JOIN_EDGE_HIGH = (2**29, 2**29 + 3, 3_000_000)  # rare docids: the clip,
+#                                               and past the coverage
+
+
+def join_edges(device, seed: int = SEED):
+    """(store, rwi) over JOIN_EDGE_TERMS in one run on `device`:
+    make_term's columns (random languages, lastmods and flags for the
+    filters), the rare term with docids at and above 2^29 and past the
+    bitmaps' coverage, a sort-mode partner of more than JOIN_BITMAP_MIN
+    rows holding 2^29 (so past the coverage), a partner holding every
+    rare docid, a bitmap partner meeting none, and tombstones on rare
+    rows after the pack."""
+    from ..index.devstore import DeviceSegmentStore
+    from ..index.postings import PostingsList
+    from ..index.rwi import RWIIndex
+    rng = np.random.default_rng(seed + 77)
+    ids = {}
+    for th, (n, hi) in JOIN_EDGE_TERMS.items():
+        if th == b"jrareAAAAAAA":
+            ids[th] = np.concatenate([draw_docids(n - 3, hi, rng),
+                                      np.array(sorted(JOIN_EDGE_HIGH),
+                                               np.int32)])
+        elif th == b"jsortbigAAAA":
+            ids[th] = np.append(draw_docids(n - 1, hi, rng),
+                                np.int32(2**29))
+        elif th == b"jallAAAAAAAA":
+            rare = ids[b"jrareAAAAAAA"]
+            ids[th] = np.union1d(rare, draw_docids(9_000, 200_000, rng))
+        elif th == b"jnoneAAAAAAA":
+            ids[th] = (300_001 + 2 * np.arange(n)).astype(np.int32)
+        else:
+            ids[th] = draw_docids(n, hi, rng)
+    idx = RWIIndex()
+    for i, (th, d) in enumerate(ids.items()):
+        feats, _, _, _ = make_term(len(d), seed + 40 + i)
+        idx.add_many(th, PostingsList(d.astype(np.int32), feats))
+    idx.flush()
+    store = DeviceSegmentStore(idx, device=device)
+    for d in ids[b"jrareAAAAAAA"][::37][:500]:
+        idx.delete_doc(int(d))
+    return store, idx
+
+
+JOIN_EDGE_FILTERS = {
+    "language": (0x6465, -1, -(2**30), 2**30),
+    "flag": (0, 7, -(2**30), 2**30),
+    "flag bit 40 (the sign)": (0, 40, -(2**30), 2**30),
+    "from days": (0, -1, 15_000, 2**30),
+    "to days": (0, -1, -(2**30), 12_000),
+    "all four": (0x656E, 3, 5_000, 25_000),
+}
+
+
+def join_edge_cases(store):
+    """K8's cases over join_edges' store: (label, rare span, parts,
+    n_inc, filter) with parts as join_member takes them and each term's
+    mode as the store would choose it."""
+    sp = {th: store.spans_for(th)[0] for th in JOIN_EDGE_TERMS}
+    nslots = store.arena.bitmap_array().shape[0]
+
+    def part(th):
+        s = sp[th]
+        return (s.jstart, s.count, s.jslot if 0 <= s.jslot < nslots else -1)
+    rare = sp[b"jrareAAAAAAA"]
+    mixed = [part(b"jbitmapAAAAA"), part(b"jsortbigAAAA"),
+             part(b"jsmallAAAAAA")]
+    cases = [
+        ("excludes only (bitmap, sort)", rare,
+         [part(b"jbitmapAAAAA"), part(b"jsmallAAAAAA")], 0, None),
+        ("a bitmap partner meeting no row", rare, [part(b"jnoneAAAAAAA")],
+         1, None),
+        ("a sort partner holding every row", rare,
+         [part(b"jallAAAAAAAA")], 1, None),
+        ("mixed: bitmap and sort partners, sort exclude", rare, mixed, 2,
+         None),
+        ("bitmap partner, 2^29 sort partner, every-row exclude", rare,
+         [part(b"jbitmapAAAAA"), part(b"jsortbigAAAA"),
+          part(b"jallAAAAAAAA")], 2, None),
+        ("five partners, six excludes", rare,
+         [part(b"jbitmapAAAAA"), part(b"jsortbigAAAA"),
+          part(b"jallAAAAAAAA"), part(b"jbitmapAAAAA"),
+          part(b"jsortbigAAAA")] + [part(b"jnoneAAAAAAA")] * 6, 5, None),
+        ("the bitmap term streamed", sp[b"jbitmapAAAAA"],
+         [part(b"jsortbigAAAA"), part(b"jsmallAAAAAA")], 1, None),
+    ]
+    cases += [(f"mixed, filter {name}", rare, mixed, 2, filt)
+              for name, filt in JOIN_EDGE_FILTERS.items()]
+    return cases
+
+
 def tile_slots(span, bs: int):
     """bs K5 slots over consecutive tiles of one span: slot i the span's
     rows from its tile i on (a proxy-sorted extent of its own, bounded by
@@ -261,6 +369,66 @@ def devstore_oracle(parts, prof, k: int, language: str = "en"):
     _, first = np.unique(d, return_index=True)
     sel = np.sort(first)
     return s[sel][:k], d[sel][:k]
+
+
+def devjoin_oracle(terms, inc, exc, dead, prof, k: int,
+                   filt=(0, -1, -(2**30), 2**30), language: str = "en"):
+    """numpy (scores, docids, considered) that DeviceSegmentStore.rank_join
+    must return. `terms` maps a termhash to its one span's (feats16,
+    flags, docids) in arena order (arena_rows), all rows; `dead` the
+    tombstoned docids. The include with the fewest rows (the first on a
+    tie) is streamed: each of its live rows whose docid is in every other
+    include and in no exclude merges them (worddistance = max - min
+    posintext, hitcount = min, flags = OR) and must pass the filter;
+    statistics over those rows, scores on the int32 path, the kk =
+    max(16, pow2(k)) best by (score, position in the span), then k."""
+    from ..index import postings as P
+    from ..ops import ranking as R
+    rare_th = min(inc, key=lambda th: len(terms[th][2]))
+    f16, fl, dd = terms[rare_th]
+    v = ~np.isin(dd, np.asarray(sorted(dead), np.int32))
+    merged = f16.astype(np.int32)
+    fo = fl.copy()
+    pmin = pmax = merged[:, P.F_POSINTEXT].copy()
+    for th in inc:
+        if th == rare_th:
+            continue
+        pf, pfl, pd = terms[th]
+        order = np.argsort(pd, kind="stable")
+        i = np.searchsorted(pd[order], dd).clip(max=len(pd) - 1)
+        found = v & (pd[order][i] == dd)
+        row = order[i]
+        pp = pf[row, P.F_POSINTEXT].astype(np.int32)
+        pmin = np.where(found, np.minimum(pmin, pp), pmin)
+        pmax = np.where(found, np.maximum(pmax, pp), pmax)
+        merged[:, P.F_HITCOUNT] = np.where(found, np.minimum(
+            merged[:, P.F_HITCOUNT], pf[row, P.F_HITCOUNT]),
+            merged[:, P.F_HITCOUNT])
+        fo = np.where(found, fo | pfl[row], fo)
+        v = found
+    for th in exc:
+        v &= ~np.isin(dd, terms[th][2])
+    merged[:, P.F_WORDDISTANCE] = pmax - pmin
+    lang, flag, lo, hi = filt
+    lastmod = merged[:, P.F_LASTMOD]
+    if lang != 0:
+        v &= merged[:, P.F_LANGUAGE] == lang
+    if flag != -1:
+        v &= ((fo.astype(np.int64) >> min(max(flag, 0), 31)) & 1) == 1
+    if lo != -(2**30):
+        v &= lastmod >= lo
+    if hi != 2**30:
+        v &= lastmod <= hi
+    if not v.any():
+        return np.empty(0, np.int32), np.empty(0, np.int32), len(dd)
+    st = R.pack_stats_host(merged[v], fo[v])
+    sc = R.cardinal_from_stats_host(merged, fo, st, prof,
+                                    P.pack_language(language))
+    sc = np.where(v, sc, -(2**31 - 1)).astype(np.int64)
+    kk = max(16, 1 << (max(k, 1) - 1).bit_length())
+    top = np.argsort(-sc, kind="stable")[:kk]
+    top = top[sc[top] > -(2**31 - 1)]
+    return sc[top].astype(np.int32)[:k], dd[top][:k], len(dd)
 
 
 def device_ms(fn, reps: int = 20) -> float:

@@ -47,8 +47,11 @@ SIGNATURES = {
     "yt_tie_topk_trace": [_P],
     "yt_gather_topk": [_P, _P, _I64, _I64, _I64, _I, _I64, _P, _P],
     "yt_empty_launch": [_P],
-    "yt_span_stats": [_P, _P, _P, _I64, _P, _I, _P, _P],
-    "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P],
+    "yt_span_stats": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _P],
+    "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _P, _P, _I64,
+                      _P],
+    "yt_join_member": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P,
+                       _I64, _P, _I, _I, _P, _P, _P, _P, _P],
     "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P,
                        _P],
     "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _I64, _I64, _I, _I,
@@ -148,7 +151,7 @@ def check(rc: int, name: str) -> None:
 # shows it went through a kernel by the count moving
 LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "gather_topk": 0, "pruned_tile": 0, "span_stats": 0,
-            "span_score": 0, "topk_finish": 0}
+            "span_score": 0, "topk_finish": 0, "join_member": 0}
 
 
 def reset_launches() -> None:

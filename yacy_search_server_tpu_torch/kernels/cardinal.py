@@ -112,9 +112,12 @@ def cardinal_stats_plain(feats, valid, hostids, num_hosts: int):
 def cardinal_stats(feats, valid, hostids, num_hosts: int):
     """Kernel 1: normalisation statistics of a postings block.
 
-    feats [n, 17] int16 or int32, valid [n] bool, hostids [n] int32;
-    num_hosts bins for the per-host valid counts (0: not counted).
+    feats [n, 17] int16 or int32, valid [n] bool, hostids [n] int32
+    (None when num_hosts is 0: not read); num_hosts bins for the per-host
+    valid counts (0: not counted).
     Returns (stats int32[38], counts int32[max(num_hosts, 1)])."""
+    if hostids is None and num_hosts > 0:
+        raise ValueError("host counts need the host ids")
     if feats.device.type == "cpu":
         return cardinal_stats_plain(feats, valid, hostids, num_hosts)
     dev = feats.device
@@ -123,8 +126,10 @@ def cardinal_stats(feats, valid, hostids, num_hosts: int):
     if feats.shape[1] != P.NF:
         raise ValueError(f"feats: {feats.shape[1]} columns, expected {P.NF}")
     B.require(valid, "valid", (torch.bool,), 1, dev)
-    B.require(hostids, "hostids", (torch.int32,), 1, dev)
-    if valid.shape[0] != n or hostids.shape[0] != n:
+    if hostids is not None:
+        B.require(hostids, "hostids", (torch.int32,), 1, dev)
+    if valid.shape[0] != n or (hostids is not None
+                               and hostids.shape[0] != n):
         raise ValueError("valid/hostids must have one entry per row")
     # one allocation: the statistics, the counts, then the kernel's
     # accumulator and ticket (csrc/cardinal_stats.cu)
@@ -133,7 +138,8 @@ def cardinal_stats(feats, valid, hostids, num_hosts: int):
                       device=dev)
     rc = B.library().yt_cardinal_stats(
         feats.data_ptr(), feats.element_size(), valid.data_ptr(),
-        hostids.data_ptr(), n, num_hosts, out.data_ptr(), B.stream_ptr(dev))
+        hostids.data_ptr() if hostids is not None else None, n, num_hosts,
+        out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "cardinal_stats")
     B.LAUNCHES["cardinal_stats"] += 1
     return out[:STATS_LEN], out[STATS_LEN:STATS_LEN + cnt]
@@ -143,9 +149,27 @@ def cardinal_stats(feats, valid, hostids, num_hosts: int):
 # kernel 2: cardinal_score
 # ---------------------------------------------------------------------------
 
+_PLAIN_ROWS = 1 << 20   # rows a plain scoring step holds in int64
+
+
 def cardinal_score_plain(feats, flags, valid, hostids, stats, counts,
                          consts, fast_div: bool):
-    """Plain PyTorch version of kernel 2 (the JAX cardinal_from_stats)."""
+    """Plain PyTorch version of kernel 2 (the JAX cardinal_from_stats),
+    in steps of 2^20 rows (a row's score depends on its row alone)."""
+    n = feats.shape[0]
+    if n <= _PLAIN_ROWS:
+        return _score_rows_plain(feats, flags, valid, hostids, stats, counts,
+                                 consts, fast_div)
+    def part(t, lo):
+        return None if t is None else t[lo:lo + _PLAIN_ROWS]
+    return torch.cat([_score_rows_plain(
+        feats[lo:lo + _PLAIN_ROWS], part(flags, lo), part(valid, lo),
+        part(hostids, lo), stats, counts, consts, fast_div)
+        for lo in range(0, n, _PLAIN_ROWS)])
+
+
+def _score_rows_plain(feats, flags, valid, hostids, stats, counts, consts,
+                      fast_div: bool):
     dev = feats.device
     c = consts.to(torch.int64)
     st = stats.to(torch.int64)
@@ -207,10 +231,13 @@ def cardinal_score(feats, flags, valid, hostids, stats, counts, consts,
     """Kernel 2: int32 cardinal score per row (invalid rows -(2^31-1)).
 
     feats [n, 17] int16 or int32; flags [n] int32 or None (read the
-    F_FLAGS column); valid [n] bool; hostids [n] int32; stats int32[38]
+    F_FLAGS column); valid [n] bool; hostids [n] int32 (None when counts
+    has one entry: no authority term, not read); stats int32[38]
     and counts from kernel 1 (or merged); consts int32[44]; fast_div
     selects the compact path's reciprocal division (exact for int16
     blocks) over the int32 path's floor division."""
+    if hostids is None and counts.shape[0] > 1:
+        raise ValueError("the authority term needs the host ids")
     if feats.device.type == "cpu":
         return cardinal_score_plain(feats, flags, valid, hostids, stats,
                                     counts, consts, fast_div)
@@ -222,12 +249,13 @@ def cardinal_score(feats, flags, valid, hostids, stats, counts, consts,
     if flags is not None:
         B.require(flags, "flags", (torch.int32,), 1, dev)
     B.require(valid, "valid", (torch.bool,), 1, dev)
-    B.require(hostids, "hostids", (torch.int32,), 1, dev)
+    if hostids is not None:
+        B.require(hostids, "hostids", (torch.int32,), 1, dev)
     B.require(stats, "stats", (torch.int32,), 1, dev)
     B.require(counts, "counts", (torch.int32,), 1, dev)
     B.require(consts, "consts", (torch.int32,), 1, dev)
-    if any(t.shape[0] != n for t in (valid, hostids)) or (
-            flags is not None and flags.shape[0] != n):
+    if any(t is not None and t.shape[0] != n
+           for t in (valid, hostids, flags)):
         raise ValueError("flags/valid/hostids must have one entry per row")
     if stats.shape[0] != STATS_LEN or consts.shape[0] != CONSTS_LEN:
         raise ValueError("stats must be int32[38] and consts int32[44]")
@@ -235,7 +263,8 @@ def cardinal_score(feats, flags, valid, hostids, stats, counts, consts,
     rc = B.library().yt_cardinal_score(
         feats.data_ptr(), feats.element_size(),
         flags.data_ptr() if flags is not None else None, valid.data_ptr(),
-        hostids.data_ptr(), n, stats.data_ptr(), counts.data_ptr(),
+        hostids.data_ptr() if hostids is not None else None, n,
+        stats.data_ptr(), counts.data_ptr(),
         counts.shape[0], consts.data_ptr(), int(fast_div), out.data_ptr(),
         B.stream_ptr(dev))
     B.check(rc, "cardinal_score")

@@ -139,7 +139,10 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
 // in the sequence). Liveness is decided here from the docids and the
 // tombstone bitmap (row_live), so the host sends no counts and no mask.
 // Rows [rows, out_len) of the buffer get -(2^31-1): a top-k of kk > rows
-// reads them as the JAX merge reads its init entries.
+// reads them as the JAX merge reads its init entries. A row that fails
+// the constraint filter (common.cuh Filter) scores -(2^31-1) as a dead
+// one does; the statistics are then span_stats' under the same filter, or
+// the filtered-stats cache's copy of them (the with_ext_stats branch).
 //
 // Bound: bytes, 34 B of features + 4 B flags + 4 B docid read and 4 B
 // written a row. The row pipeline is score_chunks': persistent warps, 64-
@@ -150,7 +153,8 @@ score_extents(const int16_t* __restrict__ feats,
               const int32_t* __restrict__ flags,
               const int32_t* __restrict__ docids,
               const uint8_t* __restrict__ dead, int64_t doc_cap,
-              const Extents x, const int32_t* __restrict__ st,
+              const Extents x, const Filter q,
+              const int32_t* __restrict__ st,
               const int32_t* __restrict__ consts,
               int32_t* __restrict__ out, int64_t out_len) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -160,6 +164,8 @@ score_extents(const int16_t* __restrict__ feats,
   const int64_t chunks = x.cbase[x.n];
   const int64_t step = (int64_t)gridDim.x * WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
+
+  const bool off = filter_off(q);
 
   int64_t c = (int64_t)blockIdx.x * WARPS + warp;
   if (c < chunks) issue_extent_chunk(x, feats, flags, docids, c, mine, lane);
@@ -187,9 +193,11 @@ score_extents(const int16_t* __restrict__ feats,
       const int j = lane + 32 * m;
       if (r0 + j < x.count[e]) {
         int32_t score = SMALL;
-        if (row_live(sg.host(j), dead, doc_cap))
-          score = score_row<int16_t, true>(sg.row(j), sg.flag(j), rk, false,
-                                           0);
+        const int16_t* f = sg.row(j);
+        if (row_live(sg.host(j), dead, doc_cap) &&
+            (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], sg.flag(j),
+                                  q)))
+          score = score_row<int16_t, true>(f, sg.flag(j), rk, false, 0);
         out[x.obase[e] + r0 + j] = score;
       }
     }
@@ -252,15 +260,17 @@ extern "C" int yt_cardinal_score(const void* feats, int feat_bytes,
 
 // K7: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
 // feats [cap, 17] int16, flags/docids [cap] int32, dead [doc_cap] bool;
-// stats int32[38]; consts int32[44]; out [out_len] int32, out_len >= the
-// extents' rows.
+// filt the filter's 4 int32 in host memory; stats int32[38]; consts
+// int32[44]; out [out_len] int32, out_len >= the extents' rows.
 extern "C" int yt_span_score(const void* feats, const void* flags,
                              const void* docids, const void* dead,
                              int64_t doc_cap, const int64_t* ext, int n_ext,
-                             const void* stats, const void* consts, void* out,
-                             int64_t out_len, void* stream) {
+                             const int32_t* filt, const void* stats,
+                             const void* consts, void* out, int64_t out_len,
+                             void* stream) {
   if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
   const Extents x = make_extents(ext, n_ext);
+  const Filter q = {filt[0], filt[1], filt[2], filt[3]};
   if (out_len < x.obase[n_ext]) return (int)cudaErrorInvalidValue;
   const int smem = WARPS * 2 * stage_bytes<int16_t>();
   static int cached[64];
@@ -272,7 +282,7 @@ extern "C" int yt_span_score(const void* feats, const void* flags,
   const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
   score_extents<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
-      (const uint8_t*)dead, doc_cap, x, (const int32_t*)stats,
+      (const uint8_t*)dead, doc_cap, x, q, (const int32_t*)stats,
       (const int32_t*)consts, (int32_t*)out, out_len);
   return (int)cudaGetLastError();
 }

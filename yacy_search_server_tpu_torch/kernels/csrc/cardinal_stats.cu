@@ -268,16 +268,21 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
 // Replaces the statistics pass of index/devstore._rank_spans_kernel (JAX
 // package, devstore.py:378-423): the column min/max and tf min/max of the
 // live rows of up to 8 arena extents, read in place; liveness (row_live)
-// from the docids and the tombstone bitmap, no host counts. The row
-// pipeline, the fold and the last block's finish are stats_pass'.
+// from the docids and the tombstone bitmap, no host counts. With a
+// constraint filter (common.cuh Filter, the filter branch of
+// _tile_valid's caller) only the rows that pass it count; the flags are
+// staged only when the filter tests a flag bit. The row pipeline, the
+// fold and the last block's finish are stats_pass'.
 //
-// Bound: bytes, 34 B of features and 4 B of docid read a row (and the
-// tombstone bytes the docids hit, from the L2).
+// Bound: bytes, 34 B of features and 4 B of docid read a row (4 B more of
+// flags under a flag filter), and the tombstone bytes the docids hit,
+// from the L2.
 __global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
 stats_extents(const int16_t* __restrict__ feats,
+              const int32_t* __restrict__ flags,
               const int32_t* __restrict__ docids,
               const uint8_t* __restrict__ dead, int64_t doc_cap,
-              const Extents x, uint32_t* __restrict__ acc,
+              const Extents x, const Filter q, uint32_t* __restrict__ acc,
               uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint32_t s_acc[STATS_LEN];
@@ -288,9 +293,11 @@ stats_extents(const int16_t* __restrict__ feats,
   const int64_t step = (int64_t)gridDim.x * S_WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
 
+  const bool off = filter_off(q);
+  const int32_t* fsrc = q.flag == NO_FLAG ? nullptr : flags;
+
   int64_t c = (int64_t)blockIdx.x * S_WARPS + warp;
-  if (c < chunks)
-    issue_extent_chunk(x, feats, nullptr, docids, c, mine, lane);
+  if (c < chunks) issue_extent_chunk(x, feats, fsrc, docids, c, mine, lane);
   cp_async_commit();
   if (t < STATS_LEN) s_acc[t] = 0u;
   Fold a;
@@ -298,21 +305,25 @@ stats_extents(const int16_t* __restrict__ feats,
   for (int i = 0; c < chunks; ++i, c += step) {
     const int cur = i & 1;
     if (c + step < chunks)
-      issue_extent_chunk(x, feats, nullptr, docids, c + step,
+      issue_extent_chunk(x, feats, fsrc, docids, c + step,
                          mine + (cur ^ 1) * SB, lane);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
     const int e = extent_of_chunk(x, c);
     const int64_t s = x.start[e];
-    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF, nullptr,
-                            docids + s, nullptr);
+    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF,
+                            fsrc ? flags + s : nullptr, docids + s, nullptr);
     const int64_t r0 = (c - x.cbase[e]) * CH;
 #pragma unroll
     for (int m = 0; m < CH / 32; ++m) {
       const int j = lane + 32 * m;
-      if (r0 + j < x.count[e] && row_live(sg.host(j), dead, doc_cap))
-        a.row(sg.row(j));
+      if (r0 + j < x.count[e] && row_live(sg.host(j), dead, doc_cap)) {
+        const int16_t* f = sg.row(j);
+        if (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD],
+                                 fsrc ? sg.flag(j) : 0, q))
+          a.row(f);
+      }
     }
     __syncwarp();
   }
@@ -425,16 +436,19 @@ extern "C" int yt_cardinal_stats(const void* feats, int feat_bytes,
 }
 
 // K6: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
-// feats [cap, 17] int16, docids [cap] int32, dead [doc_cap] bool. out:
-// int32[38 + 39]: the statistics (written, host maximum 0), then the
-// accumulator and the ticket, which this call zeroes with its one memset.
-extern "C" int yt_span_stats(const void* feats, const void* docids,
-                             const void* dead, int64_t doc_cap,
-                             const int64_t* ext, int n_ext, void* out,
-                             void* stream) {
+// feats [cap, 17] int16, flags/docids [cap] int32, dead [doc_cap] bool;
+// filt the filter's 4 int32 (language, flag bit, from and to days) in host
+// memory. out: int32[38 + 39]: the statistics (written, host maximum 0),
+// then the accumulator and the ticket, which this call zeroes with its
+// one memset.
+extern "C" int yt_span_stats(const void* feats, const void* flags,
+                             const void* docids, const void* dead,
+                             int64_t doc_cap, const int64_t* ext, int n_ext,
+                             const int32_t* filt, void* out, void* stream) {
   if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const Extents x = make_extents(ext, n_ext);
+  const Filter q = {filt[0], filt[1], filt[2], filt[3]};
   int32_t* st = (int32_t*)out;
   uint32_t* acc = (uint32_t*)(st + STATS_LEN);
   uint32_t* ticket = acc + STATS_LEN;
@@ -448,7 +462,7 @@ extern "C" int yt_span_stats(const void* feats, const void* docids,
   const int64_t blocks = (x.cbase[n_ext] + S_WARPS - 1) / S_WARPS;
   const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
   stats_extents<<<grid, S_WARPS * 32, stages, s>>>(
-      (const int16_t*)feats, (const int32_t*)docids, (const uint8_t*)dead,
-      doc_cap, x, acc, ticket, st);
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, x, q, acc, ticket, st);
   return (int)cudaGetLastError();
 }

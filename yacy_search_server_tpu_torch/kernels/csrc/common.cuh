@@ -1,8 +1,8 @@
 // Shared definitions of the port's CUDA kernels: the posting column
 // layout, the packed profile-constant and statistics vectors, the
 // order-preserving integer keys the selection kernels sort by, the
-// staged row chunks and the row scorer, and the arena extents and row
-// liveness of the devstore kernels.
+// staged row chunks and the row scorer, and the arena extents, row
+// liveness and constraint filter of the devstore kernels.
 //
 // Layouts (mirrored in kernels/cardinal.py):
 //   consts int32[44]: [0,17) norm coeffs, [17,28) flag bits,
@@ -17,11 +17,14 @@
 namespace yt {
 
 constexpr int NF = 17;
+constexpr int F_LASTMOD = 0;
 constexpr int F_WORDS_IN_TITLE = 1;
 constexpr int F_WORDS_IN_TEXT = 2;
 constexpr int F_LANGUAGE = 5;
 constexpr int F_FLAGS = 10;
 constexpr int F_HITCOUNT = 11;
+constexpr int F_POSINTEXT = 12;
+constexpr int F_WORDDISTANCE = 15;
 constexpr int F_DOMLENGTH = 16;
 constexpr int N_FLAG_TERMS = 11;
 
@@ -423,6 +426,33 @@ __device__ __forceinline__ void issue_extent_chunk(
 __device__ __forceinline__ bool row_live(int32_t d, const uint8_t* dead,
                                          int64_t doc_cap) {
   return d >= 0 && !(d < doc_cap && dead[d]);
+}
+
+// A query's constraint filter (devstore _constraint_valid): a language,
+// one content-domain flag bit and a lastmod range in days, each off at
+// its sentinel (NO_LANG 0, NO_FLAG -1, DAYS_NONE_LO -2^30, DAYS_NONE_HI
+// 2^30). Passed by value in the launch parameters.
+struct Filter {
+  int32_t lang, flag, from_days, to_days;
+};
+constexpr int32_t NO_LANG = 0, NO_FLAG = -1;
+constexpr int32_t DAYS_NONE_LO = -(1 << 30), DAYS_NONE_HI = 1 << 30;
+
+__host__ __device__ inline bool filter_off(const Filter& q) {
+  return q.lang == NO_LANG && q.flag == NO_FLAG &&
+         q.from_days == DAYS_NONE_LO && q.to_days == DAYS_NONE_HI;
+}
+
+// Whether a row passes the filter, from its language and lastmod columns
+// and its flags. The flag test is XLA's (fl >> max(bit, 0)) & 1 on int32:
+// an arithmetic shift, so a bit of 32 or more reads the sign (bit 31).
+__device__ __forceinline__ bool constraint_ok(int32_t lang, int32_t lastmod,
+                                              int32_t fl, const Filter& q) {
+  const int b = q.flag < 0 ? 0 : (q.flag > 31 ? 31 : q.flag);
+  return (q.lang == NO_LANG || lang == q.lang) &&
+         (q.flag == NO_FLAG || ((fl >> b) & 1)) &&
+         (q.from_days == DAYS_NONE_LO || lastmod >= q.from_days) &&
+         (q.to_days == DAYS_NONE_HI || lastmod <= q.to_days);
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds
