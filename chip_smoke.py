@@ -32,8 +32,14 @@ Phases, each of which exits non-zero on failure:
    and one holding every row, bitmap, sort and mixed partners, five
    partners and six excludes, tombstoned rare rows, docids past the
    bitmaps' coverage and at and above 2^29, each filter alone and all
-   four) and K6/K7 under each filter, K7 also on statistics handed in
-   as a filtered-stats cache hit does;
+   four; four docids at or above 2^29, one tombstoned, for the clip
+   rule) and K6/K7 under each filter, K7 also on statistics handed in
+   as a filtered-stats cache hit does; K6, K7 and topk_finish with a
+   RAM delta block (7, 50,000 and 300,000 rows: span docids, tombstoned
+   ones, new ones) and a 4M-bit facet bitmap, with and without a
+   filter; the batched scan (span_stats_batch, span_score_batch,
+   topk_finish_batch) over waves of 1, 3 and 16 edge scans, each slot
+   also equal to the solo scan and to the CPU's;
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
@@ -53,12 +59,34 @@ Phases, each of which exits non-zero on failure:
    declines, and filtered rank_term on the headline term cold and from
    the filtered-stats cache, each equal to the twin's and to the numpy
    oracle (kernels/bench.devjoin_oracle, devstore_oracle), with their
-   walls (median of 50 after a warm-up) after the counts are read; then
-   rank_term's 50 pruned queries (k = 10 and 100), a query on each
+   walls (median of 50 after a warm-up) after the counts are read; then,
+   the result cache off, rank_term's 50 pruned queries (k = 10 and
+   100), a query on each
    other term, the escalating profile, k = 1000, a delete (the exact
    scan over one span) and a second run (over two), every answer equal
    to the twin's and to the numpy oracle (kernels/bench.devstore_oracle),
-   and the filtered query after them; every kernel of each path must
+   and the filtered query after them; between the k = 1000 query and the
+   delete, counts reset, the batched path's part 1: a result-cache hit
+   equal to the cold answer, then a pruned mix (the store's 7 terms, two
+   profiles, two languages, k = 10 and 100), its default/en/k = 100
+   queries alone (one K5 group, so that waves can fill) and a
+   filtered-scan mix (the 1M, 100k and 20k terms and joinB, whose RAM
+   delta keeps it out of the waves; four filters) sent one at a time
+   without the batcher, from 16 threads without it, and from 16 threads
+   through it (`enable_batching`, scan batching on), every answer equal
+   to the solo card answer and the twin's, with q/s and p50/p95 of each
+   and the live slots a launch; the batcher must have served
+   (dispatches, no timeout, no exception) and K5 and the batched scan
+   must have launched with more than one live slot; then up to 256
+   deletes of the scan mix's answers (none of the 10M term's) land
+   while 16 threads send the scan mix through the batcher, and the
+   card's tombstone bitmap and the mix's answers must equal the twin's;
+   after the filtered query, the batched path's part 2: a site:-style
+   facet bitmap over the 20M docid space admitting 2 %, alone and with a
+   language filter, and RAM deltas of 50,000 and 300,000 postings on the
+   10M term, each equal to the twin's (and, but the last, to the numpy
+   oracle), with their
+   walls (median of 50 after a warm-up); every kernel of each path must
    have launched;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
@@ -79,8 +107,13 @@ Phases, each of which exits non-zero on failure:
    exact scan's K6, K7, kernel 3 and topk_finish (each checked first),
    and rank_term's wall per query (median of 50 after a warm-up) pruned,
    escalating and, after a tombstone, the exact scan; K6 and K7 under a
-   filter over the 10M term, and K8 at the joinA & headline shape beside
-   torch.searchsorted and a gather on the same partner segment;
+   filter over the 10M term, K6 and K7 with RAM deltas of 50,000 and
+   300,000 rows and with the 2 % facet bitmap (alone and with the
+   language filter), and K8 at the joinA & headline shape beside
+   torch.searchsorted and a gather on the same partner segment; K5 at 16
+   slots over 16 queries' spans as the batcher launches it, and the
+   batched scan at 16 slots (the 10M and 1M terms under the mix's four
+   filters, k = 10 and 100) beside 16 solo scans;
    rank_placed's wall per query over 50 queries after a warm-up; and,
    last, the device
    operations one call of each timed kernel issues, with their device
@@ -101,6 +134,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -130,6 +164,11 @@ DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
                     "topk_finish")
 JOIN_KERNELS = ("join_member", "cardinal_stats", "cardinal_score",
                 "tie_topk", "topk_finish", "span_stats", "span_score")
+BATCHED_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
+                   "topk_finish", "span_stats_batch", "span_score_batch",
+                   "topk_finish_batch")
+MIX_THREADS = 16     # client threads of the concurrent mixes
+MIX_REPEATS = 16     # each distinct query of a mix sent this many times
 
 
 def log(*a):
@@ -140,6 +179,70 @@ def fail(msg):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def walls_of(fn, reps: int = 50, warm: int = 5) -> list:
+    """The wall of each of `reps` calls of fn after `warm` calls, in ms."""
+    for _ in range(warm):
+        fn()
+    out = []
+    for _ in range(reps):
+        tq = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - tq) * 1e3)
+    return out
+
+
+def run_mix(stream, fn, threads: int):
+    """Send the queries of `stream` through fn from `threads` client
+    threads (each its share, in order; one: one at a time): ({query:
+    [answers]}, {n, wall, qps, p50, p95} with each query's wall in ms)."""
+    import numpy as np
+    ans, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def worker(mine):
+        try:
+            for q in mine:
+                tq = time.perf_counter()
+                a = fn(q)
+                dt = (time.perf_counter() - tq) * 1e3
+                with lock:
+                    lat.append(dt)
+                    ans.setdefault(q, []).append(a)
+        except Exception as ex:  # noqa: BLE001 - failed below
+            errors.append(ex)
+    t0 = time.perf_counter()
+    if threads == 1:
+        worker(stream)
+    else:
+        ts = [threading.Thread(target=worker, args=(stream[i::threads],))
+              for i in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in ts):
+            fail("a client thread of a mix did not finish")
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"a mix query raised: {errors[0]!r}")
+    return ans, {"n": len(lat), "wall": wall, "qps": len(lat) / wall,
+                 "p50": float(np.percentile(lat, 50)),
+                 "p95": float(np.percentile(lat, 95))}
+
+
+def check_mix(name, ans, refs):
+    """Every answer of a mix equal to its query's reference answer."""
+    import numpy as np
+    for q, got in ans.items():
+        want = refs[q]
+        for a in got:
+            if a is None or not (np.array_equal(a[0], want[0])
+                                 and np.array_equal(a[1], want[1])
+                                 and a[2] == want[2]):
+                fail(f"mix {name}: {q[0].decode()} {q[1:]} answered "
+                     "differently from its solo answer")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -147,10 +250,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from yacy_search_server_tpu_torch import convert
     from yacy_search_server_tpu_torch.index import devstore as TD
     from yacy_search_server_tpu_torch.index import postings as P
     from yacy_search_server_tpu_torch.index.rwi import RWIIndex
-    from yacy_search_server_tpu_torch.kernels import LAUNCHES, build
+    from yacy_search_server_tpu_torch.kernels import (LAUNCHES, SLOTS, WIDE,
+                                                      build)
     from yacy_search_server_tpu_torch.kernels import bench as KB
     from yacy_search_server_tpu_torch.kernels import cardinal as KC
     from yacy_search_server_tpu_torch.kernels import devstore as KD
@@ -508,7 +613,78 @@ def main() -> int:
                                      tail=tail)
             torch.cuda.synchronize()
             note("topk_finish", f"edges tail kk={kk} j0={j0}", diff(g, w))
-    del edge, _edge_idx, ea
+    # K6, K7 and topk_finish with a RAM delta block (span docids,
+    # tombstoned ones, docids past the tombstone bitmap; below the first
+    # bucket, 50,000 rows and past the last bucket) and a facet bitmap of
+    # 4M bits admitting 30 % (docids past it too), with and without a
+    # filter; then the batched scan pair and its finish over waves of 1,
+    # 3 and 16 edge scans (1, 2 and 8 extents, five filters), each slot
+    # also against the solo scan
+    ext8 = KB.edge_extents(edge, 8)
+    allow_e = convert.bitmap_from_numpy(KB.facet_bitmap(1 << 22, 0.3), dev)
+    for n_d in (7, 50_000, 300_000):
+        dl = convert.delta_from_numpy(*KB.edge_delta(edge, n_d), dev)
+        for alw in (None, allow_e):
+            for filt in (None, (P.pack_language("en"), 7, 5_000, 25_000)):
+                kw = dict(filt=filt, delta=dl, allow=alw)
+                lbl = (f"edges 8 extents, delta {n_d}, bitmap "
+                       f"{alw is not None}, filter {filt is not None}")
+                st = KD.span_stats(ea[0], ea[2], ea[3], ext8, flags=ea[1],
+                                   **kw)
+                note("span_stats", lbl, stats_diff(st, KD.span_stats_plain(
+                    ea[0], ea[2], ea[3], ext8, flags=ea[1], **kw)))
+                n_r = sum(c for _s, c in ext8) + dl[2].shape[0]
+                g = KD.span_score(*ea[:4], ext8, st, ds_consts["default"],
+                                  n_r + 7, **kw)
+                w = KD.span_score_plain(*ea[:4], ext8, st,
+                                        ds_consts["default"], n_r + 7, **kw)
+                torch.cuda.synchronize()
+                note("span_score", lbl, diff(g, w))
+                for kk in (16, 1024):
+                    top_s, top_r, _ = KT.tie_topk(g, kk)
+                    gf = KD.topk_finish(top_s, top_r, ea[2], ext8, stats=st,
+                                        delta_docids=dl[2])
+                    wf = KD.topk_finish_plain(top_s, top_r, ea[2], ext8,
+                                              stats=st, delta_docids=dl[2])
+                    torch.cuda.synchronize()
+                    note("topk_finish", f"{lbl}, kk={kk}", diff(gf, wf))
+    ea_cpu = tuple(t.cpu() for t in ea)
+    for bs in (1, 3, 16):
+        scans = KB.scan_wave(edge, bs)
+        desc = KD.scan_batch_desc(scans)
+        for pname, c in ds_consts.items():
+            st = KD.span_stats_batch(ea[0], ea[1], ea[2], ea[3], desc)
+            pst = KD.span_stats_batch_plain(ea[0], ea[1], ea[2], ea[3], desc)
+            note("span_stats_batch", f"edges wave of {bs} ({pname})",
+                 max(stats_diff(st[i], pst[i]) for i in range(bs)))
+            for kk in (16, 1024):
+                off = KD.scan_batch_offsets(desc, kk)
+                g = KD.span_score_batch(*ea[:4], desc, st, c, off)
+                w = KD.span_score_batch_plain(*ea[:4], desc, pst, c, off)
+                torch.cuda.synchronize()
+                note("span_score_batch", f"edges wave of {bs} ({pname}), "
+                     f"kk={kk}", diff(g, w))
+                top = torch.empty((3, bs, kk), dtype=torch.int32, device=dev)
+                for i, (e, _f) in enumerate(scans):
+                    n = max(sum(c_ for _s, c_ in e), kk)
+                    KT.tie_topk(g[int(off[i]):int(off[i]) + n], kk,
+                                out=(top[0, i], top[1, i], top[2, i]))
+                gf = KD.topk_finish_batch(top[0], top[2], ea[2], desc)
+                wf = KD.topk_finish_batch_plain(top[0], top[2], ea[2], desc)
+                torch.cuda.synchronize()
+                note("topk_finish_batch", f"edges wave of {bs} ({pname}), "
+                     f"kk={kk}", diff(gf, wf))
+                whole = TD.scan_batch_query(ea, scans, c, kk)
+                solo = torch.stack([TD.scan_query(ea, e, c, kk, f)[:2 * kk]
+                                    for e, f in scans])
+                cpu = TD.scan_batch_query(ea_cpu, scans, c.cpu(), kk)
+                torch.cuda.synchronize()
+                e_w = max(diff(whole, solo), diff(whole.cpu(), cpu))
+                log(f"check batched scan = solo scan = CPU, edges wave of "
+                    f"{bs} ({pname}), kk={kk}: err {e_w}")
+                if e_w:
+                    fail("the batched scan differs from the solo scan")
+    del edge, _edge_idx, ea, ea_cpu, allow_e
 
     # K8 on the join edge store (kernels/bench.join_edges; each case's
     # partner modes as the store chose them), every output twice, and K6
@@ -752,13 +928,17 @@ def main() -> int:
         tq = time.perf_counter()
         got = gs.rank_join(inc, exc, ds_profiles["default"], k=k, **kw)
         wall = (time.perf_counter() - tq) * 1e3
+        tq = time.time()
         twin = hs.rank_join(inc, exc, ds_profiles["default"], k=k, **kw)
+        t_twin = time.time() - tq
+        tq = time.time()
         want = KB.devjoin_oracle(join_rows, inc, exc, dead_docs,
                                  ds_profiles["default"], k,
                                  filt or KD.NO_FILTER)
         same(f"rank_join {label}", got, twin, want)
         log(f"  rank_join {label}: {len(got[1])} answers of "
-            f"{got[2]} rare rows, first wall {wall:.3f} ms")
+            f"{got[2]} rare rows, first wall {wall:.3f} ms (the twin "
+            f"{t_twin:.1f} s, the oracle {time.time() - tq:.1f} s)")
         return got
 
     torch.cuda.synchronize()
@@ -779,11 +959,12 @@ def main() -> int:
          KB.devstore_oracle([join_rows[jB]], ds_profiles["default"], 10))
     # filtered rank_term on the headline term: cold, then from the cache
     k6_0 = LAUNCHES["span_stats"]
+    want_f = KB.devstore_oracle(filtered([hl_rows], hfilt),
+                                ds_profiles["default"], 100)
     for label in ("cold", "filtered-stats cache hit"):
         got = gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
         twin = hs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
-        same(f"filtered rank_term {label}", got, twin, KB.devstore_oracle(
-            filtered([hl_rows], hfilt), ds_profiles["default"], 100))
+        same(f"filtered rank_term {label}", got, twin, want_f)
     if LAUNCHES["span_stats"] != k6_0 + 1:
         fail("the filtered-stats cache hit ran K6")
     # a RAM delta declines (the caller's host join serves)
@@ -872,6 +1053,9 @@ def main() -> int:
     counters = lambda s_: (s_.prune_rounds, s_.pruned_tiles,  # noqa: E731
                            s_.stream_scans, s_.queries_served, s_.fallbacks)
     base_g, base_h = counters(gs), counters(hs)
+    # the result cache off on both stores: each of these queries reaches
+    # the device path it is checked on (the batched path checks the cache)
+    gs._topk_cache.enabled = hs._topk_cache.enabled = False
     torch.cuda.synchronize()
     reset_launches()
     tm = time.time()
@@ -887,6 +1071,170 @@ def main() -> int:
              oracles["escalating"])
     got = ds_query("10M default k=1000", hl, "default", 1000,
                    oracles["default"])
+    torch.cuda.synchronize()
+    launches_ds1 = dict(LAUNCHES)
+    mid_g, mid_h = counters(gs), counters(hs)
+    gs._topk_cache.enabled = hs._topk_cache.enabled = True
+
+    # -- phase 3, the batched path, part 1: the batcher and the cache -------
+    # the same store and twin, every term still one prunable span; counts
+    # reset. A cold query and its result-cache hit; then, the cache off,
+    # a pruned mix (every term, two profiles, two languages, k = 10 and
+    # 100) and a filtered-scan mix (the 1M, 100k and 20k terms and joinB,
+    # whose RAM delta keeps it out of the waves; four filters; k = 10 and
+    # 100), each sent one query at a time (no batcher), from 16 threads
+    # (no batcher), and from 16 threads through the batcher (scan
+    # batching on); every answer equal to the first solo card answer and
+    # to the twin's
+    torch.cuda.synchronize()
+    reset_launches()
+    tb = time.time()
+    bt_walls = {}
+    c0 = gs.rank_term(t1m, ds_profiles["default"], k=100)
+    hits0 = gs.counters()["rank_cache_hits"]
+    c1 = gs.rank_term(t1m, ds_profiles["default"], k=100)
+    same("result cache hit", c1, hs.rank_term(t1m, ds_profiles["default"],
+                                             k=100), c0)
+    if gs.counters()["rank_cache_hits"] != hits0 + 1:
+        fail("the repeat of an unconstrained query was not a cache hit")
+    bt_walls["rank_term, result cache hit (1M term, k=100)"] = walls_of(
+        lambda: gs.rank_term(t1m, ds_profiles["default"], k=100))
+    # the second profile weighs no signal more than the pack-time proxy
+    # profile, so its bound holds as the default's does
+    mix_profiles = {"default": ds_profiles["default"],
+                    "light": R.RankingProfile(domlength=8, tf=5)}
+    bt_terms = [hl, *(b"term%08d" % n for n in DS_TERMS), *JOIN_TERMS]
+    scan_filters = [hfilt_kw, dict(lang_filter=de),
+                    dict(flag_bit=7, to_days=20_000),
+                    dict(from_days=10_000)]
+    pruned_qs = [(th, pn, lg, k) for th in bt_terms for pn in mix_profiles
+                 for lg in ("en", "de") for k in (10, 100)]
+    pruned_fn = lambda q: gs.rank_term(  # noqa: E731
+        q[0], mix_profiles[q[1]], language=q[2], k=q[3])
+    scan_fn = lambda q: gs.rank_term(  # noqa: E731
+        q[0], ds_profiles["default"], k=q[2], **scan_filters[q[1]])
+    scan_twin = lambda q: hs.rank_term(  # noqa: E731
+        q[0], ds_profiles["default"], k=q[2], **scan_filters[q[1]])
+    # name: (distinct queries, times each is sent, card, twin or the mix
+    # whose references hold its answers)
+    mixes = {
+        "pruned": (pruned_qs, MIX_REPEATS, pruned_fn,
+                   lambda q: hs.rank_term(q[0], mix_profiles[q[1]],
+                                          language=q[2], k=q[3])),
+        # one (profile, language, kk) group, so that every concurrent
+        # query can share a K5 wave: the pruned mix's default/en/k=100
+        # queries, as often as the whole pruned mix sends queries
+        "pruned, one group": ([q for q in pruned_qs
+                               if q[1:] == ("default", "en", 100)],
+                              8 * MIX_REPEATS, pruned_fn, "pruned"),
+        "filtered scan": ([(th, f, k) for th in (
+                               t1m, *(b"term%08d" % n for n in DS_TERMS[1:]),
+                               jB) for f in range(len(scan_filters))
+                           for k in (10, 100)], MIX_REPEATS, scan_fn,
+                          scan_twin)}
+    gs._topk_cache.enabled = False
+    refs, mix_stats, waves = {}, {}, {}
+    for mname, (qs, reps, fn, twin_fn) in mixes.items():
+        stream = [q for _ in range(reps) for q in qs]
+        ans, st_ = run_mix(stream, fn, 1)
+        refs[mname] = {q: a[0] for q, a in ans.items()}
+        mix_stats[(mname, "one at a time, no batcher")] = st_
+        check_mix(mname, ans, refs[mname])
+        if isinstance(twin_fn, str):
+            check_mix(mname, {q: [refs[mname][q]] for q in qs},
+                      refs[twin_fn])
+        else:
+            tq = time.time()
+            for q in qs:
+                twin = twin_fn(q)
+                same(f"{mname} {q[0].decode()} {q[1:]} (solo card, twin)",
+                     refs[mname][q], twin, twin)
+            log(f"mix {mname}: the twin's {len(qs)} answers "
+                f"{time.time() - tq:.1f} s")
+        ans, st_ = run_mix(stream, fn, MIX_THREADS)
+        mix_stats[(mname, f"{MIX_THREADS} threads, no batcher")] = st_
+        check_mix(mname, ans, refs[mname])
+    gs.enable_batching(max_batch=16, dispatchers=8, scan_batching=True)
+    wide0 = dict(WIDE)
+    for mname, (qs, reps, fn, _t) in mixes.items():
+        stream = [q for _ in range(reps) for q in qs]
+        l0, w0, s0 = dict(LAUNCHES), dict(WIDE), dict(SLOTS)
+        ans, st_ = run_mix(stream, fn, MIX_THREADS)
+        mix_stats[(mname, f"{MIX_THREADS} threads, batcher")] = st_
+        check_mix(mname, ans, refs[mname])
+        waves[mname] = {k: (LAUNCHES[k] - l0[k], WIDE[k] - w0[k],
+                            SLOTS[k] - s0[k])
+                        for k in ("pruned_tile", "span_stats_batch")}
+    bc = gs.counters()
+    log("batched path counters: " + ", ".join(
+        f"{k} {bc[k]}" for k in (
+            "batch_dispatches", "batch_dispatch_ms_max", "batch_exceptions",
+            "batch_timeouts", "batch_ineligible", "dispatch_ms_p50",
+            "dispatch_ms_p95", "kernel_ms_p50", "kernel_ms_p95",
+            "device_round_trips", "queries_served", "rank_cache_hits")))
+    log(f"launches with more than one live slot: "
+        f"{ {k: WIDE[k] - wide0[k] for k in WIDE if WIDE[k] > wide0[k]} }")
+    for mname, per in waves.items():
+        log(f"mix {mname} through the batcher: " + "; ".join(
+            f"{k} {n} launches, {w} with more than one live slot, "
+            f"{sl / max(n, 1):.2f} live slots a launch"
+            for k, (n, w, sl) in per.items()))
+    if (bc["batch_dispatches"] == 0 or bc["batch_timeouts"]
+            or bc["batch_exceptions"]):
+        fail("the batcher did not serve cleanly: " + str(
+            {k: bc[k] for k in ("batch_dispatches", "batch_timeouts",
+                                "batch_exceptions")}))
+    for name in ("pruned_tile", "span_stats_batch", "span_score_batch"):
+        if WIDE[name] == wide0[name]:
+            fail(f"no {name} launch took more than one live slot")
+    # deletes landing while 16 threads send the filtered-scan mix through
+    # the batcher, whose dispatchers apply the pending tombstones they
+    # find: then the card's tombstone bitmap must equal the twin's and the
+    # mix's answers through the batcher the twin's. The docids deleted are
+    # the mix's answers' and none of the 10M term's (its oracles stand)
+    scan_qs = mixes["filtered scan"][0]
+    cand = np.unique(np.concatenate([refs["filtered scan"][q][1]
+                                     for q in scan_qs]))
+    doomed = cand[~np.isin(cand, hl_rows[2])][:256]
+
+    def deleter():
+        for x in doomed:
+            idx.delete_doc(int(x))
+            time.sleep(0.0005)
+    dth = threading.Thread(target=deleter)
+    dth.start()
+    run_mix([q for _ in range(4 * MIX_REPEATS) for q in scan_qs], scan_fn,
+            MIX_THREADS)
+    dth.join(timeout=120)
+    if dth.is_alive():
+        fail("the deletes did not finish")
+    dead_g, dead_h = gs.arena.dead_array().cpu(), hs.arena.dead_array()
+    if not torch.equal(dead_g, dead_h) or int(dead_h.sum()) != len(doomed):
+        fail("tombstones deleted under the batcher are missing on the card")
+    tq = time.time()
+    after = {q: scan_twin(q) for q in scan_qs}
+    ans, _st = run_mix(scan_qs * 2, scan_fn, MIX_THREADS)
+    check_mix("filtered scan after the deletes", ans, after)
+    log(f"{len(doomed)} deletes under 16 batched clients: the tombstone "
+        f"bitmaps equal, {len(scan_qs)} answers equal to the twin's "
+        f"({time.time() - tq:.1f} s)")
+    gs._topk_cache.enabled = True
+    gs.close()          # the batcher stops; the fanout keeps the store fed
+    for (mname, mode), st_ in mix_stats.items():
+        log(f"mix {mname}, {mode}: {st_['n']} queries, "
+            f"{st_['qps']:.1f} q/s, p50 {st_['p50']:.4f} ms, p95 "
+            f"{st_['p95']:.4f} ms, wall {st_['wall']:.3f} s")
+    torch.cuda.synchronize()
+    launches_bt1 = dict(LAUNCHES)
+    log(f"batched path, part 1: {time.time() - tb:.1f} s; launches "
+        f"{launches_bt1}")
+
+    # back on the device store's path: counts reset, summed with part 1;
+    # its counters compared as this path's own deltas
+    torch.cuda.synchronize()
+    reset_launches()
+    base2_g, base2_h = counters(gs), counters(hs)
+    gs._topk_cache.enabled = hs._topk_cache.enabled = False
     # a tombstone newer than the span: the exact scan over one extent
     gone = int(got[1][0])
     idx.delete_doc(gone)
@@ -904,11 +1252,14 @@ def main() -> int:
         ds_query(f"10M + {SECOND_RUN} (2 runs), {pname} k={k}", hl, pname,
                  k, KB.devstore_oracle(two, ds_profiles[pname], k))
     torch.cuda.synchronize()
-    launches_ds = dict(LAUNCHES)
+    launches_ds = {k: launches_ds1[k] + v for k, v in LAUNCHES.items()}
     log(f"devstore main path: {time.time() - tm:.1f} s (the CPU twin's "
-        f"answers included); launches {launches_ds}")
-    dg = tuple(a - b for a, b in zip(counters(gs), base_g))
-    dh = tuple(a - b for a, b in zip(counters(hs), base_h))
+        f"answers and the batched path's part 1 included); launches "
+        f"{launches_ds}")
+    dg = tuple(a - b + c - d for a, b, c, d in zip(mid_g, base_g,
+                                                    counters(gs), base2_g))
+    dh = tuple(a - b + c - d for a, b, c, d in zip(mid_h, base_h,
+                                                    counters(hs), base2_h))
     log(f"devstore counters of this path: prune_rounds, pruned_tiles, "
         f"stream_scans, queries_served, fallbacks {dg}")
     if dg != dh:
@@ -930,6 +1281,88 @@ def main() -> int:
                             100))
     if LAUNCHES["span_stats"] != k6_0 + 1:
         fail("a stale filtered-stats cache entry was served")
+
+    # -- phase 3, the batched path, part 2: facet bitmaps and RAM deltas ----
+    # on the 10M term (two spans now, one tombstone: exact scans), counts
+    # reset: a site:-style facet bitmap over the 20M docid space admitting
+    # 2 % of it, alone and with a language filter; RAM deltas of 50,000
+    # postings (a hot term between flushes: new docids and 1,000 of the
+    # term's own) and of 300,000 (past the last bucket); each equal to
+    # the twin's and, but the 300,000 delta, to the numpy oracle; then
+    # their walls, the card store alone
+    torch.cuda.synchronize()
+    reset_launches()
+    tb = time.time()
+    fac_ids = np.sort(jrng.choice(2 * N, 2 * N // 50, replace=False))
+    fkey = ((("site", "smoke.example"),), 0, 2 * N)
+    g_bm = gs.filter_bitmap(fkey, lambda: fac_ids)
+    h_bm = hs.filter_bitmap(fkey, lambda: fac_ids)
+
+    masks = [np.isin(d_p, fac_ids) for _f, _fl, d_p in two]
+    two_in = [tuple(a[m] for a in p_) for p_, m in zip(two, masks)]
+    en_only = (en, TD.NO_FLAG, TD.DAYS_NONE_LO, TD.DAYS_NONE_HI)
+    for label, kw, filt in (("facet bitmap 2 %", {}, KD.NO_FILTER),
+                            ("facet bitmap 2 %, lang en",
+                             dict(lang_filter=en), en_only)):
+        got = gs.rank_term(hl, ds_profiles["default"], k=100,
+                           allow_bitmap=g_bm, **kw)
+        tq = time.time()
+        twin = hs.rank_term(hl, ds_profiles["default"], k=100,
+                            allow_bitmap=h_bm, **kw)
+        t_twin = time.time() - tq
+        tq = time.time()
+        want = KB.devstore_oracle(filtered(two_in, filt),
+                                  ds_profiles["default"], 100)
+        log(f"rank_term {label}: the twin {t_twin:.1f} s, the oracle "
+            f"{time.time() - tq:.1f} s")
+        same(f"rank_term {label}", got, twin, want)
+        bt_walls[f"rank_term {label} (10M term, two spans, k=100; "
+                 "statistics from the filtered-stats cache)"] = walls_of(
+            lambda kw=kw: gs.rank_term(hl, ds_profiles["default"], k=100,
+                                       allow_bitmap=g_bm, **kw))
+    drng = np.random.default_rng(KB.SEED + 50)
+    d_new = (2 * np.arange(SECOND_RUN, SECOND_RUN + 300_000)).astype(
+        np.int32)
+    d_old = drng.choice(hl_live[2], 1_000, replace=False)
+    f_d, _dd, _h, _r = KB.make_term(300_000, KB.SEED + 51)
+    for n_d, lo, hi in ((50_000, 0, 50_000), (300_000, 50_000, 300_000)):
+        blk = np.concatenate([d_new[lo:hi - (1_000 if lo == 0 else 0)],
+                              d_old if lo == 0 else d_old[:0]])
+        idx.add_many(hl, P.PostingsList(blk.astype(np.int32),
+                                        f_d[lo:hi]))
+        ram = idx._ram_postings(hl)
+        if len(ram) != n_d:
+            fail(f"the RAM delta holds {len(ram)} postings, not {n_d}")
+        got = gs.rank_term(hl, ds_profiles["default"], k=100)
+        tq = time.time()
+        twin = hs.rank_term(hl, ds_profiles["default"], k=100)
+        t_twin = time.time() - tq
+        tq = time.time()
+        if n_d == 50_000:   # the numpy oracle once (8-9 s over 10.1M rows)
+            r16, rfl = R.compact_feats(ram.feats)
+            want = KB.devstore_oracle(two + [(r16, rfl, ram.docids)],
+                                      ds_profiles["default"], 100)
+        else:
+            want = twin
+        same(f"rank_term with a RAM delta of {n_d}", got, twin, want)
+        log(f"rank_term with a RAM delta of {n_d}: the twin {t_twin:.1f} s,"
+            f" the oracle {time.time() - tq:.1f} s")
+        if got[2] != sum(len(p_[2]) for p_ in two) + 1 + n_d:
+            fail(f"considered {got[2]} with a delta of {n_d}")
+        bt_walls[f"rank_term with a RAM delta of {n_d} (10M term, two "
+                 "spans, k=100)"] = walls_of(
+            lambda: gs.rank_term(hl, ds_profiles["default"], k=100))
+    torch.cuda.synchronize()
+    launches_bt = {k: launches_bt1[k] + v for k, v in LAUNCHES.items()}
+    log(f"batched path, part 2: {time.time() - tb:.1f} s; launches of the "
+        f"whole batched path {launches_bt}")
+    missing = [k for k in BATCHED_KERNELS if launches_bt[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the batched path: {missing}")
+    for label, w in bt_walls.items():
+        log(f"wall {label}: median {float(np.median(w)):.4f} ms, mean "
+            f"{float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 after 5")
+    gs._topk_cache.enabled = True
     del hs, idx, hl_live, two, oracles, join_rows
 
     # -- phase 4: kernel times at the main path's shapes ---------------------
@@ -998,7 +1431,8 @@ def main() -> int:
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces,
             "launches": {"placed": launches, "devstore": launches_ds,
-                         "join": launches_join}[path][name],
+                         "join": launches_join,
+                         "batched": launches_bt}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1252,6 +1686,72 @@ def main() -> int:
             "statistics handed in (filtered exact scan, cache hit)",
             path="join")
 
+    # K6 and K7 with a RAM delta block of 50,000 and of 300,000 rows (new
+    # docids, staged as the store stages them) after the 10M term's rows,
+    # and with the 2 % facet bitmap, alone and under the language filter
+    # (the bitmap's words read once: those the live docids hit)
+    for n_d in (50_000, 300_000):
+        dblk = convert.delta_from_numpy(*KB.delta_block(
+            n_d, (2 * np.arange(n_d)).astype(np.int32), KB.SEED + 60), dev)
+        nb = dblk[2].shape[0]
+        k6d = lambda dl=dblk: KD.span_stats(  # noqa: E731
+            ta[0], ta[2], ta[3], scan_ext, flags=ta[1], delta=dl)
+        k6dp = lambda dl=dblk: KD.span_stats_plain(  # noqa: E731
+            ta[0], ta[2], ta[3], scan_ext, flags=ta[1], delta=dl)
+        st_d = k6d()
+        note("span_stats", f"10M term + a delta of {n_d}",
+             stats_diff(st_d, k6dp()))
+        measure(*src_k6, k6d, k6dp, None,
+                (sp.count + nb) * (P.NF * 2 + 4 + 1) + 4 * KC.STATS_LEN, 0.0,
+                f"{sp.count} rows of the 10M term in place + a RAM delta of "
+                f"{n_d} ({nb} rows staged) (exact scan with a delta)",
+                path="batched")
+        k7d = lambda dl=dblk, s_=st_d, n_=sp.count + nb: KD.span_score(  # noqa: E731
+            *ta[:4], scan_ext, s_, cd, n_, delta=dl)
+        k7dp = lambda dl=dblk, s_=st_d, n_=sp.count + nb: (  # noqa: E731
+            KD.span_score_plain(*ta[:4], scan_ext, s_, cd, n_, delta=dl))
+        g, w = k7d(), k7dp()
+        torch.cuda.synchronize()
+        note("span_score", f"10M term + a delta of {n_d}", diff(g, w))
+        measure(*src_k7, k7d, k7dp, None,
+                (sp.count + nb) * (row_b + 4)
+                + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+                f"{sp.count} rows of the 10M term in place + a RAM delta of "
+                f"{n_d} ({nb} rows staged) (exact scan with a delta)",
+                path="batched")
+    words10 = np.zeros(1 << 20, np.uint32)
+    np.bitwise_or.at(words10, fac_ids >> 5,
+                     np.uint32(1) << (fac_ids & 31).astype(np.uint32))
+    allow10 = convert.bitmap_from_numpy(words10, dev)
+    hit_words = int(np.unique(docids >> 5).size)
+    for label, filt in (("facet bitmap 2 %", None),
+                        ("facet bitmap 2 %, lang en", en_only)):
+        k6b = lambda f_=filt: KD.span_stats(  # noqa: E731
+            ta[0], ta[2], ta[3], scan_ext, flags=ta[1], filt=f_,
+            allow=allow10)
+        k6bp = lambda f_=filt: KD.span_stats_plain(  # noqa: E731
+            ta[0], ta[2], ta[3], scan_ext, flags=ta[1], filt=f_,
+            allow=allow10)
+        st_b = k6b()
+        note("span_stats", f"10M term, {label}", stats_diff(st_b, k6bp()))
+        measure(*src_k6, k6b, k6bp, None,
+                sp.count * (P.NF * 2 + 4 + 1) + 4 * hit_words
+                + 4 * KC.STATS_LEN, 0.0,
+                f"{sp.count} rows of the 10M term in place, {label} "
+                f"({hit_words} bitmap words hit)", path="batched")
+        k7b = lambda f_=filt, s_=st_b: KD.span_score(  # noqa: E731
+            *ta[:4], scan_ext, s_, cd, sp.count, filt=f_, allow=allow10)
+        k7bp = lambda f_=filt, s_=st_b: KD.span_score_plain(  # noqa: E731
+            *ta[:4], scan_ext, s_, cd, sp.count, filt=f_, allow=allow10)
+        g, w = k7b(), k7bp()
+        torch.cuda.synchronize()
+        note("span_score", f"10M term, {label}", diff(g, w))
+        measure(*src_k7, k7b, k7bp, None,
+                sp.count * (row_b + 4) + 4 * hit_words
+                + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+                f"{sp.count} rows of the 10M term in place, {label}",
+                path="batched")
+
     # K8 at the joinA & headline shape of the join path's store (its arena
     # rows and join tables are where the join path left them): 4M rare
     # rows against the headline term's bitmap, beside torch.searchsorted
@@ -1292,6 +1792,99 @@ def main() -> int:
             "gather", path="join")
     del seg_d, seg_p, keys
 
+    # the batcher's shapes on the join path's store: K5 at 16 slots over
+    # 16 queries' spans (the store's one-span terms in turn), and the
+    # batched scan at 16 slots (the 10M term's two spans and the 1M term
+    # under the filtered-scan mix's four filters, k = 10 and 100),
+    # K6 and K7 of the wave and its finish; each bound the slots' bytes
+    # summed
+    garr5 = (*gs.arena.arrays(), gs.arena.dead_array(), gs.arena._pmax)
+    one_span = [gs.spans_for(th)[0] for th in bt_terms[1:]]
+    slots16 = [one_span[i % len(one_span)] for i in range(16)]
+    desc16 = KD.pack_desc([(s_.start, s_.count, s_.tstart, s_.tcount,
+                            s_.stats["col_min"], s_.stats["col_max"],
+                            s_.stats["tf_min"], s_.stats["tf_max"])
+                           for s_ in slots16], shift, lterm)
+    k5w = lambda: KD.pruned_tile(*garr5, desc16, kk, cd, False)  # noqa: E731
+    k5wp = lambda: KD.pruned_tile_plain(  # noqa: E731
+        *garr5, desc16, kk, cd, False)
+    g, w = k5w(), k5wp()
+    torch.cuda.synchronize()
+    note("pruned_tile", "16 queries' spans, the batcher's wave", diff(g, w))
+    measure(*src_k5, k5w, k5wp, None,
+            sum(min(s_.count, TD.TILE) * row_b + 4 * (s_.tcount - 1)
+                for s_ in slots16)
+            + 16 * (4 * KD.DESC_SLOT_WORDS + 4 * (2 * kk + 1))
+            + 4 * KC.CONSTS_LEN, 0.0,
+            f"16 slots over 16 queries' spans ({len(one_span)} terms of "
+            f"{min(s_.count for s_ in one_span)}-"
+            f"{max(s_.count for s_ in one_span)} rows in turn), kk={kk}, "
+            "the batcher's K5 wave (no init entries)", path="batched")
+
+    def filt_of(kw):
+        lo, hi = kw.get("from_days"), kw.get("to_days")
+        return (kw.get("lang_filter", TD.NO_LANG),
+                kw.get("flag_bit", TD.NO_FLAG),
+                TD.DAYS_NONE_LO if lo is None else lo,
+                TD.DAYS_NONE_HI if hi is None else hi)
+    scans16 = [([(s_.start, s_.count) for s_ in gs.spans_for(th)],
+                filt_of(scan_filters[f]))
+               for th in (hl, t1m) for f in range(len(scan_filters))
+               for _k in (10, 100)]
+    desc_s = KD.scan_batch_desc(scans16)
+    rows16 = [sum(c for _a, c in e) for e, _f in scans16]
+    flag16 = sum(4 * r for r, (_e, f_) in zip(rows16, scans16)
+                 if f_[1] != TD.NO_FLAG)
+    off16 = KD.scan_batch_offsets(desc_s, kk)
+    src_b6 = ("span_stats_batch",
+              "yacy_search_server_tpu/index/devstore.py:465",
+              "cardinal_stats.cu")
+    src_b7 = ("span_score_batch",
+              "yacy_search_server_tpu/index/devstore.py:465",
+              "cardinal_score.cu")
+    src_bf = ("topk_finish_batch",
+              "yacy_search_server_tpu/index/devstore.py:1032",
+              "pruned_tile.cu")
+    k6w = lambda: KD.span_stats_batch(*garr5[:4], desc_s)  # noqa: E731
+    k6wp = lambda: KD.span_stats_batch_plain(*garr5[:4], desc_s)  # noqa: E731
+    st16, pst16 = k6w(), k6wp()
+    note("span_stats_batch", "16 slots of the filtered-scan mix",
+         max(stats_diff(st16[i], pst16[i]) for i in range(16)))
+    shape16 = (f"16 filtered scans of {min(rows16)}-{max(rows16)} rows "
+               f"({sum(rows16)} in all; the 10M term's two spans, the 1M "
+               "term) under four filters")
+    measure(*src_b6, k6w, k6wp, None,
+            sum(rows16) * (P.NF * 2 + 4 + 1) + flag16
+            + 16 * 4 * KC.STATS_LEN, 0.0, shape16, path="batched")
+    k7w = lambda: KD.span_score_batch(  # noqa: E731
+        *garr5[:4], desc_s, st16, cd, off16)
+    k7wp = lambda: KD.span_score_batch_plain(  # noqa: E731
+        *garr5[:4], desc_s, st16, cd, off16)
+    g, w = k7w(), k7wp()
+    torch.cuda.synchronize()
+    note("span_score_batch", "16 slots of the filtered-scan mix", diff(g, w))
+    # every slot's rows read, its whole region (rows, kk's pad and the
+    # alignment) written
+    measure(*src_b7, k7w, k7wp, None,
+            sum(rows16) * row_b + 4 * int(off16[-1])
+            + 4 * (16 * KC.STATS_LEN + KC.CONSTS_LEN), 0.0, shape16,
+            path="batched")
+    top16 = torch.empty((3, 16, kk), dtype=torch.int32, device=dev)
+    for i, r_ in enumerate(rows16):
+        KT.tie_topk(g[int(off16[i]):int(off16[i]) + max(r_, kk)], kk,
+                    out=(top16[0, i], top16[1, i], top16[2, i]))
+    fw = lambda: KD.topk_finish_batch(  # noqa: E731
+        top16[0], top16[2], garr5[2], desc_s)
+    fwp = lambda: KD.topk_finish_batch_plain(  # noqa: E731
+        top16[0], top16[2], garr5[2], desc_s)
+    g, w = fw(), fwp()
+    torch.cuda.synchronize()
+    note("topk_finish_batch", "16 slots of the filtered-scan mix", diff(g, w))
+    measure(*src_bf, fw, fwp, None, 16 * kk * 12 + 16 * 2 * kk * 4, 0.0,
+            f"the kk={kk} winners of 16 filtered scans -> [16, {2 * kk}]",
+            path="batched")
+    del g, w, pst16
+
     # the device part of the join and the filtered scan: the store's
     # dispatch functions and the one fetch, without the host work of
     # rank_join / rank_term around them; each one's device operations
@@ -1308,6 +1901,12 @@ def main() -> int:
     routes["scan_query filtered, statistics handed in (K7, kernel 3, "
            "topk_finish) + fetch"] = lambda: TD.scan_query(
                ta, scan_ext, cd, kk, hfilt, stf).cpu()
+    routes["scan_batch_query, 16 filtered scans (batched K6, K7, 16 x "
+           "kernel 3, finish) + one fetch"] = lambda: TD.scan_batch_query(
+               garr5, scans16, cd, kk).cpu()
+    routes["16 x scan_query, the same 16 filtered scans + 16 fetches"] = (
+        lambda: [TD.scan_query(garr5, e, cd, kk, f).cpu()
+                 for e, f in scans16])
     for label, fn in routes.items():
         for _ in range(5):
             fn()
@@ -1323,6 +1922,8 @@ def main() -> int:
     # three kinds of query, the same store: pruned, escalating, and, after
     # a tombstone, the exact scan
     def rank_walls(label, prof, k):
+        # the result cache off: every query runs on the card
+        ts._topk_cache.enabled = False
         for _ in range(5):
             ts.rank_term(hl, prof, k=k)
         r0, t0s, p0 = ts.prune_rounds, ts.stream_scans, ts.pruned_tiles
@@ -1337,6 +1938,7 @@ def main() -> int:
             f"{(ts.prune_rounds - r0) / 50:g} prune rounds, "
             f"{(ts.pruned_tiles - p0) / 50:g} pruned tiles, "
             f"{(ts.stream_scans - t0s) / 50:g} exact scans")
+        ts._topk_cache.enabled = True
 
     # the device part of the pruned and the exact-scan query: the store's
     # dispatch functions and the one fetch, without rank_term's host work

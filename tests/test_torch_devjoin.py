@@ -72,6 +72,7 @@ def _pair(monkeypatch, name):
 def _join_both(j, t, inc, exc, prof=None, k=50, **kw):
     """rank_join on both stores: equal answers and join counters."""
     j._topk_cache._d.clear()     # the "plain" route's rank_term
+    t._topk_cache.clear()
     prof = prof or JProf()
     want = j.rank_join(inc, exc, prof, "en", k=k, **kw)
     got = t.rank_join(inc, exc, prof, "en", k=k, **kw)
@@ -310,6 +311,57 @@ def test_docid_clip_matches_jax(monkeypatch):
     _idx, j, t = _docid_edges_pair(monkeypatch)
     got = _join_both(j, t, [A, B], [], k=300)
     assert 2**29 + 5 in got[1].tolist()
+
+
+HIGH = (2**29, 2**29 + 5, 2**29 + 77)   # rare docids the clip makes equal
+
+
+@pytest.mark.parametrize("mode", ["include", "exclude"])
+@pytest.mark.parametrize("partner_cap", [True, False],
+                         ids=["partner_holds_2^29", "partner_without"])
+@pytest.mark.parametrize("dead", ["none", "last_row", "first_row"])
+@pytest.mark.parametrize("n_high", [2, 3])
+def test_docid_clip_many_rows_matches_jax(monkeypatch, n_high, dead,
+                                          partner_cap, mode):
+    """Two and three live rare rows at or above 2^29 against a sort-mode
+    partner holding exactly 2^29 (or not), one of them tombstoned (the
+    last or the first in row order) or none, as an include partner and
+    as an exclude: of the still-valid rows the clip makes equal only the
+    last in row order matches, as the JAX store's co-sort decides."""
+    for cls in (JD.DeviceSegmentStore, TD.DeviceSegmentStore):
+        monkeypatch.setattr(cls, "JOIN_BITMAP_MIN", 1 << 30)
+    rng = np.random.default_rng(22 + n_high)
+    idx = JRWI()
+    j = JD.DeviceSegmentStore(idx)
+    t = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KB.Fanout(j, t)
+    pool = np.arange(5_000)
+    rare, big = _plist(rng, 300, pool), _plist(rng, 2_000, pool)
+    rare.docids[-n_high:] = HIGH[:n_high]
+    big.docids[-1] = 2**29 if partner_cap else 2**29 + 1
+    idx.ingest_run({A: rare, B: big})
+    sp = t.spans_for(A)[0]
+    rows = t.arena.arrays()[2][sp.start:sp.start + sp.count].numpy()
+    order = [int(d) for d in rows if d >= 2**29]   # row order
+    assert len(order) == n_high
+    if dead != "none":
+        idx.delete_doc(order[-1] if dead == "last_row" else order[0])
+    live = [d for d in order if d not in idx._tombstones]
+    inc, exc = ([A, B], []) if mode == "include" else ([A], [B])
+    got = _join_both(j, t, inc, exc, k=300)
+    high = [d for d in got[1].tolist() if d >= 2**29]
+    if mode == "include":
+        assert high == ([live[-1]] if partner_cap else [])
+    else:
+        assert sorted(high) == sorted(live[:-1] if partner_cap else live)
+    # K8's plain twin on the JAX arena's own bytes: the same rule
+    parts = [(t.spans_for(B)[0].jstart, t.spans_for(B)[0].count, -1)]
+    _m, _fo, v = KD.join_member_plain(
+        *(a for a in t.arena.arrays()), t.arena.dead_array(), sp.start,
+        sp.count, *t.arena.join_arrays(), t.arena.bitmap_array(), parts,
+        1 if mode == "include" else 0)
+    valid_high = sorted(int(d) for d in rows[v.numpy()] if d >= 2**29)
+    assert valid_high == sorted(high)
 
 
 def test_searchevent_two_word_query_with_port_store_matches_jax_store(

@@ -60,8 +60,8 @@ def _stores(idx, **kw):
 
 
 def _jax_rank(j, *a, **kw):
-    """The JAX store's rank_term without its result cache (the port has
-    none yet; a cache hit would skip the counters compared)."""
+    """The JAX store's rank_term without its result cache (a cache hit
+    would skip the counters compared; _rank_both clears the port's)."""
     j._topk_cache._d.clear()
     return j.rank_term(*a, **kw)
 
@@ -350,6 +350,7 @@ def test_exact_scan_matches_jax(runs, kk):
 
 def _rank_both(j, t, *a, **kw):
     want = _jax_rank(j, *a, **kw)
+    t._topk_cache.clear()
     got = t.rank_term(*a, **kw)
     _same_answer(got, want)
     assert _counters(t) == _counters(j)
@@ -464,20 +465,30 @@ def test_rank_term_after_ingest_and_term_removal_matches_jax():
 
 
 def test_rank_term_declines_filters_and_delta():
-    """A facet-bitmap filter and a RAM delta are later slices: None and a
-    fallback, with or without a constraint filter beside them (constraint
-    filters alone are served: the tests below)."""
+    """What the JAX store declines, the port declines, and no more: a
+    conjunction with a RAM delta (the caller's host join), a term no run
+    holds (an empty answer). The facet bitmap and the RAM delta of a
+    single term, declined before this slice, are served, equal to the
+    JAX store's (tests/test_torch_devstore_delta.py holds the cases)."""
     rng = np.random.default_rng(5)
     idx = JRWI()
     idx.add_many(TH, _plist(rng, 400))
     idx.flush()
-    t = TD.DeviceSegmentStore(idx, device="cpu")
+    j, t = _stores(idx)
     allow = np.full(64, 0xFFFFFFFF, np.uint32)
-    assert t.rank_term(TH, JProf(), allow_bitmap=allow) is None
+    jallow = j.filter_bitmap((("site", "x"), 0, 2048), lambda: np.arange(
+        0, 2048, 2))
+    tallow = t.filter_bitmap((("site", "x"), 0, 2048), lambda: np.arange(
+        0, 2048, 2))
+    _same_answer(t.rank_term(TH, JProf(), allow_bitmap=tallow),
+                 _jax_rank(j, TH, JProf(), allow_bitmap=jallow))
+    _same_answer(t.rank_term(TH, JProf(), allow_bitmap=convert
+                             .bitmap_from_numpy(allow, "cpu")),
+                 _jax_rank(j, TH, JProf(), allow_bitmap=allow))
     idx.add_many(TH, _plist(rng, 7, base=5_000))
-    assert t.rank_term(TH, JProf(), lang_filter=0x6465) is None
-    assert t.rank_term(TH, JProf()) is None
-    assert t.fallbacks == 3 and t.queries_served == 0
+    _rank_both(j, t, TH, JProf(), lang_filter=0x6465)
+    _rank_both(j, t, TH, JProf())
+    assert t.fallbacks == 0 and t.queries_served == 4
     assert t.rank_join([TH], [], JProf()) is None
     assert t.rank_term(b"missingAAAAA", JProf())[2] == 0
 

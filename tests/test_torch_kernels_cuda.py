@@ -10,11 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from yacy_search_server_tpu_torch import convert
 from yacy_search_server_tpu_torch.index import devstore as TD
 from yacy_search_server_tpu_torch.index import postings as P
 from yacy_search_server_tpu_torch.index.rwi import RWIIndex
 from yacy_search_server_tpu_torch.kernels import devstore as KD
-from yacy_search_server_tpu_torch.kernels import (LAUNCHES, bench as KBench,
+from yacy_search_server_tpu_torch.kernels import (LAUNCHES, WIDE,
+                                                  bench as KBench,
                                                   cardinal as KC, topk as KT)
 from yacy_search_server_tpu_torch.ops import ranking as R
 
@@ -678,3 +680,293 @@ def test_rank_join_and_filtered_rank_term_on_the_card_match_cpu():
     b = h.rank_term(names[0], prof, k=50, flag_bit=4, to_days=20_000)
     assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
     assert counters(g) == counters(h) and g.join_served == 8
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7 / topk_finish with a RAM delta and a facet bitmap, the batched
+# scan, K5 waves, tie_topk on concurrent streams and the batcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("filt", [None, (0x656E, 7, 5_000, 25_000)],
+                         ids=["no_filter", "filter"])
+@pytest.mark.parametrize("bitmap", [False, True], ids=["", "bitmap"])
+@pytest.mark.parametrize("n_delta", [0, 7, 256, 50_000, 300_000])
+def test_span_kernels_with_delta_and_bitmap_match_plain(edge_store, n_delta,
+                                                        bitmap, filt):
+    """K6, K7 and topk_finish over the 8 edge extents and a delta block
+    (span docids, tombstoned ones, docids past the tombstone bitmap and
+    past the facet bitmap; below the first bucket, at it, 50,000 rows and
+    past the last bucket), with a facet bitmap of 4M bits admitting 30 %
+    and a constraint filter; equal to the plain versions."""
+    f, fl, d, dead, _pm = _arena(edge_store)
+    ext = KBench.edge_extents(edge_store, 8)
+    delta = (convert.delta_from_numpy(*KBench.edge_delta(edge_store, n_delta),
+                                      "cuda") if n_delta else None)
+    allow = (convert.bitmap_from_numpy(KBench.facet_bitmap(1 << 22, 0.3),
+                                       "cuda") if bitmap else None)
+    kw = dict(filt=filt, delta=delta, allow=allow)
+    st = KD.span_stats(f, d, dead, ext, flags=fl, **kw)
+    _stats_equal(st, KD.span_stats_plain(f, d, dead, ext, flags=fl, **kw))
+    rows = sum(c for _s, c in ext) + (delta[2].shape[0] if delta else 0)
+    c = _consts(R.RankingProfile())
+    buf = KD.span_score(f, fl, d, dead, ext, st, c, rows + 7, **kw)
+    assert torch.equal(buf, KD.span_score_plain(f, fl, d, dead, ext, st, c,
+                                                rows + 7, **kw))
+    dd = delta[2] if delta else None
+    for kk in (16, 1024):
+        s, r, _ = KT.tie_topk(buf, kk)
+        got = KD.topk_finish(s, r, d, ext, stats=st, delta_docids=dd)
+        want = KD.topk_finish_plain(s, r, d, ext, stats=st, delta_docids=dd)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_ext", [0, 2])
+def test_delta_only_scan_matches_cpu(edge_store, n_ext):
+    """The exact scan of a term whose rows are all, or partly, in its RAM
+    delta: no extent (the delta the only source) and two extents, with a
+    filter; equal to the same route on a CPU copy of the arena."""
+    a = _arena(edge_store)
+    a_cpu = tuple(t.cpu() for t in a)
+    ext = KBench.edge_extents(edge_store, 2)[:n_ext]
+    blk = KBench.edge_delta(edge_store, 3_000)
+    c = _consts(R.RankingProfile())
+    for filt in (None, (0x656E, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI)):
+        got = TD.scan_query(a, ext, c, 128, filt,
+                            delta=convert.delta_from_numpy(*blk, "cuda"))
+        want = TD.scan_query(a_cpu, ext, c.cpu(), 128, filt,
+                             delta=convert.delta_from_numpy(*blk, "cpu"))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kk", [16, 1024])
+@pytest.mark.parametrize("bs", [1, 3, 16])
+def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
+    """The batched K6, K7 and finish over a wave of bs edge scans (1, 2 and
+    8 extents, five filters): each equal to its plain version, the wave
+    equal to the CPU's, each slot equal to the solo scan's first 2kk."""
+    a = _arena(edge_store)
+    f, fl, d, dead, _pm = a
+    scans = KBench.scan_wave(edge_store, bs)
+    desc = KD.scan_batch_desc(scans)
+    c = _consts(R.RankingProfile(**NONDEFAULT))
+    wide = dict(WIDE)
+    st = KD.span_stats_batch(f, fl, d, dead, desc)
+    pst = KD.span_stats_batch_plain(f, fl, d, dead, desc)
+    for i in range(bs):
+        _stats_equal(st[i], pst[i])
+    off = KD.scan_batch_offsets(desc, kk)
+    buf = KD.span_score_batch(f, fl, d, dead, desc, st, c, off)
+    assert torch.equal(buf, KD.span_score_batch_plain(f, fl, d, dead, desc,
+                                                      pst, c, off))
+    got = TD.scan_batch_query(a, scans, c, kk)
+    a_cpu = tuple(t.cpu() for t in a)
+    assert torch.equal(got.cpu(), TD.scan_batch_query(a_cpu, scans, c.cpu(),
+                                                      kk))
+    for i, (ext, filt) in enumerate(scans):
+        solo = TD.scan_query(a, ext, c, kk, filt)
+        assert torch.equal(got[i], solo[:2 * kk])
+    torch.cuda.synchronize()
+    if bs > 1:
+        assert WIDE["span_stats_batch"] > wide["span_stats_batch"]
+        assert WIDE["span_score_batch"] > wide["span_score_batch"]
+
+
+def test_tie_topk_on_16_streams(dev):
+    """tie_topk's cooperative launches from 16 threads, each on a stream
+    of its own, beside K7-sized scoring launches on the others: every
+    answer equal to the plain version's, none trapped."""
+    import threading
+    rng = np.random.default_rng(90)
+    inputs = [torch.from_numpy(rng.integers(0, 5_000, n, dtype=np.int32))
+              .to(dev) for n in (3_000_000, 40_000, 700_000, 100)]
+    want = {(i, k): KT.tie_topk_plain(x, k) for i, x in enumerate(inputs)
+            for k in (16, 128) if k <= x.shape[0]}
+    feats, valid, hostids = _block(2_000_000, seed=91)
+    fb, vb, hb = (torch.from_numpy(a).to(dev) for a in (feats, valid,
+                                                        hostids))
+    st, cnt = KC.cardinal_stats(fb, vb, hb, 0)
+    c = _consts(R.RankingProfile())
+    torch.cuda.synchronize()
+    errors = []
+
+    def worker(t):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for rep in range(20):
+                    if t % 4 == 3:
+                        KC.cardinal_score(fb, None, vb, hb, st, cnt, c,
+                                          False)
+                        continue
+                    i = (t + rep) % len(inputs)
+                    for k in (16, 128):
+                        if k > inputs[i].shape[0]:
+                            continue
+                        g = KT.tie_topk(inputs[i], k)
+                        torch.cuda.current_stream().synchronize()
+                        w = want[(i, k)]
+                        if not (torch.equal(g[0], w[0])
+                                and torch.equal(g[2], w[2])):
+                            errors.append((t, i, k))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    ts = [threading.Thread(target=worker, args=(t,)) for t in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=300)
+    torch.cuda.synchronize()
+    assert not errors and not any(th.is_alive() for th in ts)
+
+
+def test_batcher_on_the_card_matches_cpu():
+    """A store on the card with the batcher (and scan batching) on, and
+    its twin on the CPU: 16 threads of pruned queries and of filtered
+    scans, a RAM delta and a facet bitmap query; every answer equal to
+    the twin's solo answer, K5 and the batched scan launched with more
+    than one live slot, no timeout, no exception."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx = RWIIndex()
+    terms = [b"bt%010d" % i for i in range(6)]
+    for i, th in enumerate(terms):
+        feats, _d, _h, _r = KBench.make_term((300_000, 70_000, 40_000,
+                                              9_000, 5_000, 2_000)[i],
+                                             KBench.SEED + 30 + i)
+        idx.add_many(th, P.PostingsList(
+            (i + 7 * np.arange(len(feats))).astype(np.int32), feats))
+    idx.flush()
+    g = TD.DeviceSegmentStore(idx, device="cuda")
+    h = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KBench.Fanout(g, h)
+    g.enable_batching(max_batch=16, dispatchers=4, scan_batching=True)
+    profs = [R.RankingProfile(), R.RankingProfile(domlength=12, tf=5)]
+    jobs = [(th, p, k, f) for th in terms for p in range(2)
+            for k in (10, 100) for f in (None, (0x656E, 7, 5_000, 25_000))]
+
+    def kw(f):
+        return {} if f is None else dict(lang_filter=f[0], flag_bit=f[1],
+                                         from_days=f[2], to_days=f[3])
+    want = {}
+    for job in jobs:
+        h._topk_cache.clear()
+        want[job] = h.rank_term(job[0], profs[job[1]], k=job[2],
+                                **kw(job[3]))
+    wide = dict(WIDE)
+    errors = []
+
+    def worker(mine):
+        try:
+            for job in mine:
+                g._topk_cache.clear()
+                got = g.rank_term(job[0], profs[job[1]], k=job[2],
+                                  **kw(job[3]))
+                w = want[job]
+                if not (np.array_equal(got[0], w[0])
+                        and np.array_equal(got[1], w[1])
+                        and got[2] == w[2]):
+                    errors.append(job)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    ts = [threading.Thread(target=worker, args=((jobs * 3)[i::16],))
+          for i in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=600)
+    assert not errors and not any(th.is_alive() for th in ts)
+    c = g.counters()
+    assert c["batch_dispatches"] > 0 and c["batch_timeouts"] == 0
+    assert c["batch_exceptions"] == 0
+    assert WIDE["pruned_tile"] > wide["pruned_tile"]
+    assert WIDE["span_stats_batch"] > wide["span_stats_batch"]
+    # a RAM delta and a facet bitmap, solo, on the card and on the twin
+    idx.add_many(terms[0], P.PostingsList(
+        np.arange(5, 60_000, 11).astype(np.int32),
+        KBench.make_term(len(range(5, 60_000, 11)), 7)[0]))
+    key = ((("site", "x.example"),), 0, 2_100_000)
+    allowed = lambda: np.arange(0, 2_100_000, 9)  # noqa: E731
+    for extra in ({}, dict(allow_bitmap=g.filter_bitmap(key, allowed))):
+        a = g.rank_term(terms[0], profs[0], k=100, **extra)
+        if extra:
+            extra = dict(allow_bitmap=h.filter_bitmap(key, allowed))
+        b = h.rank_term(terms[0], profs[0], k=100, **extra)
+        assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        assert a[2] == b[2]
+    g.close()
+
+
+def test_batcher_deletes_on_the_card_match_cpu():
+    """Deletes landing while 16 threads send pruned queries and filtered
+    scans through the batcher, whose dispatchers apply the pending
+    tombstones on their own streams: afterwards the card's tombstone
+    bitmap equals the CPU twin's, and every answer from 16 threads again
+    equals the twin's."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx = RWIIndex()
+    terms = [b"dt%010d" % i for i in range(4)]
+    for i, th in enumerate(terms):
+        feats, _d, _h, _r = KBench.make_term((200_000, 50_000, 9_000,
+                                              2_000)[i],
+                                             KBench.SEED + 40 + i)
+        idx.add_many(th, P.PostingsList(
+            (i + 5 * np.arange(len(feats))).astype(np.int32), feats))
+    idx.flush()
+    g = TD.DeviceSegmentStore(idx, device="cuda")
+    h = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KBench.Fanout(g, h)
+    g.enable_batching(max_batch=16, dispatchers=8, scan_batching=True)
+    g._topk_cache.enabled = h._topk_cache.enabled = False
+    prof = R.RankingProfile()
+    filt = dict(lang_filter=0x656E, flag_bit=7, from_days=5_000)
+    jobs = [(th, f, k) for th in terms for f in (False, True)
+            for k in (10, 100)]
+
+    def ask(store, job):
+        return store.rank_term(job[0], prof, k=job[2],
+                               **(filt if job[1] else {}))
+    gone = sorted({int(x) for job in jobs for x in ask(h, job)[1][:8]})
+    errors = []
+
+    def worker(mine):
+        try:
+            for job in mine:
+                ask(g, job)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    ts = [threading.Thread(target=worker, args=((jobs * 12)[i::16],))
+          for i in range(16)]
+    for th in ts:
+        th.start()
+    for x in gone:
+        idx.delete_doc(x)
+    for th in ts:
+        th.join(timeout=600)
+    assert not errors and not any(th.is_alive() for th in ts)
+    dead_g = g.arena.dead_array().cpu()
+    dead_h = h.arena.dead_array()
+    assert torch.equal(dead_g, dead_h)
+    assert sorted(torch.nonzero(dead_h).flatten().tolist()) == gone
+    want = {job: ask(h, job) for job in jobs}
+    out = []
+
+    def check(mine):
+        for job in mine:
+            out.append((job, ask(g, job)))
+    ts = [threading.Thread(target=check, args=((jobs * 2)[i::16],))
+          for i in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=600)
+    assert len(out) == 2 * len(jobs)
+    for job, got in out:
+        w = want[job]
+        assert np.array_equal(got[0], w[0]) and np.array_equal(got[1], w[1])
+        assert got[2] == w[2]
+    c = g.counters()
+    assert c["batch_timeouts"] == 0 and c["batch_exceptions"] == 0
+    g.close()

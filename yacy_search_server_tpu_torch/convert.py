@@ -6,8 +6,10 @@ MeshRanker.place / CardinalRanker.rank build (as numpy) into the port's
 placed tensors; `profile_from_jax` turns a JAX RankingProfile, through its
 external string, into the port's. `arena_from_numpy`, `join_from_numpy`
 and `span_from_fields` carry a JAX DeviceSegmentStore's arena and join
-side-tables (fetched as numpy) and its spans into the port, so the
-devstore kernels of both read the same bytes. Both sides then score
+side-tables (fetched as numpy) and its spans into the port, and
+`delta_from_numpy` / `bitmap_from_numpy` a RAM delta block and a facet
+bitmap as its kernels take them, so the devstore kernels of both read
+the same bytes. Both sides then score
 identical bytes under an identical profile.
 """
 
@@ -91,3 +93,30 @@ def span_from_fields(start, count, tstart, tcount, stats, dead_seq,
                  "tf_min": np.float32(stats["tf_min"]),
                  "tf_max": np.float32(stats["tf_max"])}, int(dead_seq),
                 int(jstart), int(jslot))
+
+
+def delta_from_numpy(feats16, flags, docids, device=None):
+    """(feats16 int16 [n, 17], flags int32 [n], docids int32 [n]) on
+    `device` (None: the CUDA device): a RAM delta block (the JAX store's
+    d_feats16, d_flags, d_docids: compact rows padded with docid -1) as
+    K6, K7 and topk_finish read it after the extents."""
+    dev = resolve_device(device)
+    feats16 = np.require(feats16, np.int16, ["C", "W"])
+    n = feats16.shape[0]
+    flags, docids = (np.require(a, np.int32, ["C", "W"])
+                     for a in (flags, docids))
+    if feats16.shape != (n, P.NF) or flags.shape != (n,) \
+            or docids.shape != (n,):
+        raise ValueError(f"a delta block is [n, {P.NF}] int16 and two [n] "
+                         "int32 arrays")
+    return tuple(torch.from_numpy(a).to(dev) for a in (feats16, flags, docids))
+
+
+def bitmap_from_numpy(words, device=None):
+    """A facet docid bitmap (the JAX store's uint32 `allow` words) as the
+    int32 bit patterns K6 and K7 read, on `device` (None: CUDA)."""
+    words = np.ascontiguousarray(words, np.uint32)
+    if words.ndim != 1 or not len(words):
+        raise ValueError("a bitmap is a non-empty [nwords] array")
+    return torch.from_numpy(words.view(np.int32).copy()).to(
+        resolve_device(device))

@@ -1,48 +1,62 @@
 """Device-resident postings serving: queries rank placed blocks in place.
 
 Port of yacy_search_server_tpu/index/devstore.py: the device arena with
-its join side-tables, packing at `on_run_added`, solo `rank_term` with
-constraint filters, and solo `rank_join`.
+its join side-tables, packing at `on_run_added`, `rank_term` with RAM
+deltas, constraint filters and facet bitmaps, solo `rank_join`, the
+query batcher (index/batcher.py), the top-k result cache and the
+serving counters.
 
 - `DeviceArena`: growable int16 features, int32 flags, int32 docids (-1
   on pad rows), a tombstone bitmap and the per-tile bound rows `pmax`.
   Every frozen run packs into it once; each (run, term) is one
   contiguous extent, its rows reordered by the pack-time proxy score
   (the default profile against the span's frozen statistics, best
-  first), so a query addresses its candidates by scalars.
-- `DeviceSegmentStore.rank_term`: the pruned path scores the first tile
-  of a single span and checks on the device, against `pmax`, that no
-  other tile can beat the k-th score (kernel K5, `pruned_tile`); where
-  the check fails the prefix grows through `_PRUNE_B` (K7 `span_score`
-  over the prefix, kernel 3 `tie_topk`, `topk_finish`'s tail check).
-  Where pruning cannot be used (several spans, a tombstone newer than
-  the span) or fails at every size, the exact scan runs: K6
-  `span_stats` over the live rows, K7, kernel 3, `topk_finish`. One
-  device -> host copy a dispatch. A constraint filter (language, content
-  flag, lastmod range) always takes the exact scan, with the filter in
-  K6 and K7; K6's statistics are cached per (term, filter) and reused
-  while the snapshot they were taken on stands (`rank_term`).
+  first), so a query addresses its candidates by scalars. On the card
+  every write is issued on the arena's own stream and recorded in an
+  event (`written`) that a query's stream waits on before it reads:
+  the batcher's dispatchers issue on streams of their own.
+- `DeviceSegmentStore.rank_term`: a repeat of an unconstrained query is
+  answered from the versioned top-k cache (`rank_cache_get`) with no
+  device work. Otherwise the pruned path scores the first tile of a
+  single span and checks on the device, against `pmax`, that no other
+  tile can beat the k-th score (kernel K5, `pruned_tile`; with the
+  batcher on, concurrent queries share one K5 launch a wave); where the
+  check fails the prefix grows through `_PRUNE_B` (K7 `span_score` over
+  the prefix, kernel 3 `tie_topk`, `topk_finish`'s tail check). Where
+  pruning cannot be used (several spans, a tombstone newer than the
+  span, a RAM delta) or fails at every size, the exact scan runs: K6
+  `span_stats` over the live rows of the extents and of the term's RAM
+  delta block (read from its own staging copy after the extents), K7,
+  kernel 3, `topk_finish`. One device -> host copy a dispatch. A
+  constraint filter (language, content flag, lastmod range) or a facet
+  bitmap (`filter_bitmap`: site:/tld:/filetype:/protocol:) always takes
+  the exact scan, with the filter in K6 and K7; K6's statistics are
+  cached per (term, filter, bitmap) and reused while the snapshot they
+  were taken on stands. With `scan_batching`, filtered scans without a
+  delta or a bitmap share one batched K6/K7 launch a wave.
 - `DeviceSegmentStore.rank_join`: the conjunction streams the rarest
   include term's span through K8 `join_member` (membership in every
   other include and every exclude by each term's docid-sorted segment or
   docid bitmap, partner rows merged, the filter applied), then kernels
-  1-3 and `topk_finish` rank the merged rows.
+  1-3 and `topk_finish` rank the merged rows. Solo: joins are not
+  batched yet, and a RAM delta declines, as in the reference.
 
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
-extents in span order), never the docid.
+extents in span order, the delta's rows last), never the docid.
 
-Queries with a RAM delta or a facet bitmap return None (the caller's host
-path serves them) and count a fallback; so do packed spans, which this
-arena never holds. Left out: the query batcher, the top-k result cache,
-device-loss handling, the packed-word side table, and the JAX package's
-tracing and profiler hooks.
+Left out: batched joins, device-loss handling, packed residency and the
+tier ladder, the dense rerank and ANN families, and the JAX package's
+tracing and profiler hooks (their `counters()` keys read zero).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
+import time
 import weakref
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -68,6 +82,31 @@ NEG_INF32 = -(2 ** 31 - 1)
 INT32_MAX = 2 ** 31 - 1
 # entries of the filtered-stats cache (FIFO beyond)
 _STATS_CACHE_CAP = 256
+# the keys of the JAX store's counters() for machinery this port does not
+# have yet (device-loss recovery, storage integrity, the profiler's
+# silicon accounting, the dense rerank and ANN families, packed residency
+# and the tier ladder, the paged runs' term cache): they read zero here,
+# as the JAX store's ANN_ZERO_COUNTERS do for a store without an index
+ZERO_COUNTERS = {
+    "tunnel_rt_ms": 0.0, "util_pct_p50": 0.0, "util_pct_p95": 0.0,
+    "bound": "", "device_lost": 0, "device_losses": 0,
+    "device_loss_recoveries": 0, "device_lost_queries": 0,
+    "transfer_failures": 0, "transfer_retries": 0, "storage_corruptions": 0,
+    "journal_torn_tails": 0, "rerank_dispatches": 0, "rerank_queries": 0,
+    "rerank_cache_hits": 0, "rerank_fallbacks": 0, "ann_dispatches": 0,
+    "ann_queries": 0, "ann_fallbacks": 0, "ann_host_queries": 0,
+    "ann_vectors": 0, "ann_clusters": 0, "ann_centroid_version": 0,
+    "ann_hot_bytes": 0, "ann_warm_bytes": 0, "ann_cold_bytes": 0,
+    "ann_tier_hot_hits": 0, "ann_tier_warm_hits": 0,
+    "ann_tier_cold_hits": 0, "ann_promotions": 0, "ann_promote_failures": 0,
+    "ann_lane_drops": 0, "dense_fwd_bytes": 0, "tier_hot_hits": 0,
+    "tier_warm_hits": 0, "tier_cold_hits": 0, "tier_promotions_warm_hot": 0,
+    "tier_promotions_cold_hot": 0, "tier_demotions_hot_warm": 0,
+    "tier_evictions_warm_cold": 0, "tier_promote_async": 0,
+    "tier_promote_failures": 0, "tier_warm_bytes": 0, "tier_cold_bytes": 0,
+    "packed_compression_ratio": 1.0, "term_cache_hits": 0,
+    "term_cache_misses": 0, "term_cache_evictions": 0, "term_cache_bytes": 0,
+}
 
 # prune-prefix escalation buckets (tiles scored before tail verification)
 _PRUNE_B = (1, 8, 64, 512, 4096)
@@ -227,20 +266,48 @@ def pruned_query(arrays, sp: Span, shift: int, lang_term: int, consts,
 
 
 def scan_query(arrays, extents, consts, kk: int, filt=None,
-               stats=None) -> torch.Tensor:
-    """The exact two-pass scan over up to 8 extents: the [2kk + 36] vector
-    of _rank_spans_packed_kernel (scores, docids, the statistics'
-    col_min/col_max and tf bounds as f32 bits), left on the device. The
-    rows are the live ones that pass the filter `filt`; `stats` (int32[38]
-    of those rows, from an earlier K6) skips K6."""
+               stats=None, delta=None, allow=None) -> torch.Tensor:
+    """The exact two-pass scan over up to 8 extents and a RAM delta block
+    after them: the [2kk + 36] vector of _rank_spans_packed_kernel
+    (scores, docids, the statistics' col_min/col_max and tf bounds as f32
+    bits), left on the device. The rows are the live ones that pass the
+    filter `filt` and the facet bitmap `allow`; `delta` is the block's
+    (feats16, flags, docids); `stats` (int32[38] of those rows, from an
+    earlier K6; never with a delta) skips K6."""
     feats16, flags, docids, dead, _pmax = arrays
     if stats is None:
         stats = KD.span_stats(feats16, docids, dead, extents, flags=flags,
-                              filt=filt)
+                              filt=filt, delta=delta, allow=allow)
+    rows = sum(c for _s, c in extents) + (
+        delta[2].shape[0] if delta is not None else 0)
     buf = KD.span_score(feats16, flags, docids, dead, extents, stats, consts,
-                        max(sum(c for _s, c in extents), kk), filt=filt)
+                        max(rows, kk), filt=filt, delta=delta, allow=allow)
     top_s, top_rows, _ = tie_topk(buf, kk)
-    return KD.topk_finish(top_s, top_rows, docids, extents, stats=stats)
+    return KD.topk_finish(top_s, top_rows, docids, extents, stats=stats,
+                          delta_docids=delta[2] if delta is not None
+                          else None)
+
+
+def scan_batch_query(arrays, scans, consts, kk: int) -> torch.Tensor:
+    """A wave of up to 16 exact scans, each (extents, filter), in one
+    batched K6 and one batched K7 launch (each slot's scores in a region
+    of its own length, scan_batch_offsets), kernel 3 a slot over its
+    region and one batched finish: the [bs, 2kk] scores ++ docids of
+    _rank_scan_batch_packed_kernel, left on the device. Each slot's row
+    equals scan_query's first 2kk entries for it alone."""
+    feats16, flags, docids, dead, _pmax = arrays
+    desc = KD.scan_batch_desc(scans)
+    bs = desc.shape[0]
+    stats = KD.span_stats_batch(feats16, flags, docids, dead, desc)
+    off = KD.scan_batch_offsets(desc, kk)
+    buf = KD.span_score_batch(feats16, flags, docids, dead, desc, stats,
+                              consts, off)
+    top = torch.empty((3, bs, kk), dtype=torch.int32, device=feats16.device)
+    for i, (ext, _f) in enumerate(scans):
+        n = max(sum(c for _s, c in ext), kk)
+        tie_topk(buf[int(off[i]):int(off[i]) + n], kk,
+                 out=(top[0, i], top[1, i], top[2, i]))
+    return KD.topk_finish_batch(top[0], top[2], docids, desc)
 
 
 def join_query(arrays, join, start: int, count: int, parts, n_inc: int,
@@ -272,6 +339,16 @@ class DeviceArena:
     so a query holding the old ones keeps a consistent snapshot, as the
     reference's `jnp.pad` did; so does a tombstone update of the bitmap.
 
+    On the card, every write (an append, a growth, a side-table or
+    bitmap write, pending tombstones applied) is issued on one stream of
+    the arena's (`_writing`), whichever thread or stream asks for it, and
+    then recorded in the event `written`. So the writes are ordered among
+    themselves, a tensor that a growth replaces is freed on the stream
+    that read it last, and a query takes its snapshot and `written`
+    together under the store's lock (DeviceSegmentStore.snapshot) and
+    makes its own stream wait on the event (`wait_written`) before it
+    launches: a dispatcher on another stream never reads rows in flight.
+
     Side-tables: the per-tile bound rows `pmax`, and for joins each span's
     docid-sorted view (`jdocids`, the arena row of each in `jpos`; pads
     INT32_MAX / 0) and, for big terms, a docid bitmap slot in `bmtab`
@@ -285,12 +362,24 @@ class DeviceArena:
     JOIN_BITMAP_SLOTS = 64
 
     def __init__(self, device=None, budget_bytes: int = 2 << 30,
-                 initial_rows: int = 4 * TILE):
+                 initial_rows: int = 4 * TILE, stream=None):
         self.device = resolve_device(device)
         self.budget_bytes = budget_bytes
         self._cap = initial_rows
         self._used = 0
         dev = self.device
+        # the stream every write is issued on (the card; `stream`: a
+        # rebuilt arena continues its predecessor's, whose tombstone
+        # bitmap it takes over)
+        self._wstream = None
+        if dev.type == "cuda":
+            self._wstream = stream or torch.cuda.Stream(dev)
+        self.written = None   # the event after the last write (the card)
+        with self._writing():
+            self._alloc(dev)
+
+    def _alloc(self, dev) -> None:
+        """The empty tables (issued under `_writing`)."""
         self._feats16 = torch.zeros((self._cap, P.NF), dtype=torch.int16,
                                     device=dev)
         self._flags = torch.zeros(self._cap, dtype=torch.int32, device=dev)
@@ -299,6 +388,8 @@ class DeviceArena:
         self._doc_cap = 1 << 16
         self._dead = torch.zeros(self._doc_cap, dtype=torch.bool, device=dev)
         self._pending_dead: list[int] = []
+        # deletes arrive on the writer's thread without the store's lock
+        self._pending_lock = threading.Lock()
         # prune side-table: per-tile proxy-score maxima (margin folded in);
         # pad slots hold INT32_MAX (never consulted: tcount caps the walk)
         self._tcap = 1 << 12
@@ -319,6 +410,26 @@ class DeviceArena:
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    @contextlib.contextmanager
+    def _writing(self):
+        """Issue the block's writes on the arena's stream and record
+        their end in `written` (the card; elsewhere a no-op)."""
+        if self._wstream is None:
+            yield
+            return
+        with torch.cuda.stream(self._wstream):
+            yield
+            ev = torch.cuda.Event()
+            ev.record(self._wstream)
+            self.written = ev
+
+    @staticmethod
+    def wait_written(ev) -> None:
+        """Make the current stream wait for the writes before `ev` (a
+        snapshot's `written`; None: nothing to wait for)."""
+        if ev is not None:
+            torch.cuda.current_stream().wait_event(ev)
 
     @staticmethod
     def row_bytes() -> int:
@@ -375,11 +486,12 @@ class DeviceArena:
         dpad = np.full(pad, -1, np.int32)
         cf, cfl = compact_feats(np.ascontiguousarray(ff, dtype=np.int32))
         f16[:n], fl[:n], dpad[:n] = cf, cfl, dd
-        self._grow_to(self._used + pad + TILE)
-        off = self._used
-        self._feats16[off:off + pad].copy_(self._put(f16))
-        self._flags[off:off + pad].copy_(self._put(fl))
-        self._docids[off:off + pad].copy_(self._put(dpad))
+        with self._writing():
+            self._grow_to(self._used + pad + TILE)
+            off = self._used
+            self._feats16[off:off + pad].copy_(self._put(f16))
+            self._flags[off:off + pad].copy_(self._put(fl))
+            self._docids[off:off + pad].copy_(self._put(dpad))
         self._used += n
         return base
 
@@ -391,16 +503,17 @@ class DeviceArena:
         new_cap = cap
         while new_cap < used + b:
             new_cap *= 2
-        if new_cap != cap:
-            grown = []
-            for a, fill in zip(arrays, fills):
-                g = torch.full((new_cap,), fill, dtype=torch.int32,
-                               device=self.device)
-                g[:cap].copy_(a)
-                grown.append(g)
-            arrays = grown
-        for a, buf in zip(arrays, bufs):
-            a[used:used + b].copy_(self._put(buf))
+        with self._writing():
+            if new_cap != cap:
+                grown = []
+                for a, fill in zip(arrays, fills):
+                    g = torch.full((new_cap,), fill, dtype=torch.int32,
+                                   device=self.device)
+                    g[:cap].copy_(a)
+                    grown.append(g)
+                arrays = grown
+            for a, buf in zip(arrays, bufs):
+                a[used:used + b].copy_(self._put(buf))
         return arrays, new_cap
 
     def append_pmax(self, pmax: np.ndarray) -> int:
@@ -465,36 +578,114 @@ class DeviceArena:
             cap = max(self._bm_cap, 1)
             while cap < need:
                 cap *= 2
-            if cap != self._bm_cap or self._bmtab.shape[1] != self._bm_nwords:
-                # growth: a new table, the old slots copied over
-                fresh = torch.zeros((cap, self._bm_nwords, 2),
-                                    dtype=torch.int32, device=self.device)
-                if self._bm_used:
-                    fresh[:self._bm_used].copy_(self._bmtab[:self._bm_used])
-                self._bmtab, self._bm_cap = fresh, cap
-            self._bmtab[self._bm_used:need].copy_(self._put(np.stack(bufs)))
+            with self._writing():
+                if (cap != self._bm_cap
+                        or self._bmtab.shape[1] != self._bm_nwords):
+                    # growth: a new table, the old slots copied over
+                    fresh = torch.zeros((cap, self._bm_nwords, 2),
+                                        dtype=torch.int32, device=self.device)
+                    if self._bm_used:
+                        fresh[:self._bm_used].copy_(
+                            self._bmtab[:self._bm_used])
+                    self._bmtab, self._bm_cap = fresh, cap
+                self._bmtab[self._bm_used:need].copy_(
+                    self._put(np.stack(bufs)))
             self._bm_used = need
         return out
 
     def mark_dead(self, docid: int) -> None:
-        self._pending_dead.append(docid)
+        with self._pending_lock:
+            self._pending_dead.append(docid)
 
     def dead_array(self) -> torch.Tensor:
-        """The dead bitmap with pending tombstones applied (lazy batch)."""
-        if self._pending_dead:
-            idx = np.asarray(self._pending_dead, np.int64)
+        """The dead bitmap with pending tombstones applied (lazy batch,
+        on the arena's stream after every earlier write, the previous
+        bitmap among them): a new tensor each time, so a snapshot holding
+        the old one keeps it."""
+        with self._pending_lock:
+            pending, self._pending_dead = self._pending_dead, []
+        if pending:
+            idx = np.asarray(pending, np.int64)
             new_cap = self._doc_cap
             while new_cap < int(idx.max()) + 1:
                 new_cap *= 2
-            dead = torch.zeros(new_cap, dtype=torch.bool, device=self.device)
-            dead[:self._doc_cap].copy_(self._dead)
-            dead[self._put(idx)] = True
+            with self._writing():
+                dead = torch.zeros(new_cap, dtype=torch.bool,
+                                   device=self.device)
+                dead[:self._doc_cap].copy_(self._dead)
+                dead[self._put(idx)] = True
             self._dead, self._doc_cap = dead, new_cap
-            self._pending_dead = []
         return self._dead
 
     def arrays(self):
         return self._feats16, self._flags, self._docids
+
+
+class TopkCache:
+    """Versioned LRU of final top-k answers (the JAX store's _TopkCache).
+
+    Keyed by (termhash, profile string, language, kk); each entry holds
+    the arena epoch it was computed against, and a hit is served only
+    while the store's epoch is unchanged: every flush, merge, repack,
+    delete and term drop bumps it. A RAM delta changes an answer without
+    moving the epoch, so the store's lookup (rank_cache_get) declines
+    terms with unflushed postings. Entries are the host arrays after the
+    keep filter and the dedup, before the [:k] cut; `stale_ok` (degraded
+    cache-only serving) answers from an epoch-stale entry and keeps it."""
+
+    def __init__(self, cap: int = 512):
+        self.cap = cap
+        self.enabled = True
+        self._lock = threading.Lock()
+        self._d: OrderedDict = OrderedDict()
+        self.hits = 0
+        self.stale = 0
+        self.misses = 0
+        self.stale_served = 0
+
+    def get(self, key, epoch: int, stale_ok: bool = False):
+        with self._lock:
+            if not self.enabled:
+                return None
+            got = self._d.get(key)
+            if got is None:
+                self.misses += 1
+                return None
+            e, s, d, considered = got
+            if e != epoch:
+                if stale_ok:
+                    self.stale_served += 1
+                    return s, d, considered
+                del self._d[key]     # the index moved under the entry
+                self.stale += 1
+                return None
+            self._d.move_to_end(key)
+            self.hits += 1
+            return s, d, considered
+
+    def put(self, key, epoch: int, s, d, considered: int) -> None:
+        with self._lock:
+            if not self.enabled:
+                return
+            self._d[key] = (epoch, s, d, considered)
+            self._d.move_to_end(key)
+            while len(self._d) > self.cap:
+                self._d.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._d.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+
+def _pctl(series, q: float) -> float:
+    sv = sorted(series)
+    if not sv:
+        return 0.0
+    return round(sv[min(len(sv) - 1, int(len(sv) * q))], 1)
 
 
 class DeviceSegmentStore:
@@ -519,8 +710,8 @@ class DeviceSegmentStore:
         # run id -> {termhash: Span}
         self._packed: dict[int, dict[bytes, Span]] = {}
         self._lock = threading.RLock()
-        self._consts = None
-        self._profile_key = None
+        # (profile string, language) -> the kernels' int32[44] constants
+        self._consts: OrderedDict = OrderedDict()
         self._garbage_rows = 0
         # the attributes SearchEvent reads: a store-level small-candidate
         # threshold (None: the caller's SMALL_RANK_N) and the loss flag
@@ -539,9 +730,21 @@ class DeviceSegmentStore:
         self.join_degraded_plain = 0
         # a multi-span term declined a join: a merge would serve it
         self.merge_wanted = False
-        # (termhash, lang, flag, from, to) -> (snapshot, tombstone bitmap
-        # weakref, K6 statistics int32[38] on the device), FIFO-capped
+        # (termhash, lang, flag, from, to, facet bitmap id) -> (snapshot,
+        # tombstone bitmap weakref, facet bitmap weakref, K6 statistics
+        # int32[38] on the device), FIFO-capped
         self._span_stats_cache: dict[tuple, tuple] = {}
+        self.filtered_served = 0     # exact scans under a facet bitmap
+        self.batch_ineligible = 0    # batcher declines served solo
+        self.device_round_trips = 0  # device -> host fetches (a wave: one)
+        self._topk_cache = TopkCache()
+        # facet bitmaps: combo -> (facet version, built at, int32 tensor)
+        self._filter_cache: OrderedDict = OrderedDict()
+        self._filter_inflight: dict = {}
+        self._batcher = None
+        self._scan_batching = False
+        # profile string -> the port's profile (parsed once)
+        self._profiles: OrderedDict = OrderedDict()
         # seed tombstones recorded before this store existed
         for docid in rwi._tombstones:
             self.arena.mark_dead(docid)
@@ -671,7 +874,8 @@ class DeviceSegmentStore:
             old = self.arena
             self._packed.clear()
             self.arena = DeviceArena(device=old.device,
-                                     budget_bytes=old.budget_bytes)
+                                     budget_bytes=old.budget_bytes,
+                                     stream=old._wstream)
             self.arena._dead = old._dead
             self.arena._doc_cap = old._doc_cap
             self.arena._pending_dead = old._pending_dead
@@ -699,16 +903,61 @@ class DeviceSegmentStore:
                 out.append(ext)
             return out
 
+    def _arrays_locked(self):
+        """The arena's tensors as a query reads them, (feats16, flags,
+        docids, tombstone bitmap with pending tombstones applied, pmax),
+        and the event after the writes they hold (None off the card); the
+        caller holds the lock. The one rule of a query on the card: its
+        stream waits on the event before it launches
+        (DeviceArena.wait_written), and it holds the tensors until its
+        answer is on the host (the arena replaces, never frees, a tensor
+        a snapshot may hold, and writes on a stream of its own)."""
+        feats16, flags, docids = self.arena.arrays()
+        return ((feats16, flags, docids, self.arena.dead_array(),
+                 self.arena._pmax), self.arena.written)
+
+    def snapshot(self, termhashes, postings: bool = False):
+        """One consistent view for single-term queries over
+        `termhashes`: (arrays, written, {th: spans_for(th)}, arena epoch,
+        tombstone count, {th: RAM delta}), the first two as
+        _arrays_locked's. The delta of a term is its `_ram_postings`
+        with `postings`, else whether it has one (None for a term that is
+        not fully resident)."""
+        with self._lock:
+            arrays, written = self._arrays_locked()
+            spans = {th: self.spans_for(th) for th in termhashes}
+            epoch = self.arena_epoch
+            tomb = len(self.rwi._tombstones)
+        with self.rwi._lock:
+            ram = {th: None if sp is None
+                   else self.rwi._ram_postings(th) if postings
+                   else bool(self.rwi._ram.get(th))
+                   for th, sp in spans.items()}
+        return arrays, written, spans, epoch, tomb, ram
+
+    _CONSTS_CAP = 64
+
     def _profile_consts(self, profile: RankingProfile, language: str):
         """The profile as the kernels' int32[44] on the arena's device,
-        rebuilt when the profile or language changes."""
+        one a (profile, language) pair (LRU of _CONSTS_CAP), so that
+        queries of different profiles never rebuild one another's. A new
+        tensor is complete before it is published: another thread's
+        stream may read it next."""
         key = (profile.to_external_string(), language)
-        with self._lock:  # key and consts publish together
-            if self._profile_key != key:
-                self._consts = profile_consts(
-                    profile, P.pack_language(language), self.arena.device)
-                self._profile_key = key
-            return self._consts
+        with self._lock:
+            got = self._consts.get(key)
+            if got is not None:
+                self._consts.move_to_end(key)
+                return got
+        got = profile_consts(profile, P.pack_language(language),
+                             self.arena.device)
+        if got.device.type == "cuda":
+            torch.cuda.current_stream(got.device).synchronize()
+        with self._lock:
+            got = self._consts.setdefault(key, got)
+            while len(self._consts) > self._CONSTS_CAP:
+                self._consts.popitem(last=False)
+            return got
 
     def rank_join(self, include_hashes, exclude_hashes, profile,
                   language: str = "en", k: int = 100,
@@ -766,7 +1015,7 @@ class DeviceSegmentStore:
                 or len(include_hashes) > self.MAX_JOIN_TERMS
                 or len(exclude_hashes) > self.MAX_JOIN_TERMS):
             return None
-        prof = profile_from_jax(profile.to_external_string())
+        prof = self._port_profile(profile)
         with self._lock:
             inc_spans = []
             for th in include_hashes:
@@ -789,10 +1038,9 @@ class DeviceSegmentStore:
                     self.fallbacks += 1
                     return "declined"
                 exc_spans += spans
-            feats16, flags, docids = self.arena.arrays()
-            arrays = (feats16, flags, docids, self.arena.dead_array(),
-                      self.arena._pmax)
+            arrays, written = self._arrays_locked()
             join = (*self.arena.join_arrays(), self.arena.bitmap_array())
+        feats16 = arrays[0]
         # RAM deltas are not joinable on the device; the counter bump
         # happens outside the rwi lock (the store -> rwi lock order)
         with self.rwi._lock:
@@ -830,8 +1078,9 @@ class DeviceSegmentStore:
         filt = (lang_filter, flag_bit,
                 DAYS_NONE_LO if from_days is None else from_days,
                 DAYS_NONE_HI if to_days is None else to_days)
-        host = join_query(arrays, join, rare.start, rare.count, parts,
-                          len(partners), consts, kk, filt).cpu().numpy()
+        DeviceArena.wait_written(written)
+        host = self._fetch(join_query(arrays, join, rare.start, rare.count,
+                                      parts, len(partners), consts, kk, filt))
         n = min(kk, rare.count)
         s, d = host[:n], host[n:2 * n]
         keep = (d >= 0) & (s > NEG_INF32)
@@ -839,53 +1088,150 @@ class DeviceSegmentStore:
             self.queries_served += 1
         return s[keep][:k], d[keep][:k], rare.count
 
+    def _port_profile(self, profile) -> RankingProfile:
+        """The port's profile of any profile with to_external_string(),
+        parsed once a string."""
+        key = profile.to_external_string()
+        with self._lock:
+            got = self._profiles.get(key)
+            if got is None:
+                got = self._profiles[key] = profile_from_jax(key)
+                while len(self._profiles) > 64:
+                    self._profiles.popitem(last=False)
+            return got
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """One device -> host copy of a dispatch's answer."""
+        host = out.cpu().numpy()
+        self.count_round_trip()
+        return host
+
+    def count_round_trip(self) -> None:
+        with self._lock:
+            self.device_round_trips += 1
+
+    def _delta_block(self, delta) -> tuple:
+        """A RAM delta's rows on the arena's device as K6/K7 read them:
+        (feats16 [b, 17] int16, flags [b] int32, docids [b] int32), padded
+        to its bucket b with docid -1 (compact_feats, as the reference's
+        :5813-5821). On the card the three arrays travel in one copy from
+        a pinned staging buffer, on the query's stream."""
+        n = len(delta)
+        b = KD.bucket_delta(n)
+        cf, cfl = compact_feats(np.ascontiguousarray(delta.feats, np.int32))
+        dev = self.arena.device
+        if dev.type != "cuda":
+            f16 = np.zeros((b, P.NF), np.int16)
+            fl = np.zeros(b, np.int32)
+            dd = np.full(b, -1, np.int32)
+            f16[:n], fl[:n], dd[:n] = cf, cfl, delta.docids
+            return tuple(torch.from_numpy(a).to(dev) for a in (f16, fl, dd))
+        fb, wb = b * P.NF * 2, b * 4
+        host = torch.empty(fb + 2 * wb, dtype=torch.uint8, pin_memory=True)
+        hb = host.numpy()
+        f16 = hb[:fb].view(np.int16).reshape(b, P.NF)
+        fl = hb[fb:fb + wb].view(np.int32)
+        dd = hb[fb + wb:].view(np.int32)
+        f16[:n], fl[:n], dd[:n] = cf, cfl, delta.docids
+        f16[n:], fl[n:], dd[n:] = 0, 0, -1
+        blk = torch.empty(fb + 2 * wb, dtype=torch.uint8, device=dev)
+        blk.copy_(host, non_blocking=True)
+        return (blk[:fb].view(torch.int16).view(b, P.NF),
+                blk[fb:fb + wb].view(torch.int32),
+                blk[fb + wb:].view(torch.int32))
+
+    def rank_cache_get(self, termhash: bytes, profile, language: str = "en",
+                       k: int = 100, stale_ok: bool = False):
+        """The versioned top-k cache's answer, with no device work: the
+        full final answer of an earlier identical unconstrained query,
+        served while the arena epoch is unchanged and the term has no
+        unflushed RAM delta (a delta changes the answer without moving
+        the epoch). (scores[:k], docids[:k], considered) or None.
+        `stale_ok` (degraded cache-only serving) relaxes both gates."""
+        kk = max(16, 1 << (max(k, 1) - 1).bit_length())
+        key = (termhash, profile.to_external_string(), language, kk)
+        if not stale_ok:
+            with self.rwi._lock:
+                if self.rwi._ram.get(termhash):
+                    return None
+        with self._lock:
+            epoch = self.arena_epoch
+        got = self._topk_cache.get(key, epoch, stale_ok=stale_ok)
+        if got is None:
+            return None
+        s, d, considered = got
+        with self._lock:
+            self.queries_served += 1
+        return s[:k], d[:k], considered
+
     def rank_term(self, termhash: bytes, profile, language: str = "en",
                   k: int = 100, lang_filter: int = NO_LANG,
                   flag_bit: int = NO_FLAG, from_days: int | None = None,
                   to_days: int | None = None, allow_bitmap=None):
-        """Single-term ranked top-k from placed blocks: (scores, docids,
-        considered) best-first, or None when the term is not fully
-        resident or the query needs a RAM delta or a facet bitmap (the
-        caller's host path serves it). `profile` is any ranking profile
-        with `to_external_string()`; `considered` counts candidate rows
-        before tombstone and filter masking. A constraint filter takes
-        the exact scan (statistics over the filtered rows)."""
-        prof = profile_from_jax(profile.to_external_string())
-        with self._lock:
-            spans = self.spans_for(termhash)
-            if spans is None or len(spans) > self.MAX_SPANS:
-                self.fallbacks += 1
-                return None
-            feats16, flags, docids = self.arena.arrays()
-            arrays = (feats16, flags, docids, self.arena.dead_array(),
-                      self.arena._pmax)
-            # the snapshot the filtered-stats cache validates against
-            epoch0 = self.arena_epoch
-            dead0 = len(self.rwi._tombstones)
-        with self.rwi._lock:
-            delta = self.rwi._ram_postings(termhash)
-        if not spans and delta is None:
-            return np.empty(0, np.int32), np.empty(0, np.int32), 0
-        if allow_bitmap is not None or (delta is not None and len(delta)):
+        """Single-term ranked top-k from placed blocks and the term's RAM
+        delta: (scores, docids, considered) best-first, or None when the
+        term is not fully resident (the caller's host path serves it).
+        `profile` is any ranking profile with `to_external_string()`;
+        `considered` counts candidate rows (the spans' and the delta's)
+        before tombstone and filter masking. A constraint filter or a
+        facet bitmap (`allow_bitmap`, from filter_bitmap) takes the exact
+        scan (statistics over the filtered rows), as does a RAM delta.
+        `allow_bitmap` is filter_bitmap's int32 tensor (or
+        convert.bitmap_from_numpy's) on the store's device."""
+        cacheable = (lang_filter == NO_LANG and flag_bit == NO_FLAG
+                     and from_days is None and to_days is None
+                     and allow_bitmap is None)
+        if cacheable:
+            got = self.rank_cache_get(termhash, profile, language, k)
+            if got is not None:
+                return got
+        prof = self._port_profile(profile)
+        # epoch0, dead0: the snapshot the caches validate against
+        arrays, written, spans, epoch0, dead0, delta = self.snapshot(
+            [termhash], postings=True)
+        spans, delta = spans[termhash], delta[termhash]
+        if spans is None or len(spans) > self.MAX_SPANS:
             with self._lock:
                 self.fallbacks += 1
             return None
-        no_filters = (lang_filter == NO_LANG and flag_bit == NO_FLAG
-                      and from_days is None and to_days is None)
-        considered = sum(sp.count for sp in spans)
+        if not spans and delta is None:
+            return np.empty(0, np.int32), np.empty(0, np.int32), 0
+        with_delta = delta is not None and len(delta) > 0
+        considered = sum(sp.count for sp in spans) + (
+            len(delta) if with_delta else 0)
         consts = self._profile_consts(prof, language)
         kk = max(16, 1 << (max(k, 1) - 1).bit_length())  # bucket k: pow2
+        no_filters = cacheable
+        batcher = self._batcher
+        solo_only = batcher is None or batcher.owns_current_thread()
         s = d = None
+        prune_from = 0   # index into _PRUNE_B for the solo escalation
+        # concurrent pruned queries share one K5 launch a wave
+        if not solo_only and no_filters:
+            res = batcher.submit(termhash, prof, language, kk)
+            if res[0] == "ok":
+                s, d = res[1], res[2]
+            elif res[0] == "prune_fail":
+                # the wave proved _PRUNE_B[0] insufficient: the solo
+                # escalation does not repeat that round
+                prune_from = 1
+            elif res[0] == "ineligible":
+                with self._lock:
+                    self.batch_ineligible += 1
+            # "ineligible" / "timeout": the solo paths below serve it
+        DeviceArena.wait_written(written)
         # pruned fast path: one span whose frozen stats are still exact,
-        # no filter (the bound holds in the unfiltered score domain only)
-        if (no_filters and len(spans) == 1 and spans[0].tcount > 0
+        # no delta, no filter (the bound holds in the unfiltered score
+        # domain only)
+        if (s is None and no_filters and len(spans) == 1
+                and spans[0].tcount > 0 and not with_delta
                 and spans[0].dead_seq == len(self.rwi._tombstones)):
             sp = spans[0]
             shift, lang_term = prune_bound_consts(prof)
-            for b in _PRUNE_B:
+            for b in _PRUNE_B[prune_from:]:
                 # one fetch: scores ++ docids ++ ok
-                host = pruned_query(arrays, sp, shift, lang_term, consts,
-                                    kk, b).cpu().numpy()
+                host = self._fetch(pruned_query(arrays, sp, shift,
+                                                lang_term, consts, kk, b))
                 s, d, ok = host[:kk], host[kk:2 * kk], bool(host[2 * kk])
                 with self._lock:
                     self.prune_rounds += 1
@@ -894,38 +1240,65 @@ class DeviceSegmentStore:
                 if ok:
                     break
                 s = d = None  # bound failed: escalate the prefix
+        filt = (lang_filter, flag_bit,
+                DAYS_NONE_LO if from_days is None else from_days,
+                DAYS_NONE_HI if to_days is None else to_days)
+        # filtered scans without a delta or a bitmap share one batched
+        # K6/K7 launch a wave (scan_batching)
+        if (s is None and self._scan_batching and not solo_only and spans
+                and not with_delta and allow_bitmap is None):
+            res = batcher.submit_scan(termhash, prof, language, kk,
+                                      (int(lang_filter), int(flag_bit),
+                                       from_days, to_days))
+            if res[0] == "ok":
+                s, d = res[1], res[2]
+            elif res[0] == "ineligible":
+                with self._lock:
+                    self.batch_ineligible += 1
         if s is None:
             with self._lock:
                 self.stream_scans += 1
-            filt = (lang_filter, flag_bit,
-                    DAYS_NONE_LO if from_days is None else from_days,
-                    DAYS_NONE_HI if to_days is None else to_days)
-            # the statistics of a (term, filter) stand while its rows and
-            # their tombstones do: a repeat skips K6. The arena appends in
-            # place, so the feature tensors' identity proves nothing: an
-            # entry holds its snapshot's epoch (every flush, merge,
-            # delete and term drop bumps it after the change), tombstone
-            # count, extents and tombstone bitmap (a new tensor whenever
-            # tombstones land), and serves only a snapshot equal in all
-            # four, which also covers a query taken between a change and
-            # its epoch bump
-            skey = (termhash, *filt)
+                if allow_bitmap is not None:
+                    self.filtered_served += 1
             ext = [(sp.start, sp.count) for sp in spans]
-            snap = (epoch0, dead0, tuple(ext))
-            got = self._span_stats_cache.get(skey)
-            if got is not None and got[0] == snap and got[1]() is arrays[3]:
-                stats = got[2]
+            stats = None
+            if with_delta:
+                dblock = self._delta_block(delta)
             else:
-                stats = KD.span_stats(arrays[0], arrays[2], arrays[3], ext,
-                                      flags=arrays[1], filt=filt)
-                with self._lock:
-                    while len(self._span_stats_cache) >= _STATS_CACHE_CAP:
-                        self._span_stats_cache.pop(
-                            next(iter(self._span_stats_cache)))
-                    self._span_stats_cache[skey] = (
-                        snap, weakref.ref(arrays[3]), stats)
-            host = scan_query(arrays, ext, consts, kk, filt,
-                              stats).cpu().numpy()
+                # the statistics of a (term, filter, bitmap) stand while
+                # its rows, their tombstones and the bitmap do: a repeat
+                # skips K6. The arena appends in place, so the feature
+                # tensors' identity proves nothing: an entry holds its
+                # snapshot's epoch (every flush, merge, delete and term
+                # drop bumps it after the change), tombstone count,
+                # extents and tombstone bitmap (a new tensor whenever
+                # tombstones land), and serves only a snapshot equal in
+                # all four and the same facet bitmap (by weak reference,
+                # as the reference checks it). A delta's rows join the
+                # statistics, so delta queries never cache.
+                dblock = None
+                skey = (termhash, *filt,
+                        id(allow_bitmap) if allow_bitmap is not None else 0)
+                snap = (epoch0, dead0, tuple(ext))
+                got = self._span_stats_cache.get(skey)
+                if (got is not None and got[0] == snap
+                        and got[1]() is arrays[3]
+                        and got[2]() is allow_bitmap):
+                    stats = got[3]
+                else:
+                    stats = KD.span_stats(arrays[0], arrays[2], arrays[3],
+                                          ext, flags=arrays[1], filt=filt,
+                                          allow=allow_bitmap)
+                    bref = (weakref.ref(allow_bitmap)
+                            if allow_bitmap is not None else _none_ref)
+                    with self._lock:
+                        while len(self._span_stats_cache) >= _STATS_CACHE_CAP:
+                            self._span_stats_cache.pop(
+                                next(iter(self._span_stats_cache)))
+                        self._span_stats_cache[skey] = (
+                            snap, weakref.ref(arrays[3]), bref, stats)
+            host = self._fetch(scan_query(arrays, ext, consts, kk, filt,
+                                          stats, dblock, allow_bitmap))
             s, d = host[:kk], host[kk:2 * kk]
         keep = (d >= 0) & (s > NEG_INF32)
         s, d = s[keep], d[keep]
@@ -936,4 +1309,155 @@ class DeviceSegmentStore:
             s, d = s[sel], d[sel]
         with self._lock:
             self.queries_served += 1
+        if cacheable and not with_delta:
+            # the final answer under the snapshot's epoch: an index event
+            # since then leaves the entry born stale
+            self._topk_cache.put(
+                (termhash, profile.to_external_string(), language, kk),
+                epoch0, s, d, considered)
         return s[:k], d[:k], considered
+
+    # -- metadata-facet filter bitmaps (site:/tld:/filetype:/protocol:) -----
+
+    supports_filter_bitmap = True
+    FILTER_CACHE_MAX = 16
+    # a cached bitmap stays valid this long even when the metadata facet
+    # version moved on (staleness only delays a new document's inclusion;
+    # SearchEvent rechecks every materialized result)
+    FILTER_TTL_S = 2.0
+
+    def filter_bitmap(self, key: tuple, docids_fn):
+        """The facet filter's docid bitmap on the arena's device: int32
+        [nwords] bit patterns, nwords a power of two of at least 1024
+        covering `capacity`. `key` = (modifier combo, facet version,
+        capacity); `docids_fn()` gives the allowed docids on a miss.
+        Entries are LRU-cached by combo and reused while fresh (same
+        version, or younger than FILTER_TTL_S); concurrent misses of one
+        combo build it once while the others wait."""
+        combo, version, capacity = key[0], key[1], key[2]
+        now = time.monotonic()
+        while True:
+            with self._lock:
+                got = self._filter_cache.get(combo)
+                if got is not None:
+                    ver, built, bm = got
+                    if ver == version or now - built < self.FILTER_TTL_S:
+                        self._filter_cache.move_to_end(combo)
+                        return bm
+                ev = self._filter_inflight.get(combo)
+                if ev is None:
+                    self._filter_inflight[combo] = threading.Event()
+                    break
+            ev.wait(timeout=10.0)   # another thread builds this combo
+            now = time.monotonic()
+        try:
+            nwords = 1 << max(10, (max((capacity + 31) // 32, 1)
+                                   - 1).bit_length())
+            words = np.zeros(nwords, np.uint32)
+            dd = np.asarray(docids_fn(), np.int64)
+            dd = dd[(dd >= 0) & (dd < capacity)]
+            np.bitwise_or.at(words, dd >> 5,
+                             np.uint32(1) << (dd & 31).astype(np.uint32))
+            bm = torch.from_numpy(words.view(np.int32)).to(self.arena.device)
+            with self._lock:
+                self._filter_cache[combo] = (version, time.monotonic(), bm)
+                self._filter_cache.move_to_end(combo)
+                while len(self._filter_cache) > self.FILTER_CACHE_MAX:
+                    self._filter_cache.popitem(last=False)
+            return bm
+        finally:
+            with self._lock:
+                ev = self._filter_inflight.pop(combo, None)
+            if ev is not None:
+                ev.set()
+
+    # -- the query batcher ----------------------------------------------------
+
+    def enable_batching(self, max_batch: int = 16, dispatchers: int = 8,
+                        scan_batching: bool = False, completer_depth: int = 2,
+                        pipeline: bool = True) -> None:
+        """Coalesce concurrent pruned queries (and, with `scan_batching`,
+        filtered exact scans) into waves of one launch each
+        (index/batcher.QueryBatcher). On the card the kernels are built
+        first: a first-use build outlasts the batcher's watchdog."""
+        from .batcher import QueryBatcher
+        self._scan_batching = bool(scan_batching)
+        if self._batcher is None:
+            if self.arena.device.type == "cuda":
+                from ..kernels import build
+                build.library()
+            self._batcher = QueryBatcher(
+                self, max_batch=max_batch, dispatchers=dispatchers,
+                completer_depth=completer_depth, pipeline=pipeline)
+
+    def set_tuning(self, dispatchers: int | None = None,
+                   completer_depth: int | None = None) -> dict:
+        """Resize the batcher's pools at run time ({} without one)."""
+        if self._batcher is None:
+            return {}
+        return self._batcher.set_tuning(dispatchers, completer_depth)
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+            self._batcher = None
+        if self.rwi.listener is self:
+            self.rwi.listener = None
+
+    # -- counters -------------------------------------------------------------
+
+    def counters(self) -> dict:
+        """The serving counters under the JAX store's key names, so that
+        /metrics and the health rules resolve against this store. Keys of
+        machinery not ported (ZERO_COUNTERS) read zero.
+        `dispatch_ms_p50/p95` are per-query walls of the wave each batched
+        query rode in, `kernel_ms_p50/p95` the launch-to-answer walls of
+        those waves (no tunnel here: nothing to subtract)."""
+        b = self._batcher
+        if b is not None:
+            with b._ms_lock:
+                dseries = list(b.query_dispatch_ms)
+                kseries = list(b.query_kernel_ms)
+                bstats = (b.dispatches, round(b.dispatch_ms_max, 1),
+                          b.exceptions, b.timeouts, b.timeout_queue_full,
+                          b.timeout_flush_deadline, b.timeout_worker_stall)
+        else:
+            dseries, kseries, bstats = [], [], (0, 0.0, 0, 0, 0, 0, 0)
+        tc = self._topk_cache
+        with self._lock:
+            out = dict(ZERO_COUNTERS)
+            out.update({
+                "dispatch_ms_p50": _pctl(dseries, 0.50),
+                "dispatch_ms_p95": _pctl(dseries, 0.95),
+                "kernel_ms_p50": _pctl(kseries, 0.50),
+                "kernel_ms_p95": _pctl(kseries, 0.95),
+                "queries_served": self.queries_served,
+                "fallbacks": self.fallbacks,
+                "rank_cache_hits": tc.hits,
+                "rank_cache_stale": tc.stale,
+                "rank_cache_stale_served": tc.stale_served,
+                "arena_epoch": self.arena_epoch,
+                "device_round_trips": self.device_round_trips,
+                "prune_rounds": self.prune_rounds,
+                "pruned_tiles": self.pruned_tiles,
+                "stream_scans": self.stream_scans,
+                "filtered_served": self.filtered_served,
+                "batch_ineligible": self.batch_ineligible,
+                "join_served": self.join_served,
+                "join_fallbacks": self.join_fallbacks,
+                "join_degraded_plain": self.join_degraded_plain,
+                "tier_hot_bytes": (self.arena.used_rows
+                                   * self.arena.row_bytes()),
+                "batch_dispatches": bstats[0],
+                "batch_dispatch_ms_max": bstats[1],
+                "batch_exceptions": bstats[2],
+                "batch_timeouts": bstats[3],
+                "batch_timeout_queue_full": bstats[4],
+                "batch_timeout_flush_deadline": bstats[5],
+                "batch_timeout_worker_stall": bstats[6],
+            })
+        return out
+
+
+def _none_ref():
+    return None

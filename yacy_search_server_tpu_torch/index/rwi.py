@@ -76,9 +76,11 @@ class RWIIndex:
     def add_many(self, termhash: bytes, postings: PostingsList) -> None:
         """Bulk append of one term's postings to the RAM buffer."""
         with self._lock:
-            self._ram.setdefault(termhash, []).append(
-                (np.asarray(postings.docids, np.int32),
-                 np.asarray(postings.feats, np.int32).reshape(-1, NF)))
+            blocks = self._ram.setdefault(termhash, [])
+            if len(postings):
+                blocks.append(
+                    (np.asarray(postings.docids, np.int32),
+                     np.asarray(postings.feats, np.int32).reshape(-1, NF)))
 
     def ingest_run(self, terms: dict[bytes, PostingsList]
                    ) -> FrozenRun | None:
@@ -154,6 +156,10 @@ class RWIIndex:
                     keep = d != docid
                     if not keep.all():
                         blocks[i] = (d[keep], f[keep])
+                # a term's blocks hold rows, so `_ram.get(th)` is truthy
+                # exactly while the term has unflushed postings (the device
+                # store's RAM-delta gate reads it, as the reference's)
+                blocks[:] = [b for b in blocks if len(b[0])]
         if self.listener is not None:
             self.listener.on_doc_deleted(docid)
 

@@ -231,18 +231,22 @@ JOIN_EDGE_TERMS = {
     b"jnoneAAAAAAA": (70_000, 0),          # bitmap, meets no rare docid
     b"jsmallAAAAAA": (5_000, 200_000),     # sort partner
 }
-JOIN_EDGE_HIGH = (2**29, 2**29 + 3, 3_000_000)  # rare docids: the clip,
-#                                               and past the coverage
+# rare docids: four at or above 2^29, which the sort-mode clip makes equal
+# (2^29 + 11 tombstoned after the pack: three stay valid), and one past
+# the bitmaps' coverage
+JOIN_EDGE_HIGH = (2**29, 2**29 + 3, 2**29 + 11, 2**29 + 20, 3_000_000)
+JOIN_EDGE_HIGH_DEAD = 2**29 + 11
 
 
 def join_edges(device, seed: int = SEED):
     """(store, rwi) over JOIN_EDGE_TERMS in one run on `device`:
     make_term's columns (random languages, lastmods and flags for the
-    filters), the rare term with docids at and above 2^29 and past the
-    bitmaps' coverage, a sort-mode partner of more than JOIN_BITMAP_MIN
-    rows holding 2^29 (so past the coverage), a partner holding every
-    rare docid, a bitmap partner meeting none, and tombstones on rare
-    rows after the pack."""
+    filters), the rare term with docids at and above 2^29 (three of them
+    valid after the pack, so the sort-mode clip rule picks the last) and
+    past the bitmaps' coverage, a sort-mode partner of more than
+    JOIN_BITMAP_MIN rows holding 2^29 (so past the coverage) and one
+    without it (jsmall), a partner holding every rare docid, a bitmap
+    partner meeting none, and tombstones on rare rows after the pack."""
     from ..index.devstore import DeviceSegmentStore
     from ..index.postings import PostingsList
     from ..index.rwi import RWIIndex
@@ -250,9 +254,9 @@ def join_edges(device, seed: int = SEED):
     ids = {}
     for th, (n, hi) in JOIN_EDGE_TERMS.items():
         if th == b"jrareAAAAAAA":
-            ids[th] = np.concatenate([draw_docids(n - 3, hi, rng),
-                                      np.array(sorted(JOIN_EDGE_HIGH),
-                                               np.int32)])
+            ids[th] = np.concatenate([
+                draw_docids(n - len(JOIN_EDGE_HIGH), hi, rng),
+                np.array(sorted(JOIN_EDGE_HIGH), np.int32)])
         elif th == b"jsortbigAAAA":
             ids[th] = np.append(draw_docids(n - 1, hi, rng),
                                 np.int32(2**29))
@@ -271,6 +275,7 @@ def join_edges(device, seed: int = SEED):
     store = DeviceSegmentStore(idx, device=device)
     for d in ids[b"jrareAAAAAAA"][::37][:500]:
         idx.delete_doc(int(d))
+    idx.delete_doc(JOIN_EDGE_HIGH_DEAD)
     return store, idx
 
 
@@ -319,6 +324,61 @@ def join_edge_cases(store):
     cases += [(f"mixed, filter {name}", rare, mixed, 2, filt)
               for name, filt in JOIN_EDGE_FILTERS.items()]
     return cases
+
+
+def delta_block(n: int, docids, seed: int = SEED):
+    """A RAM delta block as the store stages it: make_term's columns
+    compacted, `docids` (n of them), padded with docid -1 to
+    devstore.bucket_delta(n) rows: (feats16, flags, docids) numpy."""
+    from ..ops import ranking as R
+    from .devstore import bucket_delta
+    feats, _d, _h, _r = make_term(n, seed)
+    b = bucket_delta(n)
+    f16 = np.zeros((b, 17), np.int16)
+    fl = np.zeros(b, np.int32)
+    dd = np.full(b, -1, np.int32)
+    f16[:n], fl[:n] = R.compact_feats(feats)
+    dd[:n] = docids
+    return f16, fl, dd
+
+
+def edge_delta(store, n: int, seed: int = SEED):
+    """A delta block over devstore_edges' store: docids of its spans
+    (duplicates of span rows), tombstoned ones (EDGE_DEAD), ones past the
+    tombstone bitmap and new ones."""
+    rng = np.random.default_rng(seed + 5)
+    sp = store.spans_for(b"bigAAAAAAAAA")[0]
+    old = store.arena.arrays()[2][sp.start:sp.start + sp.count].cpu().numpy()
+    pool = np.concatenate([rng.choice(old, n // 4), np.asarray(EDGE_DEAD),
+                           100_000 + rng.choice(4_000_000, n, replace=False)])
+    return delta_block(n, pool[:n].astype(np.int32), seed + 6)
+
+
+def facet_bitmap(nbits: int, share: float, seed: int = SEED):
+    """A facet bitmap's uint32 words over [0, nbits) (a multiple of 32)
+    admitting about `share` of the docids, as filter_bitmap builds one."""
+    rng = np.random.default_rng(seed + 9)
+    allowed = rng.choice(nbits, int(nbits * share),
+                         replace=False).astype(np.int64)
+    words = np.zeros(nbits // 32, np.uint32)
+    np.bitwise_or.at(words, allowed >> 5,
+                     np.uint32(1) << (allowed & 31).astype(np.uint32))
+    return words
+
+
+# the filters of a scan wave, one a slot in turn (language, flag bit,
+# from and to days): none, a language, a flag, the sign bit, a range
+WAVE_FILTERS = ((0, -1, -(2**30), 2**30), (0x656E, -1, -(2**30), 2**30),
+                (0, 7, -(2**30), 2**30), (0, 40, 10_000, 2**30),
+                (0x6465, 3, 5_000, 25_000))
+
+
+def scan_wave(store, bs: int):
+    """bs exact scans over devstore_edges' store, each (extents, filter):
+    1, 2 and 8 of edge_extents' extents in turn (whole, offset, ragged,
+    all dead, empty), the WAVE_FILTERS in turn."""
+    return [(edge_extents(store, (1, 2, 8)[i % 3]),
+             WAVE_FILTERS[i % len(WAVE_FILTERS)]) for i in range(bs)]
 
 
 def tile_slots(span, bs: int):

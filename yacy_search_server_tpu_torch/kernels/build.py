@@ -47,15 +47,20 @@ SIGNATURES = {
     "yt_tie_topk_trace": [_P],
     "yt_gather_topk": [_P, _P, _I64, _I64, _I64, _I, _I64, _P, _P],
     "yt_empty_launch": [_P],
-    "yt_span_stats": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _P],
-    "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _P, _P, _I64,
-                      _P],
+    "yt_span_stats": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _I64, _P, _P,
+                      _P, _I64, _P, _P],
+    "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _I64, _P, _P,
+                      _P, _I64, _P, _P, _P, _I64, _P],
+    "yt_span_stats_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _P],
+    "yt_span_score_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _P,
+                            _P, _P],
     "yt_join_member": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P,
-                       _I64, _P, _I, _I, _P, _P, _P, _P, _P],
+                       _I64, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P,
                        _P],
-    "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _I64, _I64, _I, _I,
-                       _P, _P, _P],
+    "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _P, _I64, _I64,
+                       _I64, _I, _I, _P, _P, _P],
+    "yt_topk_finish_batch": [_P, _P, _I, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -148,15 +153,36 @@ def check(rc: int, name: str) -> None:
 
 
 # launches of each kernel's CUDA path (never of its plain version): a run
-# shows it went through a kernel by the count moving
+# shows it went through a kernel by the count moving. WIDE counts the
+# launches that took more than one live query slot (the batcher's waves),
+# SLOTS the live slots of all launches (SLOTS / LAUNCHES: a wave's mean).
+# Wrappers run on many threads (the batcher's dispatchers), so every
+# update goes through count_launch under one lock.
 LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "gather_topk": 0, "pruned_tile": 0, "span_stats": 0,
-            "span_score": 0, "topk_finish": 0, "join_member": 0}
+            "span_score": 0, "topk_finish": 0, "join_member": 0,
+            "span_stats_batch": 0, "span_score_batch": 0,
+            "topk_finish_batch": 0}
+WIDE = {name: 0 for name in LAUNCHES}
+SLOTS = {name: 0 for name in LAUNCHES}
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str, slots: int = 1) -> None:
+    """One launch of `name` serving `slots` live query slots."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        SLOTS[name] += slots
+        if slots > 1:
+            WIDE[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+            WIDE[name] = 0
+            SLOTS[name] = 0
 
 
 def require(t, name: str, dtypes, ndim: int, device) -> None:

@@ -141,7 +141,7 @@ def cardinal_stats(feats, valid, hostids, num_hosts: int):
         hostids.data_ptr() if hostids is not None else None, n, num_hosts,
         out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "cardinal_stats")
-    B.LAUNCHES["cardinal_stats"] += 1
+    B.count_launch("cardinal_stats")
     return out[:STATS_LEN], out[STATS_LEN:STATS_LEN + cnt]
 
 
@@ -268,5 +268,5 @@ def cardinal_score(feats, flags, valid, hostids, stats, counts, consts,
         counts.shape[0], consts.data_ptr(), int(fast_div), out.data_ptr(),
         B.stream_ptr(dev))
     B.check(rc, "cardinal_score")
-    B.LAUNCHES["cardinal_score"] += 1
+    B.count_launch("cardinal_score")
     return out

@@ -136,39 +136,46 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
 // ones) with the compact path's division, into one contiguous buffer in
 // extent order; kernel 3 then selects from it in index mode, which is the
 // order of the JAX running merge (score descending, then the row's place
-// in the sequence). Liveness is decided here from the docids and the
-// tombstone bitmap (row_live), so the host sends no counts and no mask.
-// Rows [rows, out_len) of the buffer get -(2^31-1): a top-k of kk > rows
-// reads them as the JAX merge reads its init entries. A row that fails
-// the constraint filter (common.cuh Filter) scores -(2^31-1) as a dead
-// one does; the statistics are then span_stats' under the same filter, or
-// the filtered-stats cache's copy of them (the with_ext_stats branch).
+// in the sequence). A RAM delta block (the with_delta branch, :456-458)
+// is one more source after the extents: its rows are scored against the
+// same statistics and written after every extent row, so that a span row
+// precedes a delta row of equal score, as the JAX merge of the delta's
+// top-k after the spans' does. Liveness is decided here from the docids
+// and the tombstone bitmap (row_live), so the host sends no counts and
+// no mask. Rows [rows, out_len) of the buffer get -(2^31-1): a top-k of
+// kk > rows reads them as the JAX merge reads its init entries. A row
+// that fails the constraint filter or the facet bitmap (common.cuh
+// Filter; the with_filter branch, _bitmap_member :325) scores -(2^31-1)
+// as a dead one does; the statistics are then span_stats' under the same
+// filter, or the filtered-stats cache's copy of them (the with_ext_stats
+// branch).
+//
+// `score_batch` is the same pass with a query dimension (the scoring pass
+// of _rank_scan_batch_kernel, :465): each slot scored against its own
+// statistics into its own region of one packed buffer ([obase[s],
+// obase[s + 1]), as long as the slot's rows need) by its own range of the
+// grid's blocks (common.cuh ScanBatch).
 //
 // Bound: bytes, 34 B of features + 4 B flags + 4 B docid read and 4 B
-// written a row. The row pipeline is score_chunks': persistent warps, 64-
-// row chunks staged by cp.async two stages deep, the docids in the host-id
-// region; a chunk never straddles two extents.
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-score_extents(const int16_t* __restrict__ feats,
-              const int32_t* __restrict__ flags,
-              const int32_t* __restrict__ docids,
-              const uint8_t* __restrict__ dead, int64_t doc_cap,
-              const Extents x, const Filter q,
-              const int32_t* __restrict__ st,
-              const int32_t* __restrict__ consts,
-              int32_t* __restrict__ out, int64_t out_len) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ ScoreConsts k;
+// written a row (and the bitmap words, from the L2); a wave sums its
+// slots' bytes. The row pipeline is score_chunks': persistent warps,
+// 64-row chunks staged by cp.async two stages deep, the docids in the
+// host-id region; a chunk never straddles two sources.
+__device__ __forceinline__ void score_extents_body(
+    const Extents& x, const Filter& q, const uint8_t* __restrict__ dead,
+    int64_t doc_cap, const int32_t* __restrict__ st,
+    const int32_t* __restrict__ consts, unsigned char* smem, ScoreConsts& k,
+    int32_t* __restrict__ out, int64_t out_len, int block, int blocks) {
   constexpr int SB = stage_bytes<int16_t>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t chunks = x.cbase[x.n];
-  const int64_t step = (int64_t)gridDim.x * WARPS;
+  const int64_t step = (int64_t)blocks * WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
 
   const bool off = filter_off(q);
 
-  int64_t c = (int64_t)blockIdx.x * WARPS + warp;
-  if (c < chunks) issue_extent_chunk(x, feats, flags, docids, c, mine, lane);
+  int64_t c = (int64_t)block * WARPS + warp;
+  if (c < chunks) issue_extent_chunk(x, c, true, mine, lane);
   cp_async_commit();
   fill_consts(k, st, consts, t);
   __syncthreads();
@@ -178,15 +185,13 @@ score_extents(const int16_t* __restrict__ feats,
   for (int i = 0; c < chunks; ++i, c += step) {
     const int cur = i & 1;
     if (c + step < chunks)
-      issue_extent_chunk(x, feats, flags, docids, c + step,
-                         mine + (cur ^ 1) * SB, lane);
+      issue_extent_chunk(x, c + step, true, mine + (cur ^ 1) * SB, lane);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
     const int e = extent_of_chunk(x, c);
-    const int64_t s = x.start[e];
-    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF, flags + s,
-                            docids + s, nullptr);
+    const Stage<int16_t> sg(mine + cur * SB, x.feats[e], x.flags[e],
+                            x.docids[e], nullptr);
     const int64_t r0 = (c - x.cbase[e]) * CH;
 #pragma unroll
     for (int m = 0; m < CH / 32; ++m) {
@@ -194,9 +199,9 @@ score_extents(const int16_t* __restrict__ feats,
       if (r0 + j < x.count[e]) {
         int32_t score = SMALL;
         const int16_t* f = sg.row(j);
-        if (row_live(sg.host(j), dead, doc_cap) &&
-            (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], sg.flag(j),
-                                  q)))
+        const int32_t d = sg.host(j);
+        if (row_live(d, dead, doc_cap) &&
+            (off || row_passes(f, sg.flag(j), d, q)))
           score = score_row<int16_t, true>(f, sg.flag(j), rk, false, 0);
         out[x.obase[e] + r0 + j] = score;
       }
@@ -204,9 +209,42 @@ score_extents(const int16_t* __restrict__ feats,
     __syncwarp();
   }
   cp_async_wait<0>();
-  for (int64_t r = x.obase[x.n] + (int64_t)blockIdx.x * blockDim.x + t;
-       r < out_len; r += (int64_t)gridDim.x * blockDim.x)
+  for (int64_t r = x.obase[x.n] + (int64_t)block * blockDim.x + t;
+       r < out_len; r += (int64_t)blocks * blockDim.x)
     out[r] = SMALL;
+}
+
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
+              const Extents x, const Filter q,
+              const int32_t* __restrict__ st,
+              const int32_t* __restrict__ consts,
+              int32_t* __restrict__ out, int64_t out_len) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ScoreConsts k;
+  score_extents_body(x, q, dead, doc_cap, st, consts, smem, k, out, out_len,
+                     blockIdx.x, gridDim.x);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_batch(const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags,
+            const int32_t* __restrict__ docids,
+            const uint8_t* __restrict__ dead, int64_t doc_cap,
+            const ScanBatch b, const int32_t* __restrict__ stats,
+            int64_t stats_stride, const int32_t* __restrict__ consts,
+            int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ScoreConsts k;
+  __shared__ Extents x;
+  __shared__ Filter q;
+  const int s = slot_of_block(b, blockIdx.x);
+  if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
+  __syncthreads();
+  score_extents_body(x, q, dead, doc_cap, stats + (int64_t)s * stats_stride,
+                     consts, smem, k, out + b.obase[s],
+                     b.obase[s + 1] - b.obase[s], blockIdx.x - b.bstart[s],
+                     b.bstart[s + 1] - b.bstart[s]);
 }
 
 template <typename T, bool FAST>
@@ -260,29 +298,67 @@ extern "C" int yt_cardinal_score(const void* feats, int feat_bytes,
 
 // K7: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
 // feats [cap, 17] int16, flags/docids [cap] int32, dead [doc_cap] bool;
-// filt the filter's 4 int32 in host memory; stats int32[38]; consts
-// int32[44]; out [out_len] int32, out_len >= the extents' rows.
+// filt the filter's 4 int32 in host memory; allow [nwords] int32 (the
+// facet bitmap) or null; dfeats [dn, 17] int16, dflags/ddocids [dn] int32
+// the RAM delta block (dn 0: none); stats int32[38]; consts int32[44];
+// out [out_len] int32, out_len >= the extents' and the delta's rows.
 extern "C" int yt_span_score(const void* feats, const void* flags,
                              const void* docids, const void* dead,
                              int64_t doc_cap, const int64_t* ext, int n_ext,
-                             const int32_t* filt, const void* stats,
+                             const int32_t* filt, const void* allow,
+                             int64_t nwords, const void* dfeats,
+                             const void* dflags, const void* ddocids,
+                             int64_t dn, const void* stats,
                              const void* consts, void* out, int64_t out_len,
                              void* stream) {
-  if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
-  const Extents x = make_extents(ext, n_ext);
-  const Filter q = {filt[0], filt[1], filt[2], filt[3]};
-  if (out_len < x.obase[n_ext]) return (int)cudaErrorInvalidValue;
+  if (n_ext < 0 || n_ext > MAX_EXT || dn < 0)
+    return (int)cudaErrorInvalidValue;
+  const Extents x = make_extents(feats, flags, docids, ext, n_ext, dfeats,
+                                 dflags, ddocids, dn);
+  const Filter q = make_filter(filt, allow, nwords);
+  if (out_len < x.obase[x.n]) return (int)cudaErrorInvalidValue;
   const int smem = WARPS * 2 * stage_bytes<int16_t>();
   static int cached[64];
   int limit = 0;
   cudaError_t e =
       resident_blocks(score_extents, WARPS * 32, smem, cached, &limit);
   if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (x.cbase[n_ext] + WARPS - 1) / WARPS;
+  const int64_t blocks = (x.cbase[x.n] + WARPS - 1) / WARPS;
   const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
   score_extents<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, x, q, (const int32_t*)stats,
       (const int32_t*)consts, (int32_t*)out, out_len);
+  return (int)cudaGetLastError();
+}
+
+// The batched K7 over a wave of bs <= 16 slots (common.cuh scan_batch_of,
+// in host memory); the arena as for K7; stats the wave's statistics, slot
+// i at i * stats_stride int32; consts int32[44] (one profile a wave); out
+// int32 [out_off[bs]], slot s's region [out_off[s], out_off[s + 1])
+// (out_off: bs + 1 int64 in host memory, out_off[0] = 0, each region at
+// least the slot's rows).
+extern "C" int yt_span_score_batch(const void* feats, const void* flags,
+                                   const void* docids, const void* dead,
+                                   int64_t doc_cap, const int32_t* slots,
+                                   int bs, const void* stats,
+                                   int64_t stats_stride, const void* consts,
+                                   void* out, const int64_t* out_off,
+                                   void* stream) {
+  if (bs < 1 || bs > BATCH_SLOTS) return (int)cudaErrorInvalidValue;
+  ScanBatch b{};
+  if (!scan_batch_of(slots, bs, &b, out_off))
+    return (int)cudaErrorInvalidValue;
+  const int smem = WARPS * 2 * stage_bytes<int16_t>();
+  static int cached[64];
+  int limit = 0;
+  cudaError_t e =
+      resident_blocks(score_batch, WARPS * 32, smem, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  // the slots share the resident blocks in proportion to their rows
+  const int grid = wave_blocks(&b, WARPS, limit);
+  score_batch<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
+      (const int32_t*)consts, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -129,12 +129,14 @@ struct Fold {
 
 // The block folds its threads' statistics (warp shuffles, then s_acc,
 // zeroed by the caller before a __syncthreads) into the accumulator in
-// device memory; the last block to finish writes st in final form.
+// device memory; the last of the `blocks` blocks that share acc and
+// ticket to finish writes st in final form.
 __device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
                                              bool* s_last,
                                              uint32_t* __restrict__ acc,
                                              uint32_t* __restrict__ ticket,
-                                             int32_t* __restrict__ st) {
+                                             int32_t* __restrict__ st,
+                                             unsigned blocks) {
   const int t = threadIdx.x, lane = t & 31;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -164,7 +166,7 @@ __device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
   if (t < STATS_LEN && s_acc[t]) atomicMax(acc + t, s_acc[t]);
   __threadfence();
   __syncthreads();
-  if (t == 0) *s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  if (t == 0) *s_last = atomicAdd(ticket, 1u) == blocks - 1;
   __syncthreads();
   if (!*s_last) return;
   __threadfence();
@@ -259,7 +261,7 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
     }
   }
 
-  finish_stats(a, s_acc, &s_last, acc, ticket, st);
+  finish_stats(a, s_acc, &s_last, acc, ticket, st, gridDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -267,37 +269,41 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
 // ---------------------------------------------------------------------------
 // Replaces the statistics pass of index/devstore._rank_spans_kernel (JAX
 // package, devstore.py:378-423): the column min/max and tf min/max of the
-// live rows of up to 8 arena extents, read in place; liveness (row_live)
+// live rows of up to 8 arena extents, read in place, and of a RAM delta
+// block after them (the with_delta branch, :412-420: the delta is one
+// more source of the Extents, read where it lies); liveness (row_live)
 // from the docids and the tombstone bitmap, no host counts. With a
 // constraint filter (common.cuh Filter, the filter branch of
-// _tile_valid's caller) only the rows that pass it count; the flags are
-// staged only when the filter tests a flag bit. The row pipeline, the
-// fold and the last block's finish are stats_pass'.
+// _tile_valid's caller) only the rows that pass it count, and with a facet
+// bitmap (the with_filter branch, _bitmap_member :325) only the rows whose
+// docid's bit is set; the flags are staged only when the filter tests a
+// flag bit. The row pipeline, the fold and the last block's finish are
+// stats_pass'.
+//
+// `stats_batch` is the same pass with a query dimension (the statistics
+// pass of _rank_scan_batch_kernel, :465, vmapped over a wave of filtered
+// scans): each slot its own extents, filter, accumulator and ticket, and
+// its own range of the grid's blocks (common.cuh ScanBatch).
 //
 // Bound: bytes, 34 B of features and 4 B of docid read a row (4 B more of
-// flags under a flag filter), and the tombstone bytes the docids hit,
-// from the L2.
-__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
-stats_extents(const int16_t* __restrict__ feats,
-              const int32_t* __restrict__ flags,
-              const int32_t* __restrict__ docids,
-              const uint8_t* __restrict__ dead, int64_t doc_cap,
-              const Extents x, const Filter q, uint32_t* __restrict__ acc,
-              uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint32_t s_acc[STATS_LEN];
-  __shared__ bool s_last;
+// flags under a flag filter), and the tombstone bytes the docids hit and
+// the bitmap words, from the L2; a wave sums its slots' bytes.
+__device__ __forceinline__ void stats_extents_body(
+    const Extents& x, const Filter& q, const uint8_t* __restrict__ dead,
+    int64_t doc_cap, unsigned char* smem, uint32_t* s_acc, bool* s_last,
+    uint32_t* __restrict__ acc, uint32_t* __restrict__ ticket,
+    int32_t* __restrict__ st, int block, int blocks) {
   constexpr int SB = stage_bytes<int16_t>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t chunks = x.cbase[x.n];
-  const int64_t step = (int64_t)gridDim.x * S_WARPS;
+  const int64_t step = (int64_t)blocks * S_WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
 
   const bool off = filter_off(q);
-  const int32_t* fsrc = q.flag == NO_FLAG ? nullptr : flags;
+  const bool with_flags = q.flag != NO_FLAG;
 
-  int64_t c = (int64_t)blockIdx.x * S_WARPS + warp;
-  if (c < chunks) issue_extent_chunk(x, feats, fsrc, docids, c, mine, lane);
+  int64_t c = (int64_t)block * S_WARPS + warp;
+  if (c < chunks) issue_extent_chunk(x, c, with_flags, mine, lane);
   cp_async_commit();
   if (t < STATS_LEN) s_acc[t] = 0u;
   Fold a;
@@ -305,30 +311,66 @@ stats_extents(const int16_t* __restrict__ feats,
   for (int i = 0; c < chunks; ++i, c += step) {
     const int cur = i & 1;
     if (c + step < chunks)
-      issue_extent_chunk(x, feats, fsrc, docids, c + step,
-                         mine + (cur ^ 1) * SB, lane);
+      issue_extent_chunk(x, c + step, with_flags, mine + (cur ^ 1) * SB,
+                         lane);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
     const int e = extent_of_chunk(x, c);
-    const int64_t s = x.start[e];
-    const Stage<int16_t> sg(mine + cur * SB, feats + s * NF,
-                            fsrc ? flags + s : nullptr, docids + s, nullptr);
+    const Stage<int16_t> sg(mine + cur * SB, x.feats[e],
+                            with_flags ? x.flags[e] : nullptr, x.docids[e],
+                            nullptr);
     const int64_t r0 = (c - x.cbase[e]) * CH;
 #pragma unroll
     for (int m = 0; m < CH / 32; ++m) {
       const int j = lane + 32 * m;
-      if (r0 + j < x.count[e] && row_live(sg.host(j), dead, doc_cap)) {
+      const int32_t d = sg.host(j);
+      if (r0 + j < x.count[e] && row_live(d, dead, doc_cap)) {
         const int16_t* f = sg.row(j);
-        if (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD],
-                                 fsrc ? sg.flag(j) : 0, q))
+        if (off || row_passes(f, with_flags ? sg.flag(j) : 0, d, q))
           a.row(f);
       }
     }
     __syncwarp();
   }
   cp_async_wait<0>();
-  finish_stats(a, s_acc, &s_last, acc, ticket, st);
+  finish_stats(a, s_acc, s_last, acc, ticket, st, (unsigned)blocks);
+}
+
+__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
+stats_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
+              const Extents x, const Filter q, uint32_t* __restrict__ acc,
+              uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  stats_extents_body(x, q, dead, doc_cap, smem, s_acc, &s_last, acc, ticket,
+                     st, blockIdx.x, gridDim.x);
+}
+
+// out: SLOT_WORDS int32 a slot (the statistics, the accumulator, the
+// ticket), slot i at i * SLOT_WORDS
+constexpr int SLOT_WORDS = 2 * STATS_LEN + 1;
+
+__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
+stats_batch(const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags,
+            const int32_t* __restrict__ docids,
+            const uint8_t* __restrict__ dead, int64_t doc_cap,
+            const ScanBatch b, int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  __shared__ Extents x;
+  __shared__ Filter q;
+  const int s = slot_of_block(b, blockIdx.x);
+  if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
+  __syncthreads();
+  int32_t* st = out + (int64_t)s * SLOT_WORDS;
+  uint32_t* acc = (uint32_t*)(st + STATS_LEN);
+  stats_extents_body(x, q, dead, doc_cap, smem, s_acc, &s_last, acc,
+                     acc + STATS_LEN, st, blockIdx.x - b.bstart[s],
+                     b.bstart[s + 1] - b.bstart[s]);
 }
 
 template <typename T>
@@ -436,19 +478,26 @@ extern "C" int yt_cardinal_stats(const void* feats, int feat_bytes,
 }
 
 // K6: ext holds n_ext (start, count) pairs in host memory (n_ext <= 8);
-// feats [cap, 17] int16, flags/docids [cap] int32, dead [doc_cap] bool;
-// filt the filter's 4 int32 (language, flag bit, from and to days) in host
-// memory. out: int32[38 + 39]: the statistics (written, host maximum 0),
-// then the accumulator and the ticket, which this call zeroes with its
-// one memset.
+// feats [cap, 17] int16, flags/docids [cap] int32 (flags read only under
+// a flag filter), dead [doc_cap] bool; filt the filter's 4 int32
+// (language, flag bit, from and to days) in host memory; allow [nwords]
+// int32 (the facet bitmap) or null; dfeats [dn, 17] int16, dflags/ddocids
+// [dn] int32 the RAM delta block (dn 0: none). out: int32[38 + 39]: the
+// statistics (written, host maximum 0), then the accumulator and the
+// ticket, which this call zeroes with its one memset.
 extern "C" int yt_span_stats(const void* feats, const void* flags,
                              const void* docids, const void* dead,
                              int64_t doc_cap, const int64_t* ext, int n_ext,
-                             const int32_t* filt, void* out, void* stream) {
-  if (n_ext < 0 || n_ext > MAX_EXT) return (int)cudaErrorInvalidValue;
+                             const int32_t* filt, const void* allow,
+                             int64_t nwords, const void* dfeats,
+                             const void* dflags, const void* ddocids,
+                             int64_t dn, void* out, void* stream) {
+  if (n_ext < 0 || n_ext > MAX_EXT || dn < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const Extents x = make_extents(ext, n_ext);
-  const Filter q = {filt[0], filt[1], filt[2], filt[3]};
+  const Extents x = make_extents(feats, flags, docids, ext, n_ext, dfeats,
+                                 dflags, ddocids, dn);
+  const Filter q = make_filter(filt, allow, nwords);
   int32_t* st = (int32_t*)out;
   uint32_t* acc = (uint32_t*)(st + STATS_LEN);
   uint32_t* ticket = acc + STATS_LEN;
@@ -459,10 +508,39 @@ extern "C" int yt_span_stats(const void* feats, const void* flags,
   int limit = 0;
   e = resident_blocks(stats_extents, S_WARPS * 32, stages, cached, &limit);
   if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (x.cbase[n_ext] + S_WARPS - 1) / S_WARPS;
+  const int64_t blocks = (x.cbase[x.n] + S_WARPS - 1) / S_WARPS;
   const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
-  stats_extents<<<grid, S_WARPS * 32, stages, s>>>(
+  stats_extents<<<grid, S_WARPS * 32, stages, s>>>((const uint8_t*)dead,
+                                                   doc_cap, x, q, acc,
+                                                   ticket, st);
+  return (int)cudaGetLastError();
+}
+
+// The batched K6 over a wave of bs <= 16 slots: slots the wave in host
+// memory (common.cuh scan_batch_of, SLOT_DESC_WORDS int32 a slot); the
+// arena as for K6 (flags always given). out: bs * (38 + 39) int32: per
+// slot the statistics (written), then its accumulator and ticket, all
+// zeroed by this call's one memset.
+extern "C" int yt_span_stats_batch(const void* feats, const void* flags,
+                                   const void* docids, const void* dead,
+                                   int64_t doc_cap, const int32_t* slots,
+                                   int bs, void* out, void* stream) {
+  if (bs < 1 || bs > BATCH_SLOTS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  ScanBatch b{};
+  if (!scan_batch_of(slots, bs, &b)) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaMemsetAsync(out, 0, (size_t)bs * SLOT_WORDS * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  const int stages = S_WARPS * 2 * stage_bytes<int16_t>();
+  static int cached[64];
+  int limit = 0;
+  e = resident_blocks(stats_batch, S_WARPS * 32, stages, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  // the slots share the resident blocks in proportion to their rows
+  const int grid = wave_blocks(&b, S_WARPS, limit);
+  stats_batch<<<grid, S_WARPS * 32, stages, s>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
-      (const uint8_t*)dead, doc_cap, x, q, acc, ticket, st);
+      (const uint8_t*)dead, doc_cap, b, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Shared definitions of the port's CUDA kernels: the posting column
 // layout, the packed profile-constant and statistics vectors, the
 // order-preserving integer keys the selection kernels sort by, the
-// staged row chunks and the row scorer, and the arena extents, row
-// liveness and constraint filter of the devstore kernels.
+// staged row chunks and the row scorer, and the arena extents (with a
+// RAM delta as one more source), row liveness, constraint filter, facet
+// bitmap and batched-scan wave of the devstore kernels.
 //
 // Layouts (mirrored in kernels/cardinal.py):
 //   consts int32[44]: [0,17) norm coeffs, [17,28) flag bits,
@@ -367,57 +368,87 @@ __device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
 }
 
 // ---------------------------------------------------------------------------
-// Arena extents read in place (the devstore kernels)
+// Arena extents read in place, and a RAM delta block (the devstore kernels)
 // ---------------------------------------------------------------------------
 
-constexpr int MAX_EXT = 8;  // DeviceSegmentStore.MAX_SPANS
+constexpr int MAX_EXT = 8;              // DeviceSegmentStore.MAX_SPANS
+constexpr int MAX_SRC = MAX_EXT + 1;    // the extents, then a RAM delta
 
-// Up to MAX_EXT extents of the arena (first row, row count), read in
-// place as one row sequence in extent order: row r of extent e is row
+// Up to MAX_EXT arena extents and an optional RAM delta block, read in
+// place as one row sequence in source order: row r of source e is row
 // obase[e] + r of the sequence, and CH-row chunk c of the sequence is
-// chunk c - cbase[e] of extent e (cbase[n] chunks, obase[n] rows in all).
+// chunk c - cbase[e] of source e (cbase[n] chunks, obase[n] rows in all).
+// Each source has its own feature, flag and docid pointers: an extent's
+// point into the arena at its first row, the delta's at its own block,
+// so the delta is read after the extents and is never copied into the
+// arena.
 struct Extents {
-  int64_t start[MAX_EXT], count[MAX_EXT], obase[MAX_EXT + 1];
-  int64_t cbase[MAX_EXT + 1];
+  const int16_t* feats[MAX_SRC];
+  const int32_t* flags[MAX_SRC];
+  const int32_t* docids[MAX_SRC];
+  int64_t count[MAX_SRC], obase[MAX_SRC + 1], cbase[MAX_SRC + 1];
   int n;
 };
 
-// from n (start, count) pairs in host memory
-__host__ inline Extents make_extents(const int64_t* sc, int n) {
+__host__ __device__ inline void add_source(Extents& x, const int16_t* f,
+                                           const int32_t* fl,
+                                           const int32_t* d, int64_t n) {
+  const int e = x.n++;
+  x.feats[e] = f;
+  x.flags[e] = fl;
+  x.docids[e] = d;
+  x.count[e] = n;
+  x.obase[e + 1] = x.obase[e] + n;
+  x.cbase[e + 1] = x.cbase[e] + (n + CH - 1) / CH;
+}
+
+// The arena's n (start, count) pairs ext (host memory), then the delta
+// block of dn rows when dn > 0 (dfeats [dn, 17] int16, dflags/ddocids
+// [dn] int32). flags may be null (never staged then).
+__host__ inline Extents make_extents(const void* feats, const void* flags,
+                                     const void* docids, const int64_t* ext,
+                                     int n, const void* dfeats,
+                                     const void* dflags, const void* ddocids,
+                                     int64_t dn) {
   Extents x = {};
-  x.n = n;
+  const int16_t* f = (const int16_t*)feats;
+  const int32_t* fl = (const int32_t*)flags;
+  const int32_t* d = (const int32_t*)docids;
   for (int e = 0; e < n; ++e) {
-    x.start[e] = sc[2 * e];
-    x.count[e] = sc[2 * e + 1];
-    x.obase[e + 1] = x.obase[e] + x.count[e];
-    x.cbase[e + 1] = x.cbase[e] + (x.count[e] + CH - 1) / CH;
+    const int64_t s = ext[2 * e];
+    add_source(x, f + s * NF, fl ? fl + s : nullptr, d + s, ext[2 * e + 1]);
   }
+  if (dn > 0)
+    add_source(x, (const int16_t*)dfeats, (const int32_t*)dflags,
+               (const int32_t*)ddocids, dn);
   return x;
 }
 
-// the extent of chunk c < cbase[n] (empty extents are skipped)
+// the source of chunk c < cbase[n] (empty sources are skipped)
 __device__ __forceinline__ int extent_of_chunk(const Extents& x, int64_t c) {
   int e = 0;
   while (e + 1 < x.n && c >= x.cbase[e + 1]) ++e;
   return e;
 }
 
-// the arena row of sequence row r, or -1 past the last extent
-__device__ __forceinline__ int64_t arena_row(const Extents& x, int64_t r) {
+// the docid of sequence row r, or -1 past the last source
+__device__ __forceinline__ int32_t docid_at(const Extents& x, int64_t r) {
   for (int e = 0; e < x.n; ++e)
-    if (r < x.obase[e + 1]) return x.start[e] + (r - x.obase[e]);
+    if (r < x.obase[e + 1]) return x.docids[e][r - x.obase[e]];
   return -1;
 }
 
 // One warp starts the copies of sequence chunk c into stage st: the
-// extent's features, flags and docids (in the host-id region).
-__device__ __forceinline__ void issue_extent_chunk(
-    const Extents& x, const int16_t* feats, const int32_t* flags,
-    const int32_t* docids, int64_t c, unsigned char* st, int lane) {
+// source's features, flags (when with_flags) and docids (in the host-id
+// region).
+__device__ __forceinline__ void issue_extent_chunk(const Extents& x,
+                                                   int64_t c, bool with_flags,
+                                                   unsigned char* st,
+                                                   int lane) {
   const int e = extent_of_chunk(x, c);
-  const int64_t s = x.start[e];
-  issue_chunk<int16_t>(feats + s * NF, flags ? flags + s : nullptr, nullptr,
-                       docids + s, x.count[e], c - x.cbase[e], st, lane);
+  issue_chunk<int16_t>(x.feats[e], with_flags ? x.flags[e] : nullptr,
+                       nullptr, x.docids[e], x.count[e], c - x.cbase[e], st,
+                       lane);
 }
 
 // Liveness of an arena row (devstore _tile_valid): a docid (pad rows hold
@@ -431,21 +462,36 @@ __device__ __forceinline__ bool row_live(int32_t d, const uint8_t* dead,
 // A query's constraint filter (devstore _constraint_valid): a language,
 // one content-domain flag bit and a lastmod range in days, each off at
 // its sentinel (NO_LANG 0, NO_FLAG -1, DAYS_NONE_LO -2^30, DAYS_NONE_HI
-// 2^30). Passed by value in the launch parameters.
+// 2^30); and a facet docid bitmap (_bitmap_member: `allow` words of 32
+// docids, `nbits` = 32 x its words; null: none). Passed by value in the
+// launch parameters.
 struct Filter {
   int32_t lang, flag, from_days, to_days;
+  const uint32_t* allow;
+  int64_t nbits;
 };
 constexpr int32_t NO_LANG = 0, NO_FLAG = -1;
 constexpr int32_t DAYS_NONE_LO = -(1 << 30), DAYS_NONE_HI = 1 << 30;
 
-__host__ __device__ inline bool filter_off(const Filter& q) {
-  return q.lang == NO_LANG && q.flag == NO_FLAG &&
-         q.from_days == DAYS_NONE_LO && q.to_days == DAYS_NONE_HI;
+// the filter of 4 int32 in host memory, with a bitmap of nwords words or
+// none (allow null)
+__host__ inline Filter make_filter(const int32_t* filt, const void* allow,
+                                   int64_t nwords) {
+  Filter q = {filt[0], filt[1], filt[2], filt[3], (const uint32_t*)allow,
+              allow ? nwords * 32 : 0};
+  return q;
 }
 
-// Whether a row passes the filter, from its language and lastmod columns
-// and its flags. The flag test is XLA's (fl >> max(bit, 0)) & 1 on int32:
-// an arithmetic shift, so a bit of 32 or more reads the sign (bit 31).
+__host__ __device__ inline bool filter_off(const Filter& q) {
+  return q.lang == NO_LANG && q.flag == NO_FLAG &&
+         q.from_days == DAYS_NONE_LO && q.to_days == DAYS_NONE_HI &&
+         q.allow == nullptr;
+}
+
+// Whether a row passes the constraints, from its language and lastmod
+// columns and its flags. The flag test is XLA's (fl >> max(bit, 0)) & 1
+// on int32: an arithmetic shift, so a bit of 32 or more reads the sign
+// (bit 31).
 __device__ __forceinline__ bool constraint_ok(int32_t lang, int32_t lastmod,
                                               int32_t fl, const Filter& q) {
   const int b = q.flag < 0 ? 0 : (q.flag > 31 ? 31 : q.flag);
@@ -453,6 +499,119 @@ __device__ __forceinline__ bool constraint_ok(int32_t lang, int32_t lastmod,
          (q.flag == NO_FLAG || ((fl >> b) & 1)) &&
          (q.from_days == DAYS_NONE_LO || lastmod >= q.from_days) &&
          (q.to_days == DAYS_NONE_HI || lastmod <= q.to_days);
+}
+
+// The facet bitmap's bit of a live row's docid d >= 0; a docid at or past
+// the bitmap is excluded.
+__device__ __forceinline__ bool bitmap_ok(int32_t d, const Filter& q) {
+  return q.allow == nullptr ||
+         (d < q.nbits && ((__ldg(q.allow + (d >> 5)) >> (d & 31)) & 1u));
+}
+
+// The whole filter on a live row (features f, flags fl, docid d).
+__device__ __forceinline__ bool row_passes(const int16_t* f, int32_t fl,
+                                           int32_t d, const Filter& q) {
+  return constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], fl, q) && bitmap_ok(d, q);
+}
+
+// A wave of exact scans (the batched scan): up to BATCH_SLOTS queries
+// over the same arena, each with its own extents and constraint filter
+// (no delta, no bitmap: those queries stay solo), by value in the launch
+// parameters. A one-dimensional grid is cut into one block range a slot,
+// [bstart[s], bstart[s + 1]), its length in proportion to the slot's rows
+// (wave_blocks), so that a wave of one big and many small scans keeps
+// every block busy until the big one is done. The batched K7 writes slot
+// s into [obase[s], obase[s + 1]) of one packed buffer (each slot's own
+// length, kernels/devstore.scan_batch_offsets).
+constexpr int BATCH_SLOTS = 16;
+struct ScanBatch {
+  int32_t start[BATCH_SLOTS][MAX_EXT], count[BATCH_SLOTS][MAX_EXT];
+  int32_t n[BATCH_SLOTS];
+  int32_t filt[BATCH_SLOTS][4];
+  int32_t bstart[BATCH_SLOTS + 1];
+  int64_t obase[BATCH_SLOTS + 1];
+  int32_t bs;
+};
+
+// The slot whose block range holds block blk.
+__device__ __forceinline__ int slot_of_block(const ScanBatch& b, int blk) {
+  int s = 0;
+  while (s + 1 < b.bs && blk >= b.bstart[s + 1]) ++s;
+  return s;
+}
+
+// The extents and filter of slot s of a wave over the arena.
+__host__ __device__ inline void slot_extents(const ScanBatch& b, int s,
+                                             const int16_t* feats,
+                                             const int32_t* flags,
+                                             const int32_t* docids,
+                                             Extents& x, Filter& q) {
+  x.n = 0;
+  x.obase[0] = x.cbase[0] = 0;
+  for (int e = 0; e < b.n[s]; ++e) {
+    const int64_t st = b.start[s][e];
+    add_source(x, feats + st * NF, flags + st, docids + st, b.count[s][e]);
+  }
+  q.lang = b.filt[s][0];
+  q.flag = b.filt[s][1];
+  q.from_days = b.filt[s][2];
+  q.to_days = b.filt[s][3];
+  q.allow = nullptr;
+  q.nbits = 0;
+}
+
+// A wave's slots in host memory, SLOT_DESC_WORDS int32 a slot: the
+// extent count n (<= 8), 8 (start, count) pairs, the filter's 4 int32
+// (kernels/devstore.scan_batch_desc). Fills b and, with `out_off` (bs + 1
+// int64 region starts of the batched K7's packed output, from 0), its
+// obase; false on a malformed slot or a region shorter than its rows.
+constexpr int SLOT_DESC_WORDS = 1 + 2 * MAX_EXT + 4;
+__host__ inline bool scan_batch_of(const int32_t* slots, int bs, ScanBatch* b,
+                                   const int64_t* out_off = nullptr) {
+  for (int s = 0; s < bs; ++s) {
+    const int32_t* w = slots + (int64_t)s * SLOT_DESC_WORDS;
+    if (w[0] < 0 || w[0] > MAX_EXT) return false;
+    b->n[s] = w[0];
+    int64_t rows = 0;
+    for (int e = 0; e < MAX_EXT; ++e) {
+      b->start[s][e] = w[1 + 2 * e];
+      b->count[s][e] = w[2 + 2 * e];
+      if (e < w[0]) {
+        if (w[1 + 2 * e] < 0 || w[2 + 2 * e] < 0) return false;
+        rows += w[2 + 2 * e];
+      }
+    }
+    for (int k = 0; k < 4; ++k) b->filt[s][k] = w[1 + 2 * MAX_EXT + k];
+    if (out_off != nullptr &&
+        (out_off[0] != 0 || out_off[s + 1] - out_off[s] < rows))
+      return false;
+  }
+  for (int s = 0; s <= bs && out_off != nullptr; ++s)
+    b->obase[s] = out_off[s];
+  b->bs = bs;
+  return true;
+}
+
+// Cut a grid of at most `limit` blocks (`warps` warps of one CH-row chunk
+// each a block) into the wave's slot ranges, in proportion to each slot's
+// chunks and at least one block a slot; returns the grid's blocks.
+__host__ inline int wave_blocks(ScanBatch* b, int warps, int limit) {
+  int64_t chunks[BATCH_SLOTS], total = 0;
+  for (int s = 0; s < b->bs; ++s) {
+    chunks[s] = 0;
+    for (int e = 0; e < b->n[s]; ++e)
+      chunks[s] += (b->count[s][e] + CH - 1) / CH;
+    total += chunks[s];
+  }
+  b->bstart[0] = 0;
+  for (int s = 0; s < b->bs; ++s) {
+    const int64_t want = (chunks[s] + warps - 1) / warps;
+    int64_t share = total > 0 ? (int64_t)limit * chunks[s] / total : 1;
+    if (share > want) share = want;
+    if (share < 1) share = 1;
+    b->bstart[s + 1] = b->bstart[s] + (int32_t)share;
+  }
+  return b->bstart[b->bs];
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds

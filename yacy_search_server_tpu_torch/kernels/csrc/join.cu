@@ -26,9 +26,17 @@
 //     the sorted segment instead, ~log2(jcount) loads from the L2 for a
 //     partner of a few hundred thousand entries. The clip is kept: a
 //     docid at or above 2^29 matches a partner docid of exactly 2^29, as
-//     in the reference. (With two or more live rare rows at or above
-//     2^29 the reference's sort lets only the last of them match; here
-//     each of them does.)
+//     in the reference. The reference's sort (stable, its rare rows
+//     before the segment, the tag in the key's low bit) puts only the
+//     last of the still-valid rare rows of one clipped key next to the
+//     partner's entry, so of two or more such rows only the last in row
+//     order matches. A span never holds a docid twice (runs are built by
+//     postings.sort_dedupe), so only the clip makes keys equal: the rows
+//     at or above 2^29. `join_rows` counts them; where there are two or
+//     more and a partner is in sort mode, `join_high` (one block, after
+//     it) redoes those rows with the reference's rule, partner by
+//     partner: the last still-valid one (the largest row) alone can
+//     match the partner's 2^29. Below two it returns at once.
 // A row that is not live, or has missed a partner or hit an exclude, is
 // invalid and is tested against no later term, so a row invalid before a
 // partner never matches it (the reference masks those rows the same
@@ -51,6 +59,7 @@
 namespace yt {
 
 constexpr int J_THREADS = 128;          // rows a block stages and merges
+constexpr int H_THREADS = 1024;         // join_high's one block
 constexpr int MAX_PARTS = 11;           // 5 include partners + 6 excludes
 constexpr int32_t JOIN_DOCID_CAP = 1 << 29;
 
@@ -102,7 +111,8 @@ join_rows(const int16_t* __restrict__ feats,
           const int32_t* __restrict__ jpos, int64_t jcap,
           const int32_t* __restrict__ bmtab, int64_t nwords,
           const JoinParts a, const Filter q, int32_t* __restrict__ merged,
-          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out) {
+          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+          uint32_t* __restrict__ nhigh) {
   __shared__ int16_t s_in[J_THREADS * NF];
   __shared__ int32_t s_out[J_THREADS * NF];
   const int t = threadIdx.x;
@@ -116,6 +126,7 @@ join_rows(const int16_t* __restrict__ feats,
     if (t < rows) {
       const int64_t r = start + r0 + t;
       const int32_t d = __ldg(docids + r);
+      if (nhigh && d >= JOIN_DOCID_CAP) atomicAdd(nhigh, 1u);
       const int16_t* f = s_in + t * NF;
       int32_t fo = __ldg(flags + r);
       int32_t pmin = f[F_POSINTEXT], pmax = pmin, hmin = f[F_HITCOUNT];
@@ -150,6 +161,96 @@ join_rows(const int16_t* __restrict__ feats,
   }
 }
 
+// The rows of the rare window whose docid is at or above 2^29, redone
+// with the reference's last-match rule (head note) where there are two or
+// more. The state of such a row lives in the outputs while the partners
+// are walked: valid_out (still valid), flags_out (the OR), and in its
+// merged row the posintext minimum (worddistance column), maximum
+// (posintext column) and hitcount minimum; the rows are written in final
+// form at the end. A sort-mode partner matches only the largest
+// still-valid such row, and only where its segment holds 2^29; a bitmap
+// partner tests each row's own docid, as join_rows does.
+__global__ void __launch_bounds__(H_THREADS)
+join_high(const int16_t* __restrict__ feats,
+          const int32_t* __restrict__ flags,
+          const int32_t* __restrict__ docids,
+          const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
+          int64_t count, const int32_t* __restrict__ jdocids,
+          const int32_t* __restrict__ jpos, int64_t jcap,
+          const int32_t* __restrict__ bmtab, int64_t nwords,
+          const JoinParts a, const Filter q, int32_t* __restrict__ merged,
+          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+          const uint32_t* __restrict__ nhigh) {
+  __shared__ unsigned long long s_last;
+  if (__ldcg(nhigh) < 2u) return;
+  const int t = threadIdx.x;
+  for (int64_t r = t; r < count; r += H_THREADS) {
+    const int32_t d = docids[start + r];
+    if (d < JOIN_DOCID_CAP) continue;
+    const int16_t* f = feats + (start + r) * NF;
+    int32_t* m = merged + r * NF;
+    m[F_WORDDISTANCE] = f[F_POSINTEXT];
+    m[F_POSINTEXT] = f[F_POSINTEXT];
+    m[F_HITCOUNT] = f[F_HITCOUNT];
+    flags_out[r] = flags[start + r];
+    valid_out[r] = row_live(d, dead, doc_cap) ? 1 : 0;
+  }
+  __syncthreads();
+  for (int p = 0; p < a.n_inc + a.n_exc; ++p) {
+    const bool sorted = a.slot[p] < 0;
+    unsigned long long last = 0;  // the largest still-valid row, plus one
+    int64_t prow_cap = -1;        // the partner's row of docid 2^29
+    if (sorted) {
+      if (t == 0) s_last = 0ull;
+      __syncthreads();
+      unsigned long long mine = 0;
+      for (int64_t r = t; r < count; r += H_THREADS)
+        if (docids[start + r] >= JOIN_DOCID_CAP && valid_out[r])
+          mine = (unsigned long long)r + 1ull;
+      if (mine) atomicMax(&s_last, mine);
+      __syncthreads();
+      last = s_last;
+      if (last)
+        prow_cap = member(a, p, JOIN_DOCID_CAP, jdocids, jpos, jcap, bmtab,
+                          nwords);
+    }
+    for (int64_t r = t; r < count; r += H_THREADS) {
+      const int32_t d = docids[start + r];
+      if (d < JOIN_DOCID_CAP || !valid_out[r]) continue;
+      const int64_t pr =
+          sorted ? ((unsigned long long)r + 1ull == last ? prow_cap : -1)
+                 : member(a, p, d, jdocids, jpos, jcap, bmtab, nwords);
+      if (p >= a.n_inc) {
+        if (pr >= 0) valid_out[r] = 0;
+      } else if (pr < 0) {
+        valid_out[r] = 0;
+      } else {
+        int32_t* m = merged + r * NF;
+        const int32_t pp = feats[pr * NF + F_POSINTEXT];
+        m[F_WORDDISTANCE] = min(m[F_WORDDISTANCE], pp);
+        m[F_POSINTEXT] = max(m[F_POSINTEXT], pp);
+        m[F_HITCOUNT] = min(m[F_HITCOUNT], (int32_t)feats[pr * NF + F_HITCOUNT]);
+        flags_out[r] |= flags[pr];
+      }
+    }
+    __syncthreads();
+  }
+  const bool off = filter_off(q);
+  for (int64_t r = t; r < count; r += H_THREADS) {
+    if (docids[start + r] < JOIN_DOCID_CAP) continue;
+    const int16_t* f = feats + (start + r) * NF;
+    int32_t* m = merged + r * NF;
+    const int32_t pmin = m[F_WORDDISTANCE], pmax = m[F_POSINTEXT];
+    const int32_t hmin = m[F_HITCOUNT];
+    for (int c = 0; c < NF; ++c) m[c] = f[c];
+    m[F_WORDDISTANCE] = pmax - pmin;
+    m[F_HITCOUNT] = hmin;
+    valid_out[r] = valid_out[r] &&
+                   (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD],
+                                         flags_out[r], q));
+  }
+}
+
 }  // namespace yt
 
 using namespace yt;
@@ -160,7 +261,8 @@ using namespace yt;
 // parts: n_inc + n_exc partners (n_inc <= 5, n_exc <= 6) as int64 triples
 // (jstart, jcount, slot) in host memory; filt the filter's 4 int32 in
 // host memory. Out: merged [count, 17] int32, flags_out [count] int32,
-// valid_out [count] bool.
+// valid_out [count] bool. scratch: int32[1], the count of rows at or
+// above 2^29 (zeroed here; read only where a partner is in sort mode).
 extern "C" int yt_join_member(const void* feats, const void* flags,
                               const void* docids, const void* dead,
                               int64_t doc_cap, int64_t start, int64_t count,
@@ -168,30 +270,45 @@ extern "C" int yt_join_member(const void* feats, const void* flags,
                               int64_t jcap, const void* bmtab, int64_t nwords,
                               const int64_t* parts, int n_inc, int n_exc,
                               const int32_t* filt, void* merged,
-                              void* flags_out, void* valid_out,
+                              void* flags_out, void* valid_out, void* scratch,
                               void* stream) {
   if (n_inc < 0 || n_exc < 0 || n_inc > 5 || n_exc > 6 || count < 0)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   JoinParts a = {};
   a.n_inc = n_inc;
   a.n_exc = n_exc;
+  bool any_sorted = false;
   for (int p = 0; p < n_inc + n_exc; ++p) {
     a.jstart[p] = parts[3 * p];
     a.jcount[p] = parts[3 * p + 1];
     a.slot[p] = (int32_t)parts[3 * p + 2];
+    any_sorted = any_sorted || a.slot[p] < 0;
   }
-  const Filter q = {filt[0], filt[1], filt[2], filt[3]};
+  const Filter q = make_filter(filt, nullptr, 0);
   if (count == 0) return (int)cudaGetLastError();
+  uint32_t* nhigh = any_sorted ? (uint32_t*)scratch : nullptr;
+  if (nhigh) {
+    cudaError_t e = cudaMemsetAsync(nhigh, 0, 4, s);
+    if (e != cudaSuccess) return (int)e;
+  }
   static int cached[64];
   int limit = 0;
   cudaError_t e = resident_blocks(join_rows, J_THREADS, 0, cached, &limit);
   if (e != cudaSuccess) return (int)e;
   const int64_t blocks = (count + J_THREADS - 1) / J_THREADS;
   const int grid = (int)(blocks < limit ? blocks : limit);
-  join_rows<<<grid, J_THREADS, 0, (cudaStream_t)stream>>>(
+  join_rows<<<grid, J_THREADS, 0, s>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, start, count, (const int32_t*)jdocids,
       (const int32_t*)jpos, jcap, (const int32_t*)bmtab, nwords, a, q,
-      (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out);
+      (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out, nhigh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !nhigh) return (int)e;
+  join_high<<<1, H_THREADS, 0, s>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, start, count, (const int32_t*)jdocids,
+      (const int32_t*)jpos, jcap, (const int32_t*)bmtab, nwords, a, q,
+      (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out, nhigh);
   return (int)cudaGetLastError();
 }

@@ -34,10 +34,13 @@
 // from pageable memory.
 //
 // `topk_finish` is the tail of the other routes: after kernel 3 (index
-// mode) over K7's buffer it maps each winner's row back to its arena row
-// and docid, applies the init entries' rule and writes either the tail
-// check's ok (the b > 1 escalation of _pruned_span_topk) or the scan's
-// statistics (_rank_spans_packed_kernel's [2kk + 36] output).
+// mode) over K7's buffer it maps each winner's row back to its docid (an
+// arena row's, or a RAM delta row's where the winner lies in the delta's
+// region after the extents), applies the init entries' rule and writes
+// either the tail check's ok (the b > 1 escalation of _pruned_span_topk)
+// or the scan's statistics (_rank_spans_packed_kernel's [2kk + 36]
+// output). `topk_finish_batch` does the same for a wave of batched scans
+// (_rank_scan_batch_packed_kernel's [bs, 2kk] output), one block a slot.
 #include "common.cuh"
 
 namespace yt {
@@ -276,21 +279,19 @@ tile_select(const int32_t* __restrict__ scratch,
 }
 
 // One block: the kk winners of kernel 3 (index mode) over a K7 buffer,
-// mapped back to arena rows and docids, with the init entries' rule;
-// then either ok of the tail [j0, tcount) (stats null) or the scan's
-// statistics [0, 36).
+// mapped back to docids (the extents', then the delta's), with the init
+// entries' rule; then either ok of the tail [j0, tcount) (stats null) or
+// the scan's statistics [0, 36).
 __global__ void __launch_bounds__(SEL_THREADS)
 topk_finish(const int32_t* __restrict__ top_s,
-            const int32_t* __restrict__ top_rows, int kk,
-            const int32_t* __restrict__ docids, const Extents x,
+            const int32_t* __restrict__ top_rows, int kk, const Extents x,
             const int32_t* __restrict__ pmax, int64_t tstart, int64_t j0,
             int64_t tcount, int32_t bound_shift, int32_t lang_term,
             const int32_t* __restrict__ stats, int32_t* __restrict__ out) {
   const int t = threadIdx.x;
   for (int i = t; i < kk; i += SEL_THREADS) {
     int32_t s = top_s[i];
-    const int64_t a = arena_row(x, top_rows[i]);
-    int32_t d = a >= 0 ? docids[a] : -1;
+    int32_t d = docid_at(x, top_rows[i]);
     if (s <= SMALL) {
       s = SMALL;
       d = -1;
@@ -309,6 +310,34 @@ topk_finish(const int32_t* __restrict__ top_s,
     ok = ok && tail_ok(pmax[tstart + j], bound_shift, lang_term, theta);
   ok = __syncthreads_and(ok);
   if (t == 0) out[2 * kk] = ok ? 1 : 0;
+}
+
+// One block a slot of a wave of batched scans: slot s's kk winners
+// (top_s / top_rows [bs, kk]) mapped back to docids over its extents,
+// (-(2^31-1), -1) at or below -(2^31-1); out [bs, 2kk]: scores, docids.
+__global__ void __launch_bounds__(SEL_THREADS)
+topk_finish_batch(const int32_t* __restrict__ top_s,
+                  const int32_t* __restrict__ top_rows, int kk,
+                  const int16_t* __restrict__ feats,
+                  const int32_t* __restrict__ flags,
+                  const int32_t* __restrict__ docids, const ScanBatch b,
+                  int32_t* __restrict__ out) {
+  __shared__ Extents x;
+  __shared__ Filter q;
+  if (threadIdx.x == 0) slot_extents(b, blockIdx.x, feats, flags, docids, x, q);
+  __syncthreads();
+  const int64_t base = (int64_t)blockIdx.x * kk;
+  int32_t* o = out + 2 * base;
+  for (int i = threadIdx.x; i < kk; i += SEL_THREADS) {
+    int32_t s = top_s[base + i];
+    int32_t d = docid_at(x, top_rows[base + i]);
+    if (s <= SMALL) {
+      s = SMALL;
+      d = -1;
+    }
+    o[i] = s;
+    o[kk + i] = d;
+  }
 }
 
 }  // namespace yt
@@ -364,21 +393,41 @@ extern "C" int yt_pruned_tile(const void* feats, const void* flags,
 }
 
 // The finish of the b > 1 and scan routes: top_s / top_rows [kk] (kernel
-// 3's scores and rows over a K7 buffer of the n_ext extents in `ext`, host
-// memory); stats int32[38] or null; out [2kk + 1] (stats null) or
+// 3's scores and rows over a K7 buffer of the n_ext arena extents in
+// `ext`, host memory, then the delta block's dn rows with docids
+// ddocids); stats int32[38] or null; out [2kk + 1] (stats null) or
 // [2kk + 36] int32.
 extern "C" int yt_topk_finish(const void* top_s, const void* top_rows,
                               int kk, const void* docids, const int64_t* ext,
-                              int n_ext, const void* pmax, int64_t tstart,
-                              int64_t j0, int64_t tcount, int bound_shift,
-                              int lang_term, const void* stats, void* out,
-                              void* stream) {
-  if (kk < 1 || n_ext < 0 || n_ext > MAX_EXT)
+                              int n_ext, const void* ddocids, int64_t dn,
+                              const void* pmax, int64_t tstart, int64_t j0,
+                              int64_t tcount, int bound_shift, int lang_term,
+                              const void* stats, void* out, void* stream) {
+  if (kk < 1 || n_ext < 0 || n_ext > MAX_EXT || dn < 0)
     return (int)cudaErrorInvalidValue;
-  const Extents x = make_extents(ext, n_ext);
+  // only the docids are read (the feature and flag pointers are not)
+  const Extents x = make_extents(docids, nullptr, docids, ext, n_ext,
+                                 ddocids, nullptr, ddocids, dn);
   topk_finish<<<1, SEL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)top_s, (const int32_t*)top_rows, kk, x,
+      (const int32_t*)pmax, tstart, j0, tcount, bound_shift, lang_term,
+      (const int32_t*)stats, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The finish of a wave of bs <= 16 batched scans (common.cuh
+// scan_batch_of, host memory): top_s / top_rows [bs, kk]; docids the
+// arena's; out [bs, 2kk] int32.
+extern "C" int yt_topk_finish_batch(const void* top_s, const void* top_rows,
+                                    int kk, const void* docids,
+                                    const int32_t* slots, int bs, void* out,
+                                    void* stream) {
+  if (kk < 1 || bs < 1 || bs > BATCH_SLOTS) return (int)cudaErrorInvalidValue;
+  ScanBatch b{};
+  if (!scan_batch_of(slots, bs, &b)) return (int)cudaErrorInvalidValue;
+  topk_finish_batch<<<bs, SEL_THREADS, 0, (cudaStream_t)stream>>>(
       (const int32_t*)top_s, (const int32_t*)top_rows, kk,
-      (const int32_t*)docids, x, (const int32_t*)pmax, tstart, j0, tcount,
-      bound_shift, lang_term, (const int32_t*)stats, (int32_t*)out);
+      (const int16_t*)docids, (const int32_t*)docids,
+      (const int32_t*)docids, b, (int32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """The devstore's kernels: K5 `pruned_tile`, K6 `span_stats`, K7
-`span_score`, `topk_finish` and K8 `join_member`.
+`span_score`, `topk_finish`, K8 `join_member`, and the batched exact scan
+(`span_stats_batch`, `span_score_batch`, `topk_finish_batch`).
 
 They read the device arena of index/devstore.py in place: features
 int16 [cap, 17], flags and docids int32 [cap] (-1 on pad rows), the
@@ -17,13 +18,14 @@ package's index/devstore.py decides; every kernel decides it itself.
   starts from kk entries (-(2^31-1), -1) that precede every row).
 - `span_stats` (csrc/cardinal_stats.cu) and `span_score`
   (csrc/cardinal_score.cu) are the two passes of _rank_spans_kernel over
-  up to 8 extents, minus the top-k: kernel 3 (`tie_topk`, index mode)
-  selects from span_score's buffer, in the order of the JAX running
-  merge.
+  up to 8 extents and a RAM delta block after them, minus the top-k:
+  kernel 3 (`tie_topk`, index mode) selects from span_score's buffer, in
+  the order of the JAX running merge (span rows before delta rows).
 - `topk_finish` (csrc/pruned_tile.cu) maps kernel 3's winners back to
-  docids, applies the init entries' rule, and appends the tail check's ok
-  (the b > 1 escalation of _pruned_span_topk) or the scan's statistics
-  (_rank_spans_packed_kernel's [2kk + 36] output).
+  docids (the arena's, or the delta's), applies the init entries' rule,
+  and appends the tail check's ok (the b > 1 escalation of
+  _pruned_span_topk) or the scan's statistics (_rank_spans_packed_kernel's
+  [2kk + 36] output).
 - `join_member` (csrc/join.cu) replaces the membership and merge of
   _join_topk, the body of _rank_join_batch_kernel /
   _rank_join_bm_batch_kernel and their packed twins: each row of the
@@ -31,10 +33,21 @@ package's index/devstore.py decides; every kernel decides it itself.
   its docid-sorted segment, or its docid bitmap) and every exclude, the
   partner rows merged in, the constraint filter applied; kernels 1-3 and
   topk_finish rank the merged block.
+- `span_stats_batch`, `span_score_batch` (the same sources) and
+  `topk_finish_batch` replace _rank_scan_batch_kernel /
+  _rank_scan_batch_packed_kernel: K6 and K7 with a query dimension over a
+  wave of up to 16 filtered scans (`scan_batch_desc`), each slot with its
+  own extents, filter, statistics and buffer row; kernel 3 a slot; then
+  one finish for the wave, [bs, 2kk].
 
 K6, K7 and K8 take a constraint filter `filt` (_constraint_valid): the
 4-tuple (language, flag bit, from days, to days), each off at its
-sentinel (NO_FILTER); None is no filter.
+sentinel (NO_FILTER); None is no filter. K6 and K7 also take a facet
+bitmap `allow` (_bitmap_member: int32 [nwords] bit patterns, a docid's
+bit set where it is allowed, docids at or past 32 nwords excluded) and a
+RAM delta `delta` (feats16 int16 [n, 17], flags and docids int32 [n], pad
+rows docid -1: compact_feats of the term's unflushed postings, read after
+the extents).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors. An extent is a (first row, row
@@ -69,6 +82,20 @@ MAX_EXCLUDES = 6
 DESC_SLOT_WORDS = 4 + 2 * P.NF + 2   # start, count, tstart, tcount, cmin,
 #                                      cmax, tf_min, tf_max
 _PLAIN_ROWS = 1 << 20                # rows a plain scoring step holds
+# RAM delta blocks pad to these row counts (past the last: whole TILEs),
+# as the JAX store's _DELTA_BUCKETS / _bucket_delta
+DELTA_BUCKETS = (256, 1024, 4096, 16_384, 65_536, 262_144)
+BATCH_SLOTS = 16                     # slots of one batched-scan launch
+SLOT_DESC_WORDS = 1 + 2 * MAX_EXTENTS + 4   # n, (start, count) x 8, filter
+_STATS_SLOT = 2 * 38 + 1             # a batched K6 slot: stats, acc, ticket
+
+
+def bucket_delta(n: int) -> int:
+    """The padded row count of a RAM delta block of n rows."""
+    for b in DELTA_BUCKETS:
+        if n <= b:
+            return b
+    return ((n + TILE - 1) // TILE) * TILE
 
 
 def desc_slots(desc: np.ndarray) -> int:
@@ -151,6 +178,41 @@ def constraint_valid(feats, flags, filt) -> torch.Tensor:
     if hi != DAYS_NONE_HI:
         v &= lastmod <= hi
     return v
+
+
+def bitmap_member(allow, docids) -> torch.Tensor:
+    """_bitmap_member: the bit of each docid in `allow` (int32 [nwords]
+    bit patterns), False for a docid at or past 32 nwords, bool [n]."""
+    d = docids.to(torch.int64)
+    nwords = allow.shape[0]
+    w = allow[(d >> 5).clamp(0, nwords - 1)].to(torch.int64) & 0xFFFFFFFF
+    return (((w >> (d & 31)) & 1) == 1) & (d < 32 * nwords)
+
+
+def _check_delta(delta, dev):
+    """The delta triple's tensors checked ((feats16, flags, docids) or
+    None) and its row count."""
+    if delta is None:
+        return None, 0
+    f, fl, d = delta
+    if dev.type != "cpu":
+        B.require(f, "delta feats16", (torch.int16,), 2, dev)
+        B.require(fl, "delta flags", (torch.int32,), 1, dev)
+        B.require(d, "delta docids", (torch.int32,), 1, dev)
+    n = d.shape[0]
+    if f.shape != (n, P.NF) or fl.shape[0] != n:
+        raise ValueError(f"delta: feats16 {tuple(f.shape)}, flags "
+                         f"{tuple(fl.shape)}, docids {tuple(d.shape)}")
+    return delta, n
+
+
+def _check_allow(allow, dev):
+    if allow is not None:
+        if dev.type != "cpu":
+            B.require(allow, "allow", (torch.int32,), 1, dev)
+        if allow.shape[0] < 1:
+            raise ValueError("allow: an empty bitmap")
+    return allow
 
 
 def _filter_flags(flags, q):
@@ -280,7 +342,9 @@ def pruned_tile(feats16, flags, docids, dead, pmax, desc, kk: int, consts,
         bs, kk, int(init), consts.data_ptr(), scratch.data_ptr(),
         out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "pruned_tile")
-    B.LAUNCHES["pruned_tile"] += 1
+    # live slots: those with rows (a pad slot has count 0)
+    B.count_launch("pruned_tile", slots=int((desc[2 + bs:2 + 2 * bs] > 0)
+                                            .sum()))
     return out
 
 
@@ -288,31 +352,51 @@ def pruned_tile(feats16, flags, docids, dead, pmax, desc, kk: int, consts,
 # K6 span_stats
 # ---------------------------------------------------------------------------
 
+def _source_rows(feats16, flags, docids, ext, delta):
+    """(feats, flags, docids) of the extents' rows in order, then the
+    delta's."""
+    f, fl, d = _rows(feats16, ext), _rows(flags, ext), _rows(docids, ext)
+    if delta is not None:
+        f = torch.cat([f, delta[0]])
+        fl = torch.cat([fl, delta[1]])
+        d = torch.cat([d, delta[2]])
+    return f, fl, d
+
+
 def span_stats_plain(feats16, docids, dead, extents, flags=None,
-                     filt=None):
-    """Plain PyTorch version of K6: stats int32[38] of the live rows that
-    pass the filter."""
+                     filt=None, delta=None, allow=None):
+    """Plain PyTorch version of K6: stats int32[38] of the live rows (of
+    the extents and the delta) that pass the filter and the bitmap."""
     q = filter_args(filt)
     _filter_flags(flags, q)
     ext = _check_extents(extents, feats16.shape[0])
-    d, f = _rows(docids, ext), _rows(feats16, ext)
+    if flags is None:
+        flags = torch.zeros_like(docids)
+    f, fl, d = _source_rows(feats16, flags, docids, ext, delta)
     v = live_rows(d, dead)
     if q != NO_FILTER:
-        v &= constraint_valid(f, _rows(flags, ext) if q[1] != NO_FLAG
-                              else None, q)
+        v &= constraint_valid(f, fl, q)
+    if allow is not None:
+        v &= bitmap_member(allow, d)
     st, _ = KC.cardinal_stats_plain(f, v, d, 0)
     return st
 
 
-def span_stats(feats16, docids, dead, extents, flags=None, filt=None):
+def span_stats(feats16, docids, dead, extents, flags=None, filt=None,
+               delta=None, allow=None):
     """K6: the statistics (masked column min/max, tf min/max; host maximum
-    0) of the live rows of up to 8 arena extents that pass the filter
-    (`flags`, the arena's, read under a flag filter): int32[38]."""
+    0) of the live rows of up to 8 arena extents, and of the RAM delta
+    block `delta` after them, that pass the filter (`flags`, the arena's,
+    read under a flag filter) and the facet bitmap `allow`:
+    int32[38]."""
     q = filter_args(filt)
     _filter_flags(flags, q)
-    if feats16.device.type == "cpu":
-        return span_stats_plain(feats16, docids, dead, extents, flags, q)
     dev = feats16.device
+    delta, dn = _check_delta(delta, dev)
+    allow = _check_allow(allow, dev)
+    if dev.type == "cpu":
+        return span_stats_plain(feats16, docids, dead, extents, flags, q,
+                                delta, allow)
     cap = _require_arena(feats16, flags, docids, dead, dev)
     ext = _check_extents(extents, cap)
     # the statistics, then the kernel's accumulator and ticket
@@ -322,10 +406,23 @@ def span_stats(feats16, docids, dead, extents, flags=None, filt=None):
         feats16.data_ptr(), flags.data_ptr() if flags is not None else None,
         docids.data_ptr(), dead.data_ptr(), dead.shape[0],
         ctypes.addressof(ext_arg), len(ext), ctypes.addressof(filt_arg),
-        out.data_ptr(), B.stream_ptr(dev))
+        *_allow_args(allow), *_delta_args(delta, dn), out.data_ptr(),
+        B.stream_ptr(dev))
     B.check(rc, "span_stats")
-    B.LAUNCHES["span_stats"] += 1
+    B.count_launch("span_stats")
     return out[:KC.STATS_LEN]
+
+
+def _allow_args(allow):
+    return ((allow.data_ptr(), allow.shape[0]) if allow is not None
+            else (None, 0))
+
+
+def _delta_args(delta, dn):
+    if delta is None:
+        return None, None, None, 0
+    return (delta[0].data_ptr(), delta[1].data_ptr(), delta[2].data_ptr(),
+            dn)
 
 
 # ---------------------------------------------------------------------------
@@ -333,22 +430,28 @@ def span_stats(feats16, docids, dead, extents, flags=None, filt=None):
 # ---------------------------------------------------------------------------
 
 def span_score_plain(feats16, flags, docids, dead, extents, stats, consts,
-                     out_len: int, filt=None):
+                     out_len: int, filt=None, delta=None, allow=None):
     """Plain PyTorch version of K7 (scored in steps of 2^20 rows)."""
     q = filter_args(filt)
     dev = feats16.device
     ext = _check_extents(extents, feats16.shape[0])
     out = torch.full((out_len,), KC.SMALL, dtype=torch.int32, device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    srcs = [(feats16[s:s + c], flags[s:s + c], docids[s:s + c])
+            for s, c in ext]
+    if delta is not None:
+        srcs.append(delta)
     pos = 0
-    for s, c in ext:
+    for f_s, fl_s, d_s in srcs:
+        c = d_s.shape[0]
         for lo in range(0, c, _PLAIN_ROWS):
             hi = min(c, lo + _PLAIN_ROWS)
-            dd, f = docids[s + lo:s + hi], feats16[s + lo:s + hi]
-            fl = flags[s + lo:s + hi]
+            dd, f, fl = d_s[lo:hi], f_s[lo:hi], fl_s[lo:hi]
             v = live_rows(dd, dead)
             if q != NO_FILTER:
                 v &= constraint_valid(f, fl, q)
+            if allow is not None:
+                v &= bitmap_member(allow, dd)
             out[pos + lo:pos + hi] = KC.cardinal_score_plain(
                 f, fl, v, torch.zeros_like(dd), stats, zero, consts, True)
         pos += c
@@ -356,19 +459,22 @@ def span_score_plain(feats16, flags, docids, dead, extents, stats, consts,
 
 
 def span_score(feats16, flags, docids, dead, extents, stats, consts,
-               out_len: int, filt=None):
-    """K7: the rows of up to 8 arena extents scored against `stats`
-    (int32[38]) in extent order, dead rows and rows the filter rejects
-    -(2^31-1), into [out_len] int32 (out_len >= their rows; the rest
+               out_len: int, filt=None, delta=None, allow=None):
+    """K7: the rows of up to 8 arena extents, then of the RAM delta block
+    `delta`, scored against `stats` (int32[38]) in that order, dead rows
+    and rows the filter or the facet bitmap `allow` rejects -(2^31-1),
+    into [out_len] int32 (out_len >= their rows; the rest
     -(2^31-1))."""
     q = filter_args(filt)
-    rows = sum(int(c) for _s, c in extents)
-    if out_len < rows:
-        raise ValueError(f"out_len {out_len} < the extents' {rows} rows")
-    if feats16.device.type == "cpu":
-        return span_score_plain(feats16, flags, docids, dead, extents, stats,
-                                consts, out_len, q)
     dev = feats16.device
+    delta, dn = _check_delta(delta, dev)
+    allow = _check_allow(allow, dev)
+    rows = sum(int(c) for _s, c in extents) + dn
+    if out_len < rows:
+        raise ValueError(f"out_len {out_len} < the sources' {rows} rows")
+    if dev.type == "cpu":
+        return span_score_plain(feats16, flags, docids, dead, extents, stats,
+                                consts, out_len, q, delta, allow)
     cap = _require_arena(feats16, flags, docids, dead, dev)
     ext = _check_extents(extents, cap)
     B.require(stats, "stats", (torch.int32,), 1, dev)
@@ -378,10 +484,11 @@ def span_score(feats16, flags, docids, dead, extents, stats, consts,
     rc = B.library().yt_span_score(
         feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
         dead.data_ptr(), dead.shape[0], ctypes.addressof(ext_arg), len(ext),
-        ctypes.addressof(filt_arg), stats.data_ptr(), consts.data_ptr(),
+        ctypes.addressof(filt_arg), *_allow_args(allow),
+        *_delta_args(delta, dn), stats.data_ptr(), consts.data_ptr(),
         out.data_ptr(), out_len, B.stream_ptr(dev))
     B.check(rc, "span_score")
-    B.LAUNCHES["span_score"] += 1
+    B.count_launch("span_score")
     return out
 
 
@@ -389,22 +496,33 @@ def span_score(feats16, flags, docids, dead, extents, stats, consts,
 # topk_finish
 # ---------------------------------------------------------------------------
 
-def topk_finish_plain(top_s, top_rows, docids, extents, stats=None,
-                      pmax=None, tail=None):
-    """Plain PyTorch version of topk_finish."""
-    dev = top_s.device
-    kk = top_s.shape[0]
+def _winners_plain(top_s, top_rows, docids, extents, delta_docids=None):
+    """(scores, docids) of kernel 3's winners over the extents and a delta
+    block, (-(2^31-1), -1) at or below -(2^31-1)."""
     r = top_rows.to(torch.int64)
-    a = torch.full_like(r, -1)
+    d = torch.full_like(r, -1)
     base = 0
     for s, c in extents:
         inside = (r >= base) & (r < base + c)
-        a = torch.where(inside, s + r - base, a)
+        d = torch.where(inside, docids[(s + r - base).clamp(
+            0, docids.shape[0] - 1)].to(torch.int64), d)
         base += c
-    d = torch.where(a >= 0, docids[a.clamp(min=0)], -1)
+    if delta_docids is not None and delta_docids.shape[0]:
+        n = delta_docids.shape[0]
+        inside = (r >= base) & (r < base + n)
+        d = torch.where(inside, delta_docids[(r - base).clamp(0, n - 1)]
+                        .to(torch.int64), d)
     gone = top_s <= KC.SMALL
-    s = torch.where(gone, KC.SMALL, top_s)
-    d = torch.where(gone, -1, d).to(torch.int32)
+    return (torch.where(gone, KC.SMALL, top_s),
+            torch.where(gone, -1, d).to(torch.int32))
+
+
+def topk_finish_plain(top_s, top_rows, docids, extents, stats=None,
+                      pmax=None, tail=None, delta_docids=None):
+    """Plain PyTorch version of topk_finish."""
+    dev = top_s.device
+    kk = top_s.shape[0]
+    s, d = _winners_plain(top_s, top_rows, docids, extents, delta_docids)
     if stats is not None:
         return torch.cat([s, d, stats[:2 * P.NF + 2]])
     tstart, j0, tcount, shift, lang = tail
@@ -416,9 +534,10 @@ def topk_finish_plain(top_s, top_rows, docids, extents, stats=None,
 
 
 def topk_finish(top_s, top_rows, docids, extents, stats=None, pmax=None,
-                tail=None):
+                tail=None, delta_docids=None):
     """The kk winners of kernel 3 (scores, rows of a span_score buffer
-    over `extents`) as scores and docids, (-(2^31-1), -1) wherever the
+    over `extents` and then a delta block whose docids are
+    `delta_docids`) as scores and docids, (-(2^31-1), -1) wherever the
     score is -(2^31-1) or less; then either `stats[:36]` (the exact scan:
     [2kk + 36]) or the ok of the tail tiles [j0, tcount) of a span's pmax
     rows from tstart, `tail` = (tstart, j0, tcount, bound_shift,
@@ -427,12 +546,14 @@ def topk_finish(top_s, top_rows, docids, extents, stats=None, pmax=None,
         raise ValueError("topk_finish: give stats or tail, not both")
     if top_s.device.type == "cpu":
         return topk_finish_plain(top_s, top_rows, docids, extents, stats,
-                                 pmax, tail)
+                                 pmax, tail, delta_docids)
     dev = top_s.device
     kk = top_s.shape[0]
     B.require(top_s, "top_s", (torch.int32,), 1, dev)
     B.require(top_rows, "top_rows", (torch.int32,), 1, dev)
     B.require(docids, "docids", (torch.int32,), 1, dev)
+    if delta_docids is not None:
+        B.require(delta_docids, "delta_docids", (torch.int32,), 1, dev)
     if top_rows.shape[0] != kk:
         raise ValueError("top_s and top_rows must have kk entries")
     ext = _check_extents(extents, docids.shape[0])
@@ -450,14 +571,16 @@ def topk_finish(top_s, top_rows, docids, extents, stats=None, pmax=None,
         pm = pmax
         out = torch.empty(2 * kk + 1, dtype=torch.int32, device=dev)
     ext_arg = _ext_arg(ext)
+    dn = delta_docids.shape[0] if delta_docids is not None else 0
     rc = B.library().yt_topk_finish(
         top_s.data_ptr(), top_rows.data_ptr(), kk, docids.data_ptr(),
-        ctypes.addressof(ext_arg), len(ext), pm.data_ptr(),
+        ctypes.addressof(ext_arg), len(ext),
+        delta_docids.data_ptr() if dn else None, dn, pm.data_ptr(),
         tstart, j0, tcount, shift, lang,
         stats.data_ptr() if stats is not None else None, out.data_ptr(),
         B.stream_ptr(dev))
     B.check(rc, "topk_finish")
-    B.LAUNCHES["topk_finish"] += 1
+    B.count_launch("topk_finish")
     return out
 
 
@@ -473,11 +596,15 @@ def _popc32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _member_plain(docids, jstart: int, jcount: int, slot: int, jdocids, jpos,
-                 bmtab):
+                 bmtab, valid=None):
     """Membership of `docids` ([n] int32) in one partner: (found bool [n],
     the partner's arena row int64 [n], 0 where not found). slot >= 0: its
     docid bitmap (_membership_bitmap); -1: its docid-sorted segment
-    jdocids[jstart:jstart + jcount], searched for clip(docid, 0, 2^29)."""
+    jdocids[jstart:jstart + jcount], searched for clip(docid, 0, 2^29),
+    where of the rows still `valid` whose docid the clip makes 2^29 only
+    the last matches (_membership_sorted's stable co-sort puts only that
+    one next to the segment's entry; a span holds no docid twice, so no
+    other key repeats)."""
     d = docids.to(torch.int64)
     if slot >= 0:
         nbits = bmtab.shape[1] * 32
@@ -495,6 +622,11 @@ def _member_plain(docids, jstart: int, jcount: int, slot: int, jdocids, jpos,
     key = d.clamp(0, JOIN_DOCID_CAP).to(torch.int32)
     i = torch.searchsorted(seg, key).clamp(max=jcount - 1)
     found = seg[i] == key
+    high = d >= JOIN_DOCID_CAP
+    cand = high & valid if valid is not None else high
+    if int(cand.sum()) > 1:
+        last = int(torch.nonzero(cand)[-1])
+        found &= ~high | (torch.arange(len(d), device=d.device) == last)
     return found, torch.where(found, jpos[jstart + i].to(torch.int64), 0)
 
 
@@ -527,7 +659,8 @@ def join_member_plain(feats16, flags, docids, dead, start: int, count: int,
     pmin = f[:, P.F_POSINTEXT].to(torch.int32)
     pmax, hmin = pmin.clone(), f[:, P.F_HITCOUNT].to(torch.int32)
     for i, (js, jc, slot) in enumerate(parts):
-        found, row = _member_plain(d, js, jc, slot, jdocids, jpos, bmtab)
+        found, row = _member_plain(d, js, jc, slot, jdocids, jpos, bmtab,
+                                   v)
         found &= v          # a row no longer valid tests no later term
         if i < n_inc:
             pp = feats16[row, P.F_POSINTEXT].to(torch.int32)
@@ -555,7 +688,9 @@ def join_member(feats16, flags, docids, dead, start: int, count: int,
     exclude, slot the bitmap slot (bmtab [slots, nwords, 2]) or -1 for
     the docid-sorted segment jdocids/jpos[jstart:jstart + jcount]. A row
     is valid when it is live, in every partner, in no exclude and passes
-    the filter. Returns (merged int32 [count, 17]: the row with
+    the filter; in sort mode a docid at or above 2^29 is clipped to 2^29,
+    and of the still-valid rows it makes equal only the last matches, as
+    in the reference. Returns (merged int32 [count, 17]: the row with
     worddistance = max - min of posintext and hitcount = min over it and
     its partner rows; flags int32 [count]: their OR; valid bool
     [count])."""
@@ -575,6 +710,8 @@ def join_member(feats16, flags, docids, dead, start: int, count: int,
     merged = torch.empty((count, P.NF), dtype=torch.int32, device=dev)
     fo = torch.empty(count, dtype=torch.int32, device=dev)
     v = torch.empty(count, dtype=torch.bool, device=dev)
+    # the count of rare rows at or above 2^29 (the clip rule's fix-up)
+    nhigh = torch.empty(1, dtype=torch.int32, device=dev)
     flat = [x for p in parts for x in p] or [0]
     parts_arg = (ctypes.c_int64 * len(flat))(*flat)
     filt_arg = _filt_arg(q)
@@ -584,7 +721,174 @@ def join_member(feats16, flags, docids, dead, start: int, count: int,
         jpos.data_ptr(), jdocids.shape[0], bmtab.data_ptr(), bmtab.shape[1],
         ctypes.addressof(parts_arg), n_inc, len(parts) - n_inc,
         ctypes.addressof(filt_arg), merged.data_ptr(), fo.data_ptr(),
-        v.data_ptr(), B.stream_ptr(dev))
+        v.data_ptr(), nhigh.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "join_member")
-    B.LAUNCHES["join_member"] += 1
+    B.count_launch("join_member")
     return merged, fo, v
+
+
+# ---------------------------------------------------------------------------
+# the batched exact scan: K6, K7 and topk_finish over a wave of queries
+# ---------------------------------------------------------------------------
+
+def scan_batch_desc(slots) -> np.ndarray:
+    """A wave of up to BATCH_SLOTS exact scans, each (extents, filter), as
+    the batched kernels take it: int32 [bs, SLOT_DESC_WORDS], a slot's
+    extent count, its 8 (start, count) pairs (unused ones 0) and its
+    filter's 4 ints (the qi rows of _dispatch_scans)."""
+    bs = len(slots)
+    if not 1 <= bs <= BATCH_SLOTS:
+        raise ValueError(f"{bs} slots: a wave holds 1 to {BATCH_SLOTS}")
+    desc = np.zeros((bs, SLOT_DESC_WORDS), np.int32)
+    for i, (extents, filt) in enumerate(slots):
+        ext = [(int(a), int(c)) for a, c in extents]
+        if len(ext) > MAX_EXTENTS:
+            raise ValueError(f"{len(ext)} extents, at most {MAX_EXTENTS}")
+        desc[i, 0] = len(ext)
+        for e, (a, c) in enumerate(ext):
+            desc[i, 1 + 2 * e], desc[i, 2 + 2 * e] = a, c
+        desc[i, 1 + 2 * MAX_EXTENTS:] = filter_args(filt)
+    return desc
+
+
+def desc_scans(desc: np.ndarray):
+    """The (extents, filter) of each slot of a scan_batch_desc wave."""
+    out = []
+    for row in np.asarray(desc):
+        n = int(row[0])
+        out.append(([(int(row[1 + 2 * e]), int(row[2 + 2 * e]))
+                     for e in range(n)],
+                    tuple(int(v) for v in row[1 + 2 * MAX_EXTENTS:])))
+    return out
+
+
+def _check_wave(desc, cap: int) -> np.ndarray:
+    desc = np.ascontiguousarray(desc, np.int32)
+    if desc.ndim != 2 or desc.shape[1] != SLOT_DESC_WORDS \
+            or not 1 <= desc.shape[0] <= BATCH_SLOTS:
+        raise ValueError(f"a wave is int32 [1..{BATCH_SLOTS}, "
+                         f"{SLOT_DESC_WORDS}], got {desc.shape}")
+    for ext, _filt in desc_scans(desc):
+        _check_extents(ext, cap)
+    return desc
+
+
+def span_stats_batch_plain(feats16, flags, docids, dead, desc):
+    """Plain PyTorch version of the batched K6: [bs, 38]."""
+    return torch.stack([span_stats_plain(feats16, docids, dead, ext, flags,
+                                         filt)
+                        for ext, filt in desc_scans(desc)])
+
+
+def span_stats_batch(feats16, flags, docids, dead, desc):
+    """Batched K6: the statistics of each slot of a wave (scan_batch_desc)
+    over the live rows of its extents that pass its filter, [bs, 38]
+    int32 (a view of rows 77 apart on the card)."""
+    if feats16.device.type == "cpu":
+        return span_stats_batch_plain(feats16, flags, docids, dead, desc)
+    dev = feats16.device
+    cap = _require_arena(feats16, flags, docids, dead, dev)
+    desc = _check_wave(desc, cap)
+    bs = desc.shape[0]
+    # per slot: the statistics, then the kernel's accumulator and ticket
+    out = torch.empty((bs, _STATS_SLOT), dtype=torch.int32, device=dev)
+    rc = B.library().yt_span_stats_batch(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], desc.ctypes.data, bs,
+        out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "span_stats_batch")
+    B.count_launch("span_stats_batch", slots=bs)
+    return out[:, :KC.STATS_LEN]
+
+
+# a slot's region of the batched K7's packed output starts on a 128-byte
+# boundary: kernel 3 reads its scores as 16-byte vectors
+_REGION_ALIGN = 32
+
+
+def scan_batch_offsets(desc, kk: int) -> np.ndarray:
+    """The batched K7's packed output layout: int64 [bs + 1] region
+    starts, slot s in [off[s], off[s + 1]), max(its rows, kk) entries
+    (the solo scan's buffer, scan_query's) rounded up to _REGION_ALIGN.
+    Each slot's kernel 3 reads its first max(rows, kk) entries."""
+    lens = [max(sum(c for _a, c in ext), kk) for ext, _f in desc_scans(desc)]
+    off = np.zeros(len(lens) + 1, np.int64)
+    off[1:] = np.cumsum([-(-n // _REGION_ALIGN) * _REGION_ALIGN
+                         for n in lens])
+    return off
+
+
+def span_score_batch_plain(feats16, flags, docids, dead, desc, stats,
+                           consts, out_off):
+    """Plain PyTorch version of the batched K7: int32 [out_off[-1]]."""
+    return torch.cat([
+        span_score_plain(feats16, flags, docids, dead, ext, stats[i],
+                         consts, int(out_off[i + 1] - out_off[i]), filt)
+        for i, (ext, filt) in enumerate(desc_scans(desc))])
+
+
+def span_score_batch(feats16, flags, docids, dead, desc, stats, consts,
+                     out_off):
+    """Batched K7: each slot's rows scored against its row of `stats`
+    ([bs, 38], span_stats_batch's) under its filter, in extent order, into
+    its region [out_off[s], out_off[s + 1]) of one packed int32 buffer
+    (scan_batch_offsets; the region's entries past its rows
+    -(2^31-1)). One profile a wave (`consts`)."""
+    scans = desc_scans(desc)
+    out_off = np.ascontiguousarray(out_off, np.int64)
+    if out_off.shape != (len(scans) + 1,) or out_off[0] != 0 or any(
+            out_off[i + 1] - out_off[i] < sum(c for _a, c in ext)
+            for i, (ext, _f) in enumerate(scans)):
+        raise ValueError("out_off: bs + 1 region starts from 0, each "
+                         "region at least its slot's rows")
+    if feats16.device.type == "cpu":
+        return span_score_batch_plain(feats16, flags, docids, dead, desc,
+                                      stats, consts, out_off)
+    dev = feats16.device
+    cap = _require_arena(feats16, flags, docids, dead, dev)
+    desc = _check_wave(desc, cap)
+    bs = desc.shape[0]
+    if stats.dtype != torch.int32 or stats.device != dev \
+            or stats.shape != (bs, KC.STATS_LEN) or stats.stride(1) != 1:
+        raise ValueError("stats: int32 [bs, 38] rows on the card expected")
+    B.require(consts, "consts", (torch.int32,), 1, dev)
+    out = torch.empty(int(out_off[-1]), dtype=torch.int32, device=dev)
+    rc = B.library().yt_span_score_batch(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], desc.ctypes.data, bs,
+        stats.data_ptr(), stats.stride(0), consts.data_ptr(), out.data_ptr(),
+        out_off.ctypes.data, B.stream_ptr(dev))
+    B.check(rc, "span_score_batch")
+    B.count_launch("span_score_batch", slots=bs)
+    return out
+
+
+def topk_finish_batch_plain(top_s, top_rows, docids, desc):
+    """Plain PyTorch version of topk_finish_batch: [bs, 2kk]."""
+    return torch.stack([
+        torch.cat(_winners_plain(top_s[i], top_rows[i], docids, ext))
+        for i, (ext, _filt) in enumerate(desc_scans(desc))])
+
+
+def topk_finish_batch(top_s, top_rows, docids, desc):
+    """The finish of a wave of batched scans: each slot's kk winners of
+    kernel 3 (top_s / top_rows [bs, kk] over its span_score_batch region) as
+    scores and docids, (-(2^31-1), -1) at or below -(2^31-1): [bs, 2kk]
+    int32 (_rank_scan_batch_packed_kernel's output)."""
+    if top_s.device.type == "cpu":
+        return topk_finish_batch_plain(top_s, top_rows, docids, desc)
+    dev = top_s.device
+    B.require(top_s, "top_s", (torch.int32,), 2, dev)
+    B.require(top_rows, "top_rows", (torch.int32,), 2, dev)
+    B.require(docids, "docids", (torch.int32,), 1, dev)
+    desc = _check_wave(desc, docids.shape[0])
+    bs, kk = top_s.shape
+    if top_rows.shape != (bs, kk) or desc.shape[0] != bs:
+        raise ValueError("top_s, top_rows and the wave must have bs rows")
+    out = torch.empty((bs, 2 * kk), dtype=torch.int32, device=dev)
+    rc = B.library().yt_topk_finish_batch(
+        top_s.data_ptr(), top_rows.data_ptr(), kk, docids.data_ptr(),
+        desc.ctypes.data, bs, out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "topk_finish_batch")
+    B.count_launch("topk_finish_batch", slots=bs)
+    return out

@@ -65,18 +65,24 @@ def tie_topk_plain(scores, k: int, secondary=None, payload=None):
     return scores[idx], sec, idx.to(torch.int32)
 
 
-def tie_topk(scores, k: int, secondary=None, payload=None):
+def tie_topk(scores, k: int, secondary=None, payload=None, out=None):
     """Kernel 3: exact top-k of `scores` ([n] int32 or f32), 1 <= k <= n.
 
     Without `secondary`: lax.top_k order (ties by lower row index). With
     `secondary` ([n] int32 docids): lax.sort order on (-score, docid).
     Returns (scores [k], payload[row] or secondary[row] or row [k] int32,
-    row [k] int32)."""
+    row [k] int32), written into `out` (three contiguous int32 [k]
+    tensors, e.g. rows of a wave's buffers) when it is given."""
     n = scores.shape[0]
     if not 1 <= k <= n:
         raise ValueError(f"tie_topk: k={k} outside [1, {n}]")
     if scores.device.type == "cpu":
-        return tie_topk_plain(scores, k, secondary, payload)
+        got = tie_topk_plain(scores, k, secondary, payload)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g.view(torch.int32) if g.dtype == torch.float32 else g)
+        return got
     dev = scores.device
     B.require(scores, "scores", _SCORE_DTYPES, 1, dev)
     for name, t in (("secondary", secondary), ("payload", payload)):
@@ -87,9 +93,14 @@ def tie_topk(scores, k: int, secondary=None, payload=None):
     lib = B.library()
     scratch = torch.empty(int(lib.yt_tie_topk_scratch_bytes(n, k)),
                           dtype=torch.uint8, device=dev)
-    out_s = torch.empty(k, dtype=torch.int32, device=dev)
-    out_sec = torch.empty(k, dtype=torch.int32, device=dev)
-    out_idx = torch.empty(k, dtype=torch.int32, device=dev)
+    if out is None:
+        out = tuple(torch.empty(k, dtype=torch.int32, device=dev)
+                    for _ in range(3))
+    for o in out:
+        B.require(o, "out", (torch.int32,), 1, dev)
+        if o.shape[0] != k:
+            raise ValueError(f"out: {o.shape[0]} entries, k={k}")
+    out_s, out_sec, out_idx = out
     is_float = scores.dtype == torch.float32
     rc = lib.yt_tie_topk(
         scores.data_ptr(), int(is_float),
@@ -98,7 +109,7 @@ def tie_topk(scores, k: int, secondary=None, payload=None):
         n, k, scratch.data_ptr(), out_s.data_ptr(), out_sec.data_ptr(),
         out_idx.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "tie_topk")
-    B.LAUNCHES["tie_topk"] += 1
+    B.count_launch("tie_topk")
     return (out_s.view(torch.float32) if is_float else out_s), out_sec, out_idx
 
 
@@ -151,5 +162,5 @@ def gather_topk(scores, docids, k: int, is_float: bool, run_len=None):
                                     stride, m, run_len, int(is_float), k,
                                     out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "gather_topk")
-    B.LAUNCHES["gather_topk"] += 1
+    B.count_launch("gather_topk")
     return out[0], out[1]
