@@ -39,7 +39,16 @@ Phases, each of which exits non-zero on failure:
    ones, new ones) and a 4M-bit facet bitmap, with and without a
    filter; the batched scan (span_stats_batch, span_score_batch,
    topk_finish_batch) over waves of 1, 3 and 16 edge scans, each slot
-   also equal to the solo scan and to the CPU's;
+   also equal to the solo scan and to the CPU's; the batched join
+   (join_member_batch, join_stats_batch, join_score_batch over each
+   slot's rows, join_batch_query's slots equal to the solo join_query's)
+   on the join edge store's waves (kernels/bench.join_edge_waves: 16
+   bitmap slots, mixed modes, the clip rows in every slot as partner and
+   as exclude, five partners and six excludes; every filter, a slot of
+   no row) and, on the main path's store, 16 bitmap slots of joinA &
+   headline (no filter, lang en, a flag bit, a date range in turn), 4
+   sort-mode slots of term1000000 against joinB and 4 slots of
+   term1000000 & headline & -joinB;
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
@@ -55,11 +64,18 @@ Phases, each of which exits non-zero on failure:
    rank_join over joinA & headline, joinA & headline & term1000000,
    term1000000 & headline & -joinB, joinA & joinB, term1000000 & joinC
    (a sort-mode partner of 2M rows), joinA & headline under a language
-   and date filter, a "plain" degraded join and a join a RAM delta
-   declines, and filtered rank_term on the headline term cold and from
-   the filtered-stats cache, each equal to the twin's and to the numpy
-   oracle (kernels/bench.devjoin_oracle, devstore_oracle), with their
-   walls (median of 50 after a warm-up) after the counts are read; then,
+   and date filter, a "plain" degraded join, and filtered rank_term on
+   the headline term cold and from the filtered-stats cache, each equal
+   to the twin's and to the numpy oracle (kernels/bench.devjoin_oracle,
+   devstore_oracle); then, counts read and reset, the batched joins: the
+   six conjunctions x 2 profiles x k = 10 and 100 x {no filter, lang en}
+   sent one at a time, from 16 threads, and from 16 threads through the
+   batcher (once untimed first), then one group of them (joinA &
+   headline, lang en, k = 100) the same ways, every answer the twin's,
+   with q/s, p50/p95, live slots a join_member_batch launch (the one
+   group's must average more than one) and the peak device memory; then
+   a join a RAM delta declines, and the join path's walls (median of 50
+   after a warm-up); then,
    the result cache off, rank_term's 50 pruned queries (k = 10 and
    100), a query on each
    other term, the escalating profile, k = 1000, a delete (the exact
@@ -80,14 +96,24 @@ Phases, each of which exits non-zero on failure:
    must have launched with more than one live slot; then up to 256
    deletes of the scan mix's answers (none of the 10M term's) land
    while 16 threads send the scan mix through the batcher, and the
-   card's tombstone bitmap and the mix's answers must equal the twin's;
+   card's tombstone bitmap and the mix's answers must equal the twin's,
+   and up to 256 deletes of joinA's docids (none of the single-term
+   terms') land while 16 threads send joinC & joinA conjunctions through
+   the batcher, with the same checks;
    after the filtered query, the batched path's part 2: a site:-style
    facet bitmap over the 20M docid space admitting 2 %, alone and with a
    language filter, and RAM deltas of 50,000 and 300,000 postings on the
    10M term, each equal to the twin's (and, but the last, to the numpy
    oracle), with their
    walls (median of 50 after a warm-up); every kernel of each path must
-   have launched;
+   have launched; then device loss, on a store of its own (the 1M term
+   and a 200,000-posting term meeting it): one injected
+   `device.transfer_fail` charge (a counted retry, the same answers), a
+   streak (the loss declared, rank_term and rank_join answering None,
+   counted, the result cache's entry dead), the rebuild recovering with
+   answers bit-identical to those before the loss, and 16 batched
+   waiters under a loss all returning, then recovered again. Every other
+   phase must end with no transfer failure, retry or loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -110,7 +136,12 @@ Phases, each of which exits non-zero on failure:
    filter over the 10M term, K6 and K7 with RAM deltas of 50,000 and
    300,000 rows and with the 2 % facet bitmap (alone and with the
    language filter), and K8 at the joinA & headline shape beside
-   torch.searchsorted and a gather on the same partner segment; K5 at 16
+   torch.searchsorted and a gather on the same partner segment; K8 at
+   term1000000 against joinB's sorted segment, and join_member_batch,
+   join_stats_batch and join_score_batch at 16 bitmap slots of joinA &
+   headline and at 4 sort slots of term1000000 & joinB, each wave's
+   K8 beside the solo K8 on each of its slots, and join_batch_query's
+   wall beside the solo join_query's; K5 at 16
    slots over 16 queries' spans as the batcher launches it, and the
    batched scan at 16 slots (the 10M and 1M terms under the mix's four
    filters, k = 10 and 100) beside 16 solo scans;
@@ -169,6 +200,15 @@ BATCHED_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
                    "topk_finish_batch")
 MIX_THREADS = 16     # client threads of the concurrent mixes
 MIX_REPEATS = 16     # each distinct query of a mix sent this many times
+# the batched joins: each distinct conjunction sent this many times, and
+# the one-group part's queries
+JOIN_MIX_REPEATS = 16
+JOIN_ONE_GROUP = 1024
+BATCHED_JOIN_KERNELS = ("join_member_batch", "join_stats_batch",
+                        "join_score_batch", "tie_topk", "topk_finish_batch")
+# the counters that must read 0 outside the device-loss phase: nothing
+# fell back to the host behind a check's back
+LOSS_COUNTERS = ("transfer_failures", "transfer_retries", "device_losses")
 
 
 def log(*a):
@@ -705,6 +745,68 @@ def main() -> int:
                  f"{rare.count} rows valid, modes "
                  f"{['bitmap' if p[2] >= 0 else 'sort' for p in parts]}) "
                  f"call {rep + 1}", max(diff(a, b) for a, b in zip(g, w)))
+
+    def check_join_wave(label, arr, jtab, desc, n_inc, cs, kks):
+        """A join wave's batched K8, kernel 1 and kernel 2 against their
+        plain versions over each slot's rows (kernel 2 under each consts
+        of `cs`), then join_batch_query's slots against the solo
+        join_query's after the keep mask (kk of `kks`)"""
+        off = KD.join_wave_offsets(desc)
+        bs = desc.shape[0]
+
+        def rows_of(t):
+            return KD.wave_rows(t, desc, off)
+        g = KD.join_member_batch(*arr[:4], *jtab, desc, n_inc, off)
+        w = KD.join_member_batch_plain(*arr[:4], *jtab, desc, n_inc, off)
+        torch.cuda.synchronize()
+        nvalid = int(rows_of(w[2]).sum())
+        note("join_member_batch", f"{label} ({bs} slots, {nvalid} of "
+             f"{int(desc[:, 1].sum())} rows valid)",
+             max(diff(rows_of(a), rows_of(b)) for a, b in zip(g, w)))
+        del g
+        st = KD.join_stats_batch(w[0], w[2], desc, off)
+        pst = KD.join_stats_batch_plain(w[0], w[2], desc, off)
+        note("join_stats_batch", label,
+             max(stats_diff(st[i], pst[i]) for i in range(bs)))
+        for c in cs:
+            sc = KD.join_score_batch(*w, desc, off, pst, c)
+            psc = KD.join_score_batch_plain(*w, desc, off, pst, c)
+            torch.cuda.synchronize()
+            note("join_score_batch", label, diff(rows_of(sc), rows_of(psc)))
+            del sc, psc
+            for kk_ in kks:
+                whole = TD.join_batch_query(arr, jtab, desc, n_inc, c,
+                                            kk_).cpu().numpy()
+                e_w = 0
+                for i, (start, count, filt, parts) in enumerate(
+                        KD.join_wave_slots(desc, n_inc)):
+                    s_, d_ = whole[i, :kk_], whole[i, kk_:]
+                    keep = (d_ >= 0) & (s_ > TD.NEG_INF32)
+                    if not count:
+                        e_w = max(e_w, int(keep.sum()))
+                        continue
+                    solo = TD.join_query(arr, jtab, start, count, parts,
+                                         n_inc, c, kk_, filt).cpu().numpy()
+                    n_ = min(kk_, count)
+                    sk = (solo[n_:2 * n_] >= 0) & (solo[:n_] > TD.NEG_INF32)
+                    if not (np.array_equal(s_[keep], solo[:n_][sk])
+                            and np.array_equal(d_[keep], solo[n_:2 * n_][sk])):
+                        e_w = 1
+                log(f"check join_batch_query = solo join_query, {label}, "
+                    f"kk={kk_}: err {e_w}")
+                if e_w:
+                    fail(f"the batched join differs from the solo join "
+                         f"({label}, kk={kk_})")
+        del w, st, pst
+
+    # the batched join's kernels on the same store (kernels/bench.
+    # join_edge_waves: 16 bitmap slots, mixed modes, the clip rows in
+    # every slot as partner and as exclude, five partners and six
+    # excludes; every filter, a slot of no row and one of 100 rows)
+    for label, desc, n_inc in KB.join_edge_waves(jstore):
+        check_join_wave(f"edges, {label}",
+                        (*ja, jstore.arena._pmax), jt, desc, n_inc,
+                        list(ds_consts.values()), (16, 1024))
     jsp = [jstore.spans_for(th)[0] for th in KB.JOIN_EDGE_TERMS]
     for name, filt in KB.JOIN_EDGE_FILTERS.items():
         for ext in ([(jsp[1].start, jsp[1].count)],
@@ -894,6 +996,32 @@ def main() -> int:
              f"of the headline extent, {label} ({int(w[2].sum())} valid)",
              max(diff(a, b) for a, b in zip(g, w)))
     del g, w
+    # the batched join's kernels at the store's shapes (not counted): 16
+    # bitmap slots of joinA & headline under the filters in turn (none,
+    # lang en, flag bit 5, days 8000-24000), 4 slots of term1000000's
+    # span against joinB (a sort-mode partner), and 4 slots of
+    # term1000000 & headline excluding joinB
+    en_ = P.pack_language("en")
+    wave_filts = [None, (en_, TD.NO_FLAG, TD.DAYS_NONE_LO, TD.DAYS_NONE_HI),
+                  (TD.NO_LANG, 5, TD.DAYS_NONE_LO, TD.DAYS_NONE_HI),
+                  (TD.NO_LANG, TD.NO_FLAG, 8_000, 24_000)]
+    sp_a, sp_1m = gs.spans_for(jA)[0], gs.spans_for(t1m)[0]
+
+    def wave_of(bs, sp_r, parts, n_inc):
+        return KD.join_wave_desc(
+            [(sp_r.start, sp_r.count, wave_filts[i % 4], parts)
+             for i in range(bs)], n_inc, len(parts) - n_inc)
+    big_waves = {
+        "16 bitmap slots of joinA & headline": (
+            wave_of(16, sp_a, [jpart(hl)], 1), 1),
+        "4 sort slots of term1000000 & joinB": (
+            wave_of(4, sp_1m, [jpart(jB)], 1), 1),
+        "4 slots of term1000000 & headline & -joinB": (
+            wave_of(4, sp_1m, [jpart(hl), jpart(jB)], 1), 1)}
+    garr5 = (*garr, gs.arena._pmax)
+    for label, (desc, n_inc) in big_waves.items():
+        check_join_wave(label, garr5, gjoin, desc, n_inc,
+                        [ds_consts["default"]], (128,))
     join_rows = {th: hl_rows if th == hl else KB.arena_rows(*ds_terms[th])
                  for th in (hl, t1m, *JOIN_TERMS)}
     dead_docs: set[int] = set()
@@ -913,6 +1041,15 @@ def main() -> int:
             out.append((f_p[ok], fl_p[ok], d_p[ok]))
         return out
     join_walls = {}
+
+    def clean(label, *stores):
+        """No hidden fallback: outside the device-loss phase no fetch
+        failed, was retried or declared the device lost."""
+        for s_ in stores:
+            c_ = s_.counters()
+            bad = {k: c_[k] for k in LOSS_COUNTERS if c_[k]}
+            if bad:
+                fail(f"{label}: {bad} (a fetch failed behind the checks)")
 
     def same(label, got, twin, want):
         if got is None or twin is None:
@@ -967,6 +1104,117 @@ def main() -> int:
         same(f"filtered rank_term {label}", got, twin, want_f)
     if LAUNCHES["span_stats"] != k6_0 + 1:
         fail("the filtered-stats cache hit ran K6")
+    # the join path's counts (the RAM-delta decline below launches
+    # nothing) and counters, before the batched joins
+    torch.cuda.synchronize()
+    launches_join = dict(LAUNCHES)
+    t_join = time.time() - tm
+    jc = lambda s_: (s_.join_served, s_.join_fallbacks,  # noqa: E731
+                     s_.join_degraded_plain, s_.queries_served,
+                     s_.stream_scans, s_.fallbacks)
+    jc0 = (jc(gs), jc(hs))
+
+    # -- phase 3, the batched joins: rank_join through the batcher --------
+    # the join path's six conjunctions (the last without its language
+    # filter) x 2 profiles x k 10 / 100 x {no filter, lang en}, each sent
+    # JOIN_MIX_REPEATS times one at a time and from 16 threads without the
+    # batcher, then from 16 threads through it (enable_batching(16, 8));
+    # and one group (joinA & headline, the default profile, lang en, k =
+    # 100) JOIN_ONE_GROUP times the same three ways, whose launches
+    # through the batcher must average more than one live slot. Through
+    # the batcher each mix is sent once untimed first: each dispatcher's
+    # stream allocates its waves' buffers (up to 4.7 GB a 16-slot wave of
+    # joinA's rows) on its first waves, which the timed run then reuses
+    # from the caching allocator. Every
+    # answer equal to the CPU twin's, taken once for each distinct query
+    # at k = 100 (the answer at k = 10 is its first 10). Counts reset
+    # before, read after
+    torch.cuda.synchronize()
+    reset_launches()
+    tb = time.time()
+    jprofs = {"default": ds_profiles["default"],
+              "light": R.RankingProfile(domlength=8, tf=5)}
+    jshapes = {b"joinA & headline": ([jA, hl], [], {}),
+               b"joinA & headline & term1000000": ([jA, hl, t1m], [], {}),
+               b"term1000000 & headline & -joinB": ([t1m, hl], [jB], {}),
+               b"joinA & joinB": ([jA, jB], [], {}),
+               b"term1000000 & joinC": ([t1m, jC], [], {}),
+               b"joinA & headline, days 8000-24000": (
+                   [jA, hl], [], dict(from_days=8_000, to_days=24_000))}
+    jlangs = {"none": {}, "en": dict(lang_filter=en)}
+
+    def jask(store, q, k=None):
+        inc, exc, kw = jshapes[q[0]]
+        return store.rank_join(inc, exc, jprofs[q[1]], k=k or q[3],
+                               **kw, **jlangs[q[2]])
+    jqs = [(name, pn, lf, k) for name in jshapes for pn in jprofs
+           for lf in jlangs for k in (10, 100)]
+    tq = time.time()
+    twin100 = {q[:3]: jask(hs, q) for q in jqs if q[3] == 100}
+    if any(a is None for a in twin100.values()):
+        fail("a batched join's twin answer declined")
+    jrefs = {q: (twin100[q[:3]] if q[3] == 100 else
+                 (twin100[q[:3]][0][:10], twin100[q[:3]][1][:10],
+                  twin100[q[:3]][2])) for q in jqs}
+    log(f"batched joins: the twin's {len(twin100)} answers "
+        f"{time.time() - tq:.1f} s")
+    one_group = (b"joinA & headline", "default", "en", 100)
+    jmixes = {"joins": [q for _ in range(JOIN_MIX_REPEATS) for q in jqs],
+              "joins, one group": [one_group] * JOIN_ONE_GROUP}
+    jfn = lambda q: jask(gs, q)  # noqa: E731
+    jstats, jwaves = {}, {}
+    for mname, stream in jmixes.items():
+        for mode, threads in (("one at a time, no batcher", 1),
+                              (f"{MIX_THREADS} threads, no batcher",
+                               MIX_THREADS)):
+            ans, st_ = run_mix(stream, jfn, threads)
+            check_mix(mname, ans, jrefs)
+            jstats[(mname, mode)] = st_
+    gs.enable_batching(max_batch=16, dispatchers=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mname, stream in jmixes.items():
+        ans, st_ = run_mix(stream, jfn, MIX_THREADS)
+        check_mix(mname, ans, jrefs)
+        jstats[(mname, f"{MIX_THREADS} threads, batcher, warm-up")] = st_
+        l0, w0, s0 = dict(LAUNCHES), dict(WIDE), dict(SLOTS)
+        ans, st_ = run_mix(stream, jfn, MIX_THREADS)
+        check_mix(mname, ans, jrefs)
+        jstats[(mname, f"{MIX_THREADS} threads, batcher")] = st_
+        jwaves[mname] = tuple(d_[k_] - d0[k_] for d_, d0 in (
+            (LAUNCHES, l0), (WIDE, w0), (SLOTS, s0))
+            for k_ in ("join_member_batch",))
+    torch.cuda.synchronize()
+    peak_bj = torch.cuda.max_memory_allocated()
+    bc = gs.counters()
+    gs.close()
+    launches_bj = dict(LAUNCHES)
+    log(f"batched joins: {time.time() - tb:.1f} s (the twin's answers "
+        f"included); launches {launches_bj}; peak device memory through "
+        f"the batcher (torch.cuda.max_memory_allocated) {peak_bj} bytes; "
+        "counters " + ", ".join(f"{k} {bc[k]}" for k in (
+            "batch_dispatches", "batch_exceptions", "batch_timeouts",
+            "batch_ineligible", "device_round_trips", "join_served")))
+    for (mname, mode), st_ in jstats.items():
+        log(f"mix {mname}, {mode}: {st_['n']} queries, {st_['qps']:.1f} "
+            f"q/s, p50 {st_['p50']:.4f} ms, p95 {st_['p95']:.4f} ms, wall "
+            f"{st_['wall']:.3f} s")
+    for mname, (n_, w_, sl_) in jwaves.items():
+        log(f"mix {mname} through the batcher: join_member_batch {n_} "
+            f"launches, {w_} with more than one live slot, "
+            f"{sl_ / max(n_, 1):.2f} live slots a launch")
+    if bc["batch_timeouts"] or bc["batch_exceptions"]:
+        fail("the batcher did not serve the joins cleanly")
+    n_, _w, sl_ = jwaves["joins, one group"]
+    if not n_ or sl_ / n_ <= 1.0:
+        fail(f"the one-group joins averaged {sl_ / max(n_, 1):.2f} live "
+             "slots a join_member_batch launch, not more than one")
+    missing = [k for k in BATCHED_JOIN_KERNELS if launches_bj[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the batched joins: {missing}")
+    clean("the batched joins", gs)
+    jc1 = (jc(gs), jc(hs))
+
     # a RAM delta declines (the caller's host join serves)
     idx.add_many(jB, P.PostingsList(np.array([39_999_999], np.int32),
                                     ds_terms[jB][0][:1]))
@@ -974,19 +1222,17 @@ def main() -> int:
             or hs.rank_join([jA, jB], [], ds_profiles["default"])
             is not None):
         fail("rank_join with a RAM delta must decline")
-    torch.cuda.synchronize()
-    launches_join = dict(LAUNCHES)
-    jc = lambda s_: (s_.join_served, s_.join_fallbacks,  # noqa: E731
-                     s_.join_degraded_plain, s_.queries_served,
-                     s_.stream_scans, s_.fallbacks)
-    log(f"join main path: {time.time() - tm:.1f} s (the CPU twin's and the "
+    # the join path's counters: the batched joins' taken out
+    jcp = [tuple(a - b + c for a, b, c in zip(jc(s_), jc1[i], jc0[i]))
+           for i, s_ in enumerate((gs, hs))]
+    log(f"join main path: {t_join:.1f} s (the CPU twin's and the "
         f"oracle's answers included); launches {launches_join}; counters "
         f"join_served, join_fallbacks, join_degraded_plain, queries_served, "
-        f"stream_scans, fallbacks: {jc(gs)}")
-    if jc(gs) != jc(hs):
-        fail(f"join counters differ: card {jc(gs)}, CPU twin {jc(hs)}")
-    if jc(gs)[:3] != (6, 1, 1):
-        fail(f"join counters {jc(gs)[:3]}, expected (6, 1, 1)")
+        f"stream_scans, fallbacks: {jcp[0]}")
+    if jcp[0] != jcp[1]:
+        fail(f"join counters differ: card {jcp[0]}, CPU twin {jcp[1]}")
+    if jcp[0][:3] != (6, 1, 1):
+        fail(f"join counters {jcp[0][:3]}, expected (6, 1, 1)")
     missing = [k for k in JOIN_KERNELS if launches_join[k] == 0]
     if missing:
         fail(f"kernels never launched on the join path: {missing}")
@@ -1017,6 +1263,7 @@ def main() -> int:
         log(f"{label}, per query: median {float(np.median(w)):.4f} ms, "
             f"mean {float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 "
             "after 5")
+    clean("the join path", gs, hs)
     # the three joins' shapes (rare span, partners), kept for phase 4:
     # the arena's rows and join tables stay where they are
     join_shapes = {
@@ -1218,6 +1465,53 @@ def main() -> int:
     log(f"{len(doomed)} deletes under 16 batched clients: the tombstone "
         f"bitmaps equal, {len(scan_qs)} answers equal to the twin's "
         f"({time.time() - tq:.1f} s)")
+    # deletes of joinA's docids in none of the single-term mixes' terms
+    # (even, or past the headline's) while 16 threads send joinC & joinA
+    # (joinA a bitmap partner) through the batcher; then the tombstone
+    # bitmaps equal and the answers through the batcher the twin's
+    dj_qs = [(b"joinC & joinA", "none", k) for k in (10, 100)] + [
+        (b"joinC & joinA & -term1000000", "en", k) for k in (10, 100)]
+    dj_shapes = {b"joinC & joinA": ([jC, jA], []),
+                 b"joinC & joinA & -term1000000": ([jC, jA], [t1m])}
+
+    def dj_fn(q, store=gs, k=None):
+        inc, exc = dj_shapes[q[0]]
+        return store.rank_join(inc, exc, ds_profiles["default"],
+                               k=k or q[2], **jlangs[q[1]])
+    cand = np.unique(np.concatenate([dj_fn(q)[1] for q in dj_qs]))
+    hl_ids = hl_rows[2]
+    doomed_j = cand[~np.isin(cand, hl_ids)][:256]
+    n_dead0 = int(hs.arena.dead_array().sum())
+
+    def deleter_j():
+        for x in doomed_j:
+            idx.delete_doc(int(x))
+            time.sleep(0.0005)
+    dth = threading.Thread(target=deleter_j)
+    dth.start()
+    run_mix([q for _ in range(4 * MIX_REPEATS) for q in dj_qs], dj_fn,
+            MIX_THREADS)
+    dth.join(timeout=120)
+    if dth.is_alive():
+        fail("the deletes under the batched joins did not finish")
+    dead_g, dead_h = gs.arena.dead_array().cpu(), hs.arena.dead_array()
+    if not torch.equal(dead_g, dead_h) or \
+            int(dead_h.sum()) != n_dead0 + len(doomed_j):
+        fail("tombstones deleted under batched joins are missing on the card")
+    tq = time.time()
+    twin_j = {q: dj_fn(q, hs, 100) for q in dj_qs if q[2] == 100}
+    after_j = {q: (twin_j[(q[0], q[1], 100)] if q[2] == 100 else
+                   tuple(x[:10] for x in twin_j[(q[0], q[1], 100)][:2])
+                   + (twin_j[(q[0], q[1], 100)][2],)) for q in dj_qs}
+    ans, _st = run_mix(dj_qs * 8, dj_fn, MIX_THREADS)
+    check_mix("batched joins after the deletes", ans, after_j)
+    if set(doomed_j.tolist()) & {int(x) for a in ans.values() for r in a
+                                 for x in r[1]}:
+        fail("a deleted docid came back from a batched join")
+    log(f"{len(doomed_j)} deletes of joinA's docids under 16 batched join "
+        f"clients: the tombstone bitmaps equal, {len(dj_qs)} answers equal "
+        f"to the twin's ({time.time() - tq:.1f} s)")
+    clean("the batched path, part 1", gs, hs)
     gs._topk_cache.enabled = True
     gs.close()          # the batcher stops; the fanout keeps the store fed
     for (mname, mode), st_ in mix_stats.items():
@@ -1270,6 +1564,7 @@ def main() -> int:
     missing = [k for k in DEVSTORE_KERNELS if launches_ds[k] == 0]
     if missing:
         fail(f"kernels never launched on the devstore path: {missing}")
+    clean("the devstore path", gs, hs)
     # the join path's filtered query after that delete and second run:
     # its cached statistics are stale (K6 runs again), the answer the
     # twin's and the oracle's over both spans
@@ -1359,11 +1654,132 @@ def main() -> int:
     missing = [k for k in BATCHED_KERNELS if launches_bt[k] == 0]
     if missing:
         fail(f"kernels never launched on the batched path: {missing}")
+    clean("the batched path, part 2", gs, hs)
     for label, w in bt_walls.items():
         log(f"wall {label}: median {float(np.median(w)):.4f} ms, mean "
             f"{float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 after 5")
     gs._topk_cache.enabled = True
     del hs, idx, hl_live, two, oracles, join_rows
+
+    # -- phase 3, device loss (a store of its own: the 1M term and a term
+    # of 200,000 postings meeting it) ------------------------------------
+    # one injected `device.transfer_fail` charge: a counted retry, the
+    # same answers; a streak (no retries, a streak of two): the loss
+    # declared, rank_term and rank_join answer None, counted, the result
+    # cache's entry dead with the epoch; the rebuild's probes drain the
+    # charges left and it recovers, the answers after it equal to those
+    # before, bit for bit; then 16 batched waiters under a loss all
+    # return, and the store recovers again
+    from yacy_search_server_tpu_torch.utils import faultinject
+    tl = time.time()
+    point = "device.transfer_fail"
+    lidx = RWIIndex()
+    f_1m, d_1m = ds_terms[t1m]
+    pair = b"lossPairAAAA"
+    f_p, _d, _h, _r = KB.make_term(200_000, KB.SEED + 80)
+    lidx.add_many(t1m, P.PostingsList(d_1m, f_1m))
+    lidx.add_many(pair, P.PostingsList(
+        KB.draw_docids(200_000, 2_000_000, jrng), f_p))
+    lidx.flush()
+    ls = TD.DeviceSegmentStore(lidx, device=dev)
+    ls._topk_cache.enabled = False
+    prof_l = ds_profiles["default"]
+    # the store module's loss settings, tightened for this phase only
+    loss_defaults = (TD.TRANSFER_RETRIES, TD.LOSS_STREAK,
+                     TD.REBUILD_BACKOFF_S)
+
+    def ask_l():
+        return (ls.rank_term(t1m, prof_l, k=100),
+                ls.rank_join([pair, t1m], [], prof_l, k=100))
+
+    def loss_state():
+        c_ = ls.counters()
+        return tuple(c_[k] for k in (
+            "device_lost", "device_losses", "device_loss_recoveries",
+            "device_lost_queries", "transfer_failures", "transfer_retries"))
+
+    def same_l(label, got, want):
+        for g_, w_ in zip(got, want):
+            if g_ is None or not (np.array_equal(g_[0], w_[0])
+                                  and np.array_equal(g_[1], w_[1])
+                                  and g_[2] == w_[2]):
+                fail(f"device loss: {label}: the answer differs")
+
+    def recovered(timeout=120.0):
+        t_end = time.time() + timeout
+        while ls.device_lost and time.time() < t_end:
+            time.sleep(0.05)
+        if ls.device_lost:
+            fail("device loss: the rebuild did not recover")
+    before = ask_l()
+    if before[0] is None or before[1] is None or not len(before[1][1]):
+        fail("device loss: no answer before the loss")
+    faultinject.set_fault(point, 1)
+    same_l("one injected charge", ask_l(), before)
+    if loss_state() != (0, 0, 0, 0, 0, 1):
+        fail(f"device loss: one charge gave {loss_state()}")
+    TD.TRANSFER_RETRIES, TD.LOSS_STREAK, TD.REBUILD_BACKOFF_S = 0, 2, 0.05
+    ls._topk_cache.enabled = True
+    ls.rank_term(t1m, prof_l, k=100)         # the cache's entry
+    if ls.rank_cache_get(t1m, prof_l, k=100) is None:
+        fail("device loss: no result-cache entry before the loss")
+    ls._topk_cache.enabled = False
+    epoch0 = ls.arena_epoch
+    # two failed fetches (the streak), then three failed rebuild probes
+    faultinject.set_fault(point, 5)
+    if ls.rank_term(t1m, prof_l, k=100) is not None or ls.device_lost:
+        fail("device loss: the first failed fetch must not declare it")
+    if ls.rank_term(t1m, prof_l, k=100) is not None or not ls.device_lost:
+        fail("device loss: the streak did not declare the loss")
+    if any(a is not None for a in ask_l()):
+        fail("device loss: an entry point answered while the device is lost")
+    ls._topk_cache.enabled = True
+    if ls.arena_epoch == epoch0 or \
+            ls.rank_cache_get(t1m, prof_l, k=100) is not None:
+        fail("device loss: the result cache survived the loss")
+    ls._topk_cache.enabled = False
+    lost = loss_state()
+    recovered()
+    same_l("after the rebuild", ask_l(), before)
+    st1 = loss_state()
+    log(f"device loss: one charge retried; a streak declared the loss "
+        f"{lost}; recovered {st1}, the answers equal to those before")
+    if lost[:2] != (1, 1) or lost[3:5] != (4, 2) or st1[:3] != (0, 1, 1):
+        fail(f"device loss: counters {lost}, then {st1}")
+    TD.LOSS_STREAK = 1
+    ls.enable_batching(max_batch=16, dispatchers=8)
+    faultinject.set_fault(point, 1_000_000)
+    outs, lerr = [], []
+
+    def waiter(i):
+        try:
+            outs.append(ls.rank_term(t1m, prof_l, k=100) if i % 2 else
+                        ls.rank_join([pair, t1m], [], prof_l, k=100))
+        except Exception as ex:  # noqa: BLE001 - failed below
+            lerr.append(ex)
+    tw = time.time()
+    ths = [threading.Thread(target=waiter, args=(i,)) for i in range(16)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=120)
+    if any(th.is_alive() for th in ths) or lerr or len(outs) != 16:
+        fail(f"device loss: batched waiters hung or raised: {lerr[:1]}")
+    if any(o is not None for o in outs) or not ls.device_lost:
+        fail("device loss: a batched waiter answered from the lost device")
+    t_wait = time.time() - tw
+    faultinject.clear()
+    recovered()
+    same_l("after the second rebuild", ask_l(), before)
+    st2 = loss_state()
+    ls.close()
+    TD.TRANSFER_RETRIES, TD.LOSS_STREAK, TD.REBUILD_BACKOFF_S = loss_defaults
+    log(f"device loss: 16 batched waiters under a loss returned in "
+        f"{t_wait:.3f} s; recovered {st2}; the answers equal to those "
+        f"before; the phase {time.time() - tl:.1f} s")
+    if st2[1:3] != (2, 2) or st2[3] != st1[3] + 16:
+        fail(f"device loss: counters after the batched loss {st2}")
+    del ls, lidx
 
     # -- phase 4: kernel times at the main path's shapes ---------------------
     # `ms`: the call time, the median of 20 calls each between two CUDA
@@ -1411,9 +1827,9 @@ def main() -> int:
         return len(names) or None, names
 
     def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape,
-                path="placed"):
+                path="placed", plain_reps=5):
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
-        plain_ms = KB.call_ms(plain, reps=5)
+        plain_ms = KB.call_ms(plain, reps=plain_reps)
         lib_ms = KB.call_ms(lib) if lib is not None else None
         lib_dev = KB.device_ms(lib) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1431,8 +1847,8 @@ def main() -> int:
             "source": f"yacy_search_server_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces,
             "launches": {"placed": launches, "devstore": launches_ds,
-                         "join": launches_join,
-                         "batched": launches_bt}[path][name],
+                         "join": launches_join, "batched": launches_bt,
+                         "batched_join": launches_bj}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1792,6 +2208,146 @@ def main() -> int:
             "gather", path="join")
     del seg_d, seg_p, keys
 
+    routes = {}     # dispatch functions timed with their fetch, below
+    # the batched join's kernels at the batcher's shapes on the same
+    # store: 16 bitmap slots of joinA & headline (the filters in turn)
+    # and 4 slots of term1000000's span against joinB (a sort-mode
+    # partner); each checked first on the inputs it is timed on, its
+    # bound the slots' bytes summed. Beside them the solo K8 at the sort
+    # slot's shape (the bitmap slot's is the row above)
+    garr = (*gs.arena.arrays(), gs.arena.dead_array())
+    gjoin = (*gs.arena.join_arrays(), gs.arena.bitmap_array())
+    rare1m, part_b = gs.spans_for(t1m)[0], jpart(jB)
+    k8s = lambda: KD.join_member(  # noqa: E731
+        *garr, rare1m.start, rare1m.count, *gjoin, [part_b], 1)
+    k8sp = lambda: KD.join_member_plain(  # noqa: E731
+        *garr, rare1m.start, rare1m.count, *gjoin, [part_b], 1)
+    g, w = k8s(), k8sp()
+    torch.cuda.synchronize()
+    note("join_member", "term1000000 & joinB (sort) shape (timed inputs)",
+         max(diff(a, b) for a, b in zip(g, w)))
+    keys = garr[2][rare1m.start:rare1m.start + rare1m.count]
+    lanes = int(KD.live_rows(keys, garr[3]).sum())
+    found = int(w[2].sum())
+    seg_d = gjoin[0][part_b[0]:part_b[0] + part_b[1]]
+    seg_p = gjoin[1][part_b[0]:part_b[0] + part_b[1]]
+
+    def k8s_library():
+        i = torch.searchsorted(seg_d, keys).clamp_(max=part_b[1] - 1)
+        return seg_p[i]
+    measure("join_member", "yacy_search_server_tpu/index/devstore.py:736",
+            "join.cu", k8s, k8sp, k8s_library,
+            rare1m.count * (P.NF * 2 + 4 + 4 + 1) + lanes * 8 + found * 12
+            + rare1m.count * (P.NF * 4 + 4 + 1), 0.0,
+            f"{rare1m.count} rare rows (term1000000) against joinB's "
+            f"sorted segment ({part_b[1]} rows), {lanes} live lanes, "
+            f"{found} valid (the sort wave's slot); library: "
+            "torch.searchsorted + the jpos gather", path="join")
+    del g, w, keys, seg_d, seg_p
+    for wlabel, (desc_j, ninc_j), src_line in (
+            ("16 bitmap slots of joinA & headline",
+             big_waves["16 bitmap slots of joinA & headline"], 1068),
+            ("4 sort slots of term1000000 & joinB",
+             big_waves["4 sort slots of term1000000 & joinB"], 1049)):
+        off_j = KD.join_wave_offsets(desc_j)
+        bs_j = desc_j.shape[0]
+        slots_j = KD.join_wave_slots(desc_j, ninc_j)
+        rows_j = int(desc_j[:, 1].sum())
+        kb8 = lambda d_=desc_j, n_=ninc_j, o_=off_j: (  # noqa: E731
+            KD.join_member_batch(*garr, *gjoin, d_, n_, o_))
+        kb8p = lambda d_=desc_j, n_=ninc_j, o_=off_j: (  # noqa: E731
+            KD.join_member_batch_plain(*garr, *gjoin, d_, n_, o_))
+        g, w = kb8(), kb8p()
+        torch.cuda.synchronize()
+        note("join_member_batch", f"{wlabel} (timed inputs)", max(
+            diff(KD.wave_rows(a, desc_j, off_j), KD.wave_rows(b, desc_j,
+                                                               off_j))
+            for a, b in zip(g, w)))
+        del g
+        keys_j = torch.cat([garr[2][st_:st_ + c_] for st_, c_, _f, _p
+                            in slots_j])
+        # the bound's reads: slots that share a rare span read its rows
+        # once, and slots that share a span and its partners look its
+        # lanes up once (8 B a live lane) and read the partner rows found
+        # once (12 B each, the most any of those slots found); every
+        # slot writes its own region
+        spans_j, looks_j = {}, {}
+        for s_, (st_, c_, _f, p_) in enumerate(slots_j):
+            spans_j[(st_, c_)] = c_
+            found_s = int(w[2][int(off_j[s_]):int(off_j[s_]) + c_].sum())
+            key_j = (st_, c_, tuple(p_))
+            looks_j[key_j] = max(looks_j.get(key_j, 0), found_s)
+        read_rows = sum(spans_j.values())
+        lanes = sum(int(KD.live_rows(garr[2][st_:st_ + c_], garr[3]).sum())
+                    for st_, c_, _p in looks_j)
+        found = sum(looks_j.values())
+        pj = slots_j[0][3][0]
+        seg_d = gjoin[0][pj[0]:pj[0] + pj[1]]
+        seg_p = gjoin[1][pj[0]:pj[0] + pj[1]]
+
+        def kb8_library(keys_j=keys_j, seg_d=seg_d, seg_p=seg_p, n_=pj[1]):
+            i = torch.searchsorted(seg_d, keys_j).clamp_(max=n_ - 1)
+            return seg_p[i]
+        measure("join_member_batch",
+                f"yacy_search_server_tpu/index/devstore.py:{src_line}",
+                "join.cu", kb8, kb8p, kb8_library,
+                read_rows * (P.NF * 2 + 4 + 4 + 1) + lanes * 8 + found * 12
+                + rows_j * (P.NF * 4 + 4 + 1) + 4 * desc_j.size, 0.0,
+                f"{wlabel}: {rows_j} rare rows in {bs_j} slots over "
+                f"{len(spans_j)} distinct spans ({read_rows} rows read), "
+                f"{lanes} distinct live lanes, {found} distinct partner rows "
+                "found; library: torch.searchsorted of every slot's docids "
+                "in the partner's sorted segment + the jpos gather",
+                path="batched_join", plain_reps=2)
+        del keys_j, seg_d, seg_p
+        # the solo K8 once for each slot of the wave, on the same inputs
+        solo8 = lambda s_=slots_j, n_=ninc_j: [  # noqa: E731
+            KD.join_member(*garr, a_, b_, *gjoin, p_, n_, f_)
+            for a_, b_, f_, p_ in s_]
+        log(f"{bs_j} x join_member on the slots of [{wlabel}]: "
+            f"{KB.call_ms(solo8):.4f} ms a call (device "
+            f"{KB.device_ms(solo8):.4f} ms), beside join_member_batch's "
+            f"{rows[-1]['ms']:.4f} ms (device {rows[-1]['device_ms']:.4f} "
+            "ms) above")
+        kb1 = lambda w=w, d_=desc_j, o_=off_j: KD.join_stats_batch(  # noqa: E731
+            w[0], w[2], d_, o_)
+        kb1p = lambda w=w, d_=desc_j, o_=off_j: (  # noqa: E731
+            KD.join_stats_batch_plain(w[0], w[2], d_, o_))
+        st_j, pst_j = kb1(), kb1p()
+        note("join_stats_batch", f"{wlabel} (timed inputs)",
+             max(stats_diff(st_j[i], pst_j[i]) for i in range(bs_j)))
+        measure("join_stats_batch", "yacy_search_server_tpu/ops/ranking.py:193",
+                "cardinal_stats.cu", kb1, kb1p, None,
+                rows_j * (P.NF * 4 + 1) + bs_j * 4 * KC.STATS_LEN, 0.0,
+                f"{wlabel}: {rows_j} merged int32 rows + valid bytes in "
+                f"{bs_j} regions, no host counts", path="batched_join",
+                plain_reps=2)
+        kb2 = lambda w=w, d_=desc_j, o_=off_j, s_=pst_j: (  # noqa: E731
+            KD.join_score_batch(*w, d_, o_, s_, cd))
+        kb2p = lambda w=w, d_=desc_j, o_=off_j, s_=pst_j: (  # noqa: E731
+            KD.join_score_batch_plain(*w, d_, o_, s_, cd))
+        g2, w2 = kb2(), kb2p()
+        torch.cuda.synchronize()
+        note("join_score_batch", f"{wlabel} (timed inputs)",
+             diff(KD.wave_rows(g2, desc_j, off_j),
+                  KD.wave_rows(w2, desc_j, off_j)))
+        del g2, w2
+        measure("join_score_batch", "yacy_search_server_tpu/ops/ranking.py:242",
+                "cardinal_score.cu", kb2, kb2p, None,
+                rows_j * (P.NF * 4 + 4 + 1 + 4)
+                + 4 * (bs_j * KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+                f"{wlabel}: {rows_j} merged int32 rows + flags + valid bytes "
+                f"-> int32 scores in {bs_j} regions (the int32 path)",
+                path="batched_join", plain_reps=2)
+        routes[f"join_batch_query, {wlabel} + one fetch"] = (
+            lambda d_=desc_j, n_=ninc_j: TD.join_batch_query(
+                (*garr, None), gjoin, d_, n_, cd, kk).cpu())
+        routes[f"{bs_j} x join_query, {wlabel} + {bs_j} fetches"] = (
+            lambda s_=slots_j, n_=ninc_j: [TD.join_query(
+                (*garr, None), gjoin, a_, b_, p_, n_, cd, kk, f_).cpu()
+                for a_, b_, f_, p_ in s_])
+        del w, st_j, pst_j
+
     # the batcher's shapes on the join path's store: K5 at 16 slots over
     # 16 queries' spans (the store's one-span terms in turn), and the
     # batched scan at 16 slots (the 10M term's two spans and the 1M term
@@ -1889,7 +2445,6 @@ def main() -> int:
     # dispatch functions and the one fetch, without the host work of
     # rank_join / rank_term around them; each one's device operations
     # are traced at the end
-    routes = {}
     for label, (r_sp, r_parts, r_inc) in join_shapes.items():
         routes[f"join_query {label} + fetch"] = (
             lambda a=r_sp, b=r_parts, c=r_inc: TD.join_query(
@@ -1989,6 +2544,7 @@ def main() -> int:
     for label, w in join_walls.items():
         log(f"wall {label}: median {float(np.median(w)):.4f} ms over 50 "
             "after 5 (join path)")
+    clean("phase 4", gs, ts)
     log(f"total: {time.time() - t0:.1f} s")
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -65,6 +65,12 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.kernels.bench\n"
         "import yacy_search_server_tpu_torch.index.rwi\n"
         "import yacy_search_server_tpu_torch.index.devstore\n"
+        "import yacy_search_server_tpu_torch.index.batcher\n"
+        "import yacy_search_server_tpu_torch.utils.faultinject\n"
+        "from yacy_search_server_tpu_torch.kernels.devstore import (\n"
+        "    join_member_batch, join_stats_batch, join_score_batch)\n"
+        "from yacy_search_server_tpu_torch.index.devstore import (\n"
+        "    DeviceTransferError, join_batch_query)\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )

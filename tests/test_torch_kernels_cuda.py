@@ -970,3 +970,209 @@ def test_batcher_deletes_on_the_card_match_cpu():
     c = g.counters()
     assert c["batch_timeouts"] == 0 and c["batch_exceptions"] == 0
     g.close()
+
+
+# ---------------------------------------------------------------------------
+# the batched join: join_member_batch, join_stats_batch, join_score_batch
+# (kernels/bench.join_edge_waves) and rank_join through the batcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(range(5)))
+def test_join_wave_kernels_match_plain(join_store, case):
+    """Each wave of the join edge store (16 bitmap slots, mixed modes,
+    the clip rows in every slot as partner and as exclude, five partners
+    and six excludes; every filter, a slot of no row and one of 100
+    rows): the batched K8's rows, kernel 1's statistics and kernel 2's
+    scores (two profiles) equal to their plain versions' in every slot's
+    region, and join_batch_query's slots equal to the solo join_query's
+    after the keep mask."""
+    label, desc, n_inc = KBench.join_edge_waves(join_store)[case]
+    f, fl, d, dead, pm = _arena(join_store)
+    jt = (*join_store.arena.join_arrays(), join_store.arena.bitmap_array())
+    off = KD.join_wave_offsets(desc)
+    before = LAUNCHES["join_member_batch"]
+    got = KD.join_member_batch(f, fl, d, dead, *jt, desc, n_inc, off)
+    want = KD.join_member_batch_plain(f, fl, d, dead, *jt, desc, n_inc, off)
+    torch.cuda.synchronize()
+    assert LAUNCHES["join_member_batch"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(KD.wave_rows(g, desc, off),
+                           KD.wave_rows(w, desc, off)), label
+    st = KD.join_stats_batch(want[0], want[2], desc, off)
+    pst = KD.join_stats_batch_plain(want[0], want[2], desc, off)
+    torch.cuda.synchronize()
+    for i in range(desc.shape[0]):
+        _stats_equal(st[i], pst[i])
+    for prof in (R.RankingProfile(), R.RankingProfile(**NONDEFAULT)):
+        c = _consts(prof)
+        sc = KD.join_score_batch(*want, desc, off, pst, c)
+        psc = KD.join_score_batch_plain(*want, desc, off, pst, c)
+        torch.cuda.synchronize()
+        assert torch.equal(KD.wave_rows(sc, desc, off),
+                           KD.wave_rows(psc, desc, off)), label
+        for kk in (16, 1024):
+            whole = TD.join_batch_query((f, fl, d, dead, pm), jt, desc,
+                                        n_inc, c, kk).cpu().numpy()
+            for i, (start, count, filt, parts) in enumerate(
+                    KD.join_wave_slots(desc, n_inc)):
+                s_, d_ = whole[i, :kk], whole[i, kk:]
+                keep = (d_ >= 0) & (s_ > TD.NEG_INF32)
+                if not count:
+                    assert not keep.any()
+                    continue
+                solo = TD.join_query((f, fl, d, dead, pm), jt, start, count,
+                                     parts, n_inc, c, kk, filt).cpu().numpy()
+                n = min(kk, count)
+                sk = (solo[n:2 * n] >= 0) & (solo[:n] > TD.NEG_INF32)
+                assert np.array_equal(s_[keep], solo[:n][sk]), label
+                assert np.array_equal(d_[keep], solo[n:2 * n][sk]), label
+
+
+def test_batched_joins_on_the_card_match_cpu():
+    """A store on the card with the batcher on and its twin on the CPU:
+    16 threads of conjunctions (a bitmap and a sort-mode partner, an
+    exclude, a filter, k 10 and 100, two profiles), then 16 threads of
+    one of them (one statics family, so that waves fill): every answer
+    the twin's, join_member_batch launched with more than one live slot,
+    no timeout, no exception, no failed transfer."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx = RWIIndex()
+    terms = [b"jt%010d" % i for i in range(4)]
+    for i, th in enumerate(terms):
+        feats, _d, _h, _r = KBench.make_term((300_000, 120_000, 40_000,
+                                              20_000)[i],
+                                             KBench.SEED + 60 + i)
+        ids = KBench.draw_docids(len(feats), 900_000,
+                                 np.random.default_rng(KBench.SEED + 70 + i))
+        idx.add_many(th, P.PostingsList(ids, feats))
+    idx.flush()
+    g = TD.DeviceSegmentStore(idx, device="cuda")
+    h = TD.DeviceSegmentStore(idx, device="cpu")
+    idx.listener = KBench.Fanout(g, h)
+    g.enable_batching(max_batch=16, dispatchers=4)
+    g._topk_cache.enabled = h._topk_cache.enabled = False
+    profs = [R.RankingProfile(), R.RankingProfile(domlength=12, tf=5)]
+    shapes = [([terms[2], terms[0]], [], {}),
+              ([terms[2], terms[3]], [terms[1]], {}),
+              ([terms[1], terms[0], terms[3]], [],
+               dict(lang_filter=0x656E, from_days=5_000))]
+    jobs = [(q, p, k) for q in range(len(shapes)) for p in range(2)
+            for k in (10, 100)]
+
+    def ask(store, job):
+        inc, exc, kw = shapes[job[0]]
+        return store.rank_join(inc, exc, profs[job[1]], k=job[2], **kw)
+    want = {job: ask(h, job) for job in jobs}
+    wide = dict(WIDE)
+    errors = []
+
+    def worker(mine):
+        try:
+            for job in mine:
+                got, w = ask(g, job), want[job]
+                if not (np.array_equal(got[0], w[0])
+                        and np.array_equal(got[1], w[1])
+                        and got[2] == w[2]):
+                    errors.append(job)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+    stream = jobs * 4 + [jobs[2]] * 256
+    ts = [threading.Thread(target=worker, args=(stream[i::16],))
+          for i in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=600)
+    assert not errors and not any(th.is_alive() for th in ts)
+    c = g.counters()
+    assert c["batch_dispatches"] > 0 and c["batch_timeouts"] == 0
+    assert c["batch_exceptions"] == 0 and c["transfer_failures"] == 0
+    assert WIDE["join_member_batch"] > wide["join_member_batch"]
+    g.close()
+
+
+# A wave whose kernel faults on the card, in a process of its own (the
+# fault leaves the CUDA context unusable for the rest of the process):
+# after join_member_batch a gather out of bounds trips a device-side
+# assert on the dispatcher's stream, which surfaces at the completer's
+# wait. Prints the error rank_join's caller got and the store's counters.
+_WAVE_FAULT = r"""
+import json, os
+import numpy as np
+import torch
+from yacy_search_server_tpu_torch.index import devstore as TD
+from yacy_search_server_tpu_torch.index import postings as P
+from yacy_search_server_tpu_torch.index.rwi import RWIIndex
+from yacy_search_server_tpu_torch.kernels import bench as KBench
+from yacy_search_server_tpu_torch.kernels import devstore as KD
+from yacy_search_server_tpu_torch.ops import ranking as R
+
+idx = RWIIndex()
+terms = [b"ft%010d" % i for i in range(2)]
+for i, th in enumerate(terms):
+    feats, _d, _h, _r = KBench.make_term((40_000, 20_000)[i],
+                                         KBench.SEED + 90 + i)
+    ids = KBench.draw_docids(len(feats), 100_000,
+                             np.random.default_rng(KBench.SEED + 95 + i))
+    idx.add_many(th, P.PostingsList(ids, feats))
+idx.flush()
+g = TD.DeviceSegmentStore(idx, device="cuda")
+g._topk_cache.enabled = False
+g.enable_batching(max_batch=16, dispatchers=1)
+first = g.rank_join(terms, [], R.RankingProfile(), k=10)
+real = KD.join_member_batch
+
+
+def faulting(*a, **kw):
+    out = real(*a, **kw)
+    bad = torch.full((1,), 1 << 30, dtype=torch.int64, device=out[0].device)
+    out[1][bad]
+    return out
+
+
+KD.join_member_batch = faulting
+try:
+    g.rank_join(terms, [], R.RankingProfile(), k=10)
+    err = None
+except Exception as e:  # noqa: BLE001 - reported below
+    err = e
+c = g.counters()
+print(json.dumps({
+    "first": first is not None,
+    "type": None if err is None else type(err).__name__,
+    "transfer_error": isinstance(err, TD.DeviceTransferError),
+    "runtime_error": isinstance(err, RuntimeError),
+    "msg": "" if err is None else str(err)[:300],
+    "counters": {k: int(c[k]) for k in (
+        "device_lost", "device_losses", "transfer_failures",
+        "transfer_retries", "device_lost_queries", "join_fallbacks",
+        "batch_exceptions")}}), flush=True)
+os._exit(0)
+"""
+
+
+def test_join_wave_kernel_fault_reaches_the_caller():
+    """A kernel's fault in a join wave on the card is raised to
+    rank_join's caller as the CUDA runtime error it is: not retried, not
+    counted as a failed transfer or a lost device, not served on the
+    host."""
+    import json
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _WAVE_FAULT], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["first"], out
+    assert out["runtime_error"] and not out["transfer_error"], out
+    assert "CUDA" in out["msg"] or "assert" in out["msg"], out
+    assert out["counters"] == {
+        "device_lost": 0, "device_losses": 0, "transfer_failures": 0,
+        "transfer_retries": 0, "device_lost_queries": 0,
+        "join_fallbacks": 0, "batch_exceptions": 1}, out

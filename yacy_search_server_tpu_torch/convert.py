@@ -8,8 +8,9 @@ external string, into the port's. `arena_from_numpy`, `join_from_numpy`
 and `span_from_fields` carry a JAX DeviceSegmentStore's arena and join
 side-tables (fetched as numpy) and its spans into the port, and
 `delta_from_numpy` / `bitmap_from_numpy` a RAM delta block and a facet
-bitmap as its kernels take them, so the devstore kernels of both read
-the same bytes. Both sides then score
+bitmap as its kernels take them, and `join_wave_from_numpy` a wave's
+qargs_batch as the batched join kernels take it, so the devstore kernels
+of both read the same bytes. Both sides then score
 identical bytes under an identical profile.
 """
 
@@ -120,3 +121,28 @@ def bitmap_from_numpy(words, device=None):
         raise ValueError("a bitmap is a non-empty [nwords] array")
     return torch.from_numpy(words.view(np.int32).copy()).to(
         resolve_device(device))
+
+
+def join_wave_from_numpy(qargs_batch, n_inc: int, inc_bm=(), exc_bm=()):
+    """A JAX store's join wave descriptor (`qargs_batch`, int32 [bs, 6 +
+    3 (n_inc + n_exc)]) as the port's batched join kernels take it: the
+    same layout (kernels/devstore.join_wave_desc) in host memory, where
+    the kernels' launches copy it from, with the slot of each partner and
+    exclude whose membership mode (the reference's static `inc_bm` /
+    `exc_bm`, all False where not given) is the sorted segment set to
+    -1."""
+    desc = np.array(qargs_batch, np.int32, ndmin=2)
+    n_exc = (desc.shape[1] - 6) // 3 - n_inc
+    if n_exc < 0 or desc.shape[1] != 6 + 3 * (n_inc + n_exc):
+        raise ValueError(f"qargs_batch of {desc.shape[1]} words does not "
+                         f"hold {n_inc} partners and their excludes")
+    inc_bm = tuple(inc_bm) or (False,) * n_inc
+    exc_bm = tuple(exc_bm) or (False,) * n_exc
+    for t, bm in enumerate(inc_bm):
+        if not bm:
+            desc[:, 6 + 2 * n_inc + t] = -1
+    base = 6 + 3 * n_inc
+    for e, bm in enumerate(exc_bm):
+        if not bm:
+            desc[:, base + 2 * n_exc + e] = -1
+    return desc

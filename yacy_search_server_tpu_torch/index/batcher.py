@@ -3,8 +3,11 @@
 Port of the JAX store's _QueryBatcher (yacy_search_server_tpu/index/
 devstore.py:1720-3030) for the kinds this port serves: pruned queries
 (`submit`: K5 `pruned_tile` with one slot a query, up to `max_batch` a
-launch) and, with `scan_batching`, filtered exact scans (`submit_scan`:
-the batched K6/K7 pair, `devstore.scan_batch_query`). One former owns
+launch), conjunctions (`submit_join`: the batched K8 and kernels 1-2,
+`devstore.join_batch_query`, up to MAX_JOIN_BATCH a wave, or `max_batch`
+where every membership is a bitmap one) and, with `scan_batching`,
+filtered exact scans (`submit_scan`: the batched K6/K7 pair,
+`devstore.scan_batch_query`). One former owns
 the incoming queue and forms batches, growing a batch while a wave is in
 flight; a pool of dispatchers issues each part's launches; a pool of
 completers waits for each wave's answer and wakes its submitters. A
@@ -27,11 +30,16 @@ CUDA in place of JAX's asynchronous dispatch:
   until its event has completed, so no tensor it reads is freed (and its
   memory reused) while the wave runs;
 - a kernel that raises in a dispatcher is no reason to serve the query
-  another way: the error is counted and raised in each submitter.
+  another way: the error is counted and raised in each submitter. So is
+  a kernel's fault on the card, which surfaces as a CUDA runtime error
+  at the completer's wait. The one exception is the reference's
+  degraded mode: a wave whose fetch fails (DeviceTransferError, from the
+  store's device_fetch) answers ("ineligible",), and each of its queries
+  retries solo, where a failed fetch is counted as a lost-device query.
 
 A dispatcher or completer thread never submits to the batcher itself
-(`owns_current_thread`). Left out of the port so far: the rerank, ANN,
-promote and join kinds, and the reference's tracing, wave stamps and
+(`owns_current_thread`). Left out of the port so far: the rerank, ANN
+and promote kinds, and the reference's tracing, wave stamps and
 profiler records.
 """
 
@@ -44,6 +52,7 @@ import threading
 import time
 from collections import deque
 
+import numpy as np
 import torch
 
 from ..kernels import devstore as KD
@@ -57,6 +66,9 @@ class QueryBatcher:
     # a query gives the batcher this long before withdrawing and serving
     # itself solo
     WATCHDOG_S = 1.0
+    # conjunctions of a sort-mode membership a wave (all-bitmap ones:
+    # max_batch), as in the reference
+    MAX_JOIN_BATCH = 4
 
     # retire sentinel: set_tuning shrinks the pools by handing one of
     # these to exactly the thread that should exit
@@ -196,6 +208,23 @@ class QueryBatcher:
             kind="scan", th=termhash, profile=profile, lang=language, kk=kk,
             filters=filters))
 
+    def submit_join(self, arrays, join, written, qargs, statics: tuple,
+                    profile, language: str):
+        """A conjunction in a wave; blocking. The caller (rank_join)
+        resolved its spans against one snapshot: `arrays` and `join` its
+        tensors (the arena's five, the join tables' three), `written` the
+        event after their writes, `qargs` its descriptor row
+        (KD.join_wave_desc's), `statics` (kk, n_inc, n_exc, the include
+        partners' and the excludes' bitmap modes). Returns ("ok",
+        scores, docids) with kk of each, (-(2^31-1), -1) past the
+        winners | ("ineligible",) | ("timeout",)."""
+        _kk, n_inc, n_exc, inc_bm, exc_bm = statics
+        return self._submit_wait(self._item(
+            kind="join", arrays=arrays, join=join, written=written,
+            qargs=qargs, statics=statics, profile=profile, lang=language,
+            joincap=(self.max_batch if (n_inc + n_exc)
+                     and all(inc_bm + exc_bm) else self.MAX_JOIN_BATCH)))
+
     def close(self) -> None:
         self._stop = True
         self._q.put(None)       # the former forwards one a dispatcher
@@ -226,9 +255,16 @@ class QueryBatcher:
                 continue  # withdrawn by its submitter while queued
             batch = [item]
 
+            def joins_full() -> bool:
+                """The batch's conjunctions fill the smallest cap among
+                them."""
+                joins = [it for it in batch if it["kind"] == "join"]
+                return bool(joins) and len(joins) >= min(
+                    it["joincap"] for it in joins)
+
             def drain() -> int:
                 got = 0
-                while len(batch) < self.max_batch:
+                while len(batch) < self.max_batch and not joins_full():
                     try:
                         nxt = self._q.get_nowait()
                     except queue.Empty:
@@ -244,12 +280,12 @@ class QueryBatcher:
             # wave-aware growth: queries that completed together come back
             # together; while a drain finds companions, keep collecting
             if drain() > 0:
-                while len(batch) < self.max_batch:
+                while len(batch) < self.max_batch and not joins_full():
                     time.sleep(0.0015)
                     if drain() == 0:
                         break
             while True:
-                if len(batch) >= self.max_batch:
+                if len(batch) >= self.max_batch or joins_full():
                     for part in self._split_parts(batch):
                         self._ready.put(part)
                     break
@@ -275,17 +311,26 @@ class QueryBatcher:
     @staticmethod
     def _split_parts(batch: list[dict]) -> list[list[dict]]:
         """The pruned queries in one part (one K5 launch a (profile,
-        language, kk) group), each scan group in a part of its own, so
-        that no dispatcher serializes unrelated launches."""
+        language, kk) group), each scan group in a part of its own, and
+        each conjunction family (statics, profile, language) in parts of
+        its cap, so that no dispatcher serializes unrelated launches."""
         pruned = [it for it in batch if it["kind"] == "pruned"]
         scans: dict[tuple, list[dict]] = {}
+        fams: dict[tuple, list[dict]] = {}
         for it in batch:
             if it["kind"] == "scan":
                 key = (it["profile"].to_external_string(), it["lang"],
                        it["kk"])
                 scans.setdefault(key, []).append(it)
+            elif it["kind"] == "join":
+                key = (it["statics"], it["profile"].to_external_string(),
+                       it["lang"])
+                fams.setdefault(key, []).append(it)
         parts = [pruned] if pruned else []
         parts.extend(scans.values())
+        for fam in fams.values():
+            cap = min(it["joincap"] for it in fam)
+            parts.extend(fam[i:i + cap] for i in range(0, len(fam), cap))
         return parts or [batch]
 
     # -- dispatchers ----------------------------------------------------------
@@ -323,10 +368,13 @@ class QueryBatcher:
     def _dispatch(self, batch: list[dict]) -> None:
         scans = [it for it in batch if it["kind"] == "scan"]
         pruned = [it for it in batch if it["kind"] == "pruned"]
+        joins = [it for it in batch if it["kind"] == "join"]
         if scans:
             self._dispatch_scans(scans)
         if pruned:
             self._dispatch_pruned(pruned)
+        if joins:
+            self._dispatch_joins(joins)
 
     def _dispatch_pruned(self, batch: list[dict]) -> None:
         """K5 over each (profile, language, kk) group of the part, one
@@ -428,6 +476,53 @@ class QueryBatcher:
                 self._submit_completion(out, finish, chunk, t0,
                                         keep=(arrays, consts))
 
+    def _dispatch_joins(self, items: list[dict]) -> None:
+        """One join_batch_query a wave over each group of conjunctions
+        that share an arena snapshot (the identity of every tensor they
+        read: the arena's, the join tables', the tombstone bitmap, which
+        dead_array replaces whenever tombstones land), the statics, the
+        profile and the language (the reference's key, :2941-2948, less
+        the XLA compile shapes r and the segment windows, which the
+        port's kernels do not need), in waves of the group's cap (at most
+        KD.BATCH_SLOTS). The reference pads a wave to the buckets {1, 4,
+        16} to bound XLA's compile shapes; here only the live slots
+        launch."""
+        from .devstore import DeviceArena, join_batch_query
+        store = self.store
+        groups: dict[tuple, list[dict]] = {}
+        for it in items:
+            key = (tuple(id(a) for a in it["arrays"]),
+                   tuple(id(a) for a in it["join"]), it["statics"],
+                   it["profile"].to_external_string(), it["lang"])
+            groups.setdefault(key, []).append(it)
+        for its in groups.values():
+            first = its[0]
+            kk, n_inc = first["statics"][:2]
+            # the arena appends in place, so one group's items may hold
+            # later write events than the first's: wait on each
+            for ev in {id(it["written"]): it["written"]
+                       for it in its}.values():
+                DeviceArena.wait_written(ev)
+            consts = store._profile_consts(first["profile"], first["lang"])
+            wave = min(min(it["joincap"] for it in its), self.max_batch,
+                       KD.BATCH_SLOTS)
+            for pos in range(0, len(its), wave):
+                chunk = its[pos:pos + wave]
+                t0 = time.perf_counter()
+                out = join_batch_query(
+                    first["arrays"], first["join"],
+                    np.stack([it["qargs"] for it in chunk]), n_inc, consts,
+                    kk)
+
+                def finish(host, chunk=chunk, kk=kk):
+                    for i, it in enumerate(chunk):
+                        it["res"] = ("ok", host[i, :kk], host[i, kk:])
+                        it["ev"].set()
+
+                self._submit_completion(out, finish, chunk, t0,
+                                        keep=(first["arrays"], first["join"],
+                                              consts))
+
     # -- completers -----------------------------------------------------------
 
     def _submit_completion(self, out, finish, items: list[dict], t0: float,
@@ -461,16 +556,29 @@ class QueryBatcher:
             self._complete(rec)
 
     def _complete(self, rec: dict) -> None:
-        """Wait for one wave's answer in host memory and hand it out."""
+        """Wait for one wave's answer in host memory (the store's
+        device_fetch) and hand it out. A failed fetch sends the wave's
+        queries solo, as the reference's completer does (:2401-2410);
+        any other error is raised in each submitter."""
+        from .devstore import DeviceTransferError
         items = rec["items"]
         tf0 = time.perf_counter()
         for it in items:
             it["fetch_t0"] = tf0
             it["stage"] = "fetch"
         try:
-            if rec["done"] is not None:
-                rec["done"].synchronize()
-            host = rec["host"].numpy()
+            try:
+                host = self.store.device_fetch(rec["host"], rec["done"])
+            except DeviceTransferError:
+                with self._ms_lock:
+                    self.exceptions += 1
+                log.warning("batch fetch failed (%d queries retry solo)",
+                            len(items))
+                for it in items:
+                    if not it["ev"].is_set():
+                        it["res"] = ("ineligible",)
+                        it["ev"].set()
+                return
             self.store.count_round_trip()
             rec["finish"](host)
         except Exception as e:  # noqa: BLE001 - raised in submitters

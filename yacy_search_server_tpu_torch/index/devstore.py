@@ -38,21 +38,28 @@ serving counters.
   include term's span through K8 `join_member` (membership in every
   other include and every exclude by each term's docid-sorted segment or
   docid bitmap, partner rows merged, the filter applied), then kernels
-  1-3 and `topk_finish` rank the merged rows. Solo: joins are not
-  batched yet, and a RAM delta declines, as in the reference.
+  1-3 and `topk_finish` rank the merged rows. With the batcher on,
+  concurrent conjunctions of one statics family share a wave
+  (`join_batch_query`: K8 and kernels 1-2 with a slot dimension). A RAM
+  delta declines, as in the reference.
+- Device loss: every fetch goes through `device_fetch` (retries with
+  backoff, a failure streak declares the device lost, a background
+  rebuild re-packs the arena); while the device is lost `rank_term` and
+  `rank_join` return None, counted, and the caller's host path serves.
 
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
 extents in span order, the delta's rows last), never the docid.
 
-Left out: batched joins, device-loss handling, packed residency and the
-tier ladder, the dense rerank and ANN families, and the JAX package's
-tracing and profiler hooks (their `counters()` keys read zero).
+Left out: packed residency and the tier ladder, the dense rerank and ANN
+families, and the JAX package's tracing and profiler hooks (their
+`counters()` keys read zero).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 import weakref
@@ -69,7 +76,10 @@ from ..kernels import devstore as KD
 from ..ops.ranking import (_ACTIVE_COLS, RankingProfile,
                            cardinal_from_stats_host, compact_feats,
                            pack_stats_host, profile_consts)
+from ..utils import faultinject
 from . import postings as P
+
+log = logging.getLogger("yacy.torch.devstore")
 
 # the kernels read one TILE from a span's start; extents are not aligned,
 # so the arena keeps at least one spare tile past its used rows
@@ -83,15 +93,13 @@ INT32_MAX = 2 ** 31 - 1
 # entries of the filtered-stats cache (FIFO beyond)
 _STATS_CACHE_CAP = 256
 # the keys of the JAX store's counters() for machinery this port does not
-# have yet (device-loss recovery, storage integrity, the profiler's
+# have yet (storage integrity, the profiler's
 # silicon accounting, the dense rerank and ANN families, packed residency
 # and the tier ladder, the paged runs' term cache): they read zero here,
 # as the JAX store's ANN_ZERO_COUNTERS do for a store without an index
 ZERO_COUNTERS = {
     "tunnel_rt_ms": 0.0, "util_pct_p50": 0.0, "util_pct_p95": 0.0,
-    "bound": "", "device_lost": 0, "device_losses": 0,
-    "device_loss_recoveries": 0, "device_lost_queries": 0,
-    "transfer_failures": 0, "transfer_retries": 0, "storage_corruptions": 0,
+    "bound": "", "storage_corruptions": 0,
     "journal_torn_tails": 0, "rerank_dispatches": 0, "rerank_queries": 0,
     "rerank_cache_hits": 0, "rerank_fallbacks": 0, "ann_dispatches": 0,
     "ann_queries": 0, "ann_fallbacks": 0, "ann_host_queries": 0,
@@ -110,6 +118,24 @@ ZERO_COUNTERS = {
 
 # prune-prefix escalation buckets (tiles scored before tail verification)
 _PRUNE_B = (1, 8, 64, 512, 4096)
+
+
+class DeviceTransferError(RuntimeError):
+    """A device -> host fetch failed through its whole retry ladder (the
+    `device.transfer_fail` fault point; a CUDA runtime error is not one,
+    device_fetch raises it as it is): the query's caller serves it on the
+    host, counted."""
+
+
+# a fetch retries TRANSFER_RETRIES times with exponential backoff from
+# TRANSFER_BACKOFF_S before it counts as a failed transfer; LOSS_STREAK
+# failed transfers in a row declare the device lost, and the rebuild
+# probes the device first after REBUILD_BACKOFF_S. Read at each use, so a
+# test or the smoke can tighten them (the JAX store keeps them per store)
+TRANSFER_RETRIES = 2
+TRANSFER_BACKOFF_S = 0.05
+LOSS_STREAK = 2
+REBUILD_BACKOFF_S = 0.5
 # initial capacity of the reference's packed-words store: its budget
 # check counts those words, so the same arithmetic keeps the same runs
 # within budget
@@ -327,6 +353,42 @@ def join_query(arrays, join, start: int, count: int, parts, n_inc: int,
     top_s, top_rows, _ = tie_topk(sc, min(kk, count))
     return KD.topk_finish(top_s, top_rows, docids, [(start, count)],
                           stats=stats)
+
+
+def join_batch_query(arrays, join, desc, n_inc: int, consts,
+                     kk: int) -> torch.Tensor:
+    """A wave of up to 16 conjunctions over one snapshot and profile,
+    `desc` the reference's qargs_batch (KD.join_wave_desc: a slot's rare
+    span, filter and partner segments; slot -1 for a sort-mode one): the
+    batched K8 writes each slot's merged rows into a region of its own
+    (KD.join_wave_offsets), the batched kernels 1 and 2 take each slot's
+    statistics and scores there, kernel 3 in index mode takes min(kk,
+    count) winners of each slot over its region, and one batched finish
+    maps them to docids: the [bs, 2kk] scores ++ docids, left on the
+    device, (-(2^31-1), -1) past a slot's winners. After the keep mask a
+    slot's row is join_query's answer for it alone and
+    _rank_join_(bm_)batch_packed_kernel's row."""
+    feats16, flags, docids, dead, _pmax = arrays
+    desc = np.ascontiguousarray(desc, np.int32)
+    bs = desc.shape[0]
+    off = KD.join_wave_offsets(desc)
+    merged, fo, v = KD.join_member_batch(feats16, flags, docids, dead, *join,
+                                         desc, n_inc, off)
+    stats = KD.join_stats_batch(merged, v, desc, off)
+    sc = KD.join_score_batch(merged, fo, v, desc, off, stats, consts)
+    # winners' rows 0 (a row the finish may read), scores -(2^31-1)
+    top = torch.zeros((3, bs, kk), dtype=torch.int32, device=feats16.device)
+    top[0].fill_(KC.SMALL)
+    ext = []
+    for i in range(bs):
+        start, count = int(desc[i, 0]), int(desc[i, 1])
+        ext.append(([(start, count)], KD.NO_FILTER))
+        n = min(kk, count)
+        if n:
+            tie_topk(sc[int(off[i]):int(off[i]) + count], n,
+                     out=(top[0, i, :n], top[1, i, :n], top[2, i, :n]))
+    return KD.topk_finish_batch(top[0], top[2], docids,
+                                KD.scan_batch_desc(ext))
 
 
 class DeviceArena:
@@ -717,6 +779,17 @@ class DeviceSegmentStore:
         # threshold (None: the caller's SMALL_RANK_N) and the loss flag
         self.small_rank_n = None
         self.device_lost = False
+        # device loss (the JAX store's): device_fetch classifies every
+        # fetch; a streak of failed ones declares the loss (epoch bumped,
+        # the entry points answer None, counted) and a background rebuild
+        # re-packs the arena until a probe round-trips again
+        self.device_losses = 0            # declared losses
+        self.device_loss_recoveries = 0   # rebuilds back to device serving
+        self.device_lost_queries = 0      # host-fallback answers while lost
+        self.transfer_failures = 0        # fetches that failed every attempt
+        self.transfer_retries = 0         # attempts retried within a fetch
+        self._transfer_fail_streak = 0
+        self._rebuild_thread: threading.Thread | None = None
         self.queries_served = 0
         self.fallbacks = 0
         # bumps on every event that can change a query's answer
@@ -968,10 +1041,25 @@ class DeviceSegmentStore:
         serves. Every join-shaped query (two or more includes, or one with
         excludes) lands in exactly one of join_served, join_fallbacks and
         join_degraded_plain; a query whose excludes all name terms with no
-        postings is a single-term query and goes to rank_term."""
-        out = self._rank_join_impl(include_hashes, exclude_hashes, profile,
-                                   language, k, lang_filter, flag_bit,
-                                   from_days, to_days)
+        postings is a single-term query and goes to rank_term. While the
+        device is lost, or where a fetch under the query fails
+        (DeviceTransferError), the answer is None, counted in
+        device_lost_queries and join_fallbacks."""
+        if self.device_lost:
+            with self._lock:
+                self.device_lost_queries += 1
+                self.join_fallbacks += 1
+            return None
+        try:
+            out = self._rank_join_impl(include_hashes, exclude_hashes,
+                                       profile, language, k, lang_filter,
+                                       flag_bit, from_days, to_days)
+        except DeviceTransferError:
+            # counted (and perhaps the loss declared) by device_fetch
+            with self._lock:
+                self.device_lost_queries += 1
+                self.join_fallbacks += 1
+            return None
         if out == "declined":
             with self._lock:
                 self.join_fallbacks += 1
@@ -1078,11 +1166,32 @@ class DeviceSegmentStore:
         filt = (lang_filter, flag_bit,
                 DAYS_NONE_LO if from_days is None else from_days,
                 DAYS_NONE_HI if to_days is None else to_days)
-        DeviceArena.wait_written(written)
-        host = self._fetch(join_query(arrays, join, rare.start, rare.count,
-                                      parts, len(partners), consts, kk, filt))
-        n = min(kk, rare.count)
-        s, d = host[:n], host[n:2 * n]
+        s = d = None
+        # concurrent conjunctions of one statics family, profile, language
+        # and snapshot share a wave (the reference's route, :4793-4812)
+        batcher = self._batcher
+        if batcher is not None and not batcher.owns_current_thread():
+            n_inc, n_exc = len(partners), len(exc_spans)
+            bm = tuple(p[2] >= 0 for p in parts)
+            qargs = KD.join_wave_desc([(rare.start, rare.count, filt, parts)],
+                                      n_inc, n_exc)[0]
+            res = batcher.submit_join(
+                arrays, join, written, qargs,
+                (kk, n_inc, n_exc, bm[:n_inc], bm[n_inc:]), prof, language)
+            if res[0] == "ok":
+                s, d = res[1], res[2]
+            elif res[0] == "ineligible":
+                with self._lock:
+                    self.batch_ineligible += 1
+            # "ineligible" / "timeout": the solo join below serves it
+        if s is None:
+            DeviceArena.wait_written(written)
+            host = self.device_fetch(join_query(
+                arrays, join, rare.start, rare.count, parts, len(partners),
+                consts, kk, filt))
+            self.count_round_trip()
+            n = min(kk, rare.count)
+            s, d = host[:n], host[n:2 * n]
         keep = (d >= 0) & (s > NEG_INF32)
         with self._lock:
             self.queries_served += 1
@@ -1100,15 +1209,146 @@ class DeviceSegmentStore:
                     self._profiles.popitem(last=False)
             return got
 
-    def _fetch(self, out: torch.Tensor) -> np.ndarray:
-        """One device -> host copy of a dispatch's answer."""
-        host = out.cpu().numpy()
-        self.count_round_trip()
-        return host
-
     def count_round_trip(self) -> None:
         with self._lock:
             self.device_round_trips += 1
+
+    # -- device loss ----------------------------------------------------------
+
+    def device_fetch(self, out: torch.Tensor, done=None) -> np.ndarray:
+        """The host copy of a dispatch's answer, every fetch of the store
+        and the batcher classified as the JAX store's device_fetch does: a
+        failed attempt retries TRANSFER_RETRIES times with exponential
+        backoff from TRANSFER_BACKOFF_S (transfer_retries); a fetch that
+        fails every attempt counts in transfer_failures and raises
+        DeviceTransferError, and LOSS_STREAK of those in a row declare the
+        device lost. `done`: the event after a non-blocking copy into
+        `out` (a wave's pinned host buffer), waited on first. The
+        `device.transfer_fail` fault point costs one charge an attempt.
+
+        Only a DeviceTransferError counts as a failed transfer. Any other
+        error of the wait or the copy raises as it is, in the query's own
+        thread: on the card that is a CUDA runtime error (an illegal
+        address or a failed assert in a kernel of the dispatch, an Xid,
+        an ECC error), which is sticky. It fails every later call of the
+        process, so no retry or rebuild could serve again; recovery
+        needs a process restart, and counting it as a lost device would
+        hide a kernel fault behind the host fallback."""
+        delay = TRANSFER_BACKOFF_S
+        attempt = 0
+        while True:
+            try:
+                if faultinject.take("device.transfer_fail"):
+                    raise DeviceTransferError(
+                        "injected device.transfer_fail")
+                if done is not None:
+                    done.synchronize()
+                host = out.cpu().numpy()
+            except DeviceTransferError as e:
+                if attempt < TRANSFER_RETRIES:
+                    attempt += 1
+                    with self._lock:
+                        self.transfer_retries += 1
+                    time.sleep(delay)
+                    delay *= 2
+                    continue
+                self._note_transfer_failure(e)
+                raise DeviceTransferError(
+                    f"device transfer failed after {attempt + 1} "
+                    f"attempts: {e!r}") from e
+            with self._lock:
+                self._transfer_fail_streak = 0
+            return host
+
+    def _note_transfer_failure(self, err) -> None:
+        with self._lock:
+            self.transfer_failures += 1
+            self._transfer_fail_streak += 1
+            declare = (not self.device_lost
+                       and self._transfer_fail_streak >= LOSS_STREAK)
+        if declare:
+            self._declare_device_loss(err)
+
+    def _declare_device_loss(self, err) -> None:
+        """A streak of failed transfers: the entry points answer None
+        (the caller's host path serves, counted), every cached answer
+        dies with the epoch, and the background rebuild starts."""
+        with self._lock:
+            if self.device_lost:
+                return
+            self.device_lost = True
+            self.device_losses += 1
+            self._transfer_fail_streak = 0
+        self._bump_epoch()
+        log.error("device lost after %d failed transfers in a row (%r): "
+                  "serving the host fallback; rebuild started",
+                  LOSS_STREAK, err)
+        self.start_rebuild()
+
+    def start_rebuild(self) -> None:
+        """Run the background rebuild while the device is lost (a no-op
+        when it is not, or the rebuild runs)."""
+        with self._lock:
+            if not self.device_lost:
+                return
+            t = self._rebuild_thread
+            if t is not None and t.is_alive():
+                return
+            t = threading.Thread(target=self._rebuild_loop,
+                                 name="torch-devstore-rebuild", daemon=True)
+            self._rebuild_thread = t
+        t.start()
+
+    def _rebuild_loop(self) -> None:
+        """Probe the device with backoff (doubling, at most 30 s); once a
+        one-word upload and fetch round-trips, rebuild the arena and
+        resume device serving."""
+        delay = REBUILD_BACKOFF_S
+        while True:
+            with self._lock:
+                if not self.device_lost:
+                    return
+            time.sleep(delay)
+            delay = min(delay * 2, 30.0)
+            try:
+                if faultinject.take("device.transfer_fail"):
+                    raise DeviceTransferError(
+                        "injected device.transfer_fail")
+                torch.zeros(1, dtype=torch.int32,
+                            device=self.arena.device).cpu()
+            except Exception as e:  # noqa: BLE001 - the device is still down
+                log.warning("device rebuild probe failed: %r", e)
+                continue
+            try:
+                self._rebuild_device()
+            except Exception:  # noqa: BLE001 - retried at the next probe
+                log.exception("device rebuild failed; retrying")
+                continue
+            with self._lock:
+                self.device_lost = False
+                self.device_loss_recoveries += 1
+                self._transfer_fail_streak = 0
+            self._bump_epoch()
+            log.warning("device serving resumed after rebuild %d",
+                        self.device_loss_recoveries)
+            return
+
+    def _rebuild_device(self) -> None:
+        """A fresh arena on the same device, every run of the RWI packed
+        into it again and every tombstone marked again: the same spans
+        from the same rows, so answers after it equal those before the
+        loss. (The reference's _maybe_prewarm compiles XLA shapes: the
+        port's kernels are built once a process, nothing to warm.)"""
+        with self._lock:
+            old = self.arena
+            self._packed.clear()
+            self._garbage_rows = 0
+            self.arena = DeviceArena(device=old.device,
+                                     budget_bytes=old.budget_bytes)
+        for run in list(self.rwi._runs):
+            self.on_run_added(run)
+        for docid in self.rwi._tombstones:
+            self.arena.mark_dead(docid)
 
     def _delta_block(self, delta) -> tuple:
         """A RAM delta's rows on the arena's device as K6/K7 read them:
@@ -1177,7 +1417,31 @@ class DeviceSegmentStore:
         facet bitmap (`allow_bitmap`, from filter_bitmap) takes the exact
         scan (statistics over the filtered rows), as does a RAM delta.
         `allow_bitmap` is filter_bitmap's int32 tensor (or
-        convert.bitmap_from_numpy's) on the store's device."""
+        convert.bitmap_from_numpy's) on the store's device. While the
+        device is lost, or where a fetch under the query fails
+        (DeviceTransferError), the answer is None, counted in
+        device_lost_queries and fallbacks, never an exception."""
+        if self.device_lost:
+            with self._lock:
+                self.device_lost_queries += 1
+                self.fallbacks += 1
+            return None
+        try:
+            return self._rank_term_impl(termhash, profile, language, k,
+                                        lang_filter, flag_bit, from_days,
+                                        to_days, allow_bitmap)
+        except DeviceTransferError:
+            # counted (and perhaps the loss declared) by device_fetch
+            with self._lock:
+                self.device_lost_queries += 1
+                self.fallbacks += 1
+            return None
+
+    def _rank_term_impl(self, termhash: bytes, profile, language: str,
+                        k: int, lang_filter: int, flag_bit: int,
+                        from_days: int | None, to_days: int | None,
+                        allow_bitmap):
+        """rank_term's body (a DeviceTransferError passes through)."""
         cacheable = (lang_filter == NO_LANG and flag_bit == NO_FLAG
                      and from_days is None and to_days is None
                      and allow_bitmap is None)
@@ -1230,8 +1494,9 @@ class DeviceSegmentStore:
             shift, lang_term = prune_bound_consts(prof)
             for b in _PRUNE_B[prune_from:]:
                 # one fetch: scores ++ docids ++ ok
-                host = self._fetch(pruned_query(arrays, sp, shift,
-                                                lang_term, consts, kk, b))
+                host = self.device_fetch(pruned_query(
+                    arrays, sp, shift, lang_term, consts, kk, b))
+                self.count_round_trip()
                 s, d, ok = host[:kk], host[kk:2 * kk], bool(host[2 * kk])
                 with self._lock:
                     self.prune_rounds += 1
@@ -1297,8 +1562,10 @@ class DeviceSegmentStore:
                                 next(iter(self._span_stats_cache)))
                         self._span_stats_cache[skey] = (
                             snap, weakref.ref(arrays[3]), bref, stats)
-            host = self._fetch(scan_query(arrays, ext, consts, kk, filt,
-                                          stats, dblock, allow_bitmap))
+            host = self.device_fetch(scan_query(arrays, ext, consts, kk,
+                                                filt, stats, dblock,
+                                                allow_bitmap))
+            self.count_round_trip()
             s, d = host[:kk], host[kk:2 * kk]
         keep = (d >= 0) & (s > NEG_INF32)
         s, d = s[keep], d[keep]
@@ -1376,8 +1643,8 @@ class DeviceSegmentStore:
     def enable_batching(self, max_batch: int = 16, dispatchers: int = 8,
                         scan_batching: bool = False, completer_depth: int = 2,
                         pipeline: bool = True) -> None:
-        """Coalesce concurrent pruned queries (and, with `scan_batching`,
-        filtered exact scans) into waves of one launch each
+        """Coalesce concurrent pruned queries and conjunctions (and, with
+        `scan_batching`, filtered exact scans) into waves of one launch each
         (index/batcher.QueryBatcher). On the card the kernels are built
         first: a first-use build outlasts the batcher's watchdog."""
         from .batcher import QueryBatcher
@@ -1446,6 +1713,12 @@ class DeviceSegmentStore:
                 "join_served": self.join_served,
                 "join_fallbacks": self.join_fallbacks,
                 "join_degraded_plain": self.join_degraded_plain,
+                "device_lost": 1 if self.device_lost else 0,
+                "device_losses": self.device_losses,
+                "device_loss_recoveries": self.device_loss_recoveries,
+                "device_lost_queries": self.device_lost_queries,
+                "transfer_failures": self.transfer_failures,
+                "transfer_retries": self.transfer_retries,
                 "tier_hot_bytes": (self.arena.used_rows
                                    * self.arena.row_bytes()),
                 "batch_dispatches": bstats[0],

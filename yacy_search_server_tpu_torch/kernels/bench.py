@@ -326,6 +326,51 @@ def join_edge_cases(store):
     return cases
 
 
+def join_edge_waves(store):
+    """The batched K8's cases over join_edges' store: (label, wave
+    descriptor (devstore.join_wave_desc), n_inc). The filters of
+    JOIN_EDGE_FILTERS one a slot in turn; a slot of no row and one of the
+    rare span's first 100 rows beside whole rare spans; the clip rows in
+    every slot against the 2^29 sort partner."""
+    from .devstore import join_wave_desc
+    sp = {th: store.spans_for(th)[0] for th in JOIN_EDGE_TERMS}
+    nslots = store.arena.bitmap_array().shape[0]
+
+    def part(th):
+        s = sp[th]
+        return (s.jstart, s.count, s.jslot if 0 <= s.jslot < nslots else -1)
+    rare = sp[b"jrareAAAAAAA"]
+    filters = [None, *JOIN_EDGE_FILTERS.values()]
+
+    def wave(bs, parts, n_inc, short=True):
+        slots = []
+        for i in range(bs):
+            start, count = rare.start, rare.count
+            if short and i == 2:
+                start, count = 0, 0
+            elif short and i == 3:
+                count = 100
+            slots.append((start, count, filters[i % len(filters)], parts))
+        return join_wave_desc(slots, n_inc, len(parts) - n_inc)
+    mixed = [part(b"jbitmapAAAAA"), part(b"jsortbigAAAA"),
+             part(b"jsmallAAAAAA")]
+    return [
+        ("16 bitmap slots (a bitmap partner, a bitmap exclude)",
+         wave(16, [part(b"jbitmapAAAAA"), part(b"jnoneAAAAAAA")], 1), 1),
+        ("9 slots of mixed modes (bitmap and sort partners, a sort "
+         "exclude)", wave(9, mixed, 2), 2),
+        ("7 slots, the clip rows against the 2^29 sort partner in each",
+         wave(7, [part(b"jsortbigAAAA")], 1, short=False), 1),
+        ("7 slots excluding the 2^29 sort partner",
+         wave(7, [part(b"jsortbigAAAA")], 0, short=False), 0),
+        ("4 slots, five partners and six excludes",
+         wave(4, [part(b"jbitmapAAAAA"), part(b"jsortbigAAAA"),
+                  part(b"jallAAAAAAAA"), part(b"jbitmapAAAAA"),
+                  part(b"jsortbigAAAA")] + [part(b"jnoneAAAAAAA")] * 6, 5),
+         5),
+    ]
+
+
 def delta_block(n: int, docids, seed: int = SEED):
     """A RAM delta block as the store stages it: make_term's columns
     compacted, `docids` (n of them), padded with docid -1 to

@@ -56,6 +56,10 @@ SIGNATURES = {
                             _P, _P],
     "yt_join_member": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P,
                        _I64, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "yt_join_member_batch": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64,
+                             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "yt_join_stats_batch": [_P, _P, _P, _P, _I, _P, _P],
+    "yt_join_score_batch": [_P, _P, _P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P,
                        _P],
     "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _P, _I64, _I64,
@@ -162,7 +166,8 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "gather_topk": 0, "pruned_tile": 0, "span_stats": 0,
             "span_score": 0, "topk_finish": 0, "join_member": 0,
             "span_stats_batch": 0, "span_score_batch": 0,
-            "topk_finish_batch": 0}
+            "topk_finish_batch": 0, "join_member_batch": 0,
+            "join_stats_batch": 0, "join_score_batch": 0}
 WIDE = {name: 0 for name in LAUNCHES}
 SLOTS = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()

@@ -63,28 +63,26 @@ namespace yt {
 constexpr int WARPS = 4;               // warps per block
 constexpr int MIN_BLOCKS = 4;          // resident blocks an SM, at least
 
+// The rows of block `block` of the `blocks` that share the n rows.
 template <typename T, bool FAST>
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
-             const uint8_t* __restrict__ valid,
-             const int32_t* __restrict__ hostids, int64_t n,
-             const int32_t* __restrict__ st,
-             const int32_t* __restrict__ counts, int64_t num_hosts,
-             const int32_t* __restrict__ consts,
-             int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ ScoreConsts k;
+__device__ __forceinline__ void score_rows_body(
+    const T* __restrict__ feats, const int32_t* __restrict__ flags,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ hostids,
+    int64_t n, const int32_t* __restrict__ st,
+    const int32_t* __restrict__ counts, int64_t num_hosts,
+    const int32_t* __restrict__ consts, int32_t* __restrict__ out,
+    unsigned char* smem, ScoreConsts& k, int block, int blocks) {
   constexpr int SB = stage_bytes<T>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t chunks = (n + CH - 1) / CH;
-  const int64_t step = (int64_t)gridDim.x * WARPS;
+  const int64_t step = (int64_t)blocks * WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
   // authority is decided from the constants in device memory, so the
   // first copy can go out before the block's constants are ready
   const bool use_auth = num_hosts > 1 && consts[C_AUTHORITY] > 12;
   const int32_t* hsrc = use_auth ? hostids : nullptr;
 
-  int64_t c = (int64_t)blockIdx.x * WARPS + warp;
+  int64_t c = (int64_t)block * WARPS + warp;
   if (c < chunks) issue_chunk(feats, flags, valid, hsrc, n, c, mine, lane);
   cp_async_commit();
 
@@ -125,6 +123,50 @@ score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
     __syncwarp();
   }
   cp_async_wait<0>();
+}
+
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_chunks(const T* __restrict__ feats, const int32_t* __restrict__ flags,
+             const uint8_t* __restrict__ valid,
+             const int32_t* __restrict__ hostids, int64_t n,
+             const int32_t* __restrict__ st,
+             const int32_t* __restrict__ counts, int64_t num_hosts,
+             const int32_t* __restrict__ consts,
+             int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ScoreConsts k;
+  score_rows_body<T, FAST>(feats, flags, valid, hostids, n, st, counts,
+                           num_hosts, consts, out, smem, k, blockIdx.x,
+                           gridDim.x);
+}
+
+// ---------------------------------------------------------------------------
+// join_score_batch: kernel 2 over the regions of a join wave
+// ---------------------------------------------------------------------------
+// The scores of _join_topk (cardinal_from_stats on the merged rows, their
+// OR'd flags, no authority: num_hosts = 1), vmapped over a wave by
+// _rank_join_(bm_)batch_kernel (:736, :769): each slot's merged int32
+// rows scored on the int32 path against its own statistics, by its own
+// range of the grid's blocks, into its region of one buffer; invalid rows
+// -(2^31-1). score_chunks' row pipeline. Bound: bytes, 68 B of merged
+// features, 4 B of flags and a valid byte read and 4 B written a row,
+// summed over the slots.
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_regions(const int32_t* __restrict__ feats,
+              const int32_t* __restrict__ flags,
+              const uint8_t* __restrict__ valid, const Regions g,
+              const int32_t* __restrict__ stats, int64_t stats_stride,
+              const int32_t* __restrict__ consts,
+              int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ ScoreConsts k;
+  const int s = range_of_block(g.bstart, g.bs, blockIdx.x);
+  const int64_t o = g.off[s];
+  score_rows_body<int32_t, false>(
+      feats + o * NF, flags + o, valid + o, nullptr, g.n[s],
+      stats + (int64_t)s * stats_stride, nullptr, 1, consts, out + o, smem,
+      k, blockIdx.x - g.bstart[s], g.bstart[s + 1] - g.bstart[s]);
 }
 
 // ---------------------------------------------------------------------------
@@ -238,7 +280,7 @@ score_batch(const int16_t* __restrict__ feats,
   __shared__ ScoreConsts k;
   __shared__ Extents x;
   __shared__ Filter q;
-  const int s = slot_of_block(b, blockIdx.x);
+  const int s = range_of_block(b.bstart, b.bs, blockIdx.x);
   if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
   __syncthreads();
   score_extents_body(x, q, dead, doc_cap, stats + (int64_t)s * stats_stride,
@@ -360,5 +402,33 @@ extern "C" int yt_span_score_batch(const void* feats, const void* flags,
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
       (const int32_t*)consts, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The batched kernel 2 over the regions of a join wave of bs <= 16 slots:
+// merged [off[bs], 17] int32, flags [off[bs]] int32, valid [off[bs]]
+// bool, slot s's n[s] rows from row off[s] (off: bs + 1 int64, n: bs
+// int64, host memory); stats the slots' statistics, slot s at s *
+// stats_stride int32; consts int32[44]; out [off[bs]] int32, slot s's
+// scores at its rows.
+extern "C" int yt_join_score_batch(const void* merged, const void* flags,
+                                   const void* valid, const int64_t* off,
+                                   const int64_t* n, int bs,
+                                   const void* stats, int64_t stats_stride,
+                                   const void* consts, void* out,
+                                   void* stream) {
+  Regions g{};
+  if (!regions_of(off, n, bs, &g)) return (int)cudaErrorInvalidValue;
+  const int smem = WARPS * 2 * stage_bytes<int32_t>();
+  static int cached[64];
+  int limit = 0;
+  cudaError_t e =
+      resident_blocks(score_regions, WARPS * 32, smem, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = split_blocks(g.n, bs, WARPS * CH, limit, g.bstart);
+  score_regions<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)merged, (const int32_t*)flags, (const uint8_t*)valid,
+      g, (const int32_t*)stats, stats_stride, (const int32_t*)consts,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }

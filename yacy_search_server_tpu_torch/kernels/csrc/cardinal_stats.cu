@@ -183,21 +183,20 @@ __device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
 // HOSTS: launched in clusters of H_CLUSTER blocks, one block an SM; host
 // ids below `priv` are counted in the cluster's shared bins (bin h in
 // block h % H_CLUSTER, word h / H_CLUSTER, after the stages), the others
-// by atomicAdd on `counts`
+// by atomicAdd on `counts`. The pass of block `block` of the `blocks`
+// that share the n rows, acc and ticket.
 template <typename T, bool HOSTS>
-__global__ void __launch_bounds__(S_WARPS * 32, HOSTS ? 1 : S_MIN_BLOCKS)
-stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
-           const int32_t* __restrict__ hostids, int64_t n, int64_t num_hosts,
-           int64_t priv, int32_t* __restrict__ counts,
-           uint32_t* __restrict__ acc, uint32_t* __restrict__ ticket,
-           int32_t* __restrict__ st) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint32_t s_acc[STATS_LEN];
-  __shared__ bool s_last;
+__device__ __forceinline__ void stats_rows_body(
+    const T* __restrict__ feats, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ hostids, int64_t n, int64_t num_hosts,
+    int64_t priv, int32_t* __restrict__ counts, uint32_t* __restrict__ acc,
+    uint32_t* __restrict__ ticket, int32_t* __restrict__ st,
+    unsigned char* smem, uint32_t* s_acc, bool* s_last, int block,
+    int blocks) {
   constexpr int SB = stage_bytes<T>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t chunks = (n + CH - 1) / CH;
-  const int64_t step = (int64_t)gridDim.x * S_WARPS;
+  const int64_t step = (int64_t)blocks * S_WARPS;
   unsigned char* mine = smem + warp * 2 * SB;
   uint32_t* bins = (uint32_t*)(smem + S_WARPS * 2 * SB);
   const unsigned rank = HOSTS ? cg::this_cluster().block_rank() : 0u;
@@ -205,7 +204,7 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
   const int64_t nbins =
       HOSTS && priv > rank ? (priv - rank + H_CLUSTER - 1) / H_CLUSTER : 0;
 
-  int64_t c = (int64_t)blockIdx.x * S_WARPS + warp;
+  int64_t c = (int64_t)block * S_WARPS + warp;
   if (c < chunks)
     issue_chunk<T>(feats, nullptr, valid, HOSTS ? hostids : nullptr, n, c,
                    mine, lane);
@@ -261,7 +260,22 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
     }
   }
 
-  finish_stats(a, s_acc, &s_last, acc, ticket, st, gridDim.x);
+  finish_stats(a, s_acc, s_last, acc, ticket, st, (unsigned)blocks);
+}
+
+template <typename T, bool HOSTS>
+__global__ void __launch_bounds__(S_WARPS * 32, HOSTS ? 1 : S_MIN_BLOCKS)
+stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
+           const int32_t* __restrict__ hostids, int64_t n, int64_t num_hosts,
+           int64_t priv, int32_t* __restrict__ counts,
+           uint32_t* __restrict__ acc, uint32_t* __restrict__ ticket,
+           int32_t* __restrict__ st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  stats_rows_body<T, HOSTS>(feats, valid, hostids, n, num_hosts, priv,
+                            counts, acc, ticket, st, smem, s_acc, &s_last,
+                            blockIdx.x, gridDim.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -363,7 +377,7 @@ stats_batch(const int16_t* __restrict__ feats,
   __shared__ bool s_last;
   __shared__ Extents x;
   __shared__ Filter q;
-  const int s = slot_of_block(b, blockIdx.x);
+  const int s = range_of_block(b.bstart, b.bs, blockIdx.x);
   if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
   __syncthreads();
   int32_t* st = out + (int64_t)s * SLOT_WORDS;
@@ -371,6 +385,34 @@ stats_batch(const int16_t* __restrict__ feats,
   stats_extents_body(x, q, dead, doc_cap, smem, s_acc, &s_last, acc,
                      acc + STATS_LEN, st, blockIdx.x - b.bstart[s],
                      b.bstart[s + 1] - b.bstart[s]);
+}
+
+// ---------------------------------------------------------------------------
+// join_stats_batch: kernel 1 over the regions of a join wave
+// ---------------------------------------------------------------------------
+// The statistics of _join_topk (local_stats with num_hosts = 1, no host
+// counts), vmapped over a wave of conjunctions by
+// _rank_join_(bm_)batch_kernel (:736, :769): each slot's valid merged
+// int32 rows, in its region of join_member_batch's buffers, folded by its
+// own range of the grid's blocks into its own accumulator and ticket
+// (out: SLOT_WORDS a slot), stats_pass' row pipeline without host
+// counts. Bound: bytes, 68 B of merged features and a valid byte read a
+// row, summed over the slots.
+__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
+stats_regions(const int32_t* __restrict__ feats,
+              const uint8_t* __restrict__ valid, const Regions g,
+              int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  const int s = range_of_block(g.bstart, g.bs, blockIdx.x);
+  int32_t* st = out + (int64_t)s * SLOT_WORDS;
+  uint32_t* acc = (uint32_t*)(st + STATS_LEN);
+  const int64_t o = g.off[s];
+  stats_rows_body<int32_t, false>(
+      feats + o * NF, valid + o, nullptr, g.n[s], 0, 0, nullptr, acc,
+      acc + STATS_LEN, st, smem, s_acc, &s_last, blockIdx.x - g.bstart[s],
+      g.bstart[s + 1] - g.bstart[s]);
 }
 
 template <typename T>
@@ -542,5 +584,29 @@ extern "C" int yt_span_stats_batch(const void* feats, const void* flags,
   stats_batch<<<grid, S_WARPS * 32, stages, s>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, b, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The batched kernel 1 over the regions of a join wave of bs <= 16 slots:
+// merged [off[bs], 17] int32 and valid [off[bs]] bool, slot s's n[s]
+// rows from row off[s] (off: bs + 1 int64, n: bs int64, host memory).
+// out: bs * (38 + 39) int32: per slot the statistics (written, host
+// maximum 0), then its accumulator and ticket, zeroed by this call.
+extern "C" int yt_join_stats_batch(const void* merged, const void* valid,
+                                   const int64_t* off, const int64_t* n,
+                                   int bs, void* out, void* stream) {
+  Regions g{};
+  if (!regions_of(off, n, bs, &g)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(out, 0, (size_t)bs * SLOT_WORDS * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  const int stages = S_WARPS * 2 * stage_bytes<int32_t>();
+  static int cached[64];
+  int limit = 0;
+  e = resident_blocks(stats_regions, S_WARPS * 32, stages, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = split_blocks(g.n, bs, S_WARPS * CH, limit, g.bstart);
+  stats_regions<<<grid, S_WARPS * 32, stages, s>>>(
+      (const int32_t*)merged, (const uint8_t*)valid, g, (int32_t*)out);
   return (int)cudaGetLastError();
 }

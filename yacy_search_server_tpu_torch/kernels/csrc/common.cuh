@@ -514,6 +514,59 @@ __device__ __forceinline__ bool row_passes(const int16_t* f, int32_t fl,
   return constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], fl, q) && bitmap_ok(d, q);
 }
 
+constexpr int BATCH_SLOTS = 16;
+
+// A wave whose slots are regions of one set of buffers (the batched
+// join's kernels 1 and 2): slot s's n[s] rows from row off[s], taken by
+// the grid's blocks [bstart[s], bstart[s + 1]) (split_blocks).
+struct Regions {
+  int64_t off[BATCH_SLOTS + 1], n[BATCH_SLOTS];
+  int32_t bstart[BATCH_SLOTS + 1];
+  int32_t bs;
+};
+
+// The range of `bs` block ranges (bstart[0..bs]) that holds block blk.
+__device__ __forceinline__ int range_of_block(const int32_t* bstart, int bs,
+                                              int blk) {
+  int s = 0;
+  while (s + 1 < bs && blk >= bstart[s + 1]) ++s;
+  return s;
+}
+
+// Cut a grid of at most `limit` blocks, a block taking `per_block` units
+// (rows, or chunks) a pass, into one range a slot of `rows[s]` units, in
+// proportion to them, at least one block a slot and no more than its
+// units need; fills bstart[0..bs] and returns the grid's blocks.
+__host__ inline int split_blocks(const int64_t* rows, int bs,
+                                 int64_t per_block, int limit,
+                                 int32_t* bstart) {
+  int64_t total = 0;
+  for (int s = 0; s < bs; ++s) total += rows[s];
+  bstart[0] = 0;
+  for (int s = 0; s < bs; ++s) {
+    const int64_t want = (rows[s] + per_block - 1) / per_block;
+    int64_t share = total > 0 ? (int64_t)limit * rows[s] / total : 1;
+    if (share > want) share = want;
+    if (share < 1) share = 1;
+    bstart[s + 1] = bstart[s] + (int32_t)share;
+  }
+  return bstart[bs];
+}
+
+// A Regions wave from bs + 1 region starts and bs row counts in host
+// memory (each region at least its rows); false where malformed.
+__host__ inline bool regions_of(const int64_t* off, const int64_t* n, int bs,
+                                Regions* g) {
+  if (bs < 1 || bs > BATCH_SLOTS || off[0] != 0) return false;
+  for (int s = 0; s < bs; ++s) {
+    if (n[s] < 0 || off[s + 1] - off[s] < n[s]) return false;
+    g->n[s] = n[s];
+  }
+  for (int s = 0; s <= bs; ++s) g->off[s] = off[s];
+  g->bs = bs;
+  return true;
+}
+
 // A wave of exact scans (the batched scan): up to BATCH_SLOTS queries
 // over the same arena, each with its own extents and constraint filter
 // (no delta, no bitmap: those queries stay solo), by value in the launch
@@ -523,7 +576,6 @@ __device__ __forceinline__ bool row_passes(const int16_t* f, int32_t fl,
 // every block busy until the big one is done. The batched K7 writes slot
 // s into [obase[s], obase[s + 1]) of one packed buffer (each slot's own
 // length, kernels/devstore.scan_batch_offsets).
-constexpr int BATCH_SLOTS = 16;
 struct ScanBatch {
   int32_t start[BATCH_SLOTS][MAX_EXT], count[BATCH_SLOTS][MAX_EXT];
   int32_t n[BATCH_SLOTS];
@@ -532,13 +584,6 @@ struct ScanBatch {
   int64_t obase[BATCH_SLOTS + 1];
   int32_t bs;
 };
-
-// The slot whose block range holds block blk.
-__device__ __forceinline__ int slot_of_block(const ScanBatch& b, int blk) {
-  int s = 0;
-  while (s + 1 < b.bs && blk >= b.bstart[s + 1]) ++s;
-  return s;
-}
 
 // The extents and filter of slot s of a wave over the arena.
 __host__ __device__ inline void slot_extents(const ScanBatch& b, int s,
@@ -596,22 +641,13 @@ __host__ inline bool scan_batch_of(const int32_t* slots, int bs, ScanBatch* b,
 // each a block) into the wave's slot ranges, in proportion to each slot's
 // chunks and at least one block a slot; returns the grid's blocks.
 __host__ inline int wave_blocks(ScanBatch* b, int warps, int limit) {
-  int64_t chunks[BATCH_SLOTS], total = 0;
+  int64_t chunks[BATCH_SLOTS];
   for (int s = 0; s < b->bs; ++s) {
     chunks[s] = 0;
     for (int e = 0; e < b->n[s]; ++e)
       chunks[s] += (b->count[s][e] + CH - 1) / CH;
-    total += chunks[s];
   }
-  b->bstart[0] = 0;
-  for (int s = 0; s < b->bs; ++s) {
-    const int64_t want = (chunks[s] + warps - 1) / warps;
-    int64_t share = total > 0 ? (int64_t)limit * chunks[s] / total : 1;
-    if (share > want) share = want;
-    if (share < 1) share = 1;
-    b->bstart[s + 1] = b->bstart[s] + (int32_t)share;
-  }
-  return b->bstart[b->bs];
+  return split_blocks(chunks, b->bs, warps, limit, b->bstart);
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds

@@ -102,23 +102,22 @@ __device__ __forceinline__ int64_t member(const JoinParts& a, int p,
   return __ldg(jpos + lo);
 }
 
-__global__ void __launch_bounds__(J_THREADS)
-join_rows(const int16_t* __restrict__ feats,
-          const int32_t* __restrict__ flags,
-          const int32_t* __restrict__ docids,
-          const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
-          int64_t count, const int32_t* __restrict__ jdocids,
-          const int32_t* __restrict__ jpos, int64_t jcap,
-          const int32_t* __restrict__ bmtab, int64_t nwords,
-          const JoinParts a, const Filter q, int32_t* __restrict__ merged,
-          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
-          uint32_t* __restrict__ nhigh) {
-  __shared__ int16_t s_in[J_THREADS * NF];
-  __shared__ int32_t s_out[J_THREADS * NF];
+// The rows of one query's rare window taken by block `block` of the
+// `blocks` that share it (a grid stride), staged through s_in / s_out.
+__device__ __forceinline__ void join_rows_body(
+    const int16_t* __restrict__ feats, const int32_t* __restrict__ flags,
+    const int32_t* __restrict__ docids, const uint8_t* __restrict__ dead,
+    int64_t doc_cap, int64_t start, int64_t count,
+    const int32_t* __restrict__ jdocids, const int32_t* __restrict__ jpos,
+    int64_t jcap, const int32_t* __restrict__ bmtab, int64_t nwords,
+    const JoinParts& a, const Filter& q, int32_t* __restrict__ merged,
+    int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+    uint32_t* __restrict__ nhigh, int16_t* s_in, int32_t* s_out, int block,
+    int blocks) {
   const int t = threadIdx.x;
   const bool off = filter_off(q);
-  for (int64_t r0 = (int64_t)blockIdx.x * J_THREADS; r0 < count;
-       r0 += (int64_t)gridDim.x * J_THREADS) {
+  for (int64_t r0 = (int64_t)block * J_THREADS; r0 < count;
+       r0 += (int64_t)blocks * J_THREADS) {
     const int rows = count - r0 < J_THREADS ? (int)(count - r0) : J_THREADS;
     const int16_t* src = feats + (start + r0) * NF;
     for (int i = t; i < rows * NF; i += J_THREADS) s_in[i] = src[i];
@@ -161,6 +160,24 @@ join_rows(const int16_t* __restrict__ feats,
   }
 }
 
+__global__ void __launch_bounds__(J_THREADS)
+join_rows(const int16_t* __restrict__ feats,
+          const int32_t* __restrict__ flags,
+          const int32_t* __restrict__ docids,
+          const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
+          int64_t count, const int32_t* __restrict__ jdocids,
+          const int32_t* __restrict__ jpos, int64_t jcap,
+          const int32_t* __restrict__ bmtab, int64_t nwords,
+          const JoinParts a, const Filter q, int32_t* __restrict__ merged,
+          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+          uint32_t* __restrict__ nhigh) {
+  __shared__ int16_t s_in[J_THREADS * NF];
+  __shared__ int32_t s_out[J_THREADS * NF];
+  join_rows_body(feats, flags, docids, dead, doc_cap, start, count, jdocids,
+                 jpos, jcap, bmtab, nwords, a, q, merged, flags_out,
+                 valid_out, nhigh, s_in, s_out, blockIdx.x, gridDim.x);
+}
+
 // The rows of the rare window whose docid is at or above 2^29, redone
 // with the reference's last-match rule (head note) where there are two or
 // more. The state of such a row lives in the outputs while the partners
@@ -170,18 +187,15 @@ join_rows(const int16_t* __restrict__ feats,
 // form at the end. A sort-mode partner matches only the largest
 // still-valid such row, and only where its segment holds 2^29; a bitmap
 // partner tests each row's own docid, as join_rows does.
-__global__ void __launch_bounds__(H_THREADS)
-join_high(const int16_t* __restrict__ feats,
-          const int32_t* __restrict__ flags,
-          const int32_t* __restrict__ docids,
-          const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
-          int64_t count, const int32_t* __restrict__ jdocids,
-          const int32_t* __restrict__ jpos, int64_t jcap,
-          const int32_t* __restrict__ bmtab, int64_t nwords,
-          const JoinParts a, const Filter q, int32_t* __restrict__ merged,
-          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
-          const uint32_t* __restrict__ nhigh) {
-  __shared__ unsigned long long s_last;
+__device__ __forceinline__ void join_high_body(
+    const int16_t* __restrict__ feats, const int32_t* __restrict__ flags,
+    const int32_t* __restrict__ docids, const uint8_t* __restrict__ dead,
+    int64_t doc_cap, int64_t start, int64_t count,
+    const int32_t* __restrict__ jdocids, const int32_t* __restrict__ jpos,
+    int64_t jcap, const int32_t* __restrict__ bmtab, int64_t nwords,
+    const JoinParts& a, const Filter& q, int32_t* __restrict__ merged,
+    int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+    const uint32_t* __restrict__ nhigh, unsigned long long& s_last) {
   if (__ldcg(nhigh) < 2u) return;
   const int t = threadIdx.x;
   for (int64_t r = t; r < count; r += H_THREADS) {
@@ -251,6 +265,134 @@ join_high(const int16_t* __restrict__ feats,
   }
 }
 
+__global__ void __launch_bounds__(H_THREADS)
+join_high(const int16_t* __restrict__ feats,
+          const int32_t* __restrict__ flags,
+          const int32_t* __restrict__ docids,
+          const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
+          int64_t count, const int32_t* __restrict__ jdocids,
+          const int32_t* __restrict__ jpos, int64_t jcap,
+          const int32_t* __restrict__ bmtab, int64_t nwords,
+          const JoinParts a, const Filter q, int32_t* __restrict__ merged,
+          int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out,
+          const uint32_t* __restrict__ nhigh) {
+  __shared__ unsigned long long s_last;
+  join_high_body(feats, flags, docids, dead, doc_cap, start, count, jdocids,
+                 jpos, jcap, bmtab, nwords, a, q, merged, flags_out,
+                 valid_out, nhigh, s_last);
+}
+
+// ---------------------------------------------------------------------------
+// join_member_batch: K8 with a slot dimension
+// ---------------------------------------------------------------------------
+// Replaces the membership and merge of _join_topk as
+// _rank_join_batch_kernel / _rank_join_bm_batch_kernel (:736, :769) and
+// their packed twins (:1049, :1068) vmap it over a wave: each slot its
+// own rare span, filter and partner segments (one descriptor row a slot,
+// the reference's qargs_batch), its merged rows, flags and valid bytes in
+// a region of its own of three wave buffers (rows off[s] on). The grid's
+// blocks are cut into one range a slot in proportion to its rows
+// (split_blocks), so a wave of one big and several small slots keeps
+// every block busy; a block builds its slot's JoinParts and filter in
+// shared memory and runs join_rows' body over the slot's window. A
+// partner's mode is its slot's own (slot >= 0 a bitmap, -1 a sorted
+// segment): in the reference the modes are statics of the wave, which
+// the port's group key keeps. The clip rule's count of rows at or above
+// 2^29 is a slot's own (nhigh[s]), and join_high's redo runs as one
+// block a slot, each for its own rare span and filter: two slots of one
+// span under different filters need each their own fix-up.
+//
+// Bound: bytes, as K8's: the slots' rare rows read and merged rows
+// written, summed (68 + 4 + 1 B a row written: a wave of 16 slots of 4M
+// rows holds 4.7 GB, sized from the live slots' counts).
+constexpr int JOIN_SLOTS = BATCH_SLOTS;
+constexpr int QARGS = 6;   // start, count, the filter's 4 int32
+
+// slot s: its rare span's rows [start[s], start[s] + count[s]), its
+// filter and partners, its region from off[s] and its blocks
+// [bstart[s], bstart[s + 1]). Fields of its own, not a Regions: with one
+// nvcc gave join_rows_batch 32 registers in place of 40 and it ran 1.7x
+// slower at 16 slots of 4M rows (H100 80GB HBM3, 700 W)
+struct JoinWave {
+  int32_t start[JOIN_SLOTS], count[JOIN_SLOTS], filt[JOIN_SLOTS][4];
+  int32_t jstart[JOIN_SLOTS][MAX_PARTS], jcount[JOIN_SLOTS][MAX_PARTS];
+  int32_t jslot[JOIN_SLOTS][MAX_PARTS];
+  int64_t off[JOIN_SLOTS + 1];
+  int32_t bstart[JOIN_SLOTS + 1];
+  int32_t bs, n_inc, n_exc;
+};
+
+// Slot s's partners and filter (thread 0 of a block, into shared memory).
+__device__ __forceinline__ void slot_parts(const JoinWave& w, int s,
+                                           JoinParts& a, Filter& q) {
+  a.n_inc = w.n_inc;
+  a.n_exc = w.n_exc;
+  for (int p = 0; p < w.n_inc + w.n_exc; ++p) {
+    a.jstart[p] = w.jstart[s][p];
+    a.jcount[p] = w.jcount[s][p];
+    a.slot[p] = w.jslot[s][p];
+  }
+  q = Filter{w.filt[s][0], w.filt[s][1], w.filt[s][2], w.filt[s][3],
+             nullptr, 0};
+}
+
+__global__ void __launch_bounds__(J_THREADS)
+join_rows_batch(const int16_t* __restrict__ feats,
+                const int32_t* __restrict__ flags,
+                const int32_t* __restrict__ docids,
+                const uint8_t* __restrict__ dead, int64_t doc_cap,
+                const int32_t* __restrict__ jdocids,
+                const int32_t* __restrict__ jpos, int64_t jcap,
+                const int32_t* __restrict__ bmtab, int64_t nwords,
+                const JoinWave w, int32_t* __restrict__ merged,
+                int32_t* __restrict__ flags_out,
+                uint8_t* __restrict__ valid_out,
+                uint32_t* __restrict__ nhigh) {
+  __shared__ int16_t s_in[J_THREADS * NF];
+  __shared__ int32_t s_out[J_THREADS * NF];
+  __shared__ JoinParts a;
+  __shared__ Filter q;
+  const int s = range_of_block(w.bstart, w.bs, blockIdx.x);
+  if (threadIdx.x == 0) slot_parts(w, s, a, q);
+  __syncthreads();
+  const int64_t o = w.off[s];
+  join_rows_body(feats, flags, docids, dead, doc_cap, w.start[s],
+                 w.count[s], jdocids, jpos, jcap, bmtab, nwords, a, q,
+                 merged + o * NF, flags_out + o, valid_out + o, nhigh + s,
+                 s_in, s_out, blockIdx.x - w.bstart[s],
+                 w.bstart[s + 1] - w.bstart[s]);
+}
+
+// one block a slot: join_high's redo where the slot has a sort-mode
+// membership (elsewhere none is needed, as in the solo K8)
+__global__ void __launch_bounds__(H_THREADS)
+join_high_batch(const int16_t* __restrict__ feats,
+                const int32_t* __restrict__ flags,
+                const int32_t* __restrict__ docids,
+                const uint8_t* __restrict__ dead, int64_t doc_cap,
+                const int32_t* __restrict__ jdocids,
+                const int32_t* __restrict__ jpos, int64_t jcap,
+                const int32_t* __restrict__ bmtab, int64_t nwords,
+                const JoinWave w, int32_t* __restrict__ merged,
+                int32_t* __restrict__ flags_out,
+                uint8_t* __restrict__ valid_out,
+                const uint32_t* __restrict__ nhigh) {
+  __shared__ unsigned long long s_last;
+  __shared__ JoinParts a;
+  __shared__ Filter q;
+  const int s = blockIdx.x;
+  bool any_sorted = false;
+  for (int p = 0; p < w.n_inc + w.n_exc; ++p)
+    any_sorted = any_sorted || w.jslot[s][p] < 0;
+  if (!any_sorted) return;
+  if (threadIdx.x == 0) slot_parts(w, s, a, q);
+  __syncthreads();
+  const int64_t o = w.off[s];
+  join_high_body(feats, flags, docids, dead, doc_cap, w.start[s], w.count[s],
+                 jdocids, jpos, jcap, bmtab, nwords, a, q, merged + o * NF,
+                 flags_out + o, valid_out + o, nhigh + s, s_last);
+}
+
 }  // namespace yt
 
 using namespace yt;
@@ -310,5 +452,77 @@ extern "C" int yt_join_member(const void* feats, const void* flags,
       (const uint8_t*)dead, doc_cap, start, count, (const int32_t*)jdocids,
       (const int32_t*)jpos, jcap, (const int32_t*)bmtab, nwords, a, q,
       (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out, nhigh);
+  return (int)cudaGetLastError();
+}
+
+// The batched K8 over a wave of bs <= 16 slots: desc bs rows of 6 + 3
+// (n_inc + n_exc) int32 in host memory (the reference's qargs_batch:
+// start, count, the filter's 4, then jstart, jcount and slot of each
+// include partner and of each exclude, slot -1 for a sorted segment);
+// off bs + 1 int64 region starts in host memory (off[0] = 0, each
+// region at least its slot's count). The arena and join tables as for
+// K8. Out: merged [off[bs], 17] int32, flags_out [off[bs]] int32,
+// valid_out [off[bs]] bool, slot s's rows from off[s]; scratch int32[bs],
+// each slot's count of rows at or above 2^29 (zeroed here).
+extern "C" int yt_join_member_batch(
+    const void* feats, const void* flags, const void* docids,
+    const void* dead, int64_t doc_cap, const void* jdocids, const void* jpos,
+    int64_t jcap, const void* bmtab, int64_t nwords, const int32_t* desc,
+    int bs, int n_inc, int n_exc, const int64_t* off, void* merged,
+    void* flags_out, void* valid_out, void* scratch, void* stream) {
+  if (bs < 1 || bs > JOIN_SLOTS || n_inc < 0 || n_exc < 0 || n_inc > 5 ||
+      n_exc > 6)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int words = QARGS + 3 * (n_inc + n_exc);
+  JoinWave w = {};
+  w.bs = bs;
+  w.n_inc = n_inc;
+  w.n_exc = n_exc;
+  int64_t rows[JOIN_SLOTS];
+  for (int i = 0; i < bs; ++i) {
+    const int32_t* q = desc + (int64_t)i * words;
+    if (q[0] < 0 || q[1] < 0 || off[i + 1] - off[i] < q[1])
+      return (int)cudaErrorInvalidValue;
+    w.start[i] = q[0];
+    w.count[i] = q[1];
+    rows[i] = q[1];
+    for (int k = 0; k < 4; ++k) w.filt[i][k] = q[2 + k];
+    for (int t = 0; t < n_inc; ++t) {
+      w.jstart[i][t] = q[QARGS + t];
+      w.jcount[i][t] = q[QARGS + n_inc + t];
+      w.jslot[i][t] = q[QARGS + 2 * n_inc + t];
+    }
+    const int32_t* e = q + QARGS + 3 * n_inc;
+    for (int x = 0; x < n_exc; ++x) {
+      w.jstart[i][n_inc + x] = e[x];
+      w.jcount[i][n_inc + x] = e[n_exc + x];
+      w.jslot[i][n_inc + x] = e[2 * n_exc + x];
+    }
+  }
+  if (off[0] != 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i <= bs; ++i) w.off[i] = off[i];
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)bs * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  static int cached[64];
+  int limit = 0;
+  e = resident_blocks(join_rows_batch, J_THREADS, 0, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  // the slots share the resident blocks in proportion to their rows
+  const int grid = split_blocks(rows, bs, J_THREADS, limit, w.bstart);
+  join_rows_batch<<<grid, J_THREADS, 0, s>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, (const int32_t*)jdocids,
+      (const int32_t*)jpos, jcap, (const int32_t*)bmtab, nwords, w,
+      (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out,
+      (uint32_t*)scratch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  join_high_batch<<<bs, H_THREADS, 0, s>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, (const int32_t*)jdocids,
+      (const int32_t*)jpos, jcap, (const int32_t*)bmtab, nwords, w,
+      (int32_t*)merged, (int32_t*)flags_out, (uint8_t*)valid_out,
+      (const uint32_t*)scratch);
   return (int)cudaGetLastError();
 }

@@ -39,6 +39,15 @@ package's index/devstore.py decides; every kernel decides it itself.
   wave of up to 16 filtered scans (`scan_batch_desc`), each slot with its
   own extents, filter, statistics and buffer row; kernel 3 a slot; then
   one finish for the wave, [bs, 2kk].
+- `join_member_batch` (csrc/join.cu), `join_stats_batch`
+  (csrc/cardinal_stats.cu) and `join_score_batch` (csrc/cardinal_score.cu)
+  replace _rank_join_batch_kernel / _rank_join_bm_batch_kernel and their
+  packed twins at bs > 1: K8, kernel 1 (no host counts) and kernel 2 (the
+  int32 path) with a slot dimension over a wave of up to 16 conjunctions
+  (`join_wave_desc`, the reference's qargs_batch), each slot's merged
+  rows, statistics and scores in a region of its own of one buffer
+  (`join_wave_offsets`); kernel 3 a slot and `topk_finish_batch` finish
+  the wave.
 
 K6, K7 and K8 take a constraint filter `filt` (_constraint_valid): the
 4-tuple (language, flag bit, from days, to days), each off at its
@@ -891,4 +900,245 @@ def topk_finish_batch(top_s, top_rows, docids, desc):
         desc.ctypes.data, bs, out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "topk_finish_batch")
     B.count_launch("topk_finish_batch", slots=bs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the batched join: K8 and kernels 1-2 over a wave of conjunctions
+# ---------------------------------------------------------------------------
+
+JOIN_QARGS = 6   # a slot's start, count and filter before its partners
+
+
+def join_wave_desc(slots, n_inc: int, n_exc: int) -> np.ndarray:
+    """A wave of up to BATCH_SLOTS conjunctions, each (start, count,
+    filter, parts) as join_member takes them (the rare span's rows, a
+    4-int filter or None, then n_inc partners and n_exc excludes as
+    (jstart, jcount, slot or -1)), as the batched kernels take it: int32
+    [bs, 6 + 3 (n_inc + n_exc)] in the reference's qargs_batch layout,
+    [start, count, lang, flag bit, from days, to days, jstart of each
+    partner, their jcounts, their slots, then the same of each exclude]
+    (devstore.py:661-666, :4776-4786), a sort-mode membership's slot
+    -1."""
+    bs = len(slots)
+    if not 1 <= bs <= BATCH_SLOTS:
+        raise ValueError(f"{bs} slots: a wave holds 1 to {BATCH_SLOTS}")
+    desc = np.zeros((bs, JOIN_QARGS + 3 * (n_inc + n_exc)), np.int32)
+    for i, (start, count, filt, parts) in enumerate(slots):
+        if len(parts) != n_inc + n_exc:
+            raise ValueError(f"slot {i}: {len(parts)} parts, expected "
+                             f"{n_inc} + {n_exc}")
+        inc, exc = parts[:n_inc], parts[n_inc:]
+        desc[i] = [int(start), int(count), *filter_args(filt),
+                   *(int(p[j]) for j in range(3) for p in inc),
+                   *(int(p[j]) for j in range(3) for p in exc)]
+    return desc
+
+
+def join_wave_slots(desc, n_inc: int):
+    """The (start, count, filter, parts) of each slot of a join wave."""
+    desc = np.asarray(desc)
+    n_exc = (desc.shape[1] - JOIN_QARGS) // 3 - n_inc
+    out = []
+    for row in desc.tolist():
+        q = row[JOIN_QARGS:]
+        inc = q[:3 * n_inc]
+        exc = q[3 * n_inc:]
+        parts = ([(inc[t], inc[n_inc + t], inc[2 * n_inc + t])
+                  for t in range(n_inc)]
+                 + [(exc[e], exc[n_exc + e], exc[2 * n_exc + e])
+                    for e in range(n_exc)])
+        out.append((row[0], row[1], tuple(row[2:JOIN_QARGS]), parts))
+    return out
+
+
+def join_wave_offsets(desc) -> np.ndarray:
+    """The regions of a join wave's buffers: int64 [bs + 1] row starts,
+    slot s's merged rows, flags, valid bytes and scores at [off[s],
+    off[s] + its count), each region rounded up to _REGION_ALIGN rows
+    (kernel 3 reads a slot's scores from its region's start as 16-byte
+    vectors); the rows past a slot's count are never read."""
+    counts = np.asarray(desc, np.int64)[:, 1]
+    off = np.zeros(len(counts) + 1, np.int64)
+    off[1:] = np.cumsum(-(-counts // _REGION_ALIGN) * _REGION_ALIGN)
+    return off
+
+
+def _check_offsets(desc, off) -> np.ndarray:
+    """A join wave's region starts (join_wave_offsets'), checked."""
+    off = np.ascontiguousarray(off, np.int64)
+    if off.shape != (desc.shape[0] + 1,) or off[0] != 0 \
+            or (off[1:] - off[:-1] < desc[:, 1]).any():
+        raise ValueError("off: bs + 1 region starts from 0, each region at "
+                         "least its slot's rows")
+    return off
+
+
+def _check_join_wave(feats16, jdocids, bmtab, desc, n_inc: int, off):
+    desc = np.ascontiguousarray(desc, np.int32)
+    n_exc = (desc.shape[1] - JOIN_QARGS) // 3 - n_inc if desc.ndim == 2 \
+        else -1
+    if (desc.ndim != 2 or not 1 <= desc.shape[0] <= BATCH_SLOTS
+            or n_exc < 0 or desc.shape[1] != JOIN_QARGS + 3 * (n_inc + n_exc)):
+        raise ValueError(f"a join wave is int32 [1..{BATCH_SLOTS}, 6 + 3 "
+                         f"(n_inc + n_exc)], got {desc.shape} with n_inc "
+                         f"{n_inc}")
+    for start, count, _f, parts in join_wave_slots(desc, n_inc):
+        _check_join(feats16, start, count, jdocids, bmtab, parts, n_inc)
+    return desc, n_exc, _check_offsets(desc, off)
+
+
+def wave_rows(t, desc, off):
+    """The rows of a join wave's buffer `t` that its kernels write: each
+    slot's count of rows from its region's start, in slot order."""
+    return torch.cat([t[o:o + c] for o, c in zip(
+        np.asarray(off)[:-1].tolist(), np.asarray(desc)[:, 1].tolist())])
+
+
+def join_member_batch_plain(feats16, flags, docids, dead, jdocids, jpos,
+                            bmtab, desc, n_inc: int, off):
+    """Plain PyTorch version of the batched K8: (merged int32 [off[-1],
+    17], flags int32 [off[-1]], valid bool [off[-1]]), each slot
+    join_member_plain's in its region, the rows past its count 0 / False."""
+    desc, _n_exc, off = _check_join_wave(feats16, jdocids, bmtab, desc,
+                                         n_inc, off)
+    dev = feats16.device
+    rows = int(off[-1])
+    merged = torch.zeros((rows, P.NF), dtype=torch.int32, device=dev)
+    fo = torch.zeros(rows, dtype=torch.int32, device=dev)
+    v = torch.zeros(rows, dtype=torch.bool, device=dev)
+    for i, (start, count, filt, parts) in enumerate(
+            join_wave_slots(desc, n_inc)):
+        o = int(off[i])
+        m, f, w = join_member_plain(feats16, flags, docids, dead, start,
+                                    count, jdocids, jpos, bmtab, parts,
+                                    n_inc, filt)
+        merged[o:o + count], fo[o:o + count], v[o:o + count] = m, f, w
+    return merged, fo, v
+
+
+def join_member_batch(feats16, flags, docids, dead, jdocids, jpos, bmtab,
+                      desc, n_inc: int, off):
+    """The batched K8: join_member for each slot of a join wave
+    (`desc`, join_wave_desc's; each slot its own rare span, filter and
+    partner segments, a partner's mode by its slot: >= 0 a bitmap, -1 a
+    sorted segment, the clip rule's fix-up a slot's own), its merged rows,
+    OR'd flags and valid bytes in its region [off[s], off[s] + count) of
+    three wave buffers (`off`: join_wave_offsets): (merged int32
+    [off[-1], 17], flags int32 [off[-1]], valid bool [off[-1]]); the rows
+    past a slot's count are not written on the card."""
+    if feats16.device.type == "cpu":
+        return join_member_batch_plain(feats16, flags, docids, dead, jdocids,
+                                       jpos, bmtab, desc, n_inc, off)
+    dev = feats16.device
+    _require_arena(feats16, flags, docids, dead, dev)
+    for name, t in (("jdocids", jdocids), ("jpos", jpos)):
+        B.require(t, name, (torch.int32,), 1, dev)
+    if jpos.shape != jdocids.shape:
+        raise ValueError("jdocids and jpos must have one entry each")
+    B.require(bmtab, "bmtab", (torch.int32,), 3, dev)
+    desc, n_exc, off = _check_join_wave(feats16, jdocids, bmtab, desc, n_inc,
+                                        off)
+    bs, rows = desc.shape[0], int(off[-1])
+    merged = torch.empty((rows, P.NF), dtype=torch.int32, device=dev)
+    fo = torch.empty(rows, dtype=torch.int32, device=dev)
+    v = torch.empty(rows, dtype=torch.bool, device=dev)
+    # each slot's count of rare rows at or above 2^29 (the clip fix-up)
+    nhigh = torch.empty(bs, dtype=torch.int32, device=dev)
+    rc = B.library().yt_join_member_batch(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], jdocids.data_ptr(), jpos.data_ptr(),
+        jdocids.shape[0], bmtab.data_ptr(), bmtab.shape[1], desc.ctypes.data,
+        bs, n_inc, n_exc, off.ctypes.data, merged.data_ptr(), fo.data_ptr(),
+        v.data_ptr(), nhigh.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "join_member_batch")
+    B.count_launch("join_member_batch", slots=int((desc[:, 1] > 0).sum()))
+    return merged, fo, v
+
+
+def _check_regions(merged, desc, off, *rows):
+    desc = np.ascontiguousarray(desc, np.int32)
+    if desc.ndim != 2 or not 1 <= desc.shape[0] <= BATCH_SLOTS:
+        raise ValueError(f"a join wave holds 1 to {BATCH_SLOTS} slots")
+    off = _check_offsets(desc, off)
+    n = int(off[-1])
+    if merged.shape != (n, P.NF) or any(t.shape[0] != n for t in rows):
+        raise ValueError(f"wave buffers of {n} rows expected")
+    return desc, off
+
+
+def join_stats_batch_plain(merged, valid, desc, off):
+    """Plain PyTorch version of the batched kernel 1: [bs, 38]."""
+    desc, off = _check_regions(merged, desc, off, valid)
+    return torch.stack([
+        KC.cardinal_stats_plain(merged[o:o + c], valid[o:o + c], None, 0)[0]
+        for o, c in zip(off[:-1].tolist(), desc[:, 1].tolist())])
+
+
+def join_stats_batch(merged, valid, desc, off):
+    """The batched kernel 1 without host counts (the reference's
+    num_hosts = 1): the statistics of the valid merged rows of each slot
+    of a join wave, over its region [off[s], off[s] + count) of
+    join_member_batch's buffers: [bs, 38] int32 (a view of rows 77 apart
+    on the card)."""
+    if merged.device.type == "cpu":
+        return join_stats_batch_plain(merged, valid, desc, off)
+    dev = merged.device
+    B.require(merged, "merged", (torch.int32,), 2, dev)
+    B.require(valid, "valid", (torch.bool,), 1, dev)
+    desc, off = _check_regions(merged, desc, off, valid)
+    bs = desc.shape[0]
+    counts = np.ascontiguousarray(desc[:, 1], np.int64)
+    # per slot: the statistics, then the kernel's accumulator and ticket
+    out = torch.empty((bs, _STATS_SLOT), dtype=torch.int32, device=dev)
+    rc = B.library().yt_join_stats_batch(
+        merged.data_ptr(), valid.data_ptr(), off.ctypes.data,
+        counts.ctypes.data, bs, out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "join_stats_batch")
+    B.count_launch("join_stats_batch", slots=int((counts > 0).sum()))
+    return out[:, :KC.STATS_LEN]
+
+
+def join_score_batch_plain(merged, flags, valid, desc, off, stats, consts):
+    """Plain PyTorch version of the batched kernel 2: int32 [off[-1]],
+    the rows past a slot's count -(2^31-1)."""
+    desc, off = _check_regions(merged, desc, off, flags, valid)
+    out = torch.full((int(off[-1]),), KC.SMALL, dtype=torch.int32,
+                     device=merged.device)
+    one = torch.zeros(1, dtype=torch.int32, device=merged.device)
+    for i, c in enumerate(desc[:, 1].tolist()):
+        o = int(off[i])
+        out[o:o + c] = KC.cardinal_score_plain(
+            merged[o:o + c], flags[o:o + c], valid[o:o + c], None, stats[i],
+            one, consts, False)
+    return out
+
+
+def join_score_batch(merged, flags, valid, desc, off, stats, consts):
+    """The batched kernel 2 on the int32 path: each slot's merged rows of
+    a join wave scored against its row of `stats` ([bs, 38],
+    join_stats_batch's) under one profile (`consts`), with their OR'd
+    flags, into its region of one int32 [off[-1]] buffer; invalid rows
+    -(2^31-1), the rows past a slot's count not written on the card."""
+    if merged.device.type == "cpu":
+        return join_score_batch_plain(merged, flags, valid, desc, off, stats,
+                                      consts)
+    dev = merged.device
+    B.require(merged, "merged", (torch.int32,), 2, dev)
+    B.require(flags, "flags", (torch.int32,), 1, dev)
+    B.require(valid, "valid", (torch.bool,), 1, dev)
+    B.require(consts, "consts", (torch.int32,), 1, dev)
+    desc, off = _check_regions(merged, desc, off, flags, valid)
+    bs = desc.shape[0]
+    if stats.dtype != torch.int32 or stats.device != dev \
+            or stats.shape != (bs, KC.STATS_LEN) or stats.stride(1) != 1:
+        raise ValueError("stats: int32 [bs, 38] rows on the card expected")
+    counts = np.ascontiguousarray(desc[:, 1], np.int64)
+    out = torch.empty(int(off[-1]), dtype=torch.int32, device=dev)
+    rc = B.library().yt_join_score_batch(
+        merged.data_ptr(), flags.data_ptr(), valid.data_ptr(),
+        off.ctypes.data, counts.ctypes.data, bs, stats.data_ptr(),
+        stats.stride(0), consts.data_ptr(), out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "join_score_batch")
+    B.count_launch("join_score_batch", slots=int((counts > 0).sum()))
     return out
