@@ -48,7 +48,13 @@ Phases, each of which exits non-zero on failure:
    no row) and, on the main path's store, 16 bitmap slots of joinA &
    headline (no filter, lang en, a flag bit, a date range in turn), 4
    sort-mode slots of term1000000 against joinB and 4 slots of
-   term1000000 & headline & -joinB;
+   term1000000 & headline & -joinB; the dense rerank's kernels on a
+   forward index of 65,536 unit rows: K9 `dense_dot` in gather mode and
+   K10 `rerank_sort` over waves at nb = 16, 128, 1024 (bs = 16), 128 (bs
+   = 1 and 20) and 16,384 (bs = 2), ragged, with pad slots and lanes,
+   docids -1 and past the rows, alpha 0, 0.5 and 1; K9's block mode over
+   1,000 f16 rows; its similarity mode for 1, 16 and 33 queries and K11
+   `hybrid_blend` on them;
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
@@ -106,12 +112,30 @@ Phases, each of which exits non-zero on failure:
    10M term, each equal to the twin's (and, but the last, to the numpy
    oracle), with their
    walls (median of 50 after a warm-up); every kernel of each path must
-   have launched; then device loss, on a store of its own (the 1M term
+   have launched; then, counts reset, the hybrid rerank on the same
+   store: a forward index of 2^21 unit vectors (dim 256, f16: the
+   default 1 GiB budget, full) loaded by convert.dense_from_numpy on the
+   card and on the twin; a mix of 54 reranks (the sparse answers of the
+   store's 7 terms x 2 profiles x k = 10, 100, 1000 and of joinA &
+   headline and term1000000 & headline, taken on the join path, at alpha
+   0.5, query vectors from the port's HashingEncoder) sent one at a time
+   without a batcher, from 16 threads without one and from 16 threads
+   through it (after an untimed pass), every answer the twin's, with q/s,
+   p50/p95 and the live slots of each K9 launch (more than one needed);
+   a hybrid-cache hit equal to its cold answer with no device work; 1,000
+   vector writes (one patch) and the mix again; hybrid_rerank_topk(_batch)
+   over the whole index (B = 1 and 16) against their plain versions; and
+   a put at docid 2^21, which grows the block past its budget:
+   rerank_boost declines (counted) and the host fallback (get_block,
+   dense_boost_topk, the re-sort) equals the twin's; then device loss, on
+   a store of its own (the 1M term
    and a 200,000-posting term meeting it): one injected
    `device.transfer_fail` charge (a counted retry, the same answers), a
    streak (the loss declared, rank_term and rank_join answering None,
    counted, the result cache's entry dead), the rebuild recovering with
-   answers bit-identical to those before the loss, and 16 batched
+   answers bit-identical to those before the loss, a rerank while lost
+   answering None counted in rerank_fallbacks only (and after the
+   rebuild its answer from before), and 16 batched
    waiters under a loss all returning, then recovered again. Every other
    phase must end with no transfer failure, retry or loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
@@ -144,7 +168,14 @@ Phases, each of which exits non-zero on failure:
    wall beside the solo join_query's; K5 at 16
    slots over 16 queries' spans as the batcher launches it, and the
    batched scan at 16 slots (the 10M and 1M terms under the mix's four
-   filters, k = 10 and 100) beside 16 solo scans;
+   filters, k = 10 and 100) beside 16 solo scans; K9 (gather mode) and
+   K10 over the hybrid mix's 16-query waves at nb = 16, 128, 1024, one
+   query and 2 slots of 16,384 (the bound reads a row that several lanes
+   share once), each wave's rerank_fwd_batch_packed with
+   its fetch beside a gather + einsum + sort; K9's block mode at
+   dense_boost_topk's k = 100 and 1000; K9's similarity mode and K11 for
+   B = 16 and 1 over the 2^21-row index, each held to its plain version
+   on every row, beside torch.matmul in bf16;
    rank_placed's wall per query over 50 queries after a warm-up; and,
    last, the device
    operations one call of each timed kernel issues, with their device
@@ -206,6 +237,12 @@ JOIN_MIX_REPEATS = 16
 JOIN_ONE_GROUP = 1024
 BATCHED_JOIN_KERNELS = ("join_member_batch", "join_stats_batch",
                         "join_score_batch", "tie_topk", "topk_finish_batch")
+# the hybrid rerank: the forward index's rows (dim 256, f16: the default
+# 1 GiB budget, full), each distinct query of its mix sent this many
+# times, and the kernels its path must launch
+DENSE_ROWS = 1 << 21
+HYBRID_REPEATS = 8
+HYBRID_KERNELS = ("dense_dot", "rerank_sort", "hybrid_blend", "tie_topk")
 # the counters that must read 0 outside the device-loss phase: nothing
 # fell back to the host behind a check's back
 LOSS_COUNTERS = ("transfer_failures", "transfer_retries", "device_losses")
@@ -298,9 +335,11 @@ def main() -> int:
                                                       build)
     from yacy_search_server_tpu_torch.kernels import bench as KB
     from yacy_search_server_tpu_torch.kernels import cardinal as KC
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
     from yacy_search_server_tpu_torch.kernels import devstore as KD
     from yacy_search_server_tpu_torch.kernels import reset_launches
     from yacy_search_server_tpu_torch.kernels import topk as KT
+    from yacy_search_server_tpu_torch.ops import dense as DN
     from yacy_search_server_tpu_torch.ops import ranking as R
     from yacy_search_server_tpu_torch.ops import streaming as S
     from yacy_search_server_tpu_torch.parallel import mesh as M
@@ -829,6 +868,54 @@ def main() -> int:
                          f"{pname}, {slabel} statistics", diff(g, w))
     del jstore, _jidx, ja, jt
 
+    # the dense rerank's kernels against their plain versions on a forward
+    # index of 65,536 unit rows (every 97th a copy of row 5: equal boosts):
+    # K9's gather mode and K10 over waves at nb = 16, 128, 1024 (bs = 16),
+    # 128 (bs = 1 and 20) and 16,384 (bs = 2, the shared-memory limit),
+    # ragged slots, pad slots and pad lanes, docids -1 and past the rows,
+    # alpha 0, 0.5 and 1; K9's block mode over 1,000 f16 rows; its
+    # similarity mode for 1, 16 and 33 queries (two passes) and K11 on
+    # those similarities with a slot of no valid lane
+    drng = np.random.default_rng(KB.SEED + 60)
+    fcap = 1 << 16
+    fwd_s = KB.unit_vectors(fcap, drng)
+    fwd_s[::97] = fwd_s[5]
+    fwd_sd = put(fwd_s)
+    for bs_, nb_ in ((16, 16), (16, 128), (16, 1024), (1, 128), (20, 128),
+                     (2, 16384)):
+        for alpha in (0.0, 0.5, 1.0):
+            ns = drng.integers(0, nb_ + 1, bs_)
+            ns[0] = nb_
+            ns[1::5] = 0
+            qi, nb_w, _sl = KB.rerank_wave(drng, fcap, ns, nb_, alpha)
+            qd = KDn.upload_desc(qi, dev)
+            fin = KDn.dense_gather_boost(fwd_sd, qd, nb_w)
+            note("dense_dot", f"gather bs={bs_} nb={nb_} alpha={alpha}",
+                 diff(fin, KDn.dense_gather_boost_plain(fwd_sd, qd, nb_w)))
+            srt = KDn.rerank_sort(fin, qd, nb_w)
+            note("rerank_sort", f"bs={bs_} nb={nb_} alpha={alpha}",
+                 diff(srt, KDn.rerank_sort_plain(fin, qd, nb_w)))
+    blk = fwd_sd[:1000]
+    qv = put(KB.unit_vectors(1, drng, dtype=np.float32)[0])
+    spv = put(drng.integers(0, 1 << 20, 1000).astype(np.int32))
+    vv = put(drng.random(1000) < 0.9)
+    note("dense_dot", "block of 1000 rows",
+         diff(KDn.dense_rows_boost(blk, qv, spv, vv, 0.5),
+              KDn.dense_rows_boost_plain(blk, qv, spv, vv, 0.5)))
+    for nq in (1, 16, 33):
+        qs = put(KB.unit_vectors(nq, drng, dtype=np.float32))
+        sims = KDn.dense_sims(fwd_sd, qs)
+        note("dense_dot", f"similarities of {nq} queries",
+             diff(sims, KDn.dense_sims_plain(fwd_sd, qs)))
+        spf = put(drng.integers(0, 1000, (nq, fcap)).astype(np.float32))
+        vf = put(drng.random((nq, fcap)) < 0.9)
+        vf[0] = False
+        for alpha in (0.0, 0.5):
+            note("hybrid_blend", f"{nq} slots alpha={alpha}",
+                 diff(KDn.hybrid_blend(sims, spf, vf, alpha),
+                      KDn.hybrid_blend_plain(sims, spf, vf, alpha)))
+    del fwd_s, fwd_sd, sims
+
     # -- phase 3: the main path ---------------------------------------------
     ref_scores = {}
     for pname, prof in profiles.items():
@@ -1263,6 +1350,18 @@ def main() -> int:
         log(f"{label}, per query: median {float(np.median(w)):.4f} ms, "
             f"mean {float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 "
             "after 5")
+    # the hybrid phase's conjunctions (their sparse answers at k = 10, 100
+    # and 1000 under both join profiles), taken while the headline term
+    # is one span: a second run would make joins with it decline
+    hy_joins = {}
+    for jname, inc in ((b"joinA & headline", [jA, hl]),
+                       (b"term1000000 & headline", [t1m, hl])):
+        for pn, prof in jprofs.items():
+            for k in (10, 100, 1000):
+                a = gs.rank_join(inc, [], prof, k=k)
+                if a is None or not len(a[1]):
+                    fail(f"rank_join {jname.decode()} gave no answer")
+                hy_joins[(jname, pn, k)] = a
     clean("the join path", gs, hs)
     # the three joins' shapes (rare span, partners), kept for phase 4:
     # the arena's rows and join tables stay where they are
@@ -1659,7 +1758,235 @@ def main() -> int:
         log(f"wall {label}: median {float(np.median(w)):.4f} ms, mean "
             f"{float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 after 5")
     gs._topk_cache.enabled = True
-    del hs, idx, hl_live, two, oracles, join_rows
+
+    # -- phase 3, the hybrid rerank: rerank_boost, its batcher kind, the
+    # hybrid cache and the host fallback, on the headline store ----------
+    # the forward index: 2^21 unit vectors (dim 256, f16, from the seed),
+    # the default 1 GiB budget, full, through convert.dense_from_numpy on
+    # the card and on the CPU twin. The mix: the sparse answers of the
+    # store's 7 terms x 2 profiles x k = 10, 100, 1000 (rank_term) and of
+    # joinA & headline and term1000000 & headline (rank_join, taken on the
+    # join path), each reranked at alpha 0.5 with a query vector from the
+    # port's HashingEncoder; sent one at a time with no batcher, from 16
+    # threads with none, and from 16 threads through it (after an untimed
+    # pass), every answer the twin's to the bit. Then a hybrid-cache hit
+    # equal to its cold answer with no device work; 1,000 vector writes
+    # (the patch path) and the mix again; the bench path's
+    # hybrid_rerank_topk(_batch) over the whole index (B = 1 and 16, K11);
+    # and one put at docid 2^21, which grows the block past its budget:
+    # rerank_boost declines (counted) and SearchEvent's host fallback
+    # (get_block, dense_boost_topk, the re-sort) must equal the twin's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tq = time.time()
+    hy_time = {}
+    vecs = KB.unit_vectors(DENSE_ROWS, np.random.default_rng(KB.SEED + 70))
+    hy_time["vectors (host)"] = time.time() - tq
+    tq = time.time()
+    g_dense = convert.dense_from_numpy(vecs, DENSE_ROWS, device=dev)
+    torch.cuda.synchronize()
+    hy_time["dense_from_numpy, the card"] = time.time() - tq
+    tq = time.time()
+    h_dense = convert.dense_from_numpy(vecs, DENSE_ROWS, device="cpu")
+    hy_time["dense_from_numpy, the twin"] = time.time() - tq
+    del vecs
+    gs.attach_dense(g_dense)
+    hs.attach_dense(h_dense)
+    if gs.counters()["dense_fwd_bytes"] != DENSE_ROWS * DN.DIM * 2:
+        fail(f"the forward index holds {gs.counters()['dense_fwd_bytes']} "
+             f"bytes on the card, not {DENSE_ROWS} rows")
+    enc = DN.HashingEncoder()
+    hy_in = {}
+    for th in bt_terms:
+        for pn, prof in mix_profiles.items():
+            for k in (10, 100, 1000):
+                a = gs.rank_term(th, prof, k=k)
+                if a is None or not len(a[1]):
+                    fail(f"rank_term {th.decode()} gave no answer")
+                hy_in[(th, pn, k)] = a
+    hy_in.update(hy_joins)
+    hy_in = {q: (enc.encode(f"{q[0].decode()} {q[1]} hybrid"),
+                 a[0].astype(np.int32), a[1].astype(np.int32))
+             for q, a in hy_in.items()}
+    cov = {q: (d < DENSE_ROWS).mean() for q, (_v, _s, d) in hy_in.items()}
+    if min(cov[(t1m, pn, k)] for pn in mix_profiles
+           for k in (10, 100, 1000)) != 1.0:
+        fail("a docid of the 1M term lies past the forward index")
+    if not 0 < cov[(hl, "default", 1000)] < 1 or \
+            not 0 < cov[(b"joinA & headline", "default", 1000)] < 1:
+        fail("the 10M term and joinA must be covered in part")
+    hy_qs = list(hy_in)
+    hy_fn = lambda q: gs.rerank_boost(*hy_in[q], 0.5)  # noqa: E731
+    hy_stream = [q for _ in range(HYBRID_REPEATS) for q in hy_qs]
+
+    def hy_twins():
+        return {q: hs.rerank_boost(*hy_in[q], 0.5) for q in hy_qs}
+
+    def hy_check(label, ans, refs):
+        for q, got in ans.items():
+            for a in got:
+                if a is None or not (np.array_equal(a[0], refs[q][0])
+                                     and np.array_equal(a[1], refs[q][1])):
+                    fail(f"hybrid {label}: {q[0].decode()} {q[1:]} differs "
+                         "from the twin's")
+    tq = time.time()
+    hy_refs = hy_twins()
+    hy_time["the twin's answers"] = time.time() - tq
+    for q, (v, sp_, d_) in hy_in.items():
+        r = hy_refs[q]
+        if r is None or sorted(r[1].tolist()) != sorted(d_.tolist()):
+            fail(f"the twin's rerank of {q} lost candidates")
+    torch.cuda.synchronize()
+    reset_launches()
+    th_ = time.time()
+    hy_stats = {}
+    for mode, threads in (("one at a time, no batcher", 1),
+                          (f"{MIX_THREADS} threads, no batcher",
+                           MIX_THREADS)):
+        ans, st_ = run_mix(hy_stream, hy_fn, threads)
+        hy_check(mode, ans, hy_refs)
+        hy_stats[mode] = st_
+    gs.enable_batching(max_batch=16, dispatchers=8, rerank_batching=True)
+    for mode in ("untimed pass", "timed"):
+        l0, w0, s0 = dict(LAUNCHES), dict(WIDE), dict(SLOTS)
+        ans, st_ = run_mix(hy_stream, hy_fn, MIX_THREADS)
+        hy_check(f"through the batcher, {mode}", ans, hy_refs)
+        hy_stats[f"{MIX_THREADS} threads, batcher, {mode}"] = st_
+        hy_wave = (LAUNCHES["dense_dot"] - l0["dense_dot"],
+                   WIDE["dense_dot"] - w0["dense_dot"],
+                   SLOTS["dense_dot"] - s0["dense_dot"])
+        log(f"hybrid mix through the batcher, {mode}: dense_dot "
+            f"{hy_wave[0]} launches, {hy_wave[1]} with more than one live "
+            f"slot, {hy_wave[2] / max(hy_wave[0], 1):.2f} live slots a "
+            "launch")
+    if hy_wave[1] == 0:
+        fail("no dense_dot launch took more than one live slot")
+    hc = gs.counters()
+    if hc["batch_timeouts"] or hc["batch_exceptions"]:
+        fail(f"the batcher did not serve the hybrid mix cleanly: {hc}")
+    gs.close()
+    for mode, st_ in hy_stats.items():
+        log(f"hybrid mix ({len(hy_qs)} distinct reranks), {mode}: "
+            f"{st_['n']} queries, {st_['qps']:.1f} q/s, p50 "
+            f"{st_['p50']:.4f} ms, p95 {st_['p95']:.4f} ms, wall "
+            f"{st_['wall']:.3f} s")
+    # a hybrid-cache hit: the full answer with no device work
+    hq = (t1m, "default", 100)
+    sp_a = hy_in[hq]
+    epoch0, dv0 = gs.arena_epoch, gs.hybrid_vector_version()
+    cold = gs.rerank_boost(*sp_a, 0.5)
+    gs.hybrid_cache_put(t1m, mix_profiles["default"], "en", 100, 0.5, epoch0,
+                        cold[0], cold[1], 1_000_000, dv0=dv0)
+    c0, l0 = gs.counters(), dict(LAUNCHES)
+    hit = gs.hybrid_cache_get(t1m, mix_profiles["default"], "en", 100, 0.5)
+    c1 = gs.counters()
+    if hit is None or not (np.array_equal(hit[0], cold[0])
+                           and np.array_equal(hit[1], cold[1])):
+        fail("the hybrid-cache hit differs from its cold answer")
+    if (c1["rerank_cache_hits"] != c0["rerank_cache_hits"] + 1
+            or c1["device_round_trips"] != c0["device_round_trips"]
+            or dict(LAUNCHES) != l0):
+        fail("the hybrid-cache hit did device work")
+    hy_walls = {"hybrid_cache_get, a hit (1M term, k=100)": walls_of(
+        lambda: gs.hybrid_cache_get(t1m, mix_profiles["default"], "en", 100,
+                                    0.5))}
+    hy_walls["rerank_boost solo, 1M term k=100 (nb=128)"] = walls_of(
+        lambda: gs.rerank_boost(*sp_a, 0.5))
+    hy_walls["rerank_boost solo, 10M term k=1000 (nb=1024)"] = walls_of(
+        lambda: gs.rerank_boost(*hy_in[(hl, "default", 1000)], 0.5))
+    # 1,000 vector writes: the patch path, then the mix against the twin
+    wrng = np.random.default_rng(KB.SEED + 71)
+    w_ids = wrng.choice(DENSE_ROWS, 1000, replace=False)
+    w_vecs = KB.unit_vectors(1000, wrng)
+    for d_, v_ in zip(w_ids.tolist(), w_vecs):
+        g_dense.put(d_, v_)
+        h_dense.put(d_, v_)
+    p0 = g_dense.patches
+    if gs.hybrid_cache_get(t1m, mix_profiles["default"], "en", 100,
+                           0.5) is not None:
+        fail("a hybrid-cache entry survived a vector write")
+    tq = time.time()
+    hy_refs2 = hy_twins()
+    ans, _st = run_mix(hy_qs * 2, hy_fn, MIX_THREADS)
+    hy_check("after 1,000 vector writes", ans, hy_refs2)
+    if g_dense.patches != p0 + 1 or g_dense.uploads != 1:
+        fail(f"the writes did not take the patch path (patches "
+             f"{g_dense.patches}, uploads {g_dense.uploads})")
+    log(f"1,000 vector writes: one patch, the mix's {len(hy_qs)} answers "
+        f"equal to the twin's ({time.time() - tq:.1f} s)")
+    # the bench path: hybrid_rerank_topk(_batch) over the whole index
+    fwd_g = g_dense.device_block(dev)[0]
+    hrng = np.random.default_rng(KB.SEED + 72)
+    hq16 = put(np.stack([enc.encode(f"hybrid bench query {i}")
+                         for i in range(16)]))
+    hsp16 = put(hrng.integers(0, 1 << 20, (16, DENSE_ROWS)).astype(
+        np.float32))
+    hv16 = put(hrng.random((16, DENSE_ROWS)) < 0.9)
+    for b_, (gsc, gix) in (
+            (16, DN.hybrid_rerank_topk_batch(hq16, fwd_g, hsp16, hv16, 0.5,
+                                             100)),
+            (1, tuple(x[None] for x in DN.hybrid_rerank_topk(
+                hq16[0], fwd_g, hsp16[0], hv16[0], 0.5, 100)))):
+        sims_p = KDn.dense_sims_plain(fwd_g, hq16[:b_])
+        fin_p = KDn.hybrid_blend_plain(sims_p, hsp16[:b_], hv16[:b_], 0.5)
+        for i in range(b_):
+            ws_, _w, wi_ = KT.tie_topk_plain(fin_p[i], 100)
+            if not (torch.equal(gsc[i], ws_) and torch.equal(gix[i], wi_)):
+                fail(f"hybrid_rerank_topk B={b_} slot {i} differs from "
+                     "its plain version")
+        del sims_p, fin_p
+    log(f"hybrid_rerank_topk over {DENSE_ROWS} rows: B = 16 and 1 equal to "
+        "their plain versions")
+    # the fallback: a put at docid 2^21 grows the bucket past the budget
+    rf0 = gs.counters()["rerank_fallbacks"]
+    if rf0:
+        fail(f"{rf0} reranks fell back outside the fallback check")
+    g_dense.put(DENSE_ROWS, w_vecs[0])
+    h_dense.put(DENSE_ROWS, w_vecs[0])
+    for q in ((t1m, "default", 1000), (hl, "light", 1000),
+              (b"joinA & headline", "default", 100)):
+        qv, s_, d_ = hy_in[q]
+        if gs.rerank_boost(qv, s_, d_, 0.5) is not None:
+            fail("rerank_boost answered over the forward index's budget")
+        outs = []
+        for dv_ in (dev, "cpu"):
+            fs, fi = DN.dense_boost_topk(qv, g_dense.get_block(d_), s_,
+                                         np.ones(len(d_), bool), 0.5,
+                                         len(d_), device=dv_)
+            fd = d_[fi.cpu().numpy()]
+            order = np.lexsort((fd, -fs.cpu().numpy().astype(np.int64)))
+            outs.append((fs.cpu().numpy()[order], fd[order]))
+        if not (np.array_equal(outs[0][0], outs[1][0])
+                and np.array_equal(outs[0][1], outs[1][1])):
+            fail(f"the host fallback of {q} differs from the twin's")
+    hc = gs.counters()
+    if hc["rerank_fallbacks"] != 3 or hc["dense_fwd_bytes"] != 0:
+        fail(f"over budget: rerank_fallbacks {hc['rerank_fallbacks']}, "
+             f"dense_fwd_bytes {hc['dense_fwd_bytes']}")
+    torch.cuda.synchronize()
+    launches_hy = dict(LAUNCHES)
+    log(f"hybrid path: {time.time() - th_:.1f} s; launches {launches_hy}; "
+        "set-up " + ", ".join(f"{k} {v:.1f} s" for k, v in hy_time.items()))
+    missing = [k for k in HYBRID_KERNELS if launches_hy[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the hybrid path: {missing}")
+    log(f"hybrid path: device memory {mem0} bytes before the forward "
+        f"index, peak {torch.cuda.max_memory_allocated()} "
+        "(torch.cuda.max_memory_allocated)")
+    log("hybrid counters: " + ", ".join(
+        f"{k} {hc[k]}" for k in ("rerank_dispatches", "rerank_queries",
+                                 "rerank_cache_hits", "rerank_fallbacks",
+                                 "dense_fwd_bytes")))
+    for label, w in hy_walls.items():
+        log(f"wall {label}: median {float(np.median(w)):.4f} ms, mean "
+            f"{float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 after 5")
+    clean("the hybrid path", gs, hs)
+    hy_shapes = {k: hy_in[k] for k in ((t1m, "default", 10),
+                                       (t1m, "default", 100),
+                                       (hl, "default", 1000))}
+    del hs, idx, hl_live, two, oracles, join_rows, h_dense, hy_refs
+    del hy_refs2
 
     # -- phase 3, device loss (a store of its own: the 1M term and a term
     # of 200,000 postings meeting it) ------------------------------------
@@ -1714,6 +2041,14 @@ def main() -> int:
     before = ask_l()
     if before[0] is None or before[1] is None or not len(before[1][1]):
         fail("device loss: no answer before the loss")
+    # a forward index for the rerank under the loss
+    ls.attach_dense(convert.dense_from_numpy(
+        KB.unit_vectors(1 << 16, np.random.default_rng(KB.SEED + 81)),
+        device=dev))
+    rr_in = (enc.encode("device loss rerank"), before[0][0], before[0][1])
+    rr_before = ls.rerank_boost(*rr_in, 0.5)
+    if rr_before is None:
+        fail("device loss: no rerank before the loss")
     faultinject.set_fault(point, 1)
     same_l("one injected charge", ask_l(), before)
     if loss_state() != (0, 0, 0, 0, 0, 1):
@@ -1733,6 +2068,15 @@ def main() -> int:
         fail("device loss: the streak did not declare the loss")
     if any(a is not None for a in ask_l()):
         fail("device loss: an entry point answered while the device is lost")
+    lq0 = ls.counters()
+    if ls.rerank_boost(*rr_in, 0.5) is not None:
+        fail("device loss: rerank_boost answered while the device is lost")
+    lq1 = ls.counters()
+    if (lq1["rerank_fallbacks"] != lq0["rerank_fallbacks"] + 1
+            or lq1["device_lost_queries"] != lq0["device_lost_queries"]
+            or lq1["rerank_queries"] != lq0["rerank_queries"]):
+        fail("device loss: a rerank while lost must count in "
+             "rerank_fallbacks only")
     ls._topk_cache.enabled = True
     if ls.arena_epoch == epoch0 or \
             ls.rank_cache_get(t1m, prof_l, k=100) is not None:
@@ -1741,6 +2085,11 @@ def main() -> int:
     lost = loss_state()
     recovered()
     same_l("after the rebuild", ask_l(), before)
+    rr_after = ls.rerank_boost(*rr_in, 0.5)
+    if rr_after is None or not (np.array_equal(rr_after[0], rr_before[0])
+                                and np.array_equal(rr_after[1],
+                                                   rr_before[1])):
+        fail("device loss: the rerank after the rebuild differs")
     st1 = loss_state()
     log(f"device loss: one charge retried; a streak declared the loss "
         f"{lost}; recovered {st1}, the answers equal to those before")
@@ -1848,7 +2197,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": {"placed": launches, "devstore": launches_ds,
                          "join": launches_join, "batched": launches_bt,
-                         "batched_join": launches_bj}[path][name],
+                         "batched_join": launches_bj,
+                         "hybrid": launches_hy}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2440,6 +2790,145 @@ def main() -> int:
             f"the kk={kk} winners of 16 filtered scans -> [16, {2 * kk}]",
             path="batched")
     del g, w, pst16
+
+    # the dense rerank's kernels at the hybrid path's shapes, each checked
+    # first on the inputs it is timed on: K9 (gather mode) and K10 over the
+    # hybrid mix's waves (16 of its queries at k = 10, 100 and 1000: nb =
+    # 16, 128, 1024), one query (bs = 1, nb = 128) and 2 slots of 16,384
+    # candidates, over the 2^21-row forward index; K9's block mode at
+    # dense_boost_topk's k = 100 and 1000 (the host fallback's get_block);
+    # K9's similarity mode and K11 for B = 16 and 1 over the whole index
+    # (hybrid_rerank_topk(_batch)). Yardsticks: a gather and torch.einsum
+    # in bf16 (K9 gather), torch.sort of the same keys (K10), torch.matmul
+    # in bf16 (K9's other modes); none for K11
+    bf = torch.bfloat16
+    dense_src = ("yacy_search_server_tpu/ops/dense.py:290 "
+                 "_rerank_fwd_batch_packed_kernel (dot; :218, :150, :177)",
+                 "dense.cu")
+    dd_src = ("dense_dot", *dense_src)
+    rs_src = ("rerank_sort", "yacy_search_server_tpu/ops/dense.py:290 "
+              "_rerank_fwd_batch_packed_kernel (lax.sort)", "dense.cu")
+    hb_src = ("hybrid_blend", "yacy_search_server_tpu/ops/dense.py:150 "
+              "hybrid_rerank_topk / :177 hybrid_rerank_topk_batch (blend)",
+              "dense.cu")
+    cap_g = fwd_g.shape[0]
+    waves = {}
+    for k in (10, 100, 1000):
+        qs_k = [q for q in hy_qs if q[2] == k][:16]
+        nb_k = DN.rerank_bucket(k)
+        waves[f"16 mix queries at k={k} (nb={nb_k})"] = np.stack([
+            DN.pack_rerank_row(*hy_in[q], 0.5, nb_k) for q in qs_k])
+    q1 = (t1m, "default", 100)
+    waves["1 query at k=100 (nb=128)"] = DN.pack_rerank_row(
+        *hy_in[q1], 0.5, 128)[None, :]
+    big, nb_big, _sl = KB.rerank_wave(np.random.default_rng(KB.SEED + 73),
+                                      cap_g, (16384, 16384), 16384)
+    waves["2 synthetic slots of 16,384 (nb=16384)"] = big
+    for label, qi in waves.items():
+        nb_w = (qi.shape[1] - 2 - DN.DIM) // 2
+        qd = KDn.upload_desc(qi, dev)
+        nval = qi[:, 0]
+        lanes = np.arange(nb_w)[None, :] < nval[:, None]
+        dids = qi[:, 2:2 + nb_w]
+        cov = lanes & (dids >= 0) & (dids < cap_g)
+        # the bound reads a row that several lanes share once
+        read, covered = int(np.unique(dids[cov]).size), int(cov.sum())
+        live = int((nval > 0).sum())
+        log(f"gather, {label}: {read} distinct rows read for {covered} "
+            "covered lanes")
+        fin = KDn.dense_gather_boost(fwd_g, qd, nb_w)
+        note("dense_dot", f"gather, {label}",
+             diff(fin, KDn.dense_gather_boost_plain(fwd_g, qd, nb_w)))
+        srt = KDn.rerank_sort(fin, qd, nb_w)
+        note("rerank_sort", label, diff(srt, KDn.rerank_sort_plain(fin, qd,
+                                                                   nb_w)))
+        idx_l = torch.from_numpy(dids.astype(np.int64)).to(dev).clamp(
+            0, cap_g - 1)
+        qb = torch.from_numpy(qi[:, 2 + 2 * nb_w:].copy().view(
+            np.float32)).to(dev).to(bf)
+        key = (KDn._wrap32(-fin.to(torch.int64)).to(torch.int64) * 2**32
+               + qd[:, 2:2 + nb_w].to(torch.int64) + 2**31)
+        measure(*dd_src,
+                lambda f=fwd_g, q=qd, n_=nb_w, lv=live:
+                KDn.dense_gather_boost(f, q, n_, lv),
+                lambda f=fwd_g, q=qd, n_=nb_w:
+                KDn.dense_gather_boost_plain(f, q, n_),
+                lambda i=idx_l, q=qb: torch.einsum(
+                    "bd,bnd->bn", q, fwd_g[i].to(bf)),
+                read * 512 + qi.nbytes + fin.numel() * 4, 2.0 * covered * 256,
+                f"gather mode, {label} ({read} distinct rows read, "
+                f"{covered} covered lanes)", path="hybrid")
+        measure(*rs_src,
+                lambda x=fin, q=qd, n_=nb_w, lv=live:
+                KDn.rerank_sort(x, q, n_, lv),
+                lambda x=fin, q=qd, n_=nb_w: KDn.rerank_sort_plain(x, q, n_),
+                lambda x=key: torch.sort(x, dim=1, stable=True),
+                fin.numel() * 16, 0.0, label, path="hybrid")
+        w = walls_of(lambda f=fwd_g, q=qi, n_=nb_w:
+                     DN.rerank_fwd_batch_packed(f, q, n_).cpu())
+        yard = KB.call_ms(lambda i=idx_l, q=qb, x=key: (
+            torch.einsum("bd,bnd->bn", q, fwd_g[i].to(bf)),
+            torch.sort(x, dim=1, stable=True)))
+        log(f"wall rerank_fwd_batch_packed + fetch, {label}: median "
+            f"{float(np.median(w)):.4f} ms, min {min(w):.4f} ms over 50 "
+            f"after 5; yardstick gather + einsum + sort {yard:.4f} ms a "
+            "call")
+    qv0, _s0, d0 = hy_in[(t1m, "default", 1000)]
+    blk_all = put(g_dense.get_block(d0))
+    qv_d = put(qv0)
+    for k in (100, 1000):
+        blk = blk_all[:k]
+        spk = put(_s0[:k])
+        vk = torch.ones(k, dtype=torch.bool, device=dev)
+        note("dense_dot", f"block mode k={k}",
+             diff(KDn.dense_rows_boost(blk, qv_d, spk, vk, 0.5),
+                  KDn.dense_rows_boost_plain(blk, qv_d, spk, vk, 0.5)))
+        measure(*dd_src,
+                lambda b_=blk, s_=spk, v_=vk:
+                KDn.dense_rows_boost(b_, qv_d, s_, v_, 0.5),
+                lambda b_=blk, s_=spk, v_=vk:
+                KDn.dense_rows_boost_plain(b_, qv_d, s_, v_, 0.5),
+                lambda b_=blk: torch.matmul(b_.to(bf), qv_d.to(bf)),
+                k * 512 + 1024 + k * 9, 2.0 * k * 256,
+                f"block mode, dense_boost_topk k={k} (the host fallback's "
+                "get_block)", path="hybrid")
+        whole = KB.call_ms(lambda b_=blk, s_=spk, v_=vk, k_=k:
+                           DN.dense_boost_topk(qv_d, b_, s_, v_, 0.5, k_))
+        log(f"dense_boost_topk k={k}: {whole:.4f} ms a call (K9 and kernel "
+            "3)")
+    fwd_b16 = fwd_g.to(bf)
+    for b_ in (16, 1):
+        qs_b = hq16[:b_].contiguous()
+        sims = KDn.dense_sims(fwd_g, qs_b)
+        note("dense_dot", f"similarities, B={b_} over all {cap_g} rows",
+             diff(sims, KDn.dense_sims_plain(fwd_g, qs_b)))
+        measure(*dd_src, lambda q=qs_b: KDn.dense_sims(fwd_g, q),
+                lambda q=qs_b: KDn.dense_sims_plain(fwd_g, q),
+                lambda q=qs_b: torch.matmul(q.to(bf), fwd_b16.T),
+                cap_g * 512 + b_ * 1024 + b_ * cap_g * 4,
+                2.0 * b_ * cap_g * 256,
+                f"similarity mode, B={b_} over {cap_g} rows "
+                "(hybrid_rerank_topk" + ("_batch)" if b_ > 1 else ")"),
+                path="hybrid", plain_reps=1)
+        spb, vb = hsp16[:b_].contiguous(), hv16[:b_].contiguous()
+        note("hybrid_blend", f"B={b_} over {cap_g} lanes",
+             diff(KDn.hybrid_blend(sims, spb, vb, 0.5),
+                  KDn.hybrid_blend_plain(sims, spb, vb, 0.5)))
+        measure(*hb_src, lambda x=sims, s_=spb, v_=vb:
+                KDn.hybrid_blend(x, s_, v_, 0.5),
+                lambda x=sims, s_=spb, v_=vb:
+                KDn.hybrid_blend_plain(x, s_, v_, 0.5), None,
+                b_ * cap_g * 13, 5.0 * b_ * cap_g,
+                f"[{b_}, {cap_g}] f32 similarities, sparse and valid",
+                path="hybrid")
+        whole = KB.call_ms(lambda q=qs_b, s_=spb, v_=vb:
+                           DN.hybrid_rerank_topk_batch(q, fwd_g, s_, v_, 0.5,
+                                                       100))
+        log(f"hybrid_rerank_topk{'_batch' if b_ > 1 else ''} B={b_} over "
+            f"{cap_g} rows, k=100: {whole:.4f} ms a call (K9, K11, kernel 3 "
+            "a slot)")
+        del sims
+    del fwd_b16, hsp16, hv16
 
     # the device part of the join and the filtered scan: the store's
     # dispatch functions and the one fetch, without the host work of

@@ -67,6 +67,9 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.index.devstore\n"
         "import yacy_search_server_tpu_torch.index.batcher\n"
         "import yacy_search_server_tpu_torch.utils.faultinject\n"
+        "import yacy_search_server_tpu_torch.ops.dense\n"
+        "import yacy_search_server_tpu_torch.kernels.dense\n"
+        "import yacy_search_server_tpu_torch.index.dense\n"
         "from yacy_search_server_tpu_torch.kernels.devstore import (\n"
         "    join_member_batch, join_stats_batch, join_score_batch)\n"
         "from yacy_search_server_tpu_torch.index.devstore import (\n"

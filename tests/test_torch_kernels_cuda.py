@@ -1176,3 +1176,133 @@ def test_join_wave_kernel_fault_reaches_the_caller():
         "device_lost": 0, "device_losses": 0, "transfer_failures": 0,
         "transfer_retries": 0, "device_lost_queries": 0,
         "join_fallbacks": 0, "batch_exceptions": 1}, out
+
+
+# ---------------------------------------------------------------------------
+# the dense rerank: K9 dense_dot, K10 rerank_sort, K11 hybrid_blend
+# ---------------------------------------------------------------------------
+
+def _fwd(cap, seed=30):
+    """A forward index of unit rows, every 97th row a copy of row 5
+    (equal boosts)."""
+    v = KBench.unit_vectors(cap, np.random.default_rng(seed))
+    v[::97] = v[min(5, cap - 1)]
+    return v
+
+
+@pytest.mark.parametrize("nb,ns", [
+    (16, (3, 16, 0, 13)), (128, (100, 128, 1, 77, 0, 5, 64, 99) * 2),
+    (1024, (1000, 0, 513)), (16384, (16384, 9000)),
+    (128, tuple(range(1, 21)))], ids=["16", "128x16", "1024", "16384",
+                                      "bs20"])
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 1.0])
+def test_dense_rerank_kernels_match_plain(dev, nb, ns, alpha):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    from yacy_search_server_tpu_torch.ops import dense as DN
+    cap = max(4096, 2 * nb)
+    fwd = torch.from_numpy(_fwd(cap)).to(dev)
+    qi, nb, slots = KBench.rerank_wave(np.random.default_rng(nb + len(ns)),
+                                       cap, ns, nb, alpha)
+    qd = KDn.upload_desc(qi, dev)
+    g0 = LAUNCHES["dense_dot"]
+    final = KDn.dense_gather_boost(fwd, qd, nb)
+    want = KDn.dense_gather_boost_plain(fwd, qd, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(final, want)
+    assert LAUNCHES["dense_dot"] == g0 + 1
+    out = KDn.rerank_sort(final, qd, nb)
+    assert torch.equal(out, KDn.rerank_sort_plain(final, qd, nb))
+    got = DN.rerank_fwd_batch_packed(fwd, qi, nb).cpu().numpy()
+    assert np.array_equal(got, out.cpu().numpy())
+    fwd_np = fwd.cpu().numpy()
+    for i, (q, sp, dd) in enumerate(slots):
+        n = len(dd)
+        es, ed = DN.rerank_fwd_np(q, fwd_np, sp, dd, alpha)
+        assert np.array_equal(got[i, nb:nb + n], ed) or alpha != 0.0
+        assert set(got[i, nb:nb + n].tolist()) == set(ed.tolist())
+        e = dict(zip(ed.tolist(), es.tolist()))
+        assert all(abs(s - e[d]) <= 64 for s, d in
+                   zip(got[i, :n].tolist(), got[i, nb:nb + n].tolist()))
+        assert (got[i, n:nb] == -(2**31 - 1)).all()
+
+
+@pytest.mark.parametrize("n", [1, 100, 1000, 65_537])
+def test_dense_rows_boost_matches_plain(dev, n):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    rng = np.random.default_rng(n)
+    docs = torch.from_numpy(_fwd(n)).to(dev)
+    q = torch.from_numpy(KBench.unit_vectors(1, rng, dtype=np.float32)[0]
+                         ).to(dev)
+    sp = torch.from_numpy(rng.integers(0, 1 << 20, n).astype(np.int32)
+                          ).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    got = KDn.dense_rows_boost(docs, q, sp, valid, 0.5)
+    want = KDn.dense_rows_boost_plain(docs, q, sp, valid, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("nq", [1, 3, 16, 33])
+@pytest.mark.parametrize("n", [1, 1000, 65_537])
+def test_dense_sims_and_blend_match_plain(dev, nq, n):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    from yacy_search_server_tpu_torch.ops import dense as DN
+    rng = np.random.default_rng(nq * n)
+    docs = torch.from_numpy(_fwd(n)).to(dev)
+    qs = torch.from_numpy(KBench.unit_vectors(nq, rng, dtype=np.float32)
+                          ).to(dev)
+    sims = KDn.dense_sims(docs, qs)
+    assert torch.equal(sims, KDn.dense_sims_plain(docs, qs))
+    sparse = torch.from_numpy(rng.integers(0, 1000, (nq, n)).astype(
+        np.float32)).to(dev)
+    valid = torch.from_numpy(rng.random((nq, n)) < 0.9).to(dev)
+    valid[0, :] = n == 1            # one slot all valid or all invalid
+    for alpha in (0.0, 0.5, 1.0):
+        got = KDn.hybrid_blend(sims, sparse, valid, alpha)
+        assert torch.equal(got, KDn.hybrid_blend_plain(sims, sparse, valid,
+                                                       alpha))
+    k = min(n, 10)
+    s, i = DN.hybrid_rerank_topk_batch(qs, docs, sparse, valid, 0.5, k)
+    torch.cuda.synchronize()
+    for b in range(nq):
+        s1, i1 = DN.hybrid_rerank_topk(qs[b], docs, sparse[b], valid[b], 0.5,
+                                       k)
+        assert torch.equal(s[b], s1) and torch.equal(i[b], i1)
+        ps, pi = DN.hybrid_rerank_topk(qs[b].cpu(), docs.cpu(),
+                                       sparse[b].cpu(), valid[b].cpu(), 0.5,
+                                       k)
+        assert torch.equal(s1.cpu(), ps) and torch.equal(i1.cpu(), pi)
+
+
+def test_dense_boost_topk_matches_plain(dev):
+    from yacy_search_server_tpu_torch.ops import dense as DN
+    rng = np.random.default_rng(8)
+    docs = _fwd(1000)
+    q = KBench.unit_vectors(1, rng, dtype=np.float32)[0]
+    sp = rng.integers(0, 1 << 20, 1000).astype(np.int32)
+    sp[::3] = sp[0]
+    valid = rng.random(1000) < 0.8
+    for k in (1, 100, 1000):
+        s, i = DN.dense_boost_topk(q, docs, sp, valid, 0.5, k, device=dev)
+        ps, pi = DN.dense_boost_topk(q, docs, sp, valid, 0.5, k,
+                                     device="cpu")
+        assert torch.equal(s.cpu(), ps) and torch.equal(i.cpu(), pi)
+
+
+def test_dense_kernels_reject_other_widths(dev):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    docs = torch.zeros((8, 128), dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError):
+        KDn.dense_sims(docs, torch.zeros((1, 128), device=dev))
+
+
+def test_dense_kernels_reject_f32_rows(dev):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    docs = torch.zeros((8, 256), dtype=torch.float32, device=dev)
+    q = torch.zeros(256, device=dev)
+    with pytest.raises(TypeError, match="f16"):
+        KDn.dense_sims(docs, q.view(1, -1))
+    with pytest.raises(TypeError, match="f16"):
+        KDn.dense_rows_boost(docs, q, torch.zeros(8, dtype=torch.int32,
+                                                  device=dev),
+                             torch.ones(8, dtype=torch.bool, device=dev), 0.5)

@@ -10,8 +10,9 @@ side-tables (fetched as numpy) and its spans into the port, and
 `delta_from_numpy` / `bitmap_from_numpy` a RAM delta block and a facet
 bitmap as its kernels take them, and `join_wave_from_numpy` a wave's
 qargs_batch as the batched join kernels take it, so the devstore kernels
-of both read the same bytes. Both sides then score
-identical bytes under an identical profile.
+of both read the same bytes. `dense_from_numpy` builds the port's
+DenseVectorStore from a JAX store's vectors (`_vecs[:len(store)]`).
+Both sides then score identical bytes under an identical profile.
 """
 
 from __future__ import annotations
@@ -146,3 +147,30 @@ def join_wave_from_numpy(qargs_batch, n_inc: int, inc_bm=(), exc_bm=()):
         if not bm:
             desc[:, base + 2 * n_exc + e] = -1
     return desc
+
+
+def dense_from_numpy(vecs, n: int | None = None, device=None,
+                     budget_bytes: int | None = None):
+    """The port's DenseVectorStore holding the first `n` rows of `vecs`
+    ([rows, dim], stored as f16; n defaults to all rows) in one copy,
+    with its forward index uploaded to `device` (None: the CUDA device)
+    unless it is over `budget_bytes` (None: the store's default). The
+    store's version counts one write a row."""
+    from .index.dense import DenseVectorStore
+    vecs = np.asarray(vecs)
+    if vecs.ndim != 2:
+        raise ValueError(f"vecs must be [rows, dim], got {vecs.shape}")
+    n = len(vecs) if n is None else int(n)
+    if not 0 <= n <= len(vecs):
+        raise ValueError(f"n={n} outside [0, {len(vecs)}]")
+    st = DenseVectorStore(dim=vecs.shape[1], device_budget_bytes=budget_bytes)
+    cap = 256
+    while cap < n:
+        cap *= 2     # the JAX store's doubling from 256 rows
+    st._vecs = np.zeros((cap, vecs.shape[1]), np.float16)
+    st._vecs[:n] = vecs[:n]
+    st._n = n
+    st.version = n
+    st._fwd_dirty = set()
+    st.device_snapshot(resolve_device(device))
+    return st

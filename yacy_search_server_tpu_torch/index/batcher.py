@@ -7,7 +7,9 @@ launch), conjunctions (`submit_join`: the batched K8 and kernels 1-2,
 `devstore.join_batch_query`, up to MAX_JOIN_BATCH a wave, or `max_batch`
 where every membership is a bitmap one) and, with `scan_batching`,
 filtered exact scans (`submit_scan`: the batched K6/K7 pair,
-`devstore.scan_batch_query`). One former owns
+`devstore.scan_batch_query`) and, with rerank batching, the hybrid
+reranks (`submit_rerank`: K9 and K10 over up to `max_batch` slots a
+launch, `ops/dense.rerank_fwd_batch_packed`). One former owns
 the incoming queue and forms batches, growing a batch while a wave is in
 flight; a pool of dispatchers issues each part's launches; a pool of
 completers waits for each wave's answer and wakes its submitters. A
@@ -38,9 +40,9 @@ CUDA in place of JAX's asynchronous dispatch:
   retries solo, where a failed fetch is counted as a lost-device query.
 
 A dispatcher or completer thread never submits to the batcher itself
-(`owns_current_thread`). Left out of the port so far: the rerank, ANN
-and promote kinds, and the reference's tracing, wave stamps and
-profiler records.
+(`owns_current_thread`). Left out of the port so far: the ANN and
+promote kinds, and the reference's tracing, wave stamps and profiler
+records.
 """
 
 from __future__ import annotations
@@ -225,6 +227,18 @@ class QueryBatcher:
             joincap=(self.max_batch if (n_inc + n_exc)
                      and all(inc_bm + exc_bm) else self.MAX_JOIN_BATCH)))
 
+    def submit_rerank(self, qrow: np.ndarray, nb: int, n: int, fwd,
+                      written=None):
+        """A hybrid rerank in a wave; blocking. `qrow` is the slot's
+        descriptor (ops/dense.pack_rerank_row), `nb` its lane bucket, `n`
+        its candidates, `fwd` the forward-index block the caller resolved
+        and `written` the event after its writes: a wave takes one block,
+        so a patch landing meanwhile never mixes versions inside one
+        answer. Returns ("ok", scores, docids) | ("ineligible",) (the
+        wave's fetch failed) | ("timeout",)."""
+        return self._submit_wait(self._item(
+            kind="rerank", qrow=qrow, nb=nb, n=n, fwd=fwd, written=written))
+
     def close(self) -> None:
         self._stop = True
         self._q.put(None)       # the former forwards one a dispatcher
@@ -311,14 +325,18 @@ class QueryBatcher:
     @staticmethod
     def _split_parts(batch: list[dict]) -> list[list[dict]]:
         """The pruned queries in one part (one K5 launch a (profile,
-        language, kk) group), each scan group in a part of its own, and
-        each conjunction family (statics, profile, language) in parts of
-        its cap, so that no dispatcher serializes unrelated launches."""
+        language, kk) group), each scan group in a part of its own, each
+        conjunction family (statics, profile, language) in parts of its
+        cap, and the reranks in a part a lane bucket, so that no
+        dispatcher serializes unrelated launches."""
         pruned = [it for it in batch if it["kind"] == "pruned"]
         scans: dict[tuple, list[dict]] = {}
         fams: dict[tuple, list[dict]] = {}
+        reranks: dict[int, list[dict]] = {}
         for it in batch:
-            if it["kind"] == "scan":
+            if it["kind"] == "rerank":
+                reranks.setdefault(it["nb"], []).append(it)
+            elif it["kind"] == "scan":
                 key = (it["profile"].to_external_string(), it["lang"],
                        it["kk"])
                 scans.setdefault(key, []).append(it)
@@ -331,6 +349,7 @@ class QueryBatcher:
         for fam in fams.values():
             cap = min(it["joincap"] for it in fam)
             parts.extend(fam[i:i + cap] for i in range(0, len(fam), cap))
+        parts.extend(reranks.values())
         return parts or [batch]
 
     # -- dispatchers ----------------------------------------------------------
@@ -369,12 +388,15 @@ class QueryBatcher:
         scans = [it for it in batch if it["kind"] == "scan"]
         pruned = [it for it in batch if it["kind"] == "pruned"]
         joins = [it for it in batch if it["kind"] == "join"]
+        reranks = [it for it in batch if it["kind"] == "rerank"]
         if scans:
             self._dispatch_scans(scans)
         if pruned:
             self._dispatch_pruned(pruned)
         if joins:
             self._dispatch_joins(joins)
+        if reranks:
+            self._dispatch_reranks(reranks)
 
     def _dispatch_pruned(self, batch: list[dict]) -> None:
         """K5 over each (profile, language, kk) group of the part, one
@@ -522,6 +544,50 @@ class QueryBatcher:
                 self._submit_completion(out, finish, chunk, t0,
                                         keep=(first["arrays"], first["join"],
                                               consts))
+
+    def _dispatch_reranks(self, items: list[dict]) -> None:
+        """One rerank_fwd_batch_packed (K9 then K10) a wave of each group
+        of reranks that share a forward-index block and a lane bucket, in
+        chunks of max_batch slots padded with empty slots (n_valid 0): the
+        solo path's shape. The count of each answered query lands under
+        the store's lock before its submitter wakes; a query whose
+        submitter gave up (and was served solo, counted there) is not
+        counted again."""
+        from ..ops.dense import rerank_fwd_batch_packed
+        from .devstore import DeviceArena
+        store = self.store
+        groups: dict[tuple, list[dict]] = {}
+        for it in items:
+            groups.setdefault((id(it["fwd"]), it["nb"]), []).append(it)
+        bs = self.max_batch
+        for (_fid, nb), its in groups.items():
+            fwd = its[0]["fwd"]
+            for ev in {id(it["written"]): it["written"]
+                       for it in its}.values():
+                DeviceArena.wait_written(ev)
+            for pos in range(0, len(its), bs):
+                chunk = its[pos:pos + bs]
+                qi = np.zeros((bs, len(chunk[0]["qrow"])), np.int32)
+                for i, it in enumerate(chunk):
+                    qi[i] = it["qrow"]
+                t0 = time.perf_counter()
+                out = rerank_fwd_batch_packed(fwd, qi, nb)
+
+                def finish(host, chunk=chunk, nb=nb):
+                    results = [("ok", host[i, :it["n"]].copy(),
+                                host[i, nb:nb + it["n"]].copy())
+                               for i, it in enumerate(chunk)]
+                    with store._lock:
+                        store.rerank_dispatches += 1
+                        for it, res in zip(chunk, results):
+                            with it["lk"]:
+                                if it.get("abandoned"):
+                                    continue
+                                store.rerank_queries += 1
+                                it["res"] = res
+                                it["ev"].set()
+
+                self._submit_completion(out, finish, chunk, t0, keep=(fwd,))
 
     # -- completers -----------------------------------------------------------
 

@@ -46,14 +46,23 @@ serving counters.
   backoff, a failure streak declares the device lost, a background
   rebuild re-packs the arena); while the device is lost `rank_term` and
   `rank_join` return None, counted, and the caller's host path serves.
+- The hybrid dense rerank (`rerank_boost`, the second stage of a hybrid
+  query): the candidates' doc vectors are gathered from the attached
+  DenseVectorStore's forward index on the device (index/dense.py) and
+  their fixed-scale cosine boost is added into the sparse scores (K9
+  `dense_dot`, then K10 `rerank_sort` for the (score DESC, docid ASC)
+  order); with the batcher's `rerank` kind concurrent reranks share one
+  launch of each a wave. Full hybrid answers live in the same top-k
+  cache, keyed also on alpha, the encoder version and the vectors'
+  version (`hybrid_cache_get` / `hybrid_cache_put`).
 
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
 extents in span order, the delta's rows last), never the docid.
 
-Left out: packed residency and the tier ladder, the dense rerank and ANN
-families, and the JAX package's tracing and profiler hooks (their
-`counters()` keys read zero).
+Left out: packed residency and the tier ladder, the ANN family
+(`ann_centroid_version` answers -1), and the JAX package's tracing and
+profiler hooks (their `counters()` keys read zero).
 """
 
 from __future__ import annotations
@@ -94,20 +103,19 @@ INT32_MAX = 2 ** 31 - 1
 _STATS_CACHE_CAP = 256
 # the keys of the JAX store's counters() for machinery this port does not
 # have yet (storage integrity, the profiler's
-# silicon accounting, the dense rerank and ANN families, packed residency
+# silicon accounting, the ANN family, packed residency
 # and the tier ladder, the paged runs' term cache): they read zero here,
 # as the JAX store's ANN_ZERO_COUNTERS do for a store without an index
 ZERO_COUNTERS = {
     "tunnel_rt_ms": 0.0, "util_pct_p50": 0.0, "util_pct_p95": 0.0,
     "bound": "", "storage_corruptions": 0,
-    "journal_torn_tails": 0, "rerank_dispatches": 0, "rerank_queries": 0,
-    "rerank_cache_hits": 0, "rerank_fallbacks": 0, "ann_dispatches": 0,
+    "journal_torn_tails": 0, "ann_dispatches": 0,
     "ann_queries": 0, "ann_fallbacks": 0, "ann_host_queries": 0,
     "ann_vectors": 0, "ann_clusters": 0, "ann_centroid_version": 0,
     "ann_hot_bytes": 0, "ann_warm_bytes": 0, "ann_cold_bytes": 0,
     "ann_tier_hot_hits": 0, "ann_tier_warm_hits": 0,
     "ann_tier_cold_hits": 0, "ann_promotions": 0, "ann_promote_failures": 0,
-    "ann_lane_drops": 0, "dense_fwd_bytes": 0, "tier_hot_hits": 0,
+    "ann_lane_drops": 0, "tier_hot_hits": 0,
     "tier_warm_hits": 0, "tier_cold_hits": 0, "tier_promotions_warm_hot": 0,
     "tier_promotions_cold_hot": 0, "tier_demotions_hot_warm": 0,
     "tier_evictions_warm_cold": 0, "tier_promote_async": 0,
@@ -816,6 +824,13 @@ class DeviceSegmentStore:
         self._filter_inflight: dict = {}
         self._batcher = None
         self._scan_batching = False
+        self._rerank_batching = False
+        # the hybrid rerank: the attached DenseVectorStore and its counters
+        self._dense = None
+        self.rerank_dispatches = 0   # rerank launches (a wave: one)
+        self.rerank_queries = 0      # reranks answered on the device
+        self.rerank_cache_hits = 0   # hybrid answers from the top-k cache
+        self.rerank_fallbacks = 0    # reranks left to the caller's host path
         # profile string -> the port's profile (parsed once)
         self._profiles: OrderedDict = OrderedDict()
         # seed tombstones recorded before this store existed
@@ -1638,17 +1653,168 @@ class DeviceSegmentStore:
             if ev is not None:
                 ev.set()
 
+    # -- the hybrid dense rerank ----------------------------------------------
+
+    def attach_dense(self, dense) -> None:
+        """Wire the segment's DenseVectorStore (index/dense.py): its forward
+        index is what rerank_boost gathers from, its version keys the
+        hybrid top-k cache."""
+        self._dense = dense
+
+    def rerank_boost(self, qvec, sparse_scores, docids, alpha):
+        """The dense rerank of one query's sparse answer on the device:
+        (scores, docids) of every candidate, final = sparse +
+        round((cos * alpha) * DENSE_BOOST_SCALE) (no boost for a docid the
+        forward index does not cover), best-first by (score DESC, docid
+        ASC). With rerank batching on, through the batcher's `rerank` kind
+        (a wave of up to max_batch slots a launch); otherwise, on a
+        timeout, or from the batcher's own threads, the same kernels solo
+        at the wave's shape (bs = max_batch, pad slots empty).
+
+        None where the caller's host path serves, counted in
+        rerank_fallbacks: the device is lost, more than RERANK_MAX_N
+        candidates, no forward index (over its budget), or the fetch
+        failed (DeviceTransferError). None uncounted without a dense
+        store; n == 0 answers two empty arrays."""
+        from ..ops import dense as DN
+        if self.device_lost:
+            # the sparse stage of this query counted it in
+            # device_lost_queries already
+            with self._lock:
+                self.rerank_fallbacks += 1
+            return None
+        dense = self._dense
+        if dense is None:
+            return None
+        n = int(len(docids))
+        if n == 0:
+            return np.empty(0, np.int32), np.empty(0, np.int32)
+        if n > DN.RERANK_MAX_N:
+            with self._lock:
+                self.rerank_fallbacks += 1
+            return None
+        got = dense.device_snapshot(self.arena.device)
+        if got is None:
+            with self._lock:
+                self.rerank_fallbacks += 1
+            return None
+        fwd, _ver, written = got
+        nb = DN.rerank_bucket(n)
+        row = DN.pack_rerank_row(qvec, sparse_scores, docids, alpha, nb)
+        b = self._batcher
+        if (self._rerank_batching and b is not None
+                and not b.owns_current_thread()):
+            res = b.submit_rerank(row, nb, n, fwd, written)
+            if res[0] == "ok":
+                return res[1], res[2]
+            # "timeout", or a wave whose fetch failed: solo below
+        bs = b.max_batch if b is not None else 1
+        qi = np.zeros((bs, len(row)), np.int32)
+        qi[0] = row
+        DeviceArena.wait_written(written)
+        try:
+            host = self.device_fetch(DN.rerank_fwd_batch_packed(fwd, qi, nb))
+        except DeviceTransferError:
+            with self._lock:
+                self.rerank_fallbacks += 1
+            return None
+        self.count_round_trip()
+        with self._lock:
+            self.rerank_dispatches += 1
+            self.rerank_queries += 1
+        return host[0, :n], host[0, nb:nb + n]
+
+    def hybrid_vector_version(self) -> int:
+        """The attached dense store's content version (-1 without one):
+        snapshotted with the epoch before a hybrid answer is computed."""
+        dense = self._dense
+        return dense.version if dense is not None else -1
+
+    def ann_centroid_version(self) -> int:
+        """-1: the port has no ANN index (SearchEvent snapshots it)."""
+        return -1
+
+    def _hybrid_cache_key(self, termhash: bytes, profile, language: str,
+                          k: int, alpha, dv: int | None = None,
+                          dense_first: bool = False,
+                          cv: int | None = None) -> tuple:
+        """The sparse key extended by the blend alpha, the encoder version
+        and the vectors' version (an encoder swap or a vector write
+        re-keys every entry), at the EXACT k (the rerank's input is the
+        sparse answer's [:k]). Dense-first entries add the centroid
+        version."""
+        from ..ops import dense as DN
+        if dv is None:
+            dv = self.hybrid_vector_version()
+        base = (termhash, profile.to_external_string(), language, k,
+                "hybrid", round(float(alpha), 6), DN.ENCODER_VERSION, dv)
+        if not dense_first:
+            return base
+        if cv is None:
+            cv = self.ann_centroid_version()
+        return base + ("df", cv)
+
+    def hybrid_cache_get(self, termhash: bytes, profile,
+                         language: str = "en", k: int = 100,
+                         alpha: float = 0.5, dense_first: bool = False):
+        """A full hybrid answer (sparse stage and rerank) from the top-k
+        cache with no device work: (scores, docids, considered) or None.
+        The freshness gates of rank_cache_get (the arena epoch, no RAM
+        delta); vector and encoder changes miss through the key."""
+        with self.rwi._lock:
+            if self.rwi._ram.get(termhash):
+                return None
+        with self._lock:
+            epoch = self.arena_epoch
+        got = self._topk_cache.get(
+            self._hybrid_cache_key(termhash, profile, language, k, alpha,
+                                   dense_first=dense_first), epoch)
+        if got is None:
+            return None
+        s, d, considered = got
+        with self._lock:
+            self.rerank_cache_hits += 1
+            self.queries_served += 1
+        return s, d, considered
+
+    def hybrid_cache_put(self, termhash: bytes, profile, language: str,
+                         k: int, alpha: float, epoch0: int, s, d,
+                         considered: int, dv0: int | None = None,
+                         dense_first: bool = False,
+                         cv0: int | None = None) -> None:
+        """File a computed hybrid answer under the epoch and the vectors'
+        version snapshotted BEFORE its sparse stage ran (dv0; None: the
+        live one, for callers no write can race): a write racing the
+        answer leaves the entry unreachable, never served."""
+        self._topk_cache.put(
+            self._hybrid_cache_key(termhash, profile, language, k, alpha,
+                                   dv=dv0, dense_first=dense_first, cv=cv0),
+            epoch0, np.asarray(s), np.asarray(d), considered)
+
+    def _dense_fwd_bytes(self) -> int:
+        """Device bytes of the forward index's block (0 when none)."""
+        dense = self._dense
+        if dense is None:
+            return 0
+        with dense._lock:
+            fwd = dense._fwd
+            return int(fwd.shape[0] * fwd.shape[1] * 2) \
+                if fwd is not None else 0
+
     # -- the query batcher ----------------------------------------------------
 
     def enable_batching(self, max_batch: int = 16, dispatchers: int = 8,
                         scan_batching: bool = False, completer_depth: int = 2,
-                        pipeline: bool = True) -> None:
+                        pipeline: bool = True,
+                        rerank_batching: bool = True) -> None:
         """Coalesce concurrent pruned queries and conjunctions (and, with
-        `scan_batching`, filtered exact scans) into waves of one launch each
+        `scan_batching`, filtered exact scans; with `rerank_batching`, the
+        hybrid reranks) into waves of one launch each
         (index/batcher.QueryBatcher). On the card the kernels are built
         first: a first-use build outlasts the batcher's watchdog."""
         from .batcher import QueryBatcher
         self._scan_batching = bool(scan_batching)
+        self._rerank_batching = bool(rerank_batching)
         if self._batcher is None:
             if self.arena.device.type == "cuda":
                 from ..kernels import build
@@ -1691,6 +1857,7 @@ class DeviceSegmentStore:
         else:
             dseries, kseries, bstats = [], [], (0, 0.0, 0, 0, 0, 0, 0)
         tc = self._topk_cache
+        fwd_bytes = self._dense_fwd_bytes()
         with self._lock:
             out = dict(ZERO_COUNTERS)
             out.update({
@@ -1719,6 +1886,10 @@ class DeviceSegmentStore:
                 "device_lost_queries": self.device_lost_queries,
                 "transfer_failures": self.transfer_failures,
                 "transfer_retries": self.transfer_retries,
+                "rerank_dispatches": self.rerank_dispatches,
+                "rerank_queries": self.rerank_queries,
+                "rerank_cache_hits": self.rerank_cache_hits,
+                "rerank_fallbacks": self.rerank_fallbacks,
                 "tier_hot_bytes": (self.arena.used_rows
                                    * self.arena.row_bytes()),
                 "batch_dispatches": bstats[0],
@@ -1728,6 +1899,7 @@ class DeviceSegmentStore:
                 "batch_timeout_queue_full": bstats[4],
                 "batch_timeout_flush_deadline": bstats[5],
                 "batch_timeout_worker_stall": bstats[6],
+                "dense_fwd_bytes": fwd_bytes,
             })
         return out
 

@@ -536,6 +536,41 @@ def devjoin_oracle(terms, inc, exc, dead, prof, k: int,
     return sc[top].astype(np.int32)[:k], dd[top][:k], len(dd)
 
 
+def unit_vectors(n: int, rng, dim: int = 256, dtype=np.float16,
+                 chunk: int = 1 << 18) -> np.ndarray:
+    """n L2-normalised rows of f32 normals, stored as `dtype`, made in
+    chunks (2^21 x 256 f16 is 1 GiB)."""
+    out = np.empty((n, dim), dtype)
+    for r0 in range(0, n, chunk):
+        v = rng.standard_normal((min(chunk, n - r0), dim), dtype=np.float32)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        out[r0:r0 + len(v)] = v
+    return out
+
+
+def rerank_wave(rng, cap: int, ns, nb: int | None = None,
+                alpha: float = 0.5, dim: int = 256):
+    """One rerank wave's descriptors (ops/dense.pack_rerank_row): slot i
+    holds ns[i] candidates (0: a pad slot), distinct docids drawn from
+    [-1, cap + cap // 8) (so -1, docids past the forward index's rows and
+    covered ones), a third of each slot's sparse scores equal, unit query
+    vectors. Returns (qi [len(ns), 2 + 2nb + dim] int32, nb, [(qvec,
+    sparse, docids) a slot])."""
+    from ..ops import dense as DN
+    nb = nb or max(DN.rerank_bucket(n) for n in ns)
+    qi = np.zeros((len(ns), 2 + 2 * nb + dim), np.int32)
+    slots = []
+    for i, n in enumerate(ns):
+        q = unit_vectors(1, rng, dim, np.float32)[0]
+        sp = rng.integers(0, 1 << 20, n).astype(np.int32)
+        sp[:n // 3] = sp[0] if n else 0
+        dd = (rng.choice(cap + cap // 8 + 1, size=n, replace=False)
+              - 1).astype(np.int32)
+        qi[i] = DN.pack_rerank_row(q, sp, dd, alpha, nb)
+        slots.append((q, sp, dd))
+    return qi, nb, slots
+
+
 def device_ms(fn, reps: int = 20) -> float:
     """Median device time of one call of `fn`, in ms.
 

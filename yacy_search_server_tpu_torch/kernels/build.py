@@ -65,6 +65,12 @@ SIGNATURES = {
     "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _P, _I64, _I64,
                        _I64, _I, _I, _P, _P, _P],
     "yt_topk_finish_batch": [_P, _P, _I, _P, _P, _I, _P, _P],
+    "yt_dense_gather": [_P, _I64, _P, _I, _I, _P, _P],
+    "yt_dense_rows": [_P, _I64, _P, _P, _P, _I, _P, _P],
+    "yt_dense_sims": [_P, _I64, _P, _I, _P, _P],
+    "yt_rerank_sort": [_P, _P, _I, _I, _P, _P],
+    "yt_hybrid_blend_scratch_bytes": [_I64, _I64],
+    "yt_hybrid_blend": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -167,7 +173,8 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "span_score": 0, "topk_finish": 0, "join_member": 0,
             "span_stats_batch": 0, "span_score_batch": 0,
             "topk_finish_batch": 0, "join_member_batch": 0,
-            "join_stats_batch": 0, "join_score_batch": 0}
+            "join_stats_batch": 0, "join_score_batch": 0, "dense_dot": 0,
+            "rerank_sort": 0, "hybrid_blend": 0}
 WIDE = {name: 0 for name in LAUNCHES}
 SLOTS = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()

@@ -7,7 +7,8 @@ True, and at zero the point disarms itself ("the device comes back").
 The store charges one `take` a fetch attempt and one a rebuild probe,
 at the places the JAX store does, so one schedule armed in both
 packages drives both stores through the same retries, losses and
-recoveries. Nothing is armed unless a caller arms it; an unarmed `take`
+recoveries. `dense.upload_fail` (the port's own) fails one upload or
+patch of the dense forward index (index/dense.py). Nothing is armed unless a caller arms it; an unarmed `take`
 is one flag read.
 """
 
@@ -16,7 +17,7 @@ from __future__ import annotations
 import threading
 
 # every point a caller may arm
-POINTS = ("device.transfer_fail",)
+POINTS = ("device.transfer_fail", "dense.upload_fail")
 
 _lock = threading.Lock()
 _faults: dict[str, int] = {}
