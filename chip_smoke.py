@@ -77,7 +77,8 @@ Phases, each of which exits non-zero on failure:
    six conjunctions x 2 profiles x k = 10 and 100 x {no filter, lang en}
    sent one at a time, from 16 threads, and from 16 threads through the
    batcher (once untimed first), then one group of them (joinA &
-   headline, lang en, k = 100) the same ways, every answer the twin's,
+   headline, lang en, k = 100) the same ways, every answer the twin's
+   (the default profile's without a filter) or the card's solo answer,
    with q/s, p50/p95, live slots a join_member_batch launch (the one
    group's must average more than one) and the peak device memory; then
    a join a RAM delta declines, and the join path's walls (median of 50
@@ -96,7 +97,8 @@ Phases, each of which exits non-zero on failure:
    delta keeps it out of the waves; four filters) sent one at a time
    without the batcher, from 16 threads without it, and from 16 threads
    through it (`enable_batching`, scan batching on), every answer equal
-   to the solo card answer and the twin's, with q/s and p50/p95 of each
+   to the solo card answer and the twin's (the filtered scans' at k = 100),
+   with q/s and p50/p95 of each
    and the live slots a launch; the batcher must have served
    (dispatches, no timeout, no exception) and K5 and the batched scan
    must have launched with more than one live slot; then up to 256
@@ -109,8 +111,8 @@ Phases, each of which exits non-zero on failure:
    after the filtered query, the batched path's part 2: a site:-style
    facet bitmap over the 20M docid space admitting 2 %, alone and with a
    language filter, and RAM deltas of 50,000 and 300,000 postings on the
-   10M term, each equal to the twin's (and, but the last, to the numpy
-   oracle), with their
+   10M term, each equal to the numpy oracle but the last, which is
+   held to the twin's, with their
    walls (median of 50 after a warm-up); every kernel of each path must
    have launched; then, counts reset, the hybrid rerank on the same
    store: a forward index of 2^21 unit vectors (dim 256, f16: the
@@ -136,8 +138,30 @@ Phases, each of which exits non-zero on failure:
    answers bit-identical to those before the loss, a rerank while lost
    answering None counted in rerank_fallbacks only (and after the
    rebuild its answer from before), and 16 batched
-   waiters under a loss all returning, then recovered again. Every other
-   phase must end with no transfer failure, retry or loss;
+   waiters under a loss all returning, then recovered again; then, counts
+   reset, the packed path: a fresh RWIIndex of the same run (17,150,000
+   rows), a packed store on the card (DeviceSegmentStore(...,
+   packed_residency=True), the device build on: K13 packs the blocks of
+   64 to 2^18 rows) and an int16 store on the card beside it, each pack
+   timed; the 50 queries, the other terms, the escalating profile, k =
+   1000 and four filters on every term, every answer the int16 store's;
+   the pruned mix (896 sent) one at a time, from 16 threads and from 16
+   threads through the batcher (K5bp waves, live slots logged); a device
+   loss whose rebuild promotes every block again through the batcher's
+   `promote` kind (K12 decoding each promoted block's first row), the
+   mix's answers the same after it; the tier ladder: the budget cut to
+   hold the 10M term's block but not every block, a second loss whose
+   rebuild places the blocks under it, 16 clients sending the mix's
+   queries through the batcher (warm hits, promotions through the
+   batcher, LRU demotions, compactions; every answer the int16 store's or
+   a counted miss), the 10M term served again, a flush with no warm
+   budget (blocks evicted cold) and a cold promotion, and a delete (the
+   packed exact scan); then K13 at a flush's shape: a run of 256 terms of
+   log-uniform sizes in [64, 262,144] rows packed on the card and by the
+   CPU twin's host pack, every block word for word the twin's, and
+   queries on two of its terms (pruned, filtered, after a delete) the
+   twin's. Every other phase must end with no transfer failure, retry or
+   loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -175,7 +199,12 @@ Phases, each of which exits non-zero on failure:
    its fetch beside a gather + einsum + sort; K9's block mode at
    dense_boost_topk's k = 100 and 1000; K9's similarity mode and K11 for
    B = 16 and 1 over the 2^21-row index, each held to its plain version
-   on every row, beside torch.matmul in bf16;
+   on every row, beside torch.matmul in bf16; the packed path's kernels
+   beside their int16 counterparts' call times (`int16_ms`): K12 over
+   every row of the 10M term's block (held to the host unpack_block too),
+   K5bp at 1 and 16 slots of its first tile, K6bp, K7bp and
+   topk_finish_bp over the 10M term without and with the filtered
+   rank_term's filter, and K13 over the 256-term flush's 2^18-row lanes;
    rank_placed's wall per query over 50 queries after a warm-up; and,
    last, the device
    operations one call of each timed kernel issues, with their device
@@ -243,6 +272,10 @@ BATCHED_JOIN_KERNELS = ("join_member_batch", "join_stats_batch",
 DENSE_ROWS = 1 << 21
 HYBRID_REPEATS = 8
 HYBRID_KERNELS = ("dense_dot", "rerank_sort", "hybrid_blend", "tie_topk")
+# the packed path's kernels (kernel 3 ranks its exact scans)
+PACKED_KERNELS = ("unpack_rows", "pruned_tile_bp", "span_stats_bp",
+                  "span_score_bp", "topk_finish_bp", "pack_block_batch",
+                  "tie_topk")
 # the counters that must read 0 outside the device-loss phase: nothing
 # fell back to the host behind a check's back
 LOSS_COUNTERS = ("transfer_failures", "transfer_retries", "device_losses")
@@ -1213,9 +1246,11 @@ def main() -> int:
     # stream allocates its waves' buffers (up to 4.7 GB a 16-slot wave of
     # joinA's rows) on its first waves, which the timed run then reuses
     # from the caching allocator. Every
-    # answer equal to the CPU twin's, taken once for each distinct query
-    # at k = 100 (the answer at k = 10 is its first 10). Counts reset
-    # before, read after
+    # answer equal to its reference, taken once for each distinct query
+    # at k = 100 (the answer at k = 10 is its first 10): the CPU twin's
+    # under the default profile without a filter, the card's solo answer
+    # otherwise (the same kernels; the twin's 24 answers took 41 s).
+    # Counts reset before, read after
     torch.cuda.synchronize()
     reset_launches()
     tb = time.time()
@@ -1237,14 +1272,15 @@ def main() -> int:
     jqs = [(name, pn, lf, k) for name in jshapes for pn in jprofs
            for lf in jlangs for k in (10, 100)]
     tq = time.time()
-    twin100 = {q[:3]: jask(hs, q) for q in jqs if q[3] == 100}
+    twin100 = {q[:3]: jask(hs if q[1:3] == ("default", "none") else gs, q)
+               for q in jqs if q[3] == 100}
     if any(a is None for a in twin100.values()):
-        fail("a batched join's twin answer declined")
+        fail("a batched join's reference answer declined")
     jrefs = {q: (twin100[q[:3]] if q[3] == 100 else
                  (twin100[q[:3]][0][:10], twin100[q[:3]][1][:10],
                   twin100[q[:3]][2])) for q in jqs}
-    log(f"batched joins: the twin's {len(twin100)} answers "
-        f"{time.time() - tq:.1f} s")
+    log(f"batched joins: the references of {len(twin100)} queries (the "
+        f"twin's {len(twin100) // 4}) {time.time() - tq:.1f} s")
     one_group = (b"joinA & headline", "default", "en", 100)
     jmixes = {"joins": [q for _ in range(JOIN_MIX_REPEATS) for q in jqs],
               "joins, one group": [one_group] * JOIN_ONE_GROUP}
@@ -1431,7 +1467,7 @@ def main() -> int:
     # 100), each sent one query at a time (no batcher), from 16 threads
     # (no batcher), and from 16 threads through the batcher (scan
     # batching on); every answer equal to the first solo card answer and
-    # to the twin's
+    # to the twin's (the filtered scans' at k = 100)
     torch.cuda.synchronize()
     reset_launches()
     tb = time.time()
@@ -1491,11 +1527,14 @@ def main() -> int:
                       refs[twin_fn])
         else:
             tq = time.time()
-            for q in qs:
+            # the filtered scans' twin at k = 100 only (10 s for all 32)
+            twin_qs = [q for q in qs
+                       if mname != "filtered scan" or q[2] == 100]
+            for q in twin_qs:
                 twin = twin_fn(q)
                 same(f"{mname} {q[0].decode()} {q[1:]} (solo card, twin)",
                      refs[mname][q], twin, twin)
-            log(f"mix {mname}: the twin's {len(qs)} answers "
+            log(f"mix {mname}: the twin's {len(twin_qs)} answers "
                 f"{time.time() - tq:.1f} s")
         ans, st_ = run_mix(stream, fn, MIX_THREADS)
         mix_stats[(mname, f"{MIX_THREADS} threads, no batcher")] = st_
@@ -1682,15 +1721,16 @@ def main() -> int:
     # 2 % of it, alone and with a language filter; RAM deltas of 50,000
     # postings (a hot term between flushes: new docids and 1,000 of the
     # term's own) and of 300,000 (past the last bucket); each equal to
-    # the twin's and, but the 300,000 delta, to the numpy oracle; then
-    # their walls, the card store alone
+    # the numpy oracle, the 300,000 delta to the twin's instead (the twin
+    # costs 12-14 s of the CPU a query: the bitmap's and the 50,000
+    # delta's answers are the oracle's alone); then their walls, the card
+    # store alone
     torch.cuda.synchronize()
     reset_launches()
     tb = time.time()
     fac_ids = np.sort(jrng.choice(2 * N, 2 * N // 50, replace=False))
     fkey = ((("site", "smoke.example"),), 0, 2 * N)
     g_bm = gs.filter_bitmap(fkey, lambda: fac_ids)
-    h_bm = hs.filter_bitmap(fkey, lambda: fac_ids)
 
     masks = [np.isin(d_p, fac_ids) for _f, _fl, d_p in two]
     two_in = [tuple(a[m] for a in p_) for p_, m in zip(two, masks)]
@@ -1701,15 +1741,10 @@ def main() -> int:
         got = gs.rank_term(hl, ds_profiles["default"], k=100,
                            allow_bitmap=g_bm, **kw)
         tq = time.time()
-        twin = hs.rank_term(hl, ds_profiles["default"], k=100,
-                            allow_bitmap=h_bm, **kw)
-        t_twin = time.time() - tq
-        tq = time.time()
         want = KB.devstore_oracle(filtered(two_in, filt),
                                   ds_profiles["default"], 100)
-        log(f"rank_term {label}: the twin {t_twin:.1f} s, the oracle "
-            f"{time.time() - tq:.1f} s")
-        same(f"rank_term {label}", got, twin, want)
+        log(f"rank_term {label}: the oracle {time.time() - tq:.1f} s")
+        same(f"rank_term {label}", got, got, want)
         bt_walls[f"rank_term {label} (10M term, two spans, k=100; "
                  "statistics from the filtered-stats cache)"] = walls_of(
             lambda kw=kw: gs.rank_term(hl, ds_profiles["default"], k=100,
@@ -1729,7 +1764,8 @@ def main() -> int:
             fail(f"the RAM delta holds {len(ram)} postings, not {n_d}")
         got = gs.rank_term(hl, ds_profiles["default"], k=100)
         tq = time.time()
-        twin = hs.rank_term(hl, ds_profiles["default"], k=100)
+        twin = (hs.rank_term(hl, ds_profiles["default"], k=100)
+                if n_d != 50_000 else got)
         t_twin = time.time() - tq
         tq = time.time()
         if n_d == 50_000:   # the numpy oracle once (8-9 s over 10.1M rows)
@@ -2130,6 +2166,336 @@ def main() -> int:
         fail(f"device loss: counters after the batched loss {st2}")
     del ls, lidx
 
+    # -- phase 3, the packed path: packed residency, its tier ladder and the
+    # device pack build -------------------------------------------------------
+    # a fresh RWIIndex of the device branch's run (the 10M term, the 1M,
+    # 100k and 20k terms and joinA, joinB, joinC: 17,150,000 rows), a packed
+    # store on the card with the device build on (K13 packs the blocks of
+    # 64 to 2^18 rows, the host the others) and an int16 store on the card
+    # beside it, the reference: the device branch's single-term queries,
+    # the filtered scans and the pruned mix (one at a time, from 16
+    # threads, and through the batcher: K5bp waves) on the packed store,
+    # every answer the int16 store's; a device loss (the rebuild demotes
+    # every block and promotes it again through the batcher's `promote`
+    # kind, K12 decoding each promoted block's first row); the tier ladder
+    # (the budget cut to hold the 10M term's block but not every block,
+    # the rebuild under it, warm hits and promotions through the batcher
+    # under 16 clients, LRU demotions and compactions, a cold promotion
+    # after a flush with no warm budget) and a delete; then K13 at a
+    # flush's shape (a run of 256 terms of 64 to 262,144 rows, every block
+    # word for word the CPU twin's host pack, a few queries the twin's)
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    from yacy_search_server_tpu_torch.ops import packed as PK
+    torch.cuda.synchronize()
+    reset_launches()
+    tp = time.time()
+    pk_walls = {}
+    pidx = RWIIndex()
+    for th, (f_t, d_t) in ds_terms.items():
+        pidx.add_many(th, P.PostingsList(d_t, f_t))
+    ps = TD.DeviceSegmentStore(pidx, device=dev, packed_residency=True)
+    ps.ingest_device_build = True
+    pidx.listener = None       # the packs below are timed one by one
+    tq = time.time()
+    pidx.flush()
+    pk_walls["flush (host)"] = time.time() - tq
+    prun = pidx._runs[0]
+    tq = time.time()
+    ps.on_run_added(prun)
+    torch.cuda.synchronize()
+    pk_walls["pack, packed store on the card"] = time.time() - tq
+    tq = time.time()
+    g2 = TD.DeviceSegmentStore(pidx, device=dev)
+    torch.cuda.synchronize()
+    pk_walls["pack, int16 store on the card"] = time.time() - tq
+    pidx.listener = KB.Fanout(ps, g2)
+    if LAUNCHES["pack_block_batch"] == 0 or ps.ingest_device_builds == 0:
+        fail("the packed store's build never went through K13")
+    row_bits = {th.decode(): sp_[0].row_bits for th in ds_terms
+                for sp_ in [ps.spans_for(th)]}
+    log(f"packed store: {ps.arena._pw_used} words, compression "
+        f"{ps.packed_compression_ratio()}, tier bytes {ps.tier_bytes()}, "
+        f"{ps.ingest_device_builds} blocks by K13; row bits {row_bits}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in pk_walls.items()))
+    if any(not e["hot"] for e in ps._pblocks.values()):
+        fail("a block of the packed store is not hot under the full budget")
+    ps._topk_cache.enabled = g2._topk_cache.enabled = False
+
+    def pk_same(label, got, want):
+        if got is None or want is None:
+            fail(f"packed path: {label}: no answer")
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1]) and got[2] == want[2]):
+            fail(f"packed path: {label}: the packed store differs from "
+                 "the int16 store")
+
+    def pk_query(label, th, prof, k, **kw):
+        got = ps.rank_term(th, prof, k=k, **kw)
+        pk_same(label, got, g2.rank_term(th, prof, k=k, **kw))
+        return got
+
+    pk_terms = [hl, *(b"term%08d" % n for n in DS_TERMS), *JOIN_TERMS]
+    for q in range(50):
+        k = 10 if q % 2 else 100
+        pk_query(f"10M default k={k}", hl, ds_profiles["default"], k)
+    for th in pk_terms[1:]:
+        pk_query(f"{th.decode()} default k=10", th, ds_profiles["default"],
+                 10)
+    pk_query("10M escalating k=100", hl, ds_profiles["escalating"], 100)
+    pk_query("10M default k=1000", hl, ds_profiles["default"], 1000)
+    pk_filters = [hfilt_kw, dict(lang_filter=de),
+                  dict(flag_bit=7, to_days=20_000), dict(from_days=10_000)]
+    for th in pk_terms:
+        for f_kw in pk_filters:
+            pk_query(f"{th.decode()} filtered {f_kw}", th,
+                     ds_profiles["default"], 100, **f_kw)
+    pc = ps.counters()
+    log("packed store after the single-term queries: " + ", ".join(
+        f"{k} {pc[k]}" for k in ("queries_served", "prune_rounds",
+                                 "pruned_tiles", "stream_scans", "fallbacks",
+                                 "tier_hot_hits")))
+    if pc["pruned_tiles"] == 0 or pc["fallbacks"]:
+        fail("packed path: no pruned query, or a fallback")
+
+    # the pruned mix: the 7 terms x 2 profiles x 2 languages x k = 10, 100,
+    # each sent MIX_REPEATS times, its answers the int16 store's
+    pk_profiles = {"default": ds_profiles["default"],
+                   "light": R.RankingProfile(domlength=8, tf=5)}
+    pk_qs = [(th, pn, lg, k) for th in pk_terms for pn in pk_profiles
+             for lg in ("en", "de") for k in (10, 100)]
+    pk_refs = {q: g2.rank_term(q[0], pk_profiles[q[1]], language=q[2],
+                               k=q[3]) for q in pk_qs}
+    pk_fn = lambda q: ps.rank_term(  # noqa: E731
+        q[0], pk_profiles[q[1]], language=q[2], k=q[3])
+    pk_stream = [q for _ in range(MIX_REPEATS) for q in pk_qs]
+    pk_stats = {}
+    for mode, thr in (("one at a time, no batcher", 1),
+                      (f"{MIX_THREADS} threads, no batcher", MIX_THREADS)):
+        ans, pk_stats[mode] = run_mix(pk_stream, pk_fn, thr)
+        check_mix("packed pruned", ans, pk_refs)
+    ps.enable_batching(max_batch=16, dispatchers=8)
+    n0, w0, s0 = (LAUNCHES["pruned_tile_bp"], WIDE["pruned_tile_bp"],
+                  SLOTS["pruned_tile_bp"])
+    mode = f"{MIX_THREADS} threads, batcher"
+    ans, pk_stats[mode] = run_mix(pk_stream, pk_fn, MIX_THREADS)
+    check_mix("packed pruned", ans, pk_refs)
+    n1, w1, s1 = (LAUNCHES["pruned_tile_bp"] - n0,
+                  WIDE["pruned_tile_bp"] - w0, SLOTS["pruned_tile_bp"] - s0)
+    for mode, st_ in pk_stats.items():
+        log(f"mix packed pruned ({len(pk_qs)} distinct), {mode}: "
+            f"{st_['n']} queries, {st_['qps']:.1f} q/s, p50 "
+            f"{st_['p50']:.4f} ms, p95 {st_['p95']:.4f} ms")
+    log(f"mix packed pruned through the batcher: pruned_tile_bp {n1} "
+        f"launches, {w1} with more than one live slot, "
+        f"{s1 / max(n1, 1):.2f} live slots a launch")
+    bc = ps.counters()
+    if (bc["batch_dispatches"] == 0 or bc["batch_timeouts"]
+            or bc["batch_exceptions"] or w1 == 0):
+        fail("packed path: the batcher did not serve K5bp waves cleanly")
+    # the 10M term's block as it stands now, kept for phase 4's timings
+    pk_keep = (ps.arena.packed_array(), ps.arena.dead_array(),
+               ps.arena._pmax, ps.spans_for(hl)[0],
+               ps._pblocks[(id(prun), hl)]["block"])
+
+    def settled(timeout=300.0):
+        t_end = time.time() + timeout
+        while ((ps.device_lost or ps._promote_inflight)
+               and time.time() < t_end):
+            time.sleep(0.02)
+        if ps.device_lost or ps._promote_inflight:
+            fail("packed path: the promotions did not settle")
+
+    def tiers():
+        c_ = ps.counters()
+        return {k: c_[k] for k in c_ if k.startswith("tier_")}
+
+    # a device loss under the packed store (the loss phase's settings):
+    # two filtered queries (solo: their fetches take the two charges)
+    TD.TRANSFER_RETRIES, TD.LOSS_STREAK, TD.REBUILD_BACKOFF_S = 0, 2, 0.05
+    exc0 = ps.counters()["batch_exceptions"]
+
+    def lose():
+        faultinject.set_fault(point, 2)
+        for th in (hl, t1m):
+            if ps.rank_term(th, ds_profiles["default"], k=100,
+                            lang_filter=en) is not None:
+                fail("packed path: a query answered under the streak")
+        if not ps.device_lost:
+            fail("packed path: the streak did not declare the loss")
+    lose()
+    tq = time.time()
+    settled()
+    pk_walls["loss, rebuild and re-promotion"] = time.time() - tq
+    faultinject.clear()
+    ans, _st = run_mix(pk_qs, pk_fn, MIX_THREADS)
+    check_mix("packed pruned after the rebuild", ans, pk_refs)
+    log(f"packed path, device loss: recovered in "
+        f"{pk_walls['loss, rebuild and re-promotion']:.1f} s, every block "
+        f"promoted again through the batcher; the mix's answers equal to "
+        f"those before; {tiers()}")
+    if ps.counters()["batch_exceptions"] != exc0:
+        fail("packed path: a promotion or its probe failed")
+
+    # the tier ladder: the budget cut to hold the 10M term's block beside
+    # some of the others but not all, then a loss: the rebuild promotes
+    # every block again under the cut budget
+    blocks_w = {th: len(e["block"].words)
+                for (_r, th), e in ps._pblocks.items()}
+    cap_w = TD._PW_INITIAL_WORDS
+    while cap_w < TD._bucket_rows(blocks_w[hl]):
+        cap_w *= 2
+    if sum(blocks_w.values()) <= cap_w:
+        fail("packed path: the cut budget would hold every block")
+    ps.arena.budget_bytes = (ps.arena._cap * ps.arena.row_bytes()
+                             + ps.arena._doc_cap + 4 * cap_w)
+    compactions = [0]
+    repack0 = ps._repack_packed_locked
+
+    def counted_repack():
+        compactions[0] += 1
+        repack0()
+    ps._repack_packed_locked = counted_repack
+    lose()
+    settled()
+    faultinject.clear()
+    hot0 = sorted(th.decode() for (_r, th), e in ps._pblocks.items()
+                  if e["hot"])
+    log(f"packed path, tier ladder: budget {ps.arena.budget_bytes} bytes "
+        f"({cap_w} words); after the rebuild hot {hot0}; {tiers()}; "
+        f"{compactions[0]} compactions")
+    # 16 clients send the pruned mix's distinct queries through the
+    # batcher, twice each: a query on a warm block is a counted miss (None:
+    # the caller's host path) whose promotion rides the batcher; every
+    # other answer the int16 store's
+    t0_ = tiers()
+    served = missed = 0
+    ans, st_ = run_mix(pk_qs * 2, pk_fn, MIX_THREADS)
+    for q, got in ans.items():
+        for a in got:
+            if a is None:
+                missed += 1
+            else:
+                served += 1
+                pk_same(f"tier ladder {q[0].decode()} {q[1:]}", a,
+                        pk_refs[q])
+    settled()
+    t1_ = tiers()
+    log(f"packed path, tier ladder under {MIX_THREADS} clients: {served} "
+        f"answers the int16 store's, {missed} misses; "
+        + ", ".join(f"{k} +{t1_[k] - t0_[k]}" for k in t1_
+                    if t1_[k] != t0_[k]) + f"; {compactions[0]} compactions")
+    if (t1_["tier_warm_hits"] == t0_["tier_warm_hits"]
+            or t1_["tier_promote_async"] == t0_["tier_promote_async"]
+            or t1_["tier_demotions_hot_warm"]
+            == t0_["tier_demotions_hot_warm"] or compactions[0] == 0):
+        fail("packed path: the ladder saw no warm hit, promotion through "
+             "the batcher, demotion or compaction")
+    # the 10M term served again after its promotion
+    for _ in range(200):
+        got = ps.rank_term(hl, ds_profiles["default"], k=100)
+        if got is not None:
+            break
+        settled()
+    pk_same("10M default k=100 after its promotion", got,
+            pk_refs[(hl, "default", "en", 100)])
+    # a cold promotion: no warm budget, a new run flushed (its pack
+    # evicts every warm block), then a query on an evicted term
+    ps.warm_budget_bytes = 0
+    f_n, _d, _h, _r = KB.make_term(1_000, KB.SEED + 90)
+    pidx.add_many(b"ladderAAAAAA", P.PostingsList(
+        (1 + 2 * np.arange(1_000)).astype(np.int32), f_n))
+    pidx.flush()
+    cold = [th for th in pk_terms if not any(
+        k_[1] == th for k_ in ps._pblocks)]
+    t2_ = tiers()
+    if not cold or t2_["tier_evictions_warm_cold"] == 0:
+        fail("packed path: no block went cold")
+    cth = min(cold, key=lambda th: len(ds_terms[th][1]))
+    if ps.rank_term(cth, ds_profiles["default"], k=100) is not None:
+        fail("packed path: a cold term answered before its promotion")
+    settled()
+    pk_same(f"{cth.decode()} after its cold promotion",
+            ps.rank_term(cth, ds_profiles["default"], k=100),
+            pk_refs[(cth, "default", "en", 100)])
+    t3_ = tiers()
+    log(f"packed path, cold promotion of {cth.decode()}: " + ", ".join(
+        f"{k} +{t3_[k] - t2_[k]}" for k in t3_ if t3_[k] != t2_[k]))
+    if t3_["tier_cold_hits"] == t2_["tier_cold_hits"] or \
+            t3_["tier_promotions_cold_hot"] == t2_["tier_promotions_cold_hot"]:
+        fail("packed path: no cold hit or cold promotion")
+    # a delete: the exact packed scan over the term (its frozen stats are
+    # stale), the int16 store's answer
+    gone_p = int(pk_refs[(cth, "default", "en", 100)][1][0])
+    pidx.delete_doc(gone_p)
+    s0_ = ps.stream_scans
+    got = pk_query(f"{cth.decode()} after a delete", cth,
+                   ds_profiles["default"], 100)
+    if gone_p in got[1] or ps.stream_scans != s0_ + 1:
+        fail("packed path: the delete was not served by the exact scan")
+    ps.close()
+    g2.close()
+    TD.TRANSFER_RETRIES, TD.LOSS_STREAK, TD.REBUILD_BACKOFF_S = loss_defaults
+    del g2
+
+    # K13 at a flush's shape: a second RWIIndex, one run of 256 terms of
+    # log-uniform sizes in [64, 262,144] rows; a packed store on the card
+    # (the device build: K13) and its CPU twin (the host pack): every block
+    # word for word the twin's, and a few queries the twin's
+    krng = np.random.default_rng(KB.SEED + 95)
+    ksizes = np.clip(np.round(np.exp(krng.uniform(
+        np.log(64), np.log(262_144), 256))), 64, 262_144).astype(np.int64)
+    kidx = RWIIndex()
+    kc = TD.DeviceSegmentStore(kidx, device=dev, packed_residency=True)
+    kc.ingest_device_build = True
+    kt = TD.DeviceSegmentStore(kidx, device="cpu", packed_residency=True)
+    kidx.listener = KB.Fanout(kc, kt)
+    kterms = {}
+    for i, n_k in enumerate(ksizes):
+        f_k, d_k, _h, _r = KB.make_term(int(n_k), KB.SEED + 100 + i)
+        kterms[b"k%011d" % i] = (f_k, d_k)
+        kidx.add_many(b"k%011d" % i, P.PostingsList(d_k, f_k))
+    tq = time.time()
+    kidx.flush()
+    torch.cuda.synchronize()
+    pk_walls[f"flush of 256 terms ({int(ksizes.sum())} rows), card "
+             "(K13) and CPU twin (host) packs"] = time.time() - tq
+    nwords = 0
+    for key, ent in kt._pblocks.items():
+        a, b = kc._pblocks[key]["block"], ent["block"]
+        nwords += len(a.words)
+        if not (np.array_equal(a.words, b.words)
+                and np.array_equal(a.meta_vector(), b.meta_vector())):
+            fail(f"K13's block of {key[1]!r} differs from the host pack")
+    note("pack_block_batch", f"256 blocks, {nwords} words, against the "
+         "host pack", 0.0)
+    if kc.ingest_device_builds != 256 or len(kt._pblocks) != 256:
+        fail(f"K13 packed {kc.ingest_device_builds} of the 256 blocks")
+    kq = [b"k%011d" % i for i in (int(np.argmax(ksizes)),
+                                  int(np.argsort(ksizes)[128]))]
+    for th in kq:
+        for kw in ({}, dict(lang_filter=en, from_days=3_000)):
+            got = kc.rank_term(th, ds_profiles["default"], k=100, **kw)
+            twin = kt.rank_term(th, ds_profiles["default"], k=100, **kw)
+            pk_same(f"{th.decode()} {kw} (card, CPU twin)", got, twin)
+    kidx.delete_doc(int(got[1][0]))
+    pk_same(f"{kq[-1].decode()} after a delete (card, CPU twin)",
+            kc.rank_term(kq[-1], ds_profiles["default"], k=100),
+            kt.rank_term(kq[-1], ds_profiles["default"], k=100))
+    torch.cuda.synchronize()
+    launches_pk = dict(LAUNCHES)
+    log(f"packed path: {time.time() - tp:.1f} s; launches {launches_pk}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in pk_walls.items()))
+    missing = [k for k in PACKED_KERNELS if launches_pk[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the packed path: {missing}")
+    # the biggest row bucket's lanes of that flush, kept for phase 4
+    k13_lanes = [th for th in kterms
+                 if len(kterms[th][1]) > (1 << 17) and
+                 len(kterms[th][1]) <= (1 << 18)]
+    kc.close()
+    kt.close()
+    del kc, kt, kidx, ps, pidx
+
     # -- phase 4: kernel times at the main path's shapes ---------------------
     # `ms`: the call time, the median of 20 calls each between two CUDA
     # events from an idle queue (the device time plus the host's issue
@@ -2198,7 +2564,8 @@ def main() -> int:
             "launches": {"placed": launches, "devstore": launches_ds,
                          "join": launches_join, "batched": launches_bt,
                          "batched_join": launches_bj,
-                         "hybrid": launches_hy}[path][name],
+                         "hybrid": launches_hy,
+                         "packed": launches_pk}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2451,6 +2818,177 @@ def main() -> int:
             f"{sp.count} rows of the 10M term in place, the same filter, "
             "statistics handed in (filtered exact scan, cache hit)",
             path="join")
+
+    # the packed path's kernels at its shapes, each checked first on the
+    # inputs it is timed on, each beside its int16 counterpart's call time
+    # at the same shape (`int16_ms`; no PyTorch call computes a bit-unpack,
+    # so `library_ms` is null): K12 over every row of the 10M term's block
+    # as the packed store held it (against the host unpack_block too), K5bp
+    # at 1 slot and at a 16-slot wave of that block's first tile, K6bp, K7bp
+    # and topk_finish_bp over the 10M term, without and with the filtered
+    # rank_term's filter, and K13 over the 2^18-row bucket's lanes of the
+    # 256-term flush
+    pw, pdead, ppmax, psp, pblk = pk_keep
+    pbytes = psp.row_bits / 8 + 1          # packed payload + a dead byte
+    src_k12 = ("unpack_rows", "yacy_search_server_tpu/ops/packed.py:205",
+               "packed.cu")
+    src_k5bp = ("pruned_tile_bp",
+                "yacy_search_server_tpu/index/devstore.py:1151",
+                "pruned_tile.cu")
+    src_k6bp = ("span_stats_bp",
+                "yacy_search_server_tpu/index/devstore.py:1213",
+                "cardinal_stats.cu")
+    src_k7bp = ("span_score_bp",
+                "yacy_search_server_tpu/index/devstore.py:1213",
+                "cardinal_score.cu")
+    src_finbp = ("topk_finish_bp",
+                 "yacy_search_server_tpu/index/devstore.py:1213",
+                 "pruned_tile.cu")
+    src_k13 = ("pack_block_batch",
+               "yacy_search_server_tpu/ingest/devbuild.py:71", "packed.cu")
+
+    def beside(fn, shape):
+        """The int16 counterpart's call time on the last measured row."""
+        rows[-1]["int16_ms"] = KB.call_ms(fn)
+        rows[-1]["int16_shape"] = shape
+        log(f"  int16 counterpart [{shape}]: {rows[-1]['int16_ms']:.4f} ms "
+            "a call")
+
+    n10 = psp.count
+    k12 = lambda: KP.unpack_rows(pw, psp.pbase, psp.pmeta, 0, n10)  # noqa: E731
+    g12 = k12()
+    want12 = PK.unpack_block(pblk)
+    torch.cuda.synchronize()
+    note("unpack_rows", "the 10M term's block against the host unpack_block",
+         max(float(np.abs(g12[0].cpu().numpy() - want12[0].astype(np.int32))
+                   .max()),
+             float(np.abs(g12[1].cpu().numpy().astype(np.int64)
+                          - want12[1]).max()),
+             float(np.abs(g12[2].cpu().numpy().astype(np.int64)
+                          - want12[2]).max())))
+    w12 = KP.unpack_rows_plain(pw, psp.pbase, psp.pmeta, 0, 300_000)
+    note("unpack_rows", "the block's first 300,000 rows against the plain "
+         "decode", max(diff(a[:300_000], b) for a, b in zip(g12, w12)))
+    del g12, want12, w12
+    measure(*src_k12, k12,
+            lambda: KP.unpack_rows_plain(pw, psp.pbase, psp.pmeta, 0, n10),
+            None, n10 * (psp.row_bits / 8 + 76), 0.0,
+            f"{n10} rows of the 10M term's block ({psp.row_bits} bits a "
+            "row) -> int32 feats, flags, docids", path="packed",
+            plain_reps=1)
+    beside(lambda: (ta[0][sp.start:sp.start + n10].to(torch.int32),
+                    ta[1][sp.start:sp.start + n10].clone(),
+                    ta[2][sp.start:sp.start + n10].clone()),
+           "the same rows' int16 features widened to int32, flags and "
+           "docids copied")
+    for bs in (1, 16):
+        slot = (psp.pbase, psp.count, psp.tstart, psp.tcount,
+                psp.stats["col_min"], psp.stats["col_max"],
+                psp.stats["tf_min"], psp.stats["tf_max"])
+        desc = KP.pack_desc_bp([slot] * bs, [psp.pmeta] * bs, shift, lterm)
+        k5 = lambda d=desc: KP.pruned_tile_bp(pw, pdead, ppmax, d, kk,  # noqa: E731
+                                              cd)
+        k5p = lambda d=desc: KP.pruned_tile_bp_plain(  # noqa: E731
+            pw, pdead, ppmax, d, kk, cd)
+        g, w = k5(), k5p()
+        torch.cuda.synchronize()
+        note("pruned_tile_bp", f"10M term's block bs={bs} kk={kk}",
+             diff(g, w))
+        measure(*src_k5bp, k5, k5p, None,
+                TD.TILE * pbytes + 4 * (psp.tcount - 1)
+                + bs * (4 * KP.BP_SLOT_WORDS + 4 * (2 * kk + 1))
+                + 4 * KC.CONSTS_LEN, 0.0,
+                f"{bs} slot(s) of the 10M term's block, its first "
+                f"32,768-row tile decoded ({psp.row_bits} bits a row), "
+                f"kk={kk}, {psp.tcount}-tile pmax tail", path="packed")
+        d16 = KD.pack_desc([(sp.start, sp.count, sp.tstart, sp.tcount,
+                             sp.stats["col_min"], sp.stats["col_max"],
+                             sp.stats["tf_min"], sp.stats["tf_max"])] * bs,
+                           shift, lterm)
+        beside(lambda d=d16: KD.pruned_tile(*ta, d, kk, cd, False),
+               f"K5, {bs} slot(s) of the 10M term's first int16 tile")
+    for label, q, st_i16 in (("no filter", None, st10), ("the filtered "
+                             "rank_term's filter", hfilt, stf)):
+        st_bp = KP.span_stats_bp(pw, pdead, psp.pbase, psp.pmeta, n10, q)
+        note("span_stats_bp", f"10M term's block, {label}", stats_diff(
+            st_bp, KP.span_stats_bp_plain(pw, pdead, psp.pbase, psp.pmeta,
+                                          n10, q)))
+        measure(*src_k6bp,
+                lambda q=q: KP.span_stats_bp(pw, pdead, psp.pbase,
+                                             psp.pmeta, n10, q),
+                lambda q=q: KP.span_stats_bp_plain(pw, pdead, psp.pbase,
+                                                   psp.pmeta, n10, q),
+                None, n10 * pbytes + 4 * KC.STATS_LEN, 0.0,
+                f"{n10} rows of the 10M term's block, {label} (the packed "
+                "exact scan)", path="packed", plain_reps=1)
+        beside(lambda q=q: KD.span_stats(ta[0], ta[2], ta[3], scan_ext,
+                                         flags=ta[1], filt=q),
+               f"K6 over the same int16 rows, {label}")
+        k7 = lambda q=q, s_=st_bp: KP.span_score_bp(  # noqa: E731
+            pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, n10, q)
+        buf = k7()
+        note("span_score_bp", f"10M term's block, {label}", diff(
+            buf, KP.span_score_bp_plain(pw, pdead, psp.pbase, psp.pmeta,
+                                        n10, st_bp, cd, n10, q)))
+        measure(*src_k7bp, k7,
+                lambda q=q, s_=st_bp: KP.span_score_bp_plain(
+                    pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, n10, q),
+                None, n10 * (pbytes + 4)
+                + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
+                f"{n10} rows of the 10M term's block -> int32 scores, "
+                f"{label}", path="packed", plain_reps=1)
+        beside(lambda q=q, s_=st_i16: KD.span_score(
+            *ta[:4], scan_ext, s_, cd, sp.count, filt=q),
+            f"K7 over the same int16 rows, {label}")
+        top_s, top_r, _ = KT.tie_topk(buf, kk)
+        fin = lambda a=top_s, b=top_r: KP.topk_finish_bp(  # noqa: E731
+            a, b, pw, psp.pbase, psp.pmeta, n10)
+        g = fin()
+        note("topk_finish_bp", f"10M term's block, kk={kk}, {label}", diff(
+            g, KP.topk_finish_bp_plain(top_s, top_r, pw, psp.pbase,
+                                       psp.pmeta, n10)))
+        measure(*src_finbp, fin,
+                lambda a=top_s, b=top_r: KP.topk_finish_bp_plain(
+                    a, b, pw, psp.pbase, psp.pmeta, n10), None,
+                kk * (8 + 8 + 8), 0.0,
+                f"kk={kk} winners of the 10M term's packed scan, {label}, "
+                "docids decoded", path="packed")
+        i16_top = KT.tie_topk(KD.span_score(*ta[:4], scan_ext, st_i16, cd,
+                                            sp.count, filt=q), kk)
+        beside(lambda a=i16_top: KD.topk_finish(a[0], a[1], ta[2], scan_ext,
+                                                stats=st_i16),
+               f"topk_finish over the int16 scan's winners, {label}")
+        del buf
+    # K13 over the 2^18-row bucket's lanes of the 256-term flush (the
+    # rows in arrival order: the pack's cost does not depend on it)
+    nb13 = len(k13_lanes)
+    f13 = np.zeros((nb13, 1 << 18, P.NF), np.int16)
+    fl13 = np.zeros((nb13, 1 << 18), np.int32)
+    dd13 = np.zeros((nb13, 1 << 18), np.int32)
+    n13 = np.zeros(nb13, np.int32)
+    for j_, th in enumerate(k13_lanes):
+        f_k, d_k = kterms[th]
+        c16, cfl = R.compact_feats(f_k)
+        m_ = len(d_k)
+        f13[j_, :m_], fl13[j_, :m_], dd13[j_, :m_], n13[j_] = c16, cfl, d_k, m_
+    a13 = [put(a) for a in (f13, fl13, dd13, n13)]
+    k13 = lambda: KP.pack_block_batch(*a13)  # noqa: E731
+    g, w = k13(), KP.pack_block_batch_plain(*a13)
+    torch.cuda.synchronize()
+    note("pack_block_batch", f"{nb13} lanes of 2^18 rows",
+         max(diff(a, b) for a, b in zip(g, w)))
+    words13 = int(g[2].sum())
+    measure(*src_k13, k13, lambda: KP.pack_block_batch_plain(*a13), None,
+            int(n13.sum()) * (P.NF * 2 + 8) + 4 * words13
+            + 4 * nb13 * (PK.META_LEN + 1), 0.0,
+            f"{nb13} blocks of {int(n13.min())}-{int(n13.max())} rows in "
+            f"2^18-row lanes ({int(n13.sum())} rows -> {words13} words; "
+            "the 256-term flush's biggest bucket)", path="packed",
+            plain_reps=1)
+    beside(lambda: [a.clone() for a in a13[:3]],
+           "a device copy of the same lanes' int16 rows (the int16 arena's "
+           "write)")
+    del g, w, f13, fl13, dd13         # a13 stays for the trace below
 
     # K6 and K7 with a RAM delta block of 50,000 and of 300,000 rows (new
     # docids, staged as the store stages them) after the 10M term's rows,

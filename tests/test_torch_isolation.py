@@ -70,6 +70,9 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.ops.dense\n"
         "import yacy_search_server_tpu_torch.kernels.dense\n"
         "import yacy_search_server_tpu_torch.index.dense\n"
+        "import yacy_search_server_tpu_torch.ops.packed\n"
+        "import yacy_search_server_tpu_torch.kernels.packed\n"
+        "import yacy_search_server_tpu_torch.ingest.devbuild\n"
         "from yacy_search_server_tpu_torch.kernels.devstore import (\n"
         "    join_member_batch, join_stats_batch, join_score_batch)\n"
         "from yacy_search_server_tpu_torch.index.devstore import (\n"
@@ -99,3 +102,25 @@ def test_device_rank_without_device_raises_on_a_box_without_cuda():
     # and a CPU tensor is the only way to the plain versions
     s, d = TR.CardinalRanker(device="cpu").rank(plist, k=10)
     assert len(s) == 10
+
+
+def test_packed_entry_points_raise_without_cuda():
+    """A packed store and the device build run on the card unless given
+    device="cpu": without CUDA they raise, never fall back."""
+    import torch
+
+    from yacy_search_server_tpu_torch.index import devstore as TD
+    from yacy_search_server_tpu_torch.index.rwi import RWIIndex
+    from yacy_search_server_tpu_torch.ingest import devbuild as TB
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the device path would run")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.DeviceSegmentStore(RWIIndex(), packed_residency=True)
+    part = (np.zeros((100, 17), np.int16), np.zeros(100, np.int32),
+            np.arange(100, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TB.pack_block_batch([part])
+    s = TD.DeviceSegmentStore(RWIIndex(), device="cpu",
+                              packed_residency=True)
+    assert s.arena.device.type == "cpu"
+    assert len(TB.pack_block_batch([part], "cpu")) == 1

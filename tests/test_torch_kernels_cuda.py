@@ -6,6 +6,8 @@ left out):
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1306,3 +1308,285 @@ def test_dense_kernels_reject_f32_rows(dev):
         KDn.dense_rows_boost(docs, q, torch.zeros(8, dtype=torch.int32,
                                                   device=dev),
                              torch.ones(8, dtype=torch.bool, device=dev), 0.5)
+
+
+# ---------------------------------------------------------------------------
+# packed residency: K12 unpack_rows, K5bp pruned_tile_bp, K6bp
+# span_stats_bp, K7bp span_score_bp, topk_finish_bp, K13 pack_block_batch
+# ---------------------------------------------------------------------------
+
+def _edge_block(n, seed):
+    """A compact block whose columns take every width: a constant column
+    (w = 1), flags over all of int32 (w = 32), docids up to 2^31 - 1
+    (w = 31), the rest of make_term's ranges (straddling widths); the
+    best row repeated (ties)."""
+    feats, _d, _h, rng = KBench.make_term(n, seed)
+    f16, fl = R.compact_feats(feats)
+    f16[:, P.F_WORDS_IN_TITLE] = 3
+    fl = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(
+        np.int32)
+    fl[:2] = (-2 ** 31, 2 ** 31 - 1)[:n]
+    dd = np.sort(rng.choice(2 ** 31 - 1, n, replace=False)).astype(np.int32)
+    dd[-1:] = 2 ** 31 - 1
+    dd[::7] = rng.integers(0, 4_000, len(dd[::7]))   # under the bitmap
+    return f16, fl, dd
+
+
+@pytest.fixture(scope="module")
+def packed_edges():
+    """A packed-words store of three blocks (40,000, 70,001 and 900
+    rows) on the card and on the CPU, the last block ending on the
+    store's last word; a tombstone bitmap over some of their docids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yacy_search_server_tpu_torch.ops import packed as TPK
+    blocks, words, base = [], [], 0
+    for i, n in enumerate((40_000, 70_001, 900)):
+        f16, fl, dd = _edge_block(n, 60 + i)
+        blk = TPK.pack_block(f16, fl, dd)
+        blocks.append((base, blk, (f16, fl, dd)))
+        words.append(blk.words)
+        base += len(blk.words)
+    store = np.concatenate(words)
+    dead = np.zeros(4_096, bool)
+    dead[::3] = True
+    t = lambda a, d: torch.from_numpy(a).to(d)  # noqa: E731
+    return {d: (t(store, d), t(dead, d)) for d in ("cuda", "cpu")}, blocks
+
+
+@pytest.mark.parametrize("block", [0, 1, 2])
+@pytest.mark.parametrize("row0,rows", [(0, None), (1, 64), (33, 5_000),
+                                       ("end", 300)])
+def test_unpack_rows_matches_plain(packed_edges, block, row0, rows):
+    """K12 against its plain version and the host unpack: from row 0, a
+    ragged piece, rows past the count (garbage, clamped to the store),
+    the last block's straddles reading the store's last word."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    stores, blocks = packed_edges
+    base, blk, (f16, fl, dd) = blocks[block]
+    meta = blk.meta_vector()
+    if row0 == "end":
+        row0 = blk.count - 100
+    rows = blk.count - row0 if rows is None else rows
+    before = LAUNCHES["unpack_rows"]
+    got = KP.unpack_rows(stores["cuda"][0], base, meta, row0, rows)
+    want = KP.unpack_rows(stores["cpu"][0], base, meta, row0, rows)
+    torch.cuda.synchronize()
+    assert LAUNCHES["unpack_rows"] == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    inside = slice(0, max(0, min(rows, blk.count - row0)))
+    assert torch.equal(got[0].cpu()[inside], torch.from_numpy(
+        f16[row0:row0 + rows].astype(np.int32)))
+    assert torch.equal(got[2].cpu()[inside],
+                       torch.from_numpy(dd[row0:row0 + rows]))
+
+
+def _bp_slots(blocks, which, stats_of):
+    out, metas = [], []
+    for i in which:
+        base, blk, (f16, fl, _dd) = blocks[i]
+        st = stats_of(f16, fl)
+        out.append((base, blk.count, 0, 0, st["col_min"], st["col_max"],
+                    st["tf_min"], st["tf_max"]))
+        metas.append(blk.meta_vector())
+    return out, metas
+
+
+@pytest.mark.parametrize("kk", [16, 1024, 2048])
+@pytest.mark.parametrize("which", [[0], [1, 2, 0], [2] * 9],
+                         ids=["one", "three", "nine"])
+@pytest.mark.parametrize("nondefault", [False, True])
+def test_pruned_tile_bp_matches_plain(packed_edges, which, kk, nondefault):
+    """K5bp against its plain version: a tile past a block's count (900
+    rows: the rest decodes garbage), dead rows, ties; nine slots take two
+    launches of eight and one. The tail walk has no pmax rows here
+    (tcount 0): the int16 K5 tests hold it."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    stores, blocks = packed_edges
+    prof = R.RankingProfile(**NONDEFAULT) if nondefault else R.RankingProfile()
+    shift, lang = TD.prune_bound_consts(prof)
+    slots, metas = _bp_slots(blocks, which, R.pack_stats_host)
+    desc = KP.pack_desc_bp(slots, metas, int(shift), int(lang))
+    pmax = {d: torch.zeros(4, dtype=torch.int32, device=d)
+            for d in ("cuda", "cpu")}
+    before = LAUNCHES["pruned_tile_bp"]
+    got = KP.pruned_tile_bp(*stores["cuda"], pmax["cuda"], desc, kk,
+                            R.profile_consts(prof, 0x656E, "cuda"))
+    want = KP.pruned_tile_bp(*stores["cpu"], pmax["cpu"], desc, kk,
+                             R.profile_consts(prof, 0x656E, "cpu"))
+    torch.cuda.synchronize()
+    assert LAUNCHES["pruned_tile_bp"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+FILTS = [None, (0x656E, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI),
+         (0, 31, 5_000, 25_000), (0x7777, -1, KD.DAYS_NONE_LO,
+                                  KD.DAYS_NONE_HI)]
+
+
+@pytest.mark.parametrize("filt", FILTS, ids=["none", "lang", "flag_days",
+                                             "nothing"])
+@pytest.mark.parametrize("block", [0, 1, 2])
+def test_span_kernels_bp_match_plain(packed_edges, block, filt):
+    """K6bp, K7bp (and the rows past the span, -(2^31-1)), kernel 3 and
+    topk_finish_bp without and with a tail check, against their plain
+    versions: the store's exact scan over one packed span."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    stores, blocks = packed_edges
+    base, blk, _ = blocks[block]
+    meta = blk.meta_vector()
+    n = blk.count
+    c = {d: R.profile_consts(R.RankingProfile(), 0x656E, d)
+         for d in ("cuda", "cpu")}
+    st = {d: KP.span_stats_bp(*stores[d], base, meta, n, filt)
+          for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    _stats_equal(st["cuda"], st["cpu"])
+    out_len = n + 1_000
+    sc = {d: KP.span_score_bp(*stores[d], base, meta, n, st["cpu"].to(d),
+                              c[d], out_len, filt) for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    assert torch.equal(sc["cuda"].cpu(), sc["cpu"])
+    pmax = {d: torch.full((8,), 5, dtype=torch.int32, device=d)
+            for d in ("cuda", "cpu")}
+    for kk in (16, 1024):
+        top_s, top_rows, _ = KT.tie_topk(sc["cuda"], kk)
+        for tail in (None, (2, 5, 0, 0)):
+            got = KP.topk_finish_bp(top_s, top_rows, stores["cuda"][0], base,
+                                    meta, n, pmax=pmax["cuda"], tail=tail)
+            want = KP.topk_finish_bp(top_s.cpu(), top_rows.cpu(),
+                                     stores["cpu"][0], base, meta, n,
+                                     pmax=pmax["cpu"], tail=tail)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("sizes", [[64], [1, 0, 64, 257, 1000, 999],
+                                   [70_001, 65_536, 33]])
+def test_pack_block_batch_matches_plain_and_host(sizes):
+    """K13 against its plain version and each lane against the host pack
+    (ragged lanes, an empty one, w = 1 and w = 32 columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yacy_search_server_tpu_torch.ingest import devbuild as TB
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    from yacy_search_server_tpu_torch.ops import packed as TPK
+    rows = TB.rows_bucket(max(sizes))
+    b = len(sizes)
+    f16 = np.zeros((b, rows, P.NF), np.int16)
+    fl = np.zeros((b, rows), np.int32)
+    dd = np.zeros((b, rows), np.int32)
+    parts = []
+    for j, m in enumerate(sizes):
+        part = _edge_block(m, 70 + j) if m else (
+            np.zeros((0, P.NF), np.int16), np.zeros(0, np.int32),
+            np.zeros(0, np.int32))
+        parts.append(part)
+        f16[j, :m], fl[j, :m], dd[j, :m] = part
+    n = np.asarray(sizes, np.int32)
+    t = lambda a, d: torch.from_numpy(a).to(d)  # noqa: E731
+    before = LAUNCHES["pack_block_batch"]
+    got = KP.pack_block_batch(*(t(a, "cuda") for a in (f16, fl, dd, n)))
+    want = KP.pack_block_batch(*(t(a, "cpu") for a in (f16, fl, dd, n)))
+    torch.cuda.synchronize()
+    assert LAUNCHES["pack_block_batch"] == before + 1
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
+    words, meta, totals = (a.cpu().numpy() for a in got)
+    for j, part in enumerate(parts):
+        blk = TPK.pack_block(*part)
+        assert np.array_equal(words[j, :totals[j]], blk.words)
+        assert np.array_equal(meta[j], blk.meta_vector())
+    # the device build through devbuild: every block the host pack's
+    blocks = TB.pack_block_batch(parts, "cuda")
+    for blk, part in zip(blocks, parts):
+        assert np.array_equal(blk.words, TPK.pack_block(*part).words)
+
+
+def test_packed_store_on_the_card_matches_cpu():
+    """A packed store on the card (device build on) and its twin on the
+    CPU over one RWI, with a budget that holds two of three terms: the
+    pruned and filtered queries solo and from 16 threads through the
+    batcher, a warm promotion through the batcher's `promote` kind, and
+    a delete; every answer the twin's, every new kernel launched."""
+    import threading
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    idx = RWIIndex()
+    # the packed words' capacity may reach 2^21: the 200,000-row block
+    # and the 9,000-row one fit, the 60,000-row one stays warm
+    budget = TD.TILE * 42 + (1 << 16) + 4 * (1 << 21)
+    g = TD.DeviceSegmentStore(idx, device="cuda", packed_residency=True,
+                              budget_bytes=budget)
+    h = TD.DeviceSegmentStore(idx, device="cpu", packed_residency=True,
+                              budget_bytes=budget)
+    for s in (g, h):
+        s.ingest_device_build = True
+    idx.listener = KBench.Fanout(g, h)
+    terms = [b"pk%010d" % i for i in range(3)]
+    for i, th in enumerate(terms):
+        feats, _d, _h, _r = KBench.make_term((200_000, 60_000, 9_000)[i],
+                                             KBench.SEED + 40 + i)
+        idx.add_many(th, P.PostingsList(
+            (i + 5 * np.arange(len(feats))).astype(np.int32), feats))
+    idx.flush()
+    assert g.ingest_device_builds == h.ingest_device_builds == 3
+    hot = {k[1]: e["hot"] for k, e in g._pblocks.items()}
+    assert hot == {k[1]: e["hot"] for k, e in h._pblocks.items()}
+    assert sum(hot.values()) == 2
+    profs = [R.RankingProfile(), R.RankingProfile(**NONDEFAULT)]
+    filt = dict(lang_filter=0x656E, from_days=5_000)
+    l0 = dict(LAUNCHES)
+
+    def both(th, p, k, **kw):
+        g._topk_cache.clear()
+        h._topk_cache.clear()
+        a = g.rank_term(th, profs[p], k=k, **kw)
+        b = h.rank_term(th, profs[p], k=k, **kw)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            assert a[2] == b[2]
+        return a
+    hot_terms = [th for th in terms if hot[th]]
+    for th in hot_terms:
+        for p in range(2):
+            for k in (10, 1000):
+                assert both(th, p, k) is not None
+                assert both(th, p, k, **filt) is not None
+    g.enable_batching(max_batch=16, dispatchers=4)
+    want = {(th, p): both(th, p, 100) for th in hot_terms for p in range(2)}
+    errors = []
+
+    def worker(mine):
+        for job in mine:
+            got = g.rank_term(job[0], profs[job[1]], k=100)
+            if not (np.array_equal(got[0], want[job][0])
+                    and np.array_equal(got[1], want[job][1])):
+                errors.append(job)
+    g._topk_cache.enabled = False
+    ts = [threading.Thread(target=worker, args=((list(want) * 24)[i::16],))
+          for i in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=600)
+    assert not errors
+    g._topk_cache.enabled = True
+    cold = [th for th in terms if not hot[th]][0]
+    assert both(cold, 0, 10) is None
+    deadline = time.monotonic() + 30
+    while g.tier_promotions_warm_hot < 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert g.tier_promotions_warm_hot == h.tier_promotions_warm_hot == 1
+    assert both(cold, 0, 10) is not None
+    c = g.counters()
+    assert c["batch_exceptions"] == 0 and c["batch_timeouts"] == 0
+    first = both(cold, 0, 10)
+    idx.delete_doc(int(first[1][0]))
+    assert both(cold, 0, 10) is not None
+    for name in ("pruned_tile_bp", "span_stats_bp", "span_score_bp",
+                 "topk_finish_bp", "unpack_rows"):
+        assert LAUNCHES[name] > l0[name], name
+    g.close()

@@ -9,7 +9,12 @@ where every membership is a bitmap one) and, with `scan_batching`,
 filtered exact scans (`submit_scan`: the batched K6/K7 pair,
 `devstore.scan_batch_query`) and, with rerank batching, the hybrid
 reranks (`submit_rerank`: K9 and K10 over up to `max_batch` slots a
-launch, `ops/dense.rerank_fwd_batch_packed`). One former owns
+launch, `ops/dense.rerank_fwd_batch_packed`), and a packed store's tier
+promotions (`submit_promote`: the `promote` kind; the dispatcher places
+the block, the completer fetches its probe, and nobody waits). Pruned
+queries on packed spans take K5bp (`kernels/packed.pruned_tile_bp`) waves
+of their own; filtered scans on packed spans answer ("ineligible",) and
+the store's packed scan serves them. One former owns
 the incoming queue and forms batches, growing a batch while a wave is in
 flight; a pool of dispatchers issues each part's launches; a pool of
 completers waits for each wave's answer and wakes its submitters. A
@@ -40,9 +45,8 @@ CUDA in place of JAX's asynchronous dispatch:
   retries solo, where a failed fetch is counted as a lost-device query.
 
 A dispatcher or completer thread never submits to the batcher itself
-(`owns_current_thread`). Left out of the port so far: the ANN and
-promote kinds, and the reference's tracing, wave stamps and profiler
-records.
+(`owns_current_thread`). Left out of the port so far: the ANN kind, and
+the reference's tracing, wave stamps and profiler records.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 
 from ..kernels import devstore as KD
+from ..kernels import packed as KP
 
 log = logging.getLogger("yacy.torch.batcher")
 
@@ -239,6 +244,11 @@ class QueryBatcher:
         return self._submit_wait(self._item(
             kind="rerank", qrow=qrow, nb=nb, n=n, fwd=fwd, written=written))
 
+    def submit_promote(self, key, run) -> None:
+        """A tier promotion of the store's block `key` of `run` in the
+        pipeline; returns at once (the completer confirms it)."""
+        self._q.put(self._item(kind="promote", key=key, run=run))
+
     def close(self) -> None:
         self._stop = True
         self._q.put(None)       # the former forwards one a dispatcher
@@ -327,8 +337,8 @@ class QueryBatcher:
         """The pruned queries in one part (one K5 launch a (profile,
         language, kk) group), each scan group in a part of its own, each
         conjunction family (statics, profile, language) in parts of its
-        cap, and the reranks in a part a lane bucket, so that no
-        dispatcher serializes unrelated launches."""
+        cap, the reranks in a part a lane bucket and the promotions in one
+        part, so that no dispatcher serializes unrelated launches."""
         pruned = [it for it in batch if it["kind"] == "pruned"]
         scans: dict[tuple, list[dict]] = {}
         fams: dict[tuple, list[dict]] = {}
@@ -350,6 +360,9 @@ class QueryBatcher:
             cap = min(it["joincap"] for it in fam)
             parts.extend(fam[i:i + cap] for i in range(0, len(fam), cap))
         parts.extend(reranks.values())
+        promotes = [it for it in batch if it["kind"] == "promote"]
+        if promotes:
+            parts.append(promotes)
         return parts or [batch]
 
     # -- dispatchers ----------------------------------------------------------
@@ -389,6 +402,7 @@ class QueryBatcher:
         pruned = [it for it in batch if it["kind"] == "pruned"]
         joins = [it for it in batch if it["kind"] == "join"]
         reranks = [it for it in batch if it["kind"] == "rerank"]
+        promotes = [it for it in batch if it["kind"] == "promote"]
         if scans:
             self._dispatch_scans(scans)
         if pruned:
@@ -397,15 +411,19 @@ class QueryBatcher:
             self._dispatch_joins(joins)
         if reranks:
             self._dispatch_reranks(reranks)
+        if promotes:
+            self._dispatch_promotes(promotes)
 
     def _dispatch_pruned(self, batch: list[dict]) -> None:
         """K5 over each (profile, language, kk) group of the part, one
         slot a query (no pad slots: a launch takes any number), without
-        the init entries (the batched kernel's form)."""
+        the init entries (the batched kernel's form); packed spans in
+        groups of their own, through K5bp (the reference's residency
+        key)."""
         from .devstore import DeviceArena, prune_bound_consts
         store = self.store
-        arrays, written, spans, _epoch, tomb, has_delta = store.snapshot(
-            [it["th"] for it in batch])
+        arrays, written, spans, _epoch, tomb, has_delta, pwords = \
+            store.snapshot([it["th"] for it in batch], words=True)
         groups: dict[tuple, list[dict]] = {}
         for it in batch:
             sp = spans[it["th"]]
@@ -415,23 +433,33 @@ class QueryBatcher:
                 it["ev"].set()  # stays ("ineligible",): the caller goes solo
                 continue
             it["span"] = sp[0]
-            key = (it["profile"].to_external_string(), it["lang"], it["kk"])
+            key = (it["profile"].to_external_string(), it["lang"], it["kk"],
+                   sp[0].pbase >= 0)
             groups.setdefault(key, []).append(it)
         if not groups:
             return
         DeviceArena.wait_written(written)
-        for (_, lang, kk), items in groups.items():
+        for (_, lang, kk, packed), items in groups.items():
             prof = items[0]["profile"]
             consts = store._profile_consts(prof, lang)
             shift, lang_term = prune_bound_consts(prof)
-            desc = KD.pack_desc(
-                [(it["span"].start, it["span"].count, it["span"].tstart,
-                  it["span"].tcount, it["span"].stats["col_min"],
-                  it["span"].stats["col_max"], it["span"].stats["tf_min"],
-                  it["span"].stats["tf_max"]) for it in items],
-                int(shift), int(lang_term))
+            slots = [(it["span"].pbase if packed else it["span"].start,
+                      it["span"].count, it["span"].tstart,
+                      it["span"].tcount, it["span"].stats["col_min"],
+                      it["span"].stats["col_max"], it["span"].stats["tf_min"],
+                      it["span"].stats["tf_max"]) for it in items]
             t0 = time.perf_counter()
-            out = KD.pruned_tile(*arrays, desc, kk, consts, init=False)
+            if packed:
+                desc = KP.pack_desc_bp(slots,
+                                       [it["span"].pmeta for it in items],
+                                       int(shift), int(lang_term))
+                out = KP.pruned_tile_bp(pwords, arrays[3], arrays[4], desc,
+                                        kk, consts)
+                keep = (pwords, arrays[3], arrays[4], consts)
+            else:
+                desc = KD.pack_desc(slots, int(shift), int(lang_term))
+                out = KD.pruned_tile(*arrays, desc, kk, consts, init=False)
+                keep = (arrays, consts)
 
             def finish(host, items=items, kk=kk):
                 s, d = host[:, :kk], host[:, kk:2 * kk]
@@ -448,13 +476,46 @@ class QueryBatcher:
                                  if ok[i] else ("prune_fail",))
                     it["ev"].set()
 
-            self._submit_completion(out, finish, items, t0,
-                                    keep=(arrays, consts))
+            self._submit_completion(out, finish, items, t0, keep=keep)
+
+    def _dispatch_promotes(self, items: list[dict]) -> None:
+        """Each promotion placed by the store (_promote_now) and its probe
+        (K12's decode of the block's first row from the new words) handed
+        to a completer, which checks it against the host block. Nobody
+        waits on these items; a promotion that did not happen (counted
+        by the store) completes at once."""
+        store = self.store
+        for it in items:
+            t0 = time.perf_counter()
+            try:
+                got = store._promote_now(it["key"], it["run"])
+            except Exception:  # noqa: BLE001 - counted and logged
+                with self._ms_lock:
+                    self.exceptions += 1
+                log.exception("tier promotion failed for %r", it["key"])
+                it["ev"].set()
+                continue
+            if got is None:
+                it["ev"].set()
+                continue
+            probe, want, words = got
+
+            def finish(host, it=it, want=want):
+                if not np.array_equal(host, want):
+                    raise RuntimeError(
+                        f"promoted block {it['key']!r} decodes row 0 as "
+                        f"{host.tolist()}, the host block holds "
+                        f"{want.tolist()}")
+                it["res"] = ("ok",)
+                it["ev"].set()
+
+            self._submit_completion(probe, finish, [it], t0, keep=(words,))
 
     def _dispatch_scans(self, items: list[dict]) -> None:
         """The batched exact scan over each (profile, language, kk) group
-        in waves of up to 16 slots; a term with a RAM delta, no span or
-        more than MAX_SPANS spans answers ("ineligible",) and goes solo."""
+        in waves of up to 16 slots; a term with a RAM delta, no span, more
+        than MAX_SPANS spans or a packed span answers ("ineligible",) and
+        goes solo."""
         from .devstore import (DAYS_NONE_HI, DAYS_NONE_LO, DeviceArena,
                                scan_batch_query)
         store = self.store
@@ -463,7 +524,10 @@ class QueryBatcher:
         groups: dict[tuple, list[dict]] = {}
         for it in items:
             sp = spans[it["th"]]
-            if not sp or len(sp) > store.MAX_SPANS or has_delta[it["th"]]:
+            if (not sp or len(sp) > store.MAX_SPANS or has_delta[it["th"]]
+                    or any(x.pbase >= 0 for x in sp)):
+                # a packed span has no int16 rows: the store's packed
+                # scan serves it solo
                 it["ev"].set()
                 continue
             it["spanlist"] = sp
@@ -659,9 +723,10 @@ class QueryBatcher:
         finally:
             rec["keep"] = None  # the wave is done: its tensors may go
         ms = (time.perf_counter() - rec["t0"]) * 1000.0
+        queries = sum(1 for it in items if it["kind"] != "promote")
         with self._ms_lock:
-            self.query_kernel_ms.extend([ms] * len(items))
-            self.query_dispatch_ms.extend([ms] * len(items))
+            self.query_kernel_ms.extend([ms] * queries)
+            self.query_dispatch_ms.extend([ms] * queries)
             self.dispatch_ms_max = max(self.dispatch_ms_max, ms)
 
     # -- runtime tuning -------------------------------------------------------

@@ -56,13 +56,34 @@ serving counters.
   cache, keyed also on alpha, the encoder version and the vectors'
   version (`hybrid_cache_get` / `hybrid_cache_put`).
 
+- Packed residency (`packed_residency=True`): each (run, term) is a
+  bit-packed block (ops/packed.py) instead of int16 rows. A block sits in
+  the arena's packed-words store while the arena's one byte budget holds
+  it ("hot"), else in host memory ("warm", up to `warm_budget_bytes`),
+  else nowhere ("cold": rebuilt from the run on demand). A query on a
+  hot term decodes its rows on the card: K5bp `pruned_tile_bp` for the
+  pruned query (a failed bound goes straight to the exact scan), K6bp
+  `span_stats_bp`, K7bp `span_score_bp`, kernel 3 and `topk_finish_bp`
+  for the exact scan (kernels/packed.py); the answers are the int16
+  path's bit for bit. A query on a warm or cold term is a counted miss
+  that the caller's host path serves, and it starts the term's promotion
+  (inline, or through the batcher's `promote` kind): the block is placed
+  hot, least recently used hot blocks demoted to warm and the store
+  compacted where the budget needs the room. With `ingest_device_build`
+  the blocks of a run are packed on the card (ingest/devbuild.py, K13).
+  Facet bitmaps, RAM deltas and terms of several spans are declined on
+  a packed store (counted fallbacks), joins on packed terms too, as in
+  the reference.
+
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
 extents in span order, the delta's rows last), never the docid.
 
-Left out: packed residency and the tier ladder, the ANN family
-(`ann_centroid_version` answers -1), and the JAX package's tracing and
-profiler hooks (their `counters()` keys read zero).
+Left out: the ANN family (`ann_centroid_version` answers -1), the
+ingest scheduler's promotion deferral, the cold tier's paged run files
+(the port's runs live in memory, so a cold block is rebuilt from the
+run), and the JAX package's tracing and profiler hooks (their
+`counters()` keys read zero).
 """
 
 from __future__ import annotations
@@ -82,6 +103,8 @@ from ..convert import profile_from_jax
 from ..kernels import cardinal as KC
 from ..kernels import cardinal_score, cardinal_stats, tie_topk
 from ..kernels import devstore as KD
+from ..kernels import packed as KP
+from ..ops import packed as PK
 from ..ops.ranking import (_ACTIVE_COLS, RankingProfile,
                            cardinal_from_stats_host, compact_feats,
                            pack_stats_host, profile_consts)
@@ -102,10 +125,9 @@ INT32_MAX = 2 ** 31 - 1
 # entries of the filtered-stats cache (FIFO beyond)
 _STATS_CACHE_CAP = 256
 # the keys of the JAX store's counters() for machinery this port does not
-# have yet (storage integrity, the profiler's
-# silicon accounting, the ANN family, packed residency
-# and the tier ladder, the paged runs' term cache): they read zero here,
-# as the JAX store's ANN_ZERO_COUNTERS do for a store without an index
+# have yet (storage integrity, the profiler's silicon accounting, the ANN
+# family, the paged runs' term cache): they read zero here, as the JAX
+# store's ANN_ZERO_COUNTERS do for a store without an index
 ZERO_COUNTERS = {
     "tunnel_rt_ms": 0.0, "util_pct_p50": 0.0, "util_pct_p95": 0.0,
     "bound": "", "storage_corruptions": 0,
@@ -115,12 +137,7 @@ ZERO_COUNTERS = {
     "ann_hot_bytes": 0, "ann_warm_bytes": 0, "ann_cold_bytes": 0,
     "ann_tier_hot_hits": 0, "ann_tier_warm_hits": 0,
     "ann_tier_cold_hits": 0, "ann_promotions": 0, "ann_promote_failures": 0,
-    "ann_lane_drops": 0, "tier_hot_hits": 0,
-    "tier_warm_hits": 0, "tier_cold_hits": 0, "tier_promotions_warm_hot": 0,
-    "tier_promotions_cold_hot": 0, "tier_demotions_hot_warm": 0,
-    "tier_evictions_warm_cold": 0, "tier_promote_async": 0,
-    "tier_promote_failures": 0, "tier_warm_bytes": 0, "tier_cold_bytes": 0,
-    "packed_compression_ratio": 1.0, "term_cache_hits": 0,
+    "ann_lane_drops": 0, "term_cache_hits": 0,
     "term_cache_misses": 0, "term_cache_evictions": 0, "term_cache_bytes": 0,
 }
 
@@ -156,15 +173,22 @@ _PMAX_MARGIN_EXTRA = 64
 
 class Span:
     """One packed extent of a (run, term): arena rows + prune and join
-    side-tables."""
+    side-tables, or a bit-packed block of the packed-words store."""
 
     __slots__ = ("start", "count", "tstart", "tcount", "stats", "dead_seq",
-                 "jstart", "jslot")
+                 "jstart", "jslot", "pbase", "pmeta", "row_bits", "tkey")
 
     def __init__(self, start, count, tstart=-1, tcount=0, stats=None,
-                 dead_seq=-1, jstart=-1, jslot=-1):
-        self.start = start        # first arena row
+                 dead_seq=-1, jstart=-1, jslot=-1, pbase=-1, pmeta=None,
+                 row_bits=0, tkey=None):
+        self.start = start        # first arena row (-1: a packed span)
         self.count = count
+        # packed residency: the block's first word in the packed-words
+        # store and its meta vector (ops/packed.py); -1 / None for int16
+        self.pbase = pbase
+        self.pmeta = pmeta
+        self.row_bits = row_bits  # payload bits a row
+        self.tkey = tkey          # (run id, termhash): the tier LRU's key
         self.tstart = tstart      # first row in the pmax side-table
         self.tcount = tcount      # tiles in the side-table
         self.stats = stats        # frozen pack-time normalization stats
@@ -399,6 +423,45 @@ def join_batch_query(arrays, join, desc, n_inc: int, consts,
                                 KD.scan_batch_desc(ext))
 
 
+def pruned_query_bp(words, dead, pmax, sp: Span, shift: int, lang_term: int,
+                    consts, kk: int) -> torch.Tensor:
+    """The b = 1 pruned query over a packed span (_rank_pruned_batch1_bp_
+    kernel at one slot): the [2kk + 1] vector of scores, docids and ok,
+    left on the device. K5bp; kk past its 2048: K7bp over the first tile
+    against the frozen stats, kernel 3 and topk_finish_bp's tail check,
+    the same function."""
+    shift, lang_term = int(shift), int(lang_term)
+    if kk <= KD.MAX_KK:
+        desc = KP.pack_desc_bp(
+            [(sp.pbase, sp.count, sp.tstart, sp.tcount, sp.stats["col_min"],
+              sp.stats["col_max"], sp.stats["tf_min"], sp.stats["tf_max"])],
+            [sp.pmeta], shift, lang_term)
+        return KP.pruned_tile_bp(words, dead, pmax, desc, kk, consts)[0]
+    rows = min(sp.count, TILE)
+    stats = torch.from_numpy(sp.stats38()).to(words.device)
+    buf = KP.span_score_bp(words, dead, sp.pbase, sp.pmeta, rows, stats,
+                           consts, max(rows, kk))
+    top_s, top_rows, _ = tie_topk(buf, kk)
+    return KP.topk_finish_bp(top_s, top_rows, words, sp.pbase, sp.pmeta,
+                             rows, pmax=pmax,
+                             tail=(sp.tstart, sp.tcount, shift, lang_term))
+
+
+def scan_query_bp(words, dead, sp: Span, consts, kk: int,
+                  filt=None) -> torch.Tensor:
+    """The exact two-pass scan over one packed span (_rank_scan_batch_bp_
+    kernel at one slot): K6bp over the live rows that pass the filter,
+    K7bp, kernel 3 (index mode: the reference's running merge order) and
+    topk_finish_bp: [2kk] scores ++ docids, left on the device."""
+    stats = KP.span_stats_bp(words, dead, sp.pbase, sp.pmeta, sp.count,
+                             filt)
+    buf = KP.span_score_bp(words, dead, sp.pbase, sp.pmeta, sp.count, stats,
+                           consts, max(sp.count, kk), filt)
+    top_s, top_rows, _ = tie_topk(buf, kk)
+    return KP.topk_finish_bp(top_s, top_rows, words, sp.pbase, sp.pmeta,
+                             sp.count)
+
+
 class DeviceArena:
     """Growable device buffers holding packed postings extents.
 
@@ -425,6 +488,15 @@ class DeviceArena:
     [slots, nwords, 2] (word bits, rank prefix). nwords is fixed at the
     first bitmap (pow2 words over twice that term's largest docid); a
     term with a docid past it, or over the slot budget, gets no slot.
+
+    The packed-words store (packed residency): one int32 tensor of the hot
+    blocks' word streams, each appended at `_pw_used` (bucket-padded),
+    its capacity counted in the arena's one byte budget beside the int16
+    arrays. An append into unused capacity writes in place: a block's
+    decode reads no word of a later block for its own rows. Growth and
+    every compaction (`reset_packed`) allocate a fresh tensor, so a
+    snapshot in flight keeps the old one. Words of demoted or retired
+    blocks count in `packed_garbage_words` until a compaction.
     """
 
     # bitmap budget: slots are (nwords, 2) int32 rows
@@ -477,6 +549,12 @@ class DeviceArena:
         self._bm_cap = 0
         self._bm_used = 0
         self._bmtab = torch.zeros((1, 1, 2), dtype=torch.int32, device=dev)
+        # the packed-words store
+        self._pw_cap = _PW_INITIAL_WORDS
+        self._pw_used = 0
+        self._pwords = torch.zeros(self._pw_cap, dtype=torch.int32,
+                                   device=dev)
+        self.packed_garbage_words = 0
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -509,13 +587,72 @@ class DeviceArena:
     def used_rows(self) -> int:
         return self._used
 
+    def bytes_used(self) -> int:
+        return (self._cap * self.row_bytes() + self._doc_cap
+                + self._pw_cap * 4)
+
     def would_fit(self, rows: int) -> bool:
         need = self._used + rows + TILE
         new_cap = self._cap
         while new_cap < need:          # growth doubles: budget the real cap
             new_cap *= 2
-        return (new_cap * self.row_bytes() + _PW_INITIAL_WORDS * 4
+        return (new_cap * self.row_bytes() + self._pw_cap * 4
                 <= self.budget_bytes)
+
+    def packed_would_fit(self, words: int) -> bool:
+        """The hot tier's admission check: the word capacity an append of
+        `words` would grow to (doubling), beside the int16 arrays and the
+        tombstone bitmap, within the budget."""
+        need = self._pw_used + _bucket_rows(words)
+        new_cap = self._pw_cap
+        while new_cap < need:
+            new_cap *= 2
+        return (self._cap * self.row_bytes() + self._doc_cap
+                + new_cap * 4 <= self.budget_bytes)
+
+    def append_packed_words(self, words: np.ndarray) -> int:
+        """Place one packed block's word stream; returns its word base.
+        The write pads to the size bucket with zeros (overwritten by the
+        next append); growth doubles into a fresh tensor."""
+        n = len(words)
+        pad = _bucket_rows(n)
+        buf = np.zeros(pad, np.int32)
+        buf[:n] = words
+        new_cap = self._pw_cap
+        while new_cap < self._pw_used + pad:
+            new_cap *= 2
+        off = self._pw_used
+        with self._writing():
+            if new_cap != self._pw_cap:
+                grown = torch.zeros(new_cap, dtype=torch.int32,
+                                    device=self.device)
+                grown[:self._pw_cap].copy_(self._pwords)
+                self._pwords, self._pw_cap = grown, new_cap
+            self._pwords[off:off + pad].copy_(self._put(buf))
+        self._pw_used += n
+        return off
+
+    def reset_packed(self) -> None:
+        """A fresh, empty packed-words store and pmax side-table (the
+        compaction's start: a packed store's pmax rows are its blocks'
+        alone); the old tensors stay with whoever holds them."""
+        with self._writing():
+            self._pw_cap = _PW_INITIAL_WORDS
+            self._pw_used = 0
+            self._pwords = torch.zeros(self._pw_cap, dtype=torch.int32,
+                                       device=self.device)
+            self._tcap = 1 << 12
+            self._tused = 0
+            self._pmax = torch.full((self._tcap,), INT32_MAX,
+                                    dtype=torch.int32, device=self.device)
+        self.packed_garbage_words = 0
+
+    def packed_array(self) -> torch.Tensor:
+        return self._pwords
+
+    def packed_bytes_used(self) -> int:
+        """Device bytes of the packed-words store (its capacity)."""
+        return self._pw_cap * 4
 
     def _grow_to(self, rows: int) -> None:
         new_cap = self._cap
@@ -774,12 +911,40 @@ class DeviceSegmentStore:
     # terms of at least this many rows get a join bitmap at pack time
     JOIN_BITMAP_MIN = 65_536
 
-    def __init__(self, rwi, device=None, budget_bytes: int = 2 << 30):
+    def __init__(self, rwi, device=None, budget_bytes: int = 2 << 30,
+                 packed_residency: bool = False,
+                 warm_budget_bytes: int = 1 << 30):
         self.rwi = rwi
-        self.arena = DeviceArena(device=device, budget_bytes=budget_bytes)
+        # a packed store appends no int16 rows: its arena keeps the one
+        # spare tile of them, and the budget goes to the packed words
+        self.packed_residency = bool(packed_residency)
+        self.arena = DeviceArena(device=device, budget_bytes=budget_bytes,
+                                 initial_rows=self._initial_rows())
         # run id -> {termhash: Span}
         self._packed: dict[int, dict[bytes, Span]] = {}
         self._lock = threading.RLock()
+        # the tier ladder of a packed store, a (run id, termhash) each:
+        # {"block", "stats", "pmax", "count", "dead_seq", "hot",
+        # "touched"}; the host block is the warm copy of a hot one
+        self.warm_budget_bytes = warm_budget_bytes
+        self._pblocks: dict[tuple, dict] = {}
+        self._warm_bytes = 0                # the non-hot blocks' bytes
+        self._promote_inflight: set = set()
+        # off: no LRU touch, no miss attribution, no promotion (the
+        # reference's idle-path switch); hot answers stay hot
+        self._tiering_enabled = True
+        self.tier_hot_hits = 0              # answers of a hot block
+        self.tier_warm_hits = 0             # misses on a warm block
+        self.tier_cold_hits = 0             # misses on a cold term
+        self.tier_promotions_warm_hot = 0
+        self.tier_promotions_cold_hot = 0
+        self.tier_demotions_hot_warm = 0
+        self.tier_evictions_warm_cold = 0
+        self.tier_promote_async = 0         # promotions through the batcher
+        self.tier_promote_failures = 0      # no room even after the LRU
+        # pack a run's blocks on the card (ingest/devbuild.py, K13)
+        self.ingest_device_build = False
+        self.ingest_device_builds = 0       # blocks K13 laid down
         # (profile string, language) -> the kernels' int32[44] constants
         self._consts: OrderedDict = OrderedDict()
         self._garbage_rows = 0
@@ -841,6 +1006,9 @@ class DeviceSegmentStore:
         # attach last: a failed initial pack leaves the RWI untouched
         rwi.listener = self
 
+    def _initial_rows(self) -> int:
+        return TILE if self.packed_residency else 4 * TILE
+
     # -- packing (listener protocol) -----------------------------------------
 
     def _bump_epoch(self) -> None:
@@ -858,6 +1026,9 @@ class DeviceSegmentStore:
             self._bump_epoch()
 
     def _on_run_added_inner(self, run) -> None:
+        if self.packed_residency:
+            self._pack_run_packed(run)
+            return
         with self._lock:
             rid = id(run)
             if rid in self._packed:
@@ -919,18 +1090,351 @@ class DeviceSegmentStore:
                          slots.get(i, -1))
                 for i, (th, o, n, to, nt, st) in enumerate(meta)}
 
+    # -- packed residency: the build and the tier ladder ----------------------
+
+    def _build_packed_entry(self, p) -> dict:
+        """One term's block, bit-packed in the int16 pack's proxy order,
+        with its frozen stats and pmax bound rows: the same rows the int16
+        path would place, so the answers are the same."""
+        f16, fl = compact_feats(p.feats)
+        stats, proxy = pack_prune_stats(f16, fl)
+        order = np.argsort(-proxy, kind="stable")
+        block = PK.pack_block(f16[order], fl[order],
+                              p.docids[order].astype(np.int32))
+        return {"block": block, "stats": stats,
+                "pmax": pmax_table(proxy[order]), "count": len(p),
+                "hot": False, "touched": time.monotonic()}
+
+    def _place_hot_locked(self, key, ent, dead_seq) -> None:
+        """Place one block in the packed-words store and register its
+        span (the caller holds the lock and checked the room)."""
+        rid, th = key
+        block = ent["block"]
+        wbase = self.arena.append_packed_words(block.words)
+        tbase = self.arena.append_pmax(ent["pmax"])
+        self._packed.setdefault(rid, {})[th] = Span(
+            -1, ent["count"], tbase, len(ent["pmax"]), ent["stats"],
+            dead_seq, pbase=wbase, pmeta=block.meta_vector(),
+            row_bits=block.row_bits, tkey=key)
+        if ent["hot"] is False and key in self._pblocks:
+            self._warm_bytes -= block.packed_bytes
+        ent["hot"] = True
+        ent["touched"] = time.monotonic()
+
+    def _build_packed_entries(self, plist: list) -> list:
+        """[(th, postings)] -> [(th, entry)]: a run's blocks. With
+        `ingest_device_build` the bit-pack is K13 on the arena's device
+        (ingest/devbuild.py; blocks outside its row range and the stats
+        and proxy order stay on the host). A failed launch raises to the
+        run's writer: the reference's host pack after a device failure is
+        not repeated here."""
+        if not plist:
+            return []
+        if not self.ingest_device_build:
+            return [(th, self._build_packed_entry(p)) for th, p in plist]
+        from ..ingest import devbuild
+        prep = []
+        for th, p in plist:
+            f16, fl = compact_feats(p.feats)
+            stats, proxy = pack_prune_stats(f16, fl)
+            order = np.argsort(-proxy, kind="stable")
+            prep.append((th, p, f16[order], fl[order],
+                         p.docids[order].astype(np.int32), stats,
+                         pmax_table(proxy[order])))
+        blocks = devbuild.pack_block_batch(
+            [(f, g, d) for _t, _p, f, g, d, _s, _m in prep],
+            self.arena.device)
+        out = []
+        now = time.monotonic()
+        for (th, p, _f, _g, _d, stats, pmax), block in zip(prep, blocks):
+            out.append((th, {"block": block, "stats": stats, "pmax": pmax,
+                             "count": len(p), "hot": False,
+                             "touched": now}))
+            if devbuild.MIN_DEV_ROWS <= len(p) <= devbuild.MAX_DEV_ROWS:
+                with self._lock:
+                    self.ingest_device_builds += 1
+        return out
+
+    def _pack_run_packed(self, run) -> None:
+        """A frozen run as packed blocks: hot while the arena's budget
+        holds them, warm past it (the warm budget evicts the oldest to
+        cold). The blocks are built outside the store's lock; no join
+        side-tables are built (a join on a packed term declines)."""
+        with self._lock:
+            rid = id(run)
+            if rid in self._packed:
+                return
+            self._packed[rid] = {}
+            if run.n_postings == 0:
+                return
+            dseq = getattr(run, "dead_seq", -1)
+        plist = []
+        for th in list(run.term_hashes()):
+            p = run.get(th)
+            if p is not None and len(p):
+                plist.append((th, p))
+        ents = self._build_packed_entries(plist)
+        with self._lock:
+            # merged away while the blocks were built: never resurrect it
+            if rid not in self._packed \
+                    or not any(id(r) == rid for r in self.rwi._runs):
+                return
+            for th, ent in ents:
+                if not run.has(th):     # dropped while packing
+                    continue
+                ent["dead_seq"] = dseq
+                key = (rid, th)
+                # a promotion that raced the build placed it already
+                if key in self._pblocks or key in self._promote_inflight:
+                    continue
+                if self.arena.packed_would_fit(len(ent["block"].words)):
+                    self._place_hot_locked(key, ent, dseq)
+                else:
+                    self._warm_bytes += ent["block"].packed_bytes
+                self._pblocks[key] = ent
+            self._enforce_warm_budget_locked()
+
+    def _enforce_warm_budget_locked(self) -> None:
+        """Evict the least recently touched warm blocks past the warm
+        budget (warm -> cold: the run keeps the rows)."""
+        while self._warm_bytes > self.warm_budget_bytes:
+            victims = [(k, e) for k, e in self._pblocks.items()
+                       if not e["hot"]]
+            if not victims:
+                return
+            key, ent = min(victims, key=lambda kv: kv[1]["touched"])
+            self._warm_bytes -= ent["block"].packed_bytes
+            del self._pblocks[key]
+            self.tier_evictions_warm_cold += 1
+
+    def _demote_locked(self, key) -> None:
+        """Hot -> warm: the span goes, its words become garbage until a
+        compaction; the host block is the warm copy, nothing moves."""
+        ent = self._pblocks.get(key)
+        if ent is None or not ent["hot"]:
+            return
+        spans = self._packed.get(key[0])
+        if spans is not None:
+            spans.pop(key[1], None)
+        ent["hot"] = False
+        self.arena.packed_garbage_words += len(ent["block"].words)
+        self._warm_bytes += ent["block"].packed_bytes
+        self.tier_demotions_hot_warm += 1
+
+    def _packed_live_padded_locked(self) -> int:
+        """The bucket-padded words a compaction of the hot blocks takes."""
+        return sum(_bucket_rows(len(e["block"].words))
+                   for e in self._pblocks.values() if e["hot"])
+
+    def _packed_fit_compact(self, live_padded: int, need: int) -> bool:
+        """Would `need` more words fit after a compaction to the live
+        blocks? (Demotion alone frees nothing until then.)"""
+        total = live_padded + _bucket_rows(need)
+        cap = _PW_INITIAL_WORDS
+        while cap < total:
+            cap *= 2
+        return (self.arena._cap * self.arena.row_bytes()
+                + self.arena._doc_cap + cap * 4
+                <= self.arena.budget_bytes)
+
+    def _repack_packed_locked(self) -> None:
+        """Compact the packed-words store and its pmax side-table from the
+        hot blocks' host copies, into fresh tensors and fresh Span
+        objects: a query in flight keeps the old tensors and the old
+        spans, which agree. The caller bumps the epoch."""
+        arena = self.arena
+        arena.reset_packed()
+        for (rid, th), ent in self._pblocks.items():
+            if not ent["hot"]:
+                continue
+            spans = self._packed.get(rid)
+            old = spans.get(th) if spans is not None else None
+            if old is None:
+                continue
+            wbase = arena.append_packed_words(ent["block"].words)
+            tbase = arena.append_pmax(ent["pmax"])
+            spans[th] = Span(-1, old.count, tbase, old.tcount, old.stats,
+                             old.dead_seq, pbase=wbase, pmeta=old.pmeta,
+                             row_bits=old.row_bits, tkey=old.tkey)
+
+    def _touch_packed(self, sp) -> None:
+        """The LRU stamp of a hot block (its demotion order)."""
+        if not self._tiering_enabled or sp.tkey is None:
+            return
+        ent = self._pblocks.get(sp.tkey)
+        if ent is not None:
+            ent["touched"] = time.monotonic()
+
+    def _note_tier_miss(self, termhash: bytes) -> None:
+        """A query's term is not hot: count the miss once, at the best tier
+        that holds it (warm block, else cold run), and start its
+        promotion so that a later query serves it packed. This query is
+        the caller's host path's. A term of several runs is not promoted
+        (its spans cannot serve packed until a merge, which is asked
+        for)."""
+        if not (self.packed_residency and self._tiering_enabled):
+            return
+        promote: list[tuple] = []
+        hit_tier = None
+        with self._lock:
+            holders = [run for run in list(self.rwi._runs)
+                       if run.has(termhash)]
+            for run in holders:
+                key = (id(run), termhash)
+                spans = self._packed.get(id(run))
+                if spans is not None and termhash in spans:
+                    continue            # hot in this run
+                ent = self._pblocks.get(key)
+                if ent is not None:
+                    hit_tier = "warm"
+                    ent["touched"] = time.monotonic()
+                elif hit_tier is None:
+                    hit_tier = "cold"
+                if key in self._promote_inflight:
+                    continue
+                self._promote_inflight.add(key)
+                promote.append((key, run))
+            if hit_tier == "warm":
+                self.tier_warm_hits += 1
+            elif hit_tier == "cold":
+                self.tier_cold_hits += 1
+            if len(holders) != 1 and promote:
+                self.merge_wanted = True
+                for key, _run in promote:
+                    self._promote_inflight.discard(key)
+                promote = []
+        for key, run in promote:
+            self._submit_promote(key, run)
+
+    def _submit_promote(self, key, run) -> None:
+        """Queue one promotion: through the batcher's `promote` kind where
+        one runs (its completer fetches the probe; nobody waits), else
+        inline."""
+        b = self._batcher
+        if b is not None and not b._stop:
+            with self._lock:
+                self.tier_promote_async += 1
+            b.submit_promote(key, run)
+        else:
+            self._promote_now(key, run)
+
+    def _promote_now(self, key, run):
+        """Place one block hot (built from the run where it is cold),
+        demoting the least recently used hot blocks and compacting where
+        the budget needs the room; bump the epoch. Returns the probe, K12's
+        decode of the block's first row from the new words (a [19] int32
+        tensor, fetched by the batcher's completer), the row the host
+        block holds there, and the words tensor the probe reads (held
+        until it is fetched: a compaction may replace it in the arena);
+        None where the promotion did not happen (the run retired, a
+        race, or no room: counted)."""
+        rid, th = key
+        try:
+            with self._lock:
+                if not any(id(r) == rid for r in self.rwi._runs):
+                    return None
+                ent = self._pblocks.get(key)
+                src = "warm" if ent is not None else "cold"
+            if ent is None:
+                p = run.get(th)
+                if p is None or len(p) == 0:
+                    return None
+                ent = self._build_packed_entry(p)
+                ent["dead_seq"] = getattr(run, "dead_seq", -1)
+            with self._lock:
+                if not any(id(r) == rid for r in self.rwi._runs):
+                    return None          # retired while building
+                spans = self._packed.get(rid)
+                if spans is not None and th in spans:
+                    return None          # raced: already hot
+                need = len(ent["block"].words)
+                if not self.arena.packed_would_fit(need):
+                    live = self._packed_live_padded_locked()
+                    demoted = False
+                    while not self._packed_fit_compact(live, need):
+                        hot = [(k, e) for k, e in self._pblocks.items()
+                               if e["hot"] and k != key]
+                        if not hot:
+                            self.tier_promote_failures += 1
+                            return None
+                        vkey, vent = min(hot,
+                                         key=lambda kv: kv[1]["touched"])
+                        live -= _bucket_rows(len(vent["block"].words))
+                        self._demote_locked(vkey)
+                        demoted = True
+                    if demoted or self.arena.packed_garbage_words:
+                        self._repack_packed_locked()
+                    if not self.arena.packed_would_fit(need):
+                        self.tier_promote_failures += 1
+                        return None
+                self._place_hot_locked(key, ent, ent["dead_seq"])
+                self._pblocks[key] = ent
+                if src == "warm":
+                    self.tier_promotions_warm_hot += 1
+                else:
+                    self.tier_promotions_cold_hot += 1
+                sp = self._packed[rid][th]
+                words, written = self.arena.packed_array(), \
+                    self.arena.written
+            self._bump_epoch()
+            DeviceArena.wait_written(written)
+            f, fl, d = KP.unpack_rows(words, sp.pbase, sp.pmeta, 0, 1)
+            probe = torch.cat([f[0], fl, d])
+            blk = ent["block"]
+            want = PK.unpack_block(PK.PackedBlock(
+                blk.words, 1, blk.word_offs, blk.widths, blk.mins))
+            return probe, np.concatenate([want[0][0].astype(np.int32),
+                                          want[1], want[2]]), words
+        finally:
+            with self._lock:
+                self._promote_inflight.discard(key)
+
+    def tier_bytes(self) -> dict:
+        """Bytes a tier: hot = the arena's int16 rows and packed words in
+        use, warm = the host blocks awaiting promotion, cold = 0 (the
+        port's runs live in memory: no paged run files yet)."""
+        with self._lock:
+            hot = (self.arena.used_rows * self.arena.row_bytes()
+                   + self.arena._pw_used * 4)
+            return {"hot": hot, "warm": self._warm_bytes, "cold": 0}
+
+    def packed_compression_ratio(self) -> float:
+        """int16 bytes / packed bytes of the hot blocks (of all blocks when
+        none is hot; 1.0 without a block)."""
+        with self._lock:
+            blocks = ([e["block"] for e in self._pblocks.values()
+                       if e["hot"]]
+                      or [e["block"] for e in self._pblocks.values()])
+            packed = sum(b.packed_bytes for b in blocks)
+            orig = sum(b.int16_bytes for b in blocks)
+        return round(orig / packed, 3) if packed else 1.0
+
     # epoch bumps land after their mutation, as in the reference
 
     def on_run_removed(self, run) -> None:
         with self._lock:
-            spans = self._packed.pop(id(run), None)
+            rid = id(run)
+            spans = self._packed.pop(rid, None)
             if spans:
-                self._garbage_rows += sum(sp.count for sp in spans.values())
+                self._garbage_rows += sum(sp.count for sp in spans.values()
+                                          if sp.pbase < 0)
+            # the run's blocks retire from every tier
+            for key in [k for k in self._pblocks if k[0] == rid]:
+                ent = self._pblocks.pop(key)
+                if ent["hot"]:
+                    self.arena.packed_garbage_words += len(
+                        ent["block"].words)
+                else:
+                    self._warm_bytes -= ent["block"].packed_bytes
             self._bump_epoch()
             # dead extents are reclaimed wholesale: once more than half
-            # the arena is garbage, rebuild it from the live runs
+            # the arena (or of the packed words) is garbage, rebuild it
+            # from the live runs
             if (self._garbage_rows * 2 > max(self.arena.used_rows, 1)
-                    and self._garbage_rows > 4 * TILE):
+                    and self._garbage_rows > 4 * TILE) or \
+                    (self.arena.packed_garbage_words * 2
+                     > max(self.arena._pw_used, 1)
+                     and self.arena.packed_garbage_words > 1 << 18):
                 self.repack()
 
     def on_run_swapped(self, old_run, new_run) -> None:
@@ -942,6 +1446,19 @@ class DeviceSegmentStore:
                 live = set(new_run.term_hashes())
                 self._packed[id(new_run)] = {
                     th: ext for th, ext in spans.items() if th in live}
+                for ext in self._packed[id(new_run)].values():
+                    if ext.tkey is not None:
+                        ext.tkey = (id(new_run), ext.tkey[1])
+            # the tier entries follow the key (dropped terms retire)
+            for key in [k for k in self._pblocks if k[0] == id(old_run)]:
+                ent = self._pblocks.pop(key)
+                if new_run.has(key[1]):
+                    self._pblocks[(id(new_run), key[1])] = ent
+                elif ent["hot"]:
+                    self.arena.packed_garbage_words += len(
+                        ent["block"].words)
+                else:
+                    self._warm_bytes -= ent["block"].packed_bytes
             self._bump_epoch()
 
     def on_doc_deleted(self, docid: int) -> None:
@@ -961,8 +1478,14 @@ class DeviceSegmentStore:
         with self._lock:
             old = self.arena
             self._packed.clear()
+            # the tier ladder rebuilds with the runs: hot and warm are
+            # decided anew in a clean arena
+            self._pblocks.clear()
+            self._warm_bytes = 0
+            self._promote_inflight.clear()
             self.arena = DeviceArena(device=old.device,
                                      budget_bytes=old.budget_bytes,
+                                     initial_rows=self._initial_rows(),
                                      stream=old._wstream)
             self.arena._dead = old._dead
             self.arena._doc_cap = old._doc_cap
@@ -1004,15 +1527,18 @@ class DeviceSegmentStore:
         return ((feats16, flags, docids, self.arena.dead_array(),
                  self.arena._pmax), self.arena.written)
 
-    def snapshot(self, termhashes, postings: bool = False):
+    def snapshot(self, termhashes, postings: bool = False,
+                 words: bool = False):
         """One consistent view for single-term queries over
         `termhashes`: (arrays, written, {th: spans_for(th)}, arena epoch,
         tombstone count, {th: RAM delta}), the first two as
-        _arrays_locked's. The delta of a term is its `_ram_postings`
-        with `postings`, else whether it has one (None for a term that is
-        not fully resident)."""
+        _arrays_locked's, and with `words` the packed-words store last.
+        The delta of a term is its `_ram_postings` with `postings`, else
+        whether it has one (None for a term that is not fully
+        resident)."""
         with self._lock:
             arrays, written = self._arrays_locked()
+            pwords = self.arena.packed_array()
             spans = {th: self.spans_for(th) for th in termhashes}
             epoch = self.arena_epoch
             tomb = len(self.rwi._tombstones)
@@ -1021,6 +1547,8 @@ class DeviceSegmentStore:
                    else self.rwi._ram_postings(th) if postings
                    else bool(self.rwi._ram.get(th))
                    for th, sp in spans.items()}
+        if words:
+            return arrays, written, spans, epoch, tomb, ram, pwords
         return arrays, written, spans, epoch, tomb, ram
 
     _CONSTS_CAP = 64
@@ -1350,18 +1878,39 @@ class DeviceSegmentStore:
 
     def _rebuild_device(self) -> None:
         """A fresh arena on the same device, every run of the RWI packed
-        into it again and every tombstone marked again: the same spans
-        from the same rows, so answers after it equal those before the
-        loss. (The reference's _maybe_prewarm compiles XLA shapes: the
-        port's kernels are built once a process, nothing to warm.)"""
+        into it again and every tombstone marked again; a packed store
+        instead demotes every hot block to warm (its host copy) and
+        promotes every block again through _submit_promote (the batcher's
+        `promote` kind where one runs). The same spans from the same
+        rows, so answers after it equal those before the loss. (The
+        reference's _maybe_prewarm compiles XLA shapes: the port's
+        kernels are built once a process, nothing to warm.)"""
+        promote: list[tuple] = []
         with self._lock:
             old = self.arena
             self._packed.clear()
             self._garbage_rows = 0
+            self._promote_inflight.clear()
             self.arena = DeviceArena(device=old.device,
-                                     budget_bytes=old.budget_bytes)
-        for run in list(self.rwi._runs):
-            self.on_run_added(run)
+                                     budget_bytes=old.budget_bytes,
+                                     initial_rows=self._initial_rows())
+            if self.packed_residency:
+                for ent in self._pblocks.values():
+                    if ent["hot"]:
+                        ent["hot"] = False
+                        self._warm_bytes += ent["block"].packed_bytes
+                runs = {id(r): r for r in self.rwi._runs}
+                for key in list(self._pblocks):
+                    run = runs.get(key[0])
+                    if run is not None:
+                        self._promote_inflight.add(key)
+                        promote.append((key, run))
+        if self.packed_residency:
+            for key, run in promote:
+                self._submit_promote(key, run)
+        else:
+            for run in list(self.rwi._runs):
+                self.on_run_added(run)
         for docid in self.rwi._tombstones:
             self.arena.mark_dead(docid)
 
@@ -1472,7 +2021,14 @@ class DeviceSegmentStore:
         if spans is None or len(spans) > self.MAX_SPANS:
             with self._lock:
                 self.fallbacks += 1
+            if spans is None:
+                # the tier ladder: count the miss, start the promotion
+                self._note_tier_miss(termhash)
             return None
+        if any(sp.pbase >= 0 for sp in spans):
+            return self._rank_term_packed(
+                termhash, profile, prof, language, k, lang_filter, flag_bit,
+                from_days, to_days, allow_bitmap, cacheable)
         if not spans and delta is None:
             return np.empty(0, np.int32), np.empty(0, np.int32), 0
         with_delta = delta is not None and len(delta) > 0
@@ -1598,6 +2154,93 @@ class DeviceSegmentStore:
                 (termhash, profile.to_external_string(), language, kk),
                 epoch0, s, d, considered)
         return s[:k], d[:k], considered
+
+    def _rank_term_packed(self, termhash: bytes, profile, prof, language,
+                          k: int, lang_filter: int, flag_bit: int,
+                          from_days, to_days, allow_bitmap,
+                          cacheable: bool):
+        """rank_term over a packed span (the reference's
+        _rank_term_packed): the pruned query (K5bp; with the batcher, its
+        wave) where no filter is asked and the span's frozen stats are
+        exact, else, and where the bound fails, the exact scan (K6bp,
+        K7bp, kernel 3, topk_finish_bp). A facet bitmap, a RAM delta or
+        several spans are counted fallbacks (several spans also ask for a
+        merge); a hot hit counts only past those gates."""
+        with self._lock:
+            spans = self.spans_for(termhash)
+            if not spans or len(spans) != 1 or spans[0].pbase < 0:
+                if spans is not None and len(spans) > 1:
+                    self.merge_wanted = True
+                self.fallbacks += 1
+                return None
+            sp = spans[0]
+            words = self.arena.packed_array()
+            dead = self.arena.dead_array()
+            pmax = self.arena._pmax
+            written = self.arena.written
+            epoch0 = self.arena_epoch
+        if allow_bitmap is not None:
+            with self._lock:
+                self.fallbacks += 1
+            return None
+        with self.rwi._lock:
+            delta = self.rwi._ram_postings(termhash)
+        if delta is not None and len(delta) > 0:
+            with self._lock:
+                self.fallbacks += 1
+            return None
+        with self._lock:
+            self.tier_hot_hits += 1
+            self._touch_packed(sp)
+        consts = self._profile_consts(prof, language)
+        kk = max(16, 1 << (max(k, 1) - 1).bit_length())
+        no_filters = cacheable
+        s = d = None
+        skip_prune = False
+        batcher = self._batcher
+        if (batcher is not None and no_filters
+                and not batcher.owns_current_thread()):
+            res = batcher.submit(termhash, prof, language, kk)
+            if res[0] == "ok":
+                s, d = res[1], res[2]
+            elif res[0] == "prune_fail":
+                skip_prune = True     # straight to the exact scan
+            elif res[0] == "ineligible":
+                with self._lock:
+                    self.batch_ineligible += 1
+        DeviceArena.wait_written(written)
+        if (s is None and no_filters and not skip_prune and sp.tcount > 0
+                and sp.dead_seq == len(self.rwi._tombstones)):
+            shift, lang_term = prune_bound_consts(prof)
+            host = self.device_fetch(pruned_query_bp(
+                words, dead, pmax, sp, shift, lang_term, consts, kk))
+            self.count_round_trip()
+            ok = bool(host[2 * kk])
+            with self._lock:
+                self.prune_rounds += 1
+                if ok:
+                    self.pruned_tiles += max(0, sp.tcount - 1)
+            if ok:
+                s, d = host[:kk], host[kk:2 * kk]
+        if s is None:
+            filt = (lang_filter, flag_bit,
+                    DAYS_NONE_LO if from_days is None else from_days,
+                    DAYS_NONE_HI if to_days is None else to_days)
+            host = self.device_fetch(scan_query_bp(words, dead, sp, consts,
+                                                   kk, filt))
+            self.count_round_trip()
+            with self._lock:
+                self.stream_scans += 1
+            s, d = host[:kk], host[kk:]
+        keep = (d >= 0) & (s > NEG_INF32)
+        s, d = s[keep], d[keep]
+        with self._lock:
+            self.queries_served += 1
+        if cacheable:
+            self._topk_cache.put(
+                (termhash, profile.to_external_string(), language, kk),
+                epoch0, s, d, sp.count)
+        return s[:k], d[:k], sp.count
 
     # -- metadata-facet filter bitmaps (site:/tld:/filetype:/protocol:) -----
 
@@ -1841,8 +2484,9 @@ class DeviceSegmentStore:
 
     def counters(self) -> dict:
         """The serving counters under the JAX store's key names, so that
-        /metrics and the health rules resolve against this store. Keys of
-        machinery not ported (ZERO_COUNTERS) read zero.
+        /metrics and the health rules resolve against this store, and
+        `ingest_device_builds` (the blocks K13 packed). Keys of machinery
+        not ported (ZERO_COUNTERS) read zero.
         `dispatch_ms_p50/p95` are per-query walls of the wave each batched
         query rode in, `kernel_ms_p50/p95` the launch-to-answer walls of
         those waves (no tunnel here: nothing to subtract)."""
@@ -1858,6 +2502,8 @@ class DeviceSegmentStore:
             dseries, kseries, bstats = [], [], (0, 0.0, 0, 0, 0, 0, 0)
         tc = self._topk_cache
         fwd_bytes = self._dense_fwd_bytes()
+        tb = self.tier_bytes()
+        ratio = self.packed_compression_ratio()
         with self._lock:
             out = dict(ZERO_COUNTERS)
             out.update({
@@ -1890,8 +2536,20 @@ class DeviceSegmentStore:
                 "rerank_queries": self.rerank_queries,
                 "rerank_cache_hits": self.rerank_cache_hits,
                 "rerank_fallbacks": self.rerank_fallbacks,
-                "tier_hot_bytes": (self.arena.used_rows
-                                   * self.arena.row_bytes()),
+                "tier_hot_hits": self.tier_hot_hits,
+                "tier_warm_hits": self.tier_warm_hits,
+                "tier_cold_hits": self.tier_cold_hits,
+                "tier_promotions_warm_hot": self.tier_promotions_warm_hot,
+                "tier_promotions_cold_hot": self.tier_promotions_cold_hot,
+                "tier_demotions_hot_warm": self.tier_demotions_hot_warm,
+                "tier_evictions_warm_cold": self.tier_evictions_warm_cold,
+                "tier_promote_async": self.tier_promote_async,
+                "tier_promote_failures": self.tier_promote_failures,
+                "tier_hot_bytes": tb["hot"],
+                "tier_warm_bytes": tb["warm"],
+                "tier_cold_bytes": tb["cold"],
+                "packed_compression_ratio": ratio,
+                "ingest_device_builds": self.ingest_device_builds,
                 "batch_dispatches": bstats[0],
                 "batch_dispatch_ms_max": bstats[1],
                 "batch_exceptions": bstats[2],

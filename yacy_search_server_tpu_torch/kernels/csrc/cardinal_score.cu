@@ -289,6 +289,47 @@ score_batch(const int16_t* __restrict__ feats,
                      b.bstart[s + 1] - b.bstart[s]);
 }
 
+// ---------------------------------------------------------------------------
+// K7bp `span_score_bp`: pass 2 of the exact scan over a bit-packed span
+// ---------------------------------------------------------------------------
+// The scoring pass of _rank_scan_batch_bp_kernel (JAX package,
+// devstore.py:1213, a slot of it), minus its running top-k: K7 over one
+// packed span of `count` rows, each row decoded from the packed-words
+// store (common.cuh unpack_row) and scored by K7's row scorer
+// (score_row, the compact path's division) against the given
+// statistics; dead rows and rows the filter rejects score -(2^31-1);
+// rows [count, out_len) of the buffer too. Kernel 3 (index mode) then
+// ranks the buffer by score, then row: the JAX running merge's order.
+// Bound: bytes, the packed payload (row_bits / 8 a row) and the
+// tombstone bytes read, 4 B written a row.
+__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
+score_bp(const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
+         const PackMeta m, int64_t count, const uint8_t* __restrict__ dead,
+         int64_t doc_cap, const Filter q, const int32_t* __restrict__ st,
+         const int32_t* __restrict__ consts, int32_t* __restrict__ out,
+         int64_t out_len) {
+  __shared__ ScoreConsts k;
+  __shared__ int32_t s_meta[META_LEN];
+  const int t = threadIdx.x;
+  if (t < META_LEN) s_meta[t] = m.v[t];
+  fill_consts(k, st, consts, t);
+  __syncthreads();
+  RegConsts rk;
+  load_consts(k, rk);
+  const bool off = filter_off(q);
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + t;
+  for (; r < count; r += step) {
+    int32_t f[NF], fl, d;
+    unpack_row(words, nw, wbase, s_meta, r, f, fl, d);
+    int32_t score = SMALL;
+    if (row_live(d, dead, doc_cap) && (off || row_passes(f, fl, d, q)))
+      score = score_row<int32_t, true>(f, fl, rk, false, 0);
+    out[r] = score;
+  }
+  for (; r < out_len; r += step) out[r] = SMALL;
+}
+
 template <typename T, bool FAST>
 static cudaError_t launch(const void* feats, const void* flags,
                           const void* valid, const void* hostids, int64_t n,
@@ -430,5 +471,33 @@ extern "C" int yt_join_score_batch(const void* merged, const void* flags,
       (const int32_t*)merged, (const int32_t*)flags, (const uint8_t*)valid,
       g, (const int32_t*)stats, stats_stride, (const int32_t*)consts,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K7bp: words [nw] int32 (the packed-words store), the span's block at
+// word wbase with meta (57 int32, host memory) and `count` rows; dead
+// [doc_cap] bool; filt the filter's 4 int32 in host memory; stats
+// int32[38]; consts int32[44]; out [out_len] int32, out_len >= count.
+extern "C" int yt_span_score_bp(const void* words, int64_t nw, int64_t wbase,
+                                const int32_t* meta, int64_t count,
+                                const void* dead, int64_t doc_cap,
+                                const int32_t* filt, const void* stats,
+                                const void* consts, void* out,
+                                int64_t out_len, void* stream) {
+  if (nw < 1 || count < 0 || out_len < count)
+    return (int)cudaErrorInvalidValue;
+  PackMeta m;
+  for (int c = 0; c < META_LEN; ++c) m.v[c] = meta[c];
+  const Filter q = make_filter(filt, nullptr, 0);
+  static int cached[64];
+  int limit = 0;
+  cudaError_t e = resident_blocks(score_bp, WARPS * 32, 0, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (out_len + WARPS * 32 - 1) / (WARPS * 32);
+  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
+  score_bp<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, nw, wbase, m, count, (const uint8_t*)dead,
+      doc_cap, q, (const int32_t*)stats, (const int32_t*)consts,
+      (int32_t*)out, out_len);
   return (int)cudaGetLastError();
 }

@@ -362,6 +362,44 @@ stats_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
                      st, blockIdx.x, gridDim.x);
 }
 
+// ---------------------------------------------------------------------------
+// K6bp `span_stats_bp`: pass 1 of the exact scan over a bit-packed span
+// ---------------------------------------------------------------------------
+// The statistics pass of _rank_scan_batch_bp_kernel (JAX package,
+// devstore.py:1213, a slot of it): K6's fold over the live rows of one
+// packed span of `count` rows that pass the constraint filter, each row
+// decoded from the packed-words store (common.cuh unpack_row) where K6
+// stages the int16 arena's chunks. Fold and finish_stats are K6's (the
+// last block writes the statistics; the accumulator and ticket are
+// zeroed by the caller's memset). Bound: bytes, the packed payload
+// (row_bits / 8 a row) and the tombstone bytes; each thread decodes
+// rows of a grid stride, so a warp's 32 rows of a column share their
+// words in the L1.
+__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
+stats_bp(const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
+         const PackMeta m, int64_t count, const uint8_t* __restrict__ dead,
+         int64_t doc_cap, const Filter q, uint32_t* __restrict__ acc,
+         uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
+  __shared__ uint32_t s_acc[STATS_LEN];
+  __shared__ bool s_last;
+  __shared__ int32_t s_meta[META_LEN];
+  const int t = threadIdx.x;
+  if (t < META_LEN) s_meta[t] = m.v[t];
+  if (t < STATS_LEN) s_acc[t] = 0u;
+  __syncthreads();
+  const bool off = filter_off(q);
+  Fold a;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + t; r < count;
+       r += step) {
+    int32_t f[NF], fl, d;
+    unpack_row(words, nw, wbase, s_meta, r, f, fl, d);
+    if (row_live(d, dead, doc_cap) && (off || row_passes(f, fl, d, q)))
+      a.row(f);
+  }
+  finish_stats(a, s_acc, &s_last, acc, ticket, st, gridDim.x);
+}
+
 // out: SLOT_WORDS int32 a slot (the statistics, the accumulator, the
 // ticket), slot i at i * SLOT_WORDS
 constexpr int SLOT_WORDS = 2 * STATS_LEN + 1;
@@ -608,5 +646,38 @@ extern "C" int yt_join_stats_batch(const void* merged, const void* valid,
   const int grid = split_blocks(g.n, bs, S_WARPS * CH, limit, g.bstart);
   stats_regions<<<grid, S_WARPS * 32, stages, s>>>(
       (const int32_t*)merged, (const uint8_t*)valid, g, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K6bp: words [nw] int32 (the packed-words store), the span's block at
+// word wbase with meta (57 int32, host memory) and `count` rows; dead
+// [doc_cap] bool; filt the filter's 4 int32 in host memory. out:
+// int32[38 + 39]: the statistics (written, host maximum 0), then the
+// accumulator and the ticket, which this call zeroes with its one
+// memset.
+extern "C" int yt_span_stats_bp(const void* words, int64_t nw, int64_t wbase,
+                                const int32_t* meta, int64_t count,
+                                const void* dead, int64_t doc_cap,
+                                const int32_t* filt, void* out,
+                                void* stream) {
+  if (nw < 1 || count < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  PackMeta m;
+  for (int c = 0; c < META_LEN; ++c) m.v[c] = meta[c];
+  const Filter q = make_filter(filt, nullptr, 0);
+  int32_t* st = (int32_t*)out;
+  uint32_t* acc = (uint32_t*)(st + STATS_LEN);
+  uint32_t* ticket = acc + STATS_LEN;
+  cudaError_t e = cudaMemsetAsync(acc, 0, (STATS_LEN + 1) * 4, s);
+  if (e != cudaSuccess) return (int)e;
+  static int cached[64];
+  int limit = 0;
+  e = resident_blocks(stats_bp, S_WARPS * 32, 0, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (count + S_WARPS * 32 - 1) / (S_WARPS * 32);
+  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
+  stats_bp<<<grid, S_WARPS * 32, 0, s>>>((const uint32_t*)words, nw, wbase,
+                                         m, count, (const uint8_t*)dead,
+                                         doc_cap, q, acc, ticket, st);
   return (int)cudaGetLastError();
 }

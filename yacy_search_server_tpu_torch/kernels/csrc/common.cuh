@@ -509,8 +509,9 @@ __device__ __forceinline__ bool bitmap_ok(int32_t d, const Filter& q) {
 }
 
 // The whole filter on a live row (features f, flags fl, docid d).
-__device__ __forceinline__ bool row_passes(const int16_t* f, int32_t fl,
-                                           int32_t d, const Filter& q) {
+template <typename T>
+__device__ __forceinline__ bool row_passes(const T* f, int32_t fl, int32_t d,
+                                           const Filter& q) {
   return constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], fl, q) && bitmap_ok(d, q);
 }
 
@@ -648,6 +649,73 @@ __host__ inline int wave_blocks(ScanBatch* b, int warps, int limit) {
       chunks[s] += (b->count[s][e] + CH - 1) / CH;
   }
   return split_blocks(chunks, b->bs, warps, limit, b->bstart);
+}
+
+// ---------------------------------------------------------------------------
+// K12: the decode of a bit-packed block (ops/packed.py)
+// ---------------------------------------------------------------------------
+// Replaces ops/packed.unpack_rows_dev of the JAX package (packed.py:205),
+// which its packed-decode scorers fuse. A block's columns (17 compact
+// features, the flags, the docids) are sub-streams of a uint32 word
+// stream, each from its own word: row i of a column of width w (1..32)
+// holds bits [i w, i w + w) of it, stored as value - column minimum. A
+// value sits in two words at most: lo at i w / 32 and the next one,
+// hi. The meta vector (META_LEN int32: word offsets, widths, minima)
+// describes a block; `wbase` is its first word in the packed-words store
+// of `nw` words. As in the reference, word indices clamp to the store,
+// so a row past the block's count decodes garbage: every caller tests
+// the row against the count before it reads anything (a tombstone
+// byte) through the garbage.
+constexpr int NCOLS = NF + 2, C_FLAGS = NF, C_DOCIDS = NF + 1;
+constexpr int META_LEN = 3 * NCOLS;
+
+// The meta vector by value in a launch's parameters.
+struct PackMeta {
+  int32_t v[META_LEN];
+};
+
+// Row i of the column of width w (0..32) and minimum vmin whose words
+// start at word `base` of the store. __funnelshift_r gives
+// ((hi:lo) >> s) for every s in 0..31, so s == 0 needs no case of its
+// own; the mask of w == 32 is all ones (1 << 32 is undefined). The
+// value wraps as int32: a column spanning more than 2^31 adds its
+// offset in uint32.
+__device__ __forceinline__ int32_t unpack_value(const uint32_t* __restrict__ words,
+                                                int64_t nw, int64_t base,
+                                                int32_t w, int32_t vmin,
+                                                int64_t i) {
+  const int64_t bit = i * (int64_t)w;
+  const int64_t wi = base + (bit >> 5);
+  const int64_t a = wi < 0 ? 0 : (wi >= nw ? nw - 1 : wi);
+  const int64_t b = wi + 1 < 0 ? 0 : (wi + 1 >= nw ? nw - 1 : wi + 1);
+  const uint32_t v =
+      __funnelshift_r(__ldg(words + a), __ldg(words + b), (uint32_t)(bit & 31));
+  const uint32_t mask =
+      w >= 32 ? 0xffffffffu : (w <= 0 ? 0u : ((1u << w) - 1u));
+  return (int32_t)((v & mask) + (uint32_t)vmin);
+}
+
+// Column c of row i of the block at word wbase with meta m (shared
+// memory or registers).
+__device__ __forceinline__ int32_t unpack_col(const uint32_t* __restrict__ words,
+                                              int64_t nw, int64_t wbase,
+                                              const int32_t* m, int c,
+                                              int64_t i) {
+  return unpack_value(words, nw, wbase + m[c], m[NCOLS + c], m[2 * NCOLS + c],
+                      i);
+}
+
+// Row i in full: its 17 features (int32, the int16 values widened as
+// the int16 path widens them), flags and docid.
+__device__ __forceinline__ void unpack_row(const uint32_t* __restrict__ words,
+                                           int64_t nw, int64_t wbase,
+                                           const int32_t* m, int64_t i,
+                                           int32_t* f, int32_t& fl,
+                                           int32_t& d) {
+#pragma unroll
+  for (int c = 0; c < NF; ++c) f[c] = unpack_col(words, nw, wbase, m, c, i);
+  fl = unpack_col(words, nw, wbase, m, C_FLAGS, i);
+  d = unpack_col(words, nw, wbase, m, C_DOCIDS, i);
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds

@@ -33,6 +33,18 @@
 // uploads nothing before its kernels and the host never waits on a copy
 // from pageable memory.
 //
+// K5bp `pruned_tile_bp` is the same query over a bit-packed span
+// (replaces _rank_pruned_batch1_bp_kernel, devstore.py:1151): the score
+// and select kernels are instantiated with the packed row source, which
+// decodes each row of the slot's first tile from the packed-words store
+// (common.cuh unpack_row) where K5 stages the int16 arena's chunk; the
+// select decodes the winners' docids. The slot's word base takes the
+// start's place in the descriptor, and each slot's meta vector follows
+// the fused layout; BP_SLOTS slots a launch keep the parameters under
+// 4 KB. Bound: bytes, the tile's packed payload (row_bits / 8 a row,
+// 34 B at make_term's 272 bits) and the tombstone bytes; the decode's
+// two word reads a value hit the L1 for a warp's 32 rows of a column.
+//
 // `topk_finish` is the tail of the other routes: after kernel 3 (index
 // mode) over K7's buffer it maps each winner's row back to its docid (an
 // arena row's, or a RAM delta row's where the winner lies in the delta's
@@ -54,20 +66,29 @@ constexpr int MAX_KK = 2048;
 constexpr int SLOTS = 16;                   // slots a launch (2.6 KB)
 constexpr int32_t INT32_MAX_ = 2147483647;
 
-// Up to SLOTS slots of a descriptor, by value: the fused layout
+// Up to SL slots of a descriptor, by value: the fused layout
 // (_pack_batch1_fused: [bound_shift, lang_term, starts[bs], counts[bs],
 // tstarts[bs], tcounts[bs], cmins[bs][17], cmaxs[bs][17], tf_mins[bs]
-// (f32 bits), tf_maxs[bs] (f32 bits)]) cut into slot-major fields.
-struct Desc {
+// (f32 bits), tf_maxs[bs] (f32 bits)]) cut into slot-major fields. The
+// packed form (BpDesc) holds each slot's word base in `start` and its
+// meta vector, which follow the fused layout as metas[bs][META_LEN].
+template <int SL>
+struct DescT {
   int32_t shift, lang;
-  int32_t start[SLOTS], count[SLOTS], tstart[SLOTS], tcount[SLOTS];
-  int32_t cmin[SLOTS][NF], cmax[SLOTS][NF];
-  int32_t tmin[SLOTS], tmax[SLOTS];
+  int32_t start[SL], count[SL], tstart[SL], tcount[SL];
+  int32_t cmin[SL][NF], cmax[SL][NF];
+  int32_t tmin[SL], tmax[SL];
+};
+using Desc = DescT<SLOTS>;
+constexpr int BP_SLOTS = 8;                 // packed slots a launch (3.1 KB)
+struct BpDesc : DescT<BP_SLOTS> {
+  int32_t meta[BP_SLOTS][META_LEN];
 };
 
 // slots [first, first + n) of the fused descriptor q of bs slots
-__host__ inline Desc desc_of(const int32_t* q, int bs, int first, int n) {
-  Desc d = {};
+template <class D>
+__host__ inline void fused_fields(const int32_t* q, int bs, int first, int n,
+                                  D& d) {
   d.shift = q[0];
   d.lang = q[1];
   for (int j = 0; j < n; ++j) {
@@ -83,31 +104,76 @@ __host__ inline Desc desc_of(const int32_t* q, int bs, int first, int n) {
     d.tmin[j] = q[2 + 4 * bs + 2 * bs * NF + i];
     d.tmax[j] = q[2 + 5 * bs + 2 * bs * NF + i];
   }
+}
+
+__host__ inline Desc desc_of(const int32_t* q, int bs, int first, int n) {
+  Desc d = {};
+  fused_fields(q, bs, first, n, d);
   return d;
 }
 
-// One block scores 1,024 rows of one slot's tile into scratch.
+// the packed descriptor: the fused layout, then metas[bs][META_LEN]
+__host__ inline BpDesc bp_desc_of(const int32_t* q, int bs, int first,
+                                  int n) {
+  BpDesc d = {};
+  fused_fields(q, bs, first, n, d);
+  const int32_t* metas = q + 2 + (4 + 2 * NF + 2) * bs;
+  for (int j = 0; j < n; ++j)
+    for (int c = 0; c < META_LEN; ++c)
+      d.meta[j][c] = metas[(int64_t)(first + j) * META_LEN + c];
+  return d;
+}
+
+// Where a slot's rows come from: the int16 arena (K5: feats, flags,
+// docids) or the packed-words store of nw words (K5bp: words). The
+// fields of the other source are null.
+struct TileSrc {
+  const int16_t* feats;
+  const int32_t* flags;
+  const int32_t* docids;
+  const uint32_t* words;
+  int64_t nw;
+};
+
+// The docid of tile row `row` of slot `slot`.
+__device__ __forceinline__ int32_t tile_docid(const TileSrc& src,
+                                              const Desc& q, int slot,
+                                              int row) {
+  return src.docids[(int64_t)q.start[slot] + row];
+}
+__device__ __forceinline__ int32_t tile_docid(const TileSrc& src,
+                                              const BpDesc& q, int slot,
+                                              int row) {
+  return unpack_col(src.words, src.nw, q.start[slot], q.meta[slot], C_DOCIDS,
+                    row);
+}
+
+// One block scores 1,024 rows of one slot's tile into scratch: K5 stages
+// its int16 chunk by cp.async, K5bp (BP) decodes its rows.
+template <bool BP, class D>
 __global__ void __launch_bounds__(SCORE_WARPS * 32)
-tile_score(const int16_t* __restrict__ feats,
-           const int32_t* __restrict__ flags,
-           const int32_t* __restrict__ docids,
-           const uint8_t* __restrict__ dead, int64_t doc_cap, const Desc q,
-           const int32_t* __restrict__ consts,
+tile_score(const TileSrc src, const uint8_t* __restrict__ dead,
+           int64_t doc_cap, const D q, const int32_t* __restrict__ consts,
            int32_t* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScoreConsts k;
   __shared__ int32_t s_st[STATS_LEN];
+  __shared__ int32_t s_meta[BP ? META_LEN : 1];
   constexpr int SB = stage_bytes<int16_t>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int slot = blockIdx.y;
   const int32_t start = q.start[slot], count = q.count[slot];
-  const int16_t* f0 = feats + (int64_t)start * NF;
-  const int32_t* fl0 = flags + start;
-  const int32_t* d0 = docids + start;
+  const int16_t* f0 = BP ? nullptr : src.feats + (int64_t)start * NF;
+  const int32_t* fl0 = BP ? nullptr : src.flags + start;
+  const int32_t* d0 = BP ? nullptr : src.docids + start;
   unsigned char* mine = smem + warp * SB;
   const int64_t chunk = (int64_t)blockIdx.x * SCORE_WARPS + warp;
-  issue_chunk<int16_t>(f0, fl0, nullptr, d0, TILE, chunk, mine, lane);
-  cp_async_commit();
+  if constexpr (BP) {
+    if (t < META_LEN) s_meta[t] = q.meta[slot][t];
+  } else {
+    issue_chunk<int16_t>(f0, fl0, nullptr, d0, TILE, chunk, mine, lane);
+    cp_async_commit();
+  }
 
   if (t < NF) {
     s_st[S_COL_MIN + t] = q.cmin[slot][t];
@@ -125,17 +191,33 @@ tile_score(const int16_t* __restrict__ feats,
   RegConsts rk;
   load_consts(k, rk);
 
-  cp_async_wait<0>();
-  __syncwarp();
-  const Stage<int16_t> sg(mine, f0, fl0, d0, nullptr);
   int32_t* out = scratch + (int64_t)blockIdx.y * TILE + chunk * CH;
+  if constexpr (BP) {
 #pragma unroll
-  for (int m = 0; m < CH / 32; ++m) {
-    const int j = lane + 32 * m;
-    int32_t score = SMALL;
-    if (chunk * CH + j < count && row_live(sg.host(j), dead, doc_cap))
-      score = score_row<int16_t, true>(sg.row(j), sg.flag(j), rk, false, 0);
-    out[j] = score;
+    for (int m = 0; m < CH / 32; ++m) {
+      const int j = lane + 32 * m;
+      const int64_t r = chunk * CH + j;
+      int32_t score = SMALL;
+      if (r < count) {   // before any read through a decoded docid
+        int32_t f[NF], fl, d;
+        unpack_row(src.words, src.nw, start, s_meta, r, f, fl, d);
+        if (row_live(d, dead, doc_cap))
+          score = score_row<int32_t, true>(f, fl, rk, false, 0);
+      }
+      out[j] = score;
+    }
+  } else {
+    cp_async_wait<0>();
+    __syncwarp();
+    const Stage<int16_t> sg(mine, f0, fl0, d0, nullptr);
+#pragma unroll
+    for (int m = 0; m < CH / 32; ++m) {
+      const int j = lane + 32 * m;
+      int32_t score = SMALL;
+      if (chunk * CH + j < count && row_live(sg.host(j), dead, doc_cap))
+        score = score_row<int16_t, true>(sg.row(j), sg.flag(j), rk, false, 0);
+      out[j] = score;
+    }
   }
 }
 
@@ -163,13 +245,13 @@ __device__ __forceinline__ uint32_t warp_incl(uint32_t v, int lane) {
   return v;
 }
 
-// One block a slot: the kk best of its tile's scores, their docids and
-// the tail check.
+// One block a slot: the kk best of its tile's scores, their docids (the
+// arena's, or decoded from the packed block) and the tail check.
+template <class D>
 __global__ void __launch_bounds__(SEL_THREADS, 1)
-tile_select(const int32_t* __restrict__ scratch,
-            const int32_t* __restrict__ docids,
-            const int32_t* __restrict__ pmax, const Desc q, int kk,
-            int init, int32_t* __restrict__ out) {
+tile_select(const int32_t* __restrict__ scratch, const TileSrc src,
+            const int32_t* __restrict__ pmax, const D q, int kk, int init,
+            int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint32_t* keys = (uint32_t*)smem;                           // [TILE]
   unsigned long long* cand =
@@ -259,7 +341,7 @@ tile_select(const int32_t* __restrict__ scratch,
     const unsigned long long key = cand[i];
     const int row = (int)(key & (TILE - 1));
     int32_t s = (int32_t)(~(uint32_t)(key >> TILE_BITS) ^ 0x80000000u);
-    int32_t d = docids[(int64_t)q.start[slot] + row];
+    int32_t d = tile_docid(src, q, slot, row);
     if (init && s <= SMALL) {
       s = SMALL;
       d = -1;
@@ -312,6 +394,45 @@ topk_finish(const int32_t* __restrict__ top_s,
   if (t == 0) out[2 * kk] = ok ? 1 : 0;
 }
 
+// The finish of the packed exact scan (and of K5bp's kk > 2048 form):
+// kernel 3's kk winners over a K7bp buffer of one packed span of
+// `count` rows, the docid of each decoded from the block (rows past the
+// count, or scores at or below -(2^31-1), give (-(2^31-1), -1)); then
+// nothing (tstart < 0: the scan, [2kk]) or the ok of the tail [1,
+// tcount) against theta = max(kk-th score, -(2^31-1)) ([2kk + 1]).
+__global__ void __launch_bounds__(SEL_THREADS)
+topk_finish_bp(const int32_t* __restrict__ top_s,
+               const int32_t* __restrict__ top_rows, int kk,
+               const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
+               const PackMeta m, int64_t count,
+               const int32_t* __restrict__ pmax, int64_t tstart,
+               int64_t tcount, int32_t bound_shift, int32_t lang_term,
+               int32_t* __restrict__ out) {
+  __shared__ int32_t s_meta[META_LEN];
+  const int t = threadIdx.x;
+  if (t < META_LEN) s_meta[t] = m.v[t];
+  __syncthreads();
+  for (int i = t; i < kk; i += SEL_THREADS) {
+    int32_t s = top_s[i];
+    const int64_t r = top_rows[i];
+    int32_t d = -1;
+    if (s <= SMALL || r < 0 || r >= count)
+      s = SMALL;
+    else
+      d = unpack_col(words, nw, wbase, s_meta, C_DOCIDS, r);
+    out[i] = s;
+    out[kk + i] = d;
+  }
+  if (tstart < 0) return;
+  int32_t theta = top_s[kk - 1];
+  if (theta < SMALL) theta = SMALL;
+  bool ok = true;
+  for (int64_t j = 1 + t; j < tcount; j += SEL_THREADS)
+    ok = ok && tail_ok(pmax[tstart + j], bound_shift, lang_term, theta);
+  ok = __syncthreads_and(ok);
+  if (t == 0) out[2 * kk] = ok ? 1 : 0;
+}
+
 // One block a slot of a wave of batched scans: slot s's kk winners
 // (top_s / top_rows [bs, kk]) mapped back to docids over its extents,
 // (-(2^31-1), -1) at or below -(2^31-1); out [bs, 2kk]: scores, docids.
@@ -344,6 +465,47 @@ topk_finish_batch(const int32_t* __restrict__ top_s,
 
 using namespace yt;
 
+// The launches of K5 or K5bp over bs slots of the descriptor q (host
+// memory), SL slots a launch.
+template <bool BP, class D, int SL, class Of>
+static int launch_tiles(const TileSrc& src, const void* dead, int64_t doc_cap,
+                        const void* pmax, const void* desc, int bs, int kk,
+                        int init, const void* consts, void* scratch,
+                        void* out, cudaStream_t s, Of desc_fn) {
+  if (bs < 1 || kk < 16 || kk > MAX_KK || (kk & (kk - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int score_smem = BP ? 0 : SCORE_WARPS * stage_bytes<int16_t>();
+  const int sel_smem = TILE * 4 + MAX_KK * 8;
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(tile_select<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             sel_smem);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  for (int first = 0; first < bs; first += SL) {
+    const int n = bs - first < SL ? bs - first : SL;
+    const D q = desc_fn((const int32_t*)desc, bs, first, n);
+    int32_t* sc = (int32_t*)scratch + (int64_t)first * TILE;
+    tile_score<BP, D><<<dim3(TILE / BLOCK_ROWS, n), SCORE_WARPS * 32,
+                        score_smem, s>>>(src, (const uint8_t*)dead, doc_cap,
+                                         q, (const int32_t*)consts, sc);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    tile_select<D><<<n, SEL_THREADS, sel_smem, s>>>(
+        sc, src, (const int32_t*)pmax, q, kk, init,
+        (int32_t*)out + (int64_t)first * (2 * kk + 1));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
 // K5: feats [cap, 17] int16, flags/docids [cap] int32 (every slot's
 // start + TILE <= cap: the arena's spare tile), dead [doc_cap] bool,
 // pmax int32, desc the fused descriptor of bs slots in HOST memory
@@ -356,40 +518,29 @@ extern "C" int yt_pruned_tile(const void* feats, const void* flags,
                               const void* desc, int bs, int kk, int init,
                               const void* consts, void* scratch, void* out,
                               void* stream) {
-  if (bs < 1 || kk < 16 || kk > MAX_KK || (kk & (kk - 1)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int score_smem = SCORE_WARPS * stage_bytes<int16_t>();
-  const int sel_smem = TILE * 4 + MAX_KK * 8;
-  static bool raised[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    e = cudaFuncSetAttribute(tile_select,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             sel_smem);
-    if (e != cudaSuccess) return (int)e;
-    raised[dev] = true;
-  }
-  for (int first = 0; first < bs; first += SLOTS) {
-    const int n = bs - first < SLOTS ? bs - first : SLOTS;
-    const Desc q = desc_of((const int32_t*)desc, bs, first, n);
-    int32_t* sc = (int32_t*)scratch + (int64_t)first * TILE;
-    tile_score<<<dim3(TILE / BLOCK_ROWS, n), SCORE_WARPS * 32, score_smem,
-                 s>>>((const int16_t*)feats, (const int32_t*)flags,
-                      (const int32_t*)docids, (const uint8_t*)dead, doc_cap,
-                      q, (const int32_t*)consts, sc);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    tile_select<<<n, SEL_THREADS, sel_smem, s>>>(
-        sc, (const int32_t*)docids, (const int32_t*)pmax, q, kk, init,
-        (int32_t*)out + (int64_t)first * (2 * kk + 1));
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  const TileSrc src = {(const int16_t*)feats, (const int32_t*)flags,
+                       (const int32_t*)docids, nullptr, 0};
+  return launch_tiles<false, Desc, SLOTS>(src, dead, doc_cap, pmax, desc, bs,
+                                          kk, init, consts, scratch, out,
+                                          (cudaStream_t)stream, desc_of);
+}
+
+// K5bp: words [nw] int32 (the packed-words store), dead [doc_cap] bool,
+// pmax int32, desc the packed descriptor of bs slots in HOST memory (the
+// fused layout with each slot's word base as its start, then
+// metas[bs][57]), consts int32[44]; scratch [bs, TILE] int32; out [bs,
+// 2kk + 1] int32 (scores, docids, ok; the batched form: no init
+// entries); kk a power of two in [16, 2048].
+extern "C" int yt_pruned_tile_bp(const void* words, int64_t nw,
+                                 const void* dead, int64_t doc_cap,
+                                 const void* pmax, const void* desc, int bs,
+                                 int kk, const void* consts, void* scratch,
+                                 void* out, void* stream) {
+  if (nw < 1) return (int)cudaErrorInvalidValue;
+  const TileSrc src = {nullptr, nullptr, nullptr, (const uint32_t*)words, nw};
+  return launch_tiles<true, BpDesc, BP_SLOTS>(
+      src, dead, doc_cap, pmax, desc, bs, kk, 0, consts, scratch, out,
+      (cudaStream_t)stream, bp_desc_of);
 }
 
 // The finish of the b > 1 and scan routes: top_s / top_rows [kk] (kernel
@@ -429,5 +580,26 @@ extern "C" int yt_topk_finish_batch(const void* top_s, const void* top_rows,
       (const int32_t*)top_s, (const int32_t*)top_rows, kk,
       (const int16_t*)docids, (const int32_t*)docids,
       (const int32_t*)docids, b, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The packed finish: top_s / top_rows [kk] (kernel 3 over a K7bp buffer
+// of the packed span of `count` rows at word wbase of words [nw], meta
+// the block's 57 int32 in host memory); tstart < 0: out [2kk]; else out
+// [2kk + 1] with the tail check over pmax[tstart + 1, tstart + tcount).
+extern "C" int yt_topk_finish_bp(const void* top_s, const void* top_rows,
+                                 int kk, const void* words, int64_t nw,
+                                 int64_t wbase, const int32_t* meta,
+                                 int64_t count, const void* pmax,
+                                 int64_t tstart, int64_t tcount,
+                                 int bound_shift, int lang_term, void* out,
+                                 void* stream) {
+  if (kk < 1 || nw < 1 || count < 0) return (int)cudaErrorInvalidValue;
+  PackMeta m;
+  for (int c = 0; c < META_LEN; ++c) m.v[c] = meta[c];
+  topk_finish_bp<<<1, SEL_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)top_s, (const int32_t*)top_rows, kk,
+      (const uint32_t*)words, nw, wbase, m, count, (const int32_t*)pmax,
+      tstart, tcount, bound_shift, lang_term, (int32_t*)out);
   return (int)cudaGetLastError();
 }
