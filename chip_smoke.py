@@ -58,7 +58,8 @@ Phases, each of which exits non-zero on failure:
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
-   50 rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (k = 100),
+   50 rank_placed queries, MeshBM25.topk at 1M docs x 4 terms (K16 and
+   kernel 3, k = 100),
    and stream_score_topk over the 10M block in 2M-row chunks; every
    result checked against the port's numpy twins); then the device
    store: an RWIIndex run of the 10M term and terms of 1M, 100k and 20k
@@ -111,8 +112,7 @@ Phases, each of which exits non-zero on failure:
    after the filtered query, the batched path's part 2: a site:-style
    facet bitmap over the 20M docid space admitting 2 %, alone and with a
    language filter, and RAM deltas of 50,000 and 300,000 postings on the
-   10M term, each equal to the numpy oracle but the last, which is
-   held to the twin's, with their
+   10M term, each equal to the numpy oracle, with their
    walls (median of 50 after a warm-up); every kernel of each path must
    have launched; then, counts reset, the hybrid rerank on the same
    store: a forward index of 2^21 unit vectors (dim 256, f16: the
@@ -129,7 +129,25 @@ Phases, each of which exits non-zero on failure:
    over the whole index (B = 1 and 16) against their plain versions; and
    a put at docid 2^21, which grows the block past its budget:
    rerank_boost declines (counted) and the host fallback (get_block,
-   dense_boost_topk, the re-sort) equals the twin's; then device loss, on
+   dense_boost_topk, the re-sort) equals the twin's; then, counts reset,
+   the dense-first path on the same store: 2^21 clustered unit
+   vectors (1024 centres, noise 0.15) in a DenseVectorStore, an
+   AnnVectorIndex built from it on the card at the JAX defaults (1024
+   clusters, nprobe 8, 2^15 probe lanes, a 1 GiB budget: every cluster
+   hot) and a CPU twin index of its layout; a mix of 54 dense-first
+   queries (a vector near a corpus row with the sparse answer of each
+   hybrid-mix query, its k, alpha 0.5) sent one at a time, from 16
+   threads and from 16 threads through the batcher (K14 `ann_assign` and
+   K15 `ann_fuse` waves, live slots logged), every answer the twin's to
+   the bit; recall@10 against exact_topk; a dense-first cache hit and its
+   invalidation when the index is laid out again; a probe-lane budget
+   that drops whole clusters (counted, the twin's answers); a query while
+   the device is lost (search_host's numpy answer to the bit); and the
+   tier ladder: the same layout under a 2^28-byte budget, rounds of the
+   mix through the batcher until no promotion is left (warm clusters on
+   the host, promotions through the `promote` kind, a cache entry
+   re-keyed by them), every answer then a CPU twin's in the same tiers to
+   the bit and within 64 units of the all-hot answers; then device loss, on
    a store of its own (the 1M term
    and a 200,000-posting term meeting it): one injected
    `device.transfer_fail` charge (a counted retry, the same answers), a
@@ -199,7 +217,12 @@ Phases, each of which exits non-zero on failure:
    its fetch beside a gather + einsum + sort; K9's block mode at
    dense_boost_topk's k = 100 and 1000; K9's similarity mode and K11 for
    B = 16 and 1 over the 2^21-row index, each held to its plain version
-   on every row, beside torch.matmul in bf16; the packed path's kernels
+   on every row, beside torch.matmul in bf16; K14 over 16 of the
+   dense-first mix's queries against the 1024 centroids (beside a bf16
+   matmul and topk), K15 over a 16-slot wave of the mix's commonest lane
+   bucket and one slot at nb = 32768 (beside a gather, a bf16 einsum and
+   a sort), and K16 `bm25_pass` over MeshBM25's placed 1M x 4 block, each
+   held to its plain version first; the packed path's kernels
    beside their int16 counterparts' call times (`int16_ms`): K12 over
    every row of the 10M term's block (held to the host unpack_block too),
    K5bp at 1 and 16 slots of its first tile, K6bp, K7bp and
@@ -250,7 +273,7 @@ JOIN_TERMS = {b"joinAAAAAAAA": (4_000_000, 40_000_000),
               b"joinCAAAAAAA": (2_000_000, 80_000_000)}
 # the kernels each main path must launch
 PLACED_KERNELS = ("cardinal_stats", "cardinal_score", "tie_topk",
-                  "gather_topk")
+                  "gather_topk", "bm25_pass")
 DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
                     "topk_finish")
 JOIN_KERNELS = ("join_member", "cardinal_stats", "cardinal_score",
@@ -273,6 +296,18 @@ DENSE_ROWS = 1 << 21
 HYBRID_REPEATS = 8
 HYBRID_KERNELS = ("dense_dot", "rerank_sort", "hybrid_blend", "tie_topk")
 # the packed path's kernels (kernel 3 ranks its exact scans)
+# the dense-first path: a corpus of 2^21 clustered vectors, the
+# mix sent this many times, recall over this many queries, a probe-lane
+# budget of about two clusters, the ladder's budget and its rounds, the
+# bar of host-scored against device-scored fused scores
+DF_ROWS = 1 << 21
+DF_REPEATS = 4
+DF_RECALL_QUERIES = 4
+DF_SMALL_LANES = 4096
+DF_LADDER_BUDGET = 1 << 28
+DF_LADDER_ROUNDS = 6
+DF_TOL = 64
+DF_KERNELS = ("ann_assign", "ann_fuse")
 PACKED_KERNELS = ("unpack_rows", "pruned_tile_bp", "span_stats_bp",
                   "span_score_bp", "topk_finish_bp", "pack_block_batch",
                   "tie_topk")
@@ -1005,6 +1040,7 @@ def main() -> int:
     tq = time.time()
     bs, bdd = M.MeshBM25(mesh).topk(tf, dl, df, nb, bd, k=100)
     walls["MeshBM25.topk 1Mx4 k=100"] = time.time() - tq
+    bm_in = (tf, dl, df, nb, bd)     # K16's inputs, timed in phase 4
     ref = R.bm25_scores_np(tf, dl, df, nb)
     order = np.argsort(-ref, kind="stable")[:100]
     if bs.shape != (100,) or not np.isfinite(bs).all():
@@ -1763,20 +1799,15 @@ def main() -> int:
         if len(ram) != n_d:
             fail(f"the RAM delta holds {len(ram)} postings, not {n_d}")
         got = gs.rank_term(hl, ds_profiles["default"], k=100)
+        # the numpy oracle (8-9 s over 10.1M rows; the twin's delta scan
+        # took 15 s)
         tq = time.time()
-        twin = (hs.rank_term(hl, ds_profiles["default"], k=100)
-                if n_d != 50_000 else got)
-        t_twin = time.time() - tq
-        tq = time.time()
-        if n_d == 50_000:   # the numpy oracle once (8-9 s over 10.1M rows)
-            r16, rfl = R.compact_feats(ram.feats)
-            want = KB.devstore_oracle(two + [(r16, rfl, ram.docids)],
-                                      ds_profiles["default"], 100)
-        else:
-            want = twin
-        same(f"rank_term with a RAM delta of {n_d}", got, twin, want)
-        log(f"rank_term with a RAM delta of {n_d}: the twin {t_twin:.1f} s,"
-            f" the oracle {time.time() - tq:.1f} s")
+        r16, rfl = R.compact_feats(ram.feats)
+        want = KB.devstore_oracle(two + [(r16, rfl, ram.docids)],
+                                  ds_profiles["default"], 100)
+        same(f"rank_term with a RAM delta of {n_d}", got, got, want)
+        log(f"rank_term with a RAM delta of {n_d}: the oracle "
+            f"{time.time() - tq:.1f} s")
         if got[2] != sum(len(p_[2]) for p_ in two) + 1 + n_d:
             fail(f"considered {got[2]} with a delta of {n_d}")
         bt_walls[f"rank_term with a RAM delta of {n_d} (10M term, two "
@@ -2021,8 +2052,292 @@ def main() -> int:
     hy_shapes = {k: hy_in[k] for k in ((t1m, "default", 10),
                                        (t1m, "default", 100),
                                        (hl, "default", 1000))}
-    del hs, idx, hl_live, two, oracles, join_rows, h_dense, hy_refs
-    del hy_refs2
+    del h_dense, hy_refs, hy_refs2
+
+    # -- phase 3, the dense-first path: dense_first_topk, the batcher's
+    # `ann` kind, the ANN tier ladder and the hybrid cache, on the
+    # headline store ------------------------------------------------------
+    # 2^21 clustered unit vectors (1024 centres, noise 0.15: the JAX
+    # package's tests/test_ann.py corpus, from the seed) in a
+    # DenseVectorStore and an AnnVectorIndex built from it at the JAX
+    # defaults (C = n // 2048 = 1024 clusters, a 65,536-row sample, 3
+    # k-means rounds; nprobe 8, 2^15 probe lanes, a 1 GiB budget: every
+    # cluster hot, 2^21 rows of 262 B on the card), a CPU twin index
+    # adopting its layout. The mix: a query vector near a corpus row with
+    # the sparse answer of each of the hybrid mix's 54 queries (rank_term
+    # over the store's terms, the two joins; most docids past the 2^21
+    # vectors: sparse + 0), its k, alpha 0.5; sent one at a time, from 16
+    # threads and from 16 threads through the batcher (after an untimed
+    # pass), every answer the twin's to the bit. Then recall@10 against
+    # exact_topk; a cache hit and its invalidation when the index is laid
+    # out again; a probe-lane budget that drops clusters; a query while
+    # the device is lost (search_host, the twin index's numpy path to the
+    # bit); the ladder: an index of the same layout under a 2^28-byte
+    # budget, warm clusters scored on the host, promoted through the
+    # batcher's `promote` kind until no more fit, the answers then equal
+    # to a CPU twin in the same tier state to the bit and within the bar
+    # of the all-hot answers, and a cache entry re-keyed by a promotion
+    from yacy_search_server_tpu_torch.index.annstore import AnnVectorIndex
+    from yacy_search_server_tpu_torch.ops import ann as AN
+    torch.cuda.synchronize()
+    reset_launches()
+    tdf = time.time()
+    df_time = {}
+    tq = time.time()
+    drng = np.random.default_rng(KB.SEED + 80)
+    dvecs, _dcent = KB.clustered_vectors(DF_ROWS, drng, dtype=np.float16)
+    # host memory only: a budget of 0 keeps the forward index off
+    df_dense = convert.dense_from_numpy(dvecs, DF_ROWS, device="cpu",
+                                        budget_bytes=0)
+    df_time["vectors and the dense store (host)"] = time.time() - tq
+    tq = time.time()
+    g_ann = AnnVectorIndex(DN.DIM, device=dev)
+    g_ann.build_from_dense(df_dense)
+    df_time["build_from_dense (k-means, assignment, int8)"] = \
+        time.time() - tq
+    layout = [getattr(g_ann, a) for a in (
+        "centroids", "_slab", "_scales", "_sdocids", "_cstart", "_ccount",
+        "_row_of")]
+    h_ann = AnnVectorIndex(DN.DIM, device="cpu")
+    h_ann.adopt(*layout)
+    n_cl = DF_ROWS // 2048       # the JAX build's cluster count
+    if g_ann.n_clusters() != n_cl or len(g_ann._hot_map) != n_cl:
+        fail(f"the index holds {g_ann.n_clusters()} clusters, "
+             f"{len(g_ann._hot_map)} of them hot: expected {n_cl}, all")
+    gs.attach_ann(g_ann)
+    hs.attach_ann(h_ann)
+    df_in = {}
+    for key, r in zip(hy_in, drng.integers(0, DF_ROWS, len(hy_in))):
+        qv = dvecs[r].astype(np.float32) + 0.05 * drng.standard_normal(
+            DN.DIM, dtype=np.float32)
+        _v, s_, d_ = hy_in[key]
+        df_in[key] = ((qv / np.linalg.norm(qv)).astype(np.float32), s_,
+                      d_, key[2])
+    del dvecs, df_dense
+    df_qs = list(df_in)
+
+    def df_ask(store, q, **kw):
+        qv, s_, d_, k_ = df_in[q]
+        return store.dense_first_topk(qv, s_, d_, 0.5, k_, **kw)
+
+    def df_same(a, b):
+        return a is not None and b is not None and \
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    def df_check(label, ans, refs):
+        for q, got in ans.items():
+            for a in got:
+                if not df_same(a, refs[q]):
+                    fail(f"dense-first {label}: {q[0].decode()} {q[1:]} "
+                         "differs from the twin's")
+    df_fn = lambda q: df_ask(gs, q)  # noqa: E731
+    df_stream = [q for _ in range(DF_REPEATS) for q in df_qs]
+    tq = time.time()
+    df_refs = {q: df_ask(hs, q) for q in df_qs}
+    df_time["the twin's answers"] = time.time() - tq
+    for q, (qv, s_, d_, k_) in df_in.items():
+        got = df_refs[q]
+        if len(got[1]) != k_ or len(set(got[1].tolist())) != k_:
+            fail(f"the twin's dense-first answer of {q} is not {k_} "
+                 "distinct docids")
+    df_stats = {}
+    for mode, threads in (("one at a time, no batcher", 1),
+                          (f"{MIX_THREADS} threads, no batcher",
+                           MIX_THREADS)):
+        ans, st_ = run_mix(df_stream, df_fn, threads)
+        df_check(mode, ans, df_refs)
+        df_stats[mode] = st_
+    gs.enable_batching(max_batch=16, dispatchers=8, rerank_batching=True)
+    for mode in ("untimed pass", "timed"):
+        l0, w0, s0 = dict(LAUNCHES), dict(WIDE), dict(SLOTS)
+        ans, st_ = run_mix(df_stream, df_fn, MIX_THREADS)
+        df_check(f"through the batcher, {mode}", ans, df_refs)
+        df_stats[f"{MIX_THREADS} threads, batcher, {mode}"] = st_
+        df_wave = {n_: (LAUNCHES[n_] - l0[n_], WIDE[n_] - w0[n_],
+                        SLOTS[n_] - s0[n_]) for n_ in DF_KERNELS}
+        log(f"dense-first mix through the batcher, {mode}: " + "; ".join(
+            f"{n_} {v[0]} launches, {v[1]} with more than one live slot, "
+            f"{v[2] / max(v[0], 1):.2f} live slots a launch"
+            for n_, v in df_wave.items()))
+    if df_wave["ann_fuse"][1] == 0 or df_wave["ann_assign"][1] == 0:
+        fail("no ann_assign or ann_fuse launch took more than one slot")
+    dc = gs.counters()
+    if dc["batch_timeouts"] or dc["batch_exceptions"]:
+        fail(f"the batcher did not serve the dense-first mix cleanly: {dc}")
+    gs.close()
+    for mode, st_ in df_stats.items():
+        log(f"dense-first mix ({len(df_qs)} distinct queries), {mode}: "
+            f"{st_['n']} queries, {st_['qps']:.1f} q/s, p50 "
+            f"{st_['p50']:.4f} ms, p95 {st_['p95']:.4f} ms, wall "
+            f"{st_['wall']:.3f} s")
+    # recall@10 of the probes (alpha 1, no sparse candidate) against the
+    # exact scan of the whole quantized corpus
+    tq = time.time()
+    hits = 0
+    for q in df_qs[:DF_RECALL_QUERIES]:
+        qv = df_in[q][0]
+        _s, d_ = gs.dense_first_topk(qv, [], [], 1.0, 10)
+        hits += len(set(d_.tolist()) & set(g_ann.exact_topk(qv, 10)[1]
+                                           .tolist()))
+    recall = hits / (10 * DF_RECALL_QUERIES)
+    log(f"dense-first recall@10 against exact_topk: {recall:.3f} over "
+        f"{DF_RECALL_QUERIES} queries (nprobe 8 of {n_cl} clusters; "
+        f"{time.time() - tq:.1f} s)")
+    if recall == 0:
+        fail("the dense-first probes found none of the exact neighbours")
+    # a hybrid-cache hit, then the index laid out again (build's last
+    # step, without its k-means) re-keys the entry
+    q0 = (t1m, "default", 100)
+    p0 = mix_profiles["default"]
+    epoch0, dv0, cv0 = (gs.arena_epoch, gs.hybrid_vector_version(),
+                        gs.ann_centroid_version())
+    cold = df_fn(q0)
+    gs.hybrid_cache_put(t1m, p0, "en", 100, 0.5, epoch0, cold[0], cold[1],
+                        1_000_000, dv0=dv0, dense_first=True, cv0=cv0)
+    c0, l0 = gs.counters(), dict(LAUNCHES)
+    hit = gs.hybrid_cache_get(t1m, p0, "en", 100, 0.5, dense_first=True)
+    c1 = gs.counters()
+    if hit is None or not df_same(hit, cold):
+        fail("the dense-first cache hit differs from its cold answer")
+    if (c1["rerank_cache_hits"] != c0["rerank_cache_hits"] + 1
+            or c1["device_round_trips"] != c0["device_round_trips"]
+            or dict(LAUNCHES) != l0):
+        fail("the dense-first cache hit did device work")
+    if gs.hybrid_cache_get(t1m, p0, "en", 100, 0.5) is not None:
+        fail("a dense-first entry answered a plain hybrid lookup")
+    df_walls = {"hybrid_cache_get dense-first, a hit": walls_of(
+        lambda: gs.hybrid_cache_get(t1m, p0, "en", 100, 0.5,
+                                    dense_first=True))}
+    for q in ((t1m, "default", 10), (t1m, "default", 100),
+              (hl, "default", 1000)):
+        df_walls[f"dense_first_topk solo, {q[0].decode()} k={q[2]}"] = \
+            walls_of(lambda q=q: df_fn(q))
+    g_ann.adopt(*layout)
+    if gs.hybrid_cache_get(t1m, p0, "en", 100, 0.5,
+                           dense_first=True) is not None:
+        fail("a dense-first entry survived a new layout of the index")
+    if not df_same(df_fn(q0), cold):
+        fail("the index laid out again answers differently")
+    # a probe-lane budget of two clusters' rows: whole clusters dropped
+    gs.ann_probe_lanes = hs.ann_probe_lanes = DF_SMALL_LANES
+    ld0 = g_ann.lane_drops
+    for q in df_qs[:8]:
+        if not df_same(df_fn(q), df_ask(hs, q)):
+            fail(f"dense-first under {DF_SMALL_LANES} probe lanes: {q} "
+                 "differs from the twin's")
+    if g_ann.lane_drops - ld0 < 8:
+        fail(f"{g_ann.lane_drops - ld0} clusters dropped by a "
+             f"{DF_SMALL_LANES}-lane budget in 8 queries")
+    log(f"probe lanes {DF_SMALL_LANES}: {g_ann.lane_drops - ld0} whole "
+        "clusters dropped in 8 queries, every answer the twin's")
+    gs.ann_probe_lanes = hs.ann_probe_lanes = AN.ANN_DEFAULT_PROBE_LANES
+    # the device lost: search_host, the numpy path
+    gs.device_lost = True
+    hq0 = gs.counters()["ann_host_queries"]
+    for q in df_qs[:4]:
+        qv, s_, d_, k_ = df_in[q]
+        want = h_ann.search_host(qv, d_, s_, 0.5, k_, AN.ANN_DEFAULT_NPROBE,
+                                 AN.ANN_DEFAULT_PROBE_LANES)
+        if not df_same(df_fn(q), want):
+            fail(f"dense-first while the device is lost: {q} differs from "
+                 "search_host")
+    gs.device_lost = False
+    if gs.counters()["ann_host_queries"] != hq0 + 4:
+        fail("the lost-device queries were not counted in ann_host_queries")
+    # the ladder: the same layout under a 2^28-byte budget
+    tq = time.time()
+    l_ann = AnnVectorIndex(DN.DIM, device=dev,
+                           device_budget_bytes=DF_LADDER_BUDGET)
+    l_ann.adopt(*layout)
+    n_hot0 = len(l_ann._hot_map)
+    gs.attach_ann(l_ann)
+    gs.enable_batching(max_batch=16, dispatchers=8, rerank_batching=True)
+    epoch0, cv0 = gs.arena_epoch, gs.ann_centroid_version()
+    cold = df_fn(q0)
+    gs.hybrid_cache_put(t1m, p0, "en", 100, 0.5, epoch0, cold[0], cold[1],
+                        1_000_000, dense_first=True, cv0=cv0)
+    rounds, last = 0, None
+    while rounds < DF_LADDER_ROUNDS:
+        rounds += 1
+        run_mix(df_qs, df_fn, MIX_THREADS)
+        deadline = time.time() + 60
+        while (l_ann._promote_inflight or l_ann._hot_pending) and \
+                time.time() < deadline:
+            time.sleep(0.05)
+        now = (l_ann.promotions, l_ann._hot_used)
+        if now == last:
+            break
+        last = now
+    else:
+        fail(f"the ladder still promoted after {rounds} rounds")
+    lc = gs.counters()
+    if gs.hybrid_cache_get(t1m, p0, "en", 100, 0.5,
+                           dense_first=True) is not None:
+        fail("a dense-first entry survived a promotion")
+    if not (lc["ann_tier_warm_hits"] and lc["ann_promotions"]
+            and lc["tier_promote_async"] and l_ann.patches):
+        fail(f"the ladder did not promote through the batcher: {lc}")
+    hl_ann = convert.ann_from_numpy(
+        *layout, l_ann._hot_slab, l_ann._hot_scales, l_ann._hot_docids,
+        l_ann._hot_map, device="cpu", device_budget_bytes=DF_LADDER_BUDGET)
+    hl_ann.PROMOTE_AFTER = 1 << 30     # the twin holds the card's tiers
+    hs.attach_ann(hl_ann)
+    l_refs = {q: df_ask(hs, q) for q in df_qs}
+    ans, _st = run_mix(df_qs * 2, df_fn, MIX_THREADS)
+    if (l_ann.promotions, l_ann._hot_used) != last:
+        fail("the ladder promoted during its compared round")
+    df_check("the ladder, through the batcher", ans, l_refs)
+    worst = 0
+    for q, got in ans.items():
+        s_, d_ = got[0]
+        ws_, wd_ = df_refs[q]
+        kth = int(ws_[-1])
+        w = dict(zip(wd_.tolist(), ws_.tolist()))
+        for s1, d1 in zip(s_.tolist(), d_.tolist()):
+            if d1 in w:
+                worst = max(worst, abs(s1 - w[d1]))
+            elif s1 > kth + DF_TOL:
+                fail(f"the ladder's {q}: docid {d1} ({s1}) is not among "
+                     "the all-hot answer's and above its last by more "
+                     "than the bar")
+    if worst > DF_TOL:
+        fail(f"the ladder's answers differ from the all-hot ones by "
+             f"{worst} units (bar {DF_TOL})")
+    dc = gs.counters()
+    if dc["batch_timeouts"] or dc["batch_exceptions"]:
+        fail(f"the batcher did not serve the ladder cleanly: {dc}")
+    gs.close()
+    log(f"ladder: {n_hot0} of {n_cl} clusters hot at a {DF_LADDER_BUDGET}-"
+        f"byte budget, {rounds} rounds of the mix through the batcher: "
+        f"{lc['ann_tier_warm_hits']} warm hits, {lc['ann_promotions']} "
+        f"promotions ({l_ann.patches} patches), "
+        f"{lc['ann_promote_failures']} refused (arena full), "
+        f"{len(l_ann._hot_map)} clusters hot; every answer the twin's in "
+        f"the same tiers, within {worst} units of the all-hot answers "
+        f"({time.time() - tq:.1f} s)")
+    gs.attach_ann(g_ann)
+    hs.attach_ann(h_ann)
+    del l_ann, hl_ann, l_refs
+    torch.cuda.synchronize()
+    launches_df = dict(LAUNCHES)
+    dc = gs.counters()
+    log(f"dense-first path: {time.time() - tdf:.1f} s; launches "
+        f"{launches_df}; set-up " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in df_time.items()))
+    log("dense-first counters: " + ", ".join(
+        f"{k} {dc[k]}" for k in (
+            "ann_dispatches", "ann_queries", "ann_fallbacks",
+            "ann_host_queries", "ann_vectors", "ann_clusters",
+            "ann_centroid_version", "ann_hot_bytes", "ann_tier_hot_hits",
+            "ann_tier_warm_hits", "ann_promotions", "ann_lane_drops")))
+    for label, w in df_walls.items():
+        log(f"wall {label}: median {float(np.median(w)):.4f} ms, mean "
+            f"{float(np.mean(w)):.4f} ms, min {min(w):.4f} ms over 50 after 5")
+    missing = [k for k in DF_KERNELS if launches_df[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the dense-first path: {missing}")
+    clean("the dense-first path", gs, hs)
+    del hs, idx, hl_live, two, oracles, join_rows
 
     # -- phase 3, device loss (a store of its own: the 1M term and a term
     # of 200,000 postings meeting it) ------------------------------------
@@ -2565,6 +2880,7 @@ def main() -> int:
                          "join": launches_join, "batched": launches_bt,
                          "batched_join": launches_bj,
                          "hybrid": launches_hy,
+                         "dense_first": launches_df,
                          "packed": launches_pk}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
@@ -3467,6 +3783,99 @@ def main() -> int:
             "a slot)")
         del sims
     del fwd_b16, hsp16, hv16
+
+    # the dense-first path's kernels at its shapes: K14 over 16 of the
+    # mix's query vectors against the index's centroid block, K15 over a
+    # 16-slot wave of the mix's commonest (nb, kk) group and over one slot
+    # at nb = 32768 (the solo path), each held to its plain version first
+    # and timed beside a PyTorch yardstick (a bf16 matmul and topk; a
+    # gather, a bf16 einsum and a sort of the (score, docid) keys). The
+    # bound counts each in-slab lane's row, scale and docid once (rows
+    # that several slots probe: once), the descriptors and the output
+    from yacy_search_server_tpu_torch.kernels import ann as KA
+    an_src = ("ann_assign", "yacy_search_server_tpu/ops/ann.py:82",
+              "ann.cu")
+    af_src = ("ann_fuse", "yacy_search_server_tpu/ops/ann.py:151",
+              "ann.cu")
+    cent_g, cev = g_ann.centroid_block(dev)
+    TD.DeviceArena.wait_written(cev)
+    c_pad = cent_g.shape[0]
+    qv16 = put(np.stack([df_in[q][0] for q in df_qs[:16]]))
+    note("ann_assign", f"B=16 x C={n_cl} (C_pad {c_pad})",
+         diff(KA.ann_assign(cent_g, qv16, 8, n_cl),
+              KA.ann_assign_plain(cent_g, qv16, 8, n_cl)))
+    cent_b = cent_g.to(bf)
+    measure(*an_src, lambda: KA.ann_assign(cent_g, qv16, 8, n_cl),
+            lambda: KA.ann_assign_plain(cent_g, qv16, 8, n_cl),
+            lambda: torch.topk(torch.matmul(qv16.to(bf), cent_b.T).float(),
+                               8),
+            c_pad * 512 + 16 * 1024 + 16 * 8 * 4, 2.0 * 16 * n_cl * 256,
+            f"B=16 x C={n_cl} x 256, np_=8", path="dense_first")
+    df_slots = [{"qvec": qv, "ss": s_, "sd": d_, "alpha": 0.5, "k": k_,
+                 "nprobe": AN.ANN_DEFAULT_NPROBE}
+                for qv, s_, d_, k_ in (df_in[q] for q in df_qs)]
+    df_groups, _hs, _pr = gs._ann_prepare_wave(df_slots)
+    (nb_c, kk_c), its_c = max(df_groups.items(), key=lambda kv: len(kv[1]))
+    waves = [(f"a 16-slot wave of the mix's commonest group (nb={nb_c}, "
+              f"kk={kk_c}, {len(its_c)} distinct queries)", nb_c, kk_c,
+              [its_c[i % len(its_c)] for i in range(16)])]
+    big = [(key, its) for key, its in df_groups.items() if key[0] == 32768]
+    if not big:
+        fail("no dense-first query of the mix took nb = 32768")
+    waves.append((f"one slot at nb=32768 (kk={big[0][0][1]})", 32768,
+                   big[0][0][1], big[0][1][:1]))
+    hb_g = its_c[0]["hb"]
+    cap_a = hb_g[0].shape[0]
+    for label, nb_w, kk_w, its in waves:
+        qi = np.stack([it["qrow"] for it in its])
+        qd = KDn.upload_desc(qi, dev)
+        n_v = qi[:, 0]
+        rows_all = qi[:, 2:2 + nb_w]
+        live = np.arange(nb_w)[None, :] < n_v[:, None]
+        in_slab = live & (rows_all >= 0) & (rows_all < cap_a)
+        distinct = int(np.unique(rows_all[in_slab]).size)
+        note("ann_fuse", label,
+             diff(KA.ann_fuse(*hb_g, qd, nb_w, kk_w),
+                  KA.ann_fuse_plain(*hb_g, qd, nb_w, kk_w)))
+        idx_a = torch.from_numpy(np.clip(rows_all, 0, cap_a - 1).astype(
+            np.int64)).to(dev)
+        q_b = torch.from_numpy(qi[:, 2 + 3 * nb_w:].copy().view(
+            np.float32)).to(dev).to(bf)
+        key_a = torch.from_numpy(rows_all.astype(np.int64)).to(dev)
+        measure(*af_src,
+                lambda h=hb_g, q=qd, n_=nb_w, k_=kk_w, lv=len(its):
+                KA.ann_fuse(*h, q, n_, k_, lv),
+                lambda h=hb_g, q=qd, n_=nb_w, k_=kk_w:
+                KA.ann_fuse_plain(*h, q, n_, k_),
+                lambda i=idx_a, q=q_b, x=key_a: (
+                    torch.einsum("bd,bnd->bn", q, hb_g[0][i].to(bf)),
+                    torch.sort(x, dim=1)),
+                distinct * 262 + qi.nbytes + len(its) * 2 * kk_w * 4,
+                2.0 * 256 * int(in_slab.sum()),
+                f"{label}: {int(in_slab.sum())} in-slab lanes, {distinct} "
+                "distinct rows", path="dense_first")
+        w = walls_of(lambda h=hb_g, q=qi, n_=nb_w, k_=kk_w:
+                     AN.ann_fuse_batch_packed(*h, q, n_, k_).cpu())
+        log(f"wall ann_fuse_batch_packed + fetch, {label}: median "
+            f"{float(np.median(w)):.4f} ms, min {min(w):.4f} ms over 50 "
+            "after 5")
+    del cent_b, idx_a, q_b, key_a
+
+    # K16 at the placed step's shape: MeshBM25's placed 1M x 4 block
+    bm_src = ("bm25_pass", "yacy_search_server_tpu/ops/ranking.py:653",
+              "bm25.cu")
+    bmp = M.MeshBM25(mesh).place(bm_in[0], bm_in[1], bm_in[2], bm_in[3],
+                                 bm_in[4])
+    b_tf, b_dl, b_df, b_nd, b_v, _b_d = bmp
+    n_b, t_b = b_tf.shape
+    note("bm25_pass", f"{n_b} x {t_b} f32 tf (MeshBM25.place)",
+         diff(R.bm25_scores(b_tf, b_dl, b_df, b_nd, b_v),
+              R.bm25_scores_plain(b_tf, b_dl, b_df, b_nd, b_v)))
+    measure(*bm_src, lambda: R.bm25_scores(b_tf, b_dl, b_df, b_nd, b_v),
+            lambda: R.bm25_scores_plain(b_tf, b_dl, b_df, b_nd, b_v), None,
+            n_b * t_b * 4 + n_b * 4 + n_b + t_b * 4 + n_b * 4,
+            n_b * (6.0 * t_b + 4.0),
+            f"{n_b} x {t_b} f32 tf + doclen + valid (MeshBM25.topk)")
 
     # the device part of the join and the filtered scan: the store's
     # dispatch functions and the one fetch, without the host work of

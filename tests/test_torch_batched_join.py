@@ -293,6 +293,9 @@ def test_batched_rank_join_from_16_threads_matches_jax(monkeypatch):
     slots = _wave_slots(monkeypatch)
     j.enable_batching(max_batch=16, dispatchers=2, prewarm=False)
     t.enable_batching(max_batch=16, dispatchers=2)
+    # the plain waves of a loaded CPU outlast the 1 s watchdog: a window
+    # they cannot reach, so that a timeout still means a lost wave
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
     j._topk_cache.enabled = t._topk_cache.enabled = False
     try:
         jobs = [(q, k) for q in range(len(JOBS)) for k in (10, 100)] * 4
@@ -318,6 +321,7 @@ def test_deletes_during_batched_join_waves_match_jax(monkeypatch):
     tombstone bitmap holds every deleted docid and no other."""
     idx, j, t = _pair(monkeypatch, "seg3")
     t.enable_batching(max_batch=16, dispatchers=4)
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
     try:
         jobs = [(q, k) for q in range(5) for k in (10, 100)]
         gone = sorted({int(x) for job in jobs

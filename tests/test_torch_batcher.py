@@ -132,6 +132,9 @@ def test_batched_pruned_from_16_threads_matches_jax(served, monkeypatch):
     idx, j, t = served
     slots = _count_slots(monkeypatch, "pruned_tile")
     t.enable_batching(max_batch=16, dispatchers=2)
+    # the plain waves of a loaded CPU outlast the 1 s watchdog: a window
+    # they cannot reach, so that a timeout still means a lost wave
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
     jobs = [(th, pname, lang, k) for th in TERMS[:3]
             for pname in PROFILES for lang in ("en", "de")
             for k in (10, 100, 1000)]
@@ -220,6 +223,7 @@ def test_batched_scans_from_16_threads_match_jax(served, monkeypatch):
     idx.flush()
     slots = _count_slots(monkeypatch, "span_stats_batch")
     t.enable_batching(max_batch=16, dispatchers=2, scan_batching=True)
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
     jobs = [(th, f, k) for th in TERMS[:2] for f in range(len(SCAN_FILTERS))
             for k in (10, 100)]
     want = {job: _solo(j, job[0], JProf(), job[2], **SCAN_FILTERS[job[1]])
@@ -231,7 +235,7 @@ def test_batched_scans_from_16_threads_match_jax(served, monkeypatch):
     assert max(slots) > 1 and t.counters()["batch_timeouts"] == 0
 
 
-def test_deletes_during_batched_waves_match_jax(served):
+def test_deletes_during_batched_waves_match_jax(served, monkeypatch):
     """Deletes landing while 16 threads send pruned queries and filtered
     scans through the batcher (each wave applies the pending tombstones
     it finds): afterwards every answer from 16 threads again equals the
@@ -239,6 +243,7 @@ def test_deletes_during_batched_waves_match_jax(served):
     deleted docid and no other."""
     idx, j, t = served
     t.enable_batching(max_batch=16, dispatchers=4, scan_batching=True)
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
     jobs = ([(th, None, k) for th in TERMS for k in (10, 100)]
             + [(th, f, k) for th in TERMS[:2]
                for f in range(len(SCAN_FILTERS)) for k in (10, 100)])

@@ -73,6 +73,10 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.ops.packed\n"
         "import yacy_search_server_tpu_torch.kernels.packed\n"
         "import yacy_search_server_tpu_torch.ingest.devbuild\n"
+        "import yacy_search_server_tpu_torch.ops.ann\n"
+        "import yacy_search_server_tpu_torch.kernels.ann\n"
+        "import yacy_search_server_tpu_torch.index.annstore\n"
+        "from yacy_search_server_tpu_torch.convert import ann_from_numpy\n"
         "from yacy_search_server_tpu_torch.kernels.devstore import (\n"
         "    join_member_batch, join_stats_batch, join_score_batch)\n"
         "from yacy_search_server_tpu_torch.index.devstore import (\n"
@@ -124,3 +128,40 @@ def test_packed_entry_points_raise_without_cuda():
                               packed_residency=True)
     assert s.arena.device.type == "cpu"
     assert len(TB.pack_block_batch([part], "cpu")) == 1
+
+
+def test_ann_and_bm25_entry_points_raise_without_cuda():
+    """The ANN index, the ANN device functions on numpy inputs and
+    bm25_topk run on the card unless given device="cpu": without CUDA
+    they raise, never fall back."""
+    import torch
+
+    from yacy_search_server_tpu_torch.index.annstore import AnnVectorIndex
+    from yacy_search_server_tpu_torch.ops import ann as TA
+    from yacy_search_server_tpu_torch.ops import ranking as TR
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the device path would run")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AnnVectorIndex(256)
+    assert AnnVectorIndex(256, device="cpu").device.type == "cpu"
+    cent = np.zeros((16, 256), np.float16)
+    qv = np.ones((2, 256), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TA.ann_assign_batch(cent, qv, 4, 16)
+    assert TA.ann_assign_batch(cent, qv, 4, 16, device="cpu").shape == (2, 4)
+    slab = np.zeros((8, 256), np.int8)
+    scales = np.ones(8, np.float16)
+    sdoc = np.arange(8, dtype=np.int32)
+    qi = TA.pack_ann_fuse_row(qv[0], np.arange(8), np.full(8, -1),
+                              np.zeros(8), 0.5, 256)[None]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TA.ann_fuse_batch_packed(slab, scales, sdoc, qi, 256, 16)
+    out = TA.ann_fuse_batch_packed(slab, scales, sdoc, qi, 256, 16,
+                                   device="cpu")
+    assert out.shape == (1, 32)
+    tf = np.ones((10, 2), np.float32)
+    args = (tf, np.full(10, 50, np.int32), np.array([1, 2], np.int32), 10,
+            np.ones(10, bool), np.arange(10, dtype=np.int32), 5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TR.bm25_topk(*args)
+    assert len(TR.bm25_topk(*args, device="cpu")[0]) == 5

@@ -1590,3 +1590,183 @@ def test_packed_store_on_the_card_matches_cpu():
                  "topk_finish_bp", "unpack_rows"):
         assert LAUNCHES[name] > l0[name], name
     g.close()
+
+
+# ---------------------------------------------------------------------------
+# the dense-first ANN: K14 ann_assign, K15 ann_fuse; K16 bm25_pass
+# ---------------------------------------------------------------------------
+
+def _centroid_block(c_real, rng):
+    cp = 1 << max(4, (c_real - 1).bit_length())
+    cent = np.zeros((cp, 256), np.float16)
+    cent[:c_real] = KBench.unit_vectors(c_real, rng)
+    cent[c_real // 2] = cent[0]             # two equal centroids: a tie
+    return cent
+
+
+@pytest.mark.parametrize("c_real", [12, 1000, 1024, 4096])
+@pytest.mark.parametrize("nq", [1, 16])
+def test_ann_assign_matches_plain(dev, c_real, nq):
+    from yacy_search_server_tpu_torch.kernels import ann as KA
+    rng = np.random.default_rng(c_real + nq)
+    cent = torch.from_numpy(_centroid_block(c_real, rng)).to(dev)
+    q = KBench.unit_vectors(nq, rng, dtype=np.float32)
+    q[0] = -cent[0].cpu().numpy()           # anti-aligned with a centroid
+    qv = torch.from_numpy(q).to(dev)
+    for np_ in sorted({1, 8, min(64, c_real), c_real}):
+        a0 = LAUNCHES["ann_assign"]
+        got = KA.ann_assign(cent, qv, np_, c_real)
+        want = KA.ann_assign_plain(cent, qv, np_, c_real)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), np_
+        assert LAUNCHES["ann_assign"] == a0 + 1
+        assert int(got.max()) < c_real
+    assert torch.equal(KA.ann_assign(cent.cpu(), qv.cpu(), 8, c_real),
+                       KA.ann_assign(cent, qv, 8, c_real).cpu())
+
+
+def _hot_slab(cap, rng):
+    slab = rng.integers(-127, 128, (cap, 256)).astype(np.int8)
+    slab[::50] = slab[3]                    # equal rows: equal sims
+    scales = (rng.random(cap) / 127).astype(np.float16)
+    scales[::50] = scales[3]
+    sdoc = rng.permutation(cap).astype(np.int32) * 3
+    return slab, scales, sdoc
+
+
+@pytest.mark.parametrize("nb,ns", [
+    (256, (256, 0, 17)), (1024, (1000, 513, 0, 1024) * 4),
+    (16384, (16384, 9000)), (32768, (17000, 32768, 0)), (65536, (40000,))],
+    ids=["256", "1024x16", "16384", "32768", "65536"])
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 1.0])
+def test_ann_fuse_matches_plain(dev, nb, ns, alpha):
+    from yacy_search_server_tpu_torch.kernels import ann as KA
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    from yacy_search_server_tpu_torch.ops import ann as A
+    rng = np.random.default_rng(nb + len(ns))
+    cap = 70_000
+    slab, scales, sdoc = (torch.from_numpy(a).to(dev)
+                          for a in _hot_slab(cap, rng))
+    qi = KBench.ann_wave(rng, cap, ns, nb, alpha)
+    qd = KDn.upload_desc(qi, dev)
+    for kk in sorted({1, 16, min(nb, 1000), min(nb, 2048), min(nb, 8192)}):
+        f0 = LAUNCHES["ann_fuse"]
+        got = KA.ann_fuse(slab, scales, sdoc, qd, nb, kk)
+        want = KA.ann_fuse_plain(slab, scales, sdoc, qd, nb, kk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kk
+        assert LAUNCHES["ann_fuse"] == f0 + 1
+        for i, n in enumerate(ns):
+            if n == 0:      # no valid lane: all pad
+                assert (got[i, kk:] == KA.INT32_MAX).all()
+                assert (got[i, :kk] == KA.NEG).all()
+    out = A.ann_fuse_batch_packed(slab, scales, sdoc, qi, nb, 16)
+    assert torch.equal(out, KA.ann_fuse(slab, scales, sdoc, qd, nb, 16))
+
+
+@pytest.mark.parametrize("t", [0, 1, 4, 8])
+@pytest.mark.parametrize("n", [1, 1000, 1_000_000])
+@pytest.mark.parametrize("tf_int", [False, True])
+def test_bm25_pass_matches_plain(dev, t, n, tf_int):
+    rng = np.random.default_rng(n + t)
+    tf = rng.integers(0, 9, (n, t)).astype(np.int32 if tf_int
+                                           else np.float32)
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    tf_d, dl = put(tf), put(rng.integers(40, 800, n).astype(np.int32))
+    df = put(rng.integers(1, max(n, 2), t).astype(np.int32))
+    for valid in (put(rng.random(n) < 0.9), torch.zeros(n, dtype=torch.bool,
+                                                         device=dev)):
+        for nd in (n, torch.tensor(n, dtype=torch.int32, device=dev)):
+            b0 = LAUNCHES["bm25_pass"]
+            got = R.bm25_scores(tf_d, dl, df, nd, valid)
+            want = R.bm25_scores_plain(tf_d, dl, df, nd, valid)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))
+            assert LAUNCHES["bm25_pass"] == b0 + 1
+    cpu = R.bm25_scores(tf_d.cpu(), dl.cpu(), df.cpu(), n, valid.cpu())
+    assert torch.equal(cpu, R.bm25_scores(tf_d, dl, df, n, valid).cpu())
+
+
+def test_dense_first_on_the_card_matches_cpu(dev):
+    """A store on the card and one on the CPU, each with an index of one
+    layout: with every cluster hot, solo answers and 16 threads through
+    the batcher equal the CPU store's to the bit; with half the corpus
+    hot, a warm cluster promoted through the batcher answers as the CPU
+    store's after its own (inline) promotion; a lost device's answers are
+    search_host's."""
+    import threading
+
+    from yacy_search_server_tpu_torch.index.annstore import AnnVectorIndex
+    rng = np.random.default_rng(41)
+    n = 200_000
+    vecs, _c = KBench.clustered_vectors(n, rng, n_clusters=64)
+    layout = ("centroids", "_slab", "_scales", "_sdocids", "_cstart",
+              "_ccount", "_row_of")
+
+    def pair(budget):
+        out = []
+        for device in ("cuda", "cpu"):
+            ix = AnnVectorIndex(256, device=device,
+                                device_budget_bytes=budget)
+            if out:
+                ix.adopt(*(getattr(out[0][1], a) for a in layout))
+            else:
+                ix.build(lambda a, b: vecs[a:b], n, n_clusters=64,
+                         sample_n=8192, iters=2, seed=1)
+            st = TD.DeviceSegmentStore(RWIIndex(), device=device)
+            st.attach_ann(ix)
+            out.append((st, ix))
+        return out
+    (g, gi), (h, hi) = pair(1 << 30)
+    assert len(gi._hot_map) == 64
+    qs = [(vecs[int(i)], rng.integers(0, 1 << 24, 20).astype(np.int32),
+           rng.integers(0, n + 1000, 20).astype(np.int32))
+          for i in rng.integers(0, n, 16)]
+
+    def ask(s, q, **kw):
+        return s.dense_first_topk(*q, 0.5, 100, **kw)
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+    want = [ask(h, q) for q in qs]
+    assert all(same(ask(g, q), w) for q, w in zip(qs, want))
+    g.enable_batching(max_batch=16, dispatchers=4)
+    out = [None] * len(qs)
+
+    def worker(i):
+        out[i] = ask(g, qs[i])
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(16)]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=120)
+    assert all(same(a, b) for a, b in zip(out, want))
+    c = g.counters()
+    assert c["batch_timeouts"] == 0 and c["batch_exceptions"] == 0
+    assert c["ann_queries"] == 32 and c["ann_host_queries"] == 0
+    assert c["ann_tier_warm_hits"] == 0
+    g.device_lost = True
+    got = ask(g, qs[0])
+    assert same(got, hi.search_host(qs[0][0], qs[0][2], qs[0][1], 0.5, 100))
+    assert g.counters()["ann_host_queries"] == 1
+    g.close()
+    # the ladder: half the corpus hot
+    (g, gi), (h, hi) = pair((n // 2) * 262)
+    g.enable_batching(max_batch=16, dispatchers=4)
+    warm = max(gi._hot_map) + 1
+    q = (np.asarray(gi.centroids[warm], np.float32), np.zeros(0, np.int32),
+         np.zeros(0, np.int32))
+    first = ask(g, q, nprobe=1)
+    assert same(first, ask(h, q, nprobe=1))     # warm: the host's numpy
+    ask(g, q, nprobe=1)
+    deadline = time.monotonic() + 30
+    while (gi.promotions == 0 or gi._hot_pending) and \
+            time.monotonic() < deadline:
+        time.sleep(0.05)
+    ask(h, q, nprobe=1)                         # h promotes inline
+    assert gi.promotions == hi.promotions == 1 and gi.patches >= 1
+    assert g.counters()["tier_promote_async"] == 1
+    assert same(ask(g, q, nprobe=1), ask(h, q, nprobe=1))
+    assert g.counters()["ann_tier_hot_hits"] >= 1
+    g.close()

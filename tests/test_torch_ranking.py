@@ -317,3 +317,56 @@ def test_bm25_topk_matches_jax():
     sep[1:] &= gap
     sep[:-1] &= gap
     np.testing.assert_array_equal(gd.numpy()[sep], wd[sep])
+
+
+def _jax_bm25_all(tf, dl, df, n, valid):
+    """Every row's JAX BM25 score (bm25_topk at k = n, scattered back)."""
+    rows = len(dl)
+    ws, wd = JR.bm25_topk(jnp.asarray(tf), jnp.asarray(dl), jnp.asarray(df),
+                          jnp.int32(n), jnp.asarray(valid),
+                          jnp.arange(rows, dtype=jnp.int32), rows)
+    out = np.empty(rows, np.float32)
+    out[np.asarray(wd)] = np.asarray(ws)
+    return out
+
+
+@pytest.mark.parametrize("t", [1, 4, 8])
+@pytest.mark.parametrize("tf_dtype", [np.float32, np.int32])
+def test_bm25_pass_plain_matches_jax(t, tf_dtype):
+    """K16's plain version (the CPU path of bm25_scores) on every row:
+    the JAX pass's scores at rtol 1e-5, -inf on the invalid rows in both,
+    int32 tf as f32 tf, ndocs as a number or an int32 tensor."""
+    rng = np.random.default_rng(30 + t)
+    n = 5000
+    tf = rng.integers(0, 9, (n, t)).astype(tf_dtype)
+    dl = rng.integers(40, 800, n).astype(np.int32)
+    df = rng.integers(1, n, t).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    want = _jax_bm25_all(tf, dl, df, n, valid)
+    for nd in (n, torch.tensor(n, dtype=torch.int32)):
+        got = TR.bm25_scores(_t(tf), _t(dl), _t(df), nd, _t(valid)).numpy()
+        assert np.array_equal(np.isinf(got), ~valid)
+        assert np.array_equal(np.isinf(want), ~valid)
+        np.testing.assert_allclose(got[valid], want[valid], rtol=1e-5)
+        assert np.array_equal(got, TR.bm25_scores_plain(
+            _t(tf), _t(dl), _t(df), nd, _t(valid)).numpy())
+    # the float64 oracle averages doclen over every row: all rows valid
+    every = TR.bm25_scores(_t(tf), _t(dl), _t(df), n,
+                           torch.ones(n, dtype=torch.bool)).numpy()
+    np.testing.assert_allclose(every, TR.bm25_scores_np(tf, dl, df, n),
+                               rtol=1e-5)
+
+
+def test_bm25_topk_numpy_needs_a_device():
+    rng = np.random.default_rng(9)
+    tf = rng.integers(0, 9, (100, 3)).astype(np.float32)
+    args = (tf, rng.integers(40, 800, 100).astype(np.int32),
+            np.array([3, 7, 50], np.int32), 100, np.ones(100, bool),
+            np.arange(100, dtype=np.int32))
+    s, d = TR.bm25_topk(*args, 10, device="cpu")
+    ts, td = TR.bm25_topk(*(_t(a) if isinstance(a, np.ndarray) else a
+                            for a in args), 10)
+    assert torch.equal(s, ts) and torch.equal(d, td)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TR.bm25_topk(*args, 10)

@@ -11,7 +11,8 @@ side-tables (fetched as numpy) and its spans into the port, and
 bitmap as its kernels take them, and `join_wave_from_numpy` a wave's
 qargs_batch as the batched join kernels take it, so the devstore kernels
 of both read the same bytes. `dense_from_numpy` builds the port's
-DenseVectorStore from a JAX store's vectors (`_vecs[:len(store)]`).
+DenseVectorStore from a JAX store's vectors (`_vecs[:len(store)]`), and
+`ann_from_numpy` the port's AnnVectorIndex from a JAX index's arrays.
 Both sides then score identical bytes under an identical profile.
 """
 
@@ -174,3 +175,37 @@ def dense_from_numpy(vecs, n: int | None = None, device=None,
     st._fwd_dirty = set()
     st.device_snapshot(resolve_device(device))
     return st
+
+
+def ann_from_numpy(centroids, slab, scales, sdocids, cstart, ccount, row_of,
+                   hot_slab, hot_scales, hot_docids, hot_map: dict,
+                   device=None, device_budget_bytes: int = 1 << 30):
+    """The port's AnnVectorIndex holding a JAX AnnVectorIndex's layout:
+    its f32 centroids, the int8 slab with its f16 scales and docids, each
+    cluster's start and count, the docid -> row map, and the hot arena's
+    host mirror (slab, scales, docids) with its cluster -> start row map.
+    `device_budget_bytes` must be the JAX index's, which sized the mirror.
+    The hot arena goes to `device` (None: the CUDA device) at first use,
+    whole."""
+    from .index.annstore import AnnVectorIndex
+    slab = np.asarray(slab, np.int8)
+    idx = AnnVectorIndex(slab.shape[1], device=device,
+                         device_budget_bytes=device_budget_bytes)
+    idx.adopt(np.asarray(centroids, np.float32), slab,
+              np.asarray(scales, np.float16), np.asarray(sdocids, np.int32),
+              np.asarray(cstart, np.int64), np.asarray(ccount, np.int64),
+              np.asarray(row_of, np.int32))
+    if hot_slab is not None and len(hot_slab) != idx._hot_cap:
+        raise ValueError(f"the hot mirror holds {len(hot_slab)} rows, the "
+                         f"budget {idx._hot_cap}: pass the JAX index's "
+                         "device_budget_bytes")
+    with idx._lock:
+        if idx._hot_cap:
+            idx._hot_slab = np.array(hot_slab, np.int8)
+            idx._hot_scales = np.array(hot_scales, np.float16)
+            idx._hot_docids = np.array(hot_docids, np.int32)
+        idx._hot_map = {int(c): int(h) for c, h in hot_map.items()}
+        idx._hot_used = max((h + int(idx._ccount[c])
+                             for c, h in idx._hot_map.items()), default=0)
+        idx._hot_pending = []
+    return idx

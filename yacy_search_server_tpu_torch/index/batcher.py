@@ -9,9 +9,13 @@ where every membership is a bitmap one) and, with `scan_batching`,
 filtered exact scans (`submit_scan`: the batched K6/K7 pair,
 `devstore.scan_batch_query`) and, with rerank batching, the hybrid
 reranks (`submit_rerank`: K9 and K10 over up to `max_batch` slots a
-launch, `ops/dense.rerank_fwd_batch_packed`), and a packed store's tier
-promotions (`submit_promote`: the `promote` kind; the dispatcher places
-the block, the completer fetches its probe, and nobody waits). Pruned
+launch, `ops/dense.rerank_fwd_batch_packed`), the dense-first queries
+(`submit_ann`: the `ann` kind, one K14 launch a wave and nprobe, then one
+K15 launch a (lane bucket, kk) group of at most `max_batch` slots), and a
+packed store's tier promotions and the ANN index's cluster promotions
+(`submit_promote`, `submit_ann_promote`: the `promote` kind; the
+dispatcher places the block or the cluster, the completer fetches its
+probe, and nobody waits). Pruned
 queries on packed spans take K5bp (`kernels/packed.pruned_tile_bp`) waves
 of their own; filtered scans on packed spans answer ("ineligible",) and
 the store's packed scan serves them. One former owns
@@ -45,8 +49,8 @@ CUDA in place of JAX's asynchronous dispatch:
   retries solo, where a failed fetch is counted as a lost-device query.
 
 A dispatcher or completer thread never submits to the batcher itself
-(`owns_current_thread`). Left out of the port so far: the ANN kind, and
-the reference's tracing, wave stamps and profiler records.
+(`owns_current_thread`). Left out of the port so far: the reference's
+tracing, wave stamps and profiler records.
 """
 
 from __future__ import annotations
@@ -244,10 +248,29 @@ class QueryBatcher:
         return self._submit_wait(self._item(
             kind="rerank", qrow=qrow, nb=nb, n=n, fwd=fwd, written=written))
 
+    def submit_ann(self, qvec: np.ndarray, ss: np.ndarray, sd: np.ndarray,
+                   alpha: float, k: int, nprobe: int):
+        """A dense-first query in a wave; blocking. Returns ("ok", scores,
+        docids) | ("ineligible",) (the wave's fetch failed) |
+        ("timeout",). The wave hands back the slot's device part; its
+        warm clusters are scored here, in the submitter's thread, so that
+        host scoring never holds a dispatcher or a completer."""
+        item = self._item(kind="ann", qvec=qvec, ss=ss, sd=sd, alpha=alpha,
+                          k=k, nprobe=nprobe)
+        res = self._submit_wait(item)
+        if res[0] != "parts":
+            return res
+        return ("ok",) + self.store._ann_finish_slot(item, res[1], res[2])
+
     def submit_promote(self, key, run) -> None:
         """A tier promotion of the store's block `key` of `run` in the
         pipeline; returns at once (the completer confirms it)."""
         self._q.put(self._item(kind="promote", key=key, run=run))
+
+    def submit_ann_promote(self, cid: int) -> None:
+        """A promotion of the ANN index's cluster `cid` in the pipeline;
+        returns at once (the completer confirms it)."""
+        self._q.put(self._item(kind="promote", ann_cluster=cid))
 
     def close(self) -> None:
         self._stop = True
@@ -337,8 +360,9 @@ class QueryBatcher:
         """The pruned queries in one part (one K5 launch a (profile,
         language, kk) group), each scan group in a part of its own, each
         conjunction family (statics, profile, language) in parts of its
-        cap, the reranks in a part a lane bucket and the promotions in one
-        part, so that no dispatcher serializes unrelated launches."""
+        cap, the reranks in a part a lane bucket, the dense-first queries
+        in one part and the promotions in one, so that no dispatcher
+        serializes unrelated launches."""
         pruned = [it for it in batch if it["kind"] == "pruned"]
         scans: dict[tuple, list[dict]] = {}
         fams: dict[tuple, list[dict]] = {}
@@ -360,6 +384,9 @@ class QueryBatcher:
             cap = min(it["joincap"] for it in fam)
             parts.extend(fam[i:i + cap] for i in range(0, len(fam), cap))
         parts.extend(reranks.values())
+        anns = [it for it in batch if it["kind"] == "ann"]
+        if anns:
+            parts.append(anns)
         promotes = [it for it in batch if it["kind"] == "promote"]
         if promotes:
             parts.append(promotes)
@@ -402,6 +429,7 @@ class QueryBatcher:
         pruned = [it for it in batch if it["kind"] == "pruned"]
         joins = [it for it in batch if it["kind"] == "join"]
         reranks = [it for it in batch if it["kind"] == "rerank"]
+        anns = [it for it in batch if it["kind"] == "ann"]
         promotes = [it for it in batch if it["kind"] == "promote"]
         if scans:
             self._dispatch_scans(scans)
@@ -411,6 +439,8 @@ class QueryBatcher:
             self._dispatch_joins(joins)
         if reranks:
             self._dispatch_reranks(reranks)
+        if anns:
+            self._dispatch_anns(anns)
         if promotes:
             self._dispatch_promotes(promotes)
 
@@ -479,20 +509,25 @@ class QueryBatcher:
             self._submit_completion(out, finish, items, t0, keep=keep)
 
     def _dispatch_promotes(self, items: list[dict]) -> None:
-        """Each promotion placed by the store (_promote_now) and its probe
-        (K12's decode of the block's first row from the new words) handed
-        to a completer, which checks it against the host block. Nobody
-        waits on these items; a promotion that did not happen (counted
-        by the store) completes at once."""
+        """Each promotion placed by the store and its probe handed to a
+        completer, which checks it against the host copy: a packed block's
+        (_promote_now; K12's decode of the block's first row from the new
+        words) or an ANN cluster's (_ann_promote_now; the cluster's first
+        docid in the patched hot arena). Nobody waits on these items; a
+        promotion that did not happen (counted by the store or the index)
+        completes at once."""
         store = self.store
         for it in items:
             t0 = time.perf_counter()
+            what = it.get("key", it.get("ann_cluster"))
             try:
-                got = store._promote_now(it["key"], it["run"])
+                got = (store._ann_promote_now(it["ann_cluster"])
+                       if "ann_cluster" in it
+                       else store._promote_now(it["key"], it["run"]))
             except Exception:  # noqa: BLE001 - counted and logged
                 with self._ms_lock:
                     self.exceptions += 1
-                log.exception("tier promotion failed for %r", it["key"])
+                log.exception("tier promotion failed for %r", what)
                 it["ev"].set()
                 continue
             if got is None:
@@ -500,12 +535,11 @@ class QueryBatcher:
                 continue
             probe, want, words = got
 
-            def finish(host, it=it, want=want):
+            def finish(host, it=it, what=what, want=want):
                 if not np.array_equal(host, want):
                     raise RuntimeError(
-                        f"promoted block {it['key']!r} decodes row 0 as "
-                        f"{host.tolist()}, the host block holds "
-                        f"{want.tolist()}")
+                        f"promoted {what!r} reads {host.tolist()} on the "
+                        f"device, the host copy holds {want.tolist()}")
                 it["res"] = ("ok",)
                 it["ev"].set()
 
@@ -652,6 +686,66 @@ class QueryBatcher:
                                 it["ev"].set()
 
                 self._submit_completion(out, finish, chunk, t0, keep=(fwd,))
+
+    def _dispatch_anns(self, items: list[dict]) -> None:
+        """A dense-first wave (the reference's _dispatch_anns): the store's
+        _ann_prepare_wave (one K14 launch and fetch a distinct nprobe, the
+        slots planned against one hot-arena snapshot), then one K15 launch
+        a (nb, kk) group in chunks of max_batch through the completers.
+        Each slot gets back ("parts", its device lanes or None, kk): its
+        warm clusters are scored by its submitter (submit_ann), not here
+        or in a completer (the reference's completer scores them; under
+        16 clients that held waves past the watchdog). A failed fetch of
+        the assignment sends the wave's queries solo. The count
+        of each answered query lands under the store's lock before its
+        submitter wakes; a query whose submitter gave up (and was served
+        solo, counted there) is not counted again."""
+        from ..ops.ann import ann_topk_bucket
+        from .devstore import DeviceTransferError
+        store = self.store
+        try:
+            groups, host_slots, promote = store._ann_prepare_wave(items)
+        except DeviceTransferError:
+            with self._ms_lock:
+                self.exceptions += 1
+            log.warning("ann wave preparation failed (%d queries retry "
+                        "solo)", len(items))
+            for it in items:
+                it["ev"].set()      # stays ("ineligible",)
+            return
+        for cid in promote:
+            store._submit_ann_promote(cid)
+
+        def deliver(chunk, results, n_disp):
+            with store._lock:
+                store.ann_dispatches += n_disp
+                for it, res in zip(chunk, results):
+                    with it["lk"]:
+                        if it.get("abandoned"):
+                            continue
+                        store.ann_queries += 1
+                        it["res"] = res
+                        it["ev"].set()
+
+        # each slot's device part goes back to its submitter (submit_ann),
+        # which scores the warm clusters and merges
+        if host_slots:
+            deliver(host_slots,
+                    [("parts", None, ann_topk_bucket(it["k"], 1 << 30))
+                     for it in host_slots], 0)
+        for (nb, kk), its in groups.items():
+            for pos in range(0, len(its), self.max_batch):
+                chunk = its[pos:pos + self.max_batch]
+                t0 = time.perf_counter()
+                out = store._ann_fuse_issue(chunk, nb, kk)
+
+                def finish(host, chunk=chunk, kk=kk):
+                    deliver(chunk, [("parts", (host[i, :kk].copy(),
+                                               host[i, kk:2 * kk].copy()),
+                                     kk) for i in range(len(chunk))], 1)
+
+                self._submit_completion(out, finish, chunk, t0,
+                                        keep=(chunk[0]["hb"],))
 
     # -- completers -----------------------------------------------------------
 

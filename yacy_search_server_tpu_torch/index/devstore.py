@@ -75,12 +75,25 @@ serving counters.
   a packed store (counted fallbacks), joins on packed terms too, as in
   the reference.
 
+- Dense-first candidate generation (`dense_first_topk`, the hybrid query's
+  `densefirst=true` stage): the attached IVF ANN index (index/annstore.py)
+  assigns each query its nprobe nearest centroids (K14 `ann_assign`, one
+  launch a wave and nprobe) and the probed hot clusters' int8 vectors are
+  scored and fused with the sparse candidates on the device (K15
+  `ann_fuse`, one launch a (lane bucket, kk) group); warm clusters score
+  on the host (the numpy oracle) and merge by (score DESC, docid ASC).
+  With the batcher's `ann` kind concurrent queries share the launches;
+  solo and batched answers are equal to the bit. While the device is
+  lost, or a fetch fails, the index answers on the host (`search_host`).
+  Dense-first answers live in the hybrid cache, keyed also on the
+  index's centroid version (it bumps on a build and on a promotion).
+
 Ties rank by arena position, as the JAX package's `lax.top_k` merge does:
 scores descending, then the row's place in the proxy-sorted extent (and
 extents in span order, the delta's rows last), never the docid.
 
-Left out: the ANN family (`ann_centroid_version` answers -1), the
-ingest scheduler's promotion deferral, the cold tier's paged run files
+Left out: the ingest scheduler's promotion deferral, the ANN index's cold
+tier (its mmap slab: the port's index is memory only), the paged run files
 (the port's runs live in memory, so a cold block is rebuilt from the
 run), and the JAX package's tracing and profiler hooks (their
 `counters()` keys read zero).
@@ -125,20 +138,21 @@ INT32_MAX = 2 ** 31 - 1
 # entries of the filtered-stats cache (FIFO beyond)
 _STATS_CACHE_CAP = 256
 # the keys of the JAX store's counters() for machinery this port does not
-# have yet (storage integrity, the profiler's silicon accounting, the ANN
-# family, the paged runs' term cache): they read zero here, as the JAX
-# store's ANN_ZERO_COUNTERS do for a store without an index
+# have yet (storage integrity, the profiler's silicon accounting, the
+# paged runs' term cache): they read zero here
 ZERO_COUNTERS = {
     "tunnel_rt_ms": 0.0, "util_pct_p50": 0.0, "util_pct_p95": 0.0,
     "bound": "", "storage_corruptions": 0,
-    "journal_torn_tails": 0, "ann_dispatches": 0,
-    "ann_queries": 0, "ann_fallbacks": 0, "ann_host_queries": 0,
+    "journal_torn_tails": 0, "term_cache_hits": 0,
+    "term_cache_misses": 0, "term_cache_evictions": 0, "term_cache_bytes": 0,
+}
+# the ANN index's counters for a store without one (the JAX store's)
+ANN_ZERO_COUNTERS = {
     "ann_vectors": 0, "ann_clusters": 0, "ann_centroid_version": 0,
     "ann_hot_bytes": 0, "ann_warm_bytes": 0, "ann_cold_bytes": 0,
     "ann_tier_hot_hits": 0, "ann_tier_warm_hits": 0,
-    "ann_tier_cold_hits": 0, "ann_promotions": 0, "ann_promote_failures": 0,
-    "ann_lane_drops": 0, "term_cache_hits": 0,
-    "term_cache_misses": 0, "term_cache_evictions": 0, "term_cache_bytes": 0,
+    "ann_tier_cold_hits": 0, "ann_promotions": 0,
+    "ann_promote_failures": 0, "ann_lane_drops": 0,
 }
 
 # prune-prefix escalation buckets (tiles scored before tail verification)
@@ -996,6 +1010,17 @@ class DeviceSegmentStore:
         self.rerank_queries = 0      # reranks answered on the device
         self.rerank_cache_hits = 0   # hybrid answers from the top-k cache
         self.rerank_fallbacks = 0    # reranks left to the caller's host path
+        # dense-first: the attached AnnVectorIndex (attach_ann), its knobs
+        # and counters; batched under the rerank switch, as in the reference
+        from ..ops.ann import ANN_DEFAULT_NPROBE, ANN_DEFAULT_PROBE_LANES
+        self._ann = None
+        self._ann_batching = False
+        self.ann_nprobe = ANN_DEFAULT_NPROBE
+        self.ann_probe_lanes = ANN_DEFAULT_PROBE_LANES
+        self.ann_dispatches = 0      # K15 launches (a wave group: one)
+        self.ann_queries = 0         # dense-first queries answered
+        self.ann_fallbacks = 0       # no built index: the plain rerank serves
+        self.ann_host_queries = 0    # answered on the host (device loss)
         # profile string -> the port's profile (parsed once)
         self._profiles: OrderedDict = OrderedDict()
         # seed tombstones recorded before this store existed
@@ -2374,8 +2399,12 @@ class DeviceSegmentStore:
         return dense.version if dense is not None else -1
 
     def ann_centroid_version(self) -> int:
-        """-1: the port has no ANN index (SearchEvent snapshots it)."""
-        return -1
+        """The attached ANN index's centroid version (-1 without one):
+        snapshotted with the epoch before a dense-first answer is
+        computed, so a build or promotion racing it leaves the cached
+        entry unreachable."""
+        ann = self._ann
+        return ann.centroid_version if ann is not None else -1
 
     def _hybrid_cache_key(self, termhash: bytes, profile, language: str,
                           k: int, alpha, dv: int | None = None,
@@ -2444,6 +2473,185 @@ class DeviceSegmentStore:
             return int(fwd.shape[0] * fwd.shape[1] * 2) \
                 if fwd is not None else 0
 
+    # -- dense-first IVF ANN candidate generation -----------------------------
+
+    def attach_ann(self, ann) -> None:
+        """Wire the segment's AnnVectorIndex (index/annstore.py): its hot
+        arena is what dense_first_topk probes on this store's device, its
+        centroid version keys the dense-first cache."""
+        self._ann = ann
+
+    def dense_first_topk(self, qvec, sparse_scores, docids, alpha,
+                         k: int, nprobe: int | None = None):
+        """The fused dense-first answer of one query: the IVF probe
+        candidates and the sparse candidates in one cardinal domain
+        (sparse + the fixed-scale dense boost), (scores, docids) by
+        (score DESC, docid ASC), deduplicated, at most k. Through the
+        batcher's `ann` kind when batching is on (not from its own
+        threads); otherwise, or on a timeout, the same kernels solo:
+        equal answers. Warm clusters score on the host. While the device
+        is lost, or when a fetch fails, the index answers on the host
+        (counted in ann_host_queries). None, counted in ann_fallbacks,
+        when no built index is attached (the caller's plain rerank)."""
+        ann = self._ann
+        if ann is None or not ann.built:
+            with self._lock:
+                self.ann_fallbacks += 1
+            return None
+        nprobe = nprobe or self.ann_nprobe
+        sd = np.asarray(docids, np.int32)
+        ss = np.asarray(sparse_scores, np.int32)
+        qv = np.asarray(qvec, np.float32)
+        if not self.device_lost:
+            try:
+                b = self._batcher
+                if (self._ann_batching and b is not None
+                        and not b.owns_current_thread()):
+                    res = b.submit_ann(qv, ss, sd, float(alpha), k, nprobe)
+                    if res[0] == "ok":
+                        return res[1], res[2]
+                    # "timeout", or a wave whose fetch failed: solo below
+                return self._ann_solo(qv, ss, sd, float(alpha), k, nprobe)
+            except DeviceTransferError:
+                pass    # counted by device_fetch; the host answers
+        with self._lock:
+            self.ann_host_queries += 1
+            self.ann_queries += 1
+        return ann.search_host(qv, sd, ss, float(alpha), k, nprobe,
+                               self.ann_probe_lanes)
+
+    def _ann_prepare_wave(self, slots: list[dict]):
+        """Centroid assignment and lane plans for one wave of dense-first
+        slots: one K14 launch a distinct nprobe (its fetch is the wave's
+        first round trip), then each slot planned against ONE hot-arena
+        snapshot (a promotion patching the arena meanwhile cannot mix
+        generations inside a launch). Returns (kernel groups keyed by
+        (nb, kk) with each slot's descriptor, host slots with no device
+        lane, the clusters to promote). A failed fetch raises
+        DeviceTransferError."""
+        from ..ops.ann import (ann_assign_batch, ann_lane_bucket,
+                               ann_topk_bucket, pack_ann_fuse_row)
+        ann = self._ann
+        device = self.arena.device
+        cent, cev = ann.centroid_block(device)
+        got_hot = ann.hot_block(device)
+        hb, hot_limit, hev = got_hot if got_hot is not None else \
+            (None, 0, None)
+        DeviceArena.wait_written(cev)
+        DeviceArena.wait_written(hev)
+        n_clusters = ann.n_clusters()
+        by_np: dict[int, list[dict]] = {}
+        for it in slots:
+            by_np.setdefault(int(it["nprobe"]), []).append(it)
+        for nprobe, its in by_np.items():
+            out = ann_assign_batch(
+                cent, np.stack([it["qvec"] for it in its]),
+                min(nprobe, n_clusters), n_clusters)
+            ids = self.device_fetch(out)
+            self.count_round_trip()
+            for i, it in enumerate(its):
+                it["cids"] = ids[i]
+        groups: dict[tuple, list[dict]] = {}
+        host_slots: list[dict] = []
+        promote: list[int] = []
+        for it in slots:
+            plan = ann.plan(it["cids"], it["sd"], it["ss"],
+                            self.ann_probe_lanes, hot_limit=hot_limit)
+            promote.extend(plan["promote"])
+            it["plan"] = plan
+            hot_rows = plan["hot_rows"]
+            spr, spd, sps = plan["sp_hot"]
+            lanes = len(hot_rows) + len(spr)
+            if lanes == 0:
+                host_slots.append(it)
+                continue
+            # the sparse candidates ride first (never cut); the probes are
+            # bounded by the plan's lane budget
+            rows = np.concatenate([spr, hot_rows])
+            dd = np.concatenate([spd, np.full(len(hot_rows), -1, np.int32)])
+            sp = np.concatenate([sps, np.zeros(len(hot_rows), np.int32)])
+            nb = ann_lane_bucket(lanes, lanes)
+            kk = ann_topk_bucket(it["k"], nb)
+            it["qrow"] = pack_ann_fuse_row(it["qvec"], rows, dd, sp,
+                                           it["alpha"], nb)
+            it["hb"] = hb
+            groups.setdefault((nb, kk), []).append(it)
+        return groups, host_slots, promote
+
+    def _ann_fuse_issue(self, its: list[dict], nb: int, kk: int):
+        """Launch K15 for one (nb, kk) group of slots (planned against one
+        hot-arena snapshot, its[0]["hb"]): [len(its), 2kk] on the device,
+        not fetched."""
+        from ..ops.ann import ann_fuse_batch_packed
+        hb = its[0]["hb"]
+        return ann_fuse_batch_packed(*hb, np.stack([it["qrow"] for it in its]),
+                                     nb, kk)
+
+    def _ann_finish_slot(self, it: dict, dev_part, kk: int):
+        """One slot's device lanes (fused and ordered by K15; pad entries
+        carry docid INT32_MAX) merged with its host-scored parts by (score
+        DESC, docid ASC), deduplicated best first, trimmed to k."""
+        from ..ops.ann import merge_fused
+        parts = []
+        if dev_part is not None:
+            s, d = dev_part
+            ok = d != INT32_MAX
+            parts.append((np.asarray(s)[ok].astype(np.int64),
+                          np.asarray(d)[ok]))
+        parts.extend(self._ann.host_score_parts(it["plan"], it["qvec"],
+                                                it["alpha"], kk))
+        return merge_fused(parts, it["k"])
+
+    def _ann_solo(self, qvec, ss, sd, alpha, k: int, nprobe: int):
+        """One dense-first query outside a wave: the same kernels, one
+        slot each."""
+        from ..ops.ann import ann_topk_bucket
+        slot = {"qvec": qvec, "ss": ss, "sd": sd, "alpha": alpha,
+                "k": k, "nprobe": nprobe}
+        groups, _host, promote = self._ann_prepare_wave([slot])
+        for cid in promote:
+            self._submit_ann_promote(cid)
+        if groups:
+            ((nb, kk), its), = groups.items()
+            host = self.device_fetch(self._ann_fuse_issue(its, nb, kk))
+            self.count_round_trip()
+            res = self._ann_finish_slot(slot, (host[0, :kk],
+                                               host[0, kk:2 * kk]), kk)
+            with self._lock:
+                self.ann_dispatches += 1
+                self.ann_queries += 1
+            return res
+        res = self._ann_finish_slot(slot, None, ann_topk_bucket(k, 1 << 30))
+        with self._lock:
+            self.ann_queries += 1
+        return res
+
+    def _submit_ann_promote(self, cid: int) -> None:
+        """One ANN cluster's promotion on the batcher's `promote` kind
+        (off the query path); inline without a batcher."""
+        b = self._batcher
+        if b is not None and not b._stop:
+            with self._lock:
+                self.tier_promote_async += 1
+            b.submit_ann_promote(cid)
+        else:
+            self._ann_promote_now(cid)
+
+    def _ann_promote_now(self, cid: int):
+        """Place one warm cluster in the hot arena and patch it onto the
+        device (index/annstore.promote_cluster): (the device copy of its
+        first docid, read behind the patch's event on the current stream,
+        the host mirror's, the arrays to hold) or None."""
+        ann = self._ann
+        if ann is None:
+            return None
+        got = ann.promote_cluster(cid, self.arena.device)
+        if got is None:
+            return None
+        probe, want, arrays, ev = got
+        DeviceArena.wait_written(ev)
+        return probe, want, arrays
+
     # -- the query batcher ----------------------------------------------------
 
     def enable_batching(self, max_batch: int = 16, dispatchers: int = 8,
@@ -2458,6 +2666,9 @@ class DeviceSegmentStore:
         from .batcher import QueryBatcher
         self._scan_batching = bool(scan_batching)
         self._rerank_batching = bool(rerank_batching)
+        # the dense-first waves ride the rerank switch (both are the
+        # hybrid query's second stage), as in the reference
+        self._ann_batching = bool(rerank_batching)
         if self._batcher is None:
             if self.arena.device.type == "cuda":
                 from ..kernels import build
@@ -2504,9 +2715,16 @@ class DeviceSegmentStore:
         fwd_bytes = self._dense_fwd_bytes()
         tb = self.tier_bytes()
         ratio = self.packed_compression_ratio()
+        ann = self._ann
+        ann_c = ann.counters() if ann is not None else ANN_ZERO_COUNTERS
         with self._lock:
             out = dict(ZERO_COUNTERS)
+            out.update(ann_c)
             out.update({
+                "ann_dispatches": self.ann_dispatches,
+                "ann_queries": self.ann_queries,
+                "ann_fallbacks": self.ann_fallbacks,
+                "ann_host_queries": self.ann_host_queries,
                 "dispatch_ms_p50": _pctl(dseries, 0.50),
                 "dispatch_ms_p95": _pctl(dseries, 0.95),
                 "kernel_ms_p50": _pctl(kseries, 0.50),

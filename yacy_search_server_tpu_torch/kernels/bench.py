@@ -8,7 +8,9 @@ devstore kernels' edge cases (`edge_slots`, `edge_extents`,
 `tile_slots` address it), `join_edges` a store whose join tables hold
 K8's edge cases (`join_edge_cases` lists them), `arena_rows` /
 `devstore_oracle` the numpy answer `rank_term` must give and
-`devjoin_oracle` the one `rank_join` must give. `call_ms` times one call between two
+`devjoin_oracle` the one `rank_join` must give; `clustered_vectors`
+the dense-first path's corpus and `ann_wave` a K15 wave's descriptors.
+`call_ms` times one call between two
 CUDA events as the host issues it from an idle queue (the `ms` of
 chip_smoke.py);
 `device_ms` times the device alone, the calls queued behind a spin
@@ -569,6 +571,53 @@ def rerank_wave(rng, cap: int, ns, nb: int | None = None,
         qi[i] = DN.pack_rerank_row(q, sp, dd, alpha, nb)
         slots.append((q, sp, dd))
     return qi, nb, slots
+
+
+def clustered_vectors(n: int, rng, n_clusters: int = 1024, dim: int = 256,
+                      noise: float = 0.15, chunk: int = 1 << 18,
+                      dtype=np.float32):
+    """(n unit rows stored as `dtype`, the unit f32 centres): each row a
+    random centre of `n_clusters` plus `noise` times a normal vector,
+    normalised in f32 (the JAX package's tests/test_ann.py corpus), made
+    in chunks."""
+    centers = rng.standard_normal((n_clusters, dim)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    lab = rng.integers(0, n_clusters, n)
+    out = np.empty((n, dim), dtype)
+    for r0 in range(0, n, chunk):
+        r1 = min(n, r0 + chunk)
+        v = centers[lab[r0:r1]] + noise * rng.standard_normal(
+            (r1 - r0, dim), dtype=np.float32)
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        out[r0:r1] = v
+    return out, centers
+
+
+def ann_wave(rng, cap: int, ns, nb: int, alpha: float = 0.5,
+             dim: int = 256):
+    """One K15 wave's descriptors (ops/ann.pack_ann_fuse_row): slot i holds
+    ns[i] lanes (0: a slot with no valid lane): a sixth sparse lanes with
+    docids of their own (a third of those without a hot row, one repeating
+    a probe lane's row), the rest probe lanes, rows drawn from [-2, cap +
+    cap // 16) so that a few fall outside the slab, a third of the sparse
+    scores equal; unit query vectors. Returns [len(ns), 2 + 3nb + dim]
+    int32."""
+    from ..ops import ann as A
+    qi = np.zeros((len(ns), 2 + 3 * nb + dim), np.int32)
+    for i, n in enumerate(ns):
+        q = unit_vectors(1, rng, dim, np.float32)[0]
+        rows = (rng.integers(0, cap + cap // 16 + 2, n) - 2).astype(np.int32)
+        dd = np.full(n, -1, np.int32)
+        sp = np.zeros(n, np.int32)
+        m = n // 6
+        dd[:m] = rng.integers(0, 1 << 30, m)
+        sp[:m] = rng.integers(0, 1 << 24, m)
+        sp[:m // 3] = sp[0] if m else 0
+        rows[:m // 3] = -1
+        if m and n > m:
+            rows[m - 1] = rows[n - 1]
+        qi[i] = A.pack_ann_fuse_row(q, rows, dd, sp, alpha, nb)
+    return qi
 
 
 def device_ms(fn, reps: int = 20) -> float:

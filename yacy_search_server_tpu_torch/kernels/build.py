@@ -80,6 +80,10 @@ SIGNATURES = {
     "yt_topk_finish_bp": [_P, _P, _I, _P, _I64, _I64, _P, _I64, _P, _I64,
                           _I64, _I, _I, _P, _P],
     "yt_pack_block_batch": [_P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P],
+    "yt_ann_assign": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "yt_ann_fuse": [_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
+    "yt_bm25_pass": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
+                     _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -185,7 +189,8 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "join_stats_batch": 0, "join_score_batch": 0, "dense_dot": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,
             "pruned_tile_bp": 0, "span_stats_bp": 0, "span_score_bp": 0,
-            "topk_finish_bp": 0, "pack_block_batch": 0}
+            "topk_finish_bp": 0, "pack_block_batch": 0, "ann_assign": 0,
+            "ann_fuse": 0, "bm25_pass": 0}
 WIDE = {name: 0 for name in LAUNCHES}
 SLOTS = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()

@@ -34,7 +34,8 @@
 //     (1 GiB at 2^21 rows: 0.32 ms) and B x n x 4 bytes of output.
 //
 // K10, the sort: one block a slot sorts its nb (a power of two <= 16384)
-// lanes in shared memory by a bitonic network on (key, lane), key = the
+// lanes in shared memory by a bitonic network (dense_dot.cuh, shared with
+// K14 and K15) on (key, lane), key = the
 // 64-bit (score half, docid half): the score half orders -final as
 // lax.sort does (the wrapping negation of kernel 3's tie mode,
 // common.cuh:tie_hi), the docid half is docid ^ 0x80000000, INT32_MAX on
@@ -49,62 +50,19 @@
 // block and writes (1 - alpha) * ((s - min) / max(max - min, 1e-6)) +
 // alpha * sims on valid lanes, -inf elsewhere, in JAX's operation order.
 // Bound: sims, sparse and valid read (9 bytes a lane), the output written.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-
 #include <cstring>
 
-#include "common.cuh"
+#include "dense_dot.cuh"
 
 namespace yt {
 
-constexpr int DD_DIM = 256;
 constexpr int DD_WARPS = 8;              // warps a block of K9
 constexpr int DD_THREADS = DD_WARPS * 32;
 constexpr int DD_SQ = 32;                // queries a K9 similarity pass
-constexpr float BOOST_SCALE = 8355840.0f;  // 255 << 15
 constexpr int RS_MAX_NB = 1 << 14;
 constexpr int RS_SMEM = RS_MAX_NB * 10;  // keys (8 B) and lanes (2 B)
 constexpr int HB_THREADS = 256;
 constexpr int HB_MAX_CHUNKS = 1024;
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// lane l's 8 elements of a row, bf16-rounded
-__device__ __forceinline__ void load8(const __half* row, int l, float* v) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(row) + l);
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(h[i]);
-    v[2 * i] = bf16r(f.x);
-    v[2 * i + 1] = bf16r(f.y);
-  }
-}
-
-// the fixed order: a lane's pairwise tree, then the butterfly
-__device__ __forceinline__ float lane_sum(const float* d, const float* q) {
-  float p[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) p[i] = __fmul_rn(d[i], q[i]);
-  const float a0 = __fadd_rn(p[0], p[1]), a1 = __fadd_rn(p[2], p[3]);
-  const float a2 = __fadd_rn(p[4], p[5]), a3 = __fadd_rn(p[6], p[7]);
-  return __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
-}
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
-  return s;
-}
-
-__device__ __forceinline__ int32_t boosted(int32_t sparse, float sims,
-                                           float alpha) {
-  const float bo = rintf(__fmul_rn(__fmul_rn(sims, alpha), BOOST_SCALE));
-  return (int32_t)((uint32_t)sparse + (uint32_t)__float2int_rn(bo));
-}
 
 // K9 gather mode. qd: [bs, 2 + 2nb + 256] int32 rows (n_valid, alpha
 // bits, docids[nb], sparse[nb], query bits[256]); final: [bs, nb].
@@ -195,25 +153,7 @@ rerank_sort_k(const int32_t* __restrict__ fin_all,
     lane[i] = (uint16_t)i;
   }
   __syncthreads();
-  for (int k = 2; k <= nb; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-        const int p = i ^ j;
-        if (p > i) {
-          const unsigned long long ka = rs_key[i], kb = rs_key[p];
-          const uint16_t la = lane[i], lb = lane[p];
-          const bool gt = ka > kb || (ka == kb && la > lb);
-          if (gt == ((i & k) == 0)) {
-            rs_key[i] = kb;
-            rs_key[p] = ka;
-            lane[i] = lb;
-            lane[p] = la;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_sort<true>(rs_key, lane, nb);
   int32_t* o = out + (int64_t)b * 2 * nb;
   for (int i = threadIdx.x; i < nb; i += blockDim.x) {
     const int src = lane[i];
@@ -361,16 +301,8 @@ extern "C" int yt_rerank_sort(const void* fin_all, const void* qd, int bs,
   const int smem = nb * 10;
   if (smem > 48 * 1024) {
     static bool raised[64];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
+    const cudaError_t e = allow_smem(rerank_sort_k, RS_SMEM, raised);
     if (e != cudaSuccess) return (int)e;
-    if (dev < 0 || dev >= 64 || !raised[dev]) {
-      e = cudaFuncSetAttribute(rerank_sort_k,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               RS_SMEM);
-      if (e != cudaSuccess) return (int)e;
-      if (dev >= 0 && dev < 64) raised[dev] = true;
-    }
   }
   rerank_sort_k<<<bs, nb < 1024 ? nb : 1024, smem, (cudaStream_t)stream>>>(
       (const int32_t*)fin_all, (const int32_t*)qd, nb, (int32_t*)out);

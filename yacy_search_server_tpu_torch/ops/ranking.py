@@ -8,6 +8,7 @@ hand-written CUDA kernels of `kernels/`:
                                         per-host counts)
     scores   = kernels.cardinal_score  (sum_s norm_s << coeff_s, int32)
     top-k    = kernels.tie_topk        (lax.top_k order)
+    BM25     = bm25_scores             (K16 `bm25_pass`, csrc/bm25.cu)
 
 The profile becomes one constant int32[44] tensor on the chosen device
 (`profile_consts`, layout in kernels/cardinal.py). Statistics are a dict
@@ -15,7 +16,8 @@ The profile becomes one constant int32[44] tensor on the chosen device
 writes; `stats_fields` unpacks it.
 
 Scores are int32 and bit-identical to the JAX package's on the same
-input; BM25 is f32 and agrees to rounding (its sums run in another order).
+input; BM25 is f32 and agrees to rounding (its sums run in another order
+and its log is taken in double), its card and plain versions to the bit.
 """
 
 from __future__ import annotations
@@ -411,28 +413,100 @@ class CardinalRanker:
 # BM25: dense doc x term first-stage relevance
 # ---------------------------------------------------------------------------
 
-def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
-                b: float = 0.75):
-    """f32 BM25 per row (invalid rows -inf): plain tensor code, the JAX
-    package leaves this pass to XLA outside any Pallas kernel."""
+def _bm25_consts(k1: float, b: float):
+    """The pass's f32 constants k1, 1 - b, b, k1 + 1, each rounded once
+    from the host's double (as PyTorch rounds a Python scalar for an f32
+    tensor)."""
+    return tuple(np.float32(x) for x in (k1, 1.0 - b, b, k1 + 1.0))
+
+
+def bm25_scores_plain(tf, doclen, df, ndocs, valid, k1: float = 1.2,
+                      b: float = 0.75):
+    """Plain version of K16 `bm25_pass`: f32 BM25 per row, -inf on invalid
+    rows, in the kernel's operation order (csrc/bm25.cu): avgdl =
+    f32(the valid rows' doclen summed exactly) / max(f32(count), 1); idf =
+    f32(log(double(1 + ((ndocs - df) + 0.5) / (df + 0.5)))); term_j =
+    ((idf_j * tf_j) * (k1 + 1)) / max(tf_j + k1 * ((1 - b) + b * (dl /
+    max(avgdl, 1e-6))), 1e-9), summed left to right. The JAX package sums
+    avgdl and the terms in XLA's order and takes an f32 log: a few ulps
+    apart."""
+    dev = tf.device
+    c = [torch.tensor(x, dtype=torch.float32, device=dev)
+         for x in _bm25_consts(k1, b)]
+    ck1, c0, cb, ck1p1 = c
     tf = tf.to(torch.float32)
     dl = doclen.to(torch.float32)
-    sum_dl = torch.where(valid, dl, 0.0).sum()
-    cnt = valid.to(torch.float32).sum()
-    avgdl = sum_dl / torch.clamp(cnt, min=1.0)
-    ndocs = torch.as_tensor(ndocs, device=tf.device).to(torch.float32)
-    df = df.to(torch.float32)
-    idf = torch.log(1.0 + (ndocs - df + 0.5) / (df + 0.5))
-    denom = tf + k1 * (1.0 - b + b * (dl / torch.clamp(avgdl, min=1e-6))[:, None])
-    score = (idf[None, :] * tf * (k1 + 1.0)
-             / torch.clamp(denom, min=1e-9)).sum(1)
+    total = torch.where(valid, doclen.to(torch.int64), 0).sum()
+    cnt = valid.to(torch.int64).sum()
+    avgdl = total.to(torch.float32) / torch.clamp(cnt.to(torch.float32),
+                                                  min=1.0)
+    nd = torch.as_tensor(ndocs, device=dev).to(torch.float32)
+    dff = df.to(torch.float32)
+    x = 1.0 + ((nd - dff) + 0.5) / (dff + 0.5)
+    idf = torch.log(x.to(torch.float64)).to(torch.float32)
+    base = ck1 * (c0 + cb * (dl / torch.clamp(avgdl, min=1e-6)))
+    score = None
+    for j in range(tf.shape[1]):
+        den = torch.clamp(tf[:, j] + base, min=1e-9)
+        term = ((idf[j] * tf[:, j]) * ck1p1) / den
+        score = term if score is None else score + term
+    if score is None:
+        score = torch.zeros_like(dl)
     return torch.where(valid, score, float("-inf"))
 
 
+def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
+                b: float = 0.75):
+    """K16 `bm25_pass` (csrc/bm25.cu), the scoring pass of the JAX
+    `bm25_topk` (ops/ranking.py:653): [n] f32 BM25 of each row of the
+    [n, t] tf block (f32 or int32) with doclen [n] int32, df [t] int32,
+    ndocs (a number or an int32 tensor on the block's device) and valid
+    [n] bool; -inf on invalid rows. The plain version for CPU tensors."""
+    if tf.device.type == "cpu":
+        return bm25_scores_plain(tf, doclen, df, ndocs, valid, k1, b)
+    from ..kernels import build as B
+    dev = tf.device
+    B.require(tf, "tf", (torch.float32, torch.int32), 2, dev)
+    n, t = tf.shape
+    B.require(doclen, "doclen", (torch.int32,), 1, dev)
+    B.require(df, "df", (torch.int32,), 1, dev)
+    B.require(valid, "valid", (torch.bool,), 1, dev)
+    if doclen.shape[0] != n or valid.shape[0] != n or df.shape[0] != t:
+        raise ValueError("doclen and valid must be [n], df [t]")
+    if isinstance(ndocs, torch.Tensor):
+        if ndocs.device != dev or ndocs.dtype != torch.int32 \
+                or ndocs.numel() != 1:
+            raise ValueError("ndocs: one int32 on the block's device")
+        nd_ptr, nd_bits = ndocs.data_ptr(), 0
+    else:
+        nd_ptr, nd_bits = None, int(np.float32(ndocs).view(np.int32))
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    acc = torch.empty(2, dtype=torch.int64, device=dev)
+    bits = [int(x.view(np.int32)) for x in _bm25_consts(k1, b)]
+    rc = B.library().yt_bm25_pass(
+        tf.data_ptr(), int(tf.dtype == torch.int32), doclen.data_ptr(),
+        df.data_ptr(), valid.data_ptr(), n, t, nd_ptr, nd_bits, *bits,
+        acc.data_ptr(), out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "bm25_pass")
+    B.count_launch("bm25_pass")
+    return out
+
+
 def bm25_topk(tf, doclen, df, ndocs, valid, docids, k: int,
-              k1: float = 1.2, b: float = 0.75):
-    """BM25 over a dense [docs, terms] block + top-k (kernel 3):
-    (scores [k] f32, docids [k])."""
+              k1: float = 1.2, b: float = 0.75, device=None):
+    """BM25 over a dense [docs, terms] block (K16) + top-k (kernel 3):
+    (scores [k] f32, docids [k]). Tensors stay on their device; numpy
+    arrays go to it, or to `device` (None: the CUDA device, raising
+    without one)."""
+    arrays = (tf, doclen, df, valid, docids)
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+               None) or resolve_device(device)
+    tf, doclen, df, valid, docids = (
+        a if isinstance(a, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in arrays)
     score = bm25_scores(tf, doclen, df, ndocs, valid, k1, b)
     s, d, _ = tie_topk(score, k, payload=docids)
     return s, d
