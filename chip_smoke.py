@@ -54,7 +54,11 @@ Phases, each of which exits non-zero on failure:
    = 1 and 20) and 16,384 (bs = 2), ragged, with pad slots and lanes,
    docids -1 and past the rows, alpha 0, 0.5 and 1; K9's block mode over
    1,000 f16 rows; its similarity mode for 1, 16 and 33 queries and K11
-   `hybrid_blend` on them;
+   `hybrid_blend` on them; K17 `power_iterate` on edge lists of 1, 31,
+   33, 1000 and 300,001 hosts, one with a 50,000-in-edge hub, one of only
+   dangling hosts, damping 0.85 and 0.5, and the realistic host graph
+   (kernels/bench.host_graph: 1,000,000 hosts, about 5M edges), each
+   against the plain version on the CPU to the bit, trip count included;
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
@@ -73,8 +77,8 @@ Phases, each of which exits non-zero on failure:
    (a sort-mode partner of 2M rows), joinA & headline under a language
    and date filter, a "plain" degraded join, and filtered rank_term on
    the headline term cold and from the filtered-stats cache, each equal
-   to the twin's and to the numpy oracle (kernels/bench.devjoin_oracle,
-   devstore_oracle); then, counts read and reset, the batched joins: the
+   to the twin's and (all but the second, third and filtered joins) to
+   the numpy oracle (kernels/bench.devjoin_oracle, devstore_oracle); then, counts read and reset, the batched joins: the
    six conjunctions x 2 profiles x k = 10 and 100 x {no filter, lang en}
    sent one at a time, from 16 threads, and from 16 threads through the
    batcher (once untimed first), then one group of them (joinA &
@@ -88,8 +92,8 @@ Phases, each of which exits non-zero on failure:
    100), a query on each
    other term, the escalating profile, k = 1000, a delete (the exact
    scan over one span) and a second run (over two), every answer equal
-   to the twin's and to the numpy oracle (kernels/bench.devstore_oracle),
-   and the filtered query after them; between the k = 1000 query and the
+   to the twin's and (but the escalating one) to the numpy oracle
+   (kernels/bench.devstore_oracle), and the filtered query after them; between the k = 1000 query and the
    delete, counts reset, the batched path's part 1: a result-cache hit
    equal to the cold answer, then a pruned mix (the store's 7 terms, two
    profiles, two languages, k = 10 and 100), its default/en/k = 100
@@ -178,8 +182,15 @@ Phases, each of which exits non-zero on failure:
    log-uniform sizes in [64, 262,144] rows packed on the card and by the
    CPU twin's host pack, every block word for word the twin's, and
    queries on two of its terms (pruned, filtered, after a delete) the
-   twin's. Every other phase must end with no transfer failure, retry or
-   loss;
+   twin's; then, counts reset, the BlockRank path on the port's stores:
+   5,000 documents over 1,000 hosts, 10 anchors each, in a
+   WebStructureGraph, a WebgraphStore and two MetadataStores,
+   power_iterate_sparse over the realistic host graph (equal to phase 2's
+   plain ranks), and postprocessing_p with run=1 with the webgraph empty
+   (the host matrix) and full (the edges), on the card and on the CPU:
+   equal pages, host ranks and metadata rows; then one more document
+   whose edge rows carry the new cr_host_norm_i. Every other phase must
+   end with no transfer failure, retry or loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -228,6 +239,10 @@ Phases, each of which exits non-zero on failure:
    K5bp at 1 and 16 slots of its first tile, K6bp, K7bp and
    topk_finish_bp over the 10M term without and with the filtered
    rank_term's filter, and K13 over the 256-term flush's 2^18-row lanes;
+   K17 over the realistic host graph (a launch over a prepared layout,
+   beside the whole call, the plain version and cuSPARSE's CSR mat-vec
+   with the sum and the update in torch, and its device busy time from a
+   profiler trace);
    rank_placed's wall per query over 50 queries after a warm-up; and,
    last, the device
    operations one call of each timed kernel issues, with their device
@@ -250,6 +265,8 @@ import subprocess
 import sys
 import threading
 import time
+import types
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -311,6 +328,12 @@ DF_KERNELS = ("ann_assign", "ann_fuse")
 PACKED_KERNELS = ("unpack_rows", "pruned_tile_bp", "span_stats_bp",
                   "span_score_bp", "topk_finish_bp", "pack_block_batch",
                   "tie_topk")
+# the BlockRank path: the postprocessing path's documents, their hosts and
+# anchors a document (kernels/bench.link_docs), the servlet's page size,
+# and the kernel the path must launch
+BR_DOCS, BR_HOSTS, BR_ANCHORS = 5000, 1000, 10
+BR_MAXHOSTS = 25
+BLOCKRANK_KERNELS = ("power_iterate",)
 # the counters that must read 0 outside the device-loss phase: nothing
 # fell back to the host behind a check's back
 LOSS_COUNTERS = ("transfer_failures", "transfer_retries", "device_losses")
@@ -411,6 +434,8 @@ def main() -> int:
     from yacy_search_server_tpu_torch.ops import ranking as R
     from yacy_search_server_tpu_torch.ops import streaming as S
     from yacy_search_server_tpu_torch.parallel import mesh as M
+    from yacy_search_server_tpu_torch.kernels import blockrank as KBr
+    from yacy_search_server_tpu_torch.ops import blockrank as BRo
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -984,6 +1009,43 @@ def main() -> int:
                       KDn.hybrid_blend_plain(sims, spf, vf, alpha)))
     del fwd_s, fwd_sd, sims
 
+    # K17 `power_iterate` on the card against its plain version on the CPU
+    # (exact there: index_add_ adds in index order): the ranks to the bit
+    # and the same trip count. Uniform edge lists (one host; 31 and 33
+    # hosts, no window and two; n of no block's multiple; a dangling mass
+    # over several tree levels), a 50,000-in-edge hub, only dangling
+    # hosts, damping 0.5, and the realistic graph (kernels/bench.host_graph:
+    # 1,000,000 hosts, about 5M edges), whose plain answer phase 3 reuses
+    def k17_check(label, g, damping=BRo.DAMPING):
+        n_ = len(g[3])
+        cpu_ = [torch.from_numpy(np.ascontiguousarray(a)) for a in g]
+        want, want_steps = KBr.power_iterate_plain(*cpu_, damping, n_)
+        got, got_steps = KBr.power_iterate(*(a.to(dev) for a in cpu_),
+                                           damping, n_)
+        torch.cuda.synchronize()
+        if got_steps != want_steps:
+            fail(f"power_iterate {label}: {got_steps} steps, the plain "
+                 f"version {want_steps}")
+        note("power_iterate", f"{label}, {got_steps} steps",
+             diff(got.cpu(), want))
+        return want, want_steps
+
+    for n_, e_, hub_, dmp in ((1, 1, 0, 0.85), (31, 100, 0, 0.85),
+                              (33, 40, 0, 0.5), (1000, 7000, 0, 0.85),
+                              (300_001, 3_000_000, 0, 0.85),
+                              (100_003, 300_000, 50_000, 0.85),
+                              (70_001, 0, 0, 0.85)):
+        k17_check(f"{n_} hosts, {e_} edges + a hub of {hub_}, damping "
+                  f"{dmp}", KB.edge_list(n_, e_, KB.SEED + n_, hub_), dmp)
+    tq = time.time()
+    hg = KB.host_graph()
+    hg_want, hg_steps = k17_check(
+        f"realistic graph, {len(hg[3])} hosts, {len(hg[0])} edges", hg)
+    log(f"K17 realistic graph: made and checked in {time.time() - tq:.1f} s"
+        f", {hg_steps} steps, max in-degree "
+        f"{int(np.bincount(hg[1], minlength=len(hg[3])).max())}, "
+        f"{int(hg[3].sum())} dangling hosts")
+
     # -- phase 3: the main path ---------------------------------------------
     ref_scores = {}
     for pname, prof in profiles.items():
@@ -1107,8 +1169,10 @@ def main() -> int:
             f"{k} {v:.1f} s" for k, v in ds_walls.items()))
     tq = time.time()
     hl_rows = KB.arena_rows(feats, docids)
-    oracles = {pname: KB.devstore_oracle([hl_rows], prof, 1000)
-               for pname, prof in ds_profiles.items()}
+    # the default profile's oracle (the escalating query is held to the
+    # twin alone: a depth cut that makes room for the BlockRank path)
+    oracles = {"default": KB.devstore_oracle([hl_rows],
+                                             ds_profiles["default"], 1000)}
     log(f"devstore oracles: {time.time() - tq:.1f} s")
     ended, ends = {}, {}
 
@@ -1213,11 +1277,13 @@ def main() -> int:
         if not (np.array_equal(got[0], twin[0])
                 and np.array_equal(got[1], twin[1]) and got[2] == twin[2]):
             fail(f"{label}: the card and the CPU twin differ")
+        if want is None:        # held to the twin alone
+            return
         expect(label, got[0], got[1], want[0], want[1])
         if len(want) > 2 and got[2] != want[2]:
             fail(f"{label}: considered {got[2]}, the oracle {want[2]}")
 
-    def join_q(label, inc, exc, k=100, filt=None, **kw):
+    def join_q(label, inc, exc, k=100, filt=None, oracle=True, **kw):
         tq = time.perf_counter()
         got = gs.rank_join(inc, exc, ds_profiles["default"], k=k, **kw)
         wall = (time.perf_counter() - tq) * 1e3
@@ -1227,7 +1293,7 @@ def main() -> int:
         tq = time.time()
         want = KB.devjoin_oracle(join_rows, inc, exc, dead_docs,
                                  ds_profiles["default"], k,
-                                 filt or KD.NO_FILTER)
+                                 filt or KD.NO_FILTER) if oracle else None
         same(f"rank_join {label}", got, twin, want)
         log(f"  rank_join {label}: {len(got[1])} answers of "
             f"{got[2]} rare rows, first wall {wall:.3f} ms (the twin "
@@ -1238,12 +1304,16 @@ def main() -> int:
     reset_launches()
     tm = time.time()
     join_q("joinA & headline", [jA, hl], [])
-    join_q("joinA & headline & term1000000", [jA, hl, t1m], [], k=10)
-    join_q("term1000000 & headline & -joinB", [t1m, hl], [jB])
+    # three conjunctions held to the twin alone (their numpy oracles,
+    # 16 s, went to make room for the BlockRank path)
+    join_q("joinA & headline & term1000000", [jA, hl, t1m], [], k=10,
+           oracle=False)
+    join_q("term1000000 & headline & -joinB", [t1m, hl], [jB],
+           oracle=False)
     join_q("joinA & joinB", [jA, jB], [], k=1000)
     join_q("term1000000 & joinC (sort partner)", [t1m, jC], [])
     join_q("joinA & headline, lang de, days 8000-24000", [jA, hl], [],
-           filt=jfilt, **filt_kw)
+           filt=jfilt, oracle=False, **filt_kw)
     # every exclude names a term with no postings: rank_term serves it
     nowhere = b"nowhereAAAAA"
     got = gs.rank_join([jB], [nowhere], ds_profiles["default"], k=10)
@@ -1457,8 +1527,9 @@ def main() -> int:
         if not (np.array_equal(got[0], twin[0])
                 and np.array_equal(got[1], twin[1]) and got[2] == twin[2]):
             fail(f"rank_term {label}: the card and the CPU twin differ")
-        expect(f"rank_term {label}", got[0], got[1], want[0][:k],
-               want[1][:k])
+        if want is not None:
+            expect(f"rank_term {label}", got[0], got[1], want[0][:k],
+                   want[1][:k])
         rounds = gs.prune_rounds - r0
         end = ("exact scan" if gs.stream_scans > t0s
                else f"b={TD._PRUNE_B[rounds - 1]}")
@@ -1485,8 +1556,7 @@ def main() -> int:
         ds_query(f"{n_t} default k=10", th, "default", 10,
                  KB.devstore_oracle([KB.arena_rows(*ds_terms[th])],
                                     ds_profiles["default"], 10))
-    ds_query("10M escalating k=100", hl, "escalating", 100,
-             oracles["escalating"])
+    ds_query("10M escalating k=100", hl, "escalating", 100, None)
     got = ds_query("10M default k=1000", hl, "default", 1000,
                    oracles["default"])
     torch.cuda.synchronize()
@@ -2811,6 +2881,138 @@ def main() -> int:
     kt.close()
     del kc, kt, kidx, ps, pidx
 
+    # -- phase 3, the BlockRank path: citation-rank postprocessing ---------
+    # the port's stores only: BR_DOCS documents over BR_HOSTS hosts,
+    # BR_ANCHORS anchors each (kernels/bench.link_docs), into a
+    # WebStructureGraph, a WebgraphStore and two equal MetadataStores (the
+    # card's and the CPU twin's: postprocessing writes the metadata; the
+    # link graphs are only read). Counts reset: power_iterate_sparse over
+    # the realistic graph (the ops-level entry point; its ranks equal to
+    # phase 2's plain answer to the bit), then postprocessing_p with run=1
+    # once with the webgraph empty (the host matrix) and once full (the
+    # edges), on the card and with sb.torch_device = "cpu"; the pages and
+    # every metadata row equal, the ranks in (0, 1] with the peak 1; then
+    # one more document, whose edge rows carry the new cr_host_norm_i
+    from yacy_search_server_tpu_torch.document.document import Anchor
+    from yacy_search_server_tpu_torch.document.signature import (
+        exact_signature, fuzzy_signature)
+    from yacy_search_server_tpu_torch.index.metadata import (
+        MetadataStore, metadata_from_parsed)
+    from yacy_search_server_tpu_torch.index.webgraph import WebgraphStore
+    from yacy_search_server_tpu_torch.server.objects import ServerObjects
+    from yacy_search_server_tpu_torch.server.servlets import \
+        lookup as servlet_lookup
+    from yacy_search_server_tpu_torch.utils.hashes import url2hash
+    from yacy_search_server_tpu_torch.webstructure import WebStructureGraph
+    tbr = time.time()
+    br_walls = {}
+    br_docs = KB.link_docs(BR_DOCS, BR_HOSTS, BR_ANCHORS)
+    br_ws, br_wg = WebStructureGraph(), WebgraphStore()
+    br_meta = {"card": MetadataStore(), "cpu": MetadataStore()}
+    for url, title, text, links in br_docs:
+        fields = dict(host_s=url.split("/")[2], description_txt=text[:16],
+                      exact_signature_l=exact_signature(text),
+                      fuzzy_signature_l=fuzzy_signature(title))
+        for m_ in br_meta.values():
+            docid = m_.put(metadata_from_parsed(url2hash(url), url, title,
+                                                text, **fields))
+        br_wg.add_document_edges(docid, url, [Anchor(u, x, r)
+                                              for u, x, r in links])
+        br_ws.add_document(url, [u for u, _x, _r in links])
+    br_walls["set-up: documents into the stores (host)"] = time.time() - tbr
+    post_fn = servlet_lookup("postprocessing_p")
+    torch.cuda.synchronize()
+    reset_launches()
+    tm = time.time()
+    tq = time.time()
+    r_ops = BRo.power_iterate_sparse(*hg, BRo.DAMPING, len(hg[3]))
+    torch.cuda.synchronize()
+    br_walls["power_iterate_sparse, realistic graph (card)"] = \
+        time.time() - tq
+    note("power_iterate", "power_iterate_sparse, the realistic graph, "
+         "against phase 2's plain answer", diff(r_ops.cpu(), hg_want))
+    pages, segs = {}, {}
+    for where in ("card", "cpu"):
+        seg = types.SimpleNamespace(webgraph=WebgraphStore(),
+                                    metadata=br_meta[where])
+        sb = types.SimpleNamespace(index=seg, web_structure=br_ws)
+        if where == "cpu":
+            sb.torch_device = "cpu"
+        for src_label in ("hostmatrix", "webgraph"):
+            if src_label == "webgraph":
+                seg.webgraph = br_wg
+            tq = time.time()
+            page = post_fn({}, ServerObjects(
+                {"run": "1", "maxhosts": str(BR_MAXHOSTS)}), sb).as_dict()
+            if where == "card":
+                torch.cuda.synchronize()
+            br_walls[f"postprocessing_p run=1, {src_label} ({where})"] = \
+                time.time() - tq
+            if page.get("source") != src_label:
+                fail(f"postprocessing_p: source {page.get('source')}, "
+                     f"expected {src_label}")
+            if int(page.get("updated", 0)) <= 0 \
+                    or int(page.get("hosts", 0)) != BR_MAXHOSTS:
+                fail(f"postprocessing_p {src_label}: {page.get('updated')} "
+                     f"docs updated, {page.get('hosts')} hosts")
+            pages[(where, src_label)] = page
+        segs[where] = seg
+    torch.cuda.synchronize()
+    launches_br = dict(LAUNCHES)
+    tq = time.time()
+    for src_label in ("hostmatrix", "webgraph"):
+        if pages[("card", src_label)] != pages[("cpu", src_label)]:
+            fail(f"postprocessing_p {src_label}: the card's page differs "
+                 "from the CPU's")
+    card_ranks, cpu_ranks = segs["card"]._host_ranks, segs["cpu"]._host_ranks
+    if list(card_ranks.items()) != list(cpu_ranks.items()):
+        fail("postprocessing_p: the card's host ranks differ from the CPU's")
+    if max(card_ranks.values()) != 1.0 \
+            or not all(0.0 < v <= 1.0 for v in card_ranks.values()):
+        fail("postprocessing_p: ranks outside (0, 1] or a peak other than 1")
+    mc, mt = br_meta["card"], br_meta["cpu"]
+    rows_differ = sum(mc.get(d_).fields != mt.get(d_).fields
+                      for d_ in range(mc.capacity()))
+    note("power_iterate", "postprocessing_p: metadata rows that differ "
+         "between the card and the CPU", rows_differ)
+    if not mc.int_column("cr_host_norm_i").any():
+        fail("postprocessing_p wrote no cr_host_norm_i")
+    # one more document on the top host, written after the pass: its edge
+    # rows carry both endpoints' partitions of the new ranks
+    top_host = pages[("card", "webgraph")]["hosts_0_host"]
+    url_new = f"http://{top_host}/after-the-pass.html"
+    targets = [f"http://{h}/x" for h in list(card_ranks)[:BR_ANCHORS]]
+    n0 = br_wg.edge_count_total()
+    n_new = br_wg.add_document_edges(
+        mc.capacity(), url_new, [Anchor(u, "after") for u in targets],
+        host_ranks=segs["card"]._host_ranks)
+    bad_rows = 0
+    for i in range(n0, n0 + n_new):
+        e_ = br_wg.edge(i)
+        bad_rows += (e_["source_cr_host_norm_i"]
+                     != int(round(cpu_ranks.get(e_["source_host_s"], 0.0)
+                                  * 10))
+                     or e_["target_cr_host_norm_i"]
+                     != int(round(cpu_ranks.get(e_["target_host_s"], 0.0)
+                                  * 10)))
+    if n_new == 0 or br_wg.edge(n0)["source_cr_host_norm_i"] != 10:
+        fail("the document after the pass wrote no edge of its top host")
+    note("power_iterate", "edge rows after the pass whose "
+         "cr_host_norm_i differs from the CPU ranks'", bad_rows)
+    br_walls["checks (host)"] = time.time() - tq
+    log(f"BlockRank path: {time.time() - tbr:.1f} s (main path "
+        f"{time.time() - tm:.1f} s); launches {launches_br}; "
+        f"{br_wg.edge_count_total()} edges, {len(card_ranks)} hosts ranked,"
+        f" {pages[('card', 'webgraph')]['updated']} docs updated, "
+        f"{pages[('card', 'webgraph')]['uniqueness_updated']} uniqueness "
+        f"flags changed; top hosts "
+        f"{[pages[('card', 'webgraph')][f'hosts_{i}_host'] for i in range(3)]}"
+        "; " + ", ".join(f"{k} {v:.2f} s" for k, v in br_walls.items()))
+    missing = [k for k in BLOCKRANK_KERNELS if launches_br[k] == 0]
+    if missing:
+        fail(f"kernels never launched on the BlockRank path: {missing}")
+    del r_ops, br_docs, br_meta, segs
+
     # -- phase 4: kernel times at the main path's shapes ---------------------
     # `ms`: the call time, the median of 20 calls each between two CUDA
     # events from an idle queue (the device time plus the host's issue
@@ -2881,7 +3083,8 @@ def main() -> int:
                          "batched_join": launches_bj,
                          "hybrid": launches_hy,
                          "dense_first": launches_df,
-                         "packed": launches_pk}[path][name],
+                         "packed": launches_pk,
+                         "blockrank": launches_br}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3860,6 +4063,72 @@ def main() -> int:
             f"{float(np.median(w)):.4f} ms, min {min(w):.4f} ms over 50 "
             "after 5")
     del cent_b, idx_a, q_b, key_a
+
+    # K17 at the realistic graph (1,000,000 hosts, about 5M edges): the
+    # row times `launch` over a prepared layout (every step queued, no
+    # host sync); the whole call (layout, steps, the one fetch) beside it.
+    # Bound: 12 bytes an edge and 8 a host each step (the JAX roofline's
+    # cost model). Yardstick: the same steps with cuSPARSE's CSR mat-vec
+    # (torch.sparse on the CSR by destination), the dangling sum and the
+    # update in torch
+    hg_d = [put(a) for a in hg]
+    n_h, e_h = len(hg[3]), len(hg[0])
+    lay = KBr.layout(*hg_d, n_h)
+    d_h, inv_h, tele_h, r0_h, _tol = KBr.step_consts(BRo.DAMPING, n_h)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # torch.sparse's beta notices
+        csr = torch.sparse_csr_tensor(lay["rowptr"].long(),
+                                      lay["src_s"].long(), lay["w_s"],
+                                      size=(n_h, n_h))
+
+    def k17_library():
+        r_ = torch.full((n_h,), float(r0_h), device=dev)
+        for _ in range(hg_steps):
+            dm_ = torch.where(hg_d[3], r_, 0.0).sum() * float(inv_h)
+            r2_ = float(tele_h) + float(d_h) * (csr @ r_ + dm_)
+            (r2_ - r_).abs().max()
+            r_ = r2_
+        return r_
+
+    KBr.launch(lay, BRo.DAMPING)
+    st_h = lay["state"].cpu()
+    note("power_iterate", "the timed layout's launch against phase 2's "
+         "plain answer", diff(lay["rb"][int(st_h[4])].cpu(), hg_want))
+    if int(st_h[1]) != hg_steps:
+        fail("power_iterate: the timed launch took another trip count")
+    whole = KB.call_ms(lambda: KBr.power_iterate(*hg_d, BRo.DAMPING, n_h))
+    lay_ms = KB.call_ms(lambda: KBr.layout(*hg_d, n_h))
+    measure("power_iterate", "yacy_search_server_tpu/ops/blockrank.py:28",
+            "blockrank.cu", lambda: KBr.launch(lay, BRo.DAMPING),
+            lambda: KBr.power_iterate_plain(*hg_d, BRo.DAMPING, n_h),
+            k17_library, (12 * e_h + 8 * n_h) * hg_steps, 0.0,
+            f"{n_h} hosts, {e_h} edges, {hg_steps} steps (realistic host "
+            "graph; launch over a prepared layout)", path="blockrank",
+            plain_reps=3)
+    rows[-1]["steps"] = hg_steps
+    rows[-1]["whole_call_ms"] = whole
+    rows[-1]["layout_ms"] = lay_ms
+    # the device's busy time in one launch, from a profiler trace: the
+    # steps taken and the launches after the stop, which return at once
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+        KBr.launch(lay, BRo.DAMPING)
+        torch.cuda.synchronize()
+    k_us = {}
+    for ev in prof_.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            k_us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    busy = sum(sum(v) for v in k_us.values()) / 1e3
+    rows[-1]["device_busy_ms"] = busy
+    log(f"K17 device busy in one launch: {busy:.4f} ms over "
+        f"{sum(len(v) for v in k_us.values())} device operations; by "
+        "kernel (count, sum us, first steps' us): " + "; ".join(
+            f"{k}: {len(v)}, {sum(v):.1f}, {[round(x, 1) for x in v[:hg_steps]]}"
+            for k, v in k_us.items()))
+    log(f"K17 whole call (layout, {hg_steps} steps, the fetch): {whole:.4f} "
+        f"ms; the layout alone {lay_ms:.4f} ms; the plain version on the "
+        "card sums in atomics' order (a time, not a check)")
+    del csr      # `lay` stays: the profiler trace at the end calls launch
 
     # K16 at the placed step's shape: MeshBM25's placed 1M x 4 block
     bm_src = ("bm25_pass", "yacy_search_server_tpu/ops/ranking.py:653",

@@ -77,6 +77,19 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.kernels.ann\n"
         "import yacy_search_server_tpu_torch.index.annstore\n"
         "from yacy_search_server_tpu_torch.convert import ann_from_numpy\n"
+        "import yacy_search_server_tpu_torch.utils.base64order\n"
+        "import yacy_search_server_tpu_torch.utils.hashes\n"
+        "import yacy_search_server_tpu_torch.document.signature\n"
+        "import yacy_search_server_tpu_torch.document.document\n"
+        "import yacy_search_server_tpu_torch.webstructure\n"
+        "import yacy_search_server_tpu_torch.index.metadata\n"
+        "import yacy_search_server_tpu_torch.index.webgraph\n"
+        "import yacy_search_server_tpu_torch.index.postprocess\n"
+        "import yacy_search_server_tpu_torch.kernels.blockrank\n"
+        "import yacy_search_server_tpu_torch.ops.blockrank\n"
+        "import yacy_search_server_tpu_torch.server.objects\n"
+        "from yacy_search_server_tpu_torch.server.servlets import lookup\n"
+        "assert lookup('postprocessing_p') is not None\n"
         "from yacy_search_server_tpu_torch.kernels.devstore import (\n"
         "    join_member_batch, join_stats_batch, join_score_batch)\n"
         "from yacy_search_server_tpu_torch.index.devstore import (\n"
@@ -165,3 +178,45 @@ def test_ann_and_bm25_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         TR.bm25_topk(*args)
     assert len(TR.bm25_topk(*args, device="cpu")[0]) == 5
+
+
+def test_blockrank_entry_points_raise_without_cuda():
+    """BlockRank's power iteration, host_ranks(_from_edges),
+    postprocess_segment without precomputed ranks and the
+    postprocessing_p servlet run on the card unless asked for the CPU
+    (`device="cpu"`, or `sb.torch_device` for the servlet): without CUDA
+    they raise, never fall back."""
+    import types
+
+    import torch
+
+    from yacy_search_server_tpu_torch.index.metadata import MetadataStore
+    from yacy_search_server_tpu_torch.index.webgraph import WebgraphStore
+    from yacy_search_server_tpu_torch.ops import blockrank as TB
+    from yacy_search_server_tpu_torch.server.objects import ServerObjects
+    from yacy_search_server_tpu_torch.server.servlets import lookup
+    from yacy_search_server_tpu_torch.webstructure import WebStructureGraph
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the device path would run")
+    ws = WebStructureGraph()
+    ws.add_document("http://a.test/", ["http://b.test/", "http://c.test/"])
+    wg = WebgraphStore()
+    wg.add_document_edges(0, "http://a.test/", ["http://b.test/"])
+    g = (np.zeros(1, np.int32), np.ones(1, np.int32),
+         np.ones(1, np.float32), np.array([False, True]))
+    seg = types.SimpleNamespace(webgraph=wg, metadata=MetadataStore())
+    for call in (lambda d: TB.power_iterate_sparse(*g, 0.85, 2, device=d),
+                 lambda d: TB.host_ranks(ws, device=d),
+                 lambda d: TB.host_ranks(WebStructureGraph(), device=d),
+                 lambda d: TB.host_ranks_from_edges(wg, device=d),
+                 lambda d: TB.postprocess_segment(seg, ws, device=d)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(None)
+        call("cpu")
+    fn = lookup("postprocessing_p")
+    sb = types.SimpleNamespace(index=seg, web_structure=ws)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn({}, ServerObjects({"run": "1"}), sb)
+    sb.torch_device = "cpu"
+    assert fn({}, ServerObjects({"run": "1"}), sb).get("source") == \
+        "webgraph"

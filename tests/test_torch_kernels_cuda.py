@@ -1770,3 +1770,68 @@ def test_dense_first_on_the_card_matches_cpu(dev):
     assert same(ask(g, q, nprobe=1), ask(h, q, nprobe=1))
     assert g.counters()["ann_tier_hot_hits"] >= 1
     g.close()
+
+
+def _k17_matches_plain(dev, g, damping=0.85):
+    from yacy_search_server_tpu_torch.kernels import blockrank as KBr
+    n = len(g[3])
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in g]
+    want, want_steps = KBr.power_iterate_plain(*cpu, damping, n)
+    before = LAUNCHES["power_iterate"]
+    got, steps = KBr.power_iterate(*(a.to(dev) for a in cpu), damping, n)
+    torch.cuda.synchronize()
+    assert LAUNCHES["power_iterate"] == before + 1
+    assert steps == want_steps
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+# K17 `power_iterate`: card against its plain version to the bit, and the
+# trip count: tiny shapes, n that is no multiple of a block or a window,
+# a self-loop, damping 0.5
+@pytest.mark.parametrize("n,e", [(1, 1), (2, 1), (31, 100), (33, 40),
+                                 (64, 512), (257, 1000), (1000, 7000),
+                                 (4096, 65536), (50_000, 800_000),
+                                 (300_001, 3_000_000)])
+@pytest.mark.parametrize("damping", [0.85, 0.5])
+def test_power_iterate_matches_plain(dev, n, e, damping):
+    _k17_matches_plain(dev, KBench.edge_list(n, e, seed=n), damping)
+
+
+def test_power_iterate_all_dangling_and_no_edges(dev):
+    n = 70_001
+    empty = np.zeros(0, np.int32)
+    _k17_matches_plain(dev, (empty, empty, np.zeros(0, np.float32),
+                             np.ones(n, bool)))
+    # a few edges, every other host dangling
+    _k17_matches_plain(dev, KBench.edge_list(n, 50, seed=3))
+
+
+def test_power_iterate_hub_of_50000(dev):
+    """One destination with 50,000 in-edges (the block-a-hub path, a
+    serial chain of 50,000 adds) among uniform edges."""
+    _k17_matches_plain(dev, KBench.edge_list(100_003, 300_000, seed=5,
+                                        hub=50_000))
+
+
+def test_power_iterate_hubs_at_round_edges(dev):
+    """Destinations of 33 (just past a thread's share), 1023, 1024, 1025,
+    2048 and 4097 in-edges: a hub block's rounds of 1024 staged products,
+    full, short and of one, the four-at-a-time adds and their rest."""
+    srcs, dsts, _w, _d = KBench.edge_list(20_011, 40_000, seed=9)
+    for hub, deg in enumerate((33, 1023, 1024, 1025, 2048, 4097)):
+        srcs = np.concatenate([srcs, np.arange(100, 100 + deg,
+                                               dtype=np.int32)])
+        dsts = np.concatenate([dsts, np.full(deg, hub, np.int32)])
+    order = np.random.default_rng(2).permutation(len(srcs))
+    srcs, dsts = srcs[order], dsts[order]
+    counts = np.ones(len(srcs), np.float32)
+    out_total = np.zeros(20_011, np.float32)
+    np.add.at(out_total, srcs, counts)
+    _k17_matches_plain(dev, (srcs, dsts, counts / out_total[srcs],
+                             out_total == 0.0))
+
+
+def test_power_iterate_realistic_graph(dev):
+    """kernels/bench.host_graph: 1,000,000 hosts, about 5M edges, Zipf
+    hubs near 45,000 in-edges, 95 % of the hosts dangling."""
+    _k17_matches_plain(dev, KBench.host_graph())

@@ -3,7 +3,9 @@
 The layout mirrors the JAX package so each module has an obvious
 counterpart (`utils/bitfield.py`, `index/postings.py`, `index/rwi.py`,
 `index/devstore.py`, `ops/ranking.py`, `ops/streaming.py`,
-`parallel/mesh.py`). Device kernels are hand-written
+`parallel/mesh.py`, and for BlockRank's postprocessing `ops/blockrank.py`,
+`index/webgraph.py`, `index/metadata.py`, `webstructure.py`,
+`server/servlets/api.py`). Device kernels are hand-written
 CUDA C++ for sm_90a under `kernels/`; each has a plain PyTorch version
 that runs only for tensors on the CPU.
 

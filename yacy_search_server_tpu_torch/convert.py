@@ -14,6 +14,8 @@ of both read the same bytes. `dense_from_numpy` builds the port's
 DenseVectorStore from a JAX store's vectors (`_vecs[:len(store)]`), and
 `ann_from_numpy` the port's AnnVectorIndex from a JAX index's arrays.
 Both sides then score identical bytes under an identical profile.
+`edges_from_numpy` carries BlockRank's host edge list (built in numpy by
+both packages) to the device K17 reads it on.
 """
 
 from __future__ import annotations
@@ -209,3 +211,18 @@ def ann_from_numpy(centroids, slab, scales, sdocids, cstart, ccount, row_of,
                              for c, h in idx._hot_map.items()), default=0)
         idx._hot_pending = []
     return idx
+
+
+def edges_from_numpy(srcs, dsts, weights, dangling, device=None):
+    """(srcs int32 [e], dsts int32 [e], weights f32 [e], dangling bool [n])
+    on `device` (None: the CUDA device): BlockRank's edge list as K17
+    `power_iterate` reads it."""
+    dev = resolve_device(device)
+    srcs, dsts = (np.require(a, np.int32, ["C", "W"]) for a in (srcs, dsts))
+    weights = np.require(weights, np.float32, ["C", "W"])
+    dangling = np.require(dangling, bool, ["C", "W"])
+    if srcs.ndim != 1 or dsts.shape != srcs.shape \
+            or weights.shape != srcs.shape or dangling.ndim != 1:
+        raise ValueError("srcs, dsts, weights must be [e] and dangling [n]")
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (srcs, dsts, weights, dangling))

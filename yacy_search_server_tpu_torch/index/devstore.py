@@ -601,6 +601,10 @@ class DeviceArena:
     def used_rows(self) -> int:
         return self._used
 
+    @property
+    def capacity_rows(self) -> int:
+        return self._cap
+
     def bytes_used(self) -> int:
         return (self._cap * self.row_bytes() + self._doc_cap
                 + self._pw_cap * 4)
@@ -1496,6 +1500,12 @@ class DeviceSegmentStore:
             if spans is not None:
                 spans.pop(termhash, None)
             self._bump_epoch()
+
+    def live_rows(self) -> int:
+        """Rows of every packed span (the operator page's `live_rows`)."""
+        with self._lock:
+            return sum(sp.count for spans in self._packed.values()
+                       for sp in spans.values())
 
     def repack(self) -> None:
         """Rebuild the arena from live runs (reclaims dead extents); the

@@ -9,7 +9,10 @@ devstore kernels' edge cases (`edge_slots`, `edge_extents`,
 K8's edge cases (`join_edge_cases` lists them), `arena_rows` /
 `devstore_oracle` the numpy answer `rank_term` must give and
 `devjoin_oracle` the one `rank_join` must give; `clustered_vectors`
-the dense-first path's corpus and `ann_wave` a K15 wave's descriptors.
+the dense-first path's corpus and `ann_wave` a K15 wave's descriptors;
+`edge_list` a BlockRank edge list of uniform edges (and a hub),
+`host_graph` BlockRank's host link graph at one node's WebStructureGraph
+limit and `link_docs` the documents of the postprocessing path.
 `call_ms` times one call between two
 CUDA events as the host issues it from an idle queue (the `ms` of
 chip_smoke.py);
@@ -618,6 +621,110 @@ def ann_wave(rng, cap: int, ns, nb: int, alpha: float = 0.5,
             rows[m - 1] = rows[n - 1]
         qi[i] = A.pack_ann_fuse_row(q, rows, dd, sp, alpha, nb)
     return qi
+
+
+def edge_list(n: int, e: int, seed: int = SEED, hub: int = 0):
+    """(srcs, dsts, weights, dangling) of a host edge list as
+    host_ranks_from_edges builds it: srcs, dsts uniform in [0, n) (and,
+    with `hub`, that many more edges into host 0 from hosts 1..hub, mixed
+    in), counts in 1..4, normalised per source with f32 out totals."""
+    rng = np.random.default_rng(seed)
+    srcs = rng.integers(0, n, e).astype(np.int32)
+    dsts = rng.integers(0, n, e).astype(np.int32)
+    if hub:
+        srcs = np.concatenate([srcs, np.arange(1, hub + 1, dtype=np.int32)])
+        dsts = np.concatenate([dsts, np.zeros(hub, np.int32)])
+        order = rng.permutation(len(srcs))
+        srcs, dsts = srcs[order], dsts[order]
+    counts = rng.integers(1, 5, len(srcs)).astype(np.float32)
+    out_total = np.zeros(n, np.float32)
+    np.add.at(out_total, srcs, counts)
+    return srcs, dsts, counts / out_total[srcs], out_total == 0.0
+
+
+def host_graph(seed: int = SEED, n: int = 1_000_000,
+               sources: int = 50_000, mean_degree: float = 165.0,
+               max_degree: int = 2000, no_links: float = 0.05):
+    """(srcs int32 [e], dsts int32 [e], weights f32 [e], dangling bool
+    [n]): one YaCy node's host link graph at the WebStructureGraph limit
+    (`max_hosts` source hosts, webstructure.py:29) over a vocabulary of n
+    hosts, as BlockRank's power iteration takes it.
+
+    `sources` hosts drawn at random record links; `no_links` of them have
+    none. The others draw a heavy-tailed number of targets (log-normal,
+    sigma 1.25, mean about `mean_degree`, in [1, max_degree]): every host
+    that is no source once (so that each of the n hosts is in the graph),
+    the rest from a Zipf popularity (s = 1.1, the exponent of the repo's
+    Zipf query mixes, over a random ranking of the n hosts), so that hubs
+    reach in-degrees near the number of sources. Duplicate (src, dst)
+    pairs and self-links are dropped (at the defaults about 5M distinct
+    pairs remain, ~105 a linking source); the edges are ordered by (src,
+    dst). Edge counts are in
+    1..16, normalised per source as host_ranks_from_edges does (f32 out
+    totals, weights = counts / out_total[srcs]); every host without an
+    out-link is dangling."""
+    rng = np.random.default_rng(seed)
+    src_ids = rng.choice(n, sources, replace=False).astype(np.int64)
+    sigma = 1.25
+    mu = np.log(mean_degree) - sigma * sigma / 2
+    deg = np.clip(np.rint(rng.lognormal(mu, sigma, sources)), 1,
+                  max_degree).astype(np.int64)
+    deg[rng.random(sources) < no_links] = 0
+    total = int(deg.sum())
+    is_src = np.zeros(n, bool)
+    is_src[src_ids] = True
+    others = np.flatnonzero(~is_src)
+    others = others[rng.permutation(len(others))]
+    zipf_w = np.arange(1, n + 1, dtype=np.float64) ** -1.1
+    cdf = np.cumsum(zipf_w)
+    cdf /= cdf[-1]
+    ranked = rng.permutation(n)
+    k = max(total - len(others), 0)
+    drawn = ranked[np.minimum(np.searchsorted(cdf, rng.random(k)), n - 1)]
+    targets = np.concatenate([others[:total], drawn])
+    targets = targets[rng.permutation(len(targets))]
+    srcs = np.repeat(src_ids, deg)[:len(targets)]
+    keep = srcs != targets
+    key = np.unique(srcs[keep] * n + targets[keep])
+    srcs = (key // n).astype(np.int32)
+    dsts = (key % n).astype(np.int32)
+    counts = rng.integers(1, 17, len(srcs)).astype(np.float32)
+    out_total = np.zeros(n, dtype=np.float32)
+    np.add.at(out_total, srcs, counts)
+    weights = counts / out_total[srcs]
+    return srcs, dsts, weights, out_total == 0.0
+
+
+def link_docs(n_docs: int, n_hosts: int, anchors: int = 10,
+              seed: int = SEED, hub_share: float = 0.3):
+    """The postprocessing path's documents: [(url, title, text, [(target
+    url, link text, rel), ...])] over `n_hosts` hosts, `anchors` links a
+    document: a `hub_share` of them to the few hub hosts, the others to
+    random hosts, some in-host, some rel="nofollow"; titles and texts
+    repeat so that the uniqueness pass finds duplicates."""
+    rng = np.random.default_rng(seed)
+    hosts = [f"host{i:05d}.test" for i in range(n_hosts)]
+    hubs = hosts[:max(1, n_hosts // 100)]
+    out = []
+    for d in range(n_docs):
+        h = hosts[int(rng.integers(0, n_hosts))]
+        url = f"http://{h}/page{d}.html"
+        links = []
+        for a in range(anchors):
+            u = rng.random()
+            if u < hub_share:
+                t = hubs[int(rng.integers(0, len(hubs)))]
+            elif u < hub_share + 0.1:
+                t = h
+            else:
+                t = hosts[int(rng.integers(0, n_hosts))]
+            rel = "nofollow" if rng.random() < 0.05 else ""
+            links.append((f"http://{t}/p{int(rng.integers(0, 50))}"
+                          f"?q={a}", f"link {a} to {t}", rel))
+        title = f"title {int(rng.integers(0, n_docs // 2 + 1))}"
+        text = f"body text {int(rng.integers(0, n_docs // 2 + 1))} of {h}"
+        out.append((url, title, text, links))
+    return out
 
 
 def device_ms(fn, reps: int = 20) -> float:

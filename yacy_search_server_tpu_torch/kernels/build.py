@@ -84,6 +84,8 @@ SIGNATURES = {
     "yt_ann_fuse": [_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "yt_bm25_pass": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
                      _P, _P, _P],
+    "yt_power_iterate": [_P, _P, _P, _P, _I, _P, _I64, _P, _P, _P, _I64, _P,
+                         _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -190,7 +192,7 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,
             "pruned_tile_bp": 0, "span_stats_bp": 0, "span_score_bp": 0,
             "topk_finish_bp": 0, "pack_block_batch": 0, "ann_assign": 0,
-            "ann_fuse": 0, "bm25_pass": 0}
+            "ann_fuse": 0, "bm25_pass": 0, "power_iterate": 0}
 WIDE = {name: 0 for name in LAUNCHES}
 SLOTS = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()
