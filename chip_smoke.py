@@ -59,6 +59,13 @@ Phases, each of which exits non-zero on failure:
    dangling hosts, damping 0.85 and 0.5, and the realistic host graph
    (kernels/bench.host_graph: 1,000,000 hosts, about 5M edges), each
    against the plain version on the CPU to the bit, trip count included;
+   K7's docid column under each filter and K18 `xjoin` (each case's
+   probes term by term, then the apply, unfiltered and under all four
+   filters) on the join edge store (kernels/bench.xjoin_edge_cases: the
+   clip rows, an empty window, one at the table's end, includes then an
+   exclude, excludes only); K4 batched over 4 cells' runs in K5's order
+   (random, all tied, two cells without the term) at bs 1 and 8, kk 16
+   and 2048; K16's halves over a 1M x 4 block split over 2 x 2 cells;
 3. drive three main paths at the headline size, a 10M-posting term, each
    with the launch counts reset before it and read after: the placed
    step (CardinalRanker.rank (k = 10 and 100), MeshRanker.place once and
@@ -77,8 +84,9 @@ Phases, each of which exits non-zero on failure:
    (a sort-mode partner of 2M rows), joinA & headline under a language
    and date filter, a "plain" degraded join, and filtered rank_term on
    the headline term cold and from the filtered-stats cache, each equal
-   to the twin's and (all but the second, third and filtered joins) to
-   the numpy oracle (kernels/bench.devjoin_oracle, devstore_oracle); then, counts read and reset, the batched joins: the
+   to the twin's and (joinA & joinB, term1000000 & joinC and the plain
+   join) to the numpy oracle (kernels/bench.devjoin_oracle,
+   devstore_oracle); then, counts read and reset, the batched joins: the
    six conjunctions x 2 profiles x k = 10 and 100 x {no filter, lang en}
    sent one at a time, from 16 threads, and from 16 threads through the
    batcher (once untimed first), then one group of them (joinA &
@@ -92,8 +100,9 @@ Phases, each of which exits non-zero on failure:
    100), a query on each
    other term, the escalating profile, k = 1000, a delete (the exact
    scan over one span) and a second run (over two), every answer equal
-   to the twin's and (but the escalating one) to the numpy oracle
-   (kernels/bench.devstore_oracle), and the filtered query after them; between the k = 1000 query and the
+   to the twin's and (the smaller terms') to the numpy oracle
+   (kernels/bench.devstore_oracle), and the filtered query after them;
+   between the k = 1000 query and the
    delete, counts reset, the batched path's part 1: a result-cache hit
    equal to the cold answer, then a pruned mix (the store's 7 terms, two
    profiles, two languages, k = 10 and 100), its default/en/k = 100
@@ -167,7 +176,7 @@ Phases, each of which exits non-zero on failure:
    64 to 2^18 rows) and an int16 store on the card beside it, each pack
    timed; the 50 queries, the other terms, the escalating profile, k =
    1000 and four filters on every term, every answer the int16 store's;
-   the pruned mix (896 sent) one at a time, from 16 threads and from 16
+   the pruned mix (448 sent) one at a time, from 16 threads and from 16
    threads through the batcher (K5bp waves, live slots logged); a device
    loss whose rebuild promotes every block again through the batcher's
    `promote` kind (K12 decoding each promoted block's first row), the
@@ -189,8 +198,19 @@ Phases, each of which exits non-zero on failure:
    plain ranks), and postprocessing_p with run=1 with the webgraph empty
    (the host matrix) and full (the edges), on the card and on the CPU:
    equal pages, host ranks and metadata rows; then one more document
-   whose edge rows carry the new cr_host_norm_i. Every other phase must
-   end with no transfer failure, retry or loss;
+   whose edge rows carry the new cr_host_norm_i; then, counts reset, the
+   mesh path: the run re-keyed under word2hash of its terms' names (the
+   same arrays, 17,150,000 rows, on both term rows of a 2 x 2 mesh) in a
+   MeshSegmentStore with its four cells on the card (budget 8 GiB) and
+   its CPU twin on four CPU cells (kernels/bench.mesh_twin); the headline
+   term pruned, term1000000 escalating, every term pruned, a wave of 8
+   pruned queries through the batcher (kernels/bench.mesh_wave), joinA &
+   headline and term1000000 & headline & -joinB (cross-row, K18), joinA
+   & joinB and term1000000 & joinC (column-local), the language filter,
+   a tombstone (the exact scan) and a RAM delta of 50,000 rows, every
+   answer and the counters the twin's; MeshRanker over the 10M term and
+   MeshBM25 at 2 x 2 cells against the placed step's answers. Every
+   other phase must end with no transfer failure, retry or loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -239,6 +259,10 @@ Phases, each of which exits non-zero on failure:
    K5bp at 1 and 16 slots of its first tile, K6bp, K7bp and
    topk_finish_bp over the 10M term without and with the filtered
    rank_term's filter, and K13 over the 256-term flush's 2^18-row lanes;
+   the mesh path's kernels on its cells: K7 with the docid column over
+   the 10M term's cell, K4 batched at the wave's 8 slots x 4 cells (kk
+   16 and 128), K16's halves over one MeshBM25 cell, K18's probe (beside
+   torch.searchsorted and a gather) and apply at joinA & headline;
    K17 over the realistic host graph (a launch over a prepared layout,
    beside the whole call, the plain version and cuSPARSE's CSR mat-vec
    with the sum and the update in torch, and its device busy time from a
@@ -299,11 +323,11 @@ BATCHED_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
                    "topk_finish", "span_stats_batch", "span_score_batch",
                    "topk_finish_batch")
 MIX_THREADS = 16     # client threads of the concurrent mixes
-MIX_REPEATS = 16     # each distinct query of a mix sent this many times
+MIX_REPEATS = 8      # each distinct query of a mix sent this many times
 # the batched joins: each distinct conjunction sent this many times, and
 # the one-group part's queries
-JOIN_MIX_REPEATS = 16
-JOIN_ONE_GROUP = 1024
+JOIN_MIX_REPEATS = 8
+JOIN_ONE_GROUP = 512
 BATCHED_JOIN_KERNELS = ("join_member_batch", "join_stats_batch",
                         "join_score_batch", "tie_topk", "topk_finish_batch")
 # the hybrid rerank: the forward index's rows (dim 256, f16: the default
@@ -319,7 +343,7 @@ HYBRID_KERNELS = ("dense_dot", "rerank_sort", "hybrid_blend", "tie_topk")
 # bar of host-scored against device-scored fused scores
 DF_ROWS = 1 << 21
 DF_REPEATS = 4
-DF_RECALL_QUERIES = 4
+DF_RECALL_QUERIES = 2
 DF_SMALL_LANES = 4096
 DF_LADDER_BUDGET = 1 << 28
 DF_LADDER_ROUNDS = 6
@@ -334,6 +358,12 @@ PACKED_KERNELS = ("unpack_rows", "pruned_tile_bp", "span_stats_bp",
 BR_DOCS, BR_HOSTS, BR_ANCHORS = 5000, 1000, 10
 BR_MAXHOSTS = 25
 BLOCKRANK_KERNELS = ("power_iterate",)
+# the mesh path: MeshSegmentStore on 2 x 2 cells of the card, MeshRanker
+# and MeshBM25 at 2 x 2
+MESH_KERNELS = ("pruned_tile", "gather_topk_batch", "span_stats",
+                "span_score_docids", "tie_topk", "join_member",
+                "xjoin_probe", "xjoin_apply", "cardinal_stats",
+                "cardinal_score", "bm25_sums", "bm25_rows", "gather_topk")
 # the counters that must read 0 outside the device-loss phase: nothing
 # fell back to the host behind a check's back
 LOSS_COUNTERS = ("transfer_failures", "transfer_retries", "device_losses")
@@ -959,6 +989,48 @@ def main() -> int:
                     torch.cuda.synchronize()
                     note("span_score", f"filter {name}, {len(ext)} extents, "
                          f"{pname}, {slabel} statistics", diff(g, w))
+    # K7's docid column (the mesh store's per-cell scan) under each filter
+    # over 2 extents, and K18 `xjoin` (its cross-row join) over the
+    # store's rare span: each case's probes term by term (each taking the
+    # earlier terms' outputs, kernels/bench.xjoin_edge_cases), then the
+    # apply, unfiltered and under all four filters
+    for name, filt in KB.JOIN_EDGE_FILTERS.items():
+        ext = [(jsp[0].start + 5, 70_001), (jsp[1].start, jsp[1].count)]
+        pst = KD.span_stats_plain(ja[0], ja[2], ja[3], ext, flags=ja[1],
+                                  filt=filt)
+        rows_j = sum(c for _s, c in ext)
+        g = KD.span_score(*ja, ext, pst, ds_consts["default"], rows_j + 7,
+                          filt=filt, with_docids=True)
+        w = KD.span_score_plain(*ja, ext, pst, ds_consts["default"],
+                                rows_j + 7, filt, None, None, True)
+        torch.cuda.synchronize()
+        note("span_score_docids", f"filter {name}, 2 extents",
+             max(diff(a, b) for a, b in zip(g, w)))
+    for label, rare, wins, n_inc in KB.xjoin_edge_cases(jstore):
+        jd_, jp_ = KB.xjoin_table(jstore, wins)
+        cand = ja[2][rare.start:rare.start + rare.count]
+        contrib = torch.empty((len(wins), KD.XJOIN_ROWS, rare.count),
+                              dtype=torch.int32, device=dev)
+        for j_, (lo, cnt) in enumerate(wins):
+            prior = contrib[:j_] if j_ else None
+            g = KD.xjoin_probe(cand, ja[3], prior, n_inc, jd_, jp_, lo, cnt,
+                               ja[0], ja[1])
+            w = KD.xjoin_probe_plain(cand, ja[3], prior, n_inc, jd_, jp_, lo,
+                                     cnt, ja[0], ja[1])
+            torch.cuda.synchronize()
+            note("xjoin_probe", f"edges, {label}, term {j_ + 1} "
+                 f"({int(w[0].sum())} of {rare.count} found)", diff(g, w))
+            contrib[j_].copy_(w)
+        for filt in (None, KB.JOIN_EDGE_FILTERS["all four"]):
+            g = KD.xjoin_apply(*ja, rare.start, rare.count, contrib, n_inc,
+                               filt)
+            w = KD.xjoin_apply_plain(*ja, rare.start, rare.count, contrib,
+                                     n_inc, filt)
+            torch.cuda.synchronize()
+            note("xjoin_apply", f"edges, {label}, "
+                 f"{'all four filters' if filt else 'no filter'} "
+                 f"({int(w[2].sum())} of {rare.count} valid)",
+                 max(diff(a, b) for a, b in zip(g, w)))
     del jstore, _jidx, ja, jt
 
     # the dense rerank's kernels against their plain versions on a forward
@@ -1046,6 +1118,49 @@ def main() -> int:
         f"{int(np.bincount(hg[1], minlength=len(hg[3])).max())}, "
         f"{int(hg[3].sum())} dangling hosts")
 
+    # K4 batched (the mesh store's pruned waves) over 4 cells' runs in
+    # K5's order (kernels/bench.pruned_runs: random, all tied, two cells
+    # without the term) at bs 1 and 8, kk 16 and 2048, with the ok pmin
+    # and whole; K16's halves over a 1M x 4 block split over 2 x 2 cells
+    # (each half's sums, their total, each cell's rows over its 2 columns)
+    mrng = np.random.default_rng(KB.SEED + 120)
+    for bs_ in (1, 8):
+        for kk_ in (16, 2048):
+            for case in ("random", "tied", "empty"):
+                gb = KB.pruned_runs(bs_, 4, kk_, mrng, tied=case == "tied",
+                                    empty=(0, 3) if case == "empty" else ())
+                gbd = gb.to(dev)
+                for k_, ok_ in ((kk_, 2 * kk_), (4 * kk_, None)):
+                    g = KT.gather_topk_batch(gbd, kk_, k_, False, kk_, ok_)
+                    w = KT.gather_topk_batch_plain(gb, kk_, k_, False, kk_,
+                                                   ok_)
+                    note("gather_topk_batch", f"{bs_} slots of 4 runs of "
+                         f"{kk_}, {case}, k={k_}", diff(g.cpu(), w))
+    nb_, tb_ = 1_000_000, 4
+    tf_ = mrng.integers(0, 9, (nb_, tb_)).astype(np.float32)
+    dl_ = mrng.integers(40, 800, nb_).astype(np.int32)
+    df_ = mrng.integers(1, nb_, tb_).astype(np.int32)
+    v_ = mrng.random(nb_) < 0.9
+    halves = np.array_split(np.arange(nb_), 2)
+    t_ = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    accs = []
+    for i, r_ in enumerate(halves):
+        accs.append(R.bm25_sums(put(dl_[r_]), put(v_[r_])))
+        note("bm25_sums", f"doc column {i} of 2, {len(r_)} rows",
+             diff(accs[-1].cpu(), R.bm25_sums_plain(t_(dl_[r_]),
+                                                    t_(v_[r_]))))
+    acc_ = accs[0] + accs[1]
+    for i, r_ in enumerate(halves):
+        for cols in (slice(0, 2), slice(2, 4)):
+            g = R.bm25_rows(put(tf_[r_][:, cols]), put(dl_[r_]),
+                            put(df_[cols]), nb_, put(v_[r_]), acc_)
+            w = R.bm25_rows_plain(t_(tf_[r_][:, cols]), t_(dl_[r_]),
+                                  t_(df_[cols]), nb_, t_(v_[r_]), acc_.cpu())
+            note("bm25_rows", f"doc column {i}, columns {cols.start}-"
+                 f"{cols.stop - 1}", diff(g.cpu(), w))
+    del tf_, dl_, df_, v_, gb, gbd
+
+    log(f"phase 2: done at {time.time() - t0:.1f} s")
     # -- phase 3: the main path ---------------------------------------------
     ref_scores = {}
     for pname, prof in profiles.items():
@@ -1116,6 +1231,7 @@ def main() -> int:
     sep[:-1] &= gap
     if not np.array_equal(bdd[sep], order[sep]):
         fail("MeshBM25: docids differ from the oracle where scores differ")
+    bm_ref = (bs, bdd, sep)          # the mesh path's 2 x 2 MeshBM25
 
     # stream_score_topk over the 10M block in 2M chunks
     tq = time.time()
@@ -1155,25 +1271,35 @@ def main() -> int:
     tq = time.time()
     idx.flush()
     ds_walls = {"flush (host)": time.time() - tq}
+    # the twin packs in a thread of its own while the card store packs:
+    # both walls read with the other pack beside them (the twin's 33 s
+    # alone went to make room for the mesh path)
     tq = time.time()
+    twin_box = {}
+
+    def pack_twin():
+        twin_box["hs"] = TD.DeviceSegmentStore(idx, device="cpu")
+        twin_box["wall"] = time.time() - tq
+    tw_th = threading.Thread(target=pack_twin)
+    tw_th.start()
     gs = TD.DeviceSegmentStore(idx, device=dev)
     torch.cuda.synchronize()
-    ds_walls["pack, store on the card"] = time.time() - tq
-    tq = time.time()
-    hs = TD.DeviceSegmentStore(idx, device="cpu")
-    ds_walls["pack, twin on the CPU"] = time.time() - tq
+    ds_walls["pack, store on the card (the twin beside it)"] = \
+        time.time() - tq
+    tw_th.join()
+    if "hs" not in twin_box:
+        fail("the twin's pack raised")
+    hs = twin_box["hs"]
+    ds_walls["pack, twin on the CPU (beside the card's)"] = twin_box["wall"]
     idx.listener = KB.Fanout(gs, hs)
     sp_hl = gs.spans_for(hl)[0]
     log(f"devstore: {gs.arena.used_rows} rows packed, the 10M term in "
         f"{sp_hl.tcount} tiles; " + ", ".join(
             f"{k} {v:.1f} s" for k, v in ds_walls.items()))
-    tq = time.time()
     hl_rows = KB.arena_rows(feats, docids)
-    # the default profile's oracle (the escalating query is held to the
-    # twin alone: a depth cut that makes room for the BlockRank path)
-    oracles = {"default": KB.devstore_oracle([hl_rows],
-                                             ds_profiles["default"], 1000)}
-    log(f"devstore oracles: {time.time() - tq:.1f} s")
+    # the 10M term's queries are held to the CPU twin alone (its numpy
+    # oracles, 60-70 s of the host, went to make room for the mesh path;
+    # the smaller terms' and the bitmap's, delta's and joins' stay)
     ended, ends = {}, {}
 
     # -- phase 3, the device store's join path: DeviceSegmentStore.rank_join
@@ -1303,9 +1429,10 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launches()
     tm = time.time()
-    join_q("joinA & headline", [jA, hl], [])
-    # three conjunctions held to the twin alone (their numpy oracles,
-    # 16 s, went to make room for the BlockRank path)
+    join_q("joinA & headline", [jA, hl], [], oracle=False)
+    # four conjunctions held to the twin alone (their numpy oracles,
+    # 16 s, went to make room for the BlockRank path, joinA & headline's,
+    # 7.5 s, for the mesh path)
     join_q("joinA & headline & term1000000", [jA, hl, t1m], [], k=10,
            oracle=False)
     join_q("term1000000 & headline & -joinB", [t1m, hl], [jB],
@@ -1322,8 +1449,7 @@ def main() -> int:
          KB.devstore_oracle([join_rows[jB]], ds_profiles["default"], 10))
     # filtered rank_term on the headline term: cold, then from the cache
     k6_0 = LAUNCHES["span_stats"]
-    want_f = KB.devstore_oracle(filtered([hl_rows], hfilt),
-                                ds_profiles["default"], 100)
+    want_f = None        # held to the twin alone (the oracle: 9 s)
     for label in ("cold", "filtered-stats cache hit"):
         got = gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
         twin = hs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
@@ -1550,15 +1676,14 @@ def main() -> int:
     tm = time.time()
     for q in range(50):
         k = 10 if q % 2 else 100
-        ds_query(f"10M default k={k}", hl, "default", k, oracles["default"])
+        ds_query(f"10M default k={k}", hl, "default", k, None)
     for i, n_t in enumerate(DS_TERMS):
         th = b"term%08d" % n_t
         ds_query(f"{n_t} default k=10", th, "default", 10,
                  KB.devstore_oracle([KB.arena_rows(*ds_terms[th])],
                                     ds_profiles["default"], 10))
     ds_query("10M escalating k=100", hl, "escalating", 100, None)
-    got = ds_query("10M default k=1000", hl, "default", 1000,
-                   oracles["default"])
+    got = ds_query("10M default k=1000", hl, "default", 1000, None)
     torch.cuda.synchronize()
     launches_ds1 = dict(LAUNCHES)
     mid_g, mid_h = counters(gs), counters(hs)
@@ -1778,8 +1903,7 @@ def main() -> int:
     idx.delete_doc(gone)
     live = hl_rows[2] != gone
     hl_live = tuple(a[live] for a in hl_rows)
-    ds_query("10M after a delete, default k=100", hl, "default", 100,
-             KB.devstore_oracle([hl_live], ds_profiles["default"], 100))
+    ds_query("10M after a delete, default k=100", hl, "default", 100, None)
     # a second run of the 10M term: two spans, the exact scan over both
     f2, _d, _h, _r = KB.make_term(SECOND_RUN, KB.SEED + 9)
     d2 = (2 * np.arange(SECOND_RUN)).astype(np.int32)  # even: new docids
@@ -1788,7 +1912,7 @@ def main() -> int:
     two = [hl_live, KB.arena_rows(f2, d2)]
     for pname, k in (("default", 100), ("escalating", 1000)):
         ds_query(f"10M + {SECOND_RUN} (2 runs), {pname} k={k}", hl, pname,
-                 k, KB.devstore_oracle(two, ds_profiles[pname], k))
+                 k, None)
     torch.cuda.synchronize()
     launches_ds = {k: launches_ds1[k] + v for k, v in LAUNCHES.items()}
     log(f"devstore main path: {time.time() - tm:.1f} s (the CPU twin's "
@@ -1816,8 +1940,7 @@ def main() -> int:
     got = gs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
     twin = hs.rank_term(hl, ds_profiles["default"], k=100, **hfilt_kw)
     same("filtered rank_term after a delete and a second run", got, twin,
-         KB.devstore_oracle(filtered(two, hfilt), ds_profiles["default"],
-                            100))
+         None)
     if LAUNCHES["span_stats"] != k6_0 + 1:
         fail("a stale filtered-stats cache entry was served")
 
@@ -2407,7 +2530,7 @@ def main() -> int:
     if missing:
         fail(f"kernels never launched on the dense-first path: {missing}")
     clean("the dense-first path", gs, hs)
-    del hs, idx, hl_live, two, oracles, join_rows
+    del hs, idx, hl_live, two, join_rows
 
     # -- phase 3, device loss (a store of its own: the 1M term and a term
     # of 200,000 postings meeting it) ------------------------------------
@@ -3013,7 +3136,169 @@ def main() -> int:
         fail(f"kernels never launched on the BlockRank path: {missing}")
     del r_ops, br_docs, br_meta, segs
 
+    # -- phase 3, the mesh path: MeshSegmentStore on 2 x 2 cells ----------
+    # the smoke's run (17,150,000 rows, the same PostingsList arrays)
+    # re-keyed under word2hash of its terms' names, so that they land on
+    # both term rows at n_term = 2 (headline, term20000 on row 1; the
+    # others on row 0), in a fresh RWIIndex; a MeshSegmentStore with its
+    # four cells on the card (budget 8 GiB: the 2 GiB default's worst-case
+    # check would skip the run) and its CPU twin on four CPU cells sharing
+    # the store's host mirrors (kernels/bench.mesh_twin). Counts reset:
+    # the headline term pruned (b = 1), term1000000 escalating, the other
+    # terms pruned, a wave of 8 pruned queries through the batcher (held until
+    # all 8 are queued, so that both stores form one wave), the four
+    # joins (two cross-row, one with an exclude, two column-local), the
+    # language filter, a tombstone (the unfiltered exact scan) and a RAM
+    # delta of 50,000 rows; every answer and the counters equal to the
+    # twin's; then MeshRanker and MeshBM25 at 2 x 2 against the placed
+    # step's references
+    from yacy_search_server_tpu_torch.index import meshstore as TMS
+    from yacy_search_server_tpu_torch.utils.hashes import word2hash
+    tmsh = time.time()
+    mesh_names = {hl: "headline", b"joinAAAAAAAA": "joinA",
+                  b"joinBAAAAAAA": "joinB", b"joinCAAAAAAA": "joinC"}
+    for n_t in DS_TERMS:
+        mesh_names[b"term%08d" % n_t] = f"term{n_t}"
+    mk = {name: word2hash(name) for name in mesh_names.values()}
+    rows_of = {name: TMS.term_shard(th, 2) for name, th in mk.items()}
+    mi = RWIIndex()
+    for th, (f_t, d_t) in ds_terms.items():
+        mi.add_many(mk[mesh_names[th]], P.PostingsList(d_t, f_t))
+    mi.flush()
+    m_walls = {"flush (host)": time.time() - tmsh}
+    tq = time.time()
+    msh = TMS.MeshSegmentStore(mi, devices=[dev] * 4, n_term=2,
+                               budget_bytes=8 << 30)
+    m_walls["pack (host mirrors)"] = time.time() - tq
+    if msh.live_rows() != sum(len(d_t) for _f, d_t in ds_terms.values()):
+        fail(f"mesh store: {msh.live_rows()} rows packed, the run holds "
+             f"{sum(len(d_t) for _f, d_t in ds_terms.values())}")
+    mtw, m_lis = KB.mesh_twin(msh, ["cpu"] * 4)
+    mi.listener = m_lis
+    tq = time.time()
+    with msh._lock:
+        msh._device_cells()
+    torch.cuda.synchronize()
+    m_walls["device sync (4 cells on the card)"] = time.time() - tq
+    tq = time.time()
+    with mtw._lock:
+        mtw._device_cells()
+    m_walls["device sync (the twin)"] = time.time() - tq
+    m_prof, m_esc = ds_profiles["default"], ds_profiles["escalating"]
+    m_card, m_twin = {}, {}
+    m_keys = ("prune_rounds", "pruned_tiles", "fallbacks",
+              "batch_dispatches")
+
+    def m_same(label, fn):
+        msh._topk_cache.clear()
+        mtw._topk_cache.clear()
+        tq_ = time.time()
+        got = fn(msh)
+        m_card[label] = time.time() - tq_
+        tq_ = time.time()
+        tw = fn(mtw)
+        m_twin[label] = time.time() - tq_
+        same(f"mesh {label}", got, tw, None)
+        if not len(got[0]):
+            fail(f"mesh {label}: an empty answer")
+        return got
+
+    torch.cuda.synchronize()
+    reset_launches()
+    tm3 = time.time()
+    hl_m = mk["headline"]
+    m_same("headline pruned k=100",
+           lambda s_: s_.rank_term(hl_m, m_prof, k=100))
+    if msh.pruned_tiles == 0:
+        fail("mesh: the headline query pruned no tile")
+    # the escalating profile on term1000000 (31 tiles: the ladder to
+    # b = 64): on the 10M term the twin's plain escalation took 13-18 s
+    m_same("term1000000 escalating k=100",
+           lambda s_: s_.rank_term(mk["term1000000"], m_esc, k=100))
+    m_solo = {}
+    for name in ("headline", "term1000000", "term100000", "term20000"):
+        m_solo[mk[name]] = m_same(
+            f"{name} pruned k=10",
+            lambda s_, t_=mk[name]: s_.rank_term(t_, m_prof, k=10))
+    # the wave: 8 pruned queries (4 terms x 2) queued before the
+    # dispatcher forms its wave (kernels/bench.mesh_wave), on each store
+    wave = list(m_solo) * 2
+    for s_ in (msh, mtw):
+        s_._topk_cache.enabled = False
+        s_.enable_batching(max_batch=8)
+        tq = time.time()
+        ans = KB.mesh_wave(s_, [lambda t_=th: s_.rank_term(t_, m_prof, k=10)
+                                for th in wave])
+        (m_card if s_ is msh else m_twin)["wave of 8 (batcher)"] = \
+            time.time() - tq
+        for th, a in zip(wave, ans):
+            same("mesh wave", a, m_solo[th], None)
+        s_._topk_cache.enabled = True
+    mjoins = {"joinA & headline (cross-row)": ([mk["joinA"], hl_m], []),
+              "term1000000 & headline - joinB (cross-row)":
+                  ([mk["term1000000"], hl_m], [mk["joinB"]]),
+              "joinA & joinB (column-local)": ([mk["joinA"], mk["joinB"]],
+                                               []),
+              "term1000000 & joinC (column-local)":
+                  ([mk["term1000000"], mk["joinC"]], [])}
+    for label, (inc, exc) in mjoins.items():
+        m_same(label, lambda s_, i_=inc, e_=exc: s_.rank_join(
+            i_, e_, m_prof, k=100))
+    m_same("headline language de k=100",
+           lambda s_: s_.rank_term(hl_m, m_prof, k=100, lang_filter=0x6465))
+    mi.delete_doc(int(m_solo[hl_m][1][0]))
+    m_same("headline after a tombstone (exact scan) k=100",
+           lambda s_: s_.rank_term(hl_m, m_prof, k=100))
+    m_delta = KB.make_term(50_000, KB.SEED + 130)[0]
+    mi.add_many(hl_m, P.PostingsList(
+        (np.arange(50_000, dtype=np.int32) * 2 + 30_000_001), m_delta))
+    m_same("headline with a RAM delta of 50,000 rows k=100",
+           lambda s_: s_.rank_term(hl_m, m_prof, k=100))
+    ca, cb = msh.counters(), mtw.counters()
+    if {k: ca[k] for k in m_keys} != {k: cb[k] for k in m_keys}:
+        fail(f"mesh counters differ: card {[ca[k] for k in m_keys]}, "
+             f"twin {[cb[k] for k in m_keys]}")
+    if ca["batch_dispatches"] < 1 or ca["fallbacks"]:
+        fail(f"mesh: {ca['batch_dispatches']} wave dispatches, "
+             f"{ca['fallbacks']} fallbacks")
+    clean("mesh path", msh, mtw)
+    msh.close()
+    mtw.close()
+    # MeshRanker and MeshBM25 at 2 x 2 cells of the card
+    m22 = M.make_mesh(2, 2, devices=[dev] * 4)
+    tq = time.time()
+    mr22 = M.MeshRanker(m22, profiles["authority15"])
+    s, d = mr22.rank(plist, hostids, k=10)
+    m_card["MeshRanker.rank 2x2, 10M, k=10"] = time.time() - tq
+    expect("MeshRanker 2x2", s, d, *ref_topk("authority15", 10))
+    tq = time.time()
+    bs22, bd22 = M.MeshBM25(m22).topk(*bm_in, k=100)
+    m_card["MeshBM25.topk 2x2, 1Mx4, k=100"] = time.time() - tq
+    if not (np.allclose(bs22, bm_ref[0], rtol=1e-5)
+            and np.array_equal(bd22[bm_ref[2]], bm_ref[1][bm_ref[2]])):
+        fail("MeshBM25 2x2 differs from the one-cell answer")
+    torch.cuda.synchronize()
+    launches_mesh = dict(LAUNCHES)
+    missing = [k for k in MESH_KERNELS if launches_mesh[k] == 0]
+    per_row = {r: sum(len(ds_terms[th][1]) for th in mesh_names
+                      if rows_of[mesh_names[th]] == r) for r in (0, 1)}
+    log(f"mesh path: {time.time() - tmsh:.1f} s ({time.time() - tm3:.1f} s"
+        f" of queries); rows a term row {per_row}; "
+        f"cells' rows {[c.used for c in msh._cells]}; counters "
+        f"{ {k: ca[k] for k in m_keys} }; launches "
+        f"{ {k: v for k, v in launches_mesh.items() if v} }; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in m_walls.items()))
+    for label in m_card:
+        log(f"  mesh wall {label}: card {m_card[label] * 1e3:.2f} ms"
+            + (f", twin {m_twin[label] * 1e3:.1f} ms" if label in m_twin
+               else ""))
+    if missing:
+        fail(f"kernels never launched on the mesh path: {missing}")
+    m_keep = (msh, hl_m, mk)        # phase 4 times the mesh kernels on it
+    del mtw, m_lis
+
     # -- phase 4: kernel times at the main path's shapes ---------------------
+    log(f"phase 3: done at {time.time() - t0:.1f} s")
     # `ms`: the call time, the median of 20 calls each between two CUDA
     # events from an idle queue (the device time plus the host's issue
     # time); `device_ms`: the median of 20 calls queued
@@ -3022,9 +3307,9 @@ def main() -> int:
     # score/stats launches and 50 of the 63 top-k launches: the int32
     # block under authority=15 with one host bin per padded row, and
     # tie_topk in tie mode on that step's scores, keyed on the docids
-    pf, pd, pv, ph, npad = placed
+    (pf, pd, pv, ph), npad = placed[0][0], placed[1]
     pst, pcnt = KC.cardinal_stats(pf, pv, ph, npad)
-    p_scores = KC.cardinal_score(pf, None, pv, ph, pst, pcnt, mr._consts,
+    p_scores = KC.cardinal_score(pf, None, pv, ph, pst, pcnt, mr._consts[0],
                                  False)
     hosts_used = int(torch.unique(ph[pv]).numel())
     c0 = consts["default"]
@@ -3059,7 +3344,7 @@ def main() -> int:
         return len(names) or None, names
 
     def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape,
-                path="placed", plain_reps=5):
+                path="placed", plain_reps=3):
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
         plain_ms = KB.call_ms(plain, reps=plain_reps)
         lib_ms = KB.call_ms(lib) if lib is not None else None
@@ -3084,7 +3369,8 @@ def main() -> int:
                          "hybrid": launches_hy,
                          "dense_first": launches_df,
                          "packed": launches_pk,
-                         "blockrank": launches_br}[path][name],
+                         "blockrank": launches_br,
+                         "mesh": launches_mesh}[path][name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3135,9 +3421,9 @@ def main() -> int:
             "(rank_placed, authority=15)")
     measure(*score_src,
             lambda: KC.cardinal_score(pf, None, pv, ph, pst, pcnt,
-                                      mr._consts, False),
+                                      mr._consts[0], False),
             lambda: KC.cardinal_score_plain(pf, None, pv, ph, pst, pcnt,
-                                            mr._consts, False), None,
+                                            mr._consts[0], False), None,
             n32 + npad + 4 * npad + 4 * npad + 4 * hosts_used
             + (KC.STATS_LEN + KC.CONSTS_LEN) * 4, 0.0,
             f"{npad} x 17 int32 + valid + host ids -> int32, authority=15 "
@@ -4135,7 +4421,7 @@ def main() -> int:
               "bm25.cu")
     bmp = M.MeshBM25(mesh).place(bm_in[0], bm_in[1], bm_in[2], bm_in[3],
                                  bm_in[4])
-    b_tf, b_dl, b_df, b_nd, b_v, _b_d = bmp
+    b_tf, b_dl, b_df, b_nd, b_v, _b_d = bmp[0]
     n_b, t_b = b_tf.shape
     note("bm25_pass", f"{n_b} x {t_b} f32 tf (MeshBM25.place)",
          diff(R.bm25_scores(b_tf, b_dl, b_df, b_nd, b_v),
@@ -4145,6 +4431,125 @@ def main() -> int:
             n_b * t_b * 4 + n_b * 4 + n_b + t_b * 4 + n_b * 4,
             n_b * (6.0 * t_b + 4.0),
             f"{n_b} x {t_b} f32 tf + doclen + valid (MeshBM25.topk)")
+
+    # the mesh path's kernels at its shapes, on its store's cells (four on
+    # the card): K7 with its docid column over the headline term's extent
+    # in the cell holding most of it (its docids are odd: at n_doc = 2 all
+    # of them are in doc column 1) against its statistics; K4 batched over
+    # a wave of 8 slots of 4 cells' pruned runs at kk 16 (k = 10) and 128;
+    # K16's halves over one cell of MeshBM25 at 2 x 2 (500,000 rows, 2
+    # columns); K18's probe of the joinA & headline join in that doc
+    # column (joinA's candidates on term row 0 against headline's window),
+    # beside torch.searchsorted and a gather on the same window, and its
+    # apply
+    msh, hl_m, mk = m_keep
+    with msh._lock:
+        mcells = msh._device_cells()
+    sp_m = msh.spans_for(hl_m)[0]
+    c10 = int(np.argmax(sp_m.counts))
+    ext_m = [(int(sp_m.starts[c10]), int(sp_m.counts[c10]))]
+    mc = mcells[c10]
+    m_consts = msh._profile_consts(m_prof, "en")[c10]
+    st_m = KD.span_stats(mc.feats16, mc.docids, mc.dead, ext_m,
+                         flags=mc.flags)
+    n_m = ext_m[0][1]
+    note("span_score_docids", f"headline's extent in cell {c10}, {n_m} "
+         "rows (mesh path)",
+         max(diff(a, b) for a, b in zip(
+             KD.span_score(*mc.arrays()[:4], ext_m, st_m, m_consts, n_m,
+                           with_docids=True),
+             KD.span_score_plain(*mc.arrays()[:4], ext_m, st_m, m_consts,
+                                 n_m, None, None, None, True))))
+    measure("span_score_docids", "yacy_search_server_tpu/index/meshstore.py"
+            ":1978", "cardinal_score.cu",
+            lambda: KD.span_score(*mc.arrays()[:4], ext_m, st_m, m_consts,
+                                  n_m, with_docids=True),
+            lambda: KD.span_score_plain(*mc.arrays()[:4], ext_m, st_m,
+                                        m_consts, n_m, None, None, None,
+                                        True), None,
+            n_m * (P.NF * 2 + 4 + 4 + 1) + n_m * 8, n_m * 60.0,
+            f"{n_m} rows of one cell, scores and docids (mesh exact scan)",
+            path="mesh", plain_reps=2)
+    for kk_ in (16, 128):
+        gb = KB.pruned_runs(8, 4, kk_, mrng).to(dev)
+        m_g = 4 * kk_
+        note("gather_topk_batch", f"8 slots of 4 runs of {kk_} (mesh wave)",
+             diff(KT.gather_topk_batch(gb, kk_, kk_, False, kk_, 2 * kk_),
+                  KT.gather_topk_batch_plain(gb, kk_, kk_, False, kk_,
+                                             2 * kk_)))
+        measure("gather_topk_batch", "yacy_search_server_tpu/index/"
+                "meshstore.py:1876", "gather_topk.cu",
+                lambda g_=gb, k_=kk_: KT.gather_topk_batch(
+                    g_, k_, k_, False, k_, 2 * k_),
+                lambda g_=gb, k_=kk_: KT.gather_topk_batch_plain(
+                    g_, k_, k_, False, k_, 2 * k_), None,
+                8 * 4 * (2 * kk_ + 1) * 4 + 8 * (2 * kk_ + 1) * 4,
+                8.0 * m_g * m_g,
+                f"8 slots x 4 cells' pruned runs of {kk_} (K5 order: the "
+                f"all-pairs path), k={kk_}, ok pmin (mesh wave)",
+                path="mesh")
+    b22 = M.MeshBM25(m22).place(*bm_in)[0]
+    n_b2, t_b2 = b22[0].shape
+    acc_b = R.bm25_sums(b22[1], b22[4])
+    measure("bm25_sums", "yacy_search_server_tpu/parallel/mesh.py:288",
+            "bm25.cu", lambda: R.bm25_sums(b22[1], b22[4]),
+            lambda: R.bm25_sums_plain(b22[1], b22[4]), None,
+            n_b2 * 5 + 16, 2.0 * n_b2,
+            f"{n_b2} rows of one cell (MeshBM25 2 x 2)", path="mesh")
+    measure("bm25_rows", "yacy_search_server_tpu/parallel/mesh.py:292",
+            "bm25.cu",
+            lambda: R.bm25_rows(b22[0], b22[1], b22[2], b22[3], b22[4],
+                                acc_b),
+            lambda: R.bm25_rows_plain(b22[0], b22[1], b22[2], b22[3], b22[4],
+                                      acc_b), None,
+            n_b2 * t_b2 * 4 + n_b2 * 9 + t_b2 * 4, n_b2 * (6.0 * t_b2 + 4.0),
+            f"{n_b2} x {t_b2} f32 tf of one cell (MeshBM25 2 x 2)",
+            path="mesh")
+    sp_a = msh.spans_for(mk["joinA"])[0]
+    c00 = msh.mesh.cell(TMS.term_shard(mk["joinA"], 2), c10 % msh.n_doc)
+    n_x = int(sp_a.counts[c00])
+    cand_x = mcells[c00].docids[int(sp_a.starts[c00]):
+                                int(sp_a.starts[c00]) + n_x]
+    lo_x, cnt_x = int(sp_m.jstarts[c10]), int(sp_m.counts[c10])
+    mx = mcells[c10]
+    probe = lambda: KD.xjoin_probe(  # noqa: E731
+        cand_x, mx.dead, None, 1, mx.jdocids, mx.jpos, lo_x, cnt_x,
+        mx.feats16, mx.flags)
+    probe_plain = lambda: KD.xjoin_probe_plain(  # noqa: E731
+        cand_x, mx.dead, None, 1, mx.jdocids, mx.jpos, lo_x, cnt_x,
+        mx.feats16, mx.flags)
+    xo = probe()
+    note("xjoin_probe", f"joinA's {n_x} candidates against headline's "
+         f"window of {cnt_x} (mesh path)", diff(xo, probe_plain()))
+    found_x = int(xo[0].sum())
+    win_x = mx.jdocids[lo_x:lo_x + cnt_x]
+
+    def search_gather():
+        i = torch.searchsorted(win_x, cand_x).clamp_(max=cnt_x - 1)
+        return mx.jpos[lo_x:lo_x + cnt_x][i], win_x[i] == cand_x
+    measure("xjoin_probe", "yacy_search_server_tpu/index/meshstore.py:1779",
+            "join.cu", probe, probe_plain, search_gather,
+            n_x * 5 + cnt_x * 8 + found_x * 8 + n_x * 20,
+            n_x * math.ceil(math.log2(max(cnt_x, 2))),
+            f"{n_x} candidates of cell {c00} against a window of {cnt_x} "
+            f"in cell {c10}, {found_x} found (joinA & headline); library: "
+            "torch.searchsorted and a gather", path="mesh", plain_reps=2)
+    ma = mcells[c00]
+    contrib_x = xo[None].clone()
+    apply = lambda: KD.xjoin_apply(  # noqa: E731
+        ma.feats16, ma.flags, ma.docids, ma.dead, int(sp_a.starts[c00]),
+        n_x, contrib_x, 1)
+    apply_plain = lambda: KD.xjoin_apply_plain(  # noqa: E731
+        ma.feats16, ma.flags, ma.docids, ma.dead, int(sp_a.starts[c00]),
+        n_x, contrib_x, 1)
+    note("xjoin_apply", f"joinA's {n_x} rows (mesh path)",
+         max(diff(a, b) for a, b in zip(apply(), apply_plain())))
+    measure("xjoin_apply", "yacy_search_server_tpu/index/meshstore.py:1792",
+            "join.cu", apply, apply_plain, None,
+            n_x * (P.NF * 2 + 9) + n_x * 20 + n_x * (P.NF * 4 + 5),
+            n_x * 20.0, f"{n_x} rare rows of cell {c00}, one partner "
+            "(joinA & headline)", path="mesh", plain_reps=2)
+    del gb, b22, xo, contrib_x
 
     # the device part of the join and the filtered scan: the store's
     # dispatch functions and the one fetch, without the host work of
@@ -4239,12 +4644,14 @@ def main() -> int:
     # the device operations one call of each timed kernel issues, from a
     # profiler trace: traced last, since after a trace the host's launch
     # path may stay slower for the rest of the process
+    tt = time.time()
     for row, kern in zip(rows, timed):
         row["device_ops_per_call"], names = ops_per_call(kern)
         log(f"device ops a call, {row['name']} [{row['shape']}]: "
             f"{row['device_ops_per_call']} {names}")
     for label, fn in routes.items():
         log(f"device ops of one {label}: {ops_per_call(fn)[1]}")
+    log(f"phase 4's traces: {time.time() - tt:.1f} s")
 
     for label, w in join_walls.items():
         log(f"wall {label}: median {float(np.median(w)):.4f} ms over 50 "

@@ -59,6 +59,8 @@ def test_port_imports_with_jax_masked():
         "import yacy_search_server_tpu_torch.ops.ranking\n"
         "import yacy_search_server_tpu_torch.ops.streaming\n"
         "import yacy_search_server_tpu_torch.parallel.mesh\n"
+        "import yacy_search_server_tpu_torch.parallel.distribution\n"
+        "import yacy_search_server_tpu_torch.index.meshstore\n"
         "import yacy_search_server_tpu_torch.convert\n"
         "import yacy_search_server_tpu_torch.kernels\n"
         "import yacy_search_server_tpu_torch.kernels.devstore\n"

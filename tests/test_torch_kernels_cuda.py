@@ -1835,3 +1835,217 @@ def test_power_iterate_realistic_graph(dev):
     """kernels/bench.host_graph: 1,000,000 hosts, about 5M edges, Zipf
     hubs near 45,000 in-edges, 95 % of the hosts dangling."""
     _k17_matches_plain(dev, KBench.host_graph())
+
+
+# ---------------------------------------------------------------------------
+# the mesh store's kernels: K4 batched, K16 split, K7's docid column, K18
+# xjoin, and the store on 2 x 2 cells of the card against its CPU twin
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bs", [1, 8])
+@pytest.mark.parametrize("runs,kk", [(1, 16), (4, 16), (4, 1024), (8, 2048)])
+@pytest.mark.parametrize("case", ["random", "tied", "empty"])
+def test_gather_topk_batch_matches_plain(dev, bs, runs, kk, case):
+    """K4 batched over bs slots of `runs` cells' pruned runs: all-tied
+    runs, cells with none of the term, runs out of tie order; each slot's
+    merge and ok (the cells' pmin) equal to the plain version's."""
+    rng = np.random.default_rng(bs * 1000 + runs + kk)
+    g = KBench.pruned_runs(bs, runs, kk, rng, tied=case == "tied",
+                      empty=(0, runs - 1) if case == "empty" else ())
+    b0 = LAUNCHES["gather_topk_batch"]
+    for k in (kk, min(kk * runs, kk + 5)):
+        got = KT.gather_topk_batch(g.to(dev), kk, k, False, kk, 2 * kk)
+        want = KT.gather_topk_batch_plain(g, kk, k, False, kk, 2 * kk)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    got = KT.gather_topk_batch(g[:, :, :2 * kk].contiguous().to(dev), kk,
+                               kk * runs, False, kk)
+    want = KT.gather_topk_batch_plain(g[:, :, :2 * kk], kk, kk * runs,
+                                      False, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert LAUNCHES["gather_topk_batch"] == b0 + 3
+
+
+@pytest.mark.parametrize("n_doc,t", [(2, 1), (2, 3), (4, 8)])
+def test_bm25_split_matches_plain(dev, n_doc, t):
+    """K16's halves as a 2-row mesh runs them: each cell's sums, their
+    sum over the doc axis, each cell's rows over its term columns against
+    it; equal to the plain halves to the bit, and the halves summed equal
+    to bm25_pass on the whole block where one cell holds every term."""
+    rng = np.random.default_rng(n_doc * 10 + t)
+    n = 200_003
+    tf = rng.integers(0, 9, (n, 2 * t)).astype(np.float32)
+    dl = rng.integers(40, 800, n).astype(np.int32)
+    df = rng.integers(1, n, 2 * t).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    rows = np.array_split(np.arange(n), n_doc)
+    b0, r0 = LAUNCHES["bm25_sums"], LAUNCHES["bm25_rows"]
+    accs = [R.bm25_sums(put(dl[r]), put(valid[r])) for r in rows]
+    acc = sum(accs[1:], accs[0])
+    pacc = R.bm25_sums_plain(torch.from_numpy(dl), torch.from_numpy(valid))
+    assert torch.equal(acc.cpu(), pacc)
+    for r in rows:
+        for cols in (slice(0, t), slice(t, 2 * t)):
+            got = R.bm25_rows(put(tf[r][:, cols]), put(dl[r]), put(df[cols]),
+                              n, put(valid[r]), acc)
+            want = R.bm25_rows_plain(
+                torch.from_numpy(np.ascontiguousarray(tf[r][:, cols])),
+                torch.from_numpy(dl[r]), torch.from_numpy(df[cols]), n,
+                torch.from_numpy(valid[r]), pacc)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32))
+    whole = R.bm25_rows(put(tf), put(dl), put(df), n, put(valid), acc)
+    assert torch.equal(whole, R.bm25_scores(put(tf), put(dl), put(df), n,
+                                            put(valid)))
+    assert LAUNCHES["bm25_sums"] == b0 + n_doc
+    assert LAUNCHES["bm25_rows"] == r0 + 2 * n_doc + 1
+
+
+@pytest.mark.parametrize("filt", [None, (0x6465, -1, -(2**30), 2**30)])
+@pytest.mark.parametrize("with_delta", [False, True])
+def test_span_score_docid_column_matches_plain(edge_store, filt,
+                                               with_delta):
+    """K7 with its docid column over the edge store's extents (ragged
+    last tile, every row tombstoned, several extents) and a RAM delta
+    after them: scores and docids equal to the plain version's, -1 past
+    the rows; the scores equal to K7 without the column."""
+    f, fl, d, dead, _pm = _arena(edge_store)
+    ext = KBench.edge_extents(edge_store, 4)
+    delta = (convert.delta_from_numpy(*KBench.edge_delta(edge_store, 1000),
+                                      device=f.device)
+             if with_delta else None)
+    st = KD.span_stats(f, d, dead, ext, flags=fl, filt=filt, delta=delta)
+    rows = sum(c for _s, c in ext) + (delta[2].shape[0] if delta else 0)
+    b0 = LAUNCHES["span_score_docids"]
+    got_s, got_d = KD.span_score(f, fl, d, dead, ext, st, _consts_on(f.device),
+                                 rows + 77, filt=filt, delta=delta,
+                                 with_docids=True)
+    want_s, want_d = KD.span_score_plain(
+        f.cpu(), fl.cpu(), d.cpu(), dead.cpu(), ext, st.cpu(),
+        _consts_on("cpu"), rows + 77, filt,
+        tuple(a.cpu() for a in delta) if delta else None, None, True)
+    plain = KD.span_score(f, fl, d, dead, ext, st, _consts_on(f.device),
+                          rows + 77, filt=filt, delta=delta)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s.cpu(), want_s)
+    assert torch.equal(got_d.cpu(), want_d)
+    assert torch.equal(got_s, plain)
+    assert (got_d[rows:] == -1).all()
+    assert LAUNCHES["span_score_docids"] == b0 + 1
+
+
+def _consts_on(device):
+    return R.profile_consts(R.RankingProfile(), 0x656E, device)
+
+
+@pytest.mark.parametrize("case", range(6))
+@pytest.mark.parametrize("filt", [None, (0x656E, 3, 5_000, 25_000)])
+def test_xjoin_matches_plain(join_store, case, filt):
+    """K18: the probe of each term in turn (its prior the earlier terms'
+    outputs), then the apply on the rare rows; every output equal to the
+    plain versions' on the same inputs, as the mesh runs them."""
+    label, rare, wins, n_inc = KBench.xjoin_edge_cases(join_store)[case]
+    f, fl, d, dead, _pm = _arena(join_store)
+    jd, jp = KBench.xjoin_table(join_store, wins)
+    dev = f.device
+    cand = d[rare.start:rare.start + rare.count]
+    contrib = torch.empty((len(wins), KD.XJOIN_ROWS, rare.count),
+                          dtype=torch.int32, device=dev)
+    pcontrib = contrib.cpu().clone()
+    p0, a0 = LAUNCHES["xjoin_probe"], LAUNCHES["xjoin_apply"]
+    for j, (lo, cnt) in enumerate(wins):
+        got = KD.xjoin_probe(cand, dead, contrib[:j] if j else None, n_inc,
+                             jd, jp, lo, cnt, f, fl)
+        want = KD.xjoin_probe_plain(
+            cand.cpu(), dead.cpu(), pcontrib[:j] if j else None, n_inc,
+            jd.cpu(), jp.cpu(), lo, cnt, f.cpu(), fl.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (label, j)
+        contrib[j].copy_(got)
+        pcontrib[j].copy_(want)
+    got = KD.xjoin_apply(f, fl, d, dead, rare.start, rare.count, contrib,
+                         n_inc, filt)
+    want = KD.xjoin_apply_plain(f.cpu(), fl.cpu(), d.cpu(), dead.cpu(),
+                                rare.start, rare.count, pcontrib, n_inc,
+                                filt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w), label
+    assert LAUNCHES["xjoin_probe"] == p0 + len(wins)
+    assert LAUNCHES["xjoin_apply"] == a0 + 1
+
+
+def test_mesh_store_on_the_card_matches_cpu_twin(dev):
+    """A 2 x 2 MeshSegmentStore with all four cells on the card and its
+    twin on four CPU cells (kernels/bench.mesh_twin): mesh_edges' queries
+    (pruned and escalating, k = 1000, every filter, column-local and
+    cross-row joins with excludes) before and after tombstones and with
+    a RAM delta, and 8 threads through the batcher; every answer and
+    counter equal to the twin's, and the mesh kernels launched."""
+    import threading
+
+    from yacy_search_server_tpu_torch.kernels import reset_launches
+    store, idx, ths = KBench.mesh_edges([dev] * 4, n_term=2)
+    twin, lis = KBench.mesh_twin(store, ["cpu"] * 4)
+    idx.listener = lis
+    keys = ("prune_rounds", "pruned_tiles", "fallbacks", "queries_served")
+
+    def check(tag):
+        for label, fn in KBench.mesh_edge_queries(ths):
+            store._topk_cache.clear()
+            twin._topk_cache.clear()
+            a, b = fn(store), fn(twin)
+            assert (a is None) == (b is None), (tag, label)
+            if a is not None:
+                assert np.array_equal(a[0], b[0]), (tag, label)
+                assert np.array_equal(a[1], b[1]), (tag, label)
+                assert a[2] == b[2], (tag, label)
+        ca, cb = store.counters(), twin.counters()
+        assert {k: ca[k] for k in keys} == {k: cb[k] for k in keys}, tag
+
+    reset_launches()
+    check("packed")
+    assert store.pruned_tiles > 0
+    for name in ("pruned_tile", "gather_topk_batch", "span_stats",
+                 "span_score_docids", "tie_topk", "join_member",
+                 "xjoin_probe", "xjoin_apply", "cardinal_stats",
+                 "cardinal_score"):
+        assert LAUNCHES[name] > 0, name
+    feats, _d, _h, _r = KBench.make_term(5_000, 99)
+    idx.add_many(ths["big"], P.PostingsList(
+        np.arange(3_000_001, 3_005_001, dtype=np.int32), feats))
+    check("delta")
+    for d in idx.get(ths["rare"]).docids[::53][:40]:
+        idx.delete_doc(int(d))
+    check("tombstones")
+    idx.flush()
+    store.enable_batching()
+    twin.enable_batching()
+    prof = R.RankingProfile()
+    want = {th: twin.rank_term(th, prof, k=10) for th in ths.values()}
+    got, errors = {}, []
+
+    def worker(th):
+        try:
+            got[th] = store.rank_term(th, prof, k=10)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+    store._topk_cache.enabled = False
+    ts = [threading.Thread(target=worker, args=(th,))
+          for th in ths.values() for _ in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    assert not errors
+    for th, w in want.items():
+        if w is None:
+            assert got[th] is None
+            continue
+        assert np.array_equal(got[th][0], w[0])
+        assert np.array_equal(got[th][1], w[1])
+    store.close()
+    twin.close()

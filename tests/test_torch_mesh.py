@@ -195,7 +195,13 @@ def test_gather_topk_rejects_bad_run_len_and_k(run_len, k):
 
 @pytest.mark.parametrize("n_term,n_doc", [(1, 8), (2, 4)])
 @pytest.mark.parametrize("profile", [{}, {"authority": 15, "language": 5}])
-def test_mesh_ranker_bit_identical_to_jax_mesh(n_term, n_doc, profile):
+@pytest.mark.parametrize("cells", ["one", "mesh"])
+def test_mesh_ranker_bit_identical_to_jax_mesh(n_term, n_doc, profile,
+                                               cells):
+    """The JAX MeshRanker on the 8-device CPU mesh against the port's on
+    one CPU cell and on the same n_term x n_doc mesh of CPU cells (the
+    statistics merged across the doc axis, host counts summed): equal to
+    the bit."""
     devs = _cpu8()
     feats, docids, hosts = _random_postings(1000, seed=3)
     jp = JR.RankingProfile(**profile)
@@ -203,7 +209,9 @@ def test_mesh_ranker_bit_identical_to_jax_mesh(n_term, n_doc, profile):
     ws, wd = JM.MeshRanker(mesh, jp).rank(JP.PostingsList(docids, feats),
                                           hosts, k=20)
     tp = convert.profile_from_jax(jp.to_external_string())
-    gs, gd = TM.MeshRanker(TM.make_mesh(device="cpu"), tp).rank(
+    tmesh = (TM.make_mesh(device="cpu") if cells == "one" else
+             TM.make_mesh(n_doc, n_term, devices=["cpu"] * 8))
+    gs, gd = TM.MeshRanker(tmesh, tp).rank(
         TP.PostingsList(docids, feats), hosts, k=20)
     np.testing.assert_array_equal(ws, gs)
     np.testing.assert_array_equal(wd, gd)
@@ -237,7 +245,12 @@ def test_placed_from_numpy_carries_the_jax_placement():
     np.testing.assert_array_equal(wd, gd)
 
 
-def test_mesh_bm25_matches_jax():
+@pytest.mark.parametrize("cells", ["one", "mesh"])
+def test_mesh_bm25_matches_jax(cells):
+    """JAX MeshBM25 at 2 x 4 against the port's on one CPU cell and at
+    2 x 4 CPU cells (K16's sums a cell, psum over the doc axis, K16's
+    rows a cell, psum over the term axis): rtol 1e-5 on the scores, the
+    docids where the scores are apart."""
     devs = _cpu8()
     rng = np.random.default_rng(6)
     n, t, k = 777, 6, 15
@@ -247,8 +260,9 @@ def test_mesh_bm25_matches_jax():
     docids = np.arange(n, dtype=np.int32)
     mesh = JM.make_mesh(n_doc=4, n_term=2, devices=devs)
     ws, wd = JM.MeshBM25(mesh).topk(tf, dl, df, n, docids, k=k)
-    gs, gd = TM.MeshBM25(TM.make_mesh(device="cpu")).topk(tf, dl, df, n,
-                                                          docids, k=k)
+    tmesh = (TM.make_mesh(device="cpu") if cells == "one" else
+             TM.make_mesh(4, 2, devices=["cpu"] * 8))
+    gs, gd = TM.MeshBM25(tmesh).topk(tf, dl, df, n, docids, k=k)
     np.testing.assert_allclose(gs, ws, rtol=1e-5)
     gap = np.abs(np.diff(ws)) > 1e-5 * np.abs(ws[1:])
     sep = np.ones(k, bool)
@@ -257,6 +271,55 @@ def test_mesh_bm25_matches_jax():
     np.testing.assert_array_equal(gd[sep], wd[sep])
 
 
-def test_multi_card_mesh_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        TM.make_mesh(n_doc=2, device="cpu")
+def test_make_mesh_rejects_devices_not_divisible_by_n_term():
+    """As the JAX MeshSegmentStore refuses a device list that n_term does
+    not divide, make_mesh raises ValueError; a list it divides gives
+    len / n_term doc columns, a device repeating as often as it is
+    listed."""
+    with pytest.raises(ValueError):
+        TM.make_mesh(n_term=2, devices=["cpu"] * 3)
+    with pytest.raises(ValueError):
+        TM.make_mesh(n_term=3, devices=["cpu"] * 8)
+    with pytest.raises(ValueError):
+        TM.make_mesh(n_doc=4, n_term=2, devices=["cpu"] * 6)
+    m = TM.make_mesh(n_term=2, devices=["cpu"] * 8)
+    assert (m.n_term, m.n_doc, m.n_cells) == (2, 4, 8)
+    assert m.groups("term")[1] == [1, 5]
+    assert m.groups("doc")[1] == [4, 5, 6, 7]
+    one = TM.make_mesh(n_doc=2, n_term=2, device="cpu")
+    assert one.devices == [torch.device("cpu")] * 4
+
+
+@pytest.mark.parametrize("axes", ["doc", "term", ("term", "doc")])
+def test_collectives_match_lax(axes):
+    """The mesh's collectives over 2 x 4 CPU cells equal lax.pmin, pmax,
+    psum and the tiled all_gather over the JAX mesh's same axes, cell by
+    cell; a cell given None takes no part and gets None."""
+    from jax import lax
+    jm = JM.make_mesh(n_doc=4, n_term=2, devices=_cpu8())
+    x = np.random.default_rng(8).integers(-1000, 1000,
+                                          (8, 5)).astype(np.int32)
+
+    def body(v):
+        return (lax.pmin(v, axes), lax.pmax(v, axes), lax.psum(v, axes),
+                lax.all_gather(v, axes, tiled=True))
+    cells = PS(("term", "doc"))
+    fn = jax.jit(JM.shard_map(body, mesh=jm, in_specs=(cells,),
+                              out_specs=(cells,) * 4, check_vma=False))
+    want = [np.asarray(w) for w in fn(jax.device_put(
+        x, NamedSharding(jm, cells)))]
+    tm = TM.make_mesh(4, 2, devices=["cpu"] * 8)
+    xs = [_t(x[c]) for c in range(8)]
+    for got, w in zip((tm.pmin(xs, axes), tm.pmax(xs, axes),
+                       tm.psum(xs, axes), tm.all_gather(xs, axes)), want):
+        np.testing.assert_array_equal(torch.stack(got).numpy().ravel(),
+                                      w.ravel())
+    part = list(xs)
+    part[1] = None
+    got = tm.psum(part, axes)
+    assert got[1] is None
+    for g in tm.groups(axes):
+        if 1 in g:
+            others = [c for c in g if c != 1]
+            np.testing.assert_array_equal(got[others[0]].numpy(),
+                                          x[others].sum(0))

@@ -15,7 +15,9 @@ DenseVectorStore from a JAX store's vectors (`_vecs[:len(store)]`), and
 `ann_from_numpy` the port's AnnVectorIndex from a JAX index's arrays.
 Both sides then score identical bytes under an identical profile.
 `edges_from_numpy` carries BlockRank's host edge list (built in numpy by
-both packages) to the device K17 reads it on.
+both packages) to the device K17 reads it on. `mesh_cells_from_numpy`
+turns a JAX MeshSegmentStore's global [n_cells, ...] arrays into the
+port's mesh cells, so the port's shard bodies run on its own placement.
 """
 
 from __future__ import annotations
@@ -226,3 +228,31 @@ def edges_from_numpy(srcs, dsts, weights, dangling, device=None):
         raise ValueError("srcs, dsts, weights must be [e] and dangling [n]")
     return tuple(torch.from_numpy(a).to(dev)
                  for a in (srcs, dsts, weights, dangling))
+
+
+def mesh_cells_from_numpy(feats16, flags, docids, jdocids, jpos, pmax,
+                          devices, dead=None):
+    """The port's mesh cells from a JAX MeshSegmentStore's global arrays
+    (np.asarray of its `_dev_arrays`: feats16 int16 [n_cells, C, 17], flags
+    and docids int32 [n_cells, C]; of `_dev_join`: jdocids and jpos int32
+    [n_cells, JC]; of `_dev_pmax`: int32 [n_cells, TC]), one device a cell
+    in cell order (a device may repeat), with the tombstone bitmap `dead`
+    (bool [doc_cap]; None: none): the per-cell tensors the port's shard
+    bodies (index/meshstore) read, one [cells_on_device, ...] tensor a
+    device and array with the cells as its views, as the port store's
+    device sync lays them out."""
+    from .index.meshstore import place_cells
+    arrays = [np.require(a, t, ["C", "W"]) for a, t in (
+        (feats16, np.int16), (flags, np.int32), (docids, np.int32),
+        (jdocids, np.int32), (jpos, np.int32), (pmax, np.int32))]
+    n = arrays[0].shape[0]
+    if arrays[0].ndim != 3 or arrays[0].shape[2] != P.NF:
+        raise ValueError(f"feats16 shape {arrays[0].shape}, expected "
+                         f"(cells, C, {P.NF})")
+    if any(a.ndim != 2 or a.shape[0] != n for a in arrays[1:]):
+        raise ValueError("every array needs one row a cell")
+    devs = [resolve_device(d) for d in devices]
+    if len(devs) != n:
+        raise ValueError(f"{len(devs)} devices for {n} cells")
+    return place_cells(arrays, devs, np.zeros(1 << 16, bool)
+                       if dead is None else dead)

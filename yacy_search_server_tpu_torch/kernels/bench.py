@@ -831,3 +831,261 @@ def topk_trace() -> list:
             out.append({"us": us(t), "digit": a, "src": b, "m": c >> 32,
                         "bucket": c & 0xFFFFFFFF})
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh store: a twin on other cells, words on chosen term rows, a corpus
+# of edge cases
+# ---------------------------------------------------------------------------
+
+class _NoRuns:
+    """An RWI with nothing in it (a twin's construction packs nothing)."""
+    _tombstones: tuple = ()
+    _runs: tuple = ()
+    listener = None
+
+
+class MeshTwinListener:
+    """The RWI listener of a mesh store and its twin (mesh_twin): every
+    call goes to the store, which packs; the twin takes the store's host
+    mirrors and span registry again and marks its device tensors stale;
+    deletes reach both."""
+
+    def __init__(self, store, twin):
+        self.store, self.twin = store, twin
+
+    def on_doc_deleted(self, docid: int) -> None:
+        self.store.on_doc_deleted(docid)
+        self.twin.on_doc_deleted(docid)
+
+    def __getattr__(self, name):
+        def call(*a):
+            getattr(self.store, name)(*a)
+            tw = self.twin
+            with tw._lock:
+                tw._cells, tw._packed = self.store._cells, self.store._packed
+                tw._dirty = True
+            tw._bump_epoch()
+        return call
+
+
+def mesh_twin(store, devices):
+    """A second MeshSegmentStore over `store`'s RWI on the cells `devices`
+    (the CPU twin of a store on the card) that shares its host mirrors and
+    span registry instead of packing every run again, and the listener
+    that feeds both (set it as the RWI's listener). A reading aid for
+    checks, not a store API."""
+    from ..index.meshstore import MeshSegmentStore
+    twin = MeshSegmentStore(_NoRuns(), devices=devices, n_term=store.n_term,
+                            budget_bytes=store.budget_bytes)
+    twin.rwi = store.rwi
+    twin._cells, twin._packed = store._cells, store._packed
+    twin._dead_host = store._dead_host.copy()
+    return twin, MeshTwinListener(store, twin)
+
+
+def words_on_rows(n_term: int, prefix: str = "mesh", per_row: int = 3):
+    """{row: [words]}: the first `per_row` words `prefix`0, `prefix`1, ...
+    whose word2hash lands on each term row of an n_term mesh."""
+    from ..index.meshstore import term_shard
+    from ..utils.hashes import word2hash
+    rows: dict[int, list[str]] = {r: [] for r in range(n_term)}
+    i = 0
+    while any(len(v) < per_row for v in rows.values()):
+        w = f"{prefix}{i}"
+        r = term_shard(word2hash(w), n_term)
+        if len(rows[r]) < per_row:
+            rows[r].append(w)
+        i += 1
+    return rows
+
+
+# mesh_edges' terms: name -> (term row, rows, docid draw range); the
+# rare term also holds docids at and above 2^29 (MESH_EDGE_HIGH), of which
+# the sort-mode clip leaves the last valid one to match "part"'s 2^29
+MESH_EDGE_TERMS = {"big": (0, 140_000, 2_000_000),
+                   "rare": (1, 6_000, 400_000),
+                   "part": (0, 20_000, 400_000),
+                   "part2": (1, 15_000, 400_000),
+                   "excl": (0, 3_000, 400_000),
+                   "all": (0, 0, 0)}
+MESH_EDGE_HIGH = (2**29, 2**29 + 7, 2**29 + 1_000, 2**30 + 3)
+
+
+def mesh_edges(devices, n_term: int = 2, seed: int = SEED):
+    """(store, rwi, {name: termhash}) of a MeshSegmentStore on `devices`
+    over MESH_EDGE_TERMS in one run: make_term's columns (its repeated best
+    row: ties), "big" of several tiles a cell, the rare term on the other
+    term row with docids at and above 2^29 (two of them tombstoned after
+    the pack), "part" holding 2^29, "all" every rare docid and more, and
+    tombstones on rare rows after the pack."""
+    from ..index.meshstore import MeshSegmentStore
+    from ..index.postings import PostingsList
+    from ..index.rwi import RWIIndex
+    from ..utils.hashes import word2hash
+    rows = words_on_rows(n_term, per_row=len(MESH_EDGE_TERMS))
+    rng = np.random.default_rng(seed + 91)
+    ths, ids = {}, {}
+    for i, (name, (row, n, hi)) in enumerate(MESH_EDGE_TERMS.items()):
+        ths[name] = word2hash(rows[row % n_term][i])
+        if name == "all":
+            ids[name] = np.union1d(ids["rare"], draw_docids(9_000, 400_000,
+                                                            rng))
+        elif name == "rare":
+            ids[name] = np.concatenate([
+                draw_docids(n - len(MESH_EDGE_HIGH), hi, rng),
+                np.array(MESH_EDGE_HIGH, np.int32)])
+        elif name == "part":
+            ids[name] = np.append(draw_docids(n - 1, hi, rng),
+                                  np.int32(2**29))
+        else:
+            ids[name] = draw_docids(n, hi, rng)
+    idx = RWIIndex()
+    for i, (name, d) in enumerate(ids.items()):
+        feats, _, _, _ = make_term(len(d), seed + 60 + i)
+        idx.add_many(ths[name], PostingsList(d.astype(np.int32), feats))
+    idx.flush()
+    store = MeshSegmentStore(idx, devices=devices, n_term=n_term)
+    return store, idx, ths
+
+
+def mesh_edge_queries(ths) -> list:
+    """(label, fn of a store) of mesh_edges' queries: rank_term pruned,
+    escalating, at k = 1000 and under each filter; the column-local and
+    cross-row joins, with excludes, partners on both rows and a filter."""
+    from ..ops.ranking import RankingProfile
+    prof, esc = RankingProfile(), RankingProfile(
+        worddistance=2, appemph=15, urllength=12, tf=3)
+    t = ths
+    qs = [("term big", lambda s: s.rank_term(t["big"], prof, k=10)),
+          ("term big escalating", lambda s: s.rank_term(t["big"], esc,
+                                                        k=100)),
+          ("term big k=1000", lambda s: s.rank_term(t["big"], prof,
+                                                    k=1000)),
+          ("term rare", lambda s: s.rank_term(t["rare"], prof, k=50))]
+    for label, filt in JOIN_EDGE_FILTERS.items():
+        kw = dict(lang_filter=filt[0], flag_bit=filt[1],
+                  from_days=None if filt[2] == -(2**30) else filt[2],
+                  to_days=None if filt[3] == 2**30 else filt[3])
+        qs.append((f"term big {label}",
+                   lambda s, kw=kw: s.rank_term(t["big"], prof, k=100,
+                                                **kw)))
+    joins = {"column-local big & part": ([t["big"], t["part"]], []),
+             "column-local rare & part2": ([t["rare"], t["part2"]], []),
+             "cross-row big & rare": ([t["big"], t["rare"]], []),
+             "cross-row rare & part & all - excl":
+                 ([t["rare"], t["part"], t["all"]], [t["excl"]]),
+             "cross-row big & part2 - excl": ([t["big"], t["part2"]],
+                                              [t["excl"]]),
+             "cross-row rare - excl - big": ([t["rare"]],
+                                             [t["excl"], t["big"]])}
+    for label, (inc, exc) in joins.items():
+        qs.append((label, lambda s, i=inc, e=exc: s.rank_join(
+            i, e, prof, k=100)))
+    qs.append(("cross-row big & rare, language filter",
+               lambda s: s.rank_join([t["big"], t["rare"]], [], prof, k=20,
+                                     lang_filter=0x6465)))
+    return qs
+
+
+def pruned_runs(bs: int, runs: int, kk: int, rng, tied: bool = False,
+                empty=()):
+    """A gathered [bs, runs, 2kk + 1] int32 block (CPU) as the mesh store's
+    pruned cells leave it for K4 batched: each run kk (score, docid) rows
+    in K5's (score DESC, tile row) order (docids unordered among equal
+    scores: K4's out-of-order path), trailing init rows (-(2^31-1), -1),
+    an ok word; the runs in `empty` all init rows (a cell holding none of
+    the term); `tied`: every real score equal."""
+    import torch
+    small = -(2**31 - 1)
+    g = torch.empty((bs, runs, 2 * kk + 1), dtype=torch.int32)
+    for b in range(bs):
+        for r in range(runs):
+            if r in empty:
+                s = np.full(kk, small, np.int32)
+                d = np.full(kk, -1, np.int32)
+            else:
+                s = (np.full(kk, 7, np.int32) if tied else
+                     -np.sort(-rng.integers(0, 20, kk)).astype(np.int32))
+                d = rng.choice(100_000, kk, replace=False).astype(np.int32)
+                cut = rng.integers(kk // 2, kk + 1)
+                s[cut:], d[cut:] = small, -1
+            g[b, r, :kk] = torch.from_numpy(s)
+            g[b, r, kk:2 * kk] = torch.from_numpy(d)
+            g[b, r, 2 * kk] = int(rng.random() < 0.8)
+    return g
+
+
+def xjoin_edge_cases(store) -> list:
+    """(label, rare span, windows [(lo, cnt)], n_inc) of K18 over the join
+    edge store's arena (join_edges): the rare span (docids at and above
+    2^29, tombstoned rows) against the sort-mode segments of its partners
+    (one holding 2^29), an empty window, a window at the end of the join
+    table (xjoin_table cuts the table there), two includes and an
+    exclude, excludes only."""
+    sp = {th: store.spans_for(th)[0] for th in JOIN_EDGE_TERMS}
+    rare = sp[b"jrareAAAAAAA"]
+
+    def seg(th):
+        return sp[th].jstart, sp[th].count
+    last = max(sp.values(), key=lambda s: s.jstart)
+    return [
+        ("sort partner holding 2^29", rare, [seg(b"jsortbigAAAA")], 1),
+        ("every rare docid", rare, [seg(b"jallAAAAAAAA")], 1),
+        ("empty window", rare, [(0, 0)], 1),
+        ("window at the table's end", rare, [(last.jstart, last.count)], 1),
+        ("two includes, an exclude", rare,
+         [seg(b"jsortbigAAAA"), seg(b"jallAAAAAAAA"),
+          seg(b"jsmallAAAAAA")], 2),
+        ("excludes only", rare, [seg(b"jsmallAAAAAA"), seg(b"jnoneAAAAAAA")],
+         0),
+    ]
+
+
+def xjoin_table(store, wins):
+    """The join edge store's (jdocids, jpos) cut at the end of the last of
+    `wins`: the case's window then ends at the table's last entry."""
+    jd, jp = store.arena.join_arrays()
+    end = max(1, max(lo + c for lo, c in wins))
+    return jd[:end], jp[:end]
+
+
+def mesh_wave(store, fns, timeout: float = 600.0) -> list:
+    """Call each of `fns` (a rank_term through `store`'s mesh batcher)
+    from a thread of its own, with the batcher's dispatcher held until
+    every call is queued, so that they form one wave (up to its
+    max_batch) on every run: the answers, in order. The hold is an item
+    already claimed whose lock this function holds: the dispatcher takes
+    it off its queue and waits on the lock; released once the calls are
+    queued, it finds the item taken and forms the next wave from them."""
+    import threading
+    b = store._batcher
+    gate = {"lk": threading.Lock(), "taken": True}
+    gate["lk"].acquire()
+    out, errors = [None] * len(fns), []
+    try:
+        b._q.put(gate)
+        t0 = time.time()
+        while b._q.qsize() and time.time() - t0 < timeout:
+            time.sleep(0.001)          # the dispatcher holds the gate
+
+        def run(i, fn):
+            try:
+                out[i] = fn()
+            except Exception as e:  # noqa: BLE001 - raised below
+                errors.append(e)
+        ts = [threading.Thread(target=run, args=(i, fn))
+              for i, fn in enumerate(fns)]
+        for t in ts:
+            t.start()
+        # every call queued, or answered without the batcher
+        while (b._q.qsize() + sum(not t.is_alive() for t in ts) < len(fns)
+               and time.time() - t0 < timeout):
+            time.sleep(0.001)
+    finally:
+        gate["lk"].release()
+    for t in ts:
+        t.join(timeout)
+    if errors:
+        raise errors[0]
+    return out

@@ -46,16 +46,22 @@ SIGNATURES = {
     "yt_tie_topk": [_P, _I, _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     "yt_tie_topk_trace": [_P],
     "yt_gather_topk": [_P, _P, _I64, _I64, _I64, _I, _I64, _P, _P],
+    "yt_gather_topk_batch": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I,
+                             _I64, _P, _P],
     "yt_empty_launch": [_P],
     "yt_span_stats": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _I64, _P, _P,
                       _P, _I64, _P, _P],
     "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _I64, _P, _P,
-                      _P, _I64, _P, _P, _P, _I64, _P],
+                      _P, _I64, _P, _P, _P, _P, _I64, _P],
     "yt_span_stats_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _P],
     "yt_span_score_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _P,
                             _P, _P],
     "yt_join_member": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P,
                        _I64, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "yt_xjoin_probe": [_P, _I64, _P, _I64, _P, _I, _I, _P, _P, _I64, _I64,
+                       _P, _P, _P, _P, _P],
+    "yt_xjoin_apply": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _I, _I, _P, _P,
+                       _P, _P, _P],
     "yt_join_member_batch": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64,
                              _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "yt_join_stats_batch": [_P, _P, _P, _P, _I, _P, _P],
@@ -83,6 +89,9 @@ SIGNATURES = {
     "yt_ann_assign": [_P, _I, _I, _P, _I, _I, _P, _P],
     "yt_ann_fuse": [_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "yt_bm25_pass": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
+                     _P, _P, _P],
+    "yt_bm25_sums": [_P, _P, _I64, _P, _P],
+    "yt_bm25_rows": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
                      _P, _P, _P],
     "yt_power_iterate": [_P, _P, _P, _P, _I, _P, _I64, _P, _P, _P, _I64, _P,
                          _I, _I, _I, _I, _I, _P],
@@ -192,7 +201,9 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,
             "pruned_tile_bp": 0, "span_stats_bp": 0, "span_score_bp": 0,
             "topk_finish_bp": 0, "pack_block_batch": 0, "ann_assign": 0,
-            "ann_fuse": 0, "bm25_pass": 0, "power_iterate": 0}
+            "ann_fuse": 0, "bm25_pass": 0, "power_iterate": 0,
+            "gather_topk_batch": 0, "bm25_sums": 0, "bm25_rows": 0,
+            "xjoin_probe": 0, "xjoin_apply": 0, "span_score_docids": 0}
 WIDE = {name: 0 for name in LAUNCHES}
 SLOTS = {name: 0 for name in LAUNCHES}
 _count_lock = threading.Lock()

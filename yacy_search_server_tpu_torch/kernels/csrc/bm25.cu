@@ -3,8 +3,11 @@
 // valid rows, idf of the t query terms, and per row the sum over the
 // terms of idf * tf * (k1 + 1) / max(denom, 1e-9), -inf on invalid rows.
 //
-// Two kernels after one memset. `bm25_sums` adds the valid rows' doclen
-// (int64) and their count with integer atomics after a block reduction:
+// Two kernels after one memset, also callable apart (`yt_bm25_sums`,
+// `yt_bm25_rows`: the split of parallel/mesh.py's _bm25_shard across
+// cells, the doc axis' psum of the sums between them, the term axis'
+// psum of the rows' partial scores after). `bm25_sums` adds the valid
+// rows' doclen (int64) and their count with integer atomics after a block reduction:
 // integer sums are exact in any order, so the result is the same every
 // run. `bm25_rows`: each block first computes avgdl = f32(sum) /
 // max(f32(count), 1) and the t idf values in shared memory, idf =
@@ -126,25 +129,39 @@ inline float host_f32b(int bits) {
 
 using namespace yt;
 
-// tf_int: tf is int32 (else f32); ndocs_dev: an int32 on the device or
-// null (then ndocs_bits, an f32); acc: two uint64 of scratch
-extern "C" int yt_bm25_pass(const void* tf, int tf_int, const void* doclen,
-                            const void* df, const void* valid, int64_t n,
-                            int t, const void* ndocs_dev, int ndocs_bits,
-                            int k1_bits, int c0_bits, int b_bits,
-                            int k1p1_bits, void* acc, void* out,
-                            void* stream) {
-  if (n < 1 || t < 0 || t > BM_MAX_T) return (int)cudaErrorInvalidValue;
+// K16's first half: the valid rows' doclen sum and count into acc (two
+// uint64, zeroed here). Across a mesh's doc axis each cell adds its own
+// rows; the cells' acc words are summed (exact integers) and handed to
+// yt_bm25_rows.
+extern "C" int yt_bm25_sums(const void* doclen, const void* valid, int64_t n,
+                            void* acc, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(acc, 0, 2 * sizeof(unsigned long long), s);
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || n == 0) return (int)e;
   int64_t g = (n + BM_THREADS - 1) / BM_THREADS;
   const unsigned grid = (unsigned)(g < 1 ? 1 : (g > 4096 ? 4096 : g));
   bm25_sums<<<grid, BM_THREADS, 0, s>>>((const int32_t*)doclen,
                                         (const bool*)valid, n,
                                         (unsigned long long*)acc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// K16's second half: the rows' scores over the t term columns of tf
+// (tf_int: int32, else f32) against the sums in acc (yt_bm25_sums', or
+// the doc axis' total); a mesh cell's t columns give its partial score,
+// which the term axis sums. ndocs_dev: an int32 on the device or null
+// (then ndocs_bits, an f32).
+extern "C" int yt_bm25_rows(const void* tf, int tf_int, const void* doclen,
+                            const void* df, const void* valid, int64_t n,
+                            int t, const void* ndocs_dev, int ndocs_bits,
+                            int k1_bits, int c0_bits, int b_bits,
+                            int k1p1_bits, const void* acc, void* out,
+                            void* stream) {
+  if (n < 1 || t < 0 || t > BM_MAX_T) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int64_t g = (n + BM_THREADS - 1) / BM_THREADS;
+  const unsigned grid = (unsigned)(g < 1 ? 1 : (g > 4096 ? 4096 : g));
   const int32_t* nd = (const int32_t*)ndocs_dev;
   const float ndv = host_f32b(ndocs_bits);
   const auto* a = (const unsigned long long*)acc;
@@ -161,4 +178,20 @@ extern "C" int yt_bm25_pass(const void* tf, int tf_int, const void* doclen,
         host_f32b(c0_bits), host_f32b(b_bits), host_f32b(k1p1_bits),
         (float*)out);
   return (int)cudaGetLastError();
+}
+
+// tf_int: tf is int32 (else f32); ndocs_dev: an int32 on the device or
+// null (then ndocs_bits, an f32); acc: two uint64 of scratch
+extern "C" int yt_bm25_pass(const void* tf, int tf_int, const void* doclen,
+                            const void* df, const void* valid, int64_t n,
+                            int t, const void* ndocs_dev, int ndocs_bits,
+                            int k1_bits, int c0_bits, int b_bits,
+                            int k1p1_bits, void* acc, void* out,
+                            void* stream) {
+  if (n < 1 || t < 0 || t > BM_MAX_T) return (int)cudaErrorInvalidValue;
+  const int e = yt_bm25_sums(doclen, valid, n, acc, stream);
+  if (e != 0) return e;
+  return yt_bm25_rows(tf, tf_int, doclen, df, valid, n, t, ndocs_dev,
+                      ndocs_bits, k1_bits, c0_bits, b_bits, k1p1_bits, acc,
+                      out, stream);
 }

@@ -182,7 +182,11 @@ score_regions(const int32_t* __restrict__ feats,
 // is one more source after the extents: its rows are scored against the
 // same statistics and written after every extent row, so that a span row
 // precedes a delta row of equal score, as the JAX merge of the delta's
-// top-k after the spans' does. Liveness is decided here from the docids
+// top-k after the spans' does. With a docid column (`out_docids`) the
+// pass also writes each row's docid beside its score, in the same order:
+// the mesh store's per-cell scan (_mesh_rank_shard, meshstore.py:1888)
+// selects in tie mode, (score DESC, docid ASC), so kernel 3 takes them
+// as its secondary key. Liveness is decided here from the docids
 // and the tombstone bitmap (row_live), so the host sends no counts and
 // no mask. Rows [rows, out_len) of the buffer get -(2^31-1): a top-k of
 // kk > rows reads them as the JAX merge reads its init entries. A row
@@ -207,7 +211,8 @@ __device__ __forceinline__ void score_extents_body(
     const Extents& x, const Filter& q, const uint8_t* __restrict__ dead,
     int64_t doc_cap, const int32_t* __restrict__ st,
     const int32_t* __restrict__ consts, unsigned char* smem, ScoreConsts& k,
-    int32_t* __restrict__ out, int64_t out_len, int block, int blocks) {
+    int32_t* __restrict__ out, int32_t* __restrict__ out_d, int64_t out_len,
+    int block, int blocks) {
   constexpr int SB = stage_bytes<int16_t>();
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int64_t chunks = x.cbase[x.n];
@@ -246,14 +251,17 @@ __device__ __forceinline__ void score_extents_body(
             (off || row_passes(f, sg.flag(j), d, q)))
           score = score_row<int16_t, true>(f, sg.flag(j), rk, false, 0);
         out[x.obase[e] + r0 + j] = score;
+        if (out_d) out_d[x.obase[e] + r0 + j] = d;
       }
     }
     __syncwarp();
   }
   cp_async_wait<0>();
   for (int64_t r = x.obase[x.n] + (int64_t)block * blockDim.x + t;
-       r < out_len; r += (int64_t)blocks * blockDim.x)
+       r < out_len; r += (int64_t)blocks * blockDim.x) {
     out[r] = SMALL;
+    if (out_d) out_d[r] = -1;
+  }
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
@@ -261,11 +269,12 @@ score_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
               const Extents x, const Filter q,
               const int32_t* __restrict__ st,
               const int32_t* __restrict__ consts,
-              int32_t* __restrict__ out, int64_t out_len) {
+              int32_t* __restrict__ out, int32_t* __restrict__ out_d,
+              int64_t out_len) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ ScoreConsts k;
-  score_extents_body(x, q, dead, doc_cap, st, consts, smem, k, out, out_len,
-                     blockIdx.x, gridDim.x);
+  score_extents_body(x, q, dead, doc_cap, st, consts, smem, k, out, out_d,
+                     out_len, blockIdx.x, gridDim.x);
 }
 
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
@@ -284,7 +293,7 @@ score_batch(const int16_t* __restrict__ feats,
   if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
   __syncthreads();
   score_extents_body(x, q, dead, doc_cap, stats + (int64_t)s * stats_stride,
-                     consts, smem, k, out + b.obase[s],
+                     consts, smem, k, out + b.obase[s], nullptr,
                      b.obase[s + 1] - b.obase[s], blockIdx.x - b.bstart[s],
                      b.bstart[s + 1] - b.bstart[s]);
 }
@@ -384,7 +393,9 @@ extern "C" int yt_cardinal_score(const void* feats, int feat_bytes,
 // filt the filter's 4 int32 in host memory; allow [nwords] int32 (the
 // facet bitmap) or null; dfeats [dn, 17] int16, dflags/ddocids [dn] int32
 // the RAM delta block (dn 0: none); stats int32[38]; consts int32[44];
-// out [out_len] int32, out_len >= the extents' and the delta's rows.
+// out [out_len] int32, out_len >= the extents' and the delta's rows;
+// out_docids [out_len] int32 or null: each scored row's docid beside its
+// score (-1 past the rows), for kernel 3's tie mode.
 extern "C" int yt_span_score(const void* feats, const void* flags,
                              const void* docids, const void* dead,
                              int64_t doc_cap, const int64_t* ext, int n_ext,
@@ -392,8 +403,8 @@ extern "C" int yt_span_score(const void* feats, const void* flags,
                              int64_t nwords, const void* dfeats,
                              const void* dflags, const void* ddocids,
                              int64_t dn, const void* stats,
-                             const void* consts, void* out, int64_t out_len,
-                             void* stream) {
+                             const void* consts, void* out, void* out_docids,
+                             int64_t out_len, void* stream) {
   if (n_ext < 0 || n_ext > MAX_EXT || dn < 0)
     return (int)cudaErrorInvalidValue;
   const Extents x = make_extents(feats, flags, docids, ext, n_ext, dfeats,
@@ -410,7 +421,7 @@ extern "C" int yt_span_score(const void* feats, const void* flags,
   const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
   score_extents<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)dead, doc_cap, x, q, (const int32_t*)stats,
-      (const int32_t*)consts, (int32_t*)out, out_len);
+      (const int32_t*)consts, (int32_t*)out, (int32_t*)out_docids, out_len);
   return (int)cudaGetLastError();
 }
 

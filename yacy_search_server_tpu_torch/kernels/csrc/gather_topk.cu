@@ -39,6 +39,16 @@
 // quarter of (runs - 1) * ceil(log2 run_len), and the counts meet by
 // shuffles. A block takes 256 rows at a time.
 //
+// `yt_gather_topk_batch` is the same merge over bs slots in one launch
+// (blockIdx.y the slot), each slot's runs anywhere in one buffer (a run
+// stride and a slot stride: the mesh store's cells' [bs, 2kk + 1] pruned
+// blocks gathered as [bs, cells, 2kk + 1]), and the pmin of the runs'
+// ok words beside each slot's winners: the per-slot tie_topk merge and
+// the ok of index/meshstore._mesh_pruned_batch_shard (JAX package,
+// meshstore.py:1876-1884). The pruned cells' runs are in K5's (score,
+// tile row) order, not the tie order, so their slots take the all-pairs
+// path: m = cells * kk rows, at most a few thousand.
+//
 // Bound: the bytes (8 B a row in, 8 B a winner out) at the m of a fused
 // query; the merge's comparisons are a few hundred thousand. What holds
 // it back on one card is the launch itself: `yt_empty_launch` launches an
@@ -56,13 +66,18 @@ constexpr int GT_SMEM_ROWS = 24576;
 struct Cols {
   const int32_t* s;
   const int32_t* d;
-  int stride;
+  int stride;          // between the rows of a run
+  int64_t run_stride;  // between the first rows of two runs
+  int run_len;
   bool is_float;
+  __device__ __forceinline__ int64_t at(int i) const {
+    return (int64_t)(i / run_len) * run_stride + (int64_t)(i % run_len) *
+                                                     stride;
+  }
   __device__ __forceinline__ unsigned long long key(int i) const {
-    return ((unsigned long long)tie_hi(__ldg(s + (int64_t)i * stride),
-                                       is_float)
-            << 32) |
-           sec_key(__ldg(d + (int64_t)i * stride));
+    const int64_t a = at(i);
+    return ((unsigned long long)tie_hi(__ldg(s + a), is_float) << 32) |
+           sec_key(__ldg(d + a));
   }
 };
 
@@ -91,11 +106,22 @@ __device__ __forceinline__ int count_below(const K& key, int b, int len,
   return lo;
 }
 
+// Slot blockIdx.y of a batch: its columns from slot * slot_stride, its
+// k winners at out + slot * out_stride (scores, then docids), and, with
+// `ok`, one more word: 1 when every run's ok word (ok + slot *
+// slot_stride + run * run_stride) is nonzero, else 0.
 template <bool STAGED>
 __global__ void __launch_bounds__(GT_THREADS)
-merge_runs(Cols c, int m, int run_len, int k, int32_t* __restrict__ out_s,
-           int32_t* __restrict__ out_d) {
+merge_runs(Cols c, int m, int k, int64_t slot_stride,
+           const int32_t* __restrict__ ok, int32_t* __restrict__ out,
+           int64_t out_stride) {
   extern __shared__ unsigned long long sk[];
+  const int64_t so = (int64_t)blockIdx.y * slot_stride;
+  c.s += so;
+  c.d += so;
+  const int run_len = c.run_len;
+  int32_t* out_s = out + (int64_t)blockIdx.y * out_stride;
+  int32_t* out_d = out_s + k;
   if (STAGED) {
 #pragma unroll 8
     for (int i = threadIdx.x; i < m; i += GT_THREADS) sk[i] = c.key(i);
@@ -107,6 +133,13 @@ merge_runs(Cols c, int m, int run_len, int k, int32_t* __restrict__ out_s,
     if ((i + 1) % run_len != 0 && key(i + 1) < key(i)) bad = 1;
   const bool unsorted = __syncthreads_or(bad);
   const int runs = m / run_len;
+  if (ok != nullptr && blockIdx.x == 0) {
+    int all = 1;
+    for (int r = threadIdx.x; r < runs; r += GT_THREADS)
+      if (__ldg(ok + so + (int64_t)r * c.run_stride) == 0) all = 0;
+    all = __syncthreads_and(all);
+    if (threadIdx.x == 0) out_s[2 * k] = all;
+  }
   // a sorted single run places row p at p: only its first k rows move
   const int lim = runs == 1 && !unsorted ? k : m;
   // GT_LANES lanes per row, each searching every GT_LANES-th run (or
@@ -135,10 +168,42 @@ merge_runs(Cols c, int m, int run_len, int k, int32_t* __restrict__ out_s,
     for (int o = 1; o < GT_LANES; o <<= 1)
       rank += __shfl_xor_sync(0xffffffffu, rank, o);
     if (i < lim && sub == 0 && rank < k) {
-      out_s[rank] = c.s[(int64_t)i * c.stride];
-      out_d[rank] = c.d[(int64_t)i * c.stride];
+      const int64_t a = c.at(i);
+      out_s[rank] = c.s[a];
+      out_d[rank] = c.d[a];
     }
   }
+}
+
+// The launch of merge_runs over bs slots of m rows each.
+static cudaError_t launch_merge(const Cols& c, int64_t m, int64_t k,
+                                int64_t bs, int64_t slot_stride,
+                                const int32_t* ok, int32_t* out,
+                                int64_t out_stride, cudaStream_t s) {
+  const int gx = c.run_len == m ? 1 : (int)((m + GT_ROWS - 1) / GT_ROWS);
+  const dim3 grid(gx, (unsigned)bs);
+  if (m <= GT_SMEM_ROWS) {
+    const int smem = (int)m * 8;
+    if (smem > 48 * 1024) {
+      static bool raised[64];
+      int dev = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e != cudaSuccess) return e;
+      if (dev < 0 || dev >= 64 || !raised[dev]) {
+        e = cudaFuncSetAttribute(merge_runs<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 GT_SMEM_ROWS * 8);
+        if (e != cudaSuccess) return e;
+        if (dev >= 0 && dev < 64) raised[dev] = true;
+      }
+    }
+    merge_runs<true><<<grid, GT_THREADS, smem, s>>>(
+        c, (int)m, (int)k, slot_stride, ok, out, out_stride);
+  } else {
+    merge_runs<false><<<grid, GT_THREADS, 0, s>>>(
+        c, (int)m, (int)k, slot_stride, ok, out, out_stride);
+  }
+  return cudaGetLastError();
 }
 
 __global__ void empty_kernel() {}
@@ -157,32 +222,33 @@ extern "C" int yt_gather_topk(const void* scores, const void* docids,
       stride < 1 || stride >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   const Cols c{(const int32_t*)scores, (const int32_t*)docids, (int)stride,
-               is_float != 0};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int grid = run_len == m ? 1 : (int)((m + GT_ROWS - 1) / GT_ROWS);
-  int32_t* o = (int32_t*)out;
-  if (m <= GT_SMEM_ROWS) {
-    const int smem = (int)m * 8;
-    if (smem > 48 * 1024) {
-      static bool raised[64];
-      int dev = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e != cudaSuccess) return (int)e;
-      if (dev < 0 || dev >= 64 || !raised[dev]) {
-        e = cudaFuncSetAttribute(merge_runs<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 GT_SMEM_ROWS * 8);
-        if (e != cudaSuccess) return (int)e;
-        if (dev >= 0 && dev < 64) raised[dev] = true;
-      }
-    }
-    merge_runs<true><<<grid, GT_THREADS, smem, s>>>(c, (int)m, (int)run_len,
-                                                    (int)k, o, o + k);
-  } else {
-    merge_runs<false><<<grid, GT_THREADS, 0, s>>>(c, (int)m, (int)run_len,
-                                                  (int)k, o, o + k);
-  }
-  return (int)cudaGetLastError();
+               run_len * stride, (int)run_len, is_float != 0};
+  return (int)launch_merge(c, m, k, 1, 0, nullptr, (int32_t*)out, 2 * k,
+                           (cudaStream_t)stream);
+}
+
+// K4 batched: bs slots, each `runs` runs of run_len rows; the run r of
+// slot b has its scores at scores[b * slot_stride + r * run_stride + j]
+// and its docids at the same offset of `docids` (j < run_len), and, where
+// ok is not null, its ok word at ok[b * slot_stride + r * run_stride]
+// (the layout of the cells' [bs, 2kk + 1] pruned outputs gathered into
+// one [bs, cells, 2kk + 1] buffer). out: int32 [bs, 2k + (ok ? 1 : 0)],
+// each slot's k winners (scores, docids) and the pmin of its runs' ok.
+extern "C" int yt_gather_topk_batch(const void* scores, const void* docids,
+                                    const void* ok, int64_t slot_stride,
+                                    int64_t run_stride, int64_t bs,
+                                    int64_t runs, int64_t run_len,
+                                    int is_float, int64_t k, void* out,
+                                    void* stream) {
+  const int64_t m = runs * run_len;
+  if (bs < 1 || bs > 65535 || runs < 1 || run_len < 1 || k < 1 || k > m ||
+      m >= (1ll << 31) || slot_stride < 0 || run_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  const Cols c{(const int32_t*)scores, (const int32_t*)docids, 1, run_stride,
+               (int)run_len, is_float != 0};
+  return (int)launch_merge(c, m, k, bs, slot_stride, (const int32_t*)ok,
+                           (int32_t*)out, 2 * k + (ok != nullptr ? 1 : 0),
+                           (cudaStream_t)stream);
 }
 
 // one launch of an empty kernel: the floor of any kernel's call

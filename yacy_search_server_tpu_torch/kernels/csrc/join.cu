@@ -526,3 +526,228 @@ extern "C" int yt_join_member_batch(
       (const uint32_t*)scratch);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// K18 `xjoin`: the cross-row conjunction of the mesh store
+// ---------------------------------------------------------------------------
+// Replaces the membership exchange of index/meshstore._mesh_xjoin_shard
+// (JAX package, meshstore.py:1720-1810). Terms on different term rows of
+// the mesh share doc columns (a docid's column is the same for every
+// term), so within one column the rare include's candidates (the rare
+// cell's docids, rows [start, start + n), n its count) are tested against
+// every cell's own docid-sorted join window, and the owner cell's partner
+// features come back through term-axis reductions (the mesh's collectives,
+// between the two entry points):
+//   - `xjoin_probe`, on every cell of the column, one term a launch: a
+//     candidate is valid while it is live, below n and passed every
+//     earlier term (the reduced contributions `prior`, includes first:
+//     found > 0, then excludes: found == 0), as the JAX loop narrows gv
+//     term by term. A valid candidate is binary-searched in this cell's
+//     window jdocids[lo, lo + cnt) for clip(docid, 0, 2^29); of the valid
+//     candidates at or above 2^29 only the last (the largest row) can
+//     match, as _membership_sorted's stable co-sort decides
+//     (`xjoin_last_high` finds it first). Output int32 [5, n], neutral
+//     where not found: found (0/1), posintext min (INT32_MAX) and max
+//     (-INT32_MAX), hitcount min (INT32_MAX), flags (0). A non-owner
+//     cell's window is empty (cnt 0): all neutral.
+//   - `xjoin_apply`, on the rare cell: the term-axis-reduced
+//     contributions (psum, pmin, pmax, pmin, psum) of every term folded
+//     into the rare rows as K8 merges partner rows (worddistance = max -
+//     min of posintext, hitcount = min, flags OR'd with the psum), an
+//     include missed or an exclude hit invalidates the row, the filter
+//     is applied; merged int32 [n, 17], flags int32 [n], valid [n] as K8
+//     writes them, so kernels 1-3 follow as in the column-local join.
+//     Only the rare row's cells score (the JAX body's axis_index mask):
+//     the others hold no candidate.
+// Bound: bytes. A probe reads a candidate's docid and tombstone byte, the
+// prior words and, for a valid one, ~log2(cnt) window entries (L2) and
+// the partner's 8 B; it writes 20 B. The apply reads the rare rows (34 B
+// of features, flags, docid) and 20 B a term, and writes 73 B a row.
+constexpr int X_THREADS = 256;
+constexpr int32_t X_BIG = 0x7fffffff;  // the neutral fills' INT32_MAX
+
+__device__ __forceinline__ bool xjoin_valid(
+    int64_t i, const int32_t* __restrict__ cand, int64_t n,
+    const uint8_t* __restrict__ dead, int64_t doc_cap,
+    const int32_t* __restrict__ prior, int n_prior, int n_inc) {
+  if (i >= n || !row_live(__ldg(cand + i), dead, doc_cap)) return false;
+  for (int p = 0; p < n_prior; ++p) {
+    const int32_t c = __ldg(prior + (int64_t)p * 5 * n + i);
+    if (p < n_inc ? c <= 0 : c != 0) return false;
+  }
+  return true;
+}
+
+__global__ void __launch_bounds__(X_THREADS)
+xjoin_last_high(const int32_t* __restrict__ cand, int64_t n,
+                const uint8_t* __restrict__ dead, int64_t doc_cap,
+                const int32_t* __restrict__ prior, int n_prior, int n_inc,
+                int* __restrict__ last) {
+  for (int64_t i = (int64_t)blockIdx.x * X_THREADS + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * X_THREADS)
+    if (__ldg(cand + i) >= JOIN_DOCID_CAP &&
+        xjoin_valid(i, cand, n, dead, doc_cap, prior, n_prior, n_inc))
+      atomicMax(last, (int)i);
+}
+
+__global__ void __launch_bounds__(X_THREADS)
+xjoin_probe(const int32_t* __restrict__ cand, int64_t n,
+            const uint8_t* __restrict__ dead, int64_t doc_cap,
+            const int32_t* __restrict__ prior, int n_prior, int n_inc,
+            const int32_t* __restrict__ jdocids,
+            const int32_t* __restrict__ jpos, int64_t lo, int64_t cnt,
+            const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags,
+            const int* __restrict__ last, int32_t* __restrict__ out) {
+  for (int64_t i = (int64_t)blockIdx.x * X_THREADS + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * X_THREADS) {
+    int32_t found = 0, pmin = X_BIG, pmax = -X_BIG, hmin = X_BIG, fl = 0;
+    if (xjoin_valid(i, cand, n, dead, doc_cap, prior, n_prior, n_inc)) {
+      const int32_t d = __ldg(cand + i);
+      if (d < JOIN_DOCID_CAP || i == *last) {
+        const int32_t key = d > JOIN_DOCID_CAP ? JOIN_DOCID_CAP : d;
+        int64_t a = lo, b = lo + cnt;
+        while (a < b) {  // the first entry >= key
+          const int64_t mid = (a + b) >> 1;
+          if (__ldg(jdocids + mid) < key) a = mid + 1;
+          else b = mid;
+        }
+        if (a < lo + cnt && __ldg(jdocids + a) == key) {
+          const int64_t pr = __ldg(jpos + a);
+          found = 1;
+          pmin = pmax = __ldg(feats + pr * NF + F_POSINTEXT);
+          hmin = __ldg(feats + pr * NF + F_HITCOUNT);
+          fl = __ldg(flags + pr);
+        }
+      }
+    }
+    out[i] = found;
+    out[n + i] = pmin;
+    out[2 * n + i] = pmax;
+    out[3 * n + i] = hmin;
+    out[4 * n + i] = fl;
+  }
+}
+
+// The apply stages a block's XA_THREADS rows through shared memory as
+// join_rows does (2-byte loads of consecutive addresses in, the merged
+// rows out as consecutive words); one thread a row merges. (Its first
+// form, a thread a row reading 34 B and writing 68 B at a row's stride,
+// took 0.438 device ms at 2M rows against a 0.081 bound, staged 0.139,
+// on an H100 80GB HBM3 at 700 W: PERF.md.)
+constexpr int XA_THREADS = 128;
+
+__global__ void __launch_bounds__(XA_THREADS)
+xjoin_apply(const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags,
+            const int32_t* __restrict__ docids,
+            const uint8_t* __restrict__ dead, int64_t doc_cap, int64_t start,
+            int64_t n, const int32_t* __restrict__ contrib, int n_inc,
+            int n_exc, const Filter q, int32_t* __restrict__ merged,
+            int32_t* __restrict__ flags_out, uint8_t* __restrict__ valid_out) {
+  __shared__ int16_t s_in[XA_THREADS * NF];
+  __shared__ int32_t s_out[XA_THREADS * NF];
+  const bool off = filter_off(q);
+  const int t = threadIdx.x;
+  for (int64_t r0 = (int64_t)blockIdx.x * XA_THREADS; r0 < n;
+       r0 += (int64_t)gridDim.x * XA_THREADS) {
+    const int rows = n - r0 < XA_THREADS ? (int)(n - r0) : XA_THREADS;
+    const int16_t* src = feats + (start + r0) * NF;
+    for (int i = t; i < rows * NF; i += XA_THREADS) s_in[i] = src[i];
+    __syncthreads();
+    if (t < rows) {
+      const int64_t i = r0 + t;
+      const int16_t* f = s_in + t * NF;
+      bool v = row_live(__ldg(docids + start + i), dead, doc_cap);
+      int32_t fo = __ldg(flags + start + i);
+      int32_t pmin = f[F_POSINTEXT], pmax = pmin, hmin = f[F_HITCOUNT];
+      for (int k = 0; k < n_inc; ++k) {
+        const int32_t* c = contrib + (int64_t)k * 5 * n + i;
+        v = v && __ldg(c) > 0;
+        pmin = min(pmin, __ldg(c + n));
+        pmax = max(pmax, __ldg(c + 2 * n));
+        hmin = min(hmin, __ldg(c + 3 * n));
+        fo |= __ldg(c + 4 * n);
+      }
+      for (int e = n_inc; e < n_inc + n_exc; ++e)
+        v = v && __ldg(contrib + (int64_t)e * 5 * n + i) == 0;
+      int32_t* o = s_out + t * NF;
+#pragma unroll
+      for (int c = 0; c < NF; ++c) o[c] = f[c];
+      o[F_WORDDISTANCE] = pmax - pmin;
+      o[F_HITCOUNT] = hmin;
+      v = v && (off || constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], fo, q));
+      flags_out[i] = fo;
+      valid_out[i] = v ? 1 : 0;
+    }
+    __syncthreads();
+    int32_t* dst = merged + r0 * NF;
+    for (int i = t; i < rows * NF; i += XA_THREADS) dst[i] = s_out[i];
+    __syncthreads();
+  }
+}
+
+static unsigned x_grid(int64_t n) {
+  const int64_t g = (n + X_THREADS - 1) / X_THREADS;
+  return (unsigned)(g < 1 ? 1 : (g > 8192 ? 8192 : g));
+}
+
+// cand [n] int32 (the rare cell's docids from its span start), dead
+// [doc_cap] bool of this cell's device; prior [n_prior, 5, n] int32 (the
+// reduced contributions of the earlier terms, includes first, n_inc of
+// them at most); jdocids/jpos this cell's join table, the window [lo, lo +
+// cnt); feats [*, 17] int16 and flags int32 this cell's arena; scratch one
+// int32; out [5, n] int32.
+extern "C" int yt_xjoin_probe(const void* cand, int64_t n, const void* dead,
+                              int64_t doc_cap, const void* prior,
+                              int n_prior, int n_inc, const void* jdocids,
+                              const void* jpos, int64_t lo, int64_t cnt,
+                              const void* feats, const void* flags,
+                              void* scratch, void* out, void* stream) {
+  if (n < 0 || n_prior < 0 || n_inc < 0 || lo < 0 || cnt < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(scratch, 0xff, 4, s);  // -1: none
+  if (e != cudaSuccess) return (int)e;
+  const unsigned g = x_grid(n);
+  xjoin_last_high<<<g, X_THREADS, 0, s>>>(
+      (const int32_t*)cand, n, (const uint8_t*)dead, doc_cap,
+      (const int32_t*)prior, n_prior, n_inc, (int*)scratch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  xjoin_probe<<<g, X_THREADS, 0, s>>>(
+      (const int32_t*)cand, n, (const uint8_t*)dead, doc_cap,
+      (const int32_t*)prior, n_prior, n_inc, (const int32_t*)jdocids,
+      (const int32_t*)jpos, lo, cnt, (const int16_t*)feats,
+      (const int32_t*)flags, (const int*)scratch, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// the rare cell's arena, its rows [start, start + n); contrib [n_inc +
+// n_exc, 5, n] int32 reduced over the term axis; filt 4 int32 in host
+// memory; merged [n, 17] int32, flags_out [n] int32, valid_out [n] bool.
+extern "C" int yt_xjoin_apply(const void* feats, const void* flags,
+                              const void* docids, const void* dead,
+                              int64_t doc_cap, int64_t start, int64_t n,
+                              const void* contrib, int n_inc, int n_exc,
+                              const int32_t* filt, void* merged,
+                              void* flags_out, void* valid_out,
+                              void* stream) {
+  if (n < 0 || start < 0 || n_inc < 0 || n_exc < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const Filter q = make_filter(filt, nullptr, 0);
+  static int cached[64];
+  int limit = 0;
+  cudaError_t e = resident_blocks(xjoin_apply, XA_THREADS, 0, cached, &limit);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t blocks = (n + XA_THREADS - 1) / XA_THREADS;
+  const int grid = (int)(blocks < limit ? blocks : limit);
+  xjoin_apply<<<grid, XA_THREADS, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, start, n, (const int32_t*)contrib,
+      n_inc, n_exc, q, (int32_t*)merged, (int32_t*)flags_out,
+      (uint8_t*)valid_out);
+  return (int)cudaGetLastError();
+}

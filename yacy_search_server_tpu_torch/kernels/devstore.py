@@ -33,6 +33,10 @@ package's index/devstore.py decides; every kernel decides it itself.
   its docid-sorted segment, or its docid bitmap) and every exclude, the
   partner rows merged in, the constraint filter applied; kernels 1-3 and
   topk_finish rank the merged block.
+- `xjoin_probe` and `xjoin_apply` (K18, csrc/join.cu) replace the
+  membership exchange of index/meshstore._mesh_xjoin_shard, the mesh
+  store's cross-row conjunction: the probe on every cell of a doc column,
+  the term-axis reductions between, the apply on the rare cell.
 - `span_stats_batch`, `span_score_batch` (the same sources) and
   `topk_finish_batch` replace _rank_scan_batch_kernel /
   _rank_scan_batch_packed_kernel: K6 and K7 with a query dimension over a
@@ -439,12 +443,14 @@ def _delta_args(delta, dn):
 # ---------------------------------------------------------------------------
 
 def span_score_plain(feats16, flags, docids, dead, extents, stats, consts,
-                     out_len: int, filt=None, delta=None, allow=None):
+                     out_len: int, filt=None, delta=None, allow=None,
+                     with_docids: bool = False):
     """Plain PyTorch version of K7 (scored in steps of 2^20 rows)."""
     q = filter_args(filt)
     dev = feats16.device
     ext = _check_extents(extents, feats16.shape[0])
     out = torch.full((out_len,), KC.SMALL, dtype=torch.int32, device=dev)
+    out_d = torch.full((out_len,), -1, dtype=torch.int32, device=dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
     srcs = [(feats16[s:s + c], flags[s:s + c], docids[s:s + c])
             for s, c in ext]
@@ -453,6 +459,7 @@ def span_score_plain(feats16, flags, docids, dead, extents, stats, consts,
     pos = 0
     for f_s, fl_s, d_s in srcs:
         c = d_s.shape[0]
+        out_d[pos:pos + c] = d_s
         for lo in range(0, c, _PLAIN_ROWS):
             hi = min(c, lo + _PLAIN_ROWS)
             dd, f, fl = d_s[lo:hi], f_s[lo:hi], fl_s[lo:hi]
@@ -464,16 +471,19 @@ def span_score_plain(feats16, flags, docids, dead, extents, stats, consts,
             out[pos + lo:pos + hi] = KC.cardinal_score_plain(
                 f, fl, v, torch.zeros_like(dd), stats, zero, consts, True)
         pos += c
-    return out
+    return (out, out_d) if with_docids else out
 
 
 def span_score(feats16, flags, docids, dead, extents, stats, consts,
-               out_len: int, filt=None, delta=None, allow=None):
+               out_len: int, filt=None, delta=None, allow=None,
+               with_docids: bool = False):
     """K7: the rows of up to 8 arena extents, then of the RAM delta block
     `delta`, scored against `stats` (int32[38]) in that order, dead rows
     and rows the filter or the facet bitmap `allow` rejects -(2^31-1),
     into [out_len] int32 (out_len >= their rows; the rest
-    -(2^31-1))."""
+    -(2^31-1)). `with_docids`: also each row's docid in a second [out_len]
+    int32 buffer, in the same pass (-1 past the rows): returns (scores,
+    docids), for kernel 3's tie mode (the mesh store's per-cell scan)."""
     q = filter_args(filt)
     dev = feats16.device
     delta, dn = _check_delta(delta, dev)
@@ -483,22 +493,26 @@ def span_score(feats16, flags, docids, dead, extents, stats, consts,
         raise ValueError(f"out_len {out_len} < the sources' {rows} rows")
     if dev.type == "cpu":
         return span_score_plain(feats16, flags, docids, dead, extents, stats,
-                                consts, out_len, q, delta, allow)
+                                consts, out_len, q, delta, allow,
+                                with_docids)
     cap = _require_arena(feats16, flags, docids, dead, dev)
     ext = _check_extents(extents, cap)
     B.require(stats, "stats", (torch.int32,), 1, dev)
     B.require(consts, "consts", (torch.int32,), 1, dev)
     out = torch.empty(out_len, dtype=torch.int32, device=dev)
+    out_d = (torch.empty(out_len, dtype=torch.int32, device=dev)
+             if with_docids else None)
     ext_arg, filt_arg = _ext_arg(ext), _filt_arg(q)
     rc = B.library().yt_span_score(
         feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
         dead.data_ptr(), dead.shape[0], ctypes.addressof(ext_arg), len(ext),
         ctypes.addressof(filt_arg), *_allow_args(allow),
         *_delta_args(delta, dn), stats.data_ptr(), consts.data_ptr(),
-        out.data_ptr(), out_len, B.stream_ptr(dev))
+        out.data_ptr(), out_d.data_ptr() if with_docids else None, out_len,
+        B.stream_ptr(dev))
     B.check(rc, "span_score")
-    B.count_launch("span_score")
-    return out
+    B.count_launch("span_score_docids" if with_docids else "span_score")
+    return (out, out_d) if with_docids else out
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +747,156 @@ def join_member(feats16, flags, docids, dead, start: int, count: int,
         v.data_ptr(), nhigh.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "join_member")
     B.count_launch("join_member")
+    return merged, fo, v
+
+
+# ---------------------------------------------------------------------------
+# K18 xjoin: the mesh store's cross-row conjunction
+# ---------------------------------------------------------------------------
+
+XJOIN_ROWS = 5   # found, posintext min, posintext max, hitcount min, flags
+
+
+def _xvalid_plain(cand, dead, prior, n_inc: int):
+    """The candidates still valid after the earlier terms' reduced
+    contributions `prior` ([n_prior, 5, n]; includes first)."""
+    v = live_rows(cand, dead)
+    for p in range(prior.shape[0] if prior is not None else 0):
+        c = prior[p, 0]
+        v &= (c > 0) if p < n_inc else (c == 0)
+    return v
+
+
+def xjoin_probe_plain(cand, dead, prior, n_inc: int, jdocids, jpos,
+                      lo: int, cnt: int, feats16, flags):
+    """Plain PyTorch version of K18's probe: int32 [5, n]."""
+    n = cand.shape[0]
+    dev = cand.device
+    out = torch.empty((XJOIN_ROWS, n), dtype=torch.int32, device=dev)
+    out[0] = 0
+    out[1] = INT32_MAX
+    out[2] = -INT32_MAX
+    out[3] = INT32_MAX
+    out[4] = 0
+    if n == 0:
+        return out
+    v = _xvalid_plain(cand, dead, prior, n_inc)
+    found, row = _member_plain(cand, lo, cnt, -1, jdocids, jpos, None, v)
+    found &= v
+    r = row[found]
+    out[0, found] = 1
+    out[1, found] = feats16[r, P.F_POSINTEXT].to(torch.int32)
+    out[2, found] = feats16[r, P.F_POSINTEXT].to(torch.int32)
+    out[3, found] = feats16[r, P.F_HITCOUNT].to(torch.int32)
+    out[4, found] = flags[r]
+    return out
+
+
+def xjoin_probe(cand, dead, prior, n_inc: int, jdocids, jpos, lo: int,
+                cnt: int, feats16, flags):
+    """K18's probe, on one cell of a doc column: each candidate docid of
+    `cand` ([n] int32: the rare cell's docids of its span) that is live
+    and passed the earlier terms (`prior`, int32 [n_prior, 5, n], the
+    term-axis-reduced contributions in term order, the first n_inc of
+    them includes: found > 0; then excludes: found == 0; None for none)
+    is searched in this cell's docid-sorted window jdocids[lo:lo + cnt]
+    for clip(docid, 0, 2^29) (of the valid ones at or above 2^29 only the
+    last can match). Returns int32 [5, n]: found, the partner row's
+    posintext (min, max), hitcount and flags, neutral where not found
+    (0, INT32_MAX, -INT32_MAX, INT32_MAX, 0): this cell's share of the
+    term axis' psum, pmin, pmax, pmin, psum."""
+    lo, cnt = int(lo), int(cnt)
+    if lo < 0 or cnt < 0 or lo + cnt > jdocids.shape[0]:
+        raise ValueError(f"window ({lo}, {cnt}) outside the join table")
+    n = cand.shape[0]
+    if prior is not None and (prior.dim() != 3 or prior.shape[1:]
+                              != (XJOIN_ROWS, n)):
+        raise ValueError(f"prior: expected [n_prior, {XJOIN_ROWS}, {n}]")
+    if cand.device.type == "cpu":
+        return xjoin_probe_plain(cand, dead, prior, n_inc, jdocids, jpos,
+                                 lo, cnt, feats16, flags)
+    dev = cand.device
+    B.require(cand, "cand", (torch.int32,), 1, dev)
+    _require_arena(feats16, flags, None, dead, dev)
+    for name, t in (("jdocids", jdocids), ("jpos", jpos)):
+        B.require(t, name, (torch.int32,), 1, dev)
+    if prior is not None:
+        B.require(prior, "prior", (torch.int32,), 3, dev)
+    out = torch.empty((XJOIN_ROWS, n), dtype=torch.int32, device=dev)
+    scratch = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = B.library().yt_xjoin_probe(
+        cand.data_ptr(), n, dead.data_ptr(), dead.shape[0],
+        prior.data_ptr() if prior is not None else None,
+        prior.shape[0] if prior is not None else 0, n_inc,
+        jdocids.data_ptr(), jpos.data_ptr(), lo, cnt, feats16.data_ptr(),
+        flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        B.stream_ptr(dev))
+    B.check(rc, "xjoin_probe")
+    B.count_launch("xjoin_probe")
+    return out
+
+
+def xjoin_apply_plain(feats16, flags, docids, dead, start: int, n: int,
+                      contrib, n_inc: int, filt=None):
+    """Plain PyTorch version of K18's apply: (merged int32 [n, 17], flags
+    int32 [n], valid bool [n])."""
+    q = filter_args(filt)
+    f = feats16[start:start + n]
+    fo = flags[start:start + n].clone()
+    v = live_rows(docids[start:start + n], dead)
+    pmin = f[:, P.F_POSINTEXT].to(torch.int32)
+    pmax, hmin = pmin.clone(), f[:, P.F_HITCOUNT].to(torch.int32)
+    for t in range(contrib.shape[0]):
+        c = contrib[t]
+        if t < n_inc:
+            v &= c[0] > 0
+            pmin = torch.minimum(pmin, c[1])
+            pmax = torch.maximum(pmax, c[2])
+            hmin = torch.minimum(hmin, c[3])
+            fo |= c[4]
+        else:
+            v &= c[0] == 0
+    merged = f.to(torch.int32)
+    merged[:, P.F_WORDDISTANCE] = pmax - pmin
+    merged[:, P.F_HITCOUNT] = hmin
+    if q != NO_FILTER:
+        v &= constraint_valid(f, fo, q)
+    return merged, fo, v
+
+
+def xjoin_apply(feats16, flags, docids, dead, start: int, n: int, contrib,
+                n_inc: int, filt=None):
+    """K18's apply, on the rare cell: its rows [start, start + n) joined
+    with every term's contributions reduced over the term axis (`contrib`
+    int32 [n_terms, 5, n], the n_inc includes first): live rows found by
+    every include and no exclude stay valid, posintext min/max, hitcount
+    min and flags fold in as K8 merges partner rows, then the filter.
+    Returns K8's (merged int32 [n, 17], flags int32 [n], valid bool
+    [n])."""
+    q = filter_args(filt)
+    start, n = int(start), int(n)
+    if start < 0 or n < 0 or start + n > feats16.shape[0]:
+        raise ValueError(f"rows ({start}, {n}) outside the arena")
+    if contrib.dim() != 3 or contrib.shape[1:] != (XJOIN_ROWS, n) \
+            or not 0 <= n_inc <= contrib.shape[0]:
+        raise ValueError(f"contrib: expected [terms, {XJOIN_ROWS}, {n}]")
+    if feats16.device.type == "cpu":
+        return xjoin_apply_plain(feats16, flags, docids, dead, start, n,
+                                 contrib, n_inc, q)
+    dev = feats16.device
+    _require_arena(feats16, flags, docids, dead, dev)
+    B.require(contrib, "contrib", (torch.int32,), 3, dev)
+    merged = torch.empty((n, P.NF), dtype=torch.int32, device=dev)
+    fo = torch.empty(n, dtype=torch.int32, device=dev)
+    v = torch.empty(n, dtype=torch.bool, device=dev)
+    filt_arg = _filt_arg(q)
+    rc = B.library().yt_xjoin_apply(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], start, n, contrib.data_ptr(), n_inc,
+        contrib.shape[0] - n_inc, ctypes.addressof(filt_arg),
+        merged.data_ptr(), fo.data_ptr(), v.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "xjoin_apply")
+    B.count_launch("xjoin_apply")
     return merged, fo, v
 
 

@@ -4,7 +4,9 @@
 score_topk16 / score_topk / streaming merge (index mode: descending
 score, ties by the lower row index) and parallel/mesh.tie_topk (tie mode:
 lax.sort ascending on (-score, docid)). `gather_topk` (csrc/gather_topk.cu)
-replaces the merge of the Pallas kernel parallel/mesh._all_gather_topk_pallas.
+replaces the merge of the Pallas kernel parallel/mesh._all_gather_topk_pallas,
+and `gather_topk_batch` (the same source) the per-slot merge of the mesh
+store's batched pruned body (index/meshstore._mesh_pruned_batch_shard).
 Each wrapper launches its CUDA kernel for CUDA tensors and takes its plain
 PyTorch version only for CPU tensors.
 
@@ -164,3 +166,68 @@ def gather_topk(scores, docids, k: int, is_float: bool, run_len=None):
     B.check(rc, "gather_topk")
     B.count_launch("gather_topk")
     return out[0], out[1]
+
+
+def _check_batch(g, run_len: int, k: int, d_off: int, ok_off):
+    """Check gather_topk_batch's arguments; (bs, runs, width)."""
+    if not isinstance(g, torch.Tensor) or g.dtype != torch.int32 \
+            or g.dim() != 3:
+        raise ValueError("gather_topk_batch: g must be int32 [bs, runs, w]")
+    bs, runs, w = g.shape
+    if bs < 1 or runs < 1 or run_len < 1:
+        raise ValueError("gather_topk_batch: an empty batch")
+    if not 1 <= k <= runs * run_len:
+        raise ValueError(f"gather_topk_batch: k={k} outside [1, "
+                         f"{runs * run_len}]")
+    if run_len > w or not 0 <= d_off <= w - run_len \
+            or (ok_off is not None and not 0 <= ok_off < w):
+        raise ValueError("gather_topk_batch: a column outside a run's "
+                         f"{w} words")
+    return bs, runs, w
+
+
+def gather_topk_batch_plain(g, run_len: int, k: int, is_float: bool,
+                            d_off: int, ok_off=None):
+    """Plain PyTorch version of K4 batched: [bs, 2k (+1)] int32."""
+    bs, runs, _w = _check_batch(g, run_len, k, d_off, ok_off)
+    out = torch.empty((bs, 2 * k + (ok_off is not None)), dtype=torch.int32,
+                      device=g.device)
+    for b in range(bs):
+        s = g[b, :, :run_len].reshape(-1)
+        d = g[b, :, d_off:d_off + run_len].reshape(-1)
+        out[b, :k], out[b, k:2 * k] = gather_topk_plain(s, d, k, is_float)
+        if ok_off is not None:
+            out[b, 2 * k] = int(bool((g[b, :, ok_off] != 0).all()))
+    return out
+
+
+def gather_topk_batch(g, run_len: int, k: int, is_float: bool, d_off: int,
+                      ok_off=None):
+    """K4 batched: one launch that merges, for each of bs slots, `runs`
+    tie-ordered runs of `run_len` rows into the first k rows of the (score
+    DESC, docid ASC) order, 1 <= k <= runs * run_len.
+
+    `g` is int32 [bs, runs, w] (the cells' [bs, w] blocks gathered along
+    a new cell axis): run r of slot b has its scores (int32, f32 bits when
+    is_float) at g[b, r, :run_len], its docids at g[b, r, d_off:d_off +
+    run_len] and, with `ok_off`, an ok word at g[b, r, ok_off]. A run out
+    of order takes the slow all-pairs path, never a wrong answer (the
+    pruned cells' runs are in (score, tile row) order). Returns [bs, 2k]
+    scores ++ docids, and with ok_off one more column: 1 where every run's
+    ok is nonzero (the pmin over cells of _mesh_pruned_batch_shard)."""
+    bs, runs, w = _check_batch(g, run_len, k, d_off, ok_off)
+    if g.device.type == "cpu":
+        return gather_topk_batch_plain(g, run_len, k, is_float, d_off,
+                                       ok_off)
+    dev = g.device
+    B.require(g, "g", (torch.int32,), 3, dev)
+    out = torch.empty((bs, 2 * k + (ok_off is not None)), dtype=torch.int32,
+                      device=dev)
+    base = g.data_ptr()
+    rc = B.library().yt_gather_topk_batch(
+        base, base + 4 * d_off,
+        base + 4 * ok_off if ok_off is not None else None, runs * w, w, bs,
+        runs, run_len, int(is_float), k, out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "gather_topk_batch")
+    B.count_launch("gather_topk_batch", slots=bs)
+    return out

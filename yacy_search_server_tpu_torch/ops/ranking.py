@@ -420,26 +420,27 @@ def _bm25_consts(k1: float, b: float):
     return tuple(np.float32(x) for x in (k1, 1.0 - b, b, k1 + 1.0))
 
 
-def bm25_scores_plain(tf, doclen, df, ndocs, valid, k1: float = 1.2,
-                      b: float = 0.75):
-    """Plain version of K16 `bm25_pass`: f32 BM25 per row, -inf on invalid
-    rows, in the kernel's operation order (csrc/bm25.cu): avgdl =
-    f32(the valid rows' doclen summed exactly) / max(f32(count), 1); idf =
-    f32(log(double(1 + ((ndocs - df) + 0.5) / (df + 0.5)))); term_j =
-    ((idf_j * tf_j) * (k1 + 1)) / max(tf_j + k1 * ((1 - b) + b * (dl /
-    max(avgdl, 1e-6))), 1e-9), summed left to right. The JAX package sums
-    avgdl and the terms in XLA's order and takes an f32 log: a few ulps
-    apart."""
+def bm25_sums_plain(doclen, valid):
+    """Plain version of K16's first half: int64 [2], the valid rows'
+    doclen summed exactly and their count."""
+    total = torch.where(valid, doclen.to(torch.int64), 0).sum()
+    cnt = valid.to(torch.int64).sum()
+    return torch.stack([total, cnt])
+
+
+def bm25_rows_plain(tf, doclen, df, ndocs, valid, acc, k1: float = 1.2,
+                    b: float = 0.75):
+    """Plain version of K16's second half: the rows' f32 scores over the
+    tf block's term columns against the sums `acc` (int64 [2])."""
     dev = tf.device
     c = [torch.tensor(x, dtype=torch.float32, device=dev)
          for x in _bm25_consts(k1, b)]
     ck1, c0, cb, ck1p1 = c
     tf = tf.to(torch.float32)
     dl = doclen.to(torch.float32)
-    total = torch.where(valid, doclen.to(torch.int64), 0).sum()
-    cnt = valid.to(torch.int64).sum()
-    avgdl = total.to(torch.float32) / torch.clamp(cnt.to(torch.float32),
-                                                  min=1.0)
+    acc = acc.to(dev)
+    avgdl = acc[0].to(torch.float32) / torch.clamp(acc[1].to(torch.float32),
+                                                   min=1.0)
     nd = torch.as_tensor(ndocs, device=dev).to(torch.float32)
     dff = df.to(torch.float32)
     x = 1.0 + ((nd - dff) + 0.5) / (dff + 0.5)
@@ -455,15 +456,22 @@ def bm25_scores_plain(tf, doclen, df, ndocs, valid, k1: float = 1.2,
     return torch.where(valid, score, float("-inf"))
 
 
-def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
-                b: float = 0.75):
-    """K16 `bm25_pass` (csrc/bm25.cu), the scoring pass of the JAX
-    `bm25_topk` (ops/ranking.py:653): [n] f32 BM25 of each row of the
-    [n, t] tf block (f32 or int32) with doclen [n] int32, df [t] int32,
-    ndocs (a number or an int32 tensor on the block's device) and valid
-    [n] bool; -inf on invalid rows. The plain version for CPU tensors."""
-    if tf.device.type == "cpu":
-        return bm25_scores_plain(tf, doclen, df, ndocs, valid, k1, b)
+def bm25_scores_plain(tf, doclen, df, ndocs, valid, k1: float = 1.2,
+                      b: float = 0.75):
+    """Plain version of K16 `bm25_pass`: f32 BM25 per row, -inf on invalid
+    rows, in the kernel's operation order (csrc/bm25.cu): avgdl =
+    f32(the valid rows' doclen summed exactly) / max(f32(count), 1); idf =
+    f32(log(double(1 + ((ndocs - df) + 0.5) / (df + 0.5)))); term_j =
+    ((idf_j * tf_j) * (k1 + 1)) / max(tf_j + k1 * ((1 - b) + b * (dl /
+    max(avgdl, 1e-6))), 1e-9), summed left to right. The JAX package sums
+    avgdl and the terms in XLA's order and takes an f32 log: a few ulps
+    apart."""
+    return bm25_rows_plain(tf, doclen, df, ndocs, valid,
+                           bm25_sums_plain(doclen, valid), k1, b)
+
+
+def _bm25_args(tf, doclen, df, ndocs, valid):
+    """Check K16's block; (n, t, the ndocs pointer, its f32 bits)."""
     from ..kernels import build as B
     dev = tf.device
     B.require(tf, "tf", (torch.float32, torch.int32), 2, dev)
@@ -477,9 +485,22 @@ def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
         if ndocs.device != dev or ndocs.dtype != torch.int32 \
                 or ndocs.numel() != 1:
             raise ValueError("ndocs: one int32 on the block's device")
-        nd_ptr, nd_bits = ndocs.data_ptr(), 0
-    else:
-        nd_ptr, nd_bits = None, int(np.float32(ndocs).view(np.int32))
+        return n, t, ndocs.data_ptr(), 0
+    return n, t, None, int(np.float32(ndocs).view(np.int32))
+
+
+def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
+                b: float = 0.75):
+    """K16 `bm25_pass` (csrc/bm25.cu), the scoring pass of the JAX
+    `bm25_topk` (ops/ranking.py:653): [n] f32 BM25 of each row of the
+    [n, t] tf block (f32 or int32) with doclen [n] int32, df [t] int32,
+    ndocs (a number or an int32 tensor on the block's device) and valid
+    [n] bool; -inf on invalid rows. The plain version for CPU tensors."""
+    if tf.device.type == "cpu":
+        return bm25_scores_plain(tf, doclen, df, ndocs, valid, k1, b)
+    from ..kernels import build as B
+    dev = tf.device
+    n, t, nd_ptr, nd_bits = _bm25_args(tf, doclen, df, ndocs, valid)
     out = torch.empty(n, dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -491,6 +512,52 @@ def bm25_scores(tf, doclen, df, ndocs, valid, k1: float = 1.2,
         acc.data_ptr(), out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "bm25_pass")
     B.count_launch("bm25_pass")
+    return out
+
+
+def bm25_sums(doclen, valid):
+    """K16's first half (`yt_bm25_sums`): int64 [2] on the block's device,
+    the valid rows' doclen summed exactly and their count. A mesh cell's
+    sums add over the doc axis before bm25_rows."""
+    if doclen.device.type == "cpu":
+        return bm25_sums_plain(doclen, valid)
+    from ..kernels import build as B
+    dev = doclen.device
+    B.require(doclen, "doclen", (torch.int32,), 1, dev)
+    B.require(valid, "valid", (torch.bool,), 1, dev)
+    if valid.shape[0] != doclen.shape[0]:
+        raise ValueError("doclen and valid must be [n]")
+    acc = torch.empty(2, dtype=torch.int64, device=dev)
+    rc = B.library().yt_bm25_sums(doclen.data_ptr(), valid.data_ptr(),
+                                  doclen.shape[0], acc.data_ptr(),
+                                  B.stream_ptr(dev))
+    B.check(rc, "bm25_sums")
+    B.count_launch("bm25_sums")
+    return acc
+
+
+def bm25_rows(tf, doclen, df, ndocs, valid, acc, k1: float = 1.2,
+              b: float = 0.75):
+    """K16's second half (`yt_bm25_rows`): [n] f32, each row's BM25 over
+    the block's term columns (a mesh cell's own: its partial score, summed
+    over the term axis) against the sums `acc` (int64 [2], bm25_sums' or
+    their doc-axis total); -inf on invalid rows."""
+    if tf.device.type == "cpu":
+        return bm25_rows_plain(tf, doclen, df, ndocs, valid, acc, k1, b)
+    from ..kernels import build as B
+    dev = tf.device
+    n, t, nd_ptr, nd_bits = _bm25_args(tf, doclen, df, ndocs, valid)
+    B.require(acc, "acc", (torch.int64,), 1, dev)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    bits = [int(x.view(np.int32)) for x in _bm25_consts(k1, b)]
+    rc = B.library().yt_bm25_rows(
+        tf.data_ptr(), int(tf.dtype == torch.int32), doclen.data_ptr(),
+        df.data_ptr(), valid.data_ptr(), n, t, nd_ptr, nd_bits, *bits,
+        acc.data_ptr(), out.data_ptr(), B.stream_ptr(dev))
+    B.check(rc, "bm25_rows")
+    B.count_launch("bm25_rows")
     return out
 
 
