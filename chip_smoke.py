@@ -262,7 +262,10 @@ Phases, each of which exits non-zero on failure:
    the mesh path's kernels on its cells: K7 with the docid column over
    the 10M term's cell, K4 batched at the wave's 8 slots x 4 cells (kk
    16 and 128), K16's halves over one MeshBM25 cell, K18's probe (beside
-   torch.searchsorted and a gather) and apply at joinA & headline;
+   torch.searchsorted and a gather) and apply at joinA & headline, K8
+   in sort mode on the cell of a column-local join that holds the
+   largest partner segment (beside torch.searchsorted and a gather),
+   and the summed bounds of MeshRanker's and MeshBM25's kernels at 2 x 2;
    K17 over the realistic host graph (a launch over a prepared layout,
    beside the whole call, the plain version and cuSPARSE's CSR mat-vec
    with the sum and the update in torch, and its device busy time from a
@@ -3554,10 +3557,10 @@ def main() -> int:
             (f"escalating prefix of {b_esc} tiles", ext_p, frozen, ce),
             ("exact scan", scan_ext, st10, cd)):
         n_x = ext[0][1]
-        k7 = lambda e=ext, s_=st_x, c_=c_x: KD.span_score(  # noqa: E731
-            *ta[:4], e, s_, c_, n_x)
-        k7p = lambda e=ext, s_=st_x, c_=c_x: KD.span_score_plain(  # noqa: E731
-            *ta[:4], e, s_, c_, n_x)
+        k7 = lambda e=ext, s_=st_x, c_=c_x, n_=n_x: (  # noqa: E731
+            KD.span_score(*ta[:4], e, s_, c_, n_))
+        k7p = lambda e=ext, s_=st_x, c_=c_x, n_=n_x: (  # noqa: E731
+            KD.span_score_plain(*ta[:4], e, s_, c_, n_))
         g, w = k7(), k7p()
         torch.cuda.synchronize()
         note("span_score", f"10M term, {label}", diff(g, w))
@@ -4549,7 +4552,66 @@ def main() -> int:
             n_x * (P.NF * 2 + 9) + n_x * 20 + n_x * (P.NF * 4 + 5),
             n_x * 20.0, f"{n_x} rare rows of cell {c00}, one partner "
             "(joinA & headline)", path="mesh", plain_reps=2)
-    del gb, b22, xo, contrib_x
+    # K8 in sort mode on a cell (_mesh_join_shard): of the column-local
+    # joins, the cell that holds the largest partner segment against its
+    # rare rows (the rarest include, as rank_join picks it)
+    mbest = None
+    for jname in ("joinA & joinB (column-local)",
+                  "term1000000 & joinC (column-local)"):
+        inc_j = [msh.spans_for(t_)[0] for t_ in mjoins[jname][0]]
+        r_j = min(range(2), key=lambda i_: int(inc_j[i_].counts.sum()))
+        k8_r, k8_p = inc_j[r_j], inc_j[1 - r_j]
+        for c_ in range(msh.n_cells):
+            if int(k8_r.counts[c_]) and (
+                    mbest is None or int(k8_p.counts[c_]) > mbest[0]):
+                mbest = (int(k8_p.counts[c_]), c_, jname, k8_r, k8_p)
+    jc_m, c_m, jname_m, k8_rare, k8_part = mbest
+    mj = mcells[c_m]
+    k8_start, n_mj = int(k8_rare.starts[c_m]), int(k8_rare.counts[c_m])
+    part_m = [(int(k8_part.jstarts[c_m]), jc_m, -1)]
+    path_m = ("the segment staged whole" if jc_m <= KD.join_stage_most(dev)
+              else "searched through a fence table")
+    k8m = lambda: KD.join_member(  # noqa: E731
+        *mj.arrays()[:4], k8_start, n_mj, mj.jdocids, mj.jpos, mj.bmtab,
+        part_m, 1)
+    k8mp = lambda: KD.join_member_plain(  # noqa: E731
+        *mj.arrays()[:4], k8_start, n_mj, mj.jdocids, mj.jpos, mj.bmtab,
+        part_m, 1)
+    g, w = k8m(), k8mp()
+    torch.cuda.synchronize()
+    note("join_member", f"{jname_m} on mesh cell {c_m} (sort mode)",
+         max(diff(a, b) for a, b in zip(g, w)))
+    keys_m = mj.docids[k8_start:k8_start + n_mj]
+    lanes_m = int(KD.live_rows(keys_m, mj.dead).sum())
+    found_m = int(w[2].sum())
+    seg_md = mj.jdocids[part_m[0][0]:part_m[0][0] + jc_m]
+    seg_mp = mj.jpos[part_m[0][0]:part_m[0][0] + jc_m]
+    del g, w
+
+    def k8m_library():
+        i = torch.searchsorted(seg_md, keys_m).clamp_(max=jc_m - 1)
+        return seg_mp[i]
+    measure("join_member", "yacy_search_server_tpu/index/meshstore.py:1630",
+            "join.cu", k8m, k8mp, k8m_library,
+            n_mj * (P.NF * 2 + 4 + 4 + 1) + lanes_m * 8 + found_m * 12
+            + n_mj * (P.NF * 4 + 4 + 1), 0.0,
+            f"{n_mj} rare rows of mesh cell {c_m} against a sorted partner "
+            f"segment of {jc_m} entries, {path_m} ({jname_m}), {lanes_m} "
+            f"live lanes, {found_m} valid; library: torch.searchsorted + "
+            "the jpos gather", path="mesh", plain_reps=2)
+    del keys_m, seg_md, seg_mp
+    # the whole calls' bounds, their kernels' summed: MeshRanker's cells
+    # split rank_placed's rows (kernels 1-3 at those rows, rows 0-2 above;
+    # K4 over 2 x 10 rows is below a nanosecond), MeshBM25's four cells
+    # each run K16's halves at the cell shape timed above
+    bm_rows = {r_["name"]: r_["bound_ms"] for r_ in rows
+               if r_["path"] == "mesh" and r_["name"] in ("bm25_sums",
+                                                          "bm25_rows")}
+    log(f"summed bounds: MeshRanker 2 x 2 over {npad} rows (kernels 1-3 at "
+        f"rank_placed's rows) {sum(r_['bound_ms'] for r_ in rows[:3]):.4f} "
+        f"ms; MeshBM25 2 x 2 (4 cells x (bm25_sums + bm25_rows)) "
+        f"{4 * sum(bm_rows.values()):.5f} ms")
+    del gb, xo   # b22 and contrib_x stay for the device-ops trace
 
     # the device part of the join and the filtered scan: the store's
     # dispatch functions and the one fetch, without the host work of

@@ -623,6 +623,243 @@ def test_join_member_at_max_join_rows(dev):
     assert int(got[2].sum()) > 0
 
 
+# K8's redesign (csrc/join.cu join_rows): the partners' search modes, the
+# clip rule's redo by the last block of a group, a wave's groups, tiles
+# that are not whole and spans that do not start on 16 bytes
+
+def _k8_arena(n, seed, high=(), dead_high=()):
+    """n arena rows with docids 2i + 1, those at rows `high` replaced by
+    2^29, 2^29 + 1, ... (in that order), 3 % of the others tombstoned and
+    the rows `dead_high` too: (feats16, flags, docids, dead) in numpy."""
+    rng = np.random.default_rng(seed)
+    feats, _v, _h = _block(n, seed)
+    f16, flags = R.compact_feats(feats)
+    docids = (2 * np.arange(n) + 1).astype(np.int64)
+    for i, r in enumerate(high):
+        docids[r] = KD.JOIN_DOCID_CAP + i
+    dead = np.zeros(KD.JOIN_DOCID_CAP + 64 if len(high) else 2 * n + 2,
+                    bool)
+    low = docids < KD.JOIN_DOCID_CAP
+    dead[docids[low & (rng.random(n) < 0.03)]] = True
+    dead[docids[list(dead_high)]] = True
+    return f16, flags, docids.astype(np.int32), dead
+
+
+def _k8_tables(docids, segs, bitmap):
+    """Join tables of partner segments, each an array of arena rows:
+    jdocids / jpos (each segment sorted by docid), the bitmap table (one
+    row a segment, over the docids below 2^29) and each segment's (jstart,
+    jcount, slot) with slot its bitmap row where bitmap[i], else -1."""
+    jd, jp, parts, at = [], [], [], 0
+    n = len(docids)
+    nwords = 1 << (2 * n + 32 - 1).bit_length() >> 5
+    bm = np.zeros((len(segs), nwords, 2), np.int32)
+    for i, rows in enumerate(segs):
+        rows = np.asarray(rows, np.int64)
+        d = docids[rows]
+        o = np.argsort(d, kind="stable")
+        jd.append(d[o])
+        jp.append(rows[o].astype(np.int32))
+        if bitmap[i]:
+            assert (d < 32 * nwords).all()
+            bm[i] = TD.join_bitmap(d[o], nwords)
+        parts.append((at, len(rows), i if bitmap[i] else -1))
+        at += len(rows)
+    return np.concatenate(jd), np.concatenate(jp), bm, parts
+
+
+def _k8_dev(dev, f16, flags, docids, dead, jd, jp, bm):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return (t(f16), t(flags), t(docids), t(dead)), (t(jd), t(jp), t(bm))
+
+
+def _k8_equal(got, want, label=""):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), label
+
+
+@pytest.mark.parametrize("mode", ["staged", "fence 64", "fence wide"])
+def test_join_member_search_modes_match_plain(dev, mode):
+    """Each way of searching a sort-mode partner (its segment staged whole
+    in shared memory, a fence table of every 64th docid where it is just
+    too big for that, a table of a wider stride where even every 64th
+    docid is more than the table holds), on a rare span that does not
+    start on 16 bytes and is not a whole number of tiles: equal to the
+    plain version, call after call."""
+    n = 1_100_003
+    rng = np.random.default_rng(11)
+    f16, flags, docids, dead = _k8_arena(n, 12)
+    # the first sort partner: staged whole, one entry over that, or 1M
+    most = KD.join_stage_most(dev)
+    seg0 = {"staged": min(20_000, most), "fence 64": most + 1,
+            "fence wide": 1_000_000}[mode]
+    assert 4096 * 64 < 1_000_000 and most + 1 < 4096 * 64
+    segs = [np.sort(rng.choice(n, seg0, replace=False)),
+            np.sort(rng.choice(n, 90_000, replace=False)),
+            np.sort(rng.choice(n, 5_000, replace=False))]
+    jd, jp, bm, parts = _k8_tables(docids, segs, [False, True, False])
+    arena, jt = _k8_dev(dev, f16, flags, docids, dead, jd, jp, bm)
+    for ps, n_inc in (([parts[0], parts[1]], 2), ([parts[0]], 1)):
+        for start, count in ((3, 150_001), (1, 129), (0, 1), (5, 4_097)):
+            before = LAUNCHES["join_member"]
+            outs = [KD.join_member(*arena, start, count, *jt, ps, n_inc,
+                                   None) for _ in range(2)]
+            want = KD.join_member_plain(*arena, start, count, *jt, ps,
+                                        n_inc, None)
+            torch.cuda.synchronize()
+            assert LAUNCHES["join_member"] == before + 2
+            for got in outs:
+                _k8_equal(got, want, (mode, len(ps), start, count))
+            if count > 1000:
+                assert int(want[2].sum()) > 0
+
+
+def test_join_member_partner_at_the_stage_edge(dev):
+    """A sort-mode partner just small enough to be staged whole in a
+    block's shared memory and one just too big (searched through a fence
+    table), each as the only partner and the two together: equal to the
+    plain version."""
+    under = KD.join_stage_most(dev)
+    over = under + 1
+    n = 3 * over
+    rng = np.random.default_rng(21)
+    f16, flags, docids, dead = _k8_arena(n, 22)
+    segs = [np.sort(rng.choice(n, under, replace=False)),
+            np.sort(rng.choice(n, over, replace=False))]
+    jd, jp, bm, parts = _k8_tables(docids, segs, [False, False])
+    arena, jt = _k8_dev(dev, f16, flags, docids, dead, jd, jp, bm)
+    for ps, n_inc in (([parts[0]], 1), ([parts[1]], 1), (parts, 2),
+                      (parts, 1)):
+        got = KD.join_member(*arena, 7, n - 9, *jt, ps, n_inc, None)
+        want = KD.join_member_plain(*arena, 7, n - 9, *jt, ps, n_inc, None)
+        torch.cuda.synchronize()
+        _k8_equal(got, want, (len(ps), n_inc))
+        assert int(want[2].sum()) > 0
+
+
+# rows at or above 2^29 spread over the span, so different blocks hold
+# them; the last one tombstoned
+_HIGH = (1_000, 150_003, 300_001, 450_007, 599_990)
+
+
+def _k8_clip_case(dev):
+    n = 600_000
+    rng = np.random.default_rng(31)
+    f16, flags, docids, dead = _k8_arena(n, 32, high=_HIGH,
+                                         dead_high=_HIGH[-1:])
+    high = np.asarray(_HIGH)
+    # a sort partner holding 2^29 (the first high row's docid) and a third
+    # of the others; a bitmap partner of half the low rows; a sort
+    # exclude of a tenth
+    low = np.setdiff1d(np.arange(n), high)
+    segs = [np.concatenate([high[:1], rng.choice(low, n // 3,
+                                                 replace=False)]),
+            rng.choice(low, n // 2, replace=False),
+            np.concatenate([high[:1], rng.choice(low, n // 10,
+                                                 replace=False)])]
+    jd, jp, bm, parts = _k8_tables(docids, segs, [False, True, False])
+    return n, _k8_dev(dev, f16, flags, docids, dead, jd, jp, bm), parts
+
+
+def test_join_member_clip_rows_in_different_blocks(dev):
+    """Rows at or above 2^29 in different blocks, the last tombstoned,
+    against a sort partner that holds 2^29: only the last still-valid one
+    matches, as the plain version decides; as an exclude, only it falls
+    out. Each call leaves the counters at zero, so a second and third
+    call agree."""
+    n, (arena, jt), parts = _k8_clip_case(dev)
+    for ps, n_inc in (([parts[0]], 1), ([parts[1], parts[0]], 2),
+                      ([parts[1], parts[2]], 1), ([parts[2]], 0)):
+        outs = [KD.join_member(*arena, 0, n, *jt, ps, n_inc, None)
+                for _ in range(3)]
+        want = KD.join_member_plain(*arena, 0, n, *jt, ps, n_inc, None)
+        torch.cuda.synchronize()
+        for got in outs:
+            _k8_equal(got, want, (ps, n_inc))
+        hv = want[2][list(_HIGH)].tolist()
+        if n_inc and ps[-1] == parts[0]:
+            assert sum(hv) <= 1 and not hv[-1]
+
+
+
+def test_join_rows_refuses_a_malformed_call(dev):
+    """A call whose partner runs past the join tables, or whose slot's
+    region does not start on a multiple of 4 rows, is refused before any
+    launch; so is a wave whose region does not."""
+    from yacy_search_server_tpu_torch.kernels import build as KBuild
+    n = 5_000
+    f16, flags, docids, dead = _k8_arena(n, 41)
+    jd, jp, bm, parts = _k8_tables(docids, [np.arange(0, n, 3)], [False])
+    arena, jt = _k8_dev(dev, f16, flags, docids, dead, jd, jp, bm)
+    out = (torch.empty((n, P.NF), dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.int32, device=dev),
+           torch.empty(n, dtype=torch.bool, device=dev))
+    stream = KBuild.stream_ptr(dev)
+    jcap = jt[0].shape[0]
+
+    def call(part, off):
+        gw, sw = KD.join_words([(0, n, [part])], [(off, 0, KD.NO_FILTER)])
+        return KBuild.library().yt_join_rows(
+            *(t.data_ptr() for t in arena), dead.shape[0],
+            jt[0].data_ptr(), jt[1].data_ptr(), jcap, jt[2].data_ptr(),
+            jt[2].shape[1], gw.buffer_info()[0], 1, sw.buffer_info()[0], 1,
+            1, 0, *(t.data_ptr() for t in out),
+            KD._join_counters(dev, stream).data_ptr(), stream)
+
+    assert call(parts[0], 0) == 0
+    assert call((1, jcap, -1), 0) != 0
+    assert call(parts[0], 2) != 0
+    torch.cuda.synchronize()
+    want = KD.join_member_plain(*arena, 0, n, *jt, parts, 1, None)
+    _k8_equal(out, want)
+    desc = KD.join_wave_desc([(0, 10, None, parts), (20, 10, None, parts)],
+                             1, 0)
+    with pytest.raises(ValueError):
+        KD.join_member_batch(*arena, *jt, desc, 1, np.array([0, 10, 20]))
+
+_LANG = (0x656E, KD.NO_FLAG, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI)
+_FLAG = (KD.NO_LANG, 3, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI)
+
+
+def test_join_wave_groups_match_plain(dev):
+    """A wave whose slots form groups of five, three and two (equal and
+    different filters) mixed with slots that share nothing (another span,
+    other partners, no rows), the clip rows in the span: each slot's
+    region equal to the plain version's, slots of one group and filter
+    equal to each other, one launch a call, and a second call equal to
+    the first."""
+    n, (arena, jt), parts = _k8_clip_case(dev)
+    pa = [parts[0], parts[2]]       # a sort partner and a sort exclude
+    pb = [parts[1], parts[2]]       # a bitmap partner and the exclude
+    slots = [(0, n, None, pa), (0, n, _LANG, pa), (5, 70_001, None, pa),
+             (0, n, None, pb), (0, n, _FLAG, pa), (0, n, None, pa),
+             (5, 70_001, _LANG, pa), (9, 0, None, pa), (0, n, _LANG, pa),
+             (5, 70_001, _LANG, pa), (300_000, 1, _FLAG, pb),
+             (0, n, None, pb)]
+    desc = KD.join_wave_desc(slots, 1, 1)
+    assert KD.join_wave_groups(desc, 1) == [[0, 1, 4, 5, 8], [2, 6, 9],
+                                            [3, 11], [7], [10]]
+    off = KD.join_wave_offsets(desc)
+    before = LAUNCHES["join_member_batch"]
+    outs = [KD.join_member_batch(*arena, *jt, desc, 1, off)
+            for _ in range(2)]
+    want = KD.join_member_batch_plain(*arena, *jt, desc, 1, off)
+    torch.cuda.synchronize()
+    assert LAUNCHES["join_member_batch"] == before + 2
+    for got in outs:
+        for g, w in zip(got, want):
+            assert torch.equal(KD.wave_rows(g, desc, off),
+                               KD.wave_rows(w, desc, off))
+    v = outs[1][2]
+    same = [(0, 5), (1, 8), (6, 9), (3, 11)]
+    for a, b in same:
+        c = int(desc[a, 1])
+        assert torch.equal(v[int(off[a]):int(off[a]) + c],
+                           v[int(off[b]):int(off[b]) + c])
+    assert int(want[2].sum()) > 0
+
+
 @pytest.mark.parametrize("name", list(KBench.JOIN_EDGE_FILTERS))
 def test_filtered_span_stats_and_score_match_plain(join_store, name):
     """K6 and K7 under each filter over 1 and 3 extents of the join edge

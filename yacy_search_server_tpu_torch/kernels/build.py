@@ -56,14 +56,13 @@ SIGNATURES = {
     "yt_span_stats_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _P],
     "yt_span_score_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _P,
                             _P, _P],
-    "yt_join_member": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _P, _I64, _P,
-                       _I64, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "yt_join_stage_most": [_P],
+    "yt_join_rows": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
+                     _P, _I64, _I64, _I64, _P, _P, _P, _P, _P],
     "yt_xjoin_probe": [_P, _I64, _P, _I64, _P, _I, _I, _P, _P, _I64, _I64,
                        _P, _P, _P, _P, _P],
     "yt_xjoin_apply": [_P, _P, _P, _P, _I64, _I64, _I64, _P, _I, _I, _P, _P,
                        _P, _P, _P],
-    "yt_join_member_batch": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64,
-                             _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "yt_join_stats_batch": [_P, _P, _P, _P, _I, _P, _P],
     "yt_join_score_batch": [_P, _P, _P, _P, _P, _I, _P, _I64, _P, _P, _P],
     "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P,

@@ -70,7 +70,9 @@ _pack_batch1_fused's layout.
 
 from __future__ import annotations
 
+import array
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -703,6 +705,90 @@ def join_member_plain(feats16, flags, docids, dead, start: int, count: int,
     return merged, fo, v
 
 
+# ---------------------------------------------------------------------------
+# K8's call on the host (csrc/join.cu yt_join_rows): the groups of slots
+# that share a rare span and its partners, and each slot's region and
+# filter; the kernel's side lays the launch out from them
+# ---------------------------------------------------------------------------
+
+JOIN_CTR = 4               # a group's counters and ticket (uint32 words)
+
+
+def join_wave_groups(desc, n_inc: int) -> list[list[int]]:
+    """The slots of a join wave that share a rare span (start, count) and
+    every partner's (jstart, jcount, slot), as groups in order of their
+    first slot; a slot that shares nothing is a group of one."""
+    groups: dict = {}
+    for i, (start, count, _f, parts) in enumerate(join_wave_slots(desc,
+                                                                  n_inc)):
+        key = (start, count, tuple(tuple(p) for p in parts))
+        groups.setdefault(key, []).append(i)
+    return list(groups.values())
+
+
+def join_words(groups, slots) -> tuple[array.array, array.array]:
+    """yt_join_rows' int64 words: `groups` each (start, count, parts),
+    written (start, count, then each partner's jstart, jcount, slot);
+    `slots` each (region start, group, filter 4-tuple), written flat."""
+    gw = array.array("q")
+    for start, count, parts in groups:
+        gw.extend((int(start), int(count)))
+        for p in parts:
+            gw.extend(int(x) for x in p)
+    sw = array.array("q")
+    for off, g, filt in slots:
+        sw.extend((int(off), g, *filt))
+    return gw, sw
+
+
+_join_lock = threading.Lock()
+_join_ctrs: dict = {}       # (device, stream) -> the counters of its calls
+
+
+def join_stage_most(dev) -> int:
+    """The most entries of a sorted partner segment that a join_rows
+    block on `dev` stages whole in its shared memory, where the segment is
+    its group's only sort-mode partner; a larger one is searched through a
+    fence table."""
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(dev):
+        B.check(B.library().yt_join_stage_most(out), "join_stage_most")
+    return out[0]
+
+
+def _join_counters(dev, stream: int) -> torch.Tensor:
+    """The counters and tickets of K8's calls on `stream` of `dev`
+    (JOIN_CTR a group, zeroed once here; each call leaves them at zero).
+    Calls on one stream run one after another, so a stream's calls share
+    one set."""
+    key = (dev.index, stream)
+    t = _join_ctrs.get(key)
+    if t is None:
+        with _join_lock:
+            t = _join_ctrs.get(key)
+            if t is None:
+                t = torch.zeros(JOIN_CTR * BATCH_SLOTS, dtype=torch.int32,
+                                device=dev)
+                _join_ctrs[key] = t
+    return t
+
+
+def _join_launch(feats16, flags, docids, dead, jdocids, jpos, bmtab, groups,
+                 slots, n_inc: int, n_exc: int, merged, fo, v, name: str):
+    """One launch of join_rows over `groups` and `slots` (join_words')."""
+    dev = feats16.device
+    gw, sw = join_words(groups, slots)
+    stream = B.stream_ptr(dev)
+    rc = B.library().yt_join_rows(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], jdocids.data_ptr(), jpos.data_ptr(),
+        jdocids.shape[0], bmtab.data_ptr(), bmtab.shape[1],
+        gw.buffer_info()[0], len(groups), sw.buffer_info()[0], len(slots),
+        n_inc, n_exc, merged.data_ptr(), fo.data_ptr(), v.data_ptr(),
+        _join_counters(dev, stream).data_ptr(), stream)
+    B.check(rc, name)
+
+
 def join_member(feats16, flags, docids, dead, start: int, count: int,
                 jdocids, jpos, bmtab, parts, n_inc: int, filt=None):
     """K8: the rows [start, start + count) of the arena (the rarest
@@ -733,19 +819,10 @@ def join_member(feats16, flags, docids, dead, start: int, count: int,
     merged = torch.empty((count, P.NF), dtype=torch.int32, device=dev)
     fo = torch.empty(count, dtype=torch.int32, device=dev)
     v = torch.empty(count, dtype=torch.bool, device=dev)
-    # the count of rare rows at or above 2^29 (the clip rule's fix-up)
-    nhigh = torch.empty(1, dtype=torch.int32, device=dev)
-    flat = [x for p in parts for x in p] or [0]
-    parts_arg = (ctypes.c_int64 * len(flat))(*flat)
-    filt_arg = _filt_arg(q)
-    rc = B.library().yt_join_member(
-        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
-        dead.data_ptr(), dead.shape[0], start, count, jdocids.data_ptr(),
-        jpos.data_ptr(), jdocids.shape[0], bmtab.data_ptr(), bmtab.shape[1],
-        ctypes.addressof(parts_arg), n_inc, len(parts) - n_inc,
-        ctypes.addressof(filt_arg), merged.data_ptr(), fo.data_ptr(),
-        v.data_ptr(), nhigh.data_ptr(), B.stream_ptr(dev))
-    B.check(rc, "join_member")
+    if count:
+        _join_launch(feats16, flags, docids, dead, jdocids, jpos, bmtab,
+                     [(start, count, parts)], [(0, 0, q)], n_inc,
+                     len(parts) - n_inc, merged, fo, v, "join_member")
     B.count_launch("join_member")
     return merged, fo, v
 
@@ -1186,11 +1263,14 @@ def join_member_batch(feats16, flags, docids, dead, jdocids, jpos, bmtab,
     """The batched K8: join_member for each slot of a join wave
     (`desc`, join_wave_desc's; each slot its own rare span, filter and
     partner segments, a partner's mode by its slot: >= 0 a bitmap, -1 a
-    sorted segment, the clip rule's fix-up a slot's own), its merged rows,
-    OR'd flags and valid bytes in its region [off[s], off[s] + count) of
-    three wave buffers (`off`: join_wave_offsets): (merged int32
-    [off[-1], 17], flags int32 [off[-1]], valid bool [off[-1]]); the rows
-    past a slot's count are not written on the card."""
+    sorted segment), its merged rows, OR'd flags and valid bytes in its
+    region [off[s], off[s] + count) of three wave buffers (`off`:
+    join_wave_offsets, on the card each region from a multiple of 4
+    rows): (merged int32 [off[-1], 17], flags int32 [off[-1]], valid bool
+    [off[-1]]); the rows past a slot's count are not written on the
+    card. One launch: the slots that share a rare span and its partners
+    (join_wave_groups) have their membership, merge and the clip rule's
+    fix-up done once, each slot's valid bytes under its own filter."""
     if feats16.device.type == "cpu":
         return join_member_batch_plain(feats16, flags, docids, dead, jdocids,
                                        jpos, bmtab, desc, n_inc, off)
@@ -1203,19 +1283,22 @@ def join_member_batch(feats16, flags, docids, dead, jdocids, jpos, bmtab,
     B.require(bmtab, "bmtab", (torch.int32,), 3, dev)
     desc, n_exc, off = _check_join_wave(feats16, jdocids, bmtab, desc, n_inc,
                                         off)
-    bs, rows = desc.shape[0], int(off[-1])
+    if (off % 4).any():
+        raise ValueError("off: regions start on multiples of 4 rows on the "
+                         "card")
+    rows = int(off[-1])
     merged = torch.empty((rows, P.NF), dtype=torch.int32, device=dev)
     fo = torch.empty(rows, dtype=torch.int32, device=dev)
     v = torch.empty(rows, dtype=torch.bool, device=dev)
-    # each slot's count of rare rows at or above 2^29 (the clip fix-up)
-    nhigh = torch.empty(bs, dtype=torch.int32, device=dev)
-    rc = B.library().yt_join_member_batch(
-        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
-        dead.data_ptr(), dead.shape[0], jdocids.data_ptr(), jpos.data_ptr(),
-        jdocids.shape[0], bmtab.data_ptr(), bmtab.shape[1], desc.ctypes.data,
-        bs, n_inc, n_exc, off.ctypes.data, merged.data_ptr(), fo.data_ptr(),
-        v.data_ptr(), nhigh.data_ptr(), B.stream_ptr(dev))
-    B.check(rc, "join_member_batch")
+    members = join_wave_groups(desc, n_inc)
+    wave = join_wave_slots(desc, n_inc)
+    group_of = {i: g for g, m in enumerate(members) for i in m}
+    _join_launch(feats16, flags, docids, dead, jdocids, jpos, bmtab,
+                 [(wave[m[0]][0], wave[m[0]][1], wave[m[0]][3])
+                  for m in members],
+                 [(int(off[i]), group_of[i], wave[i][2])
+                  for i in range(len(wave))], n_inc, n_exc, merged, fo, v,
+                 "join_member_batch")
     B.count_launch("join_member_batch", slots=int((desc[:, 1] > 0).sum()))
     return merged, fo, v
 
