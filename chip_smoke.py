@@ -206,11 +206,12 @@ Phases, each of which exits non-zero on failure:
    term pruned, term1000000 escalating, every term pruned, a wave of 8
    pruned queries through the batcher (kernels/bench.mesh_wave), joinA &
    headline and term1000000 & headline & -joinB (cross-row, K18), joinA
-   & joinB and term1000000 & joinC (column-local), the language filter,
-   a tombstone (the exact scan) and a RAM delta of 50,000 rows, every
-   answer and the counters the twin's; MeshRanker over the 10M term and
-   MeshBM25 at 2 x 2 cells against the placed step's answers. Every
-   other phase must end with no transfer failure, retry or loss;
+   & joinB and term1000000 & joinC (column-local), then on term1000000
+   the language filter, a tombstone (the exact scan) and a RAM delta of
+   50,000 rows, every answer and the counters the twin's; MeshRanker
+   over the 10M term and MeshBM25 at 2 x 2 cells against the placed
+   step's answers. Every other phase must end with no transfer failure,
+   retry or loss;
 4. check kernel 3 on the inputs it is timed on (the step's scores and
    the default profile's scores of the compact block, k = 10, 100, 1000,
    both modes), then time each kernel at the main path's shapes beside
@@ -243,8 +244,10 @@ Phases, each of which exits non-zero on failure:
    batched scan at 16 slots (the 10M and 1M terms under the mix's four
    filters, k = 10 and 100) beside 16 solo scans; K9 (gather mode) and
    K10 over the hybrid mix's 16-query waves at nb = 16, 128, 1024, one
-   query and 2 slots of 16,384 (the bound reads a row that several lanes
-   share once), each wave's rerank_fwd_batch_packed with
+   query, 2 slots of 16,384 and a solo rerank of 9,000 candidates as
+   rerank_boost issues it (16 slots of 16,384, 15 of them pad slots; the
+   bound reads a row that several lanes share once), each wave's
+   rerank_fwd_batch_packed with
    its fetch beside a gather + einsum + sort; K9's block mode at
    dense_boost_topk's k = 100 and 1000; K9's similarity mode and K11 for
    B = 16 and 1 over the 2^21-row index, each held to its plain version
@@ -273,7 +276,7 @@ Phases, each of which exits non-zero on failure:
    rank_placed's wall per query over 50 queries after a warm-up; and,
    last, the device
    operations one call of each timed kernel issues, with their device
-   times (a profiler trace).
+   times (a profiler trace; K18's probe must be one).
 
 With YT_KERNEL_TRACE=1 the kernels are built with tie_topk's per-pass
 trace, which phase 4 prints.
@@ -2706,19 +2709,33 @@ def main() -> int:
         pidx.add_many(th, P.PostingsList(d_t, f_t))
     ps = TD.DeviceSegmentStore(pidx, device=dev, packed_residency=True)
     ps.ingest_device_build = True
-    pidx.listener = None       # the packs below are timed one by one
+    pidx.listener = None       # the packs below are timed side by side
     tq = time.time()
     pidx.flush()
     pk_walls["flush (host)"] = time.time() - tq
     prun = pidx._runs[0]
+    # the int16 store packs in a thread of its own while the packed store
+    # packs: both walls read with the other pack beside them (one after
+    # the other they took 44.5 and 29.1 s)
     tq = time.time()
+    i16_box = {}
+
+    def pack_int16():
+        i16_box["g2"] = TD.DeviceSegmentStore(pidx, device=dev)
+        torch.cuda.synchronize()
+        i16_box["wall"] = time.time() - tq
+    i16_th = threading.Thread(target=pack_int16)
+    i16_th.start()
     ps.on_run_added(prun)
     torch.cuda.synchronize()
-    pk_walls["pack, packed store on the card"] = time.time() - tq
-    tq = time.time()
-    g2 = TD.DeviceSegmentStore(pidx, device=dev)
-    torch.cuda.synchronize()
-    pk_walls["pack, int16 store on the card"] = time.time() - tq
+    pk_walls["pack, packed store on the card (the int16 store beside it)"] \
+        = time.time() - tq
+    i16_th.join()
+    if "g2" not in i16_box:
+        fail("the int16 store's pack raised")
+    g2 = i16_box["g2"]
+    pk_walls["pack, int16 store on the card (beside the packed one)"] = \
+        i16_box["wall"]
     pidx.listener = KB.Fanout(ps, g2)
     if LAUNCHES["pack_block_batch"] == 0 or ps.ingest_device_builds == 0:
         fail("the packed store's build never went through K13")
@@ -3150,11 +3167,11 @@ def main() -> int:
     # the headline term pruned (b = 1), term1000000 escalating, the other
     # terms pruned, a wave of 8 pruned queries through the batcher (held until
     # all 8 are queued, so that both stores form one wave), the four
-    # joins (two cross-row, one with an exclude, two column-local), the
-    # language filter, a tombstone (the unfiltered exact scan) and a RAM
-    # delta of 50,000 rows; every answer and the counters equal to the
-    # twin's; then MeshRanker and MeshBM25 at 2 x 2 against the placed
-    # step's references
+    # joins (two cross-row, one with an exclude, two column-local), then
+    # on term1000000 the language filter, a tombstone (the unfiltered
+    # exact scan) and a RAM delta of 50,000 rows; every answer and the
+    # counters equal to the twin's; then MeshRanker and MeshBM25 at 2 x 2
+    # against the placed step's references
     from yacy_search_server_tpu_torch.index import meshstore as TMS
     from yacy_search_server_tpu_torch.utils.hashes import word2hash
     tmsh = time.time()
@@ -3247,16 +3264,19 @@ def main() -> int:
     for label, (inc, exc) in mjoins.items():
         m_same(label, lambda s_, i_=inc, e_=exc: s_.rank_join(
             i_, e_, m_prof, k=100))
-    m_same("headline language de k=100",
-           lambda s_: s_.rank_term(hl_m, m_prof, k=100, lang_filter=0x6465))
-    mi.delete_doc(int(m_solo[hl_m][1][0]))
-    m_same("headline after a tombstone (exact scan) k=100",
-           lambda s_: s_.rank_term(hl_m, m_prof, k=100))
+    # the language filter, a tombstone and a RAM delta on term1000000: on
+    # the 10M term the twin's plain exact scans took 15-18 s each
+    m_t1m = mk["term1000000"]
+    m_same("term1000000 language de k=100",
+           lambda s_: s_.rank_term(m_t1m, m_prof, k=100, lang_filter=0x6465))
+    mi.delete_doc(int(m_solo[m_t1m][1][0]))
+    m_same("term1000000 after a tombstone (exact scan) k=100",
+           lambda s_: s_.rank_term(m_t1m, m_prof, k=100))
     m_delta = KB.make_term(50_000, KB.SEED + 130)[0]
-    mi.add_many(hl_m, P.PostingsList(
+    mi.add_many(m_t1m, P.PostingsList(
         (np.arange(50_000, dtype=np.int32) * 2 + 30_000_001), m_delta))
-    m_same("headline with a RAM delta of 50,000 rows k=100",
-           lambda s_: s_.rank_term(hl_m, m_prof, k=100))
+    m_same("term1000000 with a RAM delta of 50,000 rows k=100",
+           lambda s_: s_.rank_term(m_t1m, m_prof, k=100))
     ca, cb = msh.counters(), mtw.counters()
     if {k: ca[k] for k in m_keys} != {k: cb[k] for k in m_keys}:
         fail(f"mesh counters differ: card {[ca[k] for k in m_keys]}, "
@@ -4170,6 +4190,11 @@ def main() -> int:
     big, nb_big, _sl = KB.rerank_wave(np.random.default_rng(KB.SEED + 73),
                                       cap_g, (16384, 16384), 16384)
     waves["2 synthetic slots of 16,384 (nb=16384)"] = big
+    # a solo rerank of 9,000 candidates as rerank_boost issues it: the
+    # batcher's 16 slots, 15 of them pad slots
+    solo, _nb, _sl = KB.rerank_wave(np.random.default_rng(KB.SEED + 74),
+                                    cap_g, (9000,) + (0,) * 15, 16384)
+    waves["serving solo: 16 slots of nb=16384, one live of 9,000"] = solo
     for label, qi in waves.items():
         nb_w = (qi.shape[1] - 2 - DN.DIM) // 2
         qd = KDn.upload_desc(qi, dev)
@@ -4711,6 +4736,16 @@ def main() -> int:
         row["device_ops_per_call"], names = ops_per_call(kern)
         log(f"device ops a call, {row['name']} [{row['shape']}]: "
             f"{row['device_ops_per_call']} {names}")
+        # K18's probe is one launch a call (no memset, no second pass); a
+        # trace that caught no event is taken again
+        for _ in range(2):
+            if row["name"] != "xjoin_probe" or row["device_ops_per_call"]:
+                break
+            row["device_ops_per_call"], names = ops_per_call(kern)
+            log(f"device ops a call, traced again: {names}")
+        if row["name"] == "xjoin_probe" and row["device_ops_per_call"] != 1:
+            fail(f"xjoin_probe: {row['device_ops_per_call']} device "
+                 f"operations a call, not 1: {names}")
     for label, fn in routes.items():
         log(f"device ops of one {label}: {ops_per_call(fn)[1]}")
     log(f"phase 4's traces: {time.time() - tt:.1f} s")

@@ -2286,3 +2286,156 @@ def test_mesh_store_on_the_card_matches_cpu_twin(dev):
         assert np.array_equal(got[th][1], w[1])
     store.close()
     twin.close()
+
+
+# ---------------------------------------------------------------------------
+# K10 rerank_sort (one block a slot, or a cluster of CTAs a slot) and K18's
+# probe (a fence table in shared memory, one launch a call)
+# ---------------------------------------------------------------------------
+
+def _k10_equal(dev, ns, nb, pad=-(2 ** 31 - 1), edit=None, seed=0):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    from yacy_search_server_tpu_torch.kernels import k10_k18_bench as KKB
+    fin, qi = KKB.rerank_case(np.random.default_rng(seed), ns, nb, pad)
+    if edit is not None:
+        edit(fin, qi)
+    f, q = torch.from_numpy(fin).to(dev), torch.from_numpy(qi).to(dev)
+    c0 = LAUNCHES["rerank_sort"]
+    got = KDn.rerank_sort(f, q, nb)
+    want = KDn.rerank_sort_plain(f.cpu(), q.cpu(), nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert LAUNCHES["rerank_sort"] == c0 + 1
+    return f, q, want
+
+
+@pytest.mark.parametrize("nb", [1 << s for s in range(4, 15)])
+@pytest.mark.parametrize("bs", [1, 2, 16, 20])
+def test_rerank_sort_every_nb_matches_plain(dev, nb, bs):
+    ns = [int(x) for x in np.random.default_rng(nb + bs).integers(
+        0, nb + 1, bs)]
+    ns[0] = nb
+    if bs > 1:
+        ns[1] = 0
+    _k10_equal(dev, ns, nb, seed=nb * bs)
+
+
+@pytest.mark.parametrize("live", [9000, 16384])
+def test_rerank_sort_serving_solo_shape(dev, live):
+    """A solo rerank as rerank_boost issues it: 16 slots at nb = 16,384,
+    one live, 15 pad slots (copies)."""
+    _k10_equal(dev, [live] + [0] * 15, 16384, seed=live)
+
+
+@pytest.mark.parametrize("nb,nv", [(1024, 511), (1024, 512), (1024, 513),
+                                   (1024, 1024), (2048, 1024),
+                                   (2048, 1025), (4096, 2049),
+                                   (16384, 8192), (16384, 8193)])
+def test_rerank_sort_both_sides_of_the_cluster_threshold(dev, nb, nv):
+    """nb below 1,024 takes one block a slot, from 1,024 a cluster (2 CTAs
+    at 1,024, 4 at 2,048, 16 at 16,384), whose CTAs each take a share of a
+    slot's live prefix (one CTA for a prefix that fits in its lanes): slots
+    of each size in one call, with pad slots."""
+    _k10_equal(dev, [nv, 3, 0, nb], nb, seed=nv)
+
+
+def _ties_pad(fin, qi):
+    # slot 1: a live lane that ties a pad key, finals that wrap
+    qi[1, 2] = 2 ** 31 - 1
+    fin[1, 0] = -(2 ** 31 - 1)
+    fin[1, 1:4] = -(2 ** 31)
+
+
+def _all_equal(fin, qi):
+    nb = fin.shape[1]
+    for s in range(fin.shape[0]):
+        n = int(qi[s, 0])
+        fin[s, :n] = 777
+        qi[s, 2:2 + n] = 4242
+
+
+@pytest.mark.parametrize("nb", [512, 4096, 16384])
+@pytest.mark.parametrize("case", ["ties_pad", "all_equal", "pad_final"])
+def test_rerank_sort_edge_keys_match_plain(dev, nb, case):
+    ns = [nb, nb // 2 + 1, 1, 0]
+    if case == "pad_final":
+        # pad lanes whose final is not -(2^31-1): the whole slot sorts
+        _k10_equal(dev, ns, nb, pad=5, seed=nb)
+    else:
+        _k10_equal(dev, ns, nb, edit=_ties_pad if case == "ties_pad"
+                   else _all_equal, seed=nb + 1)
+
+
+@pytest.fixture(scope="module")
+def xwin():
+    """The mesh shape's probe inputs on the card (k10_k18_bench.xjoin_case:
+    10M odd docids, 2,001,217 candidates)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yacy_search_server_tpu_torch.kernels import k10_k18_bench as KKB
+    d = torch.device("cuda")
+    return [torch.from_numpy(a).to(d)
+            for a in KKB.xjoin_case(np.random.default_rng(3))]
+
+
+@pytest.mark.parametrize("cnt", [0, 1, 252, 253, 511, 512, 513, 65_535,
+                                 65_536, 65_537, 10_000_000])
+def test_xjoin_probe_windows_match_plain(xwin, cnt):
+    """Windows staged whole (up to 252 entries), through fence tables
+    on both sides of a stride (512 entries: 256 fences of 2; 513: of 4),
+    empty, of one entry and the 10M-entry one; the candidates around the
+    window (its first and last entries, those just outside), then the mesh
+    shape's. Twice: the counters are left at zero."""
+    cand, dead, jd, jp, f16, flags = xwin
+    lo = 0 if cnt == 10_000_000 else 7
+    rng = np.random.default_rng(cnt)
+    c = rng.integers(max(0, 2 * lo - 4), 2 * (lo + cnt) + 4,
+                     50_000).astype(np.int32)
+    if cnt:
+        c[:4] = (2 * lo + 1, 2 * (lo + cnt) - 1, 2 * lo - 1, 2 * (lo + cnt) + 1)
+    cs = [torch.from_numpy(c).to(jd.device)]
+    if cnt == 10_000_000:
+        cs.append(cand)
+    for ci in cs:
+        want = KD.xjoin_probe_plain(ci.cpu(), dead.cpu(), None, 1, jd.cpu(),
+                                    jp.cpu(), lo, cnt, f16.cpu(), flags.cpu())
+        for _ in range(2):
+            p0 = LAUNCHES["xjoin_probe"]
+            got = KD.xjoin_probe(ci, dead, None, 1, jd, jp, lo, cnt, f16,
+                                 flags)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want)
+            assert LAUNCHES["xjoin_probe"] == p0 + 1
+
+
+@pytest.mark.parametrize("dead_last", [False, True])
+def test_xjoin_probe_high_rows_twice(dev, dead_last):
+    """Valid candidates at and above 2^29 spread over many blocks against
+    a window holding 2^29: only the largest valid row matches, its partner
+    read by the last block; the next call (another last row) starts from
+    counters at zero."""
+    rng = np.random.default_rng(9)
+    jd = np.append(2 * np.arange(200_000) + 1, 2 ** 29).astype(np.int32)
+    jp = rng.permutation(len(jd)).astype(np.int32)
+    f16 = rng.integers(0, 3000, (len(jd), 17), dtype=np.int16)
+    fl = rng.integers(0, 2 ** 30, len(jd), dtype=np.int32)
+    dead = np.zeros(1_000_000, bool)
+    t = [torch.from_numpy(a).to(dev) for a in (jd, jp, f16, fl)]
+    for call in range(2):
+        c = rng.choice(400_000, 300_000, replace=False).astype(np.int32)
+        rows = np.sort(rng.choice(300_000, 40, replace=False))
+        c[rows] = 2 ** 29 + rng.integers(0, 2 ** 20, 40)
+        if dead_last:
+            c[rows[-1]] = -3        # not live: the one before it matches
+        prior = np.ones((1, 5, len(c)), np.int32)
+        prior[0, 0, rows[-2 - call]] = 0    # failed an earlier include
+        cd, pd = torch.from_numpy(c).to(dev), torch.from_numpy(prior).to(dev)
+        want = KD.xjoin_probe_plain(cd.cpu(), torch.from_numpy(dead), pd.cpu(),
+                                    1, *(x.cpu() for x in t[:2]), 0, len(jd),
+                                    t[2].cpu(), t[3].cpu())
+        got = KD.xjoin_probe(cd, torch.from_numpy(dead).to(dev), pd, 1,
+                             t[0], t[1], 0, len(jd), t[2], t[3])
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        hi = (want[0] == 1) & (cd.cpu() >= 2 ** 29)
+        assert int(hi.sum()) == 1

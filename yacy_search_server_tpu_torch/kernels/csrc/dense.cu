@@ -33,26 +33,69 @@
 //     memory: each row is read once for all of them. Bound: the block
 //     (1 GiB at 2^21 rows: 0.32 ms) and B x n x 4 bytes of output.
 //
-// K10, the sort: one block a slot sorts its nb (a power of two <= 16384)
-// lanes in shared memory by a bitonic network (dense_dot.cuh, shared with
-// K14 and K15) on (key, lane), key = the
-// 64-bit (score half, docid half): the score half orders -final as
-// lax.sort does (the wrapping negation of kernel 3's tie mode,
-// common.cuh:tie_hi), the docid half is docid ^ 0x80000000, INT32_MAX on
-// lanes at or past n_valid. The lane breaks full ties, which makes the
-// network's result the stable sort's (lax.sort is stable). Output: the
-// sorted finals then the sorted docids over all nb lanes. Shared memory:
-// 10 bytes a lane (160 KB at 16384). Bound: 8 bytes a lane in, 8 out.
-//
+// K10, the sort: each slot's nb (a power of two <= 16384) lanes sorted
+// on (key, lane), key = the 64-bit (score half, docid half): the score
+// half orders -final as lax.sort does (the wrapping negation of kernel 3's
+// tie mode, common.cuh:tie_hi), the docid half is docid ^ 0x80000000,
+// INT32_MAX on lanes at or past n_valid. The lane breaks full ties, which
+// makes the result the stable sort's (lax.sort is stable). Output: the
+// sorted finals then the sorted docids over all nb lanes. Bound: 8 bytes
+// a lane in, 8 out. Keys and lanes sit in shared memory, 10 bytes a lane.
+//   Only the live prefix is sorted. A pad lane (at or past n_valid) whose
+//   final is -(2^31-1), as K9 writes every pad lane, has the largest key
+//   there is (tie_hi(-(2^31-1)) and sec_key(INT32_MAX) are both all ones),
+//   and the pad lanes are the slot's last lanes. So if every pad lane holds
+//   -(2^31-1), each lane in [m, nb), m the power of two at least n_valid,
+//   sorts after every lane below m (its key is larger, or equal and its
+//   lane larger), and those lanes keep their lane order among themselves:
+//   the stable sort of all nb lanes is the sort of [0, m) followed by
+//   lanes m..nb-1 as they are. The kernel checks the pad lanes (any other
+//   final sorts the whole slot, m = nb), sorts [0, m) and copies the rest;
+//   a slot with n_valid 0 is a copy (the pad slots of a solo rerank).
+//   The network: a key a thread, in registers (rs_sort_regs: the strides
+//   below 32 by warp shuffles, the others through a double buffer in
+//   shared memory, one barrier a step); every layout gives a CTA a thread
+//   a lane it holds.
+//   One block a slot below nb = RS_CLUSTER_NB (1,024).
+//   A thread-block cluster a slot from there: nb / RS_CHUNK CTAs, up to
+//   16, each holding kc = nb / ctas lanes. A slot of m live lanes takes
+//   A = m / k of them, k = min(m,
+//   kc): CTA r sorts lanes [r k, r k + k), then log2(A) rounds merge the
+//   sorted runs pairwise across the cluster's distributed shared memory.
+//   In a round each CTA owns k consecutive places of its pair's merged
+//   run: two warps find the merge-path split of its first and last place
+//   (a 32-way search, each lane probing one split through
+//   map_shared_rank), the CTA copies the two pieces it needs from the
+//   runs into a local stage, a cluster barrier (every stage read: the
+//   runs may change), each thread merges its places locally (a binary
+//   search on its own diagonal), a cluster barrier (the merged runs
+//   written); the last round writes the finals and docids to device
+//   memory, coalesced, between its barrier's arrive and wait, so no CTA
+//   leaves while another still reads its shared memory. A cluster
+//   barrier also follows the local sort. (key, lane) is unique in a slot,
+//   so every merge is exact. Every CTA of a cluster reads the slot's
+//   n_valid and all its pad lanes, so all agree on m and on the rounds
+//   without a barrier first; the CTAs past A only copy pad lanes. That
+//   check reads a pad lane once a CTA: 16 times at nb = 16,384 (~15.7 MB
+//   for the serving solo shape's 15 pad slots, against a bound of 4.2 MB
+//   for the call), mostly from the L2 cache; the live slot's sort takes
+//   most of the call all the same.
+//   Measured on an H100 (PERF.md): 512 lanes a CTA beat 256 and
+//   1,024 where nb allows, one block beat a cluster below nb = 1,024, the
+//   register network beat the shared-memory one by 20-30 %.
 // K11, the blend: pass 1, a grid of (chunk, slot) blocks, reduces each
 // chunk's min of where(valid, s, 1e30) and max of where(valid, s, -1e30)
 // (exact in any order); pass 2 reduces a slot's chunk results in every
 // block and writes (1 - alpha) * ((s - min) / max(max - min, 1e-6)) +
 // alpha * sims on valid lanes, -inf elsewhere, in JAX's operation order.
 // Bound: sims, sparse and valid read (9 bytes a lane), the output written.
+#include <cooperative_groups.h>
+
 #include <cstring>
 
 #include "dense_dot.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace yt {
 
@@ -60,7 +103,15 @@ constexpr int DD_WARPS = 8;              // warps a block of K9
 constexpr int DD_THREADS = DD_WARPS * 32;
 constexpr int DD_SQ = 32;                // queries a K9 similarity pass
 constexpr int RS_MAX_NB = 1 << 14;
-constexpr int RS_SMEM = RS_MAX_NB * 10;  // keys (8 B) and lanes (2 B)
+constexpr int RS_THREADS = 1024;         // a K10 block (fewer at nb < 1024)
+constexpr int RS_CHUNK = 512;            // lanes a CTA holds, cluster path
+constexpr int RS_CLUSTER_NB = 1024;      // lanes from which a cluster sorts
+constexpr int RS_MAX_CTAS = 16;          // a cluster (8 is the portable size)
+// a cluster's CTA holds at most 1,024 lanes in three buffers of 10 bytes a
+// lane, one block at most 512 and the network's double buffer: no launch
+// needs more than the 48 KB of shared memory a kernel has unasked
+static_assert(3 * (RS_MAX_NB / RS_MAX_CTAS) * 10 <= 48 * 1024 &&
+              RS_MAX_NB / RS_MAX_CTAS <= RS_THREADS, "K10's layout");
 constexpr int HB_THREADS = 256;
 constexpr int HB_MAX_CHUNKS = 1024;
 
@@ -135,31 +186,262 @@ dense_sims(const __half* __restrict__ docs, int64_t n,
   }
 }
 
-// K10: one block a slot
-__global__ void __launch_bounds__(1024)
+// K10's 64-bit key of a lane (head note)
+__device__ __forceinline__ unsigned long long rs_key(int32_t fin,
+                                                     int32_t docid) {
+  return ((unsigned long long)tie_hi(fin, false) << 32) | sec_key(docid);
+}
+__device__ __forceinline__ bool rs_less(unsigned long long ka, uint16_t la,
+                                        unsigned long long kb, uint16_t lb) {
+  return ka < kb || (ka == kb && la < lb);
+}
+
+// The lanes of the slot's sorted prefix, the same in every CTA of a slot:
+// nb if a pad lane's final is not -(2^31-1), else the power of two at
+// least n_valid (0 for none)
+__device__ __forceinline__ int rs_live_len(const int32_t* __restrict__ fin,
+                                           int nv, int nb) {
+  int bad = 0;
+#pragma unroll 4
+  for (int i = nv + threadIdx.x; i < nb; i += blockDim.x)
+    bad |= __ldg(fin + i) != SMALL;
+  if (__syncthreads_or(bad)) return nb;
+  int m = nv ? 1 : 0;
+  while (m < nv) m <<= 1;
+  return m;
+}
+
+// K10's network with a key a thread: thread i < n holds (k, l) and ends
+// with the i-th smallest of the n (a power of two); the block's threads
+// all take part (n <= blockDim.x). Steps of stride 32 or more trade
+// through the double buffer xk/xl (2 blockDim.x each), one barrier a
+// step; the others by warp shuffles. The comparisons are
+// dense_dot.cuh:bitonic_sort's: the lower thread of a pair keeps the
+// smaller key in an ascending block, the larger in a descending one.
+__device__ __forceinline__ void rs_sort_regs(unsigned long long& k,
+                                             uint16_t& l, int n,
+                                             unsigned long long* xk,
+                                             uint16_t* xl) {
+  const int i = threadIdx.x, T = blockDim.x;
+  int buf = 0;
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      unsigned long long pk;
+      uint16_t pl;
+      if (j >= 32) {
+        xk[buf * T + i] = k;
+        xl[buf * T + i] = l;
+        __syncthreads();
+        pk = xk[buf * T + (i ^ j)];
+        pl = xl[buf * T + (i ^ j)];
+        buf ^= 1;
+      } else {
+        pk = __shfl_xor_sync(0xffffffffu, k, j);
+        pl = (uint16_t)__shfl_xor_sync(0xffffffffu, (int)l, j);
+      }
+      if (i < n) {
+        const bool keep_min = ((i & j) == 0) == ((i & size) == 0);
+        const bool pless = rs_less(pk, pl, k, l);
+        if (keep_min == pless) {
+          k = pk;
+          l = pl;
+        }
+      }
+    }
+  }
+}
+
+// Element x of a run held k (a power of two, 2^kl) lanes a CTA from CTA
+// c0 on, read through the cluster's distributed shared memory
+__device__ __forceinline__ void rs_at(const cg::cluster_group& cl,
+                                      unsigned long long* key,
+                                      uint16_t* lane, int c0, int kl, int x,
+                                      unsigned long long& kx, uint16_t& lx) {
+  const unsigned c = (unsigned)(c0 + (x >> kl));
+  const int o = x & ((1 << kl) - 1);
+  kx = *cl.map_shared_rank(key + o, c);
+  lx = *cl.map_shared_rank(lane + o, c);
+}
+
+// The merge-path split of diagonal t between runs A (CTAs from ca) and B
+// (from cb), each of L lanes: how many of the merged run's first t come
+// from A. One warp: each lane probes one split, the ballot narrows the
+// range 32-fold a step (the predicate A[i] < B[t-1-i] holds for a prefix).
+__device__ int rs_split(const cg::cluster_group& cl, unsigned long long* key,
+                        uint16_t* lane, int ca, int cb, int kl, int L, int t) {
+  const int l = threadIdx.x & 31;
+  int lo = t > L ? t - L : 0, hi = t < L ? t : L;
+  while (lo < hi) {
+    const int n = hi - lo;
+    const int p = lo + (int)(((int64_t)l * n) >> 5);
+    unsigned long long ka, kb;
+    uint16_t la, lb;
+    rs_at(cl, key, lane, ca, kl, p, ka, la);
+    rs_at(cl, key, lane, cb, kl, t - 1 - p, kb, lb);
+    const int c = __popc(__ballot_sync(0xffffffffu, rs_less(ka, la, kb, lb)));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const int pl = lo + (int)(((int64_t)(c - 1) * n) >> 5);
+      hi = c < 32 ? lo + (int)(((int64_t)c * n) >> 5) : hi;
+      lo = pl + 1;
+    }
+  }
+  return lo;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// K10's merge rounds across the cluster (head note): A runs of k sorted
+// lanes, run r in CTA r's first buffer, merged pairwise log2(A) times
+__device__ void rs_merge(const int32_t* __restrict__ fin,
+                         const int32_t* __restrict__ row,
+                         int32_t* __restrict__ o, int nb, int kc, int k,
+                         int A, int r, unsigned long long* key,
+                         uint16_t* lane) {
+  __shared__ int s_split[2];
+  const int t = threadIdx.x, T = blockDim.x;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int kl = __ffs(k) - 1;
+  unsigned long long* skey = key + 2 * kc;   // the stage
+  uint16_t* slane = lane + 2 * kc;
+  cl.sync();                                   // every run sorted
+  int cur = 0;
+  for (int half = 1; half < A; half <<= 1) {
+    const bool last = 2 * half == A;
+    unsigned long long* ck = key + cur * kc;
+    uint16_t* cln = lane + cur * kc;
+    int t0 = 0, na = 0;
+    if (r < A) {
+      const int g = r & ~(2 * half - 1);       // the pair's first CTA
+      const int L = k * half;
+      t0 = (r - g) * k;
+      if (t < 64) {
+        const int s = rs_split(cl, ck, cln, g, g + half, kl, L,
+                               t0 + (t >> 5) * k);
+        if ((t & 31) == 0) s_split[t >> 5] = s;
+      }
+      __syncthreads();
+      const int i0 = s_split[0];
+      na = s_split[1] - i0;
+      const int j0 = t0 - i0;
+      for (int e = t; e < k; e += T) {
+        if (e < na)
+          rs_at(cl, ck, cln, g, kl, i0 + e, skey[e], slane[e]);
+        else
+          rs_at(cl, ck, cln, g + half, kl, j0 + e - na, skey[e], slane[e]);
+      }
+    }
+    if (last) cluster_arrive();   // my reads of the others are done
+    else cl.sync();               // every stage read: shares may change
+    if (r < A) {
+      __syncthreads();
+      const int nbb = k - na;
+      unsigned long long* nk = key + (cur ^ 1) * kc;
+      uint16_t* nl = lane + (cur ^ 1) * kc;
+      for (int e = t; e < k; e += T) {
+        int lo = e > nbb ? e - nbb : 0, hi = e < na ? e : na;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          const int q = na + e - 1 - mid;
+          if (rs_less(skey[mid], slane[mid], skey[q], slane[q])) lo = mid + 1;
+          else hi = mid;
+        }
+        const int ib = e - lo;
+        const bool a = lo < na && (ib >= nbb ||
+                                   rs_less(skey[lo], slane[lo], skey[na + ib],
+                                           slane[na + ib]));
+        const int at = a ? lo : na + ib;
+        if (last) {
+          const int src = slane[at];
+          o[t0 + e] = __ldg(fin + src);
+          o[nb + t0 + e] = __ldg(row + 2 + src);
+        } else {
+          nk[e] = skey[at];
+          nl[e] = slane[at];
+        }
+      }
+    }
+    if (last) cluster_wait();     // no CTA leaves while another reads it
+    else cl.sync();               // the merged shares written
+    cur ^= 1;
+  }
+}
+
+// The lanes of K10's shared memory (keys, then as many lanes): one block
+// a slot holds its kc = nb lanes, a cluster's CTA three buffers of kc (its
+// sorted share twice, the stage), and either room past the first buffer
+// for the register network's double buffer (2 x threads)
+__host__ __device__ __forceinline__ int rs_lanes(bool cluster, int kc,
+                                                 int threads) {
+  const int own = cluster ? 3 * kc : kc;
+  return own > kc + 2 * threads ? own : kc + 2 * threads;
+}
+
+// K10: a slot a block (CLUSTER false: keys and lanes of nb lanes) or a slot
+// a cluster of `ctas` CTAs (three buffers of kc = nb / ctas keys and lanes:
+// two for the sorted share, one for the stage)
+template <bool CLUSTER>
+__global__ void __launch_bounds__(RS_THREADS)
 rerank_sort_k(const int32_t* __restrict__ fin_all,
-              const int32_t* __restrict__ qd, int nb,
+              const int32_t* __restrict__ qd, int nb, int ctas,
               int32_t* __restrict__ out) {
-  extern __shared__ unsigned long long rs_key[];
-  uint16_t* lane = reinterpret_cast<uint16_t*>(rs_key + nb);
-  const int b = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char rs_smem[];
+  const int kc = nb / ctas;
+  unsigned long long* key = reinterpret_cast<unsigned long long*>(rs_smem);
+  uint16_t* lane = reinterpret_cast<uint16_t*>(
+      key + rs_lanes(CLUSTER, kc, (int)blockDim.x));
+  const int b = blockIdx.x / ctas;
+  const int r = CLUSTER ? (int)cg::this_cluster().block_rank() : 0;
+  const int t = threadIdx.x, T = blockDim.x;
   const int32_t* row = qd + (int64_t)b * (2 + 2 * nb + DD_DIM);
   const int32_t* fin = fin_all + (int64_t)b * nb;
-  const int nvalid = row[0];
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    const int32_t t = i < nvalid ? row[2 + i] : BIG;
-    rs_key[i] = ((unsigned long long)tie_hi(fin[i], false) << 32) |
-                sec_key(t);
-    lane[i] = (uint16_t)i;
-  }
-  __syncthreads();
-  bitonic_sort<true>(rs_key, lane, nb);
   int32_t* o = out + (int64_t)b * 2 * nb;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    const int src = lane[i];
-    o[i] = fin[src];
-    o[nb + i] = row[2 + src];
+  const int nv = min(max(row[0], 0), nb);
+  const int m = rs_live_len(fin, nv, nb);
+  // the lanes past the prefix, as they are: CTA r copies its share
+  for (int i = max(m, r * kc) + t; i < (r + 1) * kc; i += T) {
+    o[i] = __ldg(fin + i);
+    o[nb + i] = __ldg(row + 2 + i);
   }
+  if (m == 0) return;
+  const int k = m < kc ? m : kc;     // lanes an active CTA sorts
+  const int A = m / k;               // active CTAs, a power of two
+  if (r < A) {
+    // a key a thread (threads past k hold the largest key): the network
+    // over n = max(k, 32) in registers, the long strides through the
+    // buffers past the first (the cluster's) or past nb (one block)
+    const int n = k > 32 ? k : 32;
+    unsigned long long kk = ~0ull;
+    uint16_t ll = 0xffff;
+    if (t < k) {
+      const int i = r * k + t;
+      kk = rs_key(__ldg(fin + i), i < nv ? __ldg(row + 2 + i) : BIG);
+      ll = (uint16_t)i;
+    }
+    rs_sort_regs(kk, ll, n, key + kc, lane + kc);
+    __syncthreads();
+    if (t < k) {
+      key[t] = kk;
+      lane[t] = ll;
+    }
+    __syncthreads();
+  }
+  if (A == 1) {
+    if (r == 0)
+      for (int e = t; e < k; e += T) {
+        const int src = lane[e];
+        o[e] = __ldg(fin + src);
+        o[nb + e] = __ldg(row + 2 + src);
+      }
+    return;
+  }
+  if constexpr (CLUSTER) rs_merge(fin, row, o, nb, kc, k, A, r, key, lane);
 }
 
 __device__ __forceinline__ void block_minmax(float& mn, float& mx) {
@@ -294,18 +576,67 @@ extern "C" int yt_dense_sims(const void* docs, int64_t n, const void* qvecs,
   return (int)cudaGetLastError();
 }
 
+// K10's layout, from nb alone: its CTAs a slot (one below RS_CLUSTER_NB
+// lanes, else one a RS_CHUNK lanes, up to RS_MAX_CTAS), its threads (a
+// thread a lane a CTA holds: whole warps, and a cluster's CTA two at least
+// for its two split searches) and its dynamic shared memory. nb is the
+// bucket of the wave's largest candidate count (ops/dense.rerank_bucket),
+// so it stands for the live lanes; within a launch each slot's CTAs take
+// their share of its own live prefix.
+static cudaError_t rs_layout(int nb, int* ctas, int* threads, int* smem) {
+  int c = nb < RS_CLUSTER_NB ? 1 : nb / RS_CHUNK;
+  c = c < RS_MAX_CTAS ? c : RS_MAX_CTAS;
+  const int kc = nb / c, least = c > 1 ? 64 : 32;
+  *ctas = c;
+  *threads = kc < least ? least : kc;
+  *smem = rs_lanes(c > 1, kc, *threads) * 10;
+  if (c == 1) return cudaSuccess;
+  // a cluster past the portable 8 CTAs, allowed once a device
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  static bool nonportable[64];
+  if (!nonportable[dev]) {
+    const cudaError_t a = cudaFuncSetAttribute(
+        rerank_sort_k<true>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (a != cudaSuccess) return a;
+    nonportable[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// fin_all [bs, nb] int32, qd [bs, 2 + 2nb + 256] int32 descriptors; out
+// [bs, 2nb] int32. One launch: a block a slot, or a cluster a slot.
 extern "C" int yt_rerank_sort(const void* fin_all, const void* qd, int bs,
                               int nb, void* out, void* stream) {
   if (bs < 1 || nb < 16 || nb > RS_MAX_NB || (nb & (nb - 1)))
     return (int)cudaErrorInvalidValue;
-  const int smem = nb * 10;
-  if (smem > 48 * 1024) {
-    static bool raised[64];
-    const cudaError_t e = allow_smem(rerank_sort_k, RS_SMEM, raised);
-    if (e != cudaSuccess) return (int)e;
+  int ctas = 1, threads = 0, smem = 0;
+  cudaError_t e = rs_layout(nb, &ctas, &threads, &smem);
+  if (e != cudaSuccess) return (int)e;
+  if (ctas == 1) {
+    rerank_sort_k<false><<<bs, threads, smem, (cudaStream_t)stream>>>(
+        (const int32_t*)fin_all, (const int32_t*)qd, nb, 1,
+        (int32_t*)out);
+    return (int)cudaGetLastError();
   }
-  rerank_sort_k<<<bs, nb < 1024 ? nb : 1024, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)fin_all, (const int32_t*)qd, nb, (int32_t*)out);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3((unsigned)(bs * ctas));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, rerank_sort_k<true>, (const int32_t*)fin_all,
+                         (const int32_t*)qd, nb, ctas, (int32_t*)out);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -964,18 +964,18 @@ extern "C" int yt_join_rows(const void* feats, const void* flags,
 // every cell's own docid-sorted join window, and the owner cell's partner
 // features come back through term-axis reductions (the mesh's collectives,
 // between the two entry points):
-//   - `xjoin_probe`, on every cell of the column, one term a launch: a
-//     candidate is valid while it is live, below n and passed every
+//   - `xjoin_probe`, on every cell of the column, one term a launch:
+//     a candidate is valid while it is live, below n and passed every
 //     earlier term (the reduced contributions `prior`, includes first:
 //     found > 0, then excludes: found == 0), as the JAX loop narrows gv
-//     term by term. A valid candidate is binary-searched in this cell's
-//     window jdocids[lo, lo + cnt) for clip(docid, 0, 2^29); of the valid
+//     term by term. A valid candidate is searched in this cell's window
+//     jdocids[lo, lo + cnt) for clip(docid, 0, 2^29); of the valid
 //     candidates at or above 2^29 only the last (the largest row) can
-//     match, as _membership_sorted's stable co-sort decides
-//     (`xjoin_last_high` finds it first). Output int32 [5, n], neutral
-//     where not found: found (0/1), posintext min (INT32_MAX) and max
-//     (-INT32_MAX), hitcount min (INT32_MAX), flags (0). A non-owner
-//     cell's window is empty (cnt 0): all neutral.
+//     match, as _membership_sorted's stable co-sort decides. Output int32
+//     [5, n], neutral where not found: found (0/1), posintext min
+//     (INT32_MAX) and max (-INT32_MAX), hitcount min (INT32_MAX), flags
+//     (0). A non-owner cell's window is empty (cnt 0): all neutral, no
+//     search.
 //   - `xjoin_apply`, on the rare cell: the term-axis-reduced
 //     contributions (psum, pmin, pmax, pmin, psum) of every term folded
 //     into the rare rows as K8 merges partner rows (worddistance = max -
@@ -985,74 +985,195 @@ extern "C" int yt_join_rows(const void* feats, const void* flags,
 //     writes them, so kernels 1-3 follow as in the column-local join.
 //     Only the rare row's cells score (the JAX body's axis_index mask):
 //     the others hold no candidate.
-// Bound: bytes. A probe reads a candidate's docid and tombstone byte, the
-// prior words and, for a valid one, ~log2(cnt) window entries (L2) and
-// the partner's 8 B; it writes 20 B. The apply reads the rare rows (34 B
-// of features, flags, docid) and 20 B a term, and writes 73 B a row.
-constexpr int X_THREADS = 256;
+// Bound: bytes. A probe reads a candidate's docid, the prior words and,
+// for a found one, its tombstone byte, its window entry, jpos and the
+// partner's 8 B; it writes 20 B. The apply reads the rare rows (34 B of
+// features, flags, docid) and 20 B a term, and writes 73 B a row.
+//
+// The probe's design: the candidates arrive in score order, so each
+// search is a random walk down the window (10M entries, 40 MB, in the
+// smoke). One launch a call:
+//   - a block a tile of XP_THREADS x RPL candidates; each block stages the
+//     window in shared memory, whole where it fits in XP_TABLE_WORDS words
+//     (K8's PM_STAGED), else as a fence table of every 2^s-th entry, s the
+//     least that fits; a search runs in shared memory and ends in device
+//     memory in a window of 2^s entries (K8's lower_bound_smem,
+//     lower_bound_global), branch-free;
+//   - a thread carries RPL candidates through the chain stage by stage,
+//     so their loads overlap;
+//   - the tombstone byte is read only where it decides the answer: for a
+//     found candidate, and for a valid one at or above 2^29;
+//   - the main pass writes the rows at or above 2^29 neutral and keeps the
+//     largest valid one (its row + 1, by atomicMax) in a word of the
+//     call's counters; the last block to finish (an atomic ticket after
+//     __threadfence, as join_rows does) searches that row for 2^29 and
+//     resets both words for the next call, so no memset precedes it.
+// What binds is the device memory's random sectors, not the chain's
+// length: the upper steps of a search hit the L2 cache whether they run
+// in shared memory or not, the last ones (a window of ~64 entries) miss
+// it, and a found candidate then gathers its tombstone byte, jpos, the
+// partner's row and flags. So the table stays small: on an H100 a table
+// of 256 words (s = 16 at 10M entries) with a block a tile beat 1,024 to
+// 32,768 words and a persistent grid of resident blocks (PERF.md).
+constexpr int XP_THREADS = J_THREADS;        // a probe block (K8's size:
+                                             // block_copy_words)
+constexpr int64_t XP_TABLE_WORDS = 256;      // the most a block stages
 constexpr int32_t X_BIG = 0x7fffffff;  // the neutral fills' INT32_MAX
 
-__device__ __forceinline__ bool xjoin_valid(
-    int64_t i, const int32_t* __restrict__ cand, int64_t n,
-    const uint8_t* __restrict__ dead, int64_t doc_cap,
-    const int32_t* __restrict__ prior, int n_prior, int n_inc) {
-  if (i >= n || !row_live(__ldg(cand + i), dead, doc_cap)) return false;
-  for (int p = 0; p < n_prior; ++p) {
-    const int32_t c = __ldg(prior + (int64_t)p * 5 * n + i);
-    if (p < n_inc ? c <= 0 : c != 0) return false;
+// The window's search in a block: staged whole (shift 0) or through a
+// fence table of every 2^shift-th entry (tab), the answers' entries b
+// (the first >= key) and whether each is found there
+__device__ __forceinline__ void xprobe_search(const int32_t* tab,
+                                              const int32_t* seg,
+                                              int64_t cnt, int shift,
+                                              const int32_t* key,
+                                              const bool* on, int64_t* b,
+                                              bool* f) {
+  if (shift == 0) {
+    int bi[RPL];
+    lower_bound_smem(tab, (int)cnt, key, bi);
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) {
+      b[k] = bi[k];
+      f[k] = on[k] && bi[k] < cnt && tab[bi[k]] == key[k];
+    }
+    return;
   }
-  return true;
+  // the fence j = the first of every 2^shift-th entry >= the key: the
+  // answer lies after fence j - 1, up to fence j
+  const int nf = (int)((cnt + (1ll << shift) - 1) >> shift);
+  int jf[RPL];
+  int64_t w0[RPL], w1[RPL];
+  lower_bound_smem(tab, nf, key, jf);
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) {
+    w0[k] = jf[k] == 0 ? 0 : ((int64_t)(jf[k] - 1) << shift) + 1;
+    const int64_t e = (int64_t)jf[k] << shift;
+    w1[k] = jf[k] == 0 ? 0 : (e < cnt ? e : cnt);
+  }
+  lower_bound_global(seg, 1ll << shift, w0, w1, key, on, b);
+  int32_t x[RPL];
+#pragma unroll
+  for (int k = 0; k < RPL; ++k)
+    x[k] = on[k] && b[k] < cnt ? __ldg(seg + b[k]) : -1;
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) f[k] = on[k] && b[k] < cnt && x[k] == key[k];
 }
 
-__global__ void __launch_bounds__(X_THREADS)
-xjoin_last_high(const int32_t* __restrict__ cand, int64_t n,
-                const uint8_t* __restrict__ dead, int64_t doc_cap,
-                const int32_t* __restrict__ prior, int n_prior, int n_inc,
-                int* __restrict__ last) {
-  for (int64_t i = (int64_t)blockIdx.x * X_THREADS + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * X_THREADS)
-    if (__ldg(cand + i) >= JOIN_DOCID_CAP &&
-        xjoin_valid(i, cand, n, dead, doc_cap, prior, n_prior, n_inc))
-      atomicMax(last, (int)i);
-}
-
-__global__ void __launch_bounds__(X_THREADS)
+// K18's probe (head note). seg/jp: the window's jdocids and jpos; shift -1
+// for an empty window, 0 staged whole, else the fence stride's log2; ctr:
+// the call's two counter words (the largest valid row at or above 2^29 +
+// 1, the ticket), zero before the call and left at zero.
+__global__ void __launch_bounds__(XP_THREADS, 2)
 xjoin_probe(const int32_t* __restrict__ cand, int64_t n,
             const uint8_t* __restrict__ dead, int64_t doc_cap,
             const int32_t* __restrict__ prior, int n_prior, int n_inc,
-            const int32_t* __restrict__ jdocids,
-            const int32_t* __restrict__ jpos, int64_t lo, int64_t cnt,
-            const int16_t* __restrict__ feats,
-            const int32_t* __restrict__ flags,
-            const int* __restrict__ last, int32_t* __restrict__ out) {
-  for (int64_t i = (int64_t)blockIdx.x * X_THREADS + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * X_THREADS) {
-    int32_t found = 0, pmin = X_BIG, pmax = -X_BIG, hmin = X_BIG, fl = 0;
-    if (xjoin_valid(i, cand, n, dead, doc_cap, prior, n_prior, n_inc)) {
-      const int32_t d = __ldg(cand + i);
-      if (d < JOIN_DOCID_CAP || i == *last) {
-        const int32_t key = d > JOIN_DOCID_CAP ? JOIN_DOCID_CAP : d;
-        int64_t a = lo, b = lo + cnt;
-        while (a < b) {  // the first entry >= key
-          const int64_t mid = (a + b) >> 1;
-          if (__ldg(jdocids + mid) < key) a = mid + 1;
-          else b = mid;
-        }
-        if (a < lo + cnt && __ldg(jdocids + a) == key) {
-          const int64_t pr = __ldg(jpos + a);
-          found = 1;
-          pmin = pmax = __ldg(feats + pr * NF + F_POSINTEXT);
-          hmin = __ldg(feats + pr * NF + F_HITCOUNT);
-          fl = __ldg(flags + pr);
-        }
-      }
-    }
-    out[i] = found;
-    out[n + i] = pmin;
-    out[2 * n + i] = pmax;
-    out[3 * n + i] = hmin;
-    out[4 * n + i] = fl;
+            const int32_t* __restrict__ seg, const int32_t* __restrict__ jp,
+            int64_t cnt, int shift, const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags, uint32_t* __restrict__ ctr,
+            int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char xp_smem[];
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const int32_t* tab = reinterpret_cast<const int32_t*>(
+      xp_smem + (shift == 0 ? (uintptr_t)seg % 16 : 0));
+  if (shift == 0) {
+    block_copy_words(xp_smem, seg, cnt, t);
+  } else if (shift > 0) {
+    int32_t* fz = reinterpret_cast<int32_t*>(xp_smem);
+    const int64_t nf = (cnt + (1ll << shift) - 1) >> shift;
+    for (int64_t j = t; j < nf; j += XP_THREADS)
+      cp_async4(fz + j, seg + (j << shift));
   }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // the block's tile
+  const int64_t base = (int64_t)blockIdx.x * XP_THREADS * RPL;
+  int64_t i[RPL];
+  int32_t d[RPL];
+  bool ok[RPL];
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) {
+    i[k] = base + k * XP_THREADS + t;
+    d[k] = i[k] < n ? __ldg(cand + i[k]) : -1;
+    ok[k] = d[k] >= 0;
+  }
+  for (int p = 0; p < n_prior; ++p) {
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) {
+      if (!ok[k]) continue;
+      const int32_t c = __ldg(prior + (int64_t)p * 5 * n + i[k]);
+      ok[k] = p < n_inc ? c > 0 : c == 0;
+    }
+  }
+  // a valid row at or above 2^29: its liveness decides whether it is
+  // the one the last block searches
+  bool on[RPL];
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) {
+    const bool high = ok[k] && d[k] >= JOIN_DOCID_CAP;
+    if (high && !(d[k] < doc_cap && __ldg(dead + d[k])))
+      atomicMax(ctr, (uint32_t)(i[k] + 1));
+    on[k] = ok[k] && !high && shift >= 0;
+  }
+  int64_t b[RPL];
+  bool f[RPL];
+  if (shift >= 0) {
+    xprobe_search(tab, seg, cnt, shift, d, on, b, f);
+  } else {
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) f[k] = false, b[k] = 0;
+  }
+  // a found row's liveness, then its partner row
+  int64_t pr[RPL];
+#pragma unroll
+  for (int k = 0; k < RPL; ++k)
+    f[k] = f[k] && !(d[k] < doc_cap && __ldg(dead + d[k]));
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) pr[k] = f[k] ? __ldg(jp + b[k]) : 0;
+#pragma unroll
+  for (int k = 0; k < RPL; ++k) {
+    if (i[k] >= n) continue;
+    int32_t pos = X_BIG, pmx = -X_BIG, hit = X_BIG, fl = 0;
+    if (f[k]) {
+      pos = pmx = __ldg(feats + pr[k] * NF + F_POSINTEXT);
+      hit = __ldg(feats + pr[k] * NF + F_HITCOUNT);
+      fl = __ldg(flags + pr[k]);
+    }
+    out[i[k]] = f[k] ? 1 : 0;
+    out[n + i[k]] = pos;
+    out[2 * n + i[k]] = pmx;
+    out[3 * n + i[k]] = hit;
+    out[4 * n + i[k]] = fl;
+  }
+  // the last block searches the largest valid row at or above 2^29 for
+  // the clipped key and leaves the counters at zero
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(ctr + 1, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last || t != 0) return;
+  __threadfence();
+  const uint32_t h = __ldcg(ctr);
+  if (h != 0 && shift >= 0) {
+    const int64_t r = (int64_t)h - 1;
+    int32_t key[RPL];
+    bool on[RPL], f[RPL];
+    int64_t b[RPL];
+#pragma unroll
+    for (int k = 0; k < RPL; ++k) key[k] = JOIN_DOCID_CAP, on[k] = k == 0;
+    xprobe_search(tab, seg, cnt, shift, key, on, b, f);
+    if (f[0]) {
+      const int64_t q = __ldg(jp + b[0]);
+      out[r] = 1;
+      out[n + r] = out[2 * n + r] = __ldg(feats + q * NF + F_POSINTEXT);
+      out[3 * n + r] = __ldg(feats + q * NF + F_HITCOUNT);
+      out[4 * n + r] = __ldg(flags + q);
+    }
+  }
+  ctr[0] = 0u;
+  ctr[1] = 0u;
 }
 
 // The apply stages a block's XA_THREADS rows through shared memory as
@@ -1113,40 +1234,52 @@ xjoin_apply(const int16_t* __restrict__ feats,
   }
 }
 
-static unsigned x_grid(int64_t n) {
-  const int64_t g = (n + X_THREADS - 1) / X_THREADS;
-  return (unsigned)(g < 1 ? 1 : (g > 8192 ? 8192 : g));
+// K18 probe's layout for a window of cnt entries: the search's shift (-1
+// none, 0 the window staged whole, else the least fence stride whose
+// table fits in XP_TABLE_WORDS words) and the bytes of shared memory it
+// takes
+static int xprobe_layout(int64_t cnt, int* smem) {
+  if (cnt == 0) {
+    *smem = 0;
+    return -1;
+  }
+  if (stage_words(PM_STAGED, cnt) <= XP_TABLE_WORDS) {
+    *smem = (int)(4 * stage_words(PM_STAGED, cnt));
+    return 0;
+  }
+  int shift = 1;
+  while (((cnt + (1ll << shift) - 1) >> shift) > XP_TABLE_WORDS) ++shift;
+  *smem = (int)(4 * ((((cnt + (1ll << shift) - 1) >> shift) + 3) & ~3ll));
+  return shift;
 }
 
 // cand [n] int32 (the rare cell's docids from its span start), dead
 // [doc_cap] bool of this cell's device; prior [n_prior, 5, n] int32 (the
 // reduced contributions of the earlier terms, includes first, n_inc of
 // them at most); jdocids/jpos this cell's join table, the window [lo, lo +
-// cnt); feats [*, 17] int16 and flags int32 this cell's arena; scratch one
-// int32; out [5, n] int32.
+// cnt); feats [*, 17] int16 and flags int32 this cell's arena; ctr two
+// uint32, zero before the call and left at zero (one pair a stream); out
+// [5, n] int32. One launch.
 extern "C" int yt_xjoin_probe(const void* cand, int64_t n, const void* dead,
                               int64_t doc_cap, const void* prior,
                               int n_prior, int n_inc, const void* jdocids,
                               const void* jpos, int64_t lo, int64_t cnt,
                               const void* feats, const void* flags,
-                              void* scratch, void* out, void* stream) {
+                              void* ctr, void* out, void* stream) {
   if (n < 0 || n_prior < 0 || n_inc < 0 || lo < 0 || cnt < 0)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(scratch, 0xff, 4, s);  // -1: none
-  if (e != cudaSuccess) return (int)e;
-  const unsigned g = x_grid(n);
-  xjoin_last_high<<<g, X_THREADS, 0, s>>>(
+  int smem = 0;
+  const int shift = xprobe_layout(cnt, &smem);
+  // a block a tile of XP_THREADS x RPL candidates
+  const int64_t grid = (n + XP_THREADS * RPL - 1) / (XP_THREADS * RPL);
+  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  xjoin_probe<<<(unsigned)grid, XP_THREADS, (size_t)smem,
+                (cudaStream_t)stream>>>(
       (const int32_t*)cand, n, (const uint8_t*)dead, doc_cap,
-      (const int32_t*)prior, n_prior, n_inc, (int*)scratch);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  xjoin_probe<<<g, X_THREADS, 0, s>>>(
-      (const int32_t*)cand, n, (const uint8_t*)dead, doc_cap,
-      (const int32_t*)prior, n_prior, n_inc, (const int32_t*)jdocids,
-      (const int32_t*)jpos, lo, cnt, (const int16_t*)feats,
-      (const int32_t*)flags, (const int*)scratch, (int32_t*)out);
+      (const int32_t*)prior, n_prior, n_inc, (const int32_t*)jdocids + lo,
+      (const int32_t*)jpos + lo, cnt, shift, (const int16_t*)feats,
+      (const int32_t*)flags, (uint32_t*)ctr, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,11 @@
   `dense_sims` gives the f32 similarities of B queries against every row
   of one block, each row read once for all of them.
 - K10 `rerank_sort` replaces the per-slot `lax.sort` of
-  `_rerank_fwd_batch_packed_kernel`: one block a slot sorts its nb lanes
-  on (-score, docid), pad lanes keyed INT32_MAX, stably.
+  `_rerank_fwd_batch_packed_kernel`: each slot's nb lanes sorted on
+  (-score, docid), pad lanes keyed INT32_MAX, stably; only the live
+  prefix is sorted (one block a slot, or from nb = 1024 a thread-block
+  cluster a slot merging its CTAs' runs through distributed shared
+  memory), the pad lanes copied.
 - K11 `hybrid_blend` replaces the min/max normalisation and blend of
   `hybrid_rerank_topk(_batch)`: final = (1 - alpha) * (s - min) / span +
   alpha * sims on the valid lanes, -inf elsewhere.

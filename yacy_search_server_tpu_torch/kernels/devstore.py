@@ -742,7 +742,7 @@ def join_words(groups, slots) -> tuple[array.array, array.array]:
 
 
 _join_lock = threading.Lock()
-_join_ctrs: dict = {}       # (device, stream) -> the counters of its calls
+_join_ctrs: dict = {}   # (kernel, device, stream) -> its calls' counters
 
 
 def join_stage_most(dev) -> int:
@@ -756,19 +756,19 @@ def join_stage_most(dev) -> int:
     return out[0]
 
 
-def _join_counters(dev, stream: int) -> torch.Tensor:
-    """The counters and tickets of K8's calls on `stream` of `dev`
-    (JOIN_CTR a group, zeroed once here; each call leaves them at zero).
-    Calls on one stream run one after another, so a stream's calls share
-    one set."""
-    key = (dev.index, stream)
+def _join_counters(dev, stream: int, kernel: str = "join_rows",
+                   words: int = JOIN_CTR * BATCH_SLOTS) -> torch.Tensor:
+    """The counters and tickets of a kernel's calls on `stream` of `dev`
+    (K8's: JOIN_CTR a group; K18's probe: two words), zeroed once here;
+    each call leaves them at zero. Calls on one stream run one after
+    another, so a stream's calls share one set."""
+    key = (kernel, dev.index, stream)
     t = _join_ctrs.get(key)
     if t is None:
         with _join_lock:
             t = _join_ctrs.get(key)
             if t is None:
-                t = torch.zeros(JOIN_CTR * BATCH_SLOTS, dtype=torch.int32,
-                                device=dev)
+                t = torch.zeros(words, dtype=torch.int32, device=dev)
                 _join_ctrs[key] = t
     return t
 
@@ -900,14 +900,14 @@ def xjoin_probe(cand, dead, prior, n_inc: int, jdocids, jpos, lo: int,
     if prior is not None:
         B.require(prior, "prior", (torch.int32,), 3, dev)
     out = torch.empty((XJOIN_ROWS, n), dtype=torch.int32, device=dev)
-    scratch = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = B.stream_ptr(dev)
     rc = B.library().yt_xjoin_probe(
         cand.data_ptr(), n, dead.data_ptr(), dead.shape[0],
         prior.data_ptr() if prior is not None else None,
         prior.shape[0] if prior is not None else 0, n_inc,
         jdocids.data_ptr(), jpos.data_ptr(), lo, cnt, feats16.data_ptr(),
-        flags.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        B.stream_ptr(dev))
+        flags.data_ptr(), _join_counters(dev, stream, "xjoin_probe", 2)
+        .data_ptr(), out.data_ptr(), stream)
     B.check(rc, "xjoin_probe")
     B.count_launch("xjoin_probe")
     return out
