@@ -37,9 +37,10 @@ Phases, each of which exits non-zero on failure:
    as a filtered-stats cache hit does; K6, K7 and topk_finish with a
    RAM delta block (7, 50,000 and 300,000 rows: span docids, tombstoned
    ones, new ones) and a 4M-bit facet bitmap, with and without a
-   filter; the batched scan (span_stats_batch, span_score_batch,
-   topk_finish_batch) over waves of 1, 3 and 16 edge scans, each slot
-   also equal to the solo scan and to the CPU's; the batched join
+   filter; the batched scan (span_stats_batch, span_topk_batch; past
+   its kk span_score_batch, kernel 3 and topk_finish_batch) over waves
+   of 1, 3 and 16 edge scans at kk 16 and 1024 (and 4096 at 16), each
+   slot also equal to the solo scan and to the CPU's; the batched join
    (join_member_batch, join_stats_batch, join_score_batch over each
    slot's rows, join_batch_query's slots equal to the solo join_query's)
    on the join edge store's waves (kernels/bench.join_edge_waves: 16
@@ -108,7 +109,8 @@ Phases, each of which exits non-zero on failure:
    profiles, two languages, k = 10 and 100), its default/en/k = 100
    queries alone (one K5 group, so that waves can fill) and a
    filtered-scan mix (the 1M, 100k and 20k terms and joinB, whose RAM
-   delta keeps it out of the waves; four filters) sent one at a time
+   delta keeps it out of the waves; four filters; the 20k term also at
+   k = 3000, past the batched K7's fused kk) sent one at a time
    without the batcher, from 16 threads without it, and from 16 threads
    through it (`enable_batching`, scan batching on), every answer equal
    to the solo card answer and the twin's (the filtered scans' at k = 100),
@@ -326,8 +328,12 @@ DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
 JOIN_KERNELS = ("join_member", "cardinal_stats", "cardinal_score",
                 "tie_topk", "topk_finish", "span_stats", "span_score")
 BATCHED_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
-                   "topk_finish", "span_stats_batch", "span_score_batch",
-                   "topk_finish_batch")
+                   "topk_finish", "span_stats_batch", "span_topk_batch",
+                   "span_score_batch", "topk_finish_batch")
+# the filtered-scan mix's k past the batched K7's fused selection
+# (KD.FUSED_KK = 2048): kk = 4096, whose waves take the batched K7 into
+# regions, kernel 3 a slot and the finish
+PAST_FUSED_K = 3000
 MIX_THREADS = 16     # client threads of the concurrent mixes
 MIX_REPEATS = 8      # each distinct query of a mix sent this many times
 # the batched joins: each distinct conjunction sent this many times, and
@@ -865,7 +871,13 @@ def main() -> int:
             pst = KD.span_stats_batch_plain(ea[0], ea[1], ea[2], ea[3], desc)
             note("span_stats_batch", f"edges wave of {bs} ({pname})",
                  max(stats_diff(st[i], pst[i]) for i in range(bs)))
-            for kk in (16, 1024):
+            for kk in (16, 1024) + ((4096,) if bs == 16 else ()):
+                if kk <= KD.FUSED_KK:
+                    g = KD.span_topk_batch(*ea[:4], desc, st, c, kk)
+                    w = KD.span_topk_batch_plain(*ea[:4], desc, pst, c, kk)
+                    torch.cuda.synchronize()
+                    note("span_topk_batch", f"edges wave of {bs} ({pname}), "
+                         f"kk={kk}", diff(g, w))
                 off = KD.scan_batch_offsets(desc, kk)
                 g = KD.span_score_batch(*ea[:4], desc, st, c, off)
                 w = KD.span_score_batch_plain(*ea[:4], desc, pst, c, off)
@@ -1701,7 +1713,8 @@ def main() -> int:
     # a pruned mix (every term, two profiles, two languages, k = 10 and
     # 100) and a filtered-scan mix (the 1M, 100k and 20k terms and joinB,
     # whose RAM delta keeps it out of the waves; four filters; k = 10 and
-    # 100), each sent one query at a time (no batcher), from 16 threads
+    # 100, and the 20k term at PAST_FUSED_K), each sent one query at a
+    # time (no batcher), from 16 threads
     # (no batcher), and from 16 threads through the batcher (scan
     # batching on); every answer equal to the first solo card answer and
     # to the twin's (the filtered scans' at k = 100)
@@ -1749,8 +1762,10 @@ def main() -> int:
         "filtered scan": ([(th, f, k) for th in (
                                t1m, *(b"term%08d" % n for n in DS_TERMS[1:]),
                                jB) for f in range(len(scan_filters))
-                           for k in (10, 100)], MIX_REPEATS, scan_fn,
-                          scan_twin)}
+                           for k in (10, 100)]
+                          + [(b"term%08d" % DS_TERMS[2], f, PAST_FUSED_K)
+                             for f in range(len(scan_filters))],
+                          MIX_REPEATS, scan_fn, scan_twin)}
     gs._topk_cache.enabled = False
     refs, mix_stats, waves = {}, {}, {}
     for mname, (qs, reps, fn, twin_fn) in mixes.items():
@@ -1806,7 +1821,7 @@ def main() -> int:
         fail("the batcher did not serve cleanly: " + str(
             {k: bc[k] for k in ("batch_dispatches", "batch_timeouts",
                                 "batch_exceptions")}))
-    for name in ("pruned_tile", "span_stats_batch", "span_score_batch"):
+    for name in ("pruned_tile", "span_stats_batch", "span_topk_batch"):
         if WIDE[name] == wide0[name]:
             fail(f"no {name} launch took more than one live slot")
     # deletes landing while 16 threads send the filtered-scan mix through
@@ -3367,9 +3382,11 @@ def main() -> int:
         return len(names) or None, names
 
     def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape,
-                path="placed", plain_reps=3):
+                path="placed", plain_reps=3, plain_ms=None):
+        # plain_ms: the plain version's time from its one checked call
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
-        plain_ms = KB.call_ms(plain, reps=plain_reps)
+        if plain_ms is None:
+            plain_ms = KB.call_ms(plain, reps=plain_reps)
         lib_ms = KB.call_ms(lib) if lib is not None else None
         lib_dev = KB.device_ms(lib) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4065,11 +4082,12 @@ def main() -> int:
         del w, st_j, pst_j
 
     # the batcher's shapes on the join path's store: K5 at 16 slots over
-    # 16 queries' spans (the store's one-span terms in turn), and the
-    # batched scan at 16 slots (the 10M term's two spans and the 1M term
-    # under the filtered-scan mix's four filters, k = 10 and 100),
-    # K6 and K7 of the wave and its finish; each bound the slots' bytes
-    # summed
+    # 16 queries' spans (the store's one-span terms in turn), bound the
+    # slots' bytes summed; the batched scan's K6 and K7 with its selection
+    # at shape A (16 slots: the 10M term's two spans and the 1M term
+    # under the filtered-scan mix's four filters, k = 10 and 100) and B
+    # (one slot a term of the run), and at A the route past the fused kk
+    # (K7 into regions, kernel 3, the finish)
     garr5 = (*gs.arena.arrays(), gs.arena.dead_array(), gs.arena._pmax)
     one_span = [gs.spans_for(th)[0] for th in bt_terms[1:]]
     slots16 = [one_span[i % len(one_span)] for i in range(16)]
@@ -4103,44 +4121,87 @@ def main() -> int:
                 filt_of(scan_filters[f]))
                for th in (hl, t1m) for f in range(len(scan_filters))
                for _k in (10, 100)]
+    # shape B: one slot a term of the run under the mix's first filter, no
+    # span shared by two slots
+    scans7 = [([(s_.start, s_.count) for s_ in gs.spans_for(th)],
+               filt_of(scan_filters[0])) for th in bt_terms]
     desc_s = KD.scan_batch_desc(scans16)
     rows16 = [sum(c for _a, c in e) for e, _f in scans16]
-    flag16 = sum(4 * r for r, (_e, f_) in zip(rows16, scans16)
-                 if f_[1] != TD.NO_FLAG)
     off16 = KD.scan_batch_offsets(desc_s, kk)
     src_b6 = ("span_stats_batch",
               "yacy_search_server_tpu/index/devstore.py:465",
               "cardinal_stats.cu")
+    src_bt = ("span_topk_batch",
+              "yacy_search_server_tpu/index/devstore.py:465 (the running "
+              "top-k :540-548), :1032 (packed output)", "cardinal_score.cu")
     src_b7 = ("span_score_batch",
               "yacy_search_server_tpu/index/devstore.py:465",
               "cardinal_score.cu")
     src_bf = ("topk_finish_batch",
               "yacy_search_server_tpu/index/devstore.py:1032",
               "pruned_tile.cu")
-    k6w = lambda: KD.span_stats_batch(*garr5[:4], desc_s)  # noqa: E731
-    k6wp = lambda: KD.span_stats_batch_plain(*garr5[:4], desc_s)  # noqa: E731
-    st16, pst16 = k6w(), k6wp()
-    note("span_stats_batch", "16 slots of the filtered-scan mix",
-         max(stats_diff(st16[i], pst16[i]) for i in range(16)))
-    shape16 = (f"16 filtered scans of {min(rows16)}-{max(rows16)} rows "
-               f"({sum(rows16)} in all; the 10M term's two spans, the 1M "
-               "term) under four filters")
-    measure(*src_b6, k6w, k6wp, None,
-            sum(rows16) * (P.NF * 2 + 4 + 1) + flag16
-            + 16 * 4 * KC.STATS_LEN, 0.0, shape16, path="batched")
+
+    def plain_once(fn):
+        """fn's answer and the ms of that one call (a plain version, timed
+        once: its check is its timing)"""
+        torch.cuda.synchronize()
+        tq = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return out_, (time.perf_counter() - tq) * 1e3
+
+    # the bounds: each group's distinct rows read once (KB.scan_wave_work),
+    # the statistics, the consts and [bs, 2kk]; K6's fold and K7's
+    # score_row a live row and slot whose filter it passes
+    for wname, scans_w in (("A", scans16), ("B", scans7)):
+        desc_w = KD.scan_batch_desc(scans_w)
+        rows_w = [sum(c for _a, c in e) for e, _f in scans_w]
+        work = KB.scan_wave_work(garr5, desc_w, kk)
+        shape_w = (f"shape {wname}: {len(scans_w)} filtered scans of "
+                   f"{min(rows_w)}-{max(rows_w)} rows ({work['slot_rows']} "
+                   f"slot-rows, {work['distinct_rows']} distinct in "
+                   f"{len(KD.scan_groups(desc_w))} groups, "
+                   f"{work['scored']} (row, slot) pairs live and passing), "
+                   f"kk={kk}")
+        k6w = lambda d=desc_w: KD.span_stats_batch(  # noqa: E731
+            *garr5[:4], d)
+        k6wp = lambda d=desc_w: KD.span_stats_batch_plain(  # noqa: E731
+            *garr5[:4], d)
+        st_w = k6w()
+        pst_w, p_ms = plain_once(k6wp)
+        note("span_stats_batch", f"shape {wname}",
+             max(stats_diff(st_w[i], pst_w[i]) for i in range(len(rows_w))))
+        measure(*src_b6, k6w, k6wp, None, work["k6_bytes"], work["k6_ops"],
+                shape_w, path="batched", plain_ms=p_ms)
+        ktw = lambda d=desc_w, st_=st_w: KD.span_topk_batch(  # noqa: E731
+            *garr5[:4], d, st_, cd, kk)
+        ktwp = lambda d=desc_w, st_=pst_w: (  # noqa: E731
+            KD.span_topk_batch_plain(*garr5[:4], d, st_, cd, kk))
+        g = ktw()
+        w, p_ms = plain_once(ktwp)
+        note("span_topk_batch", f"shape {wname}", diff(g, w))
+        measure(*src_bt, ktw, ktwp, None, work["k7_bytes"], work["k7_ops"],
+                f"{shape_w}; {KB.SCORE_ROW_OPS} ops a pair, "
+                f"{KB.SCORE_ROW_F32_OPS} of them f32", path="batched",
+                plain_ms=p_ms)
+        if wname == "A":
+            work16, st16 = work, st_w
+    # past the fused kk: the batched K7 into regions, kernel 3 a slot and
+    # the finish, timed at shape A's wave and kk
     k7w = lambda: KD.span_score_batch(  # noqa: E731
         *garr5[:4], desc_s, st16, cd, off16)
     k7wp = lambda: KD.span_score_batch_plain(  # noqa: E731
         *garr5[:4], desc_s, st16, cd, off16)
-    g, w = k7w(), k7wp()
-    torch.cuda.synchronize()
-    note("span_score_batch", "16 slots of the filtered-scan mix", diff(g, w))
-    # every slot's rows read, its whole region (rows, kk's pad and the
-    # alignment) written
+    g = k7w()
+    w, p_ms = plain_once(k7wp)
+    note("span_score_batch", "shape A's 16 slots", diff(g, w))
+    # the distinct rows read, every slot's whole region (rows, kk's pad and
+    # the alignment) written
     measure(*src_b7, k7w, k7wp, None,
-            sum(rows16) * row_b + 4 * int(off16[-1])
-            + 4 * (16 * KC.STATS_LEN + KC.CONSTS_LEN), 0.0, shape16,
-            path="batched")
+            work16["k7_bytes"] - 4 * 16 * 2 * kk + 4 * int(off16[-1]),
+            work16["k7_ops"], f"shape A's 16 slots into regions "
+            f"({int(off16[-1])} entries), kk={kk}", path="batched",
+            plain_ms=p_ms)
     top16 = torch.empty((3, 16, kk), dtype=torch.int32, device=dev)
     for i, r_ in enumerate(rows16):
         KT.tie_topk(g[int(off16[i]):int(off16[i]) + max(r_, kk)], kk,
@@ -4155,7 +4216,7 @@ def main() -> int:
     measure(*src_bf, fw, fwp, None, 16 * kk * 12 + 16 * 2 * kk * 4, 0.0,
             f"the kk={kk} winners of 16 filtered scans -> [16, {2 * kk}]",
             path="batched")
-    del g, w, pst16
+    del g, w, pst_w
 
     # the dense rerank's kernels at the hybrid path's shapes, each checked
     # first on the inputs it is timed on: K9 (gather mode) and K10 over the
@@ -4653,9 +4714,12 @@ def main() -> int:
     routes["scan_query filtered, statistics handed in (K7, kernel 3, "
            "topk_finish) + fetch"] = lambda: TD.scan_query(
                ta, scan_ext, cd, kk, hfilt, stf).cpu()
-    routes["scan_batch_query, 16 filtered scans (batched K6, K7, 16 x "
-           "kernel 3, finish) + one fetch"] = lambda: TD.scan_batch_query(
+    routes["scan_batch_query, 16 filtered scans (batched K6, K7 with its "
+           "selection) + one fetch"] = lambda: TD.scan_batch_query(
                garr5, scans16, cd, kk).cpu()
+    routes["scan_batch_query, shape B: 7 filtered scans, one a term + one "
+           "fetch"] = lambda: TD.scan_batch_query(garr5, scans7, cd,
+                                                  kk).cpu()
     routes["16 x scan_query, the same 16 filtered scans + 16 fetches"] = (
         lambda: [TD.scan_query(garr5, e, cd, kk, f).cpu()
                  for e, f in scans16])

@@ -273,10 +273,45 @@ def test_deletes_during_batched_waves_match_jax(served, monkeypatch):
     assert c["batch_timeouts"] == 0 and c["batch_exceptions"] == 0
 
 
-@pytest.mark.parametrize("kk", [16, 128])
-def test_batched_scan_plain_matches_jax_kernel(kk):
-    """scan_batch_query's plain K6/K7/kernel 3/finish over a wave (1 to 8
-    extents a slot, each its own filter, a slot of no row) against
+NO_F = (0, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI)
+WAVE_F = [NO_F, (DE, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI),
+          (0, 3, 120, KD.DAYS_NONE_HI), (0, 40, KD.DAYS_NONE_LO, 200),
+          (DE, 5, 100, 280), NO_F, (0, -1, 500, KD.DAYS_NONE_HI)]
+# the waves of test_batched_scan_plain_matches_jax_kernel: (slot spans,
+# filter) by name over the arena's spans sp0 (three runs of TERMS[0]),
+# sp1 (three of TERMS[1]) and tie (TERMS[2]'s block of equal rows)
+SCAN_CASES = {
+    # 1 to 8 extents a slot, each its own filter, a slot of no row
+    "base": lambda sp0, sp1, tie: list(zip(
+        [sp0, sp1, sp0[:1], sp1[1:], sp0 + sp1, [], sp0], WAVE_F)),
+    # one span list under six different filters, another under two
+    "shared": lambda sp0, sp1, tie: [(sp0, WAVE_F[i]) for i in
+                                     (0, 1, 2, 3, 4, 6)]
+    + [(sp1, WAVE_F[0]), (sp1, WAVE_F[1])],
+    # two pairs of identical slots (extents and filter)
+    "identical": lambda sp0, sp1, tie: [
+        (sp0, WAVE_F[1]), (sp0, WAVE_F[1]), (sp1, WAVE_F[2]),
+        (sp0 + sp1, WAVE_F[3]), (sp0 + sp1, WAVE_F[3])],
+    # a filter that no row passes (lastmods lie in [100, 300))
+    "rejects_all": lambda sp0, sp1, tie: [
+        (sp0, WAVE_F[0]), (sp0, (0, -1, 10_000, KD.DAYS_NONE_HI)),
+        (sp1, WAVE_F[1])],
+    # a slot of 7 live rows and one of about 80 (kk 16 and 128 above them)
+    "few_rows": lambda sp0, sp1, tie: [
+        (sp0[2:], WAVE_F[0]), (sp1[:1], WAVE_F[1]), (sp0, WAVE_F[2])],
+    # the best rows all equal, a block of them across the plain step's
+    # chunk (KD._PLAIN_ROWS set inside it)
+    "ties": lambda sp0, sp1, tie: [
+        (tie, WAVE_F[0]), (tie, WAVE_F[2]), (sp0, WAVE_F[0])],
+}
+
+
+@pytest.mark.parametrize("kk,case", [
+    pytest.param(k, c, id=str(k) if c == "base" else f"{c}-{k}")
+    for c in SCAN_CASES for k in (16, 128)])
+def test_batched_scan_plain_matches_jax_kernel(kk, case, monkeypatch):
+    """scan_batch_query's plain route (the batched K6, then the batched
+    K7 with its selection) over a wave of SCAN_CASES[case] against
     _rank_scan_batch_packed_kernel on the JAX arena's bytes, and each
     slot against the solo scan's first 2kk entries."""
     rng = np.random.default_rng(83)
@@ -286,23 +321,32 @@ def test_batched_scan_plain_matches_jax_kernel(kk):
                                       base=r, step=3))
         idx.add_many(TERMS[1], _plist(rng, 250, base=9 + r))
         idx.flush()
+    if case == "ties":
+        pl = _plist(rng, 3_000, base=11, step=5)
+        best = int(np.argmax(TR.cardinal_scores_host(
+            pl.feats, TR.RankingProfile())))
+        pl.feats[:900] = pl.feats[best]
+        idx.add_many(TERMS[2], pl)
+        idx.flush()
     j = JD.DeviceSegmentStore(idx)
     idx.delete_doc(3)
     sp0, sp1 = j.spans_for(TERMS[0]), j.spans_for(TERMS[1])
+    tie = j.spans_for(TERMS[2]) if case == "ties" else []
+    if case == "ties":
+        # the equal rows are the span's first 900 (the best proxy, then
+        # docid order): the plain step's first cut falls inside them
+        f16 = np.asarray(j.arena.arrays()[0])[tie[0].start:tie[0].start + 900]
+        assert (f16 == f16[0]).all()
+        monkeypatch.setattr(KD, "_PLAIN_ROWS", 450)
+    wave = SCAN_CASES[case](sp0, sp1, tie)
     ns = JD.DeviceSegmentStore.MAX_SPANS
-    slot_spans = [sp0, sp1, sp0[:1], sp1[1:], sp0 + sp1, [], sp0]
-    filters = [(0, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI), (DE, -1,
-               KD.DAYS_NONE_LO, KD.DAYS_NONE_HI),
-               (0, 3, 120, KD.DAYS_NONE_HI), (0, 40, KD.DAYS_NONE_LO, 200),
-               (DE, 5, 100, 280), (0, -1, KD.DAYS_NONE_LO, KD.DAYS_NONE_HI),
-               (0, -1, 500, KD.DAYS_NONE_HI)]
-    bs = 8
+    bs = 8 if case == "base" else len(wave)
     qi = np.zeros((bs, 2 * ns + 4), np.int32)
     qi[:, 2 * ns + 1] = JD.NO_FLAG
     qi[:, 2 * ns + 2] = JD.DAYS_NONE_LO
     qi[:, 2 * ns + 3] = JD.DAYS_NONE_HI
     scans = []
-    for i, (sps, filt) in enumerate(zip(slot_spans, filters)):
+    for i, (sps, filt) in enumerate(wave):
         for e, sp in enumerate(sps):
             qi[i, e], qi[i, ns + e] = sp.start, sp.count
         qi[i, 2 * ns:] = filt
@@ -323,6 +367,13 @@ def test_batched_scan_plain_matches_jax_kernel(kk):
         if ext:
             solo = TD.scan_query(arrays, ext, consts, kk, filt).numpy()
             np.testing.assert_array_equal(got[i], solo[:2 * kk])
+    live = (got[:, kk:] >= 0).sum(1)
+    if case == "rejects_all":
+        assert live[1] == 0 and live[0] > 0
+    if case == "few_rows":
+        assert live[0] == 7 and live[1] < 128
+    if case == "ties":
+        assert (got[0, :kk] == got[0, 0]).all()
 
 
 def test_watchdog_withdraws_to_solo(served, monkeypatch):

@@ -20,6 +20,7 @@ from yacy_search_server_tpu_torch.kernels import devstore as KD
 from yacy_search_server_tpu_torch.kernels import (LAUNCHES, WIDE,
                                                   bench as KBench,
                                                   cardinal as KC, topk as KT)
+from yacy_search_server_tpu_torch.kernels import scan_batch_bench as SBB
 from yacy_search_server_tpu_torch.ops import ranking as R
 
 pytestmark = pytest.mark.cuda
@@ -998,6 +999,9 @@ def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
     buf = KD.span_score_batch(f, fl, d, dead, desc, st, c, off)
     assert torch.equal(buf, KD.span_score_batch_plain(f, fl, d, dead, desc,
                                                       pst, c, off))
+    assert torch.equal(KD.span_topk_batch(f, fl, d, dead, desc, st, c, kk),
+                       KD.span_topk_batch_plain(f, fl, d, dead, desc, pst,
+                                                c, kk))
     got = TD.scan_batch_query(a, scans, c, kk)
     a_cpu = tuple(t.cpu() for t in a)
     assert torch.equal(got.cpu(), TD.scan_batch_query(a_cpu, scans, c.cpu(),
@@ -1009,6 +1013,132 @@ def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
     if bs > 1:
         assert WIDE["span_stats_batch"] > wide["span_stats_batch"]
         assert WIDE["span_score_batch"] > wide["span_score_batch"]
+        assert WIDE["span_topk_batch"] > wide["span_topk_batch"]
+
+
+@pytest.fixture(scope="module")
+def scan_arena():
+    """kernels/scan_batch_bench's arena of the smoke's run at a tenth of
+    its rows, on the card: (arrays, spans)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    host, spans = SBB.make_arena(scale=0.1)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                 for a in host), spans
+
+
+def _scan_wave(spans, shape):
+    """The waves of the batched scan's card tests: the bench's shapes A
+    (16 slots, two groups of 8) and B (7 groups of one), one slot, and
+    16 filters over one span list (one group of 16, cut at kk = 2048)."""
+    waves = SBB.wave_shapes(spans)
+    head = [spans["10M"], spans["10M, run 2"]]
+    filts = [(lang, flag, lo, SBB.HI) for lang in (0, SBB.EN, SBB.DE)
+             for flag in (-1, 3) for lo in (SBB.LO, 10_000)][:16]
+    filts += [SBB.FILTERS[2]] * (16 - len(filts))
+    return {"A": waves["A"], "B": waves["B"], "one": waves["A"][:1],
+            "16 filters": [(head, q) for q in filts]}[shape]
+
+
+def _batched_route(arrays, scans, c, kk):
+    """scan_batch_query on the card with the launches it made, against
+    the bench's oracle."""
+    before = dict(LAUNCHES)
+    got = TD.scan_batch_query((*arrays, None), scans, c, kk)
+    torch.cuda.synchronize()
+    ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+           if LAUNCHES[k] != before[k]}
+    assert torch.equal(got, SBB.oracle(arrays, scans, c, kk))
+    return got, ran
+
+
+@pytest.mark.parametrize("kk", [16, 128, 2048])
+@pytest.mark.parametrize("shape", ["A", "B", "one", "16 filters"])
+def test_span_topk_batch_matches_plain(scan_arena, shape, kk):
+    """The batched K6 and the batched K7 with its selection each equal to
+    its plain version on the bench's waves (at a tenth of the rows), and
+    scan_batch_query equal to the oracle of the plain versions slot by
+    slot, in one K6 and one K7 launch (no kernel 3, no finish)."""
+    arrays, spans = scan_arena
+    f, fl, d, dead = arrays
+    scans = _scan_wave(spans, shape)
+    desc = KD.scan_batch_desc(scans)
+    c = _consts(R.RankingProfile())
+    st = KD.span_stats_batch(f, fl, d, dead, desc)
+    pst = KD.span_stats_batch_plain(f, fl, d, dead, desc)
+    for i in range(len(scans)):
+        _stats_equal(st[i], pst[i])
+    got = KD.span_topk_batch(f, fl, d, dead, desc, st, c, kk)
+    assert torch.equal(got, KD.span_topk_batch_plain(f, fl, d, dead, desc,
+                                                     pst, c, kk))
+    _got, ran = _batched_route(arrays, scans, c, kk)
+    assert ran == {"span_stats_batch": 1, "span_topk_batch": 1}
+
+
+def test_scan_batch_above_the_fused_limit(scan_arena):
+    """Past KD.FUSED_KK the batched K7 writes each slot's scores and
+    kernel 3 selects a slot (shape A at kk = 4096): the answer equal to
+    the plain versions', the launches that route's; span_topk_batch
+    refuses the kk."""
+    arrays, spans = scan_arena
+    scans = _scan_wave(spans, "A")
+    c = _consts(R.RankingProfile())
+    _got, ran = _batched_route(arrays, scans, c, 4096)
+    assert ran == {"span_stats_batch": 1, "span_score_batch": 1,
+                   "tie_topk": len(scans), "topk_finish_batch": 1}
+    desc = KD.scan_batch_desc(scans)
+    st = KD.span_stats_batch(*arrays, desc)
+    with pytest.raises(ValueError):
+        KD.span_topk_batch(*arrays, desc, st, c, KD.FUSED_KK + 1)
+
+
+@pytest.mark.parametrize("kk", [16, 128, 2048])
+def test_span_topk_batch_equal_scores_across_blocks(dev, kk):
+    """Every row of a 600,000-row span equal (all scores equal, so the
+    answer is the first kk live rows in extent order, which many blocks
+    hold): four slots over the span, one over a part of it (a group of
+    its own) and one over two extents; some of the first rows dead."""
+    n = 600_000
+    feats, _d, _h, _r = KBench.make_term(1, KBench.SEED + 40)
+    f16, fl = R.compact_feats(np.repeat(feats, n, axis=0))
+    docids = np.random.default_rng(41).permutation(n).astype(np.int32)
+    dead = np.zeros(n, bool)
+    dead[docids[[0, 5, 17, 4_000, 300_001]]] = True
+    a = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in (f16, fl, docids, dead))
+    lang = int(f16[0, P.F_LANGUAGE])
+    scans = [([(0, n)], None), ([(0, n)], (lang, -1, SBB.LO, SBB.HI)),
+             ([(0, n)], (0, -1, SBB.LO, SBB.HI)), ([(0, n)], None),
+             ([(7, n - 7)], None), ([(300_000, 300_000), (0, 300_000)],
+                                    None)]
+    scans = [(e, q if q is not None else KD.NO_FILTER) for e, q in scans]
+    c = _consts(R.RankingProfile())
+    got, ran = _batched_route(a, scans, c, kk)
+    assert ran == {"span_stats_batch": 1, "span_topk_batch": 1}
+    live = ~dead[docids]
+    first = docids[live][:kk]
+    for i in (0, 1, 3):
+        assert np.array_equal(got[i, kk:].cpu().numpy(), first)
+        assert (got[i, :kk] == got[i, 0]).all()
+
+
+def test_span_topk_batch_overlapping_groups(scan_arena):
+    """Slots whose extents overlap but differ (separate groups), slots of
+    identical extents and filter, and a slot of two extents over another
+    term's span: each slot equal to the plain versions'."""
+    arrays, spans = scan_arena
+    s1, n1 = spans["1M"]
+    sA, nA = spans["joinA"]
+    q0, q1 = SBB.FILTERS[0], SBB.FILTERS[1]
+    scans = [([(s1, n1)], q0), ([(s1 + 1_000, n1 - 1_000)], q0),
+             ([(s1, n1 // 2)], q1), ([(s1, n1), (sA, nA)], q0),
+             ([(s1 + 1_000, n1 - 1_000)], q1), ([(s1, n1)], q0),
+             ([(sA, nA), (s1, n1)], q0)]
+    c = _consts(R.RankingProfile(**NONDEFAULT))
+    for kk in (16, 128):
+        got, ran = _batched_route(arrays, scans, c, kk)
+        assert ran == {"span_stats_batch": 1, "span_topk_batch": 1}
+        assert torch.equal(got[0], got[5])
 
 
 def test_tie_topk_on_16_streams(dev):

@@ -361,16 +361,22 @@ def scan_query(arrays, extents, consts, kk: int, filt=None,
 
 
 def scan_batch_query(arrays, scans, consts, kk: int) -> torch.Tensor:
-    """A wave of up to 16 exact scans, each (extents, filter), in one
-    batched K6 and one batched K7 launch (each slot's scores in a region
-    of its own length, scan_batch_offsets), kernel 3 a slot over its
-    region and one batched finish: the [bs, 2kk] scores ++ docids of
-    _rank_scan_batch_packed_kernel, left on the device. Each slot's row
-    equals scan_query's first 2kk entries for it alone."""
+    """A wave of up to 16 exact scans, each (extents, filter): the [bs,
+    2kk] scores ++ docids of _rank_scan_batch_packed_kernel, left on the
+    device; each slot's row equals scan_query's first 2kk entries for it
+    alone. One batched K6 and one batched K7 that keeps each slot's kk
+    best itself (the slots of identical extent lists reading them once);
+    past KD.FUSED_KK the batched K7 writes each slot's scores into a
+    region of its own length (scan_batch_offsets), kernel 3 selects a
+    slot over its region and one batched finish maps the winners to
+    docids."""
     feats16, flags, docids, dead, _pmax = arrays
     desc = KD.scan_batch_desc(scans)
     bs = desc.shape[0]
     stats = KD.span_stats_batch(feats16, flags, docids, dead, desc)
+    if kk <= KD.FUSED_KK:
+        return KD.span_topk_batch(feats16, flags, docids, dead, desc, stats,
+                                  consts, kk)
     off = KD.scan_batch_offsets(desc, kk)
     buf = KD.span_score_batch(feats16, flags, docids, dead, desc, stats,
                               consts, off)

@@ -431,6 +431,62 @@ def scan_wave(store, bs: int):
              WAVE_FILTERS[i % len(WAVE_FILTERS)]) for i in range(bs)]
 
 
+# Operations of the batched scan a (live row, slot) whose filter the row
+# passes, counted from the CUDA source (common.cuh score_row on the
+# compact path, constraint_ok, cardinal_stats.cu Fold): K7's are 13
+# normalised columns of 14 (the widening multiply-add; the f32 estimate:
+# convert, multiply, convert; the remainder's multiply and subtract, two
+# compares and two adds; the contribution's subtract, the shift, the
+# add), the domlength term (3), the tf term (subtract, multiply, divide,
+# convert, shift, add), the language match (2), 11 flag terms of 4
+# (shift, and, multiply, add), the filter test (6) and the key and its
+# threshold test (4); of them f32: the 13 columns' three and the tf
+# term's four. K6's are the filter test, 34 column minima and maxima and
+# the tf key's NaN test and minimum and maximum.
+SCORE_ROW_F32_OPS = 13 * 3 + 4
+SCORE_ROW_OPS = 13 * 14 + 3 + 6 + 2 + 11 * 4 + 6 + 4
+STATS_ROW_OPS = 6 + 34 + 3
+ROW_BYTES = 17 * 2 + 4 + 4 + 1   # features, flags, docid, tombstone byte
+
+
+def scan_wave_work(arrays, desc, kk: int) -> dict:
+    """The work of a batched scan wave (kernels/devstore.scan_batch_desc)
+    at kk, whatever implements it: each group's distinct rows (identical
+    extent lists, KD.scan_groups) read once, 43 B a row for K7 and K6 (4
+    B of flags less where no slot of the group tests a flag); K6 writes
+    the statistics, K7 reads them and the profile's consts and writes
+    [bs, 2kk]; the operations of each live row that passes a slot's
+    filter (counted on the card from `arrays`, (feats16, flags, docids,
+    dead)). Returns {"k6_bytes", "k6_ops", "k7_bytes", "k7_ops",
+    "k7_f32_ops", "scored", "distinct_rows", "slot_rows"}."""
+    from . import cardinal as KC
+    from . import devstore as KD
+    feats16, flags, docids, dead = arrays[:4]
+    scans = KD.desc_scans(desc)
+    bs = len(scans)
+    rows = [sum(c for _a, c in ext) for ext, _f in scans]
+    k6b = k7b = distinct = 0
+    for grp in KD.scan_groups(desc):
+        n = rows[grp[0]]
+        distinct += n
+        flag = any(scans[s][1][1] != KD.NO_FLAG for s in grp)
+        k6b += n * (ROW_BYTES - (0 if flag else 4))
+        k7b += n * ROW_BYTES
+    scored = 0
+    for ext, filt in scans:
+        d = KD._rows(docids, ext)
+        v = KD.live_rows(d, dead) & KD.constraint_valid(
+            KD._rows(feats16, ext), KD._rows(flags, ext), filt)
+        scored += int(v.sum())
+    stats_b = 4 * bs * KC.STATS_LEN
+    return {"k6_bytes": k6b + stats_b, "k6_ops": scored * STATS_ROW_OPS,
+            "k7_bytes": k7b + stats_b + 4 * KC.CONSTS_LEN
+            + 4 * bs * 2 * kk,
+            "k7_ops": scored * SCORE_ROW_OPS,
+            "k7_f32_ops": scored * SCORE_ROW_F32_OPS, "scored": scored,
+            "distinct_rows": distinct, "slot_rows": sum(rows)}
+
+
 def tile_slots(span, bs: int):
     """bs K5 slots over consecutive tiles of one span: slot i the span's
     rows from its tile i on (a proxy-sorted extent of its own, bounded by

@@ -56,6 +56,9 @@ SIGNATURES = {
     "yt_span_stats_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _P],
     "yt_span_score_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _P,
                             _P, _P],
+    "yt_span_topk_batch_plan": [_P, _I, _I, _P],
+    "yt_span_topk_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _I,
+                           _P, _I64, _P, _I64, _P, _P],
     "yt_join_stage_most": [_P],
     "yt_join_rows": [_P, _P, _P, _P, _I64, _P, _P, _I64, _P, _I64, _P, _I64,
                      _P, _I64, _I64, _I64, _P, _P, _P, _P, _P],
@@ -195,8 +198,9 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "gather_topk": 0, "pruned_tile": 0, "span_stats": 0,
             "span_score": 0, "topk_finish": 0, "join_member": 0,
             "span_stats_batch": 0, "span_score_batch": 0,
-            "topk_finish_batch": 0, "join_member_batch": 0,
-            "join_stats_batch": 0, "join_score_batch": 0, "dense_dot": 0,
+            "span_topk_batch": 0, "topk_finish_batch": 0,
+            "join_member_batch": 0, "join_stats_batch": 0,
+            "join_score_batch": 0, "dense_dot": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,
             "pruned_tile_bp": 0, "span_stats_bp": 0, "span_score_bp": 0,
             "topk_finish_bp": 0, "pack_block_batch": 0, "ann_assign": 0,

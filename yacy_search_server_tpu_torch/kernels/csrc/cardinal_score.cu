@@ -56,6 +56,8 @@
 // on column bounds and features at int32's edges (kernels/bench.
 // edge_block), and tests/test_torch_ranking.py holds the plain version to
 // the JAX package there.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace yt {
@@ -200,7 +202,8 @@ score_regions(const int32_t* __restrict__ feats,
 // of _rank_scan_batch_kernel, :465): each slot scored against its own
 // statistics into its own region of one packed buffer ([obase[s],
 // obase[s + 1]), as long as the slot's rows need) by its own range of the
-// grid's blocks (common.cuh ScanBatch).
+// grid's blocks (common.cuh ScanBatch). It serves waves whose kk is past
+// the fused selection's limit (topk_groups, below, serves the rest).
 //
 // Bound: bytes, 34 B of features + 4 B flags + 4 B docid read and 4 B
 // written a row (and the bitmap words, from the L2); a wave sums its
@@ -296,6 +299,385 @@ score_batch(const int16_t* __restrict__ feats,
                      consts, smem, k, out + b.obase[s], nullptr,
                      b.obase[s + 1] - b.obase[s], blockIdx.x - b.bstart[s],
                      b.bstart[s + 1] - b.bstart[s]);
+}
+
+// ---------------------------------------------------------------------------
+// K7 batched with its selection `span_topk_batch`: a group read once
+// ---------------------------------------------------------------------------
+// The scoring pass of _rank_scan_batch_kernel (JAX package,
+// devstore.py:465) with its running top-k (:540-548, _chunked_topk of a
+// tile merged by lax.top_k), and the packed [bs, 2kk] output of
+// _rank_scan_batch_packed_kernel (:1032). The slots of a group (identical
+// extent lists, common.cuh group_slots) share its rows: the group's
+// blocks stream them once (common.cuh's group stream: 16 warps, 8 chunks
+// a step, three stages, one barrier a step), find each row's liveness,
+// term frequency and the profile's terms of its score (score_row's
+// profile_terms) once, and score the row against each slot of the group
+// whose filter it passes (stats_terms; each slot's constants in shared
+// memory, loaded into registers where a warp's share moves to the slot).
+//
+// The selection keeps each slot's kk best rows in the order of the JAX
+// merge, score descending, then the row's place in the slot's extent
+// order ascending, as one 64-bit key a row (score ^ 2^31 above, the
+// place's complement below: a larger key ranks first; every key is
+// distinct, so the order is total and the answer does not depend on
+// which block finishes first). Rows at or below -(2^31-1) are never
+// kept: the JAX merge ranks them after its init entries (-(2^31-1), -1),
+// which is what a slot with fewer rows gets in their place.
+//   - a block holds for each slot of its group a sorted list of KL keys
+//     (KL = the power of two at or above kk) and a buffer of K7_CAND
+//     candidates in shared memory, and a threshold: the list's kk-th key.
+//     A row whose key is above it is appended to the buffer (one shared
+//     atomic a warp). After a step, a buffer past K7_CAND - K7_STEP is
+//     sorted (bitonic) and merged into the list: the list becomes the
+//     best KL of both (the maximum of the list and the reversed buffer
+//     element by element, a bitonic sequence, then a bitonic merge), and
+//     the threshold rises;
+//   - at the end each block's lists go to a scratch in device memory and
+//     the group's blocks merge them pairwise up a tree: of the two blocks
+//     of a pair, the second to arrive (an atomic ticket after a fence, as
+//     in cardinal_stats) merges its partner's lists into its own and goes
+//     up; the one that merges at the root writes each slot's row of
+//     [bs, 2kk]: the scores, then the docids (from the rows' places), and
+//     (-(2^31-1), -1) where a slot has fewer than kk rows;
+//   - the tickets live in a buffer of the caller that every call leaves
+//     at zero (the second of a pair resets its ticket).
+// A block's lists take G (KL + K7_CAND) keys of shared memory for a
+// group of G slots; a group of more slots than fit beside the stages is
+// cut into groups that do (each reads its rows once): on an H100 a group
+// of 16 slots fits whole at kk <= 128, six at kk = 2048. Past FUSED_KK
+// the caller takes score_batch and kernel 3.
+//
+// Bound: the larger of the bytes (each distinct row of a group read once:
+// 34 B of features, 4 B of flags and of docid, the tombstone byte; the
+// statistics, the constants and [bs, 2kk] written) and the operations
+// (score_row's integer and f32 steps for each row and slot whose filter
+// it passes: at 8 slots a group about as long as the bytes). Before, each
+// slot had a range of the grid of its own, read its rows itself and
+// wrote a score a row, and kernel 3 read each slot's region back in 16
+// launches.
+using u64 = unsigned long long;
+constexpr int K7_CHUNKS = 8, K7_STEP = K7_CHUNKS * CH, K7_STAGES = 3;
+constexpr int K7_CAND = 1024;       // a slot's candidate buffer, keys
+constexpr int FUSED_KK = 2048;      // the largest kk the selection takes
+constexpr int TREE_WORDS = 16;      // ticket words a block (tree levels)
+constexpr int K7_FIXED =            // the stages
+    K7_STAGES * K7_CHUNKS * EXT_STAGE_BYTES;
+
+__device__ __forceinline__ u64 row_key(int32_t score, int64_t pos) {
+  return ((u64)((uint32_t)score ^ 0x80000000u) << 32) |
+         (u64)(~(uint32_t)pos);
+}
+
+// The lanes of a warp whose `c` holds append their keys to a slot's
+// buffer, one shared atomic for the warp.
+__device__ __forceinline__ void append_key(bool c, u64 key, u64* cand,
+                                           int* cnt, int lane) {
+  const unsigned m = __ballot_sync(0xffffffffu, c);
+  if (m == 0u) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(cnt, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (c) cand[base + __popc(m & ((1u << lane) - 1u))] = key;
+}
+
+// The lists of slot k: lists + k * LW, KL keys sorted descending, then
+// its K7_CAND candidates. Every thread of the block calls these.
+
+// pair i of p in a bitonic stage of stride h (a power of two)
+__device__ __forceinline__ int pair_lo(int p, int h) {
+  return ((p & ~(h - 1)) << 1) | (p & (h - 1));
+}
+
+// Sort the first `size` candidates (a power of two) of each slot in
+// `need` descending.
+__device__ void sort_cands(u64* lists, int LW, int KL, int G, unsigned need,
+                           int size) {
+  const int t = threadIdx.x, half = size >> 1;
+  for (int len = 2; len <= size; len <<= 1)
+    for (int h = len >> 1; h > 0; h >>= 1) {
+      for (int i2 = t; i2 < G * half; i2 += G_THREADS) {
+        const int k = i2 / half, i = pair_lo(i2 - k * half, h);
+        if (!((need >> k) & 1u)) continue;
+        u64* c = lists + k * LW + KL;
+        const u64 a = c[i], z = c[i + h];
+        if ((a < z) == ((i & len) == 0)) {
+          c[i] = z;
+          c[i + h] = a;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// Each slot k in `need`: its list becomes the best KL keys of the list
+// and of src + k * sstride (n keys sorted descending, 0 past them; in
+// device memory where GLOBAL), sorted descending.
+template <bool GLOBAL>
+__device__ void merge_top(u64* lists, int LW, int KL, int G, unsigned need,
+                          const u64* src, int64_t sstride, int n) {
+  const int t = threadIdx.x;
+  for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
+    const int k = i2 / KL, i = i2 - k * KL;
+    if (!((need >> k) & 1u)) continue;
+    const int xx = KL - 1 - i;
+    u64 o = 0;
+    if (xx < n) {
+      const u64* p = src + k * sstride + xx;
+      o = GLOBAL ? __ldcg(p) : *p;
+    }
+    u64* L = lists + k * LW;
+    if (o > L[i]) L[i] = o;
+  }
+  __syncthreads();
+  const int half = KL >> 1;
+  for (int h = half; h > 0; h >>= 1) {
+    for (int i2 = t; i2 < G * half; i2 += G_THREADS) {
+      const int k = i2 / half, i = pair_lo(i2 - k * half, h);
+      if (!((need >> k) & 1u)) continue;
+      u64* L = lists + k * LW;
+      const u64 a = L[i], z = L[i + h];
+      if (a < z) {
+        L[i] = z;
+        L[i + h] = a;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Merge the candidates of each slot in `need` into its list; its
+// threshold becomes the list's kk-th key and its buffer empty.
+__device__ void flush_cands(u64* lists, int LW, int KL, int kk, int G,
+                            unsigned need, int* s_cnt, u64* s_thr) {
+  const int t = threadIdx.x;
+  int most = 1;
+  for (int k = 0; k < G; ++k)
+    if ((need >> k) & 1u) most = s_cnt[k] > most ? s_cnt[k] : most;
+  int size = 1;
+  while (size < most) size <<= 1;
+  for (int i2 = t; i2 < G * size; i2 += G_THREADS) {
+    const int k = i2 / size, i = i2 - k * size;
+    if (((need >> k) & 1u) && i >= s_cnt[k]) lists[k * LW + KL + i] = 0;
+  }
+  __syncthreads();
+  sort_cands(lists, LW, KL, G, need, size);
+  merge_top<false>(lists, LW, KL, G, need, lists + KL, LW, size);
+  if (t < G && ((need >> t) & 1u)) {
+    s_thr[t] = lists[t * LW + kk - 1];
+    s_cnt[t] = 0;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1)
+topk_groups(const int16_t* __restrict__ feats,
+            const int32_t* __restrict__ flags,
+            const int32_t* __restrict__ docids,
+            const uint8_t* __restrict__ dead, int64_t doc_cap,
+            const __grid_constant__ ScanBatch b,
+            const int32_t* __restrict__ stats, int64_t stats_stride,
+            const int32_t* __restrict__ consts, int kk,
+            int KL, u64* __restrict__ glists, uint32_t* __restrict__ tickets,
+            int32_t* __restrict__ out) {
+  constexpr int SB = EXT_STAGE_BYTES;
+  constexpr int RG = K7_STEP / 32;  // 32-row groups a step
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* lists = (u64*)(smem + K7_FIXED);
+  __shared__ StepFacts<K7_CHUNKS, true> sf[2];
+  __shared__ ScoreConsts sk[BATCH_SLOTS];
+  __shared__ Extents x;
+  __shared__ Filter q[BATCH_SLOTS];
+  __shared__ int s_cnt[BATCH_SLOTS];
+  __shared__ u64 s_thr[BATCH_SLOTS];
+  __shared__ bool s_go;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = range_of_block(b.gbstart, b.ng, blockIdx.x);
+  const int block = blockIdx.x - b.gbstart[g];
+  const int blocks = b.gbstart[g + 1] - b.gbstart[g];
+  const int s0 = b.gfirst[g], G = b.gfirst[g + 1] - s0;
+  const int LW = KL + K7_CAND;
+  if (t == 0)
+    slot_extents(b, b.gslot[s0], feats, flags, docids, x, q[0]);
+  else if (t < G)
+    slot_filter(b, b.gslot[s0 + t], q[t]);
+  if (t < G) {
+    s_cnt[t] = 0;
+    s_thr[t] = 0;
+  }
+  for (int i2 = t; i2 < G * KL; i2 += G_THREADS)
+    lists[(i2 / KL) * LW + i2 % KL] = 0;
+  for (int i2 = t; i2 < G * 64; i2 += G_THREADS)
+    fill_consts(sk[i2 >> 6],
+                stats + (int64_t)b.gslot[s0 + (i2 >> 6)] * stats_stride,
+                consts, i2 & 63);
+  __syncthreads();
+  const int64_t chunks = x.cbase[x.n];
+  const int64_t first = (int64_t)block * K7_CHUNKS;
+  const int64_t stride = (int64_t)blocks * K7_CHUNKS;
+  const int steps = chunks > first ? (int)((chunks - first + stride - 1) /
+                                           stride) : 0;
+  auto stage = [&](int i, int u) {
+    return smem + ((i % K7_STAGES) * K7_CHUNKS + u) * SB;
+  };
+  auto issue = [&](int i) {
+    const int64_t c = first + (int64_t)i * stride + warp;
+    if (i < steps && warp < K7_CHUNKS && c < chunks)
+      issue_group_chunk(x, c, true, stage(i, warp), lane);
+    cp_async_commit();
+  };
+  int lo, hi;
+  item_range(G * RG, warp, lo, hi);
+  // The steps, in one of two copies: PRE takes the profile's terms of a
+  // row's score (the same for every slot) once a row in the facts, where
+  // a group has more than one slot; without it the items add them, and
+  // the warps that stage (the facts' work) carry no more than the others.
+  auto run = [&](auto pre_c) {
+    constexpr bool PRE = decltype(pre_c)::value;
+    auto facts = [&](int i) {
+      RegConsts pk;
+      if (PRE) load_consts(sk[0], pk);
+      return facts_begin<K7_CHUNKS, true>(
+          x, first + (int64_t)i * stride + warp, stage(i, warp), dead,
+          doc_cap, PRE, pk, sf[i & 1], warp, lane);
+    };
+    const bool stager = warp < K7_CHUNKS;
+    for (int i = 0; i < K7_STAGES - 1; ++i) issue(i);
+    cp_async_wait<K7_STAGES - 2>();
+    __syncwarp();
+    if (0 < steps && stager) facts_end(facts(0), sf[0], warp, lane);
+    __syncthreads();
+    // the statistics' constants of slot k_have, kept over the steps (a
+    // warp whose share stays in one slot loads them once)
+    RegConsts rk;
+    int k_have = -1;
+    for (int i = 0; i < steps; ++i) {
+      issue(i + K7_STAGES - 1);
+      cp_async_wait<K7_STAGES - 2>();
+      __syncwarp();
+      // step i + 1's facts, their tombstone bytes loaded under step i's
+      // items
+      const bool ahead = i + 1 < steps && stager;
+      RowsPending pend{};
+      if (ahead) pend = facts(i + 1);
+      const StepFacts<K7_CHUNKS, true>& fs = sf[i & 1];
+      for (int it = lo; it < hi;) {
+        const int k = it / RG;
+        const int end = hi < (k + 1) * RG ? hi : (k + 1) * RG;
+        if (k != k_have) {
+          load_consts(sk[k], rk);
+          k_have = k;
+        }
+        const Filter qk = q[k];
+        const bool off = filter_off(qk);
+        const u64 thr = s_thr[k];
+        u64* cand = lists + k * LW + KL;
+        for (; it < end; ++it) {
+          const int h = it % RG;
+          const int u = h >> 1, j = 2 * lane + (h & 1);
+          const int r = u * CH + (h & 1) * 32 + lane;
+          bool c = false;
+          u64 key = 0;
+          if (fs.tfb[r] != DEAD_ROW) {
+            const int e = fs.e[u];
+            const Stage<int16_t> sg(stage(i, u), x.feats[e], x.flags[e],
+                                    x.docids[e], nullptr);
+            const int16_t* f = sg.row(j);
+            if (off ||
+                constraint_ok(f[F_LANGUAGE], f[F_LASTMOD], sg.flag(j), qk)) {
+              const uint32_t pt =
+                  PRE ? fs.base[r]
+                      : profile_terms(f[F_DOMLENGTH], f[F_LANGUAGE],
+                                      sg.flag(j), rk);
+              const int32_t score = (int32_t)(
+                  stats_terms<int16_t, true>(f, rk,
+                                             __int_as_float(fs.tfb[r])) +
+                  pt);
+              key = row_key(score, fs.pos0[u] + j);
+              c = score > SMALL && key > thr;
+            }
+          }
+          append_key(c, key, cand, &s_cnt[k], lane);
+        }
+      }
+      if (ahead) facts_end(pend, sf[(i + 1) & 1], warp, lane);
+      __syncthreads();
+      // a buffer past K7_CAND - K7_STEP is merged before the next step's
+      // items add up to K7_STEP
+      unsigned need = 0u;
+      for (int k = 0; k < G; ++k)
+        if (s_cnt[k] > K7_CAND - K7_STEP) need |= 1u << k;
+      if (need) flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
+    }
+  };
+  if (G > 1)
+    run(std::true_type{});
+  else
+    run(std::false_type{});
+  cp_async_wait<0>();
+  unsigned need = 0u;
+  for (int k = 0; k < G; ++k)
+    if (s_cnt[k] > 0) need |= 1u << k;
+  if (need) flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
+
+  // the group's blocks' lists merged pairwise up a tree: node `node` of
+  // level `lvl` keeps its lists at leaf node << lvl of the scratch (slot
+  // k's of leaf l at (glist[g] + k * blocks + l) * KL)
+  u64* gl = glists + b.glist[g] * KL;
+  const int64_t kstride = (int64_t)blocks * KL;
+  int node = block, n = blocks, lvl = 0;
+  if (n > 1) {
+    for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
+      const int k = i2 / KL, i = i2 - k * KL;
+      gl[k * kstride + (int64_t)node * KL + i] = lists[k * LW + i];
+    }
+    __threadfence();
+    __syncthreads();
+  }
+  const unsigned all = G >= 32 ? ~0u : (1u << G) - 1u;
+  while (n > 1) {
+    const int partner = node ^ 1;
+    const bool pair = partner < n;
+    if (pair) {
+      if (t == 0) {
+        uint32_t* tk = tickets + (int64_t)b.gbstart[g] * TREE_WORDS +
+                       lvl * blocks + (node >> 1);
+        const uint32_t old = atomicAdd(tk, 1u);
+        if (old) *tk = 0u;
+        s_go = old != 0u;
+      }
+      __syncthreads();
+      if (!s_go) return;
+      __threadfence();
+      merge_top<true>(lists, LW, KL, G, all,
+                      gl + (int64_t)(partner << lvl) * KL, kstride, KL);
+    }
+    node >>= 1;
+    ++lvl;
+    n = (n + 1) >> 1;
+    if (pair && n > 1) {
+      for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
+        const int k = i2 / KL, i = i2 - k * KL;
+        gl[k * kstride + (int64_t)(node << lvl) * KL + i] =
+            lists[k * LW + i];
+      }
+      __threadfence();
+      __syncthreads();
+    }
+  }
+  // the root: each slot's kk best as scores, then docids
+  for (int i2 = t; i2 < G * kk; i2 += G_THREADS) {
+    const int k = i2 / kk, i = i2 - k * kk;
+    const u64 key = lists[k * LW + i];
+    int32_t sv = SMALL, d = -1;
+    if (key) {
+      sv = (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
+      d = docid_at(x, (int64_t)(~(uint32_t)key));
+    }
+    int32_t* o = out + (int64_t)b.gslot[s0 + k] * 2 * kk;
+    o[i] = sv;
+    o[kk + i] = d;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -454,6 +836,119 @@ extern "C" int yt_span_score_batch(const void* feats, const void* flags,
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
       (const int32_t*)consts, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// The fused K7's layout for a wave (slots, bs, kk): the wave b with its
+// groups and their blocks, KL, the grid, the dynamic shared memory, the
+// scratch's lists and the ticket words a call needs (a device's constant:
+// TREE_WORDS a block of the largest grid). Cached per device: the
+// resident blocks and the keys a block's lists may take.
+static cudaError_t topk_plan(const int32_t* slots, int bs, int kk,
+                             ScanBatch* b, int* KL, int* grid, int* smem,
+                             int64_t* nlists, int64_t* ticket_words) {
+  if (bs < 1 || bs > BATCH_SLOTS || kk < 1 || kk > FUSED_KK)
+    return cudaErrorInvalidValue;
+  if (!scan_batch_of(slots, bs, b)) return cudaErrorInvalidValue;
+  for (int s = 0; s < bs; ++s) {
+    int64_t rows = 0;
+    for (int e = 0; e < b->n[s]; ++e) rows += b->count[s][e];
+    if (rows >= ((int64_t)1 << 32) - 1) return cudaErrorInvalidValue;
+  }
+  static int keys_of[64], limit_of[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (limit_of[dev] <= 0) {
+    int optin = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, topk_groups);
+    if (e != cudaSuccess) return e;
+    const int most = optin - (int)fa.sharedSizeBytes;
+    if (most < K7_FIXED + (FUSED_KK + K7_CAND) * 8)
+      return cudaErrorInvalidConfiguration;
+    e = cudaFuncSetAttribute(topk_groups,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_groups,
+                                                      G_THREADS, most);
+    if (e != cudaSuccess) return e;
+    keys_of[dev] = (most - K7_FIXED) / 8;
+    limit_of[dev] = (per_sm < 1 ? 1 : per_sm) * sms;
+  }
+  int kl = 1;
+  while (kl < kk) kl <<= 1;
+  int gmax = keys_of[dev] / (kl + K7_CAND);
+  if (gmax > BATCH_SLOTS) gmax = BATCH_SLOTS;
+  group_slots(b, gmax);
+  *grid = group_blocks(b, K7_CHUNKS, limit_of[dev]);
+  int gmost = 1;
+  b->glist[0] = 0;
+  for (int g = 0; g < b->ng; ++g) {
+    const int G = b->gfirst[g + 1] - b->gfirst[g];
+    gmost = G > gmost ? G : gmost;
+    b->glist[g + 1] =
+        b->glist[g] + (int64_t)G * (b->gbstart[g + 1] - b->gbstart[g]);
+  }
+  *KL = kl;
+  *smem = K7_FIXED + gmost * (kl + K7_CAND) * 8;
+  *nlists = b->glist[b->ng];
+  *ticket_words = (int64_t)TREE_WORDS * (limit_of[dev] + BATCH_SLOTS);
+  return cudaSuccess;
+}
+
+// What a fused K7 call over the wave (slots, bs) at kk needs of its
+// caller: out[0] the scratch's bytes, out[1] the ticket words (zero, and
+// left at zero by every call).
+extern "C" int yt_span_topk_batch_plan(const int32_t* slots, int bs, int kk,
+                                       int64_t* out) {
+  ScanBatch b{};
+  int KL = 0, grid = 0, smem = 0;
+  int64_t nlists = 0, words = 0;
+  const cudaError_t e =
+      topk_plan(slots, bs, kk, &b, &KL, &grid, &smem, &nlists, &words);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = nlists * KL * 8;
+  out[1] = words;
+  return 0;
+}
+
+// K7 batched with its selection over a wave of bs <= 16 slots (common.cuh
+// scan_batch_of, in host memory), 1 <= kk <= FUSED_KK; the arena as for
+// K7; stats the wave's statistics, slot i at i * stats_stride int32;
+// consts int32[44] (one profile a wave); scratch of scratch_bytes and
+// tickets of ticket_words as yt_span_topk_batch_plan asks; out [bs, 2kk]
+// int32: each slot's kk best scores, then their docids.
+extern "C" int yt_span_topk_batch(const void* feats, const void* flags,
+                                  const void* docids, const void* dead,
+                                  int64_t doc_cap, const int32_t* slots,
+                                  int bs, const void* stats,
+                                  int64_t stats_stride, const void* consts,
+                                  int kk, void* scratch,
+                                  int64_t scratch_bytes, void* tickets,
+                                  int64_t ticket_words, void* out,
+                                  void* stream) {
+  ScanBatch b{};
+  int KL = 0, grid = 0, smem = 0;
+  int64_t nlists = 0, words = 0;
+  cudaError_t e =
+      topk_plan(slots, bs, kk, &b, &KL, &grid, &smem, &nlists, &words);
+  if (e != cudaSuccess) return (int)e;
+  if (scratch_bytes < nlists * KL * 8 || ticket_words < words ||
+      (int64_t)TREE_WORDS * grid > words)
+    return (int)cudaErrorInvalidValue;
+  topk_groups<<<grid, G_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
+      (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
+      (const int32_t*)consts, kk, KL, (u64*)scratch, (uint32_t*)tickets,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

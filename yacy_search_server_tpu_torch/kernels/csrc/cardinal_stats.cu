@@ -110,22 +110,66 @@ struct Fold {
 
   template <typename T>
   __device__ __forceinline__ void row(const T* f) {
+    row_tf(f, __float_as_int(term_frequency(f)));
+  }
+
+  // a row whose term frequency's f32 bits `tb` are known
+  template <typename T>
+  __device__ __forceinline__ void row_tf(const T* f, int32_t tb) {
 #pragma unroll
     for (int k = 0; k < NF; ++k) {
       const int32_t v = (int32_t)f[k];
       lmin[k] = min(lmin[k], v);
       lmax[k] = max(lmax[k], v);
     }
-    const float tf = term_frequency(f);
+    const float tf = __int_as_float(tb);
     if (tf != tf) {
       nan = 1;
     } else {
-      const int32_t key = float_order(__float_as_int(tf));
+      const int32_t key = float_order(tb);
       tmin = min(tmin, key);
       tmax = max(tmax, key);
     }
   }
+
+  // every lane of the warp left with the warp's statistics
+  __device__ __forceinline__ void reduce_warp() {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        lmin[k] = min(lmin[k], __shfl_xor_sync(0xffffffffu, lmin[k], o));
+        lmax[k] = max(lmax[k], __shfl_xor_sync(0xffffffffu, lmax[k], o));
+      }
+      tmin = min(tmin, __shfl_xor_sync(0xffffffffu, tmin, o));
+      tmax = max(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+      nan |= __shfl_xor_sync(0xffffffffu, nan, o);
+      hmax = max(hmax, __shfl_xor_sync(0xffffffffu, hmax, o));
+    }
+  }
+
+  // one lane adds the (reduced) statistics to an accumulator s_acc[38]
+  __device__ __forceinline__ void add_to(uint32_t* s_acc) const {
+#pragma unroll
+    for (int k = 0; k < NF; ++k) {
+      atomicMax(&s_acc[S_COL_MIN + k], to_acc(S_COL_MIN + k, lmin[k]));
+      atomicMax(&s_acc[S_COL_MAX + k], to_acc(S_COL_MAX + k, lmax[k]));
+    }
+    atomicMax(&s_acc[S_TF_MIN], to_acc(S_TF_MIN, tmin));
+    atomicMax(&s_acc[S_TF_MAX], to_acc(S_TF_MAX, tmax));
+    atomicMax(&s_acc[S_HOST_MAX], to_acc(S_HOST_MAX, hmax));
+    atomicMax(&s_acc[S_NAN], to_acc(S_NAN, nan));
+  }
 };
+
+// statistic t in final form from the accumulator acc[38] (the NaN rule
+// of XLA's NaN-propagating min/max: a NaN tf makes both tf bounds NaN)
+__device__ __forceinline__ int32_t final_stat(const uint32_t* acc, int t) {
+  int32_t v = from_acc(t, acc[t]);
+  if (t == S_TF_MIN || t == S_TF_MAX)
+    v = acc[S_NAN] ? 0x7fc00000 : float_order(v);
+  return v;
+}
 
 // The block folds its threads' statistics (warp shuffles, then s_acc,
 // zeroed by the caller before a __syncthreads) into the accumulator in
@@ -138,30 +182,9 @@ __device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
                                              int32_t* __restrict__ st,
                                              unsigned blocks) {
   const int t = threadIdx.x, lane = t & 31;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      a.lmin[k] = min(a.lmin[k], __shfl_xor_sync(0xffffffffu, a.lmin[k], o));
-      a.lmax[k] = max(a.lmax[k], __shfl_xor_sync(0xffffffffu, a.lmax[k], o));
-    }
-    a.tmin = min(a.tmin, __shfl_xor_sync(0xffffffffu, a.tmin, o));
-    a.tmax = max(a.tmax, __shfl_xor_sync(0xffffffffu, a.tmax, o));
-    a.nan |= __shfl_xor_sync(0xffffffffu, a.nan, o);
-    a.hmax = max(a.hmax, __shfl_xor_sync(0xffffffffu, a.hmax, o));
-  }
+  a.reduce_warp();
   __syncthreads();  // s_acc zeroed
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      atomicMax(&s_acc[S_COL_MIN + k], to_acc(S_COL_MIN + k, a.lmin[k]));
-      atomicMax(&s_acc[S_COL_MAX + k], to_acc(S_COL_MAX + k, a.lmax[k]));
-    }
-    atomicMax(&s_acc[S_TF_MIN], to_acc(S_TF_MIN, a.tmin));
-    atomicMax(&s_acc[S_TF_MAX], to_acc(S_TF_MAX, a.tmax));
-    atomicMax(&s_acc[S_HOST_MAX], to_acc(S_HOST_MAX, a.hmax));
-    atomicMax(&s_acc[S_NAN], to_acc(S_NAN, a.nan));
-  }
+  if (lane == 0) a.add_to(s_acc);
   __syncthreads();
   if (t < STATS_LEN && s_acc[t]) atomicMax(acc + t, s_acc[t]);
   __threadfence();
@@ -172,12 +195,7 @@ __device__ __forceinline__ void finish_stats(Fold& a, uint32_t* s_acc,
   __threadfence();
   if (t < STATS_LEN) s_acc[t] = __ldcg(acc + t);
   __syncthreads();
-  if (t < STATS_LEN) {
-    int32_t v = from_acc(t, s_acc[t]);
-    if (t == S_TF_MIN || t == S_TF_MAX)
-      v = s_acc[S_NAN] ? 0x7fc00000 : float_order(v);
-    st[t] = v;
-  }
+  if (t < STATS_LEN) st[t] = final_stat(s_acc, t);
 }
 
 // HOSTS: launched in clusters of H_CLUSTER blocks, one block an SM; host
@@ -294,14 +312,13 @@ stats_pass(const T* __restrict__ feats, const uint8_t* __restrict__ valid,
 // flag bit. The row pipeline, the fold and the last block's finish are
 // stats_pass'.
 //
-// `stats_batch` is the same pass with a query dimension (the statistics
-// pass of _rank_scan_batch_kernel, :465, vmapped over a wave of filtered
-// scans): each slot its own extents, filter, accumulator and ticket, and
-// its own range of the grid's blocks (common.cuh ScanBatch).
+// `stats_groups` is the pass with a query dimension (the statistics pass
+// of _rank_scan_batch_kernel, :465, vmapped over a wave of filtered
+// scans), below.
 //
 // Bound: bytes, 34 B of features and 4 B of docid read a row (4 B more of
 // flags under a flag filter), and the tombstone bytes the docids hit and
-// the bitmap words, from the L2; a wave sums its slots' bytes.
+// the bitmap words, from the L2.
 __device__ __forceinline__ void stats_extents_body(
     const Extents& x, const Filter& q, const uint8_t* __restrict__ dead,
     int64_t doc_cap, unsigned char* smem, uint32_t* s_acc, bool* s_last,
@@ -404,25 +421,176 @@ stats_bp(const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
 // ticket), slot i at i * SLOT_WORDS
 constexpr int SLOT_WORDS = 2 * STATS_LEN + 1;
 
-__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
-stats_batch(const int16_t* __restrict__ feats,
-            const int32_t* __restrict__ flags,
-            const int32_t* __restrict__ docids,
-            const uint8_t* __restrict__ dead, int64_t doc_cap,
-            const ScanBatch b, int32_t* __restrict__ out) {
+// ---------------------------------------------------------------------------
+// K6 batched `span_stats_batch`: a wave's statistics, a group read once
+// ---------------------------------------------------------------------------
+// The statistics pass of _rank_scan_batch_kernel (JAX package,
+// devstore.py:465) over a wave of up to 16 filtered scans. The slots of a
+// group (identical extent lists, common.cuh group_slots) share its rows:
+// the group's blocks stream them once (common.cuh's group stream, 16
+// warps, 16 chunks a step, three stages, one barrier a step), find each
+// row's liveness (the tombstone byte) and term frequency once, and fold
+// the row into the statistics of every slot of the group whose filter it
+// passes. A warp's share of a step's (slot, 32-row group) items touches
+// at most two slots, so it holds two Folds in registers over the whole
+// pass; at the
+// end each warp adds them to the block's per-slot accumulators in shared
+// memory, the block adds those to each slot's accumulator in device
+// memory, and each slot's ticket finds its last block, which writes the
+// slot's statistics in final form (finish_stats', slot by slot).
+//
+// Bound: bytes. Each distinct row of a group read once (34 B of features,
+// 4 B of docid, 4 B of flags where a slot of the group tests a flag, the
+// tombstone byte); the per-slot work (a filter test and 36 min/max a
+// row) is integer arithmetic beside it. Before, each slot had a range of
+// the grid of its own and read its rows itself: 8 slots over one span
+// read it 8 times.
+constexpr int K6_CHUNKS = 16, K6_STEP = K6_CHUNKS * CH, K6_STAGES = 3;
+
+__global__ void __launch_bounds__(G_THREADS, 1)
+stats_groups(const int16_t* __restrict__ feats,
+             const int32_t* __restrict__ flags,
+             const int32_t* __restrict__ docids,
+             const uint8_t* __restrict__ dead, int64_t doc_cap,
+             const __grid_constant__ ScanBatch b,
+             int32_t* __restrict__ out) {
+  constexpr int SB = EXT_STAGE_BYTES;
+  constexpr int RG = K6_STEP / 32;  // 32-row groups a step
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ uint32_t s_acc[STATS_LEN];
-  __shared__ bool s_last;
+  __shared__ StepFacts<K6_CHUNKS, false> sf[2];
+  __shared__ uint32_t s_acc[BATCH_SLOTS][STATS_LEN];
+  __shared__ bool s_last[BATCH_SLOTS];
   __shared__ Extents x;
-  __shared__ Filter q;
-  const int s = range_of_block(b.bstart, b.bs, blockIdx.x);
-  if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
+  __shared__ Filter q[BATCH_SLOTS];
+  __shared__ bool s_flags;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g = range_of_block(b.gbstart, b.ng, blockIdx.x);
+  const int block = blockIdx.x - b.gbstart[g];
+  const int blocks = b.gbstart[g + 1] - b.gbstart[g];
+  const int s0 = b.gfirst[g], G = b.gfirst[g + 1] - s0;
+  if (t == 0)
+    slot_extents(b, b.gslot[s0], feats, flags, docids, x, q[0]);
+  else if (t < G)
+    slot_filter(b, b.gslot[s0 + t], q[t]);
+  for (int i = t; i < G * STATS_LEN; i += G_THREADS)
+    s_acc[i / STATS_LEN][i % STATS_LEN] = 0u;
   __syncthreads();
-  int32_t* st = out + (int64_t)s * SLOT_WORDS;
-  uint32_t* acc = (uint32_t*)(st + STATS_LEN);
-  stats_extents_body(x, q, dead, doc_cap, smem, s_acc, &s_last, acc,
-                     acc + STATS_LEN, st, blockIdx.x - b.bstart[s],
-                     b.bstart[s + 1] - b.bstart[s]);
+  if (t == 0) {
+    bool any = false;
+    for (int k = 0; k < G; ++k) any = any || q[k].flag != NO_FLAG;
+    s_flags = any;
+  }
+  __syncthreads();
+  const bool with_flags = s_flags;
+  const int64_t chunks = x.cbase[x.n];
+  const int64_t first = (int64_t)block * K6_CHUNKS;
+  const int64_t stride = (int64_t)blocks * K6_CHUNKS;
+  const int steps = chunks > first ? (int)((chunks - first + stride - 1) /
+                                           stride) : 0;
+  auto stage = [&](int i, int u) {
+    return smem + ((i % K6_STAGES) * K6_CHUNKS + u) * SB;
+  };
+  auto issue = [&](int i) {
+    const int64_t c = first + (int64_t)i * stride + warp;
+    if (i < steps && warp < K6_CHUNKS && c < chunks)
+      issue_group_chunk(x, c, with_flags, stage(i, warp), lane);
+    cp_async_commit();
+  };
+  const RegConsts none{};
+  auto facts = [&](int i) {
+    return facts_begin<K6_CHUNKS, false>(
+        x, first + (int64_t)i * stride + warp, stage(i, warp), dead,
+        doc_cap, false, none, sf[i & 1], warp, lane);
+  };
+  const bool stager = warp < K6_CHUNKS;
+  for (int i = 0; i < K6_STAGES - 1; ++i) issue(i);
+  cp_async_wait<K6_STAGES - 2>();
+  __syncwarp();
+  if (0 < steps && stager) facts_end(facts(0), sf[0], warp, lane);
+  __syncthreads();
+
+  // this warp's slots: k_lo and, where its share crosses into the next
+  // slot, k_lo + 1
+  int lo, hi;
+  item_range(G * RG, warp, lo, hi);
+  const int k_lo = lo / RG;
+  Fold a0, a1;
+
+  for (int i = 0; i < steps; ++i) {
+    issue(i + K6_STAGES - 1);
+    cp_async_wait<K6_STAGES - 2>();
+    __syncwarp();
+    // step i + 1's facts, their tombstone bytes loaded under step i's items
+    const bool ahead = i + 1 < steps && stager;
+    RowsPending pend{};
+    if (ahead) pend = facts(i + 1);
+    const StepFacts<K6_CHUNKS, false>& fs = sf[i & 1];
+    for (int it = lo; it < hi;) {
+      const int k = it / RG;
+      const int end = hi < (k + 1) * RG ? hi : (k + 1) * RG;
+      const Filter qk = q[k];
+      const bool off = filter_off(qk);
+      for (; it < end; ++it) {
+        const int h = it % RG;
+        const int u = h >> 1, j = 2 * lane + (h & 1);
+        const int r = u * CH + (h & 1) * 32 + lane;
+        if (fs.tfb[r] == DEAD_ROW) continue;
+        const int e = fs.e[u];
+        const Stage<int16_t> sg(stage(i, u), x.feats[e], x.flags[e],
+                                x.docids[e], nullptr);
+        const int16_t* f = sg.row(j);
+        if (!off && !constraint_ok(f[F_LANGUAGE], f[F_LASTMOD],
+                                   with_flags ? sg.flag(j) : 0, qk))
+          continue;
+        if (k == k_lo)
+          a0.row_tf(f, fs.tfb[r]);
+        else
+          a1.row_tf(f, fs.tfb[r]);
+      }
+    }
+    if (ahead) facts_end(pend, sf[(i + 1) & 1], warp, lane);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  // the warps' folds into the block's per-slot accumulators, those into
+  // each slot's accumulator in device memory, then each slot's ticket
+  if (lo < hi) {
+    a0.reduce_warp();
+    if (lane == 0) a0.add_to(s_acc[k_lo]);
+    if ((hi - 1) / RG != k_lo) {
+      a1.reduce_warp();
+      if (lane == 0) a1.add_to(s_acc[k_lo + 1]);
+    }
+  }
+  __syncthreads();
+  for (int i = t; i < G * STATS_LEN; i += G_THREADS) {
+    const int k = i / STATS_LEN, w = i % STATS_LEN;
+    uint32_t* acc = (uint32_t*)(out + (int64_t)b.gslot[s0 + k] * SLOT_WORDS +
+                                STATS_LEN);
+    if (s_acc[k][w]) atomicMax(acc + w, s_acc[k][w]);
+  }
+  __threadfence();
+  __syncthreads();
+  if (t < G) {
+    uint32_t* ticket = (uint32_t*)(out + (int64_t)b.gslot[s0 + t] *
+                                   SLOT_WORDS + 2 * STATS_LEN);
+    s_last[t] = atomicAdd(ticket, 1u) == (unsigned)blocks - 1;
+  }
+  __syncthreads();
+  __threadfence();
+  for (int i = t; i < G * STATS_LEN; i += G_THREADS) {
+    const int k = i / STATS_LEN, w = i % STATS_LEN;
+    if (s_last[k])
+      s_acc[k][w] = __ldcg((const uint32_t*)(out + (int64_t)b.gslot[s0 + k] *
+                                             SLOT_WORDS + STATS_LEN) + w);
+  }
+  __syncthreads();
+  for (int i = t; i < G * STATS_LEN; i += G_THREADS) {
+    const int k = i / STATS_LEN, w = i % STATS_LEN;
+    if (s_last[k])
+      out[(int64_t)b.gslot[s0 + k] * SLOT_WORDS + w] = final_stat(s_acc[k], w);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -609,17 +777,18 @@ extern "C" int yt_span_stats_batch(const void* feats, const void* flags,
   cudaStream_t s = (cudaStream_t)stream;
   ScanBatch b{};
   if (!scan_batch_of(slots, bs, &b)) return (int)cudaErrorInvalidValue;
+  group_slots(&b, BATCH_SLOTS);
   cudaError_t e =
       cudaMemsetAsync(out, 0, (size_t)bs * SLOT_WORDS * 4, s);
   if (e != cudaSuccess) return (int)e;
-  const int stages = S_WARPS * 2 * stage_bytes<int16_t>();
+  const int smem = K6_STAGES * K6_CHUNKS * EXT_STAGE_BYTES;
   static int cached[64];
   int limit = 0;
-  e = resident_blocks(stats_batch, S_WARPS * 32, stages, cached, &limit);
+  e = resident_blocks(stats_groups, G_THREADS, smem, cached, &limit);
   if (e != cudaSuccess) return (int)e;
-  // the slots share the resident blocks in proportion to their rows
-  const int grid = wave_blocks(&b, S_WARPS, limit);
-  stats_batch<<<grid, S_WARPS * 32, stages, s>>>(
+  // the groups share the resident blocks in proportion to their rows
+  const int grid = group_blocks(&b, K6_CHUNKS, limit);
+  stats_groups<<<grid, G_THREADS, smem, s>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, b, (int32_t*)out);
   return (int)cudaGetLastError();

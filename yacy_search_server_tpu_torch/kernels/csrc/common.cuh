@@ -322,12 +322,16 @@ __device__ __forceinline__ int32_t floordiv64(int32_t a, int32_t d,
 }
 
 // One row's score with the constants in registers: every float step is
-// the first version's intrinsic, every integer step its value mod 2^32.
+// the first version's intrinsic, every integer step its value mod 2^32,
+// so the terms add up in any order. It is the terms that read the
+// statistics (stats_terms: the normalised columns and the tf term, of
+// term frequency `tf`), the ones that read only the profile's constants
+// (profile_terms: domlength, the language match, the flags; the same for
+// every slot of a batched scan's wave) and the authority term.
 template <typename T, bool FAST>
-__device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
-                                             const RegConsts& k,
-                                             bool use_auth,
-                                             int32_t count_h) {
+__device__ __forceinline__ uint32_t stats_terms(const T* f,
+                                                const RegConsts& k,
+                                                float tf) {
   uint32_t score = 0;
 #pragma unroll
   for (int c = 0; c < NF; ++c) {
@@ -346,20 +350,34 @@ __device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
     uint32_t contrib = is_direct(c) ? (uint32_t)norm : 256u - (uint32_t)norm;
     score += shl32(contrib, k.shift[c]);
   }
-  score += shl32(256u - (uint32_t)(int32_t)f[F_DOMLENGTH], k.dl_shift);
-
   if (k.tspan > 0.0f) {
-    float tf = term_frequency(f);
     float x = __fdiv_rn(__fmul_rn(__fsub_rn(tf, k.tmin), 256.0f), k.tden);
     score += shl32((uint32_t)__float2int_rz(x), k.tf_shift);
   }
+  return score;
+}
 
-  if ((int32_t)f[F_LANGUAGE] == k.lang_pref) score += k.lang_val;
-
+__device__ __forceinline__ uint32_t profile_terms(int32_t domlength,
+                                                  int32_t lang, int32_t fl,
+                                                  const RegConsts& k) {
+  uint32_t score = shl32(256u - (uint32_t)domlength, k.dl_shift);
+  if (lang == k.lang_pref) score += k.lang_val;
 #pragma unroll
   for (int j = 0; j < N_FLAG_TERMS; ++j)
     score += (((uint32_t)fl >> k.flag_bit[j]) & 1u) * k.flag_val[j];
+  return score;
+}
 
+template <typename T, bool FAST>
+__device__ __forceinline__ int32_t score_row(const T* f, int32_t fl,
+                                             const RegConsts& k,
+                                             bool use_auth,
+                                             int32_t count_h) {
+  // the tf term reads the row's term frequency only where it counts
+  uint32_t score = stats_terms<T, FAST>(
+      f, k, k.tspan > 0.0f ? term_frequency(f) : 0.0f);
+  score += profile_terms((int32_t)f[F_DOMLENGTH], (int32_t)f[F_LANGUAGE], fl,
+                         k);
   if (use_auth) {
     int32_t a = floordiv((int32_t)((uint32_t)count_h << 8), 1 + k.hmax);
     score += shl32((uint32_t)a, k.auth_shift);
@@ -571,12 +589,21 @@ __host__ inline bool regions_of(const int64_t* off, const int64_t* n, int bs,
 // A wave of exact scans (the batched scan): up to BATCH_SLOTS queries
 // over the same arena, each with its own extents and constraint filter
 // (no delta, no bitmap: those queries stay solo), by value in the launch
-// parameters. A one-dimensional grid is cut into one block range a slot,
-// [bstart[s], bstart[s + 1]), its length in proportion to the slot's rows
-// (wave_blocks), so that a wave of one big and many small scans keeps
-// every block busy until the big one is done. The batched K7 writes slot
-// s into [obase[s], obase[s + 1]) of one packed buffer (each slot's own
-// length, kernels/devstore.scan_batch_offsets).
+// parameters.
+//
+// The batched K6 and K7 read a wave by groups: slots whose extent lists
+// are identical form a group (group_slots; slots of different lists are
+// separate groups, even where their extents overlap), and the blocks of
+// [gbstart[g], gbstart[g + 1]) stream group g's rows once for all of its
+// slots (group_blocks: each group's range in proportion to its rows).
+// Group g's slots are gslot[gfirst[g]] .. gslot[gfirst[g + 1] - 1], in
+// wave order; glist[g] is its first list in K7's scratch.
+//
+// The K7 that writes scores (span_score_batch, the route above K7's
+// fused selection) cuts the grid into one block range a slot,
+// [bstart[s], bstart[s + 1]) (wave_blocks), and writes slot s into
+// [obase[s], obase[s + 1]) of one packed buffer (each slot's own length,
+// kernels/devstore.scan_batch_offsets).
 struct ScanBatch {
   int32_t start[BATCH_SLOTS][MAX_EXT], count[BATCH_SLOTS][MAX_EXT];
   int32_t n[BATCH_SLOTS];
@@ -584,7 +611,22 @@ struct ScanBatch {
   int32_t bstart[BATCH_SLOTS + 1];
   int64_t obase[BATCH_SLOTS + 1];
   int32_t bs;
+  int32_t ng;
+  int32_t gfirst[BATCH_SLOTS + 1], gslot[BATCH_SLOTS];
+  int32_t gbstart[BATCH_SLOTS + 1];
+  int64_t glist[BATCH_SLOTS + 1];
 };
+
+// The filter of slot s of a wave.
+__host__ __device__ inline void slot_filter(const ScanBatch& b, int s,
+                                            Filter& q) {
+  q.lang = b.filt[s][0];
+  q.flag = b.filt[s][1];
+  q.from_days = b.filt[s][2];
+  q.to_days = b.filt[s][3];
+  q.allow = nullptr;
+  q.nbits = 0;
+}
 
 // The extents and filter of slot s of a wave over the arena.
 __host__ __device__ inline void slot_extents(const ScanBatch& b, int s,
@@ -598,12 +640,7 @@ __host__ __device__ inline void slot_extents(const ScanBatch& b, int s,
     const int64_t st = b.start[s][e];
     add_source(x, feats + st * NF, flags + st, docids + st, b.count[s][e]);
   }
-  q.lang = b.filt[s][0];
-  q.flag = b.filt[s][1];
-  q.from_days = b.filt[s][2];
-  q.to_days = b.filt[s][3];
-  q.allow = nullptr;
-  q.nbits = 0;
+  slot_filter(b, s, q);
 }
 
 // A wave's slots in host memory, SLOT_DESC_WORDS int32 a slot: the
@@ -649,6 +686,211 @@ __host__ inline int wave_blocks(ScanBatch* b, int warps, int limit) {
       chunks[s] += (b->count[s][e] + CH - 1) / CH;
   }
   return split_blocks(chunks, b->bs, warps, limit, b->bstart);
+}
+
+__host__ inline bool same_extents(const ScanBatch& b, int s, int t) {
+  if (b.n[s] != b.n[t]) return false;
+  for (int e = 0; e < b.n[s]; ++e)
+    if (b.start[s][e] != b.start[t][e] || b.count[s][e] != b.count[t][e])
+      return false;
+  return true;
+}
+
+// The wave's groups: slots of identical extent lists, at most gmax a
+// group (a larger set of such slots is cut into groups of gmax in wave
+// order), the groups in the order of their first slots.
+__host__ inline void group_slots(ScanBatch* b, int gmax) {
+  bool taken[BATCH_SLOTS] = {};
+  int ng = 0, k = 0;
+  b->gfirst[0] = 0;
+  for (int s = 0; s < b->bs; ++s) {
+    if (taken[s]) continue;
+    int in = 0;
+    for (int t = s; t < b->bs; ++t) {
+      if (taken[t] || !same_extents(*b, s, t)) continue;
+      if (in == gmax) {
+        b->gfirst[++ng] = k;
+        in = 0;
+      }
+      b->gslot[k++] = t;
+      taken[t] = true;
+      ++in;
+    }
+    b->gfirst[++ng] = k;
+  }
+  b->ng = ng;
+}
+
+// The CH-row chunks of slot s's extents.
+__host__ inline int64_t slot_chunks(const ScanBatch& b, int s) {
+  int64_t c = 0;
+  for (int e = 0; e < b.n[s]; ++e) c += (b.count[s][e] + CH - 1) / CH;
+  return c;
+}
+
+// Cut a grid of at most `limit` blocks (`per_block` chunks a block a
+// step) into the groups' ranges gbstart, in proportion to each group's
+// chunks, at least one block a group; returns the grid's blocks.
+__host__ inline int group_blocks(ScanBatch* b, int per_block, int limit) {
+  int64_t chunks[BATCH_SLOTS];
+  for (int g = 0; g < b->ng; ++g)
+    chunks[g] = slot_chunks(*b, b->gslot[b->gfirst[g]]);
+  return split_blocks(chunks, b->ng, per_block, limit, b->gbstart);
+}
+
+// ---------------------------------------------------------------------------
+// A group block's row stream (the batched K6 and K7)
+// ---------------------------------------------------------------------------
+// A block of G_WARPS warps walks its group's row sequence (the Extents of
+// the group's slots) in steps of NCH chunks: step i takes the sequence
+// chunks (i * blocks + block) * NCH + u, u < NCH, warp u staging chunk u
+// into its region of the step's stage (NST stages, so NST - 1 steps are
+// in flight), as the single-slot passes stage theirs, but by cp.async
+// alone (issue_group_chunk). Step i's rows are taken in step i - 1 by
+// the warp that staged them (facts_begin before that step's items,
+// facts_end after them): each row's liveness (its tombstone byte, whose
+// load runs under the items) and term frequency once for every slot of
+// the group, and for K7 the profile's terms of its score, into the step's
+// parity of a double buffer; so one barrier a step suffices.
+// The block's warps then take the step's (slot, 32-row group) items,
+// slot-major, in equal contiguous shares (item_range): a warp serves at
+// most two slots a step.
+constexpr int G_WARPS = 16;
+constexpr int G_THREADS = G_WARPS * 32;
+
+// A stage of an extent chunk: features, flags and docids, no valid bytes.
+constexpr int EXT_STAGE_BYTES = feat_region<int16_t>() + 2 * WORD_REGION;
+
+// cp.async of the 16 bytes at src, of which only the first n are read
+// (the rest of the destination is zero-filled)
+__device__ __forceinline__ void cp_async16_n(void* smem_dst, const void* src,
+                                             uint32_t n) {
+  unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+// copy_span by 16-byte cp.async alone, so that no load of the copy holds
+// the warp: from floor16(a) (bytes of the same allocation, which starts
+// on 16 bytes), the last copy reading only up to b. The region holds the
+// copy: a chunk's bytes start at its array's start mod 16.
+__device__ __forceinline__ void copy_span_async(unsigned char* dst,
+                                                uintptr_t a, uintptr_t b,
+                                                int lane) {
+  if (a >= b) return;
+  const uintptr_t a0 = a & ~(uintptr_t)15;
+  const int n16 = (int)((b - a0 + 15) >> 4);
+  for (int c = lane; c < n16; c += 32) {
+    const uintptr_t s = a0 + 16 * (uintptr_t)c;
+    cp_async16_n(dst + 16 * c, (const void*)s,
+                 b - s >= 16 ? 16u : (uint32_t)(b - s));
+  }
+}
+
+// One warp starts the copies of the group sequence's chunk c into stage
+// st (features, flags where with_flags, docids), asynchronously alone.
+__device__ __forceinline__ void issue_group_chunk(const Extents& x,
+                                                  int64_t c, bool with_flags,
+                                                  unsigned char* st,
+                                                  int lane) {
+  const int e = extent_of_chunk(x, c);
+  const int64_t r0 = (c - x.cbase[e]) * CH;
+  const int64_t r1 = r0 + CH < x.count[e] ? r0 + CH : x.count[e];
+  copy_span_async(st, (uintptr_t)(x.feats[e] + r0 * NF),
+                  (uintptr_t)(x.feats[e] + r1 * NF), lane);
+  st += feat_region<int16_t>();
+  if (with_flags)
+    copy_span_async(st, (uintptr_t)(x.flags[e] + r0),
+                    (uintptr_t)(x.flags[e] + r1), lane);
+  copy_span_async(st + WORD_REGION, (uintptr_t)(x.docids[e] + r0),
+                  (uintptr_t)(x.docids[e] + r1), lane);
+}
+
+// Lane l of a warp takes rows 2l and 2l + 1 of a chunk (the 32-row group
+// of a parity): an int16 row is 8.5 words, so rows two apart are 17 words
+// apart and the 32 lanes read 32 banks. Row 2l + m's facts sit at entry
+// 32m + l of its chunk's.
+//
+// What the facts of a step hold: each row's tf bits, DEAD_ROW where
+// the row is past its source or dead (a signalling NaN: term_frequency's
+// NaN is the canonical quiet one), and (BASE) its profile terms; each
+// chunk's source (-1 past the rows) and its first row's place in the
+// slot's extent order.
+constexpr int32_t DEAD_ROW = 0x7f800001;
+template <int NCH, bool BASE>
+struct StepFacts {
+  int32_t tfb[NCH * CH];
+  uint32_t base[BASE ? NCH * CH : 1];
+  int32_t e[NCH];
+  int64_t pos0[NCH];
+};
+
+// The tombstone bytes of a warp's rows (1: the row is past its source
+// or dead), loaded by facts_begin and read by facts_end, so that the
+// loads' latency runs under the step's items.
+struct RowsPending {
+  uint32_t gone[CH / 32];
+};
+
+// Warp u's facts of sequence chunk c staged at `st` (the profile's terms
+// where BASE and `pre`, from its constants pk): everything but the
+// liveness, which facts_end adds.
+template <int NCH, bool BASE>
+__device__ __forceinline__ RowsPending facts_begin(
+    const Extents& x, int64_t c, const unsigned char* st,
+    const uint8_t* __restrict__ dead, int64_t doc_cap, bool pre,
+    const RegConsts& pk, StepFacts<NCH, BASE>& sf, int u, int lane) {
+  int e = -1, n = 0;
+  int64_t p0 = 0;
+  if (c < x.cbase[x.n]) {
+    e = extent_of_chunk(x, c);
+    const int64_t r0 = (c - x.cbase[e]) * CH;
+    n = (int)(x.count[e] - r0 < CH ? x.count[e] - r0 : CH);
+    p0 = x.obase[e] + r0;
+  }
+  RowsPending p;
+#pragma unroll
+  for (int m = 0; m < CH / 32; ++m) {
+    const int j = 2 * lane + m;
+    int32_t tb = DEAD_ROW;
+    uint32_t bs = 0;
+    p.gone[m] = 1u;
+    if (j < n) {
+      const Stage<int16_t> sg(st, x.feats[e], x.flags[e], x.docids[e],
+                              nullptr);
+      const int32_t d = sg.host(j);
+      if (d >= 0) p.gone[m] = d < doc_cap ? __ldg(dead + d) : 0u;
+      const int16_t* f = sg.row(j);
+      tb = __float_as_int(term_frequency(f));
+      if (BASE && pre)
+        bs = profile_terms(f[F_DOMLENGTH], f[F_LANGUAGE], sg.flag(j), pk);
+    }
+    sf.tfb[u * CH + 32 * m + lane] = tb;
+    if (BASE && pre) sf.base[u * CH + 32 * m + lane] = bs;
+  }
+  if (lane == 0) {
+    sf.e[u] = e;
+    sf.pos0[u] = p0;
+  }
+  return p;
+}
+
+// The liveness of the rows facts_begin took (row_live's rule).
+template <int NCH, bool BASE>
+__device__ __forceinline__ void facts_end(const RowsPending& p,
+                                          StepFacts<NCH, BASE>& sf, int u,
+                                          int lane) {
+#pragma unroll
+  for (int m = 0; m < CH / 32; ++m)
+    if (p.gone[m]) sf.tfb[u * CH + 32 * m + lane] = DEAD_ROW;
+}
+
+// Warp w's share [lo, hi) of `items` step items among G_WARPS warps.
+__device__ __forceinline__ void item_range(int items, int w, int& lo,
+                                           int& hi) {
+  lo = w * items / G_WARPS;
+  hi = (w + 1) * items / G_WARPS;
 }
 
 // ---------------------------------------------------------------------------

@@ -37,12 +37,15 @@ package's index/devstore.py decides; every kernel decides it itself.
   membership exchange of index/meshstore._mesh_xjoin_shard, the mesh
   store's cross-row conjunction: the probe on every cell of a doc column,
   the term-axis reductions between, the apply on the rare cell.
-- `span_stats_batch`, `span_score_batch` (the same sources) and
-  `topk_finish_batch` replace _rank_scan_batch_kernel /
-  _rank_scan_batch_packed_kernel: K6 and K7 with a query dimension over a
-  wave of up to 16 filtered scans (`scan_batch_desc`), each slot with its
-  own extents, filter, statistics and buffer row; kernel 3 a slot; then
-  one finish for the wave, [bs, 2kk].
+- `span_stats_batch` and `span_topk_batch` (the same sources) replace
+  _rank_scan_batch_kernel / _rank_scan_batch_packed_kernel: K6 and K7
+  with a query dimension over a wave of up to 16 filtered scans
+  (`scan_batch_desc`), each slot with its own extents, filter and
+  statistics; the slots whose extent lists are identical (a group) share
+  one read of its rows; K7 keeps each slot's kk best itself and writes
+  the wave's [bs, 2kk]. Past FUSED_KK, `span_score_batch` writes each
+  slot's scores into a region of one buffer, kernel 3 selects a slot
+  and `topk_finish_batch` finishes the wave.
 - `join_member_batch` (csrc/join.cu), `join_stats_batch`
   (csrc/cardinal_stats.cu) and `join_score_batch` (csrc/cardinal_score.cu)
   replace _rank_join_batch_kernel / _rank_join_bm_batch_kernel and their
@@ -102,6 +105,7 @@ _PLAIN_ROWS = 1 << 20                # rows a plain scoring step holds
 DELTA_BUCKETS = (256, 1024, 4096, 16_384, 65_536, 262_144)
 BATCH_SLOTS = 16                     # slots of one batched-scan launch
 SLOT_DESC_WORDS = 1 + 2 * MAX_EXTENTS + 4   # n, (start, count) x 8, filter
+FUSED_KK = 2048                      # the largest kk span_topk_batch takes
 _STATS_SLOT = 2 * 38 + 1             # a batched K6 slot: stats, acc, ticket
 
 
@@ -759,7 +763,8 @@ def join_stage_most(dev) -> int:
 def _join_counters(dev, stream: int, kernel: str = "join_rows",
                    words: int = JOIN_CTR * BATCH_SLOTS) -> torch.Tensor:
     """The counters and tickets of a kernel's calls on `stream` of `dev`
-    (K8's: JOIN_CTR a group; K18's probe: two words), zeroed once here;
+    (K8's: JOIN_CTR a group; K18's probe: two words; the batched K7's
+    merge tree: the words its plan asks), zeroed once here;
     each call leaves them at zero. Calls on one stream run one after
     another, so a stream's calls share one set."""
     key = (kernel, dev.index, stream)
@@ -1110,6 +1115,76 @@ def span_score_batch(feats16, flags, docids, dead, desc, stats, consts,
         out_off.ctypes.data, B.stream_ptr(dev))
     B.check(rc, "span_score_batch")
     B.count_launch("span_score_batch", slots=bs)
+    return out
+
+
+def scan_groups(desc) -> list[list[int]]:
+    """The groups of a wave (scan_batch_desc), as the batched K6 reads it
+    (and K7 where its lists fit, common.cuh group_slots): the slots whose
+    extent lists are identical, in wave order, the groups in the order of
+    their first slots."""
+    by_ext: dict = {}
+    for i, (ext, _f) in enumerate(desc_scans(desc)):
+        by_ext.setdefault(tuple(ext), []).append(i)
+    return list(by_ext.values())
+
+
+def span_topk_batch_plain(feats16, flags, docids, dead, desc, stats, consts,
+                          kk: int):
+    """Plain PyTorch version of the batched K7 with its selection: each
+    slot scored as span_score_plain scores it, kernel 3's plain version
+    (index mode) and the finish's rule: [bs, 2kk] int32."""
+    rows = []
+    for i, (ext, filt) in enumerate(desc_scans(desc)):
+        n = sum(c for _a, c in ext)
+        buf = span_score_plain(feats16, flags, docids, dead, ext, stats[i],
+                               consts, max(n, kk), filt)
+        top_s, _sec, top_r = tie_topk_plain(buf, kk)
+        rows.append(torch.cat(_winners_plain(top_s, top_r, docids, ext)))
+    return torch.stack(rows)
+
+
+def span_topk_batch(feats16, flags, docids, dead, desc, stats, consts,
+                    kk: int):
+    """Batched K7 with its selection: each slot's rows scored against its
+    row of `stats` ([bs, 38], span_stats_batch's) under its filter, and
+    its kk best (score descending, then the row's place in its extent
+    order: the JAX merge's order) as scores and docids, (-(2^31-1), -1)
+    where a slot has fewer rows above -(2^31-1): [bs, 2kk] int32
+    (_rank_scan_batch_packed_kernel's output). One profile a wave
+    (`consts`); 1 <= kk <= FUSED_KK. The slots of a group (identical
+    extent lists) share one read of its rows."""
+    if not 1 <= kk <= FUSED_KK:
+        raise ValueError(f"kk={kk} outside [1, {FUSED_KK}]")
+    if feats16.device.type == "cpu":
+        return span_topk_batch_plain(feats16, flags, docids, dead, desc,
+                                     stats, consts, kk)
+    dev = feats16.device
+    cap = _require_arena(feats16, flags, docids, dead, dev)
+    desc = _check_wave(desc, cap)
+    bs = desc.shape[0]
+    if stats.dtype != torch.int32 or stats.device != dev \
+            or stats.shape != (bs, KC.STATS_LEN) or stats.stride(1) != 1:
+        raise ValueError("stats: int32 [bs, 38] rows on the card expected")
+    B.require(consts, "consts", (torch.int32,), 1, dev)
+    lib = B.library()
+    plan = (ctypes.c_int64 * 2)()
+    with torch.cuda.device(dev):
+        B.check(lib.yt_span_topk_batch_plan(desc.ctypes.data, bs, kk, plan),
+                "span_topk_batch")
+    scratch = torch.empty(max(int(plan[0]), 8), dtype=torch.uint8,
+                          device=dev)
+    stream = B.stream_ptr(dev)
+    tickets = _join_counters(dev, stream, "span_topk_batch", int(plan[1]))
+    out = torch.empty((bs, 2 * kk), dtype=torch.int32, device=dev)
+    rc = lib.yt_span_topk_batch(
+        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
+        dead.data_ptr(), dead.shape[0], desc.ctypes.data, bs,
+        stats.data_ptr(), stats.stride(0), consts.data_ptr(), kk,
+        scratch.data_ptr(), scratch.numel(), tickets.data_ptr(),
+        tickets.numel(), out.data_ptr(), stream)
+    B.check(rc, "span_topk_batch")
+    B.count_launch("span_topk_batch", slots=bs)
     return out
 
 
