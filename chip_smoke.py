@@ -177,7 +177,9 @@ Phases, each of which exits non-zero on failure:
    packed_residency=True), the device build on: K13 packs the blocks of
    64 to 2^18 rows) and an int16 store on the card beside it, each pack
    timed; the 50 queries, the other terms, the escalating profile, k =
-   1000 and four filters on every term, every answer the int16 store's;
+   1000, four filters on every term and the filtered query at k = 3000
+   (past K7bp's selection: its buffer, kernel 3 and topk_finish_bp),
+   every answer the int16 store's;
    the pruned mix (448 sent) one at a time, from 16 threads and from 16
    threads through the batcher (K5bp waves, live slots logged); a device
    loss whose rebuild promotes every block again through the batcher's
@@ -261,9 +263,10 @@ Phases, each of which exits non-zero on failure:
    held to its plain version first; the packed path's kernels
    beside their int16 counterparts' call times (`int16_ms`): K12 over
    every row of the 10M term's block (held to the host unpack_block too),
-   K5bp at 1 and 16 slots of its first tile, K6bp, K7bp and
-   topk_finish_bp over the 10M term without and with the filtered
-   rank_term's filter, and K13 over the 256-term flush's 2^18-row lanes;
+   K5bp at 1 and 16 slots of its first tile, K6bp, K7bp with its
+   selection (`span_topk_bp`), K7bp's buffer and topk_finish_bp over the
+   10M term without and with the filtered rank_term's filter, and K13
+   over the 256-term flush's 2^18-row lanes;
    the mesh path's kernels on its cells: K7 with the docid column over
    the 10M term's cell, K4 batched at the wave's 8 slots x 4 cells (kk
    16 and 128), K16's halves over one MeshBM25 cell, K18's probe (beside
@@ -348,7 +351,6 @@ BATCHED_JOIN_KERNELS = ("join_member_batch", "join_stats_batch",
 DENSE_ROWS = 1 << 21
 HYBRID_REPEATS = 8
 HYBRID_KERNELS = ("dense_dot", "rerank_sort", "hybrid_blend", "tie_topk")
-# the packed path's kernels (kernel 3 ranks its exact scans)
 # the dense-first path: a corpus of 2^21 clustered vectors, the
 # mix sent this many times, recall over this many queries, a probe-lane
 # budget of about two clusters, the ladder's budget and its rounds, the
@@ -361,9 +363,11 @@ DF_LADDER_BUDGET = 1 << 28
 DF_LADDER_ROUNDS = 6
 DF_TOL = 64
 DF_KERNELS = ("ann_assign", "ann_fuse")
+# the packed path's kernels (K7bp's buffer, kernel 3 and topk_finish_bp
+# past K7bp's selection, at PAST_FUSED_K)
 PACKED_KERNELS = ("unpack_rows", "pruned_tile_bp", "span_stats_bp",
-                  "span_score_bp", "topk_finish_bp", "pack_block_batch",
-                  "tie_topk")
+                  "span_topk_bp", "span_score_bp", "topk_finish_bp",
+                  "pack_block_batch", "tie_topk")
 # the BlockRank path: the postprocessing path's documents, their hosts and
 # anchors a document (kernels/bench.link_docs), the servlet's page size,
 # and the kernel the path must launch
@@ -2718,6 +2722,16 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launches()
     tp = time.time()
+    # the packed exact scans counted by span rows and route (K7bp's
+    # selection at kk <= KD.FUSED_KK, its buffer past it)
+    pk_scans = {}
+    scan_bp0 = TD.scan_query_bp
+
+    def counted_scan_bp(words, dead, sp_, consts_, kk_, filt=None):
+        key = (sp_.count, "selection" if kk_ <= KD.FUSED_KK else "buffer")
+        pk_scans[key] = pk_scans.get(key, 0) + 1
+        return scan_bp0(words, dead, sp_, consts_, kk_, filt)
+    TD.scan_query_bp = counted_scan_bp
     pk_walls = {}
     pidx = RWIIndex()
     for th, (f_t, d_t) in ds_terms.items():
@@ -2792,6 +2806,9 @@ def main() -> int:
         for f_kw in pk_filters:
             pk_query(f"{th.decode()} filtered {f_kw}", th,
                      ds_profiles["default"], 100, **f_kw)
+    # past K7bp's selection (kk 4096): its buffer, kernel 3, the finish
+    pk_query(f"10M filtered k={PAST_FUSED_K}", hl, ds_profiles["default"],
+             PAST_FUSED_K, **hfilt_kw)
     pc = ps.counters()
     log("packed store after the single-term queries: " + ", ".join(
         f"{k} {pc[k]}" for k in ("queries_served", "prune_rounds",
@@ -3025,9 +3042,12 @@ def main() -> int:
             kc.rank_term(kq[-1], ds_profiles["default"], k=100),
             kt.rank_term(kq[-1], ds_profiles["default"], k=100))
     torch.cuda.synchronize()
+    TD.scan_query_bp = scan_bp0
     launches_pk = dict(LAUNCHES)
     log(f"packed path: {time.time() - tp:.1f} s; launches {launches_pk}; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in pk_walls.items()))
+    log("packed path, exact scans by span rows and route: " + ", ".join(
+        f"{n} rows {route} {c}" for (n, route), c in sorted(pk_scans.items())))
     missing = [k for k in PACKED_KERNELS if launches_pk[k] == 0]
     if missing:
         fail(f"kernels never launched on the packed path: {missing}")
@@ -3675,6 +3695,17 @@ def main() -> int:
     # 256-term flush
     pw, pdead, ppmax, psp, pblk = pk_keep
     pbytes = psp.row_bits / 8 + 1          # packed payload + a dead byte
+    # K6bp's: every feature column and the docids, the flags column only
+    # where the filter tests a flag, and a dead byte
+    pwid = np.asarray(psp.pmeta[PK.NCOLS:2 * PK.NCOLS])
+
+    def k6bytes(q):
+        flags = q is not None and q[1] != KD.NO_FLAG
+        return (int(pwid.sum()) - (0 if flags else int(pwid[PK.C_FLAGS]))) \
+            / 8 + 1
+    # K7bp's: the scored columns (not the doctype nor the flags feature
+    # column), the flags and the docids, and a dead byte
+    k7bytes = (int(pwid.sum()) - int(pwid[4]) - int(pwid[P.F_FLAGS])) / 8 + 1
     src_k12 = ("unpack_rows", "yacy_search_server_tpu/ops/packed.py:205",
                "packed.cu")
     src_k5bp = ("pruned_tile_bp",
@@ -3686,6 +3717,9 @@ def main() -> int:
     src_k7bp = ("span_score_bp",
                 "yacy_search_server_tpu/index/devstore.py:1213",
                 "cardinal_score.cu")
+    src_k7sel = ("span_topk_bp",
+                 "yacy_search_server_tpu/index/devstore.py:1213",
+                 "cardinal_score.cu")
     src_finbp = ("topk_finish_bp",
                  "yacy_search_server_tpu/index/devstore.py:1213",
                  "pruned_tile.cu")
@@ -3763,12 +3797,30 @@ def main() -> int:
                                              psp.pmeta, n10, q),
                 lambda q=q: KP.span_stats_bp_plain(pw, pdead, psp.pbase,
                                                    psp.pmeta, n10, q),
-                None, n10 * pbytes + 4 * KC.STATS_LEN, 0.0,
+                None, n10 * k6bytes(q) + 4 * KC.STATS_LEN, 0.0,
                 f"{n10} rows of the 10M term's block, {label} (the packed "
                 "exact scan)", path="packed", plain_reps=1)
         beside(lambda q=q: KD.span_stats(ta[0], ta[2], ta[3], scan_ext,
                                          flags=ta[1], filt=q),
                f"K6 over the same int16 rows, {label}")
+        k7s = lambda q=q, s_=st_bp: KP.span_topk_bp(  # noqa: E731
+            pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, kk, q)
+        k7sp = lambda q=q, s_=st_bp: KP.span_topk_bp_plain(  # noqa: E731
+            pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, kk, q)
+        note("span_topk_bp", f"10M term's block, kk={kk}, {label}",
+             diff(k7s(), k7sp()))
+        measure(*src_k7sel, k7s, k7sp, None,
+                n10 * k7bytes + 4 * (KC.STATS_LEN + KC.CONSTS_LEN) + 8 * kk,
+                0.0, f"{n10} rows of the 10M term's block -> its kk={kk} "
+                f"best, docids decoded, {label} (the packed exact scan's "
+                "second pass)", path="packed", plain_reps=1)
+
+        def i16_select(q=q, s_=st_i16):
+            t_ = KT.tie_topk(KD.span_score(*ta[:4], scan_ext, s_, cd,
+                                           sp.count, filt=q), kk)
+            return KD.topk_finish(t_[0], t_[1], ta[2], scan_ext, stats=s_)
+        beside(i16_select, f"K7, kernel 3 and topk_finish over the same "
+               f"int16 rows, {label}")
         k7 = lambda q=q, s_=st_bp: KP.span_score_bp(  # noqa: E731
             pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, n10, q)
         buf = k7()
@@ -3778,10 +3830,11 @@ def main() -> int:
         measure(*src_k7bp, k7,
                 lambda q=q, s_=st_bp: KP.span_score_bp_plain(
                     pw, pdead, psp.pbase, psp.pmeta, n10, s_, cd, n10, q),
-                None, n10 * (pbytes + 4)
+                None, n10 * (k7bytes + 4)
                 + 4 * (KC.STATS_LEN + KC.CONSTS_LEN), 0.0,
                 f"{n10} rows of the 10M term's block -> int32 scores, "
-                f"{label}", path="packed", plain_reps=1)
+                f"{label} (K7bp's buffer, past its selection's kk)",
+                path="packed", plain_reps=1)
         beside(lambda q=q, s_=st_i16: KD.span_score(
             *ta[:4], scan_ext, s_, cd, sp.count, filt=q),
             f"K7 over the same int16 rows, {label}")

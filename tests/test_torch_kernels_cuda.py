@@ -1829,6 +1829,129 @@ def test_span_kernels_bp_match_plain(packed_edges, block, filt):
             assert torch.equal(got.cpu(), want)
 
 
+# the packed scan's K6bp and K7bp on blocks at the edges of their tiles:
+# (case, rows), block i at a word base of residue i mod 4, the last ending
+# on the store's last word
+BP_BLOCKS = [("edge", 1), ("edge", 31), ("equal", 5_000), ("edge", 33),
+             ("edge", 1_023), ("dead", 1_000), ("edge", 1_025),
+             ("edge", 40_000), ("edge", 300_001), ("edge", 2_049)]
+# the smoke's filtered-scan mix and no filter
+BP_FILTS = [None, *SBB.FILTERS]
+
+
+@pytest.fixture(scope="module")
+def bp_store():
+    """BP_BLOCKS packed into one words store on the card and on the CPU:
+    _edge_block's rows (flags of width 32, a constant column), every row
+    equal ("equal": equal scores at every place), every docid tombstoned
+    ("dead"); garbage words between the blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from yacy_search_server_tpu_torch.ops import packed as TPK
+    parts, blocks, at = [], [], 0
+    for i, (case, n) in enumerate(BP_BLOCKS):
+        pad = (i - at) % 4 + 4
+        parts.append(np.full(pad, -0x5A5A5A5B, np.int32))
+        at += pad
+        f16, fl, dd = _edge_block(n, 80 + i)
+        if case == "equal":
+            f16[:], fl[:] = f16[0], fl[0]
+        elif case == "dead":
+            dd = (3 * np.arange(n)).astype(np.int32)
+        blk = TPK.pack_block(f16, fl, dd)
+        blocks.append((at, blk))
+        parts.append(blk.words)
+        at += len(blk.words)
+    store = np.concatenate(parts)
+    dead = np.zeros(4_096, bool)
+    dead[::3] = True
+    t = lambda a, d: torch.from_numpy(a).to(d)  # noqa: E731
+    return {d: (t(store, d), t(dead, d)) for d in ("cuda", "cpu")}, blocks
+
+
+def _bp_span(wbase, blk, meta=None):
+    return TD.Span(start=-1, count=blk.count, pbase=wbase,
+                   pmeta=blk.meta_vector() if meta is None else meta)
+
+
+@pytest.mark.parametrize("kk", [16, 128, 2048])
+@pytest.mark.parametrize("filt", BP_FILTS,
+                         ids=["none", "smoke0", "smoke1", "smoke2",
+                              "smoke3"])
+def test_span_topk_bp_matches_plain(bp_store, filt, kk):
+    """K6bp and K7bp with its selection against their plain versions on
+    every block of the edge store (word bases at each residue mod 4, the
+    store's last word, counts about a tile, one block of the grid and
+    many, equal scores, every row dead, a column read at width 0), and
+    scan_query_bp in one K6bp and one span_topk_bp launch: no kernel 3,
+    no K7bp buffer, no finish."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    stores, blocks = bp_store
+    c = {d: R.profile_consts(R.RankingProfile(), 0x656E, d)
+         for d in ("cuda", "cpu")}
+    for wbase, blk in blocks:
+        metas = [blk.meta_vector()]
+        if blk.widths[P.F_WORDS_IN_TITLE] == 1:
+            m0 = blk.meta_vector().copy()
+            m0[len(blk.widths) + P.F_WORDS_IN_TITLE] = 0
+            metas.append(m0)
+        for meta in metas:
+            st = {d: KP.span_stats_bp(*stores[d], wbase, meta, blk.count,
+                                      filt) for d in ("cuda", "cpu")}
+            torch.cuda.synchronize()
+            _stats_equal(st["cuda"], st["cpu"])
+            got = KP.span_topk_bp(*stores["cuda"], wbase, meta, blk.count,
+                                  st["cpu"].to("cuda"), c["cuda"], kk, filt)
+            want = KP.span_topk_bp(*stores["cpu"], wbase, meta, blk.count,
+                                   st["cpu"], c["cpu"], kk, filt)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (blk.count, wbase % 4)
+            before = dict(LAUNCHES)
+            got = TD.scan_query_bp(*stores["cuda"], _bp_span(wbase, blk,
+                                                             meta),
+                                   c["cuda"], kk, filt)
+            torch.cuda.synchronize()
+            ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                   if LAUNCHES[k] != before[k]}
+            assert ran == {"span_stats_bp": 1, "span_topk_bp": 1}
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("filt", BP_FILTS[:2], ids=["none", "smoke0"])
+def test_span_score_bp_past_the_fused_limit(bp_store, filt):
+    """Past KD.FUSED_KK (kk = 4096) scan_query_bp takes K7bp's buffer
+    mode, kernel 3 and topk_finish_bp: each equal to its plain version on
+    every block (the buffer past the span -(2^31-1)); span_topk_bp
+    refuses the kk."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    stores, blocks = bp_store
+    c = {d: R.profile_consts(R.RankingProfile(**NONDEFAULT), 0x6465, d)
+         for d in ("cuda", "cpu")}
+    kk = 4096
+    for wbase, blk in blocks:
+        meta, n = blk.meta_vector(), blk.count
+        st = KP.span_stats_bp(*stores["cpu"], wbase, meta, n, filt)
+        sc = {d: KP.span_score_bp(*stores[d], wbase, meta, n, st.to(d),
+                                  c[d], n + 5_000, filt)
+              for d in ("cuda", "cpu")}
+        torch.cuda.synchronize()
+        assert torch.equal(sc["cuda"].cpu(), sc["cpu"])
+        before = dict(LAUNCHES)
+        got = TD.scan_query_bp(*stores["cuda"], _bp_span(wbase, blk),
+                               c["cuda"], kk, filt)
+        want = TD.scan_query_bp(*stores["cpu"], _bp_span(wbase, blk),
+                                c["cpu"], kk, filt)
+        torch.cuda.synchronize()
+        ran = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+               if LAUNCHES[k] != before[k]}
+        assert ran == {"span_stats_bp": 1, "span_score_bp": 1,
+                       "tie_topk": 1, "topk_finish_bp": 1}
+        assert torch.equal(got.cpu(), want)
+        with pytest.raises(ValueError):
+            KP.span_topk_bp(*stores["cuda"], wbase, meta, n,
+                            st.to("cuda"), c["cuda"], KD.FUSED_KK + 1, filt)
+
+
 @pytest.mark.parametrize("sizes", [[64], [1, 0, 64, 257, 1000, 999],
                                    [70_001, 65_536, 33]])
 def test_pack_block_batch_matches_plain_and_host(sizes):
@@ -1922,6 +2045,8 @@ def test_packed_store_on_the_card_matches_cpu():
             for k in (10, 1000):
                 assert both(th, p, k) is not None
                 assert both(th, p, k, **filt) is not None
+        # past the fused kk: K7bp's buffer, kernel 3 and topk_finish_bp
+        assert both(th, 0, 3000, **filt) is not None
     g.enable_batching(max_batch=16, dispatchers=4)
     want = {(th, p): both(th, p, 100) for th in hot_terms for p in range(2)}
     errors = []
@@ -1953,8 +2078,8 @@ def test_packed_store_on_the_card_matches_cpu():
     first = both(cold, 0, 10)
     idx.delete_doc(int(first[1][0]))
     assert both(cold, 0, 10) is not None
-    for name in ("pruned_tile_bp", "span_stats_bp", "span_score_bp",
-                 "topk_finish_bp", "unpack_rows"):
+    for name in ("pruned_tile_bp", "span_stats_bp", "span_topk_bp",
+                 "span_score_bp", "topk_finish_bp", "unpack_rows"):
         assert LAUNCHES[name] > l0[name], name
     g.close()
 

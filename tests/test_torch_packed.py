@@ -374,3 +374,119 @@ def test_topk_finish_bp_tail_matches_topk_finish(pstore):
     want = KD.topk_finish(top_s, top_rows, d, [(0, TILE)], pmax=pmax,
                           tail=(sp.tstart, 1, sp.tcount, shift, lang))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# -- the packed scan at the edges of K7bp's tiles and selection --------------
+
+# (case, rows): counts about a 32-row group and a 1,024-row tile, one below
+# every kk, every row dead, every row equal (equal scores at every place)
+SCAN_BLOCKS = [("rows", 1), ("rows", 31), ("rows", 33), ("rows", 1023),
+               ("rows", 1025), ("dead", 1000), ("equal", 3000),
+               ("rows", 5000)]
+SCAN_FILTERS = {"none": KD.NO_FILTER,
+                "smoke": (JP.pack_language("en"), 5, 3_000, 27_000)}
+
+
+def _scan_block(case, n, seed):
+    """(feats16, flags, docids) of make_term's rows with flags over all of
+    int32 (a column of width 32), a constant column (width 1) and odd
+    docids; "dead": docids the tombstone bitmap holds; "equal": every row
+    the first."""
+    feats, _d, _h, rng = KB.make_term(n, seed)
+    f16, _fl = TR.compact_feats(feats)
+    f16[:, JP.F_WORDS_IN_TITLE] = 3
+    fl = rng.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64).astype(
+        np.int32)
+    fl[:2] = (-2 ** 31, 2 ** 31 - 1)[:n]
+    dd = (1 + 2 * np.arange(n)).astype(np.int32)
+    if case == "dead":
+        dd = (3 * np.arange(n)).astype(np.int32)
+    elif case == "equal":
+        f16[:] = f16[0]
+        fl[:] = fl[0]
+    return f16, fl, dd
+
+
+@pytest.fixture(scope="module")
+def scan_store():
+    """The SCAN_BLOCKS packed into one words store, block i at a word base
+    of residue i mod 4 (garbage words between), the last ending on the
+    store's last word; a tombstone bitmap over every third docid. Returns
+    (words, dead, [(wbase, block)])."""
+    parts, blocks, at = [], [], 0
+    for i, (case, n) in enumerate(SCAN_BLOCKS):
+        pad = (i - at) % 4 + 4
+        parts.append(np.full(pad, -0x5A5A5A5B, np.int32))
+        at += pad
+        blk = TPK.pack_block(*_scan_block(case, n, 90 + i))
+        blocks.append((at, blk))
+        parts.append(blk.words)
+        at += len(blk.words)
+    dead = np.zeros(20_000, bool)
+    dead[::3] = True
+    return np.concatenate(parts), dead, blocks
+
+
+def _width0(meta):
+    """The meta vector with the constant column read at width 0 (its value
+    is the minimum, the same rows)."""
+    m = np.array(meta, np.int32)
+    assert m[JPK.NCOLS + JP.F_WORDS_IN_TITLE] == 1
+    m[JPK.NCOLS + JP.F_WORDS_IN_TITLE] = 0
+    return m
+
+
+def _case(block):
+    return "rows" if block == "width0" else SCAN_BLOCKS[block][0]
+
+
+@pytest.mark.parametrize("filt", list(SCAN_FILTERS))
+@pytest.mark.parametrize("kk", [16, 128, 2048, 2049])
+@pytest.mark.parametrize("block", list(range(len(SCAN_BLOCKS)))
+                         + ["width0"])
+def test_scan_bp_edges_match_jax(scan_store, block, kk, filt):
+    """scan_query_bp (K6bp and span_topk_bp's plain versions at kk <=
+    2048, the buffer route past it) and span_topk_bp_plain against
+    _rank_scan_batch_bp_kernel: equal where a score is live, the same
+    live places, (-(2^31-1), -1) past them; span_topk_bp refuses kk
+    2049."""
+    words, dead, blocks = scan_store
+    wbase, blk = blocks[-1 if block == "width0" else block]
+    meta = blk.meta_vector()
+    if block == "width0":
+        meta = _width0(meta)
+    q = SCAN_FILTERS[filt]
+    qi = np.zeros((1, 6 + JPK.META_LEN), np.int32)
+    qi[0, 0], qi[0, 1] = wbase, blk.count
+    qi[0, 2:2 + JPK.META_LEN] = meta
+    qi[0, 2 + JPK.META_LEN:] = q
+    prof = JProf()
+    jconsts = (*(jnp.asarray(a) for a in (prof.norm_coeffs(),
+                                          *prof.flag_coeffs())),
+               *(jnp.int32(v) for v in (prof.domlength, prof.tf,
+                                        prof.language, prof.authority,
+                                        JP.pack_language("en"))))
+    want = np.asarray(JD._rank_scan_batch_bp_kernel(
+        jnp.asarray(words), jnp.asarray(dead), qi, *jconsts, k=kk,
+        bs=1))[0]
+    tw, td = torch.from_numpy(words), torch.from_numpy(dead)
+    sp = TD.Span(start=0, count=blk.count, tstart=0, tcount=0, stats={},
+                 jstart=0, pbase=wbase, pmeta=meta, row_bits=blk.row_bits)
+    consts = _tconsts(prof)
+    got = TD.scan_query_bp(tw, td, sp, consts, kk, q).numpy()
+    live = want[:kk] > -KD.INT32_MAX
+    np.testing.assert_array_equal(got[:kk] > -KD.INT32_MAX, live)
+    np.testing.assert_array_equal(got[:kk][live], want[:kk][live])
+    np.testing.assert_array_equal(got[kk:][live], want[kk:][live])
+    assert (got[kk:][~live] == -1).all()
+    if _case(block) == "dead":
+        assert not live.any()
+    st = KP.span_stats_bp(tw, td, wbase, meta, blk.count, q)
+    if kk <= KD.FUSED_KK:
+        plain = KP.span_topk_bp_plain(tw, td, wbase, meta, blk.count, st,
+                                      consts, kk, q)
+        np.testing.assert_array_equal(plain.numpy(), got)
+    else:
+        with pytest.raises(ValueError):
+            KP.span_topk_bp(tw, td, wbase, meta, blk.count, st, consts, kk,
+                            q)

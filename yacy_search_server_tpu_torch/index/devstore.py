@@ -63,8 +63,9 @@ serving counters.
   else nowhere ("cold": rebuilt from the run on demand). A query on a
   hot term decodes its rows on the card: K5bp `pruned_tile_bp` for the
   pruned query (a failed bound goes straight to the exact scan), K6bp
-  `span_stats_bp`, K7bp `span_score_bp`, kernel 3 and `topk_finish_bp`
-  for the exact scan (kernels/packed.py); the answers are the int16
+  `span_stats_bp` and K7bp with its selection `span_topk_bp` for the
+  exact scan (past kk 2048 K7bp `span_score_bp`, kernel 3 and
+  `topk_finish_bp`; kernels/packed.py); the answers are the int16
   path's bit for bit. A query on a warm or cold term is a counted miss
   that the caller's host path serves, and it starts the term's promotion
   (inline, or through the batcher's `promote` kind): the block is placed
@@ -471,10 +472,16 @@ def scan_query_bp(words, dead, sp: Span, consts, kk: int,
                   filt=None) -> torch.Tensor:
     """The exact two-pass scan over one packed span (_rank_scan_batch_bp_
     kernel at one slot): K6bp over the live rows that pass the filter,
-    K7bp, kernel 3 (index mode: the reference's running merge order) and
-    topk_finish_bp: [2kk] scores ++ docids, left on the device."""
+    then K7bp with its selection (the reference's running merge order):
+    [2kk] scores ++ docids, left on the device; a memset and two
+    launches. Past KD.FUSED_KK, K7bp writes a score a row, kernel 3
+    (index mode) ranks them and topk_finish_bp decodes the winners'
+    docids."""
     stats = KP.span_stats_bp(words, dead, sp.pbase, sp.pmeta, sp.count,
                              filt)
+    if kk <= KD.FUSED_KK:
+        return KP.span_topk_bp(words, dead, sp.pbase, sp.pmeta, sp.count,
+                               stats, consts, kk, filt)
     buf = KP.span_score_bp(words, dead, sp.pbase, sp.pmeta, sp.count, stats,
                            consts, max(sp.count, kk), filt)
     top_s, top_rows, _ = tie_topk(buf, kk)
@@ -2203,8 +2210,8 @@ class DeviceSegmentStore:
         """rank_term over a packed span (the reference's
         _rank_term_packed): the pruned query (K5bp; with the batcher, its
         wave) where no filter is asked and the span's frozen stats are
-        exact, else, and where the bound fails, the exact scan (K6bp,
-        K7bp, kernel 3, topk_finish_bp). A facet bitmap, a RAM delta or
+        exact, else, and where the bound fails, the exact scan
+        (scan_query_bp: K6bp, K7bp). A facet bitmap, a RAM delta or
         several spans are counted fallbacks (several spans also ask for a
         merge); a hot hit counts only past those gates."""
         with self._lock:

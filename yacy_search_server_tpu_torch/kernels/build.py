@@ -85,6 +85,9 @@ SIGNATURES = {
     "yt_span_stats_bp": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
     "yt_span_score_bp": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P,
                          _P, _I64, _P],
+    "yt_span_topk_bp_plan": [_I, _P],
+    "yt_span_topk_bp": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P, _I,
+                        _P, _I64, _P, _I64, _P, _P],
     "yt_topk_finish_bp": [_P, _P, _I, _P, _I64, _I64, _P, _I64, _P, _I64,
                           _I64, _I, _I, _P, _P],
     "yt_pack_block_batch": [_P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P],
@@ -203,6 +206,7 @@ LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "join_score_batch": 0, "dense_dot": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,
             "pruned_tile_bp": 0, "span_stats_bp": 0, "span_score_bp": 0,
+            "span_topk_bp": 0,
             "topk_finish_bp": 0, "pack_block_batch": 0, "ann_assign": 0,
             "ann_fuse": 0, "bm25_pass": 0, "power_iterate": 0,
             "gather_topk_batch": 0, "bm25_sums": 0, "bm25_rows": 0,

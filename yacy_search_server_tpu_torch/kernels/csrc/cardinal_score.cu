@@ -316,32 +316,14 @@ score_batch(const int16_t* __restrict__ feats,
 // whose filter it passes (stats_terms; each slot's constants in shared
 // memory, loaded into registers where a warp's share moves to the slot).
 //
-// The selection keeps each slot's kk best rows in the order of the JAX
-// merge, score descending, then the row's place in the slot's extent
-// order ascending, as one 64-bit key a row (score ^ 2^31 above, the
-// place's complement below: a larger key ranks first; every key is
-// distinct, so the order is total and the answer does not depend on
-// which block finishes first). Rows at or below -(2^31-1) are never
-// kept: the JAX merge ranks them after its init entries (-(2^31-1), -1),
-// which is what a slot with fewer rows gets in their place.
-//   - a block holds for each slot of its group a sorted list of KL keys
-//     (KL = the power of two at or above kk) and a buffer of K7_CAND
-//     candidates in shared memory, and a threshold: the list's kk-th key.
-//     A row whose key is above it is appended to the buffer (one shared
-//     atomic a warp). After a step, a buffer past K7_CAND - K7_STEP is
-//     sorted (bitonic) and merged into the list: the list becomes the
-//     best KL of both (the maximum of the list and the reversed buffer
-//     element by element, a bitonic sequence, then a bitonic merge), and
-//     the threshold rises;
-//   - at the end each block's lists go to a scratch in device memory and
-//     the group's blocks merge them pairwise up a tree: of the two blocks
-//     of a pair, the second to arrive (an atomic ticket after a fence, as
-//     in cardinal_stats) merges its partner's lists into its own and goes
-//     up; the one that merges at the root writes each slot's row of
-//     [bs, 2kk]: the scores, then the docids (from the rows' places), and
-//     (-(2^31-1), -1) where a slot has fewer than kk rows;
-//   - the tickets live in a buffer of the caller that every call leaves
-//     at zero (the second of a pair resets its ticket).
+// The selection (common.cuh, shared with K7bp's) keeps each slot's kk
+// best rows in the order of the JAX merge, score descending, then the
+// row's place in the slot's extent order ascending: a block's sorted
+// list and candidate buffer (K7_CAND keys) a slot, merged after a step
+// whose buffer passed K7_CAND - K7_STEP, the blocks' lists merged up a
+// tree; the root writes each slot's row of [bs, 2kk]: the scores, then
+// the docids (from the rows' places), and (-(2^31-1), -1) where a slot
+// has fewer than kk rows.
 // A block's lists take G (KL + K7_CAND) keys of shared memory for a
 // group of G slots; a group of more slots than fit beside the stages is
 // cut into groups that do (each reads its rows once): on an H100 a group
@@ -356,119 +338,10 @@ score_batch(const int16_t* __restrict__ feats,
 // slot had a range of the grid of its own, read its rows itself and
 // wrote a score a row, and kernel 3 read each slot's region back in 16
 // launches.
-using u64 = unsigned long long;
 constexpr int K7_CHUNKS = 8, K7_STEP = K7_CHUNKS * CH, K7_STAGES = 3;
 constexpr int K7_CAND = 1024;       // a slot's candidate buffer, keys
-constexpr int FUSED_KK = 2048;      // the largest kk the selection takes
-constexpr int TREE_WORDS = 16;      // ticket words a block (tree levels)
 constexpr int K7_FIXED =            // the stages
     K7_STAGES * K7_CHUNKS * EXT_STAGE_BYTES;
-
-__device__ __forceinline__ u64 row_key(int32_t score, int64_t pos) {
-  return ((u64)((uint32_t)score ^ 0x80000000u) << 32) |
-         (u64)(~(uint32_t)pos);
-}
-
-// The lanes of a warp whose `c` holds append their keys to a slot's
-// buffer, one shared atomic for the warp.
-__device__ __forceinline__ void append_key(bool c, u64 key, u64* cand,
-                                           int* cnt, int lane) {
-  const unsigned m = __ballot_sync(0xffffffffu, c);
-  if (m == 0u) return;
-  int base = 0;
-  if (lane == 0) base = atomicAdd(cnt, __popc(m));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (c) cand[base + __popc(m & ((1u << lane) - 1u))] = key;
-}
-
-// The lists of slot k: lists + k * LW, KL keys sorted descending, then
-// its K7_CAND candidates. Every thread of the block calls these.
-
-// pair i of p in a bitonic stage of stride h (a power of two)
-__device__ __forceinline__ int pair_lo(int p, int h) {
-  return ((p & ~(h - 1)) << 1) | (p & (h - 1));
-}
-
-// Sort the first `size` candidates (a power of two) of each slot in
-// `need` descending.
-__device__ void sort_cands(u64* lists, int LW, int KL, int G, unsigned need,
-                           int size) {
-  const int t = threadIdx.x, half = size >> 1;
-  for (int len = 2; len <= size; len <<= 1)
-    for (int h = len >> 1; h > 0; h >>= 1) {
-      for (int i2 = t; i2 < G * half; i2 += G_THREADS) {
-        const int k = i2 / half, i = pair_lo(i2 - k * half, h);
-        if (!((need >> k) & 1u)) continue;
-        u64* c = lists + k * LW + KL;
-        const u64 a = c[i], z = c[i + h];
-        if ((a < z) == ((i & len) == 0)) {
-          c[i] = z;
-          c[i + h] = a;
-        }
-      }
-      __syncthreads();
-    }
-}
-
-// Each slot k in `need`: its list becomes the best KL keys of the list
-// and of src + k * sstride (n keys sorted descending, 0 past them; in
-// device memory where GLOBAL), sorted descending.
-template <bool GLOBAL>
-__device__ void merge_top(u64* lists, int LW, int KL, int G, unsigned need,
-                          const u64* src, int64_t sstride, int n) {
-  const int t = threadIdx.x;
-  for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
-    const int k = i2 / KL, i = i2 - k * KL;
-    if (!((need >> k) & 1u)) continue;
-    const int xx = KL - 1 - i;
-    u64 o = 0;
-    if (xx < n) {
-      const u64* p = src + k * sstride + xx;
-      o = GLOBAL ? __ldcg(p) : *p;
-    }
-    u64* L = lists + k * LW;
-    if (o > L[i]) L[i] = o;
-  }
-  __syncthreads();
-  const int half = KL >> 1;
-  for (int h = half; h > 0; h >>= 1) {
-    for (int i2 = t; i2 < G * half; i2 += G_THREADS) {
-      const int k = i2 / half, i = pair_lo(i2 - k * half, h);
-      if (!((need >> k) & 1u)) continue;
-      u64* L = lists + k * LW;
-      const u64 a = L[i], z = L[i + h];
-      if (a < z) {
-        L[i] = z;
-        L[i + h] = a;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Merge the candidates of each slot in `need` into its list; its
-// threshold becomes the list's kk-th key and its buffer empty.
-__device__ void flush_cands(u64* lists, int LW, int KL, int kk, int G,
-                            unsigned need, int* s_cnt, u64* s_thr) {
-  const int t = threadIdx.x;
-  int most = 1;
-  for (int k = 0; k < G; ++k)
-    if ((need >> k) & 1u) most = s_cnt[k] > most ? s_cnt[k] : most;
-  int size = 1;
-  while (size < most) size <<= 1;
-  for (int i2 = t; i2 < G * size; i2 += G_THREADS) {
-    const int k = i2 / size, i = i2 - k * size;
-    if (((need >> k) & 1u) && i >= s_cnt[k]) lists[k * LW + KL + i] = 0;
-  }
-  __syncthreads();
-  sort_cands(lists, LW, KL, G, need, size);
-  merge_top<false>(lists, LW, KL, G, need, lists + KL, LW, size);
-  if (t < G && ((need >> t) & 1u)) {
-    s_thr[t] = lists[t * LW + kk - 1];
-    s_cnt[t] = 0;
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(G_THREADS, 1)
 topk_groups(const int16_t* __restrict__ feats,
@@ -620,59 +493,21 @@ topk_groups(const int16_t* __restrict__ feats,
     if (s_cnt[k] > 0) need |= 1u << k;
   if (need) flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
 
-  // the group's blocks' lists merged pairwise up a tree: node `node` of
-  // level `lvl` keeps its lists at leaf node << lvl of the scratch (slot
-  // k's of leaf l at (glist[g] + k * blocks + l) * KL)
-  u64* gl = glists + b.glist[g] * KL;
-  const int64_t kstride = (int64_t)blocks * KL;
-  int node = block, n = blocks, lvl = 0;
-  if (n > 1) {
-    for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
-      const int k = i2 / KL, i = i2 - k * KL;
-      gl[k * kstride + (int64_t)node * KL + i] = lists[k * LW + i];
-    }
-    __threadfence();
-    __syncthreads();
-  }
-  const unsigned all = G >= 32 ? ~0u : (1u << G) - 1u;
-  while (n > 1) {
-    const int partner = node ^ 1;
-    const bool pair = partner < n;
-    if (pair) {
-      if (t == 0) {
-        uint32_t* tk = tickets + (int64_t)b.gbstart[g] * TREE_WORDS +
-                       lvl * blocks + (node >> 1);
-        const uint32_t old = atomicAdd(tk, 1u);
-        if (old) *tk = 0u;
-        s_go = old != 0u;
-      }
-      __syncthreads();
-      if (!s_go) return;
-      __threadfence();
-      merge_top<true>(lists, LW, KL, G, all,
-                      gl + (int64_t)(partner << lvl) * KL, kstride, KL);
-    }
-    node >>= 1;
-    ++lvl;
-    n = (n + 1) >> 1;
-    if (pair && n > 1) {
-      for (int i2 = t; i2 < G * KL; i2 += G_THREADS) {
-        const int k = i2 / KL, i = i2 - k * KL;
-        gl[k * kstride + (int64_t)(node << lvl) * KL + i] =
-            lists[k * LW + i];
-      }
-      __threadfence();
-      __syncthreads();
-    }
-  }
-  // the root: each slot's kk best as scores, then docids
+  // the group's blocks' lists merged pairwise up a tree (slot k's of
+  // leaf l at (glist[g] + k * blocks + l) * KL of the scratch); the root
+  // writes each slot's kk best as scores, then docids
+  if (!merge_tree(lists, LW, KL, G, glists + b.glist[g] * KL,
+                  (int64_t)blocks * KL,
+                  tickets + (int64_t)b.gbstart[g] * TREE_WORDS, block,
+                  blocks, &s_go))
+    return;
   for (int i2 = t; i2 < G * kk; i2 += G_THREADS) {
     const int k = i2 / kk, i = i2 - k * kk;
     const u64 key = lists[k * LW + i];
     int32_t sv = SMALL, d = -1;
     if (key) {
-      sv = (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
-      d = docid_at(x, (int64_t)(~(uint32_t)key));
+      sv = key_score(key);
+      d = docid_at(x, key_place(key));
     }
     int32_t* o = out + (int64_t)b.gslot[s0 + k] * 2 * kk;
     o[i] = sv;
@@ -681,44 +516,187 @@ topk_groups(const int16_t* __restrict__ feats,
 }
 
 // ---------------------------------------------------------------------------
-// K7bp `span_score_bp`: pass 2 of the exact scan over a bit-packed span
+// K7bp over a bit-packed span: `span_topk_bp` (with its selection) and
+// `span_score_bp` (a score a row)
 // ---------------------------------------------------------------------------
 // The scoring pass of _rank_scan_batch_bp_kernel (JAX package,
-// devstore.py:1213, a slot of it), minus its running top-k: K7 over one
-// packed span of `count` rows, each row decoded from the packed-words
-// store (common.cuh unpack_row) and scored by K7's row scorer
-// (score_row, the compact path's division) against the given
-// statistics; dead rows and rows the filter rejects score -(2^31-1);
-// rows [count, out_len) of the buffer too. Kernel 3 (index mode) then
-// ranks the buffer by score, then row: the JAX running merge's order.
-// Bound: bytes, the packed payload (row_bits / 8 a row) and the
-// tombstone bytes read, 4 B written a row.
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-score_bp(const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
-         const PackMeta m, int64_t count, const uint8_t* __restrict__ dead,
+// devstore.py:1213, a slot of it) over one packed span of `count` rows:
+// each row scored against the given statistics with score_row's terms
+// (the compact path's division), dead rows and rows the filter rejects
+// out. `topk_bp` keeps the running top-k in the pass, as the reference
+// does (:1265-1272): the span's kk best rows by score, then place (the
+// JAX merge's order), with the batched K7's selection (common.cuh: one
+// sorted list and a buffer of BP_CAND keys a block, the blocks' lists
+// merged up a tree); the root writes [2kk], the scores, then the docids
+// decoded from the winners' places, (-(2^31-1), -1) where fewer than kk
+// rows are live. `score_bp` writes a score a row instead (-(2^31-1) for
+// the rows out, and for [count, out_len)), for kernel 3 in index mode
+// past FUSED_KK.
+//
+// Bound: bytes, the packed payload (row_bits / 8 a row, flags and the 15
+// scored features: the doctype and the flags feature column are never
+// staged) and the tombstone bytes; score_bp writes 4 B a row more.
+// Before, a thread decoded a row a grid-stride step from the store (38
+// scalar loads, clamped 64-bit indices), 2.8x K7 on the same rows, and
+// wrote 4 B a row that kernel 3 read back in two launches and
+// topk_finish_bp decoded the winners' docids in one more. Now the tiles
+// stream through shared memory (common.cuh bp_run: blocks of 8 warps,
+// two an SM, a tile's docids and their tombstone loads a step before the
+// rest) and each thread scores its two rows of a tile from the stage
+// (bp_score_pair), column by column: the geometry of a column is read
+// once for both rows, and only the values the profile's and the tf terms
+// need stay in registers beside the constants.
+constexpr int BP_CAND = 2 * BP_TILE;  // a block's candidate buffer, keys
+
+// The thread's two rows of a staged tile whose tombstone bytes bp_head
+// loaded (`gone`): their scores sc[m] (score_row<int32_t, true>'s terms
+// in another order, the same sum mod 2^32) and whether each is kept
+// (below the count, live, passing the filter). A warp none of whose rows
+// pass the filter decodes nothing more.
+__device__ __forceinline__ void bp_score_pair(
+    const uint32_t* sw, const BpPlan& P, const BpTabs& tb, const BpGone& gone,
+    const Filter& q, bool off, const RegConsts& k, int lane, int warp,
+    int32_t* sc, bool* ok) {
+  int32_t lm0, lm1, lg0, lg1, fl0, fl1;
+  bp_pair(sw, P, tb, F_LASTMOD, lane, warp, lm0, lm1);
+  bp_pair(sw, P, tb, F_LANGUAGE, lane, warp, lg0, lg1);
+  bp_pair(sw, P, tb, C_FLAGS, lane, warp, fl0, fl1);
+  const bool p0 = !gone.g[0] && (off || constraint_ok(lg0, lm0, fl0, q));
+  const bool p1 = !gone.g[1] && (off || constraint_ok(lg1, lm1, fl1, q));
+  sc[0] = sc[1] = SMALL;
+  ok[0] = ok[1] = false;
+  if (!__any_sync(0xffffffffu, p0 || p1)) return;
+  uint32_t s0 = norm_term<true>(F_LASTMOD, lm0, k);
+  uint32_t s1 = norm_term<true>(F_LASTMOD, lm1, k);
+  int32_t ti0 = 0, ti1 = 0, tx0 = 0, tx1 = 0, h0 = 0, h1 = 0;
+#pragma unroll
+  for (int c = 1; c < NF; ++c) {
+    if (!is_active(c)) continue;
+    int32_t a, b;
+    bp_pair(sw, P, tb, c, lane, warp, a, b);
+    s0 += norm_term<true>(c, a, k);
+    s1 += norm_term<true>(c, b, k);
+    if (c == F_WORDS_IN_TITLE) ti0 = a, ti1 = b;
+    if (c == F_WORDS_IN_TEXT) tx0 = a, tx1 = b;
+    if (c == F_HITCOUNT) h0 = a, h1 = b;
+  }
+  int32_t dl0, dl1;
+  bp_pair(sw, P, tb, F_DOMLENGTH, lane, warp, dl0, dl1);
+  s0 += profile_terms(dl0, lg0, fl0, k);
+  s1 += profile_terms(dl1, lg1, fl1, k);
+  if (k.tspan > 0.0f) {
+    s0 += tf_term(term_frequency_of(h0, tx0, ti0), k);
+    s1 += tf_term(term_frequency_of(h1, tx1, ti1), k);
+  }
+  sc[0] = (int32_t)s0;
+  sc[1] = (int32_t)s1;
+  ok[0] = p0;
+  ok[1] = p1;
+}
+
+// The columns K7bp stages: the scored features and the flags and docids.
+constexpr uint32_t BP_SCORED =
+    (((1u << NF) - 1u) & ~(1u << 4) & ~(1u << F_FLAGS)) | (1u << C_FLAGS) |
+    (1u << C_DOCIDS);
+
+__global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
+topk_bp(const __grid_constant__ BpPlan P, const uint8_t* __restrict__ dead,
+        int64_t doc_cap, const Filter q, const int32_t* __restrict__ st,
+        const int32_t* __restrict__ consts, int kk, int KL,
+        u64* __restrict__ glists, uint32_t* __restrict__ tickets,
+        int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* lists = (u64*)(smem + (size_t)BP_STAGES * P.stage_words * 4);
+  __shared__ BpTabs tb;
+  __shared__ ScoreConsts sk;
+  __shared__ int s_cnt[1];
+  __shared__ u64 s_thr[1];
+  __shared__ bool s_go;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int LW = KL + BP_CAND;
+  bp_tables(P, tb, t);
+  fill_consts(sk, st, consts, t);
+  for (int i = t; i < KL; i += BP_THREADS) lists[i] = 0;
+  if (t == 0) {
+    s_cnt[0] = 0;
+    s_thr[0] = 0;
+  }
+  __syncthreads();
+  RegConsts rk;
+  load_consts(sk, rk);
+  const bool off = filter_off(q);
+  u64* cand = lists + KL;
+  bp_run(
+      P, smem, blockIdx.x, gridDim.x,
+      [&] {
+        // a buffer that the next tile could overfill is merged first
+        if (s_cnt[0] > BP_CAND - BP_TILE)
+          flush_cands(lists, LW, KL, kk, 1, 1u, s_cnt, s_thr);
+      },
+      [&](int64_t tile, const uint32_t* sw) {
+        return bp_head(P, tb, tile, sw, dead, doc_cap, lane, warp);
+      },
+      [&](int64_t tile, const uint32_t* sw, const BpGone& gone) {
+        int32_t sc[2];
+        bool ok[2];
+        bp_score_pair(sw, P, tb, gone, q, off, rk, lane, warp, sc, ok);
+        const u64 thr = s_thr[0];
+        const int64_t p = tile * BP_TILE + 32 * warp + lane;
+        const u64 k0 = row_key(sc[0], p), k1 = row_key(sc[1], p + BP_HALF);
+        append_key(ok[0] && sc[0] > SMALL && k0 > thr, k0, cand, s_cnt,
+                   lane);
+        append_key(ok[1] && sc[1] > SMALL && k1 > thr, k1, cand, s_cnt,
+                   lane);
+      });
+  if (s_cnt[0] > 0) flush_cands(lists, LW, KL, kk, 1, 1u, s_cnt, s_thr);
+  if (!merge_tree(lists, LW, KL, 1, glists, (int64_t)gridDim.x * KL, tickets,
+                  blockIdx.x, gridDim.x, &s_go))
+    return;
+  for (int i = t; i < kk; i += BP_THREADS) {
+    const u64 key = lists[i];
+    int32_t sv = SMALL, d = -1;
+    if (key) {
+      sv = key_score(key);
+      d = unpack_col(P.words, P.nw, P.wbase, P.m.v, C_DOCIDS, key_place(key));
+    }
+    out[i] = sv;
+    out[kk + i] = d;
+  }
+}
+
+__global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
+score_bp(const __grid_constant__ BpPlan P, const uint8_t* __restrict__ dead,
          int64_t doc_cap, const Filter q, const int32_t* __restrict__ st,
          const int32_t* __restrict__ consts, int32_t* __restrict__ out,
          int64_t out_len) {
-  __shared__ ScoreConsts k;
-  __shared__ int32_t s_meta[META_LEN];
-  const int t = threadIdx.x;
-  if (t < META_LEN) s_meta[t] = m.v[t];
-  fill_consts(k, st, consts, t);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ BpTabs tb;
+  __shared__ ScoreConsts sk;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  bp_tables(P, tb, t);
+  fill_consts(sk, st, consts, t);
   __syncthreads();
   RegConsts rk;
-  load_consts(k, rk);
+  load_consts(sk, rk);
   const bool off = filter_off(q);
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  int64_t r = (int64_t)blockIdx.x * blockDim.x + t;
-  for (; r < count; r += step) {
-    int32_t f[NF], fl, d;
-    unpack_row(words, nw, wbase, s_meta, r, f, fl, d);
-    int32_t score = SMALL;
-    if (row_live(d, dead, doc_cap) && (off || row_passes(f, fl, d, q)))
-      score = score_row<int32_t, true>(f, fl, rk, false, 0);
-    out[r] = score;
-  }
-  for (; r < out_len; r += step) out[r] = SMALL;
+  bp_run(
+      P, smem, blockIdx.x, gridDim.x, [] {},
+      [&](int64_t tile, const uint32_t* sw) {
+        return bp_head(P, tb, tile, sw, dead, doc_cap, lane, warp);
+      },
+      [&](int64_t tile, const uint32_t* sw, const BpGone& gone) {
+        const int64_t nr = P.count - tile * BP_TILE;
+        int32_t sc[2];
+        bool ok[2];
+        bp_score_pair(sw, P, tb, gone, q, off, rk, lane, warp, sc, ok);
+        const int r0 = 32 * warp + lane;
+        int32_t* o = out + tile * BP_TILE + r0;
+        if (r0 < nr) o[0] = ok[0] ? sc[0] : SMALL;
+        if (r0 + BP_HALF < nr) o[BP_HALF] = ok[1] ? sc[1] : SMALL;
+      });
+  for (int64_t r = P.count + (int64_t)blockIdx.x * BP_THREADS + t;
+       r < out_len; r += (int64_t)gridDim.x * BP_THREADS)
+    out[r] = SMALL;
 }
 
 template <typename T, bool FAST>
@@ -992,18 +970,82 @@ extern "C" int yt_span_score_bp(const void* words, int64_t nw, int64_t wbase,
                                 int64_t out_len, void* stream) {
   if (nw < 1 || count < 0 || out_len < count)
     return (int)cudaErrorInvalidValue;
-  PackMeta m;
-  for (int c = 0; c < META_LEN; ++c) m.v[c] = meta[c];
+  BpPlan P;
+  if (!make_bp_plan(words, nw, wbase, meta, count, BP_SCORED, &P))
+    return (int)cudaErrorInvalidValue;
   const Filter q = make_filter(filt, nullptr, 0);
-  static int cached[64];
-  int limit = 0;
-  cudaError_t e = resident_blocks(score_bp, WARPS * 32, 0, cached, &limit);
+  static int most[64], occ[64][BP_OCC];
+  int smem = 0, grid = 0;
+  cudaError_t e = bp_shape(score_bp, P, 0, most, occ, &smem, &grid);
   if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (out_len + WARPS * 32 - 1) / (WARPS * 32);
-  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
-  score_bp<<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, nw, wbase, m, count, (const uint8_t*)dead,
-      doc_cap, q, (const int32_t*)stats, (const int32_t*)consts,
-      (int32_t*)out, out_len);
+  score_bp<<<grid, BP_THREADS, smem, (cudaStream_t)stream>>>(
+      P, (const uint8_t*)dead, doc_cap, q, (const int32_t*)stats,
+      (const int32_t*)consts, (int32_t*)out, out_len);
+  return (int)cudaGetLastError();
+}
+
+// K7bp with its selection's layout: the plan, KL, the dynamic shared
+// memory and the grid.
+static cudaError_t topk_bp_shape(const void* words, int64_t nw,
+                                 int64_t wbase, const int32_t* meta,
+                                 int64_t count, int kk, BpPlan* P, int* KL,
+                                 int* smem, int* grid) {
+  if (nw < 1 || count < 0 || count >= ((int64_t)1 << 32) - 1 || kk < 1 ||
+      kk > FUSED_KK)
+    return cudaErrorInvalidValue;
+  if (!make_bp_plan(words, nw, wbase, meta, count, BP_SCORED, P))
+    return cudaErrorInvalidValue;
+  int kl = 1;
+  while (kl < kk) kl <<= 1;
+  *KL = kl;
+  static int most[64], occ[64][BP_OCC];
+  return bp_shape(topk_bp, *P, (int64_t)(kl + BP_CAND) * 8, most, occ, smem,
+                  grid);
+}
+
+// What span_topk_bp calls at kk on the current device need of their
+// caller, whatever the block: out[0] the scratch's bytes, out[1] the
+// ticket words (zero, and left at zero by every call), for as many blocks
+// as the card could hold (2048 threads an SM).
+extern "C" int yt_span_topk_bp_plan(int kk, int64_t* out) {
+  if (kk < 1 || kk > FUSED_KK) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  int kl = 1;
+  while (kl < kk) kl <<= 1;
+  const int64_t blocks = (int64_t)(2048 / BP_THREADS) * sms;
+  out[0] = blocks * kl * 8;
+  out[1] = (int64_t)TREE_WORDS * blocks;
+  return 0;
+}
+
+// K7bp with its selection (1 <= kk <= FUSED_KK): the arguments as K7bp's;
+// scratch of scratch_bytes and tickets of ticket_words as
+// yt_span_topk_bp_plan asks; out [2kk] int32: the span's kk best scores,
+// then their docids.
+extern "C" int yt_span_topk_bp(const void* words, int64_t nw, int64_t wbase,
+                               const int32_t* meta, int64_t count,
+                               const void* dead, int64_t doc_cap,
+                               const int32_t* filt, const void* stats,
+                               const void* consts, int kk, void* scratch,
+                               int64_t scratch_bytes, void* tickets,
+                               int64_t ticket_words, void* out,
+                               void* stream) {
+  BpPlan P;
+  int KL = 0, smem = 0, grid = 0;
+  cudaError_t e = topk_bp_shape(words, nw, wbase, meta, count, kk, &P, &KL,
+                                &smem, &grid);
+  if (e != cudaSuccess) return (int)e;
+  if (scratch_bytes < (int64_t)grid * KL * 8 ||
+      ticket_words < (int64_t)TREE_WORDS * grid)
+    return (int)cudaErrorInvalidValue;
+  const Filter q = make_filter(filt, nullptr, 0);
+  topk_bp<<<grid, BP_THREADS, smem, (cudaStream_t)stream>>>(
+      P, (const uint8_t*)dead, doc_cap, q, (const int32_t*)stats,
+      (const int32_t*)consts, kk, KL, (u64*)scratch, (uint32_t*)tickets,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }

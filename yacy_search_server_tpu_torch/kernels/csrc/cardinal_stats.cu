@@ -117,11 +117,18 @@ struct Fold {
   template <typename T>
   __device__ __forceinline__ void row_tf(const T* f, int32_t tb) {
 #pragma unroll
-    for (int k = 0; k < NF; ++k) {
-      const int32_t v = (int32_t)f[k];
-      lmin[k] = min(lmin[k], v);
-      lmax[k] = max(lmax[k], v);
-    }
+    for (int k = 0; k < NF; ++k) col(k, (int32_t)f[k]);
+    tf_bits(tb);
+  }
+
+  // a row's value v of column k
+  __device__ __forceinline__ void col(int k, int32_t v) {
+    lmin[k] = min(lmin[k], v);
+    lmax[k] = max(lmax[k], v);
+  }
+
+  // a row's term frequency by its f32 bits
+  __device__ __forceinline__ void tf_bits(int32_t tb) {
     const float tf = __int_as_float(tb);
     if (tf != tf) {
       nan = 1;
@@ -384,36 +391,79 @@ stats_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
 // ---------------------------------------------------------------------------
 // The statistics pass of _rank_scan_batch_bp_kernel (JAX package,
 // devstore.py:1213, a slot of it): K6's fold over the live rows of one
-// packed span of `count` rows that pass the constraint filter, each row
-// decoded from the packed-words store (common.cuh unpack_row) where K6
-// stages the int16 arena's chunks. Fold and finish_stats are K6's (the
-// last block writes the statistics; the accumulator and ticket are
-// zeroed by the caller's memset). Bound: bytes, the packed payload
-// (row_bits / 8 a row) and the tombstone bytes; each thread decodes
-// rows of a grid stride, so a warp's 32 rows of a column share their
-// words in the L1.
-__global__ void __launch_bounds__(S_WARPS * 32, S_MIN_BLOCKS)
-stats_bp(const uint32_t* __restrict__ words, int64_t nw, int64_t wbase,
-         const PackMeta m, int64_t count, const uint8_t* __restrict__ dead,
+// packed span of `count` rows that pass the constraint filter. Fold and
+// finish_stats are K6's (the last block writes the statistics; the
+// accumulator and ticket are zeroed by the caller's memset).
+//
+// Bound: bytes, the packed payload (row_bits / 8 a row) and the tombstone
+// bytes the docids hit. What held the first version back was the decode,
+// not the bytes: each thread decoded one row a grid-stride step from the
+// store (unpack_row: 19 columns of two __ldg each, a 64-bit product and
+// two clamped word indices a value, the tombstone load waiting on it),
+// 3.6x K6 on the same rows. Now the block streams the span's tiles
+// through shared memory (common.cuh bp_run: blocks of 8 warps, two an
+// SM, three stages of cp.async copies, a tile's docids and their
+// tombstone loads a step before the rest) and each thread decodes its
+// two rows of a tile from the stage (bp_pair: a funnel shift, a mask and an add a value, no
+// clamp), the filter's columns first: a warp none of whose rows pass
+// decodes nothing more; then each column folded as it is decoded. The
+// flags are staged only where the filter tests a flag.
+__global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
+stats_bp(const __grid_constant__ BpPlan P, const uint8_t* __restrict__ dead,
          int64_t doc_cap, const Filter q, uint32_t* __restrict__ acc,
          uint32_t* __restrict__ ticket, int32_t* __restrict__ st) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ BpTabs tb;
   __shared__ uint32_t s_acc[STATS_LEN];
   __shared__ bool s_last;
-  __shared__ int32_t s_meta[META_LEN];
-  const int t = threadIdx.x;
-  if (t < META_LEN) s_meta[t] = m.v[t];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  bp_tables(P, tb, t);
   if (t < STATS_LEN) s_acc[t] = 0u;
   __syncthreads();
   const bool off = filter_off(q);
+  const bool with_flags = q.flag != NO_FLAG;
   Fold a;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + t; r < count;
-       r += step) {
-    int32_t f[NF], fl, d;
-    unpack_row(words, nw, wbase, s_meta, r, f, fl, d);
-    if (row_live(d, dead, doc_cap) && (off || row_passes(f, fl, d, q)))
-      a.row(f);
-  }
+  bp_run(
+      P, smem, blockIdx.x, gridDim.x, [] {},
+      [&](int64_t tile, const uint32_t* sw) {
+        return bp_head(P, tb, tile, sw, dead, doc_cap, lane, warp);
+      },
+      [&](int64_t, const uint32_t* sw, const BpGone& gone) {
+        int32_t lm[2], lg[2], fl[2] = {0, 0};
+        bp_pair(sw, P, tb, F_LASTMOD, lane, warp, lm[0], lm[1]);
+        bp_pair(sw, P, tb, F_LANGUAGE, lane, warp, lg[0], lg[1]);
+        if (with_flags) bp_pair(sw, P, tb, C_FLAGS, lane, warp, fl[0], fl[1]);
+        bool ok[2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          ok[m] = !gone.g[m] &&
+                  (off || constraint_ok(lg[m], lm[m], fl[m], q));
+        if (!__any_sync(0xffffffffu, ok[0] || ok[1])) return;
+        int32_t hit[2], text[2], title[2];
+#pragma unroll
+        for (int c = 0; c < NF; ++c) {
+          int32_t v[2];
+          if (c == F_LASTMOD) {
+            v[0] = lm[0], v[1] = lm[1];
+          } else if (c == F_LANGUAGE) {
+            v[0] = lg[0], v[1] = lg[1];
+          } else {
+            bp_pair(sw, P, tb, c, lane, warp, v[0], v[1]);
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            if (ok[m]) a.col(c, v[m]);
+            if (c == F_HITCOUNT) hit[m] = v[m];
+            if (c == F_WORDS_IN_TEXT) text[m] = v[m];
+            if (c == F_WORDS_IN_TITLE) title[m] = v[m];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+          if (ok[m])
+            a.tf_bits(__float_as_int(
+                term_frequency_of(hit[m], text[m], title[m])));
+      });
   finish_stats(a, s_acc, &s_last, acc, ticket, st, gridDim.x);
 }
 
@@ -831,22 +881,23 @@ extern "C" int yt_span_stats_bp(const void* words, int64_t nw, int64_t wbase,
                                 void* stream) {
   if (nw < 1 || count < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  PackMeta m;
-  for (int c = 0; c < META_LEN; ++c) m.v[c] = meta[c];
   const Filter q = make_filter(filt, nullptr, 0);
+  // every feature and the docids; the flags where the filter tests one
+  uint32_t staged = ((1u << NF) - 1u) | (1u << C_DOCIDS);
+  if (q.flag != NO_FLAG) staged |= 1u << C_FLAGS;
+  BpPlan P;
+  if (!make_bp_plan(words, nw, wbase, meta, count, staged, &P))
+    return (int)cudaErrorInvalidValue;
   int32_t* st = (int32_t*)out;
   uint32_t* acc = (uint32_t*)(st + STATS_LEN);
   uint32_t* ticket = acc + STATS_LEN;
   cudaError_t e = cudaMemsetAsync(acc, 0, (STATS_LEN + 1) * 4, s);
   if (e != cudaSuccess) return (int)e;
-  static int cached[64];
-  int limit = 0;
-  e = resident_blocks(stats_bp, S_WARPS * 32, 0, cached, &limit);
+  static int most[64], occ[64][BP_OCC];
+  int smem = 0, grid = 0;
+  e = bp_shape(stats_bp, P, 0, most, occ, &smem, &grid);
   if (e != cudaSuccess) return (int)e;
-  const int64_t blocks = (count + S_WARPS * 32 - 1) / (S_WARPS * 32);
-  const int grid = (int)(blocks < 1 ? 1 : (blocks < limit ? blocks : limit));
-  stats_bp<<<grid, S_WARPS * 32, 0, s>>>((const uint32_t*)words, nw, wbase,
-                                         m, count, (const uint8_t*)dead,
-                                         doc_cap, q, acc, ticket, st);
+  stats_bp<<<grid, BP_THREADS, smem, s>>>(P, (const uint8_t*)dead, doc_cap,
+                                          q, acc, ticket, st);
   return (int)cudaGetLastError();
 }

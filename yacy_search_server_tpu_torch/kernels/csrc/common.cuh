@@ -61,11 +61,17 @@ __device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
 }
 
 // hitcount / (wordsintext + wordsintitle + 1) in IEEE f32, rounded once
+__device__ __forceinline__ float term_frequency_of(int32_t hitcount,
+                                                   int32_t words_in_text,
+                                                   int32_t words_in_title) {
+  int32_t den = words_in_text + words_in_title + 1;
+  return __fdiv_rn(__int2float_rn(hitcount), __int2float_rn(den));
+}
 template <typename T>
 __device__ __forceinline__ float term_frequency(const T* f) {
-  int32_t den = (int32_t)f[F_WORDS_IN_TEXT] + (int32_t)f[F_WORDS_IN_TITLE] + 1;
-  return __fdiv_rn(__int2float_rn((int32_t)f[F_HITCOUNT]),
-                   __int2float_rn(den));
+  return term_frequency_of((int32_t)f[F_HITCOUNT],
+                           (int32_t)f[F_WORDS_IN_TEXT],
+                           (int32_t)f[F_WORDS_IN_TITLE]);
 }
 
 // float bits -> signed int ordered like the IEEE total order
@@ -324,37 +330,43 @@ __device__ __forceinline__ int32_t floordiv64(int32_t a, int32_t d,
 // One row's score with the constants in registers: every float step is
 // the first version's intrinsic, every integer step its value mod 2^32,
 // so the terms add up in any order. It is the terms that read the
-// statistics (stats_terms: the normalised columns and the tf term, of
-// term frequency `tf`), the ones that read only the profile's constants
-// (profile_terms: domlength, the language match, the flags; the same for
-// every slot of a batched scan's wave) and the authority term.
+// statistics (stats_terms: the normalised columns, each norm_term, and
+// the tf term of term frequency `tf`), the ones that read only the
+// profile's constants (profile_terms: domlength, the language match, the
+// flags; the same for every slot of a batched scan's wave) and the
+// authority term.
+template <bool FAST>
+__device__ __forceinline__ uint32_t norm_term(int c, int32_t v,
+                                              const RegConsts& k) {
+  const int32_t safe = k.safe[c];
+  const int32_t prod = (int32_t)((uint32_t)v * 256u + k.cneg[c]);
+  int32_t norm;
+  if (FAST) {
+    int32_t q0 = __float2int_rz(__fmul_rn(__int2float_rn(prod), k.rcp[c]));
+    int32_t rem = (int32_t)((uint32_t)prod - (uint32_t)q0 * (uint32_t)safe);
+    norm = q0 + (rem >= safe ? 1 : 0) - (rem < 0 ? 1 : 0);
+  } else {
+    norm = floordiv64(prod, safe, k.rcp64[c]);
+  }
+  uint32_t contrib = is_direct(c) ? (uint32_t)norm : 256u - (uint32_t)norm;
+  return shl32(contrib, k.shift[c]);
+}
+
+__device__ __forceinline__ uint32_t tf_term(float tf, const RegConsts& k) {
+  if (!(k.tspan > 0.0f)) return 0u;
+  float x = __fdiv_rn(__fmul_rn(__fsub_rn(tf, k.tmin), 256.0f), k.tden);
+  return shl32((uint32_t)__float2int_rz(x), k.tf_shift);
+}
+
 template <typename T, bool FAST>
 __device__ __forceinline__ uint32_t stats_terms(const T* f,
                                                 const RegConsts& k,
                                                 float tf) {
   uint32_t score = 0;
 #pragma unroll
-  for (int c = 0; c < NF; ++c) {
-    if (!is_active(c)) continue;
-    const int32_t safe = k.safe[c];
-    const int32_t prod = (int32_t)((uint32_t)(int32_t)f[c] * 256u + k.cneg[c]);
-    int32_t norm;
-    if (FAST) {
-      int32_t q0 = __float2int_rz(__fmul_rn(__int2float_rn(prod), k.rcp[c]));
-      int32_t rem =
-          (int32_t)((uint32_t)prod - (uint32_t)q0 * (uint32_t)safe);
-      norm = q0 + (rem >= safe ? 1 : 0) - (rem < 0 ? 1 : 0);
-    } else {
-      norm = floordiv64(prod, safe, k.rcp64[c]);
-    }
-    uint32_t contrib = is_direct(c) ? (uint32_t)norm : 256u - (uint32_t)norm;
-    score += shl32(contrib, k.shift[c]);
-  }
-  if (k.tspan > 0.0f) {
-    float x = __fdiv_rn(__fmul_rn(__fsub_rn(tf, k.tmin), 256.0f), k.tden);
-    score += shl32((uint32_t)__float2int_rz(x), k.tf_shift);
-  }
-  return score;
+  for (int c = 0; c < NF; ++c)
+    if (is_active(c)) score += norm_term<FAST>(c, (int32_t)f[c], k);
+  return score + tf_term(tf, k);
 }
 
 __device__ __forceinline__ uint32_t profile_terms(int32_t domlength,
@@ -894,6 +906,204 @@ __device__ __forceinline__ void item_range(int items, int w, int& lo,
 }
 
 // ---------------------------------------------------------------------------
+// The kk best rows of a scan kept in the pass (the batched K7's and
+// K7bp's selection)
+// ---------------------------------------------------------------------------
+// The order is the JAX merge's: score descending, then the row's place in
+// its scan ascending, as one 64-bit key a row (score ^ 2^31 above, the
+// place's complement below: a larger key ranks first; every key is
+// distinct, so the order is total and the answer does not depend on which
+// block finishes first). Rows at or below -(2^31-1) are never kept: the
+// JAX merge ranks them after its init entries (-(2^31-1), -1), which is
+// what a scan of fewer rows gets in their place.
+//   - a block holds for each of its G slots a sorted
+//     list of KL keys (KL = the power of two at or above kk) and a buffer
+//     of candidates in shared memory (slot k's at lists + k * LW: the
+//     list, then the buffer), and a threshold: the list's kk-th key. A row
+//     whose key is above it is appended to the buffer (append_key: one
+//     shared atomic a warp). A buffer that another step could overfill is
+//     sorted (bitonic) and merged into the list (flush_cands): the list
+//     becomes the best KL of both (the maximum of the list and the
+//     reversed buffer element by element, a bitonic sequence, then a
+//     bitonic merge), and the threshold rises;
+//   - at the end each block's lists go to a scratch in device memory and
+//     the blocks merge them pairwise up a tree (merge_tree): of the two
+//     blocks of a pair, the second to arrive (an atomic ticket after a
+//     fence, as in cardinal_stats) merges its partner's lists into its own
+//     and goes up; the one that merges at the root holds the answer;
+//   - the tickets live in a buffer of the caller that every call leaves
+//     at zero (the second of a pair resets its ticket): TREE_WORDS a block.
+using u64 = unsigned long long;
+constexpr int FUSED_KK = 2048;      // the largest kk the selection takes
+constexpr int TREE_WORDS = 16;      // ticket words a block (tree levels)
+
+__device__ __forceinline__ u64 row_key(int32_t score, int64_t pos) {
+  return ((u64)((uint32_t)score ^ 0x80000000u) << 32) |
+         (u64)(~(uint32_t)pos);
+}
+
+// The score and place of a kept key.
+__device__ __forceinline__ int32_t key_score(u64 key) {
+  return (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
+}
+__device__ __forceinline__ int64_t key_place(u64 key) {
+  return (int64_t)(~(uint32_t)key);
+}
+
+// The lanes of a warp whose `c` holds append their keys to a slot's
+// buffer, one shared atomic for the warp.
+__device__ __forceinline__ void append_key(bool c, u64 key, u64* cand,
+                                           int* cnt, int lane) {
+  const unsigned m = __ballot_sync(0xffffffffu, c);
+  if (m == 0u) return;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(cnt, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (c) cand[base + __popc(m & ((1u << lane) - 1u))] = key;
+}
+
+// Every thread of the block calls these.
+
+// pair i of p in a bitonic stage of stride h (a power of two)
+__device__ __forceinline__ int pair_lo(int p, int h) {
+  return ((p & ~(h - 1)) << 1) | (p & (h - 1));
+}
+
+// Sort the first `size` candidates (a power of two) of each slot in
+// `need` descending.
+__device__ inline void sort_cands(u64* lists, int LW, int KL, int G,
+                                  unsigned need, int size) {
+  const int t = threadIdx.x, half = size >> 1;
+  for (int len = 2; len <= size; len <<= 1)
+    for (int h = len >> 1; h > 0; h >>= 1) {
+      for (int i2 = t; i2 < G * half; i2 += blockDim.x) {
+        const int k = i2 / half, i = pair_lo(i2 - k * half, h);
+        if (!((need >> k) & 1u)) continue;
+        u64* c = lists + k * LW + KL;
+        const u64 a = c[i], z = c[i + h];
+        if ((a < z) == ((i & len) == 0)) {
+          c[i] = z;
+          c[i + h] = a;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// Each slot k in `need`: its list becomes the best KL keys of the list
+// and of src + k * sstride (n keys sorted descending, 0 past them; in
+// device memory where GLOBAL), sorted descending.
+template <bool GLOBAL>
+__device__ inline void merge_top(u64* lists, int LW, int KL, int G,
+                                 unsigned need, const u64* src,
+                                 int64_t sstride, int n) {
+  const int t = threadIdx.x;
+  for (int i2 = t; i2 < G * KL; i2 += blockDim.x) {
+    const int k = i2 / KL, i = i2 - k * KL;
+    if (!((need >> k) & 1u)) continue;
+    const int xx = KL - 1 - i;
+    u64 o = 0;
+    if (xx < n) {
+      const u64* p = src + k * sstride + xx;
+      o = GLOBAL ? __ldcg(p) : *p;
+    }
+    u64* L = lists + k * LW;
+    if (o > L[i]) L[i] = o;
+  }
+  __syncthreads();
+  const int half = KL >> 1;
+  for (int h = half; h > 0; h >>= 1) {
+    for (int i2 = t; i2 < G * half; i2 += blockDim.x) {
+      const int k = i2 / half, i = pair_lo(i2 - k * half, h);
+      if (!((need >> k) & 1u)) continue;
+      u64* L = lists + k * LW;
+      const u64 a = L[i], z = L[i + h];
+      if (a < z) {
+        L[i] = z;
+        L[i + h] = a;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Merge the candidates of each slot in `need` into its list; its
+// threshold becomes the list's kk-th key and its buffer empty.
+__device__ inline void flush_cands(u64* lists, int LW, int KL, int kk, int G,
+                                   unsigned need, int* s_cnt, u64* s_thr) {
+  const int t = threadIdx.x;
+  int most = 1;
+  for (int k = 0; k < G; ++k)
+    if ((need >> k) & 1u) most = s_cnt[k] > most ? s_cnt[k] : most;
+  int size = 1;
+  while (size < most) size <<= 1;
+  for (int i2 = t; i2 < G * size; i2 += blockDim.x) {
+    const int k = i2 / size, i = i2 - k * size;
+    if (((need >> k) & 1u) && i >= s_cnt[k]) lists[k * LW + KL + i] = 0;
+  }
+  __syncthreads();
+  sort_cands(lists, LW, KL, G, need, size);
+  merge_top<false>(lists, LW, KL, G, need, lists + KL, LW, size);
+  if (t < G && ((need >> t) & 1u)) {
+    s_thr[t] = lists[t * LW + kk - 1];
+    s_cnt[t] = 0;
+  }
+  __syncthreads();
+}
+
+// The `blocks` blocks' lists merged pairwise up a tree: node `node` of
+// level `lvl` keeps its lists at leaf node << lvl of the scratch gl (slot
+// k's of leaf l at k * kstride + l * KL), its ticket at word lvl * blocks
+// + node / 2 of tk (TREE_WORDS * blocks words, zero). Returns true in the
+// block that holds the merged lists at the end (the root); every other
+// block returns false as soon as its lists are handed up.
+__device__ inline bool merge_tree(u64* lists, int LW, int KL, int G, u64* gl,
+                                  int64_t kstride, uint32_t* tk, int block,
+                                  int blocks, bool* s_go) {
+  const int t = threadIdx.x;
+  int node = block, n = blocks, lvl = 0;
+  if (n > 1) {
+    for (int i2 = t; i2 < G * KL; i2 += blockDim.x) {
+      const int k = i2 / KL, i = i2 - k * KL;
+      gl[k * kstride + (int64_t)node * KL + i] = lists[k * LW + i];
+    }
+    __threadfence();
+    __syncthreads();
+  }
+  const unsigned all = G >= 32 ? ~0u : (1u << G) - 1u;
+  while (n > 1) {
+    const int partner = node ^ 1;
+    const bool pair = partner < n;
+    if (pair) {
+      if (t == 0) {
+        uint32_t* w = tk + lvl * blocks + (node >> 1);
+        const uint32_t old = atomicAdd(w, 1u);
+        if (old) *w = 0u;
+        *s_go = old != 0u;
+      }
+      __syncthreads();
+      if (!*s_go) return false;
+      __threadfence();
+      merge_top<true>(lists, LW, KL, G, all,
+                      gl + (int64_t)(partner << lvl) * KL, kstride, KL);
+    }
+    node >>= 1;
+    ++lvl;
+    n = (n + 1) >> 1;
+    if (pair && n > 1) {
+      for (int i2 = t; i2 < G * KL; i2 += blockDim.x) {
+        const int k = i2 / KL, i = i2 - k * KL;
+        gl[k * kstride + (int64_t)(node << lvl) * KL + i] =
+            lists[k * LW + i];
+      }
+      __threadfence();
+      __syncthreads();
+    }
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
 // K12: the decode of a bit-packed block (ops/packed.py)
 // ---------------------------------------------------------------------------
 // Replaces ops/packed.unpack_rows_dev of the JAX package (packed.py:205),
@@ -958,6 +1168,285 @@ __device__ __forceinline__ void unpack_row(const uint32_t* __restrict__ words,
   for (int c = 0; c < NF; ++c) f[c] = unpack_col(words, nw, wbase, m, c, i);
   fl = unpack_col(words, nw, wbase, m, C_FLAGS, i);
   d = unpack_col(words, nw, wbase, m, C_DOCIDS, i);
+}
+
+// ---------------------------------------------------------------------------
+// A bit-packed block read in staged tiles (K6bp, K7bp)
+// ---------------------------------------------------------------------------
+// A block of `count` rows is cut into tiles of BP_TILE rows, two a
+// thread of a block. Column c's bits for tile t are the words [wbase +
+// m[c] + BP_RUN t w, + BP_RUN w) of the store (BP_RUN = BP_TILE / 32
+// words a bit of width): whole words, since BP_TILE is a multiple of 32.
+// A block of BP_THREADS threads walks the tiles block, block + blocks,
+// ... (bp_run): warp u copies the runs of the staged columns u, u +
+// BP_WARPS, ... of a tile into a stage of a ring of BP_STAGES
+// (bp_issue_tile), by 16-byte cp.async with the source size: each run
+// from its start aligned down to 16 bytes (the head skip, a column's
+// constant: BP_RUN t w is a multiple of 4 words), read up to its last
+// word or the store's end and no further, the rest of its last 16 bytes
+// and one more word zero-filled (the high word of the run's last value,
+// whose bits are masked off). A tile is taken in two steps: its docids
+// and their tombstone loads when it lands, the rest a step later, so that
+// the random tombstone bytes (misses of the L2 while the stream runs)
+// arrive under a step's decode; BP_STAGES - 2 tiles are in flight
+// meanwhile; one barrier a step.
+//
+// The decode reads the stage, never the store, with no clamp: lane l of
+// warp u takes the tile's rows r = 32 u + l and r + BP_HALF (bp_pair).
+// Row r's value of a column of width w starts at bit r w of its run: the
+// words r w / 32 and the next, the shift (r w) % 32 = (l w) % 32 (32 u w
+// and BP_HALF w are whole words), 32-bit offsets (r w < 2^15); a funnel
+// shift of the two shared words, the mask, the minimum added, as
+// unpack_value. The 32 lanes of a warp read w + 1 consecutive words of a
+// column: no bank conflict beyond broadcasts. Each column's per-lane word
+// offset and shift sit in a table made once a launch (bp_tables); its
+// width, mask and minimum are the plan's, a kernel parameter, which the
+// instructions read as constant-bank operands (no shared load).
+//
+// Bit for bit as unpack_value for every row below the count: the words a
+// value needs lie in its run (the high word is read past the run only
+// where no bit of it is kept), which the stage holds as the store does;
+// the clamp of unpack_value changes only words past the store, which no
+// such value needs. A row at or past the count decodes garbage and is
+// dropped before anything is read through it.
+constexpr int BP_WARPS = 8;                // two blocks an SM (PERF.md)
+constexpr int BP_THREADS = BP_WARPS * 32;
+constexpr int BP_TILE = 2 * BP_THREADS;    // rows a tile: two a thread
+constexpr int BP_HALF = BP_TILE / 2;       // a lane's second row
+constexpr int BP_RUN = BP_TILE / 32;       // a tile's words a bit of width
+constexpr int BP_MIN_BLOCKS = 16 / BP_WARPS;  // up to 128 registers
+constexpr int BP_STAGES = 3;  // four measured no faster (PERF.md)
+
+struct BpPlan {
+  const uint32_t* words;
+  int64_t nw, wbase, count, tiles;
+  int64_t a0[NCOLS];     // column c's tile-0 copy start (a store word)
+  int32_t head[NCOLS];   // its run's first word past a0 (0..3)
+  int32_t w[NCOLS], vmin[NCOLS];
+  int32_t soff[NCOLS];   // its region in a stage (words, a multiple of 4)
+  uint32_t mask[NCOLS];  // the mask of its width
+  int32_t col[NCOLS];    // the staged columns, in stage order
+  int32_t ncol, stage_words;
+  PackMeta m;
+};
+
+// The plan of the block at word wbase (meta vector `meta`, host memory)
+// of the store `words` of nw words, its columns in the bit set `staged`
+// staged; false on a width outside 0..32 or a column outside the store.
+// A column's region holds its head skip, BP_RUN w words and two more.
+__host__ inline bool make_bp_plan(const void* words, int64_t nw,
+                                  int64_t wbase, const int32_t* meta,
+                                  int64_t count, uint32_t staged,
+                                  BpPlan* p) {
+  *p = BpPlan{};
+  p->words = (const uint32_t*)words;
+  p->nw = nw;
+  p->wbase = wbase;
+  p->count = count;
+  p->tiles = (count + BP_TILE - 1) / BP_TILE;
+  for (int i = 0; i < META_LEN; ++i) p->m.v[i] = meta[i];
+  const uint64_t wq = (uint64_t)(uintptr_t)words >> 2;
+  int32_t off = 0;
+  for (int c = 0; c < NCOLS; ++c) {
+    const int32_t w = meta[NCOLS + c];
+    if (w < 0 || w > 32) return false;
+    p->w[c] = w;
+    p->vmin[c] = meta[2 * NCOLS + c];
+    p->mask[c] = w >= 32 ? 0xffffffffu : (1u << w) - 1u;
+    if (!((staged >> c) & 1u)) continue;
+    const int64_t s = wbase + meta[c];
+    if (s < 0 || s > nw) return false;
+    const int head = (int)((wq + (uint64_t)s) & 3u);
+    p->a0[c] = s - head;
+    p->head[c] = head;
+    p->soff[c] = off;
+    off += (head + BP_RUN * w + 2 + 3) & ~3;
+    p->col[p->ncol++] = c;
+  }
+  p->stage_words = off;
+  return true;
+}
+
+struct BpTabs {
+  uint2 lane[NCOLS][32];  // the lane's first row: stage word, shift
+};
+
+// Threads t of the block fill the tables (the caller syncs).
+__device__ __forceinline__ void bp_tables(const BpPlan& P, BpTabs& tb,
+                                          int t) {
+  for (int i = t; i < NCOLS * 32; i += BP_THREADS) {
+    const int c = i >> 5, l = i & 31;
+    const uint32_t lw = (uint32_t)l * (uint32_t)P.w[c];
+    tb.lane[c][l] =
+        make_uint2((uint32_t)(P.soff[c] + P.head[c]) + (lw >> 5), lw & 31u);
+  }
+}
+
+// Warp `warp` starts the copies of its columns' runs of tile t into the
+// stage st: the whole 16-byte chunks, then the ragged one and the pad
+// word, zero past the run (cp.async with the source size).
+__device__ __forceinline__ void bp_issue_tile(const BpPlan& P, int64_t t,
+                                              unsigned char* st, int warp,
+                                              int lane) {
+  const int64_t left = P.count - t * BP_TILE;
+  const int nr = left < BP_TILE ? (int)left : BP_TILE;
+  for (int j = warp; j < P.ncol; j += BP_WARPS) {
+    const int c = P.col[j];
+    const int w = P.w[c];
+    const int64_t a = P.a0[c] + t * BP_RUN * w;
+    // the run's words from a, cut at the store's end
+    int n = P.head[c] + ((nr * w + 31) >> 5);
+    if (a + n > P.nw) n = (int)(P.nw - a);
+    const uint32_t* src = P.words + a;
+    unsigned char* dst = st + 4 * P.soff[c];
+    const int full = n >> 2;
+    for (int k = lane; k < full; k += 32) cp_async16(dst + 16 * k, src + 4 * k);
+    for (int k = full + lane; k < ((n + 5) >> 2); k += 32) {
+      const int m = n - 4 * k;
+      cp_async16_n(dst + 16 * k, m > 0 ? src + 4 * k : src,
+                   m > 0 ? 4u * (uint32_t)m : 0u);
+    }
+  }
+}
+
+// Column c of the thread's two rows of the tile staged at st: the lane's
+// word offset and shift from the table, the width, mask and minimum from
+// the plan (a kernel parameter: operands of the constant bank).
+__device__ __forceinline__ void bp_pair(const uint32_t* st, const BpPlan& P,
+                                        const BpTabs& tb, int c, int lane,
+                                        int warp, int32_t& v0, int32_t& v1) {
+  const uint2 L = tb.lane[c][lane];
+  const uint32_t w = (uint32_t)P.w[c];
+  const uint32_t* p = st + L.x + (uint32_t)warp * w;
+  v0 = (int32_t)((__funnelshift_r(p[0], p[1], L.y) & P.mask[c]) +
+                 (uint32_t)P.vmin[c]);
+  p += BP_HALF / 32 * w;
+  v1 = (int32_t)((__funnelshift_r(p[0], p[1], L.y) & P.mask[c]) +
+                 (uint32_t)P.vmin[c]);
+}
+
+// The thread's two rows of tile t staged at st, as far as the tombstone
+// loads: each row's tombstone byte (1: the row is gone: past the tile's
+// rows, a pad docid or dead, row_live's rule), its load issued as soon
+// as the docid is decoded and read a step later (bp_run).
+struct BpGone {
+  uint32_t g[2];
+};
+__device__ __forceinline__ BpGone bp_head(const BpPlan& P, const BpTabs& tb,
+                                          int64_t t, const uint32_t* st,
+                                          const uint8_t* __restrict__ dead,
+                                          int64_t doc_cap, int lane,
+                                          int warp) {
+  const int64_t nr = P.count - t * BP_TILE;
+  const int r0 = 32 * warp + lane;
+  int32_t d[2];
+  bp_pair(st, P, tb, C_DOCIDS, lane, warp, d[0], d[1]);
+  BpGone out;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    out.g[m] = 1u;
+    if (r0 + m * BP_HALF < nr && d[m] >= 0)
+      out.g[m] = d[m] < doc_cap ? (uint32_t)__ldg(dead + d[m]) : 0u;
+  }
+  return out;
+}
+
+// The block's tiles block, block + blocks, ... through a ring of
+// BP_STAGES stages at smem. Each step begins with a barrier, then
+// at_barrier() (every thread), then the copies of a later tile into the
+// stage freed in the step before. A tile is taken by head(t, stage) (every
+// thread; the docids and their tombstone loads, BpGone) in the step its
+// copies land and by body(t, stage, gone) (every thread) in the next, so
+// that a tombstone load has a whole step to arrive; BP_STAGES - 2 tiles
+// are in flight meanwhile.
+template <typename AtBarrier, typename Head, typename Body>
+__device__ __forceinline__ void bp_run(const BpPlan& P, unsigned char* smem,
+                                       int block, int blocks,
+                                       AtBarrier at_barrier, Head head,
+                                       Body body) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t steps =
+      P.tiles > block ? (P.tiles - block + blocks - 1) / blocks : 0;
+  constexpr int ahead = BP_STAGES - 2;
+  const size_t sb = (size_t)P.stage_words * 4;
+  auto stage = [&](int s) { return (const uint32_t*)(smem + s * sb); };
+  auto next_stage = [&](int s) { return s + 1 == BP_STAGES ? 0 : s + 1; };
+  int s_issue = 0;
+  auto issue = [&](int64_t i) {
+    if (i < steps)
+      bp_issue_tile(P, block + i * blocks, (unsigned char*)stage(s_issue),
+                    warp, lane);
+    cp_async_commit();
+    s_issue = next_stage(s_issue);
+  };
+  for (int i = 0; i < ahead; ++i) issue(i);
+  BpGone cur{};
+  int s_cur = 0, s_prev = 0;
+  for (int64_t i = 0; i <= steps; ++i) {
+    // tile i's copies landed, the later ones may be in flight
+    cp_async_wait<ahead - 1>();
+    __syncthreads();
+    at_barrier();
+    issue(i + ahead);
+    BpGone next{};
+    if (i < steps) next = head(block + i * blocks, stage(s_cur));
+    if (i > 0) body(block + (i - 1) * blocks, stage(s_prev), cur);
+    cur = next;
+    s_prev = s_cur;
+    s_cur = next_stage(s_cur);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The dynamic shared memory a launch of `kernel` takes (BP_STAGES stages
+// and `extra` bytes) and its grid (the tiles, at most the blocks
+// the card holds at once, at least one). Cached per device: in most[64]
+// the dynamic shared memory a block may take (set on the kernel at the
+// first call), in occ[64][BP_OCC] the blocks an SM holds for each 2 KB of
+// dynamic shared memory (the query asks for the 2 KB above the launch's).
+// cudaErrorInvalidConfiguration where that does not fit.
+constexpr int BP_OCC = 128;  // 2 KB steps of dynamic shared memory
+template <typename K>
+__host__ cudaError_t bp_shape(K kernel, const BpPlan& P, int64_t extra,
+                              int* most, int (*occ)[BP_OCC], int* smem,
+                              int* grid) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (most[dev] <= 0) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    const int m = optin - (int)fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, m);
+    if (e != cudaSuccess) return e;
+    most[dev] = m;
+  }
+  const int64_t sb = (int64_t)P.stage_words * 4;
+  if (BP_STAGES * sb + extra > most[dev]) return cudaErrorInvalidConfiguration;
+  *smem = (int)(BP_STAGES * sb + extra);
+  const int step = (*smem + 2047) / 2048;
+  if (step >= BP_OCC) return cudaErrorInvalidConfiguration;
+  if (occ[dev][step] <= 0) {
+    int per_sm = 0, sms = 0;
+    const int q = step * 2048 < most[dev] ? step * 2048 : most[dev];
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      BP_THREADS, q);
+    if (e != cudaSuccess) return e;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    occ[dev][step] = (per_sm < 1 ? 1 : per_sm) * sms;
+  }
+  const int64_t limit = occ[dev][step];
+  *grid = (int)(P.tiles < 1 ? 1 : (P.tiles < limit ? P.tiles : limit));
+  return cudaSuccess;
 }
 
 // How many blocks of `kernel` (threads, smem dynamic bytes) the card holds

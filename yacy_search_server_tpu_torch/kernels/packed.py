@@ -1,6 +1,6 @@
 """The packed-residency kernels: K12 `unpack_rows`, K5bp `pruned_tile_bp`,
-K6bp `span_stats_bp`, K7bp `span_score_bp`, `topk_finish_bp` and K13
-`pack_block_batch`.
+K6bp `span_stats_bp`, K7bp `span_topk_bp` and `span_score_bp`,
+`topk_finish_bp` and K13 `pack_block_batch`.
 
 They read the packed-words store of index/devstore.DeviceArena: int32
 [nw] holding every resident block's word stream (ops/packed.py), a block
@@ -17,11 +17,15 @@ bitmap `dead` bool [doc_cap] and the per-tile bound rows `pmax` int32.
   slot the first TILE rows decoded and scored against the frozen
   statistics, the kk best by (score descending, row ascending) with their
   docids decoded, and the pmax tail check; [bs, 2kk + 1].
-- `span_stats_bp` (csrc/cardinal_stats.cu), `span_score_bp`
-  (csrc/cardinal_score.cu), kernel 3 `tie_topk` (index mode) and
-  `topk_finish_bp` (csrc/pruned_tile.cu) replace _rank_scan_batch_bp_kernel
+- `span_stats_bp` (csrc/cardinal_stats.cu) and `span_topk_bp`
+  (csrc/cardinal_score.cu) replace _rank_scan_batch_bp_kernel
   (devstore.py:1213) for one span: statistics over the live rows that
-  pass the filter, their scores, the kk best, their docids decoded.
+  pass the filter, then their scores with the kk best kept in the pass
+  and their docids decoded. Both stream the span's tiles through shared
+  memory and decode there (csrc/common.cuh bp_run). Past KD.FUSED_KK,
+  `span_score_bp` writes a score a row, kernel 3 `tie_topk` (index mode)
+  ranks them and `topk_finish_bp` (csrc/pruned_tile.cu) decodes the
+  winners' docids.
 - `pack_block_batch` (csrc/packed.cu) replaces ingest/devbuild.
   _pack_block_batch_kernel (devbuild.py:71): B blocks bit-packed at once,
   each equal word for word to ops/packed.pack_block.
@@ -188,7 +192,7 @@ def pruned_tile_bp(words, dead, pmax, desc, kk: int, consts):
 
 
 # ---------------------------------------------------------------------------
-# K6bp span_stats_bp, K7bp span_score_bp
+# K6bp span_stats_bp, K7bp span_score_bp and span_topk_bp
 # ---------------------------------------------------------------------------
 
 def _decoded_steps(words, dead, wbase, meta, count, filt):
@@ -282,6 +286,59 @@ def span_score_bp(words, dead, wbase: int, meta, count: int, stats, consts,
         B.stream_ptr(dev))
     B.check(rc, "span_score_bp")
     B.count_launch("span_score_bp")
+    return out
+
+
+def span_topk_bp_plain(words, dead, wbase: int, meta, count: int, stats,
+                       consts, kk: int, filt=None):
+    """Plain PyTorch version of K7bp with its selection: K7bp's, kernel
+    3's (index mode) and topk_finish_bp's: [2kk]."""
+    buf = span_score_bp_plain(words, dead, wbase, meta, count, stats,
+                              consts, max(count, kk), filt)
+    top_s, top_rows, _ = tie_topk_plain(buf, kk)
+    return topk_finish_bp_plain(top_s, top_rows, words, wbase, meta, count)
+
+
+def span_topk_bp(words, dead, wbase: int, meta, count: int, stats, consts,
+                 kk: int, filt=None):
+    """K7bp with its selection: the rows of the packed span of `count`
+    rows at word `wbase` scored against `stats` (int32[38]) under the
+    filter, and its kk best (score descending, then row ascending: the
+    JAX merge's order) as scores and docids, (-(2^31-1), -1) where fewer
+    than kk rows are live and pass: [2kk] int32, _rank_scan_batch_bp_
+    kernel's row; 1 <= kk <= KD.FUSED_KK. One launch."""
+    wbase, count, kk = int(wbase), int(count), int(kk)
+    if not 1 <= kk <= KD.FUSED_KK:
+        raise ValueError(f"kk={kk} outside [1, {KD.FUSED_KK}]")
+    m = _meta_arg(meta)
+    q = KD.filter_args(filt)
+    _check_block(words, wbase, count)
+    if words.device.type == "cpu":
+        return span_topk_bp_plain(words, dead, wbase, m, count, stats,
+                                  consts, kk, q)
+    dev = words.device
+    _require_words(words, dead, dev)
+    B.require(stats, "stats", (torch.int32,), 1, dev)
+    B.require(consts, "consts", (torch.int32,), 1, dev)
+    lib = B.library()
+    # the scratch and ticket words for as many blocks as the card holds
+    plan = (ctypes.c_int64 * 2)()
+    filt_arg = KD._filt_arg(q)
+    out = torch.empty(2 * kk, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        B.check(lib.yt_span_topk_bp_plan(kk, plan), "span_topk_bp")
+        scratch = torch.empty(int(plan[0]), dtype=torch.uint8, device=dev)
+        stream = B.stream_ptr(dev)
+        tickets = KD._join_counters(dev, stream, "span_topk_bp",
+                                    int(plan[1]))
+        rc = lib.yt_span_topk_bp(
+            words.data_ptr(), words.shape[0], wbase, m.ctypes.data, count,
+            dead.data_ptr(), dead.shape[0], ctypes.addressof(filt_arg),
+            stats.data_ptr(), consts.data_ptr(), kk, scratch.data_ptr(),
+            scratch.numel(), tickets.data_ptr(), tickets.numel(),
+            out.data_ptr(), stream)
+    B.check(rc, "span_topk_bp")
+    B.count_launch("span_topk_bp")
     return out
 
 
