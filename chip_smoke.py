@@ -25,7 +25,10 @@ Phases, each of which exits non-zero on failure:
    of order; the devstore kernels on an edge store
    (kernels/bench.devstore_edges): K5 pruned_tile at bs = 1, 16 and 20
    with pad slots and kk = 16, 128, 1024, 2048 in both forms, under the
-   default profile and one whose bound fails, K6 span_stats and K7
+   default profile and one whose bound fails, K5 and K5bp
+   pruned_tile_bp on the tile edges (kernels/bench.TILE_EDGE_TERMS: a
+   span shorter than kk, one of one tile, one all dead, equal scores
+   across the CTAs' boundaries) at kk = 16, 128, 2048, K6 span_stats and K7
    span_score over 1, 2 and 8 extents (offset, ragged, all dead, empty),
    and topk_finish in both forms; K8 join_member on a join edge store
    (kernels/bench.join_edges: excludes only, a partner meeting no row
@@ -792,6 +795,47 @@ def main() -> int:
                             and int(g[0, 2 * kk]) != 0:
                         fail("pruned_tile: the big edge term's bound "
                              "should fail under the escalating profile")
+    # K5 and K5bp on the tile edges (kernels/bench.TILE_EDGE_TERMS: places
+    # past a short span's count, a whole tile, every row dead, equal scores
+    # across the CTAs' boundaries), an int16 store and a packed one, the
+    # four spans in one descriptor
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    log(f"K5 / K5bp cluster (CTAs a slot, clusters the card holds): "
+        f"{KD.pruned_tile_cluster(dev)}, "
+        f"{KD.pruned_tile_cluster(dev, packed=True)}")
+    shift, lterm = (int(v) for v in TD.prune_bound_consts(
+        ds_profiles["default"]))
+    for packed in (False, True):
+        tes = KB.tile_edges(RWIIndex(), lambda idx, p_=packed: (
+            TD.DeviceSegmentStore(idx, device=dev, packed_residency=p_)))
+        sps = [tes.spans_for(th)[0] for th in KB.TILE_EDGE_TERMS]
+        slots = [(sp.pbase if packed else sp.start, sp.count, sp.tstart,
+                  sp.tcount, sp.stats["col_min"], sp.stats["col_max"],
+                  sp.stats["tf_min"], sp.stats["tf_max"]) for sp in sps]
+        dead_t, pmax_t = tes.arena.dead_array(), tes.arena._pmax
+        for kk in (16, 128, 2048):
+            if packed:
+                desc = KP.pack_desc_bp(slots, [sp.pmeta for sp in sps],
+                                       shift, lterm)
+                pw_t = tes.arena.packed_array()
+                forms = [("pruned_tile_bp",
+                          KP.pruned_tile_bp(pw_t, dead_t, pmax_t, desc, kk,
+                                            ds_consts["default"]),
+                          KP.pruned_tile_bp_plain(pw_t, dead_t, pmax_t, desc,
+                                                  kk, ds_consts["default"]))]
+            else:
+                desc = KD.pack_desc(slots, shift, lterm)
+                ta_t = (*tes.arena.arrays(), dead_t, pmax_t)
+                forms = [("pruned_tile",
+                          KD.pruned_tile(*ta_t, desc, kk,
+                                         ds_consts["default"], init),
+                          KD.pruned_tile_plain(*ta_t, desc, kk,
+                                               ds_consts["default"], init))
+                         for init in (False, True)]
+            torch.cuda.synchronize()
+            for name, g, w in forms:
+                note(name, f"tile edges kk={kk}", diff(g, w))
+        del tes
     for n_ext in (1, 2, 8):
         ext = KB.edge_extents(edge, n_ext)
         st = KD.span_stats(ea[0], ea[2], ea[3], ext)
@@ -3402,7 +3446,7 @@ def main() -> int:
         return len(names) or None, names
 
     def measure(name, replaces, src, kern, plain, lib, nbytes, nops, shape,
-                path="placed", plain_reps=3, plain_ms=None):
+                path="placed", plain_reps=3, plain_ms=None, slots=None):
         # plain_ms: the plain version's time from its one checked call
         ms, dev_ms = KB.call_ms(kern), KB.device_ms(kern)
         if plain_ms is None:
@@ -3435,7 +3479,8 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev, "shape": shape, "path": path})
+            "library_device_ms": lib_dev, "shape": shape, "path": path,
+            "slots": slots})
 
     def gather_work(m, run_len, k):
         """kernel 4's bytes (8 a row in, 8 a winner out) and the merge's
@@ -3599,7 +3644,7 @@ def main() -> int:
                 + 8 + 4 * KC.CONSTS_LEN, 0.0,
                 f"{bs} slot(s) x one 32,768-row tile of the 10M term, "
                 f"kk={kk}, {sp.tcount}-tile pmax tail (rank_term, pruned)",
-                path="devstore")
+                path="devstore", slots=bs)
     esc_end = ends["10M escalating k=100"]
     b_esc = (int(esc_end[2:]) if esc_end.startswith("b=")
              else TD._PRUNE_B[-1])
@@ -3779,7 +3824,8 @@ def main() -> int:
                 + 4 * KC.CONSTS_LEN, 0.0,
                 f"{bs} slot(s) of the 10M term's block, its first "
                 f"32,768-row tile decoded ({psp.row_bits} bits a row), "
-                f"kk={kk}, {psp.tcount}-tile pmax tail", path="packed")
+                f"kk={kk}, {psp.tcount}-tile pmax tail", path="packed",
+                slots=bs)
         d16 = KD.pack_desc([(sp.start, sp.count, sp.tstart, sp.tcount,
                              sp.stats["col_min"], sp.stats["col_max"],
                              sp.stats["tf_min"], sp.stats["tf_max"])] * bs,
@@ -4162,7 +4208,8 @@ def main() -> int:
             f"16 slots over 16 queries' spans ({len(one_span)} terms of "
             f"{min(s_.count for s_ in one_span)}-"
             f"{max(s_.count for s_ in one_span)} rows in turn), kk={kk}, "
-            "the batcher's K5 wave (no init entries)", path="batched")
+            "the batcher's K5 wave (no init entries)", path="batched",
+            slots=16)
 
     def filt_of(kw):
         lo, hi = kw.get("from_days"), kw.get("to_days")
@@ -4863,6 +4910,15 @@ def main() -> int:
         if row["name"] == "xjoin_probe" and row["device_ops_per_call"] != 1:
             fail(f"xjoin_probe: {row['device_ops_per_call']} device "
                  f"operations a call, not 1: {names}")
+        # K5 and K5bp: one launch of up to 16 (8) slots, no memset
+        per = {"pruned_tile": KD.SLOTS, "pruned_tile_bp": KP.BP_SLOTS}
+        if row["name"] in per and row["slots"] \
+                and row["device_ops_per_call"] is not None \
+                and row["device_ops_per_call"] != -(
+                    -row["slots"] // per[row["name"]]):
+            fail(f"{row['name']} [{row['shape']}]: "
+                 f"{row['device_ops_per_call']} device operations a call: "
+                 f"{names}")
     for label, fn in routes.items():
         log(f"device ops of one {label}: {ops_per_call(fn)[1]}")
     log(f"phase 4's traces: {time.time() - tt:.1f} s")

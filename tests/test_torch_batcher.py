@@ -168,7 +168,7 @@ def test_wave_with_fewer_queries_than_slots_matches_jax(served):
     j.close()
 
 
-def test_prune_fail_wave_escalates_solo_like_jax(served):
+def test_prune_fail_wave_escalates_solo_like_jax(served, monkeypatch):
     """The escalating profile's bound fails at b = 1 in the wave: the
     query escalates solo from _PRUNE_B[1], as the JAX store's does, with
     the JAX store's answer and one solo round fewer than without the
@@ -176,6 +176,12 @@ def test_prune_fail_wave_escalates_solo_like_jax(served):
     idx, j, t = served
     j.enable_batching(max_batch=4, dispatchers=1, prewarm=False)
     t.enable_batching(max_batch=4, dispatchers=1)
+    # a wave of a loaded CPU (the JAX store's first one compiles its
+    # kernel) can outlast either store's 1 s watchdog, and a withdrawn
+    # query escalates from _PRUNE_B[0], one round more: a window neither
+    # reaches
+    monkeypatch.setattr(t._batcher, "WATCHDOG_S", 60.0)
+    monkeypatch.setattr(j._batcher, "WATCHDOG_S", 60.0)
     prof = JProf(**ESCALATING)
     for k in (10, 100):
         j._topk_cache._d.clear()

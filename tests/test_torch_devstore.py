@@ -201,14 +201,30 @@ def _slots(j, names, bs):
 NAMES = [b"bigAAAAAAAAA", b"almostAAAAAA", b"shortAAAAAAA"]
 
 
-@pytest.mark.parametrize("kk", [16, 128, 1024])
-@pytest.mark.parametrize("bs", [1, 4])
-def test_pruned_tile_batch1_matches_jax(kstore, bs, kk):
+@pytest.fixture(scope="module")
+def tile_edge_store():
+    """A JAX store over kernels/bench.TILE_EDGE_TERMS: a span shorter
+    than every kk, one of exactly one tile, one all dead, one of equal
+    scores live across places 2,047/2,048 and 4,095/4,096."""
+    return KB.tile_edges(JRWI(), JD.DeviceSegmentStore,
+                         plist=JP.PostingsList)
+
+
+@pytest.mark.parametrize("kk", [16, 128, 1024, 2048])
+@pytest.mark.parametrize("bs", [1, 4, "tile_edges"])
+def test_pruned_tile_batch1_matches_jax(request, kstore, bs, kk):
     """K5 without init: _rank_pruned_batch1_packed_kernel, pad slots
-    included (raw docids of masked rows, vacuous ok)."""
+    included (raw docids of masked rows, vacuous ok); "tile_edges": the
+    four edge spans in one descriptor (places past a short span's count,
+    a whole tile, every row dead, ties across K5's CTA boundaries)."""
     _idx, j = kstore
     prof = JProf()
-    slots = _slots(j, NAMES[:bs - 1] if bs > 1 else NAMES[:1], bs)
+    if bs == "tile_edges":
+        j = request.getfixturevalue("tile_edge_store")
+        bs = len(KB.TILE_EDGE_TERMS)
+        slots = _slots(j, list(KB.TILE_EDGE_TERMS), bs)
+    else:
+        slots = _slots(j, NAMES[:bs - 1] if bs > 1 else NAMES[:1], bs)
     shift, lang = JD.prune_bound_consts(prof)
     cols = list(zip(*slots))
     qiq, nbs = JD._pack_batch1_fused(

@@ -428,27 +428,102 @@ def _consts(prof):
     return R.profile_consts(prof, 0x656E, torch.device("cuda"))
 
 
+@pytest.fixture(scope="module")
+def tile_edge_store():
+    """kernels/bench.TILE_EDGE_TERMS in an int16 store on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return KBench.tile_edges(RWIIndex(), lambda idx: TD.DeviceSegmentStore(
+        idx, device="cuda"))
+
+
+def _span_slots(store, names):
+    """A K5 / K5bp slot (start or word base first) of each span."""
+    out = []
+    for th in names:
+        sp = store.spans_for(th)[0]
+        st = sp.stats
+        out.append((sp.pbase if sp.pbase >= 0 else sp.start, sp.count,
+                    sp.tstart, sp.tcount, st["col_min"], st["col_max"],
+                    st["tf_min"], st["tf_max"]))
+    return out
+
+
+def _alloc_bytes(t):
+    """The caching allocator's block for tensor t (512-byte steps)."""
+    return -(-t.numel() * t.element_size() // 512) * 512
+
+
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("kk", [16, 128, 1024, 2048])
-@pytest.mark.parametrize("bs", [1, 16, 20])
+@pytest.mark.parametrize("bs", [1, 2, 16, 20, "tile_edges"])
 @pytest.mark.parametrize("nondefault", [False, True])
-def test_pruned_tile_matches_plain(edge_store, nondefault, bs, kk, init):
+def test_pruned_tile_matches_plain(request, edge_store, nondefault, bs, kk,
+                                   init):
     """Pad slots, a ragged last tile, dead rows, live docids past the
     bitmap, ties; the non-default profile's bound fails on the big term;
-    20 slots take two launches of 16 and 4."""
+    20 slots take two launches of 16 and 4, up to 16 one; "tile_edges":
+    a span shorter than kk, one of one tile, one all dead, equal scores
+    across the CTAs' boundaries. The call allocates its output alone."""
     prof = R.RankingProfile(**NONDEFAULT) if nondefault else R.RankingProfile()
     shift, lang = TD.prune_bound_consts(prof)
-    desc = KD.pack_desc(KBench.edge_slots(edge_store, bs), int(shift),
-                        int(lang))
-    a, c = _arena(edge_store), _consts(prof)
+    store = edge_store
+    if bs == "tile_edges":
+        store = request.getfixturevalue("tile_edge_store")
+        slots = _span_slots(store, KBench.TILE_EDGE_TERMS)
+    else:
+        slots = KBench.edge_slots(edge_store, bs)
+    desc = KD.pack_desc(slots, int(shift), int(lang))
+    a, c = _arena(store), _consts(prof)
     before = LAUNCHES["pruned_tile"]
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
     got = KD.pruned_tile(*a, desc, kk, c, init)
+    grown = torch.cuda.memory_allocated() - mem
     want = KD.pruned_tile_plain(*a, desc, kk, c, init)
     torch.cuda.synchronize()
-    assert LAUNCHES["pruned_tile"] == before + 1
+    assert LAUNCHES["pruned_tile"] == before + -(-len(slots) // KD.SLOTS)
+    assert grown == _alloc_bytes(got), "a scratch buffer beside the output"
     assert torch.equal(got, want)
-    if nondefault and kk == 16:
+    if nondefault and kk == 16 and bs != "tile_edges":
         assert int(got[0, 2 * kk]) == 0, "the big term's bound should fail"
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_pruned_tile_cluster_sizes_match_plain(edge_store, packed_edges,
+                                               packed):
+    """K5 / K5bp at both cluster sizes (8 and 16 CTAs a slot) against the
+    plain version; then the kernel's own choice again."""
+    from yacy_search_server_tpu_torch.kernels import packed as KP
+    size, room = KD.pruned_tile_cluster(packed=packed)
+    assert size in (8, 16) and room >= 1
+    prof = R.RankingProfile()
+    shift, lang = TD.prune_bound_consts(prof)
+    c = _consts(prof)
+    try:
+        for want in (8, 16):
+            assert KD.pruned_tile_cluster(packed=packed, size=want)[0] == want
+            for kk in (16, 2048):
+                if packed:
+                    stores, blocks = packed_edges
+                    slots, metas = _bp_slots(blocks, [1, 2, 0] * 3,
+                                             R.pack_stats_host)
+                    desc = KP.pack_desc_bp(slots, metas, int(shift),
+                                           int(lang))
+                    pm = torch.zeros(4, dtype=torch.int32, device="cuda")
+                    got = KP.pruned_tile_bp(*stores["cuda"], pm, desc, kk, c)
+                    want_ = KP.pruned_tile_bp(*stores["cpu"], pm.cpu(), desc,
+                                              kk, c.cpu())
+                else:
+                    desc = KD.pack_desc(KBench.edge_slots(edge_store, 20),
+                                        int(shift), int(lang))
+                    a = _arena(edge_store)
+                    got = KD.pruned_tile(*a, desc, kk, c, False)
+                    want_ = KD.pruned_tile_plain(*a, desc, kk, c, False)
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want_.cpu()), (want, kk)
+    finally:
+        assert KD.pruned_tile_cluster(packed=packed, size=0)[0] == size
 
 
 @pytest.mark.parametrize("n", [1, 2, 8])
@@ -1760,30 +1835,58 @@ def _bp_slots(blocks, which, stats_of):
     return out, metas
 
 
+@pytest.fixture(scope="module")
+def packed_tile_edges():
+    """kernels/bench.TILE_EDGE_TERMS in a packed store on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return KBench.tile_edges(RWIIndex(), lambda idx: TD.DeviceSegmentStore(
+        idx, device="cuda", packed_residency=True))
+
+
 @pytest.mark.parametrize("kk", [16, 1024, 2048])
-@pytest.mark.parametrize("which", [[0], [1, 2, 0], [2] * 9],
-                         ids=["one", "three", "nine"])
+@pytest.mark.parametrize("which", [[0], [1, 2, 0], [2] * 9, [1, 2],
+                                   "tile_edges"],
+                         ids=["one", "three", "nine", "two", "tile_edges"])
 @pytest.mark.parametrize("nondefault", [False, True])
-def test_pruned_tile_bp_matches_plain(packed_edges, which, kk, nondefault):
+def test_pruned_tile_bp_matches_plain(request, packed_edges, which, kk,
+                                      nondefault):
     """K5bp against its plain version: a tile past a block's count (900
     rows: the rest decodes garbage), dead rows, ties; nine slots take two
-    launches of eight and one. The tail walk has no pmax rows here
-    (tcount 0): the int16 K5 tests hold it."""
+    launches of eight and one, up to eight one. The tail walk has no pmax
+    rows here (tcount 0): the int16 K5 tests hold it. "tile_edges": a
+    packed store's span shorter than kk, one of one tile, one all dead,
+    equal scores across the CTAs' boundaries. The call allocates its
+    output alone."""
     from yacy_search_server_tpu_torch.kernels import packed as KP
-    stores, blocks = packed_edges
     prof = R.RankingProfile(**NONDEFAULT) if nondefault else R.RankingProfile()
     shift, lang = TD.prune_bound_consts(prof)
-    slots, metas = _bp_slots(blocks, which, R.pack_stats_host)
+    if which == "tile_edges":
+        ps = request.getfixturevalue("packed_tile_edges")
+        names = list(KBench.TILE_EDGE_TERMS)
+        slots = _span_slots(ps, names)
+        metas = [ps.spans_for(th)[0].pmeta for th in names]
+        stores = {d: (ps.arena.packed_array().to(d),
+                      ps.arena.dead_array().to(d)) for d in ("cuda", "cpu")}
+        pmax = {d: ps.arena._pmax.to(d) for d in ("cuda", "cpu")}
+    else:
+        stores, blocks = packed_edges
+        slots, metas = _bp_slots(blocks, which, R.pack_stats_host)
+        pmax = {d: torch.zeros(4, dtype=torch.int32, device=d)
+                for d in ("cuda", "cpu")}
     desc = KP.pack_desc_bp(slots, metas, int(shift), int(lang))
-    pmax = {d: torch.zeros(4, dtype=torch.int32, device=d)
-            for d in ("cuda", "cpu")}
     before = LAUNCHES["pruned_tile_bp"]
-    got = KP.pruned_tile_bp(*stores["cuda"], pmax["cuda"], desc, kk,
-                            R.profile_consts(prof, 0x656E, "cuda"))
+    c = R.profile_consts(prof, 0x656E, "cuda")
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    got = KP.pruned_tile_bp(*stores["cuda"], pmax["cuda"], desc, kk, c)
+    grown = torch.cuda.memory_allocated() - mem
     want = KP.pruned_tile_bp(*stores["cpu"], pmax["cpu"], desc, kk,
                              R.profile_consts(prof, 0x656E, "cpu"))
     torch.cuda.synchronize()
-    assert LAUNCHES["pruned_tile_bp"] == before + 1
+    assert LAUNCHES["pruned_tile_bp"] == before + -(-len(slots)
+                                                    // KP.BP_SLOTS)
+    assert grown == _alloc_bytes(got), "a scratch buffer beside the output"
     assert torch.equal(got.cpu(), want)
 
 

@@ -271,14 +271,37 @@ def _tconsts(prof, lang="en"):
         prof.to_external_string()), JP.pack_language(lang), "cpu")
 
 
-@pytest.mark.parametrize("kk", [16, 128, 1024])
-@pytest.mark.parametrize("names", [NAMES[:1], NAMES, NAMES[2:3] * 3])
+@pytest.fixture(scope="module")
+def pstore_tile_edges():
+    """A JAX packed store and the port's over kernels/bench.TILE_EDGE_TERMS
+    (bench.tile_edges: a span shorter than every kk, one of exactly one
+    tile, one all dead, one of equal scores live across places
+    2,047/2,048 and 4,095/4,096)."""
+    port = {}
+
+    def make(idx):
+        j = JD.DeviceSegmentStore(idx, packed_residency=True)
+        port["t"] = TD.DeviceSegmentStore(idx, device="cpu",
+                                          packed_residency=True)
+        idx.listener = KB.Fanout(j, port["t"])
+        return j
+    idx = JRWI()
+    j = KB.tile_edges(idx, make, plist=JP.PostingsList)
+    return idx, j, port["t"]
+
+
+@pytest.mark.parametrize("kk", [16, 128, 1024, 2048])
+@pytest.mark.parametrize("names", [NAMES[:1], NAMES, NAMES[2:3] * 3,
+                                   list(KB.TILE_EDGE_TERMS)])
 @pytest.mark.parametrize("prof", [JProf(), JProf(domlength=15, tf=13)],
                          ids=["default", "bound_fails"])
-def test_pruned_tile_bp_matches_jax(pstore, names, kk, prof):
+def test_pruned_tile_bp_matches_jax(request, pstore, names, kk, prof):
     """K5bp's plain version against _rank_pruned_batch1_bp_kernel, raw:
-    rows past a span's count decode the same garbage docids."""
+    rows past a span's count decode the same garbage docids; the tile
+    edges (names3) in one descriptor."""
     _idx, j, t = pstore
+    if names[0] in KB.TILE_EDGE_TERMS:
+        _idx, j, t = request.getfixturevalue("pstore_tile_edges")
     sps = [j.spans_for(th)[0] for th in names]
     shift, lang = JD.prune_bound_consts(prof)
     bs = len(sps)

@@ -195,6 +195,59 @@ def edge_slots(store, bs: int):
                     np.float32(0))] * 2)[:bs]
 
 
+# K5's tile edges: rows, docid base. A span shorter than every kk (its
+# places past the count keep the tile's docids), one of exactly one tile,
+# one whose every row is tombstoned (across the first CTA's 2,048 rows),
+# and one of equal scores whose live places straddle the CTA boundaries
+# at 2,048 and 4,096 (TIES_LIVE; its other rows tombstoned).
+TILE_EDGE_TERMS = {
+    b"tinyAAAAAAAA": (9, 1_000_000),
+    b"onetileAAAAA": (32_768, 2_000_000),
+    b"deadtileAAAA": (2_100, 3_000_000),
+    b"tiesAAAAAAAA": (5_000, 4_000_000),
+}
+TIES_LIVE = ((2_040, 2_050), (4_090, 4_100))
+
+
+def tile_edges(rwi, make_store, plist=None, seed: int = SEED):
+    """TILE_EDGE_TERMS added to `rwi` (the port's RWIIndex, or the JAX
+    package's with its PostingsList as `plist`) in one run, the store
+    built by make_store(rwi), then the
+    tombstones: every row of the dead term and the tied term's rows
+    outside TIES_LIVE, read from the store's own arena (its packing
+    order). Returns the store."""
+    from ..index.postings import PostingsList
+    plist = plist or PostingsList
+    for i, (th, (n, base)) in enumerate(TILE_EDGE_TERMS.items()):
+        feats, _, _, _ = make_term(n, seed + 10 + i)
+        if th == b"tiesAAAAAAAA":
+            feats[:] = feats[0]
+        rwi.add_many(th, plist(
+            (base + 3 * np.arange(n)).astype(np.int32), feats))
+    rwi.flush()
+    store = make_store(rwi)
+    n, base = TILE_EDGE_TERMS[b"deadtileAAAA"]
+    gone = list(range(base, base + 3 * n, 3))
+    sp = store.spans_for(b"tiesAAAAAAAA")[0]
+    host = lambda a: (a.cpu().numpy() if hasattr(a, "cpu")  # noqa: E731
+                      else np.asarray(a))
+    if getattr(sp, "pbase", -1) >= 0:      # a packed block
+        import torch
+        from ..ops.packed import C_DOCIDS, unpack_col_plain
+        d = unpack_col_plain(torch.from_numpy(np.array(host(
+            store.arena.packed_array()))), sp.pbase, sp.pmeta, C_DOCIDS,
+            torch.arange(sp.count)).numpy()
+    else:
+        d = host(store.arena.arrays()[2])[sp.start:sp.start + sp.count]
+    keep = np.zeros(sp.count, bool)
+    for a, b in TIES_LIVE:
+        keep[a:b] = True
+    gone += [int(x) for x in d[~keep]]
+    for x in gone:
+        rwi.delete_doc(x)
+    return store
+
+
 def edge_extents(store, n: int):
     """1, 2 or 8 arena extents over the edge spans: whole, offset and
     ragged, all dead, and empty ones."""

@@ -68,8 +68,8 @@ SIGNATURES = {
                        _P, _P, _P],
     "yt_join_stats_batch": [_P, _P, _P, _P, _I, _P, _P],
     "yt_join_score_batch": [_P, _P, _P, _P, _P, _I, _P, _I64, _P, _P, _P],
-    "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P,
-                       _P],
+    "yt_pruned_tile": [_P, _P, _P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P],
+    "yt_pruned_tile_cluster": [_I, _I, _P],
     "yt_topk_finish": [_P, _P, _I, _P, _P, _I, _P, _I64, _P, _I64, _I64,
                        _I64, _I, _I, _P, _P, _P],
     "yt_topk_finish_batch": [_P, _P, _I, _P, _P, _I, _P, _P],
@@ -80,8 +80,7 @@ SIGNATURES = {
     "yt_hybrid_blend_scratch_bytes": [_I64, _I64],
     "yt_hybrid_blend": [_P, _P, _P, _I64, _I, _I, _P, _P, _P],
     "yt_unpack_rows": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _P, _P],
-    "yt_pruned_tile_bp": [_P, _I64, _P, _I64, _P, _P, _I, _I, _P, _P, _P,
-                          _P],
+    "yt_pruned_tile_bp": [_P, _I64, _P, _I64, _P, _P, _I, _I, _P, _P, _P],
     "yt_span_stats_bp": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P],
     "yt_span_score_bp": [_P, _I64, _I64, _P, _I64, _P, _I64, _P, _P, _P,
                          _P, _I64, _P],

@@ -548,57 +548,6 @@ topk_groups(const int16_t* __restrict__ feats,
 // need stay in registers beside the constants.
 constexpr int BP_CAND = 2 * BP_TILE;  // a block's candidate buffer, keys
 
-// The thread's two rows of a staged tile whose tombstone bytes bp_head
-// loaded (`gone`): their scores sc[m] (score_row<int32_t, true>'s terms
-// in another order, the same sum mod 2^32) and whether each is kept
-// (below the count, live, passing the filter). A warp none of whose rows
-// pass the filter decodes nothing more.
-__device__ __forceinline__ void bp_score_pair(
-    const uint32_t* sw, const BpPlan& P, const BpTabs& tb, const BpGone& gone,
-    const Filter& q, bool off, const RegConsts& k, int lane, int warp,
-    int32_t* sc, bool* ok) {
-  int32_t lm0, lm1, lg0, lg1, fl0, fl1;
-  bp_pair(sw, P, tb, F_LASTMOD, lane, warp, lm0, lm1);
-  bp_pair(sw, P, tb, F_LANGUAGE, lane, warp, lg0, lg1);
-  bp_pair(sw, P, tb, C_FLAGS, lane, warp, fl0, fl1);
-  const bool p0 = !gone.g[0] && (off || constraint_ok(lg0, lm0, fl0, q));
-  const bool p1 = !gone.g[1] && (off || constraint_ok(lg1, lm1, fl1, q));
-  sc[0] = sc[1] = SMALL;
-  ok[0] = ok[1] = false;
-  if (!__any_sync(0xffffffffu, p0 || p1)) return;
-  uint32_t s0 = norm_term<true>(F_LASTMOD, lm0, k);
-  uint32_t s1 = norm_term<true>(F_LASTMOD, lm1, k);
-  int32_t ti0 = 0, ti1 = 0, tx0 = 0, tx1 = 0, h0 = 0, h1 = 0;
-#pragma unroll
-  for (int c = 1; c < NF; ++c) {
-    if (!is_active(c)) continue;
-    int32_t a, b;
-    bp_pair(sw, P, tb, c, lane, warp, a, b);
-    s0 += norm_term<true>(c, a, k);
-    s1 += norm_term<true>(c, b, k);
-    if (c == F_WORDS_IN_TITLE) ti0 = a, ti1 = b;
-    if (c == F_WORDS_IN_TEXT) tx0 = a, tx1 = b;
-    if (c == F_HITCOUNT) h0 = a, h1 = b;
-  }
-  int32_t dl0, dl1;
-  bp_pair(sw, P, tb, F_DOMLENGTH, lane, warp, dl0, dl1);
-  s0 += profile_terms(dl0, lg0, fl0, k);
-  s1 += profile_terms(dl1, lg1, fl1, k);
-  if (k.tspan > 0.0f) {
-    s0 += tf_term(term_frequency_of(h0, tx0, ti0), k);
-    s1 += tf_term(term_frequency_of(h1, tx1, ti1), k);
-  }
-  sc[0] = (int32_t)s0;
-  sc[1] = (int32_t)s1;
-  ok[0] = p0;
-  ok[1] = p1;
-}
-
-// The columns K7bp stages: the scored features and the flags and docids.
-constexpr uint32_t BP_SCORED =
-    (((1u << NF) - 1u) & ~(1u << 4) & ~(1u << F_FLAGS)) | (1u << C_FLAGS) |
-    (1u << C_DOCIDS);
-
 __global__ void __launch_bounds__(BP_THREADS, BP_MIN_BLOCKS)
 topk_bp(const __grid_constant__ BpPlan P, const uint8_t* __restrict__ dead,
         int64_t doc_cap, const Filter q, const int32_t* __restrict__ st,

@@ -1267,6 +1267,53 @@ __host__ inline bool make_bp_plan(const void* words, int64_t nw,
   return true;
 }
 
+// make_bp_plan's plan built on the card by one warp (lane c takes column
+// c; the stage regions by a scan of the staged columns' sizes), for a
+// kernel whose blocks read different blocks of the store (K5bp: one a
+// slot). The host has checked the block with make_bp_plan.
+__device__ __forceinline__ void bp_plan_warp(const uint32_t* words,
+                                             int64_t nw, int64_t wbase,
+                                             const int32_t* meta,
+                                             int64_t count, uint32_t staged,
+                                             BpPlan& p, int lane) {
+  const bool col = lane < NCOLS;
+  const bool st = col && ((staged >> lane) & 1u);
+  const int32_t w = col ? meta[NCOLS + lane] : 0;
+  int64_t s = 0;
+  int head = 0, sz = 0;
+  if (st) {
+    s = wbase + meta[lane];
+    head = (int)((((uint64_t)(uintptr_t)words >> 2) + (uint64_t)s) & 3u);
+    sz = (head + BP_RUN * w + 2 + 3) & ~3;
+  }
+  int incl = sz;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const unsigned m = __ballot_sync(0xffffffffu, st);
+  if (col) {
+    p.w[lane] = w;
+    p.vmin[lane] = meta[2 * NCOLS + lane];
+    p.mask[lane] = w >= 32 ? 0xffffffffu : (1u << w) - 1u;
+    p.a0[lane] = s - head;
+    p.head[lane] = head;
+    p.soff[lane] = incl - sz;
+  }
+  if (st) p.col[__popc(m & ((1u << lane) - 1u))] = lane;
+  for (int i = lane; i < META_LEN; i += 32) p.m.v[i] = meta[i];
+  if (lane == 31) p.stage_words = incl;
+  if (lane == 0) {
+    p.words = words;
+    p.nw = nw;
+    p.wbase = wbase;
+    p.count = count;
+    p.tiles = (count + BP_TILE - 1) / BP_TILE;
+    p.ncol = __popc(m);
+  }
+}
+
 struct BpTabs {
   uint2 lane[NCOLS][32];  // the lane's first row: stage word, shift
 };
@@ -1350,6 +1397,58 @@ __device__ __forceinline__ BpGone bp_head(const BpPlan& P, const BpTabs& tb,
   }
   return out;
 }
+
+// The thread's two rows of a staged tile whose tombstone bytes bp_head
+// loaded (`gone`): their scores sc[m] (score_row<int32_t, true>'s terms
+// in another order, the same sum mod 2^32) and whether each is kept
+// (below the count, live, passing the filter). A warp none of whose rows
+// pass the filter decodes nothing more.
+__device__ __forceinline__ void bp_score_pair(
+    const uint32_t* sw, const BpPlan& P, const BpTabs& tb, const BpGone& gone,
+    const Filter& q, bool off, const RegConsts& k, int lane, int warp,
+    int32_t* sc, bool* ok) {
+  int32_t lm0, lm1, lg0, lg1, fl0, fl1;
+  bp_pair(sw, P, tb, F_LASTMOD, lane, warp, lm0, lm1);
+  bp_pair(sw, P, tb, F_LANGUAGE, lane, warp, lg0, lg1);
+  bp_pair(sw, P, tb, C_FLAGS, lane, warp, fl0, fl1);
+  const bool p0 = !gone.g[0] && (off || constraint_ok(lg0, lm0, fl0, q));
+  const bool p1 = !gone.g[1] && (off || constraint_ok(lg1, lm1, fl1, q));
+  sc[0] = sc[1] = SMALL;
+  ok[0] = ok[1] = false;
+  if (!__any_sync(0xffffffffu, p0 || p1)) return;
+  uint32_t s0 = norm_term<true>(F_LASTMOD, lm0, k);
+  uint32_t s1 = norm_term<true>(F_LASTMOD, lm1, k);
+  int32_t ti0 = 0, ti1 = 0, tx0 = 0, tx1 = 0, h0 = 0, h1 = 0;
+#pragma unroll
+  for (int c = 1; c < NF; ++c) {
+    if (!is_active(c)) continue;
+    int32_t a, b;
+    bp_pair(sw, P, tb, c, lane, warp, a, b);
+    s0 += norm_term<true>(c, a, k);
+    s1 += norm_term<true>(c, b, k);
+    if (c == F_WORDS_IN_TITLE) ti0 = a, ti1 = b;
+    if (c == F_WORDS_IN_TEXT) tx0 = a, tx1 = b;
+    if (c == F_HITCOUNT) h0 = a, h1 = b;
+  }
+  int32_t dl0, dl1;
+  bp_pair(sw, P, tb, F_DOMLENGTH, lane, warp, dl0, dl1);
+  s0 += profile_terms(dl0, lg0, fl0, k);
+  s1 += profile_terms(dl1, lg1, fl1, k);
+  if (k.tspan > 0.0f) {
+    s0 += tf_term(term_frequency_of(h0, tx0, ti0), k);
+    s1 += tf_term(term_frequency_of(h1, tx1, ti1), k);
+  }
+  sc[0] = (int32_t)s0;
+  sc[1] = (int32_t)s1;
+  ok[0] = p0;
+  ok[1] = p1;
+}
+
+// The columns K7bp and K5bp stage: the scored features, the flags and
+// the docids.
+constexpr uint32_t BP_SCORED =
+    (((1u << NF) - 1u) & ~(1u << 4) & ~(1u << F_FLAGS)) | (1u << C_FLAGS) |
+    (1u << C_DOCIDS);
 
 // The block's tiles block, block + blocks, ... through a ring of
 // BP_STAGES stages at smem. Each step begins with a barrier, then

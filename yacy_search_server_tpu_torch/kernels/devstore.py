@@ -15,7 +15,9 @@ package's index/devstore.py decides; every kernel decides it itself.
   one TILE scored against frozen statistics, the kk best by (score
   descending, arena position ascending), their docids, and the pmax tail
   check. `init` gives the general kernel's form (its running merge
-  starts from kk entries (-(2^31-1), -1) that precede every row).
+  starts from kk entries (-(2^31-1), -1) that precede every row). One
+  launch of up to SLOTS slots, a thread-block cluster a slot; no scratch
+  (`pruned_tile_cluster` reads or sets the cluster's size).
 - `span_stats` (csrc/cardinal_stats.cu) and `span_score`
   (csrc/cardinal_score.cu) are the two passes of _rank_spans_kernel over
   up to 8 extents and a RAM delta block after them, minus the top-k:
@@ -88,6 +90,7 @@ from .topk import tie_topk_plain
 TILE = 32_768
 MAX_EXTENTS = 8
 MAX_KK = 2048
+SLOTS = 16                 # K5 slots a launch (a descriptor's by value)
 INT32_MAX = 2**31 - 1
 NO_LANG = 0                # language filter sentinel (pack_language(''))
 NO_FLAG = -1               # contentdom flag sentinel
@@ -351,20 +354,42 @@ def pruned_tile(feats16, flags, docids, dead, pmax, desc, kk: int, consts,
     _require_arena(feats16, flags, docids, dead, dev)
     B.require(pmax, "pmax", (torch.int32,), 1, dev)
     B.require(consts, "consts", (torch.int32,), 1, dev)
-    scratch = torch.empty(bs * TILE, dtype=torch.int32, device=dev)
     out = torch.empty((bs, 2 * kk + 1), dtype=torch.int32, device=dev)
     # the descriptor stays in host memory: the C entry point copies it
     # into the launches' parameters
     rc = B.library().yt_pruned_tile(
         feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
         dead.data_ptr(), dead.shape[0], pmax.data_ptr(), desc.ctypes.data,
-        bs, kk, int(init), consts.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), B.stream_ptr(dev))
+        bs, kk, int(init), consts.data_ptr(), out.data_ptr(),
+        B.stream_ptr(dev))
     B.check(rc, "pruned_tile")
-    # live slots: those with rows (a pad slot has count 0)
-    B.count_launch("pruned_tile", slots=int((desc[2 + bs:2 + 2 * bs] > 0)
-                                            .sum()))
+    count_slot_launches("pruned_tile", desc[2 + bs:2 + 2 * bs], SLOTS)
     return out
+
+
+def count_slot_launches(name: str, counts, per_launch: int) -> None:
+    """One count a launch of `per_launch` slots, each with its live slots
+    (those with rows: a pad slot has count 0)."""
+    for first in range(0, len(counts), per_launch):
+        B.count_launch(name, slots=int(
+            (counts[first:first + per_launch] > 0).sum()))
+
+
+def pruned_tile_cluster(device=None, packed: bool = False,
+                        size: int | None = None) -> tuple[int, int]:
+    """K5's (or, `packed`, K5bp's) cluster on a CUDA device: (CTAs a slot,
+    how many such clusters the card holds at once). `size` 8 or 16 sets
+    it for the later calls on that device, 0 lets the kernel choose again
+    (16 where the card holds such a cluster, else 8), None reads it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError("pruned_tile_cluster: a CUDA device")
+    out = (ctypes.c_int32 * 2)()
+    with torch.cuda.device(dev):
+        B.check(B.library().yt_pruned_tile_cluster(
+            int(packed), -1 if size is None else int(size), out),
+            "pruned_tile_cluster")
+    return int(out[0]), int(out[1])
 
 
 # ---------------------------------------------------------------------------

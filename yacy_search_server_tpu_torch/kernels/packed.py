@@ -12,11 +12,13 @@ bitmap `dead` bool [doc_cap] and the per-tile bound rows `pmax` int32.
   (packed.py:205) standalone: `rows` rows from `row0` as int32 feats
   [rows, 17], flags and docids. The scorers fuse the same decode
   (csrc/common.cuh unpack_value).
-- `pruned_tile_bp` (csrc/pruned_tile.cu, K5's kernels on the packed row
-  source) replaces _rank_pruned_batch1_bp_kernel (devstore.py:1151): per
-  slot the first TILE rows decoded and scored against the frozen
-  statistics, the kk best by (score descending, row ascending) with their
-  docids decoded, and the pmax tail check; [bs, 2kk + 1].
+- `pruned_tile_bp` (csrc/pruned_tile.cu, K5's cluster kernel on the
+  packed row source) replaces _rank_pruned_batch1_bp_kernel
+  (devstore.py:1151): per slot the first TILE rows decoded (each CTA's
+  four 512-row tiles staged at once) and scored against the frozen
+  statistics, the kk best by
+  (score descending, row ascending) with their docids decoded, and the
+  pmax tail check; [bs, 2kk + 1]. One launch of up to BP_SLOTS slots.
 - `span_stats_bp` (csrc/cardinal_stats.cu) and `span_topk_bp`
   (csrc/cardinal_score.cu) replace _rank_scan_batch_bp_kernel
   (devstore.py:1213) for one span: statistics over the live rows that
@@ -54,6 +56,7 @@ from .topk import tie_topk_plain
 TILE = KD.TILE
 _PLAIN_ROWS = 1 << 20            # rows a plain decode step holds
 BP_SLOT_WORDS = KD.DESC_SLOT_WORDS + META_LEN
+BP_SLOTS = 8                     # K5bp slots a launch (by value)
 
 
 def pack_desc_bp(slots, metas, bound_shift: int, lang_term: int):
@@ -179,15 +182,14 @@ def pruned_tile_bp(words, dead, pmax, desc, kk: int, consts):
     _require_words(words, dead, dev)
     B.require(pmax, "pmax", (torch.int32,), 1, dev)
     B.require(consts, "consts", (torch.int32,), 1, dev)
-    scratch = torch.empty(bs * TILE, dtype=torch.int32, device=dev)
     out = torch.empty((bs, 2 * kk + 1), dtype=torch.int32, device=dev)
     rc = B.library().yt_pruned_tile_bp(
         words.data_ptr(), words.shape[0], dead.data_ptr(), dead.shape[0],
         pmax.data_ptr(), desc.ctypes.data, bs, kk, consts.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), B.stream_ptr(dev))
+        out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "pruned_tile_bp")
-    B.count_launch("pruned_tile_bp",
-                   slots=int((desc[2 + bs:2 + 2 * bs] > 0).sum()))
+    KD.count_slot_launches("pruned_tile_bp", desc[2 + bs:2 + 2 * bs],
+                           BP_SLOTS)
     return out
 
 
