@@ -40,10 +40,10 @@ Phases, each of which exits non-zero on failure:
    as a filtered-stats cache hit does; K6, K7 and topk_finish with a
    RAM delta block (7, 50,000 and 300,000 rows: span docids, tombstoned
    ones, new ones) and a 4M-bit facet bitmap, with and without a
-   filter; the batched scan (span_stats_batch, span_topk_batch; past
-   its kk span_score_batch, kernel 3 and topk_finish_batch) over waves
-   of 1, 3 and 16 edge scans at kk 16 and 1024 (and 4096 at 16), each
-   slot also equal to the solo scan and to the CPU's; the batched join
+   filter; the batched scan (span_stats_batch, span_topk_batch, its
+   lists in device memory past kk 2048) over waves of 1, 3 and 16 edge
+   scans at kk 16 and 1024 (and 4096 and 8192 at 16), each slot also
+   equal to the solo scan and to the CPU's; the batched join
    (join_member_batch, join_stats_batch, join_score_batch over each
    slot's rows, join_batch_query's slots equal to the solo join_query's)
    on the join edge store's waves (kernels/bench.join_edge_waves: 16
@@ -113,7 +113,8 @@ Phases, each of which exits non-zero on failure:
    queries alone (one K5 group, so that waves can fill) and a
    filtered-scan mix (the 1M, 100k and 20k terms and joinB, whose RAM
    delta keeps it out of the waves; four filters; the 20k term also at
-   k = 3000, past the batched K7's fused kk) sent one at a time
+   k = 3000, kk 4096: the batched K7's lists in device memory) sent one
+   at a time
    without the batcher, from 16 threads without it, and from 16 threads
    through it (`enable_batching`, scan batching on), every answer equal
    to the solo card answer and the twin's (the filtered scans' at k = 100),
@@ -249,7 +250,8 @@ Phases, each of which exits non-zero on failure:
    wall beside the solo join_query's; K5 at 16
    slots over 16 queries' spans as the batcher launches it, and the
    batched scan at 16 slots (the 10M and 1M terms under the mix's four
-   filters, k = 10 and 100) beside 16 solo scans; K9 (gather mode) and
+   filters, k = 10 and 100) beside 16 solo scans, and its K7 at kk 128
+   and 4096 at 16 and 7 slots; K9 (gather mode) and
    K10 over the hybrid mix's 16-query waves at nb = 16, 128, 1024, one
    query, 2 slots of 16,384 and a solo rerank of 9,000 candidates as
    rerank_boost issues it (16 slots of 16,384, 15 of them pad slots; the
@@ -334,11 +336,10 @@ DEVSTORE_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
 JOIN_KERNELS = ("join_member", "cardinal_stats", "cardinal_score",
                 "tie_topk", "topk_finish", "span_stats", "span_score")
 BATCHED_KERNELS = ("pruned_tile", "span_stats", "span_score", "tie_topk",
-                   "topk_finish", "span_stats_batch", "span_topk_batch",
-                   "span_score_batch", "topk_finish_batch")
-# the filtered-scan mix's k past the batched K7's fused selection
-# (KD.FUSED_KK = 2048): kk = 4096, whose waves take the batched K7 into
-# regions, kernel 3 a slot and the finish
+                   "topk_finish", "span_stats_batch", "span_topk_batch")
+# the filtered-scan mix's k past KD.FUSED_KK = 2048: kk = 4096, whose
+# waves the batched K7 serves with its lists in device memory (and the
+# packed path's K7bp with its buffer, kernel 3 and topk_finish_bp)
 PAST_FUSED_K = 3000
 MIX_THREADS = 16     # client threads of the concurrent mixes
 MIX_REPEATS = 8      # each distinct query of a mix sent this many times
@@ -919,29 +920,12 @@ def main() -> int:
             pst = KD.span_stats_batch_plain(ea[0], ea[1], ea[2], ea[3], desc)
             note("span_stats_batch", f"edges wave of {bs} ({pname})",
                  max(stats_diff(st[i], pst[i]) for i in range(bs)))
-            for kk in (16, 1024) + ((4096,) if bs == 16 else ()):
-                if kk <= KD.FUSED_KK:
-                    g = KD.span_topk_batch(*ea[:4], desc, st, c, kk)
-                    w = KD.span_topk_batch_plain(*ea[:4], desc, pst, c, kk)
-                    torch.cuda.synchronize()
-                    note("span_topk_batch", f"edges wave of {bs} ({pname}), "
-                         f"kk={kk}", diff(g, w))
-                off = KD.scan_batch_offsets(desc, kk)
-                g = KD.span_score_batch(*ea[:4], desc, st, c, off)
-                w = KD.span_score_batch_plain(*ea[:4], desc, pst, c, off)
+            for kk in (16, 1024) + ((4096, 8192) if bs == 16 else ()):
+                g = KD.span_topk_batch(*ea[:4], desc, st, c, kk)
+                w = KD.span_topk_batch_plain(*ea[:4], desc, pst, c, kk)
                 torch.cuda.synchronize()
-                note("span_score_batch", f"edges wave of {bs} ({pname}), "
+                note("span_topk_batch", f"edges wave of {bs} ({pname}), "
                      f"kk={kk}", diff(g, w))
-                top = torch.empty((3, bs, kk), dtype=torch.int32, device=dev)
-                for i, (e, _f) in enumerate(scans):
-                    n = max(sum(c_ for _s, c_ in e), kk)
-                    KT.tie_topk(g[int(off[i]):int(off[i]) + n], kk,
-                                out=(top[0, i], top[1, i], top[2, i]))
-                gf = KD.topk_finish_batch(top[0], top[2], ea[2], desc)
-                wf = KD.topk_finish_batch_plain(top[0], top[2], ea[2], desc)
-                torch.cuda.synchronize()
-                note("topk_finish_batch", f"edges wave of {bs} ({pname}), "
-                     f"kk={kk}", diff(gf, wf))
                 whole = TD.scan_batch_query(ea, scans, c, kk)
                 solo = torch.stack([TD.scan_query(ea, e, c, kk, f)[:2 * kk]
                                     for e, f in scans])
@@ -4185,8 +4169,8 @@ def main() -> int:
     # slots' bytes summed; the batched scan's K6 and K7 with its selection
     # at shape A (16 slots: the 10M term's two spans and the 1M term
     # under the filtered-scan mix's four filters, k = 10 and 100) and B
-    # (one slot a term of the run), and at A the route past the fused kk
-    # (K7 into regions, kernel 3, the finish)
+    # (one slot a term of the run), both also at kk = 4096 (the lists in
+    # device memory), and the join waves' finish on shape A's winners
     garr5 = (*gs.arena.arrays(), gs.arena.dead_array(), gs.arena._pmax)
     one_span = [gs.spans_for(th)[0] for th in bt_terms[1:]]
     slots16 = [one_span[i % len(one_span)] for i in range(16)]
@@ -4226,17 +4210,12 @@ def main() -> int:
     scans7 = [([(s_.start, s_.count) for s_ in gs.spans_for(th)],
                filt_of(scan_filters[0])) for th in bt_terms]
     desc_s = KD.scan_batch_desc(scans16)
-    rows16 = [sum(c for _a, c in e) for e, _f in scans16]
-    off16 = KD.scan_batch_offsets(desc_s, kk)
     src_b6 = ("span_stats_batch",
               "yacy_search_server_tpu/index/devstore.py:465",
               "cardinal_stats.cu")
     src_bt = ("span_topk_batch",
               "yacy_search_server_tpu/index/devstore.py:465 (the running "
               "top-k :540-548), :1032 (packed output)", "cardinal_score.cu")
-    src_b7 = ("span_score_batch",
-              "yacy_search_server_tpu/index/devstore.py:465",
-              "cardinal_score.cu")
     src_bf = ("topk_finish_batch",
               "yacy_search_server_tpu/index/devstore.py:1032",
               "pruned_tile.cu")
@@ -4252,7 +4231,9 @@ def main() -> int:
 
     # the bounds: each group's distinct rows read once (KB.scan_wave_work),
     # the statistics, the consts and [bs, 2kk]; K6's fold and K7's
-    # score_row a live row and slot whose filter it passes
+    # score_row a live row and slot whose filter it passes. K7 with its
+    # selection also at kk = 4096 (the mix's k = 3000: its lists in device
+    # memory)
     for wname, scans_w in (("A", scans16), ("B", scans7)):
         desc_w = KD.scan_batch_desc(scans_w)
         rows_w = [sum(c for _a, c in e) for e, _f in scans_w]
@@ -4284,28 +4265,29 @@ def main() -> int:
                 f"{shape_w}; {KB.SCORE_ROW_OPS} ops a pair, "
                 f"{KB.SCORE_ROW_F32_OPS} of them f32", path="batched",
                 plain_ms=p_ms)
+        kb = 1 << (PAST_FUSED_K - 1).bit_length()
+        ktb = lambda d=desc_w, st_=st_w: KD.span_topk_batch(  # noqa: E731
+            *garr5[:4], d, st_, cd, kb)
+        ktbp = lambda d=desc_w, st_=pst_w: (  # noqa: E731
+            KD.span_topk_batch_plain(*garr5[:4], d, st_, cd, kb))
+        g = ktb()
+        w, p_ms = plain_once(ktbp)
+        note("span_topk_batch", f"shape {wname}, kk={kb}", diff(g, w))
+        measure(*src_bt, ktb, ktbp, None,
+                work["k7_bytes"] + 4 * len(scans_w) * 2 * (kb - kk),
+                work["k7_ops"], f"{shape_w.replace(f'kk={kk}', f'kk={kb}')}"
+                "; the lists in device memory", path="batched",
+                plain_ms=p_ms)
         if wname == "A":
-            work16, st16 = work, st_w
-    # past the fused kk: the batched K7 into regions, kernel 3 a slot and
-    # the finish, timed at shape A's wave and kk
-    k7w = lambda: KD.span_score_batch(  # noqa: E731
-        *garr5[:4], desc_s, st16, cd, off16)
-    k7wp = lambda: KD.span_score_batch_plain(  # noqa: E731
-        *garr5[:4], desc_s, st16, cd, off16)
-    g = k7w()
-    w, p_ms = plain_once(k7wp)
-    note("span_score_batch", "shape A's 16 slots", diff(g, w))
-    # the distinct rows read, every slot's whole region (rows, kk's pad and
-    # the alignment) written
-    measure(*src_b7, k7w, k7wp, None,
-            work16["k7_bytes"] - 4 * 16 * 2 * kk + 4 * int(off16[-1]),
-            work16["k7_ops"], f"shape A's 16 slots into regions "
-            f"({int(off16[-1])} entries), kk={kk}", path="batched",
-            plain_ms=p_ms)
+            st16 = st_w
+    # topk_finish_batch (the join waves' finish) on the kk winners of each
+    # of shape A's slots, from K7 and kernel 3 a slot
     top16 = torch.empty((3, 16, kk), dtype=torch.int32, device=dev)
-    for i, r_ in enumerate(rows16):
-        KT.tie_topk(g[int(off16[i]):int(off16[i]) + max(r_, kk)], kk,
-                    out=(top16[0, i], top16[1, i], top16[2, i]))
+    for i, (e_, f_) in enumerate(scans16):
+        buf_ = KD.span_score(*garr5[:4], e_, st16[i], cd,
+                             max(sum(c for _a, c in e_), kk), filt=f_)
+        KT.tie_topk(buf_, kk, out=(top16[0, i], top16[1, i], top16[2, i]))
+    del buf_
     fw = lambda: KD.topk_finish_batch(  # noqa: E731
         top16[0], top16[2], garr5[2], desc_s)
     fwp = lambda: KD.topk_finish_batch_plain(  # noqa: E731

@@ -1054,12 +1054,13 @@ def test_delta_only_scan_matches_cpu(edge_store, n_ext):
         assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("kk", [16, 1024])
+@pytest.mark.parametrize("kk", [16, 1024, 4096])
 @pytest.mark.parametrize("bs", [1, 3, 16])
 def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
-    """The batched K6, K7 and finish over a wave of bs edge scans (1, 2 and
-    8 extents, five filters): each equal to its plain version, the wave
-    equal to the CPU's, each slot equal to the solo scan's first 2kk."""
+    """The batched K6 and K7 with its selection over a wave of bs edge
+    scans (1, 2 and 8 extents, five filters): each equal to its plain
+    version, the wave equal to the CPU's, each slot equal to the solo
+    scan's first 2kk (kk 4096: the lists in device memory)."""
     a = _arena(edge_store)
     f, fl, d, dead, _pm = a
     scans = KBench.scan_wave(edge_store, bs)
@@ -1070,10 +1071,6 @@ def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
     pst = KD.span_stats_batch_plain(f, fl, d, dead, desc)
     for i in range(bs):
         _stats_equal(st[i], pst[i])
-    off = KD.scan_batch_offsets(desc, kk)
-    buf = KD.span_score_batch(f, fl, d, dead, desc, st, c, off)
-    assert torch.equal(buf, KD.span_score_batch_plain(f, fl, d, dead, desc,
-                                                      pst, c, off))
     assert torch.equal(KD.span_topk_batch(f, fl, d, dead, desc, st, c, kk),
                        KD.span_topk_batch_plain(f, fl, d, dead, desc, pst,
                                                 c, kk))
@@ -1087,7 +1084,6 @@ def test_batched_scan_matches_plain_and_solo(edge_store, bs, kk):
     torch.cuda.synchronize()
     if bs > 1:
         assert WIDE["span_stats_batch"] > wide["span_stats_batch"]
-        assert WIDE["span_score_batch"] > wide["span_score_batch"]
         assert WIDE["span_topk_batch"] > wide["span_topk_batch"]
 
 
@@ -1105,7 +1101,9 @@ def scan_arena():
 def _scan_wave(spans, shape):
     """The waves of the batched scan's card tests: the bench's shapes A
     (16 slots, two groups of 8) and B (7 groups of one), one slot, and
-    16 filters over one span list (one group of 16, cut at kk = 2048)."""
+    16 filters over one span list (one group of 16, its lists in device
+    memory from kk = 2048, where 16 slots' lists no longer fit in shared
+    memory)."""
     waves = SBB.wave_shapes(spans)
     head = [spans["10M"], spans["10M, run 2"]]
     filts = [(lang, flag, lo, SBB.HI) for lang in (0, SBB.EN, SBB.DE)
@@ -1127,13 +1125,14 @@ def _batched_route(arrays, scans, c, kk):
     return got, ran
 
 
-@pytest.mark.parametrize("kk", [16, 128, 2048])
+@pytest.mark.parametrize("kk", [16, 128, 2048, 4096, 8192])
 @pytest.mark.parametrize("shape", ["A", "B", "one", "16 filters"])
 def test_span_topk_batch_matches_plain(scan_arena, shape, kk):
     """The batched K6 and the batched K7 with its selection each equal to
     its plain version on the bench's waves (at a tenth of the rows), and
     scan_batch_query equal to the oracle of the plain versions slot by
-    slot, in one K6 and one K7 launch (no kernel 3, no finish)."""
+    slot, in one K6 and one K7 launch (no kernel 3, no finish), at every
+    kk (past KD.FUSED_KK the lists in device memory)."""
     arrays, spans = scan_arena
     f, fl, d, dead = arrays
     scans = _scan_wave(spans, shape)
@@ -1151,23 +1150,25 @@ def test_span_topk_batch_matches_plain(scan_arena, shape, kk):
 
 
 def test_scan_batch_above_the_fused_limit(scan_arena):
-    """Past KD.FUSED_KK the batched K7 writes each slot's scores and
-    kernel 3 selects a slot (shape A at kk = 4096): the answer equal to
-    the plain versions', the launches that route's; span_topk_batch
-    refuses the kk."""
+    """Past KD.FUSED_KK (shape A at kk = 4096 and 8192: the smoke's
+    k = 3000 waves take kk = 4096) the batched K7 still selects each
+    slot's kk best itself, its lists in device memory: the answer equal
+    to the plain versions', one K6 and one K7 launch, no kernel 3, no
+    finish (the wave's 3 device operations, K6's memset and kernel and K7:
+    kernels/scan_batch_bench.py's trace)."""
     arrays, spans = scan_arena
     scans = _scan_wave(spans, "A")
     c = _consts(R.RankingProfile())
-    _got, ran = _batched_route(arrays, scans, c, 4096)
-    assert ran == {"span_stats_batch": 1, "span_score_batch": 1,
-                   "tie_topk": len(scans), "topk_finish_batch": 1}
+    for kk in (4096, 8192):
+        _got, ran = _batched_route(arrays, scans, c, kk)
+        assert ran == {"span_stats_batch": 1, "span_topk_batch": 1}
     desc = KD.scan_batch_desc(scans)
     st = KD.span_stats_batch(*arrays, desc)
     with pytest.raises(ValueError):
-        KD.span_topk_batch(*arrays, desc, st, c, KD.FUSED_KK + 1)
+        KD.span_topk_batch(*arrays, desc, st, c, KD.MAX_WAVE_KK + 1)
 
 
-@pytest.mark.parametrize("kk", [16, 128, 2048])
+@pytest.mark.parametrize("kk", [16, 128, 2048, 4096])
 def test_span_topk_batch_equal_scores_across_blocks(dev, kk):
     """Every row of a 600,000-row span equal (all scores equal, so the
     answer is the first kk live rows in extent order, which many blocks
@@ -2257,6 +2258,78 @@ def test_ann_fuse_matches_plain(dev, nb, ns, alpha):
                 assert (got[i, :kk] == KA.NEG).all()
     out = A.ann_fuse_batch_packed(slab, scales, sdoc, qi, nb, 16)
     assert torch.equal(out, KA.ann_fuse(slab, scales, sdoc, qd, nb, 16))
+
+
+@pytest.mark.parametrize("nb,ns", [
+    (32768, (16699,) * 16), (32768, (0, 32768, 17, 2049, 4095, 4097)),
+    (1024, (1000,) * 16), (65536, (65536, 40000))],
+    ids=["mix-16", "ragged", "1024x16", "65536"])
+def test_ann_fuse_one_launch(dev, nb, ns):
+    """K15 up to kk 2048 takes its one-launch route (no key buffer) for a
+    call of up to 16 slots and allocates nothing beside its output; its
+    answers equal the plain version's at kk 1 to 8192 (past 2048 the
+    two-kernel route); a slot with no valid lane is all pad. (One device
+    operation a call: kernels/ann_fuse_bench.py's trace.)"""
+    from yacy_search_server_tpu_torch.kernels import ann as KA
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    rng = np.random.default_rng(nb + len(ns) + 7)
+    cap = 70_000
+    slab, scales, sdoc = (torch.from_numpy(a).to(dev)
+                          for a in _hot_slab(cap, rng))
+    qd = KDn.upload_desc(KBench.ann_wave(rng, cap, ns, nb, 0.5), dev)
+    for kk in (1, 16, 17, 32, 128, 129, 2048, 2049, 8192):
+        if kk > nb:
+            continue
+        got = KA.ann_fuse(slab, scales, sdoc, qd, nb, kk)
+        want = KA.ann_fuse_plain(slab, scales, sdoc, qd, nb, kk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kk
+        for i, n in enumerate(ns):
+            if n == 0:
+                assert (got[i, kk:] == KA.INT32_MAX).all()
+                assert (got[i, :kk] == KA.NEG).all()
+        if kk <= 2048:
+            # the one-launch route: no key buffer
+            assert KA.fuse_scratch_bytes(dev, len(ns), nb, kk) == 0
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            KA.ann_fuse(slab, scales, sdoc, qd, nb, kk)
+            a1 = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            assert a1 - a0 == 1, kk       # the output alone
+
+
+@pytest.mark.parametrize("kk", [16, 32, 256, 2048])
+def test_ann_fuse_equal_keys_across_ctas(dev, kk):
+    """Lanes whose keys are equal (one row, one docid, one sparse score)
+    spread over every CTA of a slot's cluster, beside a few better and
+    worse lanes and lanes outside the slab: the answer equal to the plain
+    version's, the equal keys filling the places the better ones leave."""
+    from yacy_search_server_tpu_torch.kernels import ann as KA
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    from yacy_search_server_tpu_torch.ops import ann as A
+    rng = np.random.default_rng(kk + 11)
+    cap, nb = 5_000, 32768
+    slab, scales, sdoc = (torch.from_numpy(a).to(dev)
+                          for a in _hot_slab(cap, rng))
+    q = KBench.unit_vectors(1, rng, 256, np.float32)[0]
+    rows = np.full(nb, 7, np.int32)
+    dd = np.full(nb, 123_456, np.int32)
+    sp = np.full(nb, 1_000, np.int32)
+    better = rng.choice(nb, 5, replace=False)
+    sp[better] = 50_000 + np.arange(5)
+    dd[better] = 99 + np.arange(5)
+    worse = rng.choice(nb, 300, replace=False)
+    sp[worse] = -50_000
+    rows[worse[:40]] = cap + 3              # outside the slab
+    qi = np.stack([A.pack_ann_fuse_row(q, rows, dd, sp, 0.5, nb),
+                   A.pack_ann_fuse_row(q, rows[:20_000], dd[:20_000],
+                                       sp[:20_000], 0.0, nb)])
+    qd = KDn.upload_desc(qi, dev)
+    got = KA.ann_fuse(slab, scales, sdoc, qd, nb, kk)
+    want = KA.ann_fuse_plain(slab, scales, sdoc, qd, nb, kk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int((got[0, kk:] == 123_456).sum()) >= kk - 5
 
 
 @pytest.mark.parametrize("t", [0, 1, 4, 8])

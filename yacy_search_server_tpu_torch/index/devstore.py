@@ -366,27 +366,13 @@ def scan_batch_query(arrays, scans, consts, kk: int) -> torch.Tensor:
     2kk] scores ++ docids of _rank_scan_batch_packed_kernel, left on the
     device; each slot's row equals scan_query's first 2kk entries for it
     alone. One batched K6 and one batched K7 that keeps each slot's kk
-    best itself (the slots of identical extent lists reading them once);
-    past KD.FUSED_KK the batched K7 writes each slot's scores into a
-    region of its own length (scan_batch_offsets), kernel 3 selects a
-    slot over its region and one batched finish maps the winners to
-    docids."""
+    best itself (the slots of identical extent lists reading them once),
+    at every kk."""
     feats16, flags, docids, dead, _pmax = arrays
     desc = KD.scan_batch_desc(scans)
-    bs = desc.shape[0]
     stats = KD.span_stats_batch(feats16, flags, docids, dead, desc)
-    if kk <= KD.FUSED_KK:
-        return KD.span_topk_batch(feats16, flags, docids, dead, desc, stats,
-                                  consts, kk)
-    off = KD.scan_batch_offsets(desc, kk)
-    buf = KD.span_score_batch(feats16, flags, docids, dead, desc, stats,
-                              consts, off)
-    top = torch.empty((3, bs, kk), dtype=torch.int32, device=feats16.device)
-    for i, (ext, _f) in enumerate(scans):
-        n = max(sum(c for _s, c in ext), kk)
-        tie_topk(buf[int(off[i]):int(off[i]) + n], kk,
-                 out=(top[0, i], top[1, i], top[2, i]))
-    return KD.topk_finish_batch(top[0], top[2], docids, desc)
+    return KD.span_topk_batch(feats16, flags, docids, dead, desc, stats,
+                              consts, kk)
 
 
 def join_query(arrays, join, start: int, count: int, parts, n_inc: int,

@@ -14,7 +14,9 @@
   + round((sims * alpha) * DENSE_BOOST_SCALE) on valid lanes, and the
   slot's first kk lanes in (score DESC, docid ASC) order, invalid lanes
   keyed INT32_MAX: [bs, 2kk], the scores then the docids, as lax.sort
-  then [:kk] gives them.
+  then [:kk] gives them. Up to kk 2048 one launch a call, a thread-block
+  cluster a slot, nothing allocated beside the output; past it (to
+  MAX_KK) a keys kernel and selection rounds over a key buffer.
 
 Both dots sum in K9's fixed order, so the card equals the plain versions
 to the bit; against the JAX package's XLA dot they differ by a few units
@@ -153,6 +155,16 @@ def ann_fuse_plain(slab, scales, sdocids, qd, nb: int, kk: int):
     return torch.cat([fs, ds], dim=1)
 
 
+def fuse_scratch_bytes(device, bs: int, nb: int, kk: int) -> int:
+    """The key buffer a K15 call (bs, nb, kk) on `device` needs: 0 where it
+    is one launch (kk <= 2048)."""
+    with torch.cuda.device(device):
+        n = B.library().yt_ann_fuse_scratch_bytes(bs, nb, kk)
+    if n < 0:
+        raise RuntimeError("ann_fuse: no route for the call's shape")
+    return int(n)
+
+
 def ann_fuse(slab, scales, sdocids, qd, nb: int, kk: int,
              live: int | None = None) -> torch.Tensor:
     """K15 over the hot slab (`slab` [cap, 256] int8, `scales` [cap] f16,
@@ -169,13 +181,16 @@ def ann_fuse(slab, scales, sdocids, qd, nb: int, kk: int,
     B.require(scales, "scales", (torch.float16,), 1, dev)
     B.require(sdocids, "slab docids", (torch.int32,), 1, dev)
     B.require(qd, "descriptor", (torch.int32,), 2, dev)
-    # the lanes' 64-bit keys, then the first selection round's survivors
-    keys = torch.empty(bs * nb * 3 // 2, dtype=torch.int64, device=dev)
+    nbytes = fuse_scratch_bytes(dev, bs, nb, kk)
+    # past kk 2048: the lanes' 64-bit keys, then the first selection
+    # round's survivors; up to it no buffer
+    keys = (torch.empty(nbytes // 8, dtype=torch.int64, device=dev)
+            if nbytes else None)
     out = torch.empty((bs, 2 * kk), dtype=torch.int32, device=dev)
-    rc = B.library().yt_ann_fuse(slab.data_ptr(), scales.data_ptr(),
-                                 sdocids.data_ptr(), slab.shape[0],
-                                 qd.data_ptr(), bs, nb, kk, keys.data_ptr(),
-                                 out.data_ptr(), B.stream_ptr(dev))
+    rc = B.library().yt_ann_fuse(
+        slab.data_ptr(), scales.data_ptr(), sdocids.data_ptr(), slab.shape[0],
+        qd.data_ptr(), bs, nb, kk, 0 if keys is None else keys.data_ptr(),
+        out.data_ptr(), B.stream_ptr(dev))
     B.check(rc, "ann_fuse")
     B.count_launch("ann_fuse", slots=bs if live is None else live)
     return out

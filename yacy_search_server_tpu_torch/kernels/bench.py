@@ -892,20 +892,26 @@ def empty_launch() -> None:
         B.stream_ptr(torch.device("cuda"))), "empty")
 
 
-def device_ops(fn) -> list:
+def device_ops(fn, traces: int = 3) -> list:
     """The device operations (kernels, memsets, copies) one call of `fn`
     issues, each as "name: its device time in us", read from a
-    torch.profiler trace of the call."""
+    torch.profiler trace of the call: the longest of `traces` traces (a
+    trace on the card sometimes misses some of a call's operations; it
+    never adds one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [f"{e.name}: {e.time_range.elapsed_us():.1f} us"
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    best: list = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [f"{e.name}: {e.time_range.elapsed_us():.1f} us"
+               for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        best = ops if len(ops) > len(best) else best
+    return best
 
 
 def topk_trace() -> list:

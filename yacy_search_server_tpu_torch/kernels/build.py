@@ -54,8 +54,6 @@ SIGNATURES = {
     "yt_span_score": [_P, _P, _P, _P, _I64, _P, _I, _P, _P, _I64, _P, _P,
                       _P, _I64, _P, _P, _P, _P, _I64, _P],
     "yt_span_stats_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _P],
-    "yt_span_score_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _P,
-                            _P, _P],
     "yt_span_topk_batch_plan": [_P, _I, _I, _P],
     "yt_span_topk_batch": [_P, _P, _P, _P, _I64, _P, _I, _P, _I64, _P, _I,
                            _P, _I64, _P, _I64, _P, _P],
@@ -91,6 +89,7 @@ SIGNATURES = {
                           _I64, _I, _I, _P, _P],
     "yt_pack_block_batch": [_P, _P, _P, _P, _I, _I64, _P, _P, _P, _P, _P],
     "yt_ann_assign": [_P, _I, _I, _P, _I, _I, _P, _P],
+    "yt_ann_fuse_scratch_bytes": [_I64, _I64, _I64],
     "yt_ann_fuse": [_P, _P, _P, _I64, _P, _I, _I, _I, _P, _P, _P],
     "yt_bm25_pass": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
                      _P, _P, _P],
@@ -199,8 +198,8 @@ def check(rc: int, name: str) -> None:
 LAUNCHES = {"cardinal_stats": 0, "cardinal_score": 0, "tie_topk": 0,
             "gather_topk": 0, "pruned_tile": 0, "span_stats": 0,
             "span_score": 0, "topk_finish": 0, "join_member": 0,
-            "span_stats_batch": 0, "span_score_batch": 0,
-            "span_topk_batch": 0, "topk_finish_batch": 0,
+            "span_stats_batch": 0, "span_topk_batch": 0,
+            "topk_finish_batch": 0,
             "join_member_batch": 0, "join_stats_batch": 0,
             "join_score_batch": 0, "dense_dot": 0,
             "rerank_sort": 0, "hybrid_blend": 0, "unpack_rows": 0,

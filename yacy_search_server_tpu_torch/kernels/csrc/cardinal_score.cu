@@ -198,18 +198,11 @@ score_regions(const int32_t* __restrict__ feats,
 // filter, or the filtered-stats cache's copy of them (the with_ext_stats
 // branch).
 //
-// `score_batch` is the same pass with a query dimension (the scoring pass
-// of _rank_scan_batch_kernel, :465): each slot scored against its own
-// statistics into its own region of one packed buffer ([obase[s],
-// obase[s + 1]), as long as the slot's rows need) by its own range of the
-// grid's blocks (common.cuh ScanBatch). It serves waves whose kk is past
-// the fused selection's limit (topk_groups, below, serves the rest).
-//
 // Bound: bytes, 34 B of features + 4 B flags + 4 B docid read and 4 B
-// written a row (and the bitmap words, from the L2); a wave sums its
-// slots' bytes. The row pipeline is score_chunks': persistent warps,
-// 64-row chunks staged by cp.async two stages deep, the docids in the
-// host-id region; a chunk never straddles two sources.
+// written a row (and the bitmap words, from the L2). The row pipeline is
+// score_chunks': persistent warps, 64-row chunks staged by cp.async two
+// stages deep, the docids in the host-id region; a chunk never straddles
+// two sources.
 __device__ __forceinline__ void score_extents_body(
     const Extents& x, const Filter& q, const uint8_t* __restrict__ dead,
     int64_t doc_cap, const int32_t* __restrict__ st,
@@ -280,27 +273,6 @@ score_extents(const uint8_t* __restrict__ dead, int64_t doc_cap,
                      out_len, blockIdx.x, gridDim.x);
 }
 
-__global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
-score_batch(const int16_t* __restrict__ feats,
-            const int32_t* __restrict__ flags,
-            const int32_t* __restrict__ docids,
-            const uint8_t* __restrict__ dead, int64_t doc_cap,
-            const ScanBatch b, const int32_t* __restrict__ stats,
-            int64_t stats_stride, const int32_t* __restrict__ consts,
-            int32_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ ScoreConsts k;
-  __shared__ Extents x;
-  __shared__ Filter q;
-  const int s = range_of_block(b.bstart, b.bs, blockIdx.x);
-  if (threadIdx.x == 0) slot_extents(b, s, feats, flags, docids, x, q);
-  __syncthreads();
-  score_extents_body(x, q, dead, doc_cap, stats + (int64_t)s * stats_stride,
-                     consts, smem, k, out + b.obase[s], nullptr,
-                     b.obase[s + 1] - b.obase[s], blockIdx.x - b.bstart[s],
-                     b.bstart[s + 1] - b.bstart[s]);
-}
-
 // ---------------------------------------------------------------------------
 // K7 batched with its selection `span_topk_batch`: a group read once
 // ---------------------------------------------------------------------------
@@ -324,11 +296,21 @@ score_batch(const int16_t* __restrict__ feats,
 // tree; the root writes each slot's row of [bs, 2kk]: the scores, then
 // the docids (from the rows' places), and (-(2^31-1), -1) where a slot
 // has fewer than kk rows.
-// A block's lists take G (KL + K7_CAND) keys of shared memory for a
-// group of G slots; a group of more slots than fit beside the stages is
-// cut into groups that do (each reads its rows once): on an H100 a group
-// of 16 slots fits whole at kk <= 128, six at kk = 2048. Past FUSED_KK
-// the caller takes score_batch and kernel 3.
+// Up to FUSED_KK, where every group's lists fit beside the stages (GL
+// false), a block's lists take G (KL + K7_CAND) keys of shared memory for
+// a group of G slots (on an H100 16 slots fit at kk <= 128, six at kk =
+// 2048). Past FUSED_KK, or where a group has more slots than fit (GL
+// true, common.cuh gflush), only the buffers stay in shared memory
+// (GL_KEYS keys shared by the group's slots, up to 4,096 a slot) and each
+// slot's list lies in device memory, so a group of 16 stays whole at
+// every kk: every kk the scan kind sends takes this kernel, and no group
+// is cut (before, a group past the room was cut into groups that each
+// read its rows again). There a step that fills one slot's buffer merges
+// every slot's that holds candidates: the sort's barriers are paid once
+// for all. There a group's blocks are no more than its rows hold kk
+// keys each (at least one), so that the lists in device memory come to
+// at most twice the group's rows a slot, and the tree stays short when
+// kk is large against the rows.
 //
 // Bound: the larger of the bytes (each distinct row of a group read once:
 // 34 B of features, 4 B of flags and of docid, the tombstone byte; the
@@ -337,12 +319,22 @@ score_batch(const int16_t* __restrict__ feats,
 // it passes: at 8 slots a group about as long as the bytes). Before, each
 // slot had a range of the grid of its own, read its rows itself and
 // wrote a score a row, and kernel 3 read each slot's region back in 16
-// launches.
+// launches; past FUSED_KK that stayed the route (355 MB of scores at the
+// bench's 16-slot wave, 36 device operations a wave).
 constexpr int K7_CHUNKS = 8, K7_STEP = K7_CHUNKS * CH, K7_STAGES = 3;
 constexpr int K7_CAND = 1024;       // a slot's candidate buffer, keys
+// with the lists in device memory (GL) the buffers share GL_KEYS keys:
+// CW = gl_cand(G) a slot
+constexpr int GL_KEYS = BATCH_SLOTS * K7_CAND, GL_CAND_MOST = 4096;
+__host__ __device__ constexpr int gl_cand(int G) {
+  int cw = K7_CAND;
+  while (2 * cw <= GL_CAND_MOST && 2 * cw * G <= GL_KEYS) cw *= 2;
+  return cw;
+}
 constexpr int K7_FIXED =            // the stages
     K7_STAGES * K7_CHUNKS * EXT_STAGE_BYTES;
 
+template <bool GL>
 __global__ void __launch_bounds__(G_THREADS, 1)
 topk_groups(const int16_t* __restrict__ feats,
             const int32_t* __restrict__ flags,
@@ -351,8 +343,8 @@ topk_groups(const int16_t* __restrict__ feats,
             const __grid_constant__ ScanBatch b,
             const int32_t* __restrict__ stats, int64_t stats_stride,
             const int32_t* __restrict__ consts, int kk,
-            int KL, u64* __restrict__ glists, uint32_t* __restrict__ tickets,
-            int32_t* __restrict__ out) {
+            int KL, u64* __restrict__ glists, int32_t* __restrict__ grec,
+            uint32_t* __restrict__ tickets, int32_t* __restrict__ out) {
   constexpr int SB = EXT_STAGE_BYTES;
   constexpr int RG = K7_STEP / 32;  // 32-row groups a step
   extern __shared__ __align__(16) unsigned char smem[];
@@ -364,12 +356,22 @@ topk_groups(const int16_t* __restrict__ feats,
   __shared__ int s_cnt[BATCH_SLOTS];
   __shared__ u64 s_thr[BATCH_SLOTS];
   __shared__ bool s_go;
+  // GL: each slot's list length and half, and gmerge_tree's words
+  __shared__ int s_len[BATCH_SLOTS], s_half[BATCH_SLOTS];
+  __shared__ int s_p[2 * BATCH_SLOTS + 2];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = range_of_block(b.gbstart, b.ng, blockIdx.x);
   const int block = blockIdx.x - b.gbstart[g];
   const int blocks = b.gbstart[g + 1] - b.gbstart[g];
   const int s0 = b.gfirst[g], G = b.gfirst[g + 1] - s0;
-  const int LW = KL + K7_CAND;
+  // GL: KL is the lists' capacity L, the buffers CW apart
+  const int CW = GL ? gl_cand(G) : K7_CAND;
+  const int LW = GL ? CW : KL + K7_CAND;
+  auto glist = [&](int k, int leaf, int half) {
+    return glists + ((b.glist[g] + (int64_t)k * blocks + leaf) * 2 + half) *
+                        (int64_t)KL;
+  };
+  auto mylist = [&](int k, int half) { return glist(k, block, half); };
   if (t == 0)
     slot_extents(b, b.gslot[s0], feats, flags, docids, x, q[0]);
   else if (t < G)
@@ -377,9 +379,12 @@ topk_groups(const int16_t* __restrict__ feats,
   if (t < G) {
     s_cnt[t] = 0;
     s_thr[t] = 0;
+    s_len[t] = 0;
+    s_half[t] = 0;
   }
-  for (int i2 = t; i2 < G * KL; i2 += G_THREADS)
-    lists[(i2 / KL) * LW + i2 % KL] = 0;
+  if (!GL)
+    for (int i2 = t; i2 < G * KL; i2 += G_THREADS)
+      lists[(i2 / KL) * LW + i2 % KL] = 0;
   for (int i2 = t; i2 < G * 64; i2 += G_THREADS)
     fill_consts(sk[i2 >> 6],
                 stats + (int64_t)b.gslot[s0 + (i2 >> 6)] * stats_stride,
@@ -401,6 +406,13 @@ topk_groups(const int16_t* __restrict__ feats,
   };
   int lo, hi;
   item_range(G * RG, warp, lo, hi);
+  auto flush = [&](unsigned need) {
+    if (GL)
+      gflush(lists, LW, kk, KL, G, need, s_cnt, s_thr, s_len, s_half,
+             mylist);
+    else
+      flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
+  };
   // The steps, in one of two copies: PRE takes the profile's terms of a
   // row's score (the same for every slot) once a row in the facts, where
   // a group has more than one slot; without it the items add them, and
@@ -444,7 +456,7 @@ topk_groups(const int16_t* __restrict__ feats,
         const Filter qk = q[k];
         const bool off = filter_off(qk);
         const u64 thr = s_thr[k];
-        u64* cand = lists + k * LW + KL;
+        u64* cand = lists + k * LW + (GL ? 0 : KL);
         for (; it < end; ++it) {
           const int h = it % RG;
           const int u = h >> 1, j = 2 * lane + (h & 1);
@@ -475,12 +487,15 @@ topk_groups(const int16_t* __restrict__ feats,
       }
       if (ahead) facts_end(pend, sf[(i + 1) & 1], warp, lane);
       __syncthreads();
-      // a buffer past K7_CAND - K7_STEP is merged before the next step's
-      // items add up to K7_STEP
-      unsigned need = 0u;
-      for (int k = 0; k < G; ++k)
-        if (s_cnt[k] > K7_CAND - K7_STEP) need |= 1u << k;
-      if (need) flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
+      // a buffer past CW - K7_STEP is merged before the next step's items
+      // add up to K7_STEP; GL: every slot's buffer with candidates is
+      // merged then too (one sort's barriers for all)
+      unsigned need = 0u, some = 0u;
+      for (int k = 0; k < G; ++k) {
+        if (s_cnt[k] > CW - K7_STEP) need |= 1u << k;
+        if (s_cnt[k] > 0) some |= 1u << k;
+      }
+      if (need) flush(GL ? some : need);
     }
   };
   if (G > 1)
@@ -491,19 +506,33 @@ topk_groups(const int16_t* __restrict__ feats,
   unsigned need = 0u;
   for (int k = 0; k < G; ++k)
     if (s_cnt[k] > 0) need |= 1u << k;
-  if (need) flush_cands(lists, LW, KL, kk, G, need, s_cnt, s_thr);
+  if (need) flush(need);
 
-  // the group's blocks' lists merged pairwise up a tree (slot k's of
-  // leaf l at (glist[g] + k * blocks + l) * KL of the scratch); the root
-  // writes each slot's kk best as scores, then docids
-  if (!merge_tree(lists, LW, KL, G, glists + b.glist[g] * KL,
-                  (int64_t)blocks * KL,
-                  tickets + (int64_t)b.gbstart[g] * TREE_WORDS, block,
-                  blocks, &s_go))
+  // the group's blocks' lists merged pairwise up a tree (from shared
+  // memory slot k's of leaf l at (glist[g] + k * blocks + l) * KL of the
+  // scratch; GL where they lie, glist); the root writes each slot's kk
+  // best as scores, then docids
+  uint32_t* tk = tickets + (int64_t)b.gbstart[g] * TREE_WORDS;
+  if (GL) {
+    __syncthreads();                      // the stages are free
+    const int room =
+        (int)((K7_FIXED + (int64_t)G * CW * 8) / 8);
+    if (!gmerge_tree((u64*)smem, room, KL, G, s_len, s_half, s_p,
+                     grec + (int64_t)b.gbstart[g] * TREE_WORDS * TREE_REC,
+                     tk, block, blocks, glist))
+      return;
+  } else if (!merge_tree(lists, LW, KL, G, glists + b.glist[g] * KL,
+                         (int64_t)blocks * KL, tk, block, blocks, &s_go)) {
     return;
-  for (int i2 = t; i2 < G * kk; i2 += G_THREADS) {
-    const int k = i2 / kk, i = i2 - k * kk;
-    const u64 key = lists[k * LW + i];
+  }
+  for (int64_t i2 = t; i2 < (int64_t)G * kk; i2 += G_THREADS) {
+    const int k = (int)(i2 / kk);
+    const int64_t i = i2 - (int64_t)k * kk;
+    u64 key;
+    if (GL)
+      key = i < s_len[k] ? __ldcg(mylist(k, s_half[k]) + i) : 0ull;
+    else
+      key = lists[k * LW + i];
     int32_t sv = SMALL, d = -1;
     if (key) {
       sv = key_score(key);
@@ -734,53 +763,28 @@ extern "C" int yt_span_score(const void* feats, const void* flags,
   return (int)cudaGetLastError();
 }
 
-// The batched K7 over a wave of bs <= 16 slots (common.cuh scan_batch_of,
-// in host memory); the arena as for K7; stats the wave's statistics, slot
-// i at i * stats_stride int32; consts int32[44] (one profile a wave); out
-// int32 [out_off[bs]], slot s's region [out_off[s], out_off[s + 1])
-// (out_off: bs + 1 int64 in host memory, out_off[0] = 0, each region at
-// least the slot's rows).
-extern "C" int yt_span_score_batch(const void* feats, const void* flags,
-                                   const void* docids, const void* dead,
-                                   int64_t doc_cap, const int32_t* slots,
-                                   int bs, const void* stats,
-                                   int64_t stats_stride, const void* consts,
-                                   void* out, const int64_t* out_off,
-                                   void* stream) {
-  if (bs < 1 || bs > BATCH_SLOTS) return (int)cudaErrorInvalidValue;
-  ScanBatch b{};
-  if (!scan_batch_of(slots, bs, &b, out_off))
-    return (int)cudaErrorInvalidValue;
-  const int smem = WARPS * 2 * stage_bytes<int16_t>();
-  static int cached[64];
-  int limit = 0;
-  cudaError_t e =
-      resident_blocks(score_batch, WARPS * 32, smem, cached, &limit);
-  if (e != cudaSuccess) return (int)e;
-  // the slots share the resident blocks in proportion to their rows
-  const int grid = wave_blocks(&b, WARPS, limit);
-  score_batch<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
-      (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
-      (const int32_t*)consts, (int32_t*)out);
-  return (int)cudaGetLastError();
-}
-
-// The fused K7's layout for a wave (slots, bs, kk): the wave b with its
-// groups and their blocks, KL, the grid, the dynamic shared memory, the
-// scratch's lists and the ticket words a call needs (a device's constant:
-// TREE_WORDS a block of the largest grid). Cached per device: the
-// resident blocks and the keys a block's lists may take.
+// The batched K7's layout for a wave (slots, bs, kk): the wave b with its
+// groups and their blocks, GL (the lists in device memory: kk past
+// FUSED_KK, or a group whose lists do not fit beside the stages), KL (in
+// shared memory the pow2 at or above kk, in device memory the lists'
+// capacity L), the grid, the dynamic shared memory, the scratch's bytes
+// (the lists, and with GL the tree's records) and the ticket
+// words a call needs (a device's constant: TREE_WORDS a block of the
+// largest grid). Cached per device: the resident blocks and the keys a
+// block's lists may take.
 static cudaError_t topk_plan(const int32_t* slots, int bs, int kk,
-                             ScanBatch* b, int* KL, int* grid, int* smem,
-                             int64_t* nlists, int64_t* ticket_words) {
-  if (bs < 1 || bs > BATCH_SLOTS || kk < 1 || kk > FUSED_KK)
+                             ScanBatch* b, bool* GL, int* KL, int* grid,
+                             int* smem, int64_t* scratch_bytes,
+                             int64_t* ticket_words) {
+  if (bs < 1 || bs > BATCH_SLOTS || kk < 1 || kk > (1 << 30))
     return cudaErrorInvalidValue;
   if (!scan_batch_of(slots, bs, b)) return cudaErrorInvalidValue;
+  int64_t most_rows = 1;
   for (int s = 0; s < bs; ++s) {
     int64_t rows = 0;
     for (int e = 0; e < b->n[s]; ++e) rows += b->count[s][e];
     if (rows >= ((int64_t)1 << 32) - 1) return cudaErrorInvalidValue;
+    most_rows = rows > most_rows ? rows : most_rows;
   }
   static int keys_of[64], limit_of[64];
   int dev = 0;
@@ -794,28 +798,50 @@ static cudaError_t topk_plan(const int32_t* slots, int bs, int kk,
     if (e != cudaSuccess) return e;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    cudaFuncAttributes fa;
-    e = cudaFuncGetAttributes(&fa, topk_groups);
+    cudaFuncAttributes fa, fg;
+    e = cudaFuncGetAttributes(&fa, topk_groups<false>);
     if (e != cudaSuccess) return e;
-    const int most = optin - (int)fa.sharedSizeBytes;
-    if (most < K7_FIXED + (FUSED_KK + K7_CAND) * 8)
+    e = cudaFuncGetAttributes(&fg, topk_groups<true>);
+    if (e != cudaSuccess) return e;
+    const int fixed = (int)(fa.sharedSizeBytes > fg.sharedSizeBytes
+                                ? fa.sharedSizeBytes
+                                : fg.sharedSizeBytes);
+    const int most = optin - fixed;
+    if (most < K7_FIXED + (FUSED_KK + K7_CAND) * 8 ||
+        most < K7_FIXED + GL_KEYS * 8)
       return cudaErrorInvalidConfiguration;
-    e = cudaFuncSetAttribute(topk_groups,
+    e = cudaFuncSetAttribute(topk_groups<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most);
     if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, topk_groups,
+    e = cudaFuncSetAttribute(topk_groups<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             most);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
+                                                      topk_groups<false>,
                                                       G_THREADS, most);
     if (e != cudaSuccess) return e;
     keys_of[dev] = (most - K7_FIXED) / 8;
     limit_of[dev] = (per_sm < 1 ? 1 : per_sm) * sms;
   }
+  // the lists in shared memory where every group's fit beside the
+  // stages (up to FUSED_KK), else in device memory
   int kl = 1;
   while (kl < kk) kl <<= 1;
-  int gmax = keys_of[dev] / (kl + K7_CAND);
-  if (gmax > BATCH_SLOTS) gmax = BATCH_SLOTS;
-  group_slots(b, gmax);
-  *grid = group_blocks(b, K7_CHUNKS, limit_of[dev]);
+  int gmax = kk <= FUSED_KK ? keys_of[dev] / (kl + K7_CAND) : 0;
+  group_slots(b);
+  int gbig = 1;
+  for (int g = 0; g < b->ng; ++g)
+    if (b->gfirst[g + 1] - b->gfirst[g] > gbig)
+      gbig = b->gfirst[g + 1] - b->gfirst[g];
+  const bool gl = gbig > gmax;
+  // in device memory the lists' capacity, even (16-byte aligned lists)
+  if (gl) kl = (int)(((kk < most_rows ? kk : most_rows) + 1) & ~1LL);
+  // GL: a block takes at least kk rows' chunks
+  int per_block = K7_CHUNKS;
+  if (gl && (kk + CH - 1) / CH > per_block) per_block = (kk + CH - 1) / CH;
+  *grid = group_blocks(b, per_block, limit_of[dev]);
   int gmost = 1;
   b->glist[0] = 0;
   for (int g = 0; g < b->ng; ++g) {
@@ -824,35 +850,40 @@ static cudaError_t topk_plan(const int32_t* slots, int bs, int kk,
     b->glist[g + 1] =
         b->glist[g] + (int64_t)G * (b->gbstart[g + 1] - b->gbstart[g]);
   }
+  *GL = gl;
   *KL = kl;
-  *smem = K7_FIXED + gmost * (kl + K7_CAND) * 8;
-  *nlists = b->glist[b->ng];
+  *smem = K7_FIXED + (gl ? GL_KEYS : gmost * (kl + K7_CAND)) * 8;
+  const int64_t nlists = b->glist[b->ng];
+  *scratch_bytes =
+      gl ? nlists * 2 * kl * 8 + (int64_t)*grid * TREE_WORDS * TREE_REC * 4
+         : nlists * kl * 8;
   *ticket_words = (int64_t)TREE_WORDS * (limit_of[dev] + BATCH_SLOTS);
   return cudaSuccess;
 }
 
-// What a fused K7 call over the wave (slots, bs) at kk needs of its
+// What a batched K7 call over the wave (slots, bs) at kk needs of its
 // caller: out[0] the scratch's bytes, out[1] the ticket words (zero, and
 // left at zero by every call).
 extern "C" int yt_span_topk_batch_plan(const int32_t* slots, int bs, int kk,
                                        int64_t* out) {
   ScanBatch b{};
+  bool gl = false;
   int KL = 0, grid = 0, smem = 0;
-  int64_t nlists = 0, words = 0;
+  int64_t bytes = 0, words = 0;
   const cudaError_t e =
-      topk_plan(slots, bs, kk, &b, &KL, &grid, &smem, &nlists, &words);
+      topk_plan(slots, bs, kk, &b, &gl, &KL, &grid, &smem, &bytes, &words);
   if (e != cudaSuccess) return (int)e;
-  out[0] = nlists * KL * 8;
+  out[0] = bytes;
   out[1] = words;
   return 0;
 }
 
 // K7 batched with its selection over a wave of bs <= 16 slots (common.cuh
-// scan_batch_of, in host memory), 1 <= kk <= FUSED_KK; the arena as for
-// K7; stats the wave's statistics, slot i at i * stats_stride int32;
-// consts int32[44] (one profile a wave); scratch of scratch_bytes and
-// tickets of ticket_words as yt_span_topk_batch_plan asks; out [bs, 2kk]
-// int32: each slot's kk best scores, then their docids.
+// scan_batch_of, in host memory), 1 <= kk <= 2^30; the arena as for K7;
+// stats the wave's statistics, slot i at i * stats_stride int32; consts
+// int32[44] (one profile a wave); scratch of scratch_bytes and tickets of
+// ticket_words as yt_span_topk_batch_plan asks; out [bs, 2kk] int32: each
+// slot's kk best scores, then their docids.
 extern "C" int yt_span_topk_batch(const void* feats, const void* flags,
                                   const void* docids, const void* dead,
                                   int64_t doc_cap, const int32_t* slots,
@@ -863,18 +894,22 @@ extern "C" int yt_span_topk_batch(const void* feats, const void* flags,
                                   int64_t ticket_words, void* out,
                                   void* stream) {
   ScanBatch b{};
+  bool gl = false;
   int KL = 0, grid = 0, smem = 0;
-  int64_t nlists = 0, words = 0;
+  int64_t bytes = 0, words = 0;
   cudaError_t e =
-      topk_plan(slots, bs, kk, &b, &KL, &grid, &smem, &nlists, &words);
+      topk_plan(slots, bs, kk, &b, &gl, &KL, &grid, &smem, &bytes, &words);
   if (e != cudaSuccess) return (int)e;
-  if (scratch_bytes < nlists * KL * 8 || ticket_words < words ||
+  if (scratch_bytes < bytes || ticket_words < words ||
       (int64_t)TREE_WORDS * grid > words)
     return (int)cudaErrorInvalidValue;
-  topk_groups<<<grid, G_THREADS, smem, (cudaStream_t)stream>>>(
+  // GL: the tree's records follow the lists
+  int32_t* rec = (int32_t*)((u64*)scratch + b.glist[b.ng] * 2 * KL);
+  auto k = gl ? topk_groups<true> : topk_groups<false>;
+  k<<<grid, G_THREADS, smem, (cudaStream_t)stream>>>(
       (const int16_t*)feats, (const int32_t*)flags, (const int32_t*)docids,
       (const uint8_t*)dead, doc_cap, b, (const int32_t*)stats, stats_stride,
-      (const int32_t*)consts, kk, KL, (u64*)scratch, (uint32_t*)tickets,
+      (const int32_t*)consts, kk, KL, (u64*)scratch, rec, (uint32_t*)tickets,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }

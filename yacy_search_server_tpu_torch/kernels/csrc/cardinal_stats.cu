@@ -827,7 +827,7 @@ extern "C" int yt_span_stats_batch(const void* feats, const void* flags,
   cudaStream_t s = (cudaStream_t)stream;
   ScanBatch b{};
   if (!scan_batch_of(slots, bs, &b)) return (int)cudaErrorInvalidValue;
-  group_slots(&b, BATCH_SLOTS);
+  group_slots(&b);
   cudaError_t e =
       cudaMemsetAsync(out, 0, (size_t)bs * SLOT_WORDS * 4, s);
   if (e != cudaSuccess) return (int)e;

@@ -610,18 +610,10 @@ __host__ inline bool regions_of(const int64_t* off, const int64_t* n, int bs,
 // slots (group_blocks: each group's range in proportion to its rows).
 // Group g's slots are gslot[gfirst[g]] .. gslot[gfirst[g + 1] - 1], in
 // wave order; glist[g] is its first list in K7's scratch.
-//
-// The K7 that writes scores (span_score_batch, the route above K7's
-// fused selection) cuts the grid into one block range a slot,
-// [bstart[s], bstart[s + 1]) (wave_blocks), and writes slot s into
-// [obase[s], obase[s + 1]) of one packed buffer (each slot's own length,
-// kernels/devstore.scan_batch_offsets).
 struct ScanBatch {
   int32_t start[BATCH_SLOTS][MAX_EXT], count[BATCH_SLOTS][MAX_EXT];
   int32_t n[BATCH_SLOTS];
   int32_t filt[BATCH_SLOTS][4];
-  int32_t bstart[BATCH_SLOTS + 1];
-  int64_t obase[BATCH_SLOTS + 1];
   int32_t bs;
   int32_t ng;
   int32_t gfirst[BATCH_SLOTS + 1], gslot[BATCH_SLOTS];
@@ -657,47 +649,23 @@ __host__ __device__ inline void slot_extents(const ScanBatch& b, int s,
 
 // A wave's slots in host memory, SLOT_DESC_WORDS int32 a slot: the
 // extent count n (<= 8), 8 (start, count) pairs, the filter's 4 int32
-// (kernels/devstore.scan_batch_desc). Fills b and, with `out_off` (bs + 1
-// int64 region starts of the batched K7's packed output, from 0), its
-// obase; false on a malformed slot or a region shorter than its rows.
+// (kernels/devstore.scan_batch_desc). Fills b; false on a malformed slot.
 constexpr int SLOT_DESC_WORDS = 1 + 2 * MAX_EXT + 4;
-__host__ inline bool scan_batch_of(const int32_t* slots, int bs, ScanBatch* b,
-                                   const int64_t* out_off = nullptr) {
+__host__ inline bool scan_batch_of(const int32_t* slots, int bs,
+                                   ScanBatch* b) {
   for (int s = 0; s < bs; ++s) {
     const int32_t* w = slots + (int64_t)s * SLOT_DESC_WORDS;
     if (w[0] < 0 || w[0] > MAX_EXT) return false;
     b->n[s] = w[0];
-    int64_t rows = 0;
     for (int e = 0; e < MAX_EXT; ++e) {
       b->start[s][e] = w[1 + 2 * e];
       b->count[s][e] = w[2 + 2 * e];
-      if (e < w[0]) {
-        if (w[1 + 2 * e] < 0 || w[2 + 2 * e] < 0) return false;
-        rows += w[2 + 2 * e];
-      }
+      if (e < w[0] && (w[1 + 2 * e] < 0 || w[2 + 2 * e] < 0)) return false;
     }
     for (int k = 0; k < 4; ++k) b->filt[s][k] = w[1 + 2 * MAX_EXT + k];
-    if (out_off != nullptr &&
-        (out_off[0] != 0 || out_off[s + 1] - out_off[s] < rows))
-      return false;
   }
-  for (int s = 0; s <= bs && out_off != nullptr; ++s)
-    b->obase[s] = out_off[s];
   b->bs = bs;
   return true;
-}
-
-// Cut a grid of at most `limit` blocks (`warps` warps of one CH-row chunk
-// each a block) into the wave's slot ranges, in proportion to each slot's
-// chunks and at least one block a slot; returns the grid's blocks.
-__host__ inline int wave_blocks(ScanBatch* b, int warps, int limit) {
-  int64_t chunks[BATCH_SLOTS];
-  for (int s = 0; s < b->bs; ++s) {
-    chunks[s] = 0;
-    for (int e = 0; e < b->n[s]; ++e)
-      chunks[s] += (b->count[s][e] + CH - 1) / CH;
-  }
-  return split_blocks(chunks, b->bs, warps, limit, b->bstart);
 }
 
 __host__ inline bool same_extents(const ScanBatch& b, int s, int t) {
@@ -708,25 +676,18 @@ __host__ inline bool same_extents(const ScanBatch& b, int s, int t) {
   return true;
 }
 
-// The wave's groups: slots of identical extent lists, at most gmax a
-// group (a larger set of such slots is cut into groups of gmax in wave
-// order), the groups in the order of their first slots.
-__host__ inline void group_slots(ScanBatch* b, int gmax) {
+// The wave's groups: slots of identical extent lists, in wave order, the
+// groups in the order of their first slots.
+__host__ inline void group_slots(ScanBatch* b) {
   bool taken[BATCH_SLOTS] = {};
   int ng = 0, k = 0;
   b->gfirst[0] = 0;
   for (int s = 0; s < b->bs; ++s) {
     if (taken[s]) continue;
-    int in = 0;
     for (int t = s; t < b->bs; ++t) {
       if (taken[t] || !same_extents(*b, s, t)) continue;
-      if (in == gmax) {
-        b->gfirst[++ng] = k;
-        in = 0;
-      }
       b->gslot[k++] = t;
       taken[t] = true;
-      ++in;
     }
     b->gfirst[++ng] = k;
   }
@@ -934,7 +895,7 @@ __device__ __forceinline__ void item_range(int items, int w, int& lo,
 //   - the tickets live in a buffer of the caller that every call leaves
 //     at zero (the second of a pair resets its ticket): TREE_WORDS a block.
 using u64 = unsigned long long;
-constexpr int FUSED_KK = 2048;      // the largest kk the selection takes
+constexpr int FUSED_KK = 2048;  // the largest kk of K7bp's and of smem lists
 constexpr int TREE_WORDS = 16;      // ticket words a block (tree levels)
 
 __device__ __forceinline__ u64 row_key(int32_t score, int64_t pos) {
@@ -970,14 +931,20 @@ __device__ __forceinline__ int pair_lo(int p, int h) {
 }
 
 // Sort the first `size` candidates (a power of two) of each slot in
-// `need` descending.
+// `need` descending. SHIFTS: a pair's slot and place by shifts (size is a
+// power of two), else by a division: the code the compiler makes of each
+// differs beyond the sort, and each measured the faster where it serves
+// (PERF.md): shifts in gflush, the division in flush_cands.
+template <bool SHIFTS>
 __device__ inline void sort_cands(u64* lists, int LW, int KL, int G,
                                   unsigned need, int size) {
   const int t = threadIdx.x, half = size >> 1;
+  const int lg = half > 0 ? __ffs(half) - 1 : 0;
   for (int len = 2; len <= size; len <<= 1)
     for (int h = len >> 1; h > 0; h >>= 1) {
       for (int i2 = t; i2 < G * half; i2 += blockDim.x) {
-        const int k = i2 / half, i = pair_lo(i2 - k * half, h);
+        const int k = SHIFTS ? i2 >> lg : i2 / half;
+        const int i = pair_lo(SHIFTS ? i2 & (half - 1) : i2 - k * half, h);
         if (!((need >> k) & 1u)) continue;
         u64* c = lists + k * LW + KL;
         const u64 a = c[i], z = c[i + h];
@@ -1042,7 +1009,7 @@ __device__ inline void flush_cands(u64* lists, int LW, int KL, int kk, int G,
     if (((need >> k) & 1u) && i >= s_cnt[k]) lists[k * LW + KL + i] = 0;
   }
   __syncthreads();
-  sort_cands(lists, LW, KL, G, need, size);
+  sort_cands<false>(lists, LW, KL, G, need, size);
   merge_top<false>(lists, LW, KL, G, need, lists + KL, LW, size);
   if (t < G && ((need >> t) & 1u)) {
     s_thr[t] = lists[t * LW + kk - 1];
@@ -1099,6 +1066,262 @@ __device__ inline bool merge_tree(u64* lists, int LW, int KL, int G, u64* gl,
       __threadfence();
       __syncthreads();
     }
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// Each slot's list in device memory (the batched K7 past FUSED_KK)
+// ---------------------------------------------------------------------------
+// Past FUSED_KK a slot's list and buffer ((kk + K7_CAND) keys, 40 KB at
+// kk = 4096) leave room beside the stages for three slots of a group, and
+// a group cut into threes would read its rows three times (the same holds
+// below FUSED_KK for a group of more slots than fit: six at kk = 2048).
+// So there each block keeps in shared memory only each slot's candidate
+// buffer, its count and threshold and its list's length and half; the
+// slot's sorted list of at most L keys (L = kk, or the largest group's
+// rows where fewer) lies in device memory, in one of two halves of the
+// block's scratch. A flush (gflush) sorts the buffer (sort_cands) and
+// merges it with the list into the other half (merge_runs), so that no
+// key is read after it is overwritten: a list key goes to its index plus
+// the buffer keys above it (a binary search of the buffer in shared
+// memory), the buffer keys between two list keys after the first of them,
+// and keys placed at L or later are dropped. At the end the blocks merge
+// their lists pairwise up a tree (gmerge_tree, merge_tree's order and
+// tickets): the second block of a pair stages its own and its partner's
+// lists of a few slots at a time in shared memory (the stages and
+// buffers are free by then) and merges each pair along its merge path
+// (merge_path; lists longer than a quarter of that room: the partner's
+// in chunks, merge_runs); a node's lists stay in the storage of the
+// block that merged them, and a record a node (that block, each slot's
+// half and length) tells the next level where.
+
+// The keys of the run r[0, n) (sorted descending) above x.
+__device__ __forceinline__ int keys_above(const u64* r, int n, u64 x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (r[m] > x)
+      lo = m + 1;
+    else
+      hi = m;
+  }
+  return lo;
+}
+
+// dst[0, min(cap, na + nb)) = the best keys of the list a[0, na) (device
+// memory) and the run b[0, nb) (shared memory), both sorted descending
+// with no key in common, sorted descending. A warp takes 32 consecutive
+// list keys: key i goes to i + c_i, c_i the run keys above it (a binary
+// search of the run); the run keys [c_(i-1), c_i) lie between list keys
+// i - 1 and i, so they go to their index plus i, written by key i's lane
+// (c_(i-1) from the lane before, the warp's first lane searching once
+// more); the run keys below the last list key go to their index plus na
+// (all threads). No key of the list is searched for in device memory.
+// Every thread of the block takes part; dst is complete at the block's
+// next barrier.
+__device__ inline void merge_runs(const u64* __restrict__ a, int na,
+                                  const u64* b, int nb,
+                                  u64* __restrict__ dst, int cap) {
+  const int t = threadIdx.x, T = blockDim.x, lane = t & 31;
+  for (int i0 = t - lane; i0 < na; i0 += T) {
+    const int i = i0 + lane;
+    const u64 x = i < na ? __ldcg(a + i) : 0ull;
+    const int c = i < na ? keys_above(b, nb, x) : nb;
+    int cp = __shfl_up_sync(0xffffffffu, c, 1);
+    if (lane == 0) cp = i0 == 0 ? 0 : keys_above(b, nb, __ldcg(a + i0 - 1));
+    if (i < na) {
+      if (i + c < cap) dst[i + c] = x;
+      for (int j = cp; j < c && j + i < cap; ++j) dst[j + i] = b[j];
+    }
+  }
+  const int last = na > 0 ? keys_above(b, nb, __ldcg(a + na - 1)) : 0;
+  for (int j = last + t; j < nb && j + na < cap; j += T) dst[j + na] = b[j];
+}
+
+// dst[0, min(cap, nx + ny)) = the best keys of the runs x[0, nx) and
+// y[0, ny) (shared memory, sorted descending, no key in common), sorted
+// descending: threads [t0, t0 + T) each write a contiguous share of the
+// output, its start on the merge path found by a binary search of the
+// diagonal, then the runs merged in order.
+__device__ inline void merge_path(const u64* x, int nx, const u64* y,
+                                  int ny, u64* __restrict__ dst, int cap,
+                                  int t, int T) {
+  const int n = nx + ny < cap ? nx + ny : cap;
+  const int S = (n + T - 1) / T;
+  const int d = t * S < n ? t * S : n, e = d + S < n ? d + S : n;
+  int lo = d - ny > 0 ? d - ny : 0, hi = d < nx ? d : nx;
+  while (lo < hi) {
+    const int m = (lo + hi) >> 1;
+    if (x[m] > y[d - m - 1])
+      lo = m + 1;
+    else
+      hi = m;
+  }
+  int i = lo, j = d - lo;
+  for (int o = d; o < e; ++o) {
+    const bool take = j >= ny || (i < nx && x[i] > y[j]);
+    dst[o] = take ? x[i++] : y[j++];
+  }
+}
+
+// cp.async of keys src[0, n) (device memory; src and dst on 16 bytes)
+// into dst by the block's threads; the caller commits and waits.
+__device__ __forceinline__ void stage_keys(u64* dst, const u64* src, int n) {
+  for (int i = 2 * threadIdx.x; i < n; i += 2 * blockDim.x)
+    cp_async16_n(dst + i, src + i, i + 1 < n ? 16u : 8u);
+}
+
+// Each slot k in `need`: its s_cnt[k] candidates (cands + k * CW) sorted
+// and merged with its list (list_at(k, s_half[k]), s_len[k] keys) into
+// the other half; its length and half follow, its threshold becomes the
+// list's kk-th key (0 while the list is shorter) and its buffer empties.
+template <class ListAt>
+__device__ inline void gflush(u64* cands, int CW, int kk, int L, int G,
+                              unsigned need, int* s_cnt, u64* s_thr,
+                              int* s_len, int* s_half, ListAt list_at) {
+  const int t = threadIdx.x;
+  int most = 1;
+  for (int k = 0; k < G; ++k)
+    if ((need >> k) & 1u) most = s_cnt[k] > most ? s_cnt[k] : most;
+  int size = 1;
+  while (size < most) size <<= 1;
+  for (int i2 = t; i2 < G * size; i2 += blockDim.x) {
+    const int k = i2 / size, i = i2 - k * size;
+    if (((need >> k) & 1u) && i >= s_cnt[k]) cands[k * CW + i] = 0;
+  }
+  __syncthreads();
+  sort_cands<true>(cands, CW, 0, G, need, size);
+  for (int k = 0; k < G; ++k)
+    if ((need >> k) & 1u)
+      merge_runs(list_at(k, s_half[k]), s_len[k], cands + k * CW, s_cnt[k],
+                 list_at(k, s_half[k] ^ 1), L);
+  __syncthreads();
+  if (t < G && ((need >> t) & 1u)) {
+    const int n = s_len[t] + s_cnt[t];
+    s_len[t] = n < L ? n : L;
+    s_half[t] ^= 1;
+    s_cnt[t] = 0;
+    s_thr[t] =
+        s_len[t] >= kk ? __ldcg(list_at(t, s_half[t]) + kk - 1) : 0ull;
+  }
+  __syncthreads();
+}
+
+// The `blocks` blocks' device lists merged pairwise up a tree: at level
+// lvl the block that holds node `node` writes its record (its block
+// index, then each slot's half | length << 1) at rec + (lvl * blocks +
+// node) * TREE_REC and takes the pair's ticket (tk, as merge_tree's);
+// the second of the pair reads its partner's record, then, where a
+// slot's two lists fit twice into `chunk` (room keys of shared memory),
+// stages both lists of as many slots as fit (cp.async) and merges each
+// pair along its merge path (merge_path) into its own other half; else
+// reads the partner's lists in chunks of room / G keys a slot and
+// merges each chunk into its own lists (merge_runs; list_at(k, leaf,
+// half): slot k's list half of block `leaf`, 16-byte aligned). Returns
+// true in the root, whose lists are list_at(k, block, s_half[k]),
+// s_len[k] keys each; every other block returns false once its record
+// is handed up. s_p holds 2 G + 2 ints.
+constexpr int TREE_REC = 1 + BATCH_SLOTS;
+template <class ListAt>
+__device__ inline bool gmerge_tree(u64* chunk, int room, int L, int G,
+                                   int* s_len, int* s_half, int* s_p,
+                                   int32_t* rec, uint32_t* tk, int block,
+                                   int blocks, ListAt list_at) {
+  const int t = threadIdx.x;
+  const int C = room / G;
+  int* s_plen = s_p;
+  int* s_phalf = s_p + G;
+  int node = block, n = blocks, lvl = 0;
+  while (n > 1) {
+    const int partner = node ^ 1;
+    if (partner < n) {
+      int32_t* mine = rec + ((int64_t)lvl * blocks + node) * TREE_REC;
+      if (t == 0) mine[0] = block;
+      if (t < G) mine[1 + t] = s_half[t] | (s_len[t] << 1);
+      __threadfence();
+      __syncthreads();
+      if (t == 0) {
+        uint32_t* w = tk + lvl * blocks + (node >> 1);
+        const uint32_t old = atomicAdd(w, 1u);
+        if (old) *w = 0u;
+        s_p[2 * G] = old != 0u;
+      }
+      __syncthreads();
+      if (!s_p[2 * G]) return false;
+      __threadfence();
+      const int32_t* theirs =
+          rec + ((int64_t)lvl * blocks + partner) * TREE_REC;
+      if (t == 0) s_p[2 * G + 1] = __ldcg(theirs);
+      if (t < G) {
+        const int32_t v = __ldcg(theirs + 1 + t);
+        s_phalf[t] = v & 1;
+        s_plen[t] = v >> 1;
+      }
+      __syncthreads();
+      const int pb = s_p[2 * G + 1];
+      int most = 0;
+      for (int k = 0; k < G; ++k) most = s_plen[k] > most ? s_plen[k] : most;
+      // each slot's two lists staged side by side (PS slots at a time,
+      // L2 keys apart: L rounded up to 2) and merged along the path
+      const int L2 = (L + 1) & ~1;
+      const int PS = room / (2 * L2);
+      for (int k0 = 0; k0 < G && PS > 0; k0 += PS) {
+        const int nk = G - k0 < PS ? G - k0 : PS;
+        for (int q = 0; q < nk; ++q) {
+          const int k = k0 + q;
+          stage_keys(chunk + 2 * q * L2, list_at(k, block, s_half[k]),
+                     s_len[k]);
+          stage_keys(chunk + (2 * q + 1) * L2, list_at(k, pb, s_phalf[k]),
+                     s_plen[k]);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        // the block's threads cut into nk parts, one a slot
+        const int per = blockDim.x / nk, q = t / per;
+        if (q < nk) {
+          const int k = k0 + q;
+          merge_path(chunk + 2 * q * L2, s_len[k], chunk + (2 * q + 1) * L2,
+                     s_plen[k], list_at(k, block, s_half[k] ^ 1), L,
+                     t - q * per, per);
+        }
+        __syncthreads();
+        if (t >= k0 && t < k0 + nk) {
+          s_len[t] = s_len[t] + s_plen[t] < L ? s_len[t] + s_plen[t] : L;
+          s_half[t] ^= 1;
+        }
+        __syncthreads();
+      }
+      // else (kk past room / 4): the partner's lists in chunks
+      for (int c0 = 0; c0 < most && PS == 0; c0 += C) {
+        for (int k = 0; k < G; ++k) {
+          const int nk = s_plen[k] - c0 < C ? s_plen[k] - c0 : C;
+          const u64* src = list_at(k, pb, s_phalf[k]) + c0;
+          for (int i = t; i < nk; i += blockDim.x)
+            chunk[k * C + i] = __ldcg(src + i);
+        }
+        __syncthreads();
+        for (int k = 0; k < G; ++k) {
+          const int nk = s_plen[k] - c0 < C ? s_plen[k] - c0 : C;
+          if (nk > 0)
+            merge_runs(list_at(k, block, s_half[k]), s_len[k], chunk + k * C,
+                       nk, list_at(k, block, s_half[k] ^ 1), L);
+        }
+        __syncthreads();
+        if (t < G) {
+          const int nk = s_plen[t] - c0 < C ? s_plen[t] - c0 : C;
+          if (nk > 0) {
+            s_len[t] = s_len[t] + nk < L ? s_len[t] + nk : L;
+            s_half[t] ^= 1;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    node >>= 1;
+    ++lvl;
+    n = (n + 1) >> 1;
   }
   return true;
 }

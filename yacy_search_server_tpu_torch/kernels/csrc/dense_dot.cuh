@@ -40,12 +40,16 @@ __device__ __forceinline__ void load8(const __half* row, int l, float* v) {
   }
 }
 
-// lane l's 8 elements of an int8 row (exact in bf16: |x| <= 127)
-__device__ __forceinline__ void load8_i8(const int8_t* row, int l, float* v) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(row) + l);
+// 8 int8 elements (exact in bf16: |x| <= 127) as floats
+__device__ __forceinline__ void i8x8(const uint2 u, float* v) {
   const int8_t* b = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = __int2float_rn((int)b[i]);
+}
+
+// lane l's 8 elements of an int8 row
+__device__ __forceinline__ void load8_i8(const int8_t* row, int l, float* v) {
+  i8x8(__ldg(reinterpret_cast<const uint2*>(row) + l), v);
 }
 
 // lane l's 8 query elements from their f32 bits, bf16-rounded

@@ -72,11 +72,7 @@
 // or the scan's statistics (_rank_spans_packed_kernel's [2kk + 36]
 // output). `topk_finish_batch` does the same for a wave of batched scans
 // (_rank_scan_batch_packed_kernel's [bs, 2kk] output), one block a slot.
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "cluster_select.cuh"
 
 namespace yt {
 
@@ -85,7 +81,7 @@ constexpr int SEL_THREADS = 1024;           // the finishes' blocks
 constexpr int MAX_KK = 2048;
 constexpr int SLOTS = 16;                   // slots a launch (2.6 KB)
 constexpr int32_t INT32_MAX_ = 2147483647;
-constexpr int PT_THREADS = BP_THREADS;      // a CTA of K5 / K5bp
+constexpr int PT_THREADS = CS_THREADS;      // a CTA of K5 / K5bp
 constexpr int PT_CLUSTER = 16;              // CTAs a slot (8: the fallback)
 
 // Up to SL slots of a descriptor, by value: the fused layout
@@ -160,216 +156,10 @@ __device__ __forceinline__ bool tail_ok(int32_t pm, int32_t bound_shift,
   return (int32_t)((uint32_t)shifted + (uint32_t)lang_term) <= theta;
 }
 
-// ---------------------------------------------------------------------------
-// The selection of K5 and K5bp (head note)
-// ---------------------------------------------------------------------------
-// A CTA's N = E * T keys (T = PT_THREADS) are the network's: key j of
-// thread t has index i = t * E + j, so strides below E stay in a
-// thread, strides below 32 E in a warp (shuffles), the rest cross warps
-// through the exchange buffer xb (two of N keys, j-major: key j of
-// thread t at j * T + t, so that a warp's accesses meet no bank twice
-// beyond the two a 64-bit key takes; one barrier a stage, the two
-// alternate). A stage of stride s pairs i with i ^ s: both keep the
-// larger (BOTH), or the pair is put in order, descending where (i &
-// dbit) == 0 (dbit > s; dbit >= N: everywhere). Past the thread,
-// whether i is the pair's lower index and which way the pair runs are
-// the thread's alone, so a key costs one compare and one select.
-
-// a stage of stride s < E, inside the thread (S a constant, so that every
-// index into v stays a register)
-template <int E, bool BOTH, int S = 1>
-__device__ __forceinline__ void net_thread(u64 (&v)[E], int s, int base,
-                                           int dbit) {
-  if constexpr (S < E) {
-    if (s != S) {
-      net_thread<E, BOTH, 2 * S>(v, s, base, dbit);
-      return;
-    }
-    const bool tdesc = (base & dbit) == 0;
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      if (j & S) continue;
-      const u64 a = v[j], b = v[j | S];
-      const bool first = (a > b) == (BOTH || (tdesc && (j & dbit) == 0));
-      v[j] = first ? a : b;
-      v[j | S] = BOTH ? v[j] : (first ? b : a);
-    }
-  }
-}
-
-template <int E, bool BOTH>
-__device__ __forceinline__ void net_stage(u64 (&v)[E], int s, int dbit,
-                                          u64* xb, int& par) {
-  constexpr int T = PT_THREADS;
-  const int t = threadIdx.x, base = t * E;
-  if (s < E) {
-    net_thread<E, BOTH>(v, s, base, dbit);
-    return;
-  }
-  const int ts = s / E;
-  const bool keep_max = BOTH || (((t & ts) == 0) == ((base & dbit) == 0));
-  if (s < 32 * E) {
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      const u64 o = __shfl_xor_sync(0xffffffffu, v[j], ts);
-      v[j] = (v[j] > o) == keep_max ? v[j] : o;
-    }
-  } else {
-    u64* b = xb + par * (E * T);
-#pragma unroll
-    for (int j = 0; j < E; ++j) b[j * T + t] = v[j];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < E; ++j) {
-      const u64 o = b[j * T + (t ^ ts)];
-      v[j] = (v[j] > o) == keep_max ? v[j] : o;
-    }
-    par ^= 1;
-  }
-}
-
-// Runs of kk keys at [0, F kk), alternately descending and ascending,
-// become their kk best, sorted descending, at [0, kk): log2 F rounds in
-// which runs r and r ^ 1 both keep the larger of each pair (i, i ^ s), a
-// bitonic sequence of the pair's kk best, merged in the next run's
-// direction. The pairs' copies stay where they are, so every stage takes
-// all threads.
-template <int E>
-__device__ __forceinline__ void net_reduce(u64 (&v)[E], int kk, int span,
-                                           u64* xb, int& par) {
-  for (int s = kk; s < span; s <<= 1) {
-    net_stage<E, true>(v, s, 0, xb, par);
-    for (int h = kk >> 1; h > 0; h >>= 1)
-      net_stage<E, false>(v, h, s << 1, xb, par);
-  }
-}
-
-// The CTA's kk best keys, sorted descending, at indices [0, kk) (kk a
-// power of two, 16 <= kk <= N): runs of kk sorted, alternately descending
-// and ascending (a bitonic sort up to kk), then reduced to one.
-template <int E>
-__device__ __forceinline__ void cta_top(u64 (&v)[E], int kk, u64* xb,
-                                        int& par) {
-  constexpr int T = PT_THREADS;
-  constexpr int N = E * T;
-  for (int len = 2; len <= kk; len <<= 1)
-    for (int s = len >> 1; s > 0; s >>= 1)
-      net_stage<E, false>(v, s, len, xb, par);
-  net_reduce<E>(v, kk, N, xb, par);
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// The warp's 32 keys (one a lane) sorted descending across its lanes.
-__device__ __forceinline__ u64 warp_sort(u64 x, int lane) {
-  for (int len = 2; len <= 32; len <<= 1)
-    for (int s = len >> 1; s > 0; s >>= 1) {
-      const u64 o = __shfl_xor_sync(0xffffffffu, x, s);
-      const bool keep_max = ((lane & s) == 0) == ((lane & len) == 0);
-      x = (x > o) == keep_max ? x : o;
-    }
-  return x;
-}
-
-// The block's keys v[E] at or above thr, packed into cand[0, M) (in no
-// order); returns M. s_sum holds the warps' counts.
-template <int E>
-__device__ __forceinline__ int compact(const u64 (&v)[E], u64 thr, u64* cand,
-                                       int* s_sum) {
-  constexpr int T = PT_THREADS;
-  constexpr int W = T / 32;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  int c = 0;
-#pragma unroll
-  for (int j = 0; j < E; ++j) c += v[j] >= thr ? 1 : 0;
-  int incl = c;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += u;
-  }
-  if (lane == 31) s_sum[warp] = incl;
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    before += w < warp ? s_sum[w] : 0;
-    total += s_sum[w];
-  }
-  int k = before + incl - c;
-#pragma unroll
-  for (int j = 0; j < E; ++j)
-    if (v[j] >= thr) cand[k++] = v[j];
-  __syncthreads();
-  return total;
-}
-
-// The kk best of the keys cand[0, M) (kk <= M), sorted descending into
-// list[0, kk): a network of E' keys a thread, E' the least of 1, 2, 4, 8
-// (then EMAX) with E' T >= M (zero keys past M).
-template <int E>
-__device__ __forceinline__ void select_run(const u64* cand, int M, int kk,
-                                           u64* xb, u64* list) {
-  const int t = threadIdx.x;
-  u64 v[E];
-#pragma unroll
-  for (int j = 0; j < E; ++j) {
-    const int i = t * E + j;
-    v[j] = i < M ? cand[i] : 0ull;
-  }
-  int par = 0;
-  cta_top<E>(v, kk, xb, par);
-  if (t * E < kk) {
-#pragma unroll
-    for (int j = 0; j < E; ++j) list[t * E + j] = v[j];
-  }
-}
-
-template <int EMAX>
-__device__ __forceinline__ void select_top(const u64* cand, int M, int kk,
-                                           u64* xb, u64* list) {
-  constexpr int T = PT_THREADS;
-  if (M <= T)
-    select_run<1>(cand, M, kk, xb, list);
-  else if (M <= 2 * T)
-    select_run<2>(cand, M, kk, xb, list);
-  else if (M <= 4 * T)
-    select_run<4>(cand, M, kk, xb, list);
-  else if (EMAX <= 8 || M <= 8 * T)
-    select_run<8>(cand, M, kk, xb, list);
-  else
-    select_run<EMAX>(cand, M, kk, xb, list);
-}
-
-constexpr int PRE_KK = 128;  // the largest kk the bounds take (head note)
-
-// The slot's kk best keys over the cluster's CL CTAs, each holding its
-// rows' keys v[E], and the leader's output row o [2kk + 1]. Up to PRE_KK:
-// a bound first, the smallest over the W warps of each warp's (kk /
-// W)-th largest thread maximum (warp_sort): at least kk keys of the CTA
-// reach it, so its kk best do; only the keys at or above it (at most E
-// kk; 226-240 of 2,048 at the smoke's 10M term) go into a network
-// (compact, select_top), whose kk best, sorted descending, the CTA
-// stores into run `rank` of the leader's `list` (distributed shared
-// memory, once every CTA of the cluster runs). After one cluster barrier
-// the leader bounds the CL lists by the largest of their kk-th keys; a
-// list that holds every key reaching it (M2 = kk) is the answer as it
-// stands, else the keys reaching it take the network. Past PRE_KK, each
-// CTA's network takes its N keys (cta_top) and the lists meet in levels
-// of fan-in F = N / kk (F = 2 where a CTA holds one list alone, kk = N:
-// the partner's list mirrored, the larger key at each place kept): the
-// CTAs of rank a multiple of span * F read the lists of ranks rank +
-// span, .., rank + (F - 1) span as runs (odd runs mirrored: ascending)
-// and reduce them (net_reduce); one cluster barrier a level. The leader
-// then writes the scores and docids (docid_of(place)), with `init`'s
+// K5's epilogue on the cluster's selection (cluster_select.cuh): the
+// leader writes the scores and docids (docid_of(place)), with `init`'s
 // rule, and the ok of the tail pmax[tstart + 1, tstart + tcount) against
-// the kk-th score (its first rows loaded under the merge). No CTA leaves
-// while another may still read its list.
+// the kk-th score (its first rows loaded under the merge).
 template <int CL, int E, class DocidOf>
 __device__ __forceinline__ void cluster_topk(
     u64 (&v)[E], u64* xb, u64* cand, u64* list, int kk, int init,
@@ -377,12 +167,8 @@ __device__ __forceinline__ void cluster_topk(
     const int32_t* __restrict__ pmax, int32_t* __restrict__ o,
     DocidOf docid_of) {
   constexpr int T = PT_THREADS;
-  constexpr int N = E * T, W = T / 32;
-  __shared__ u64 s_bound[CL > W ? CL : W];
-  __shared__ int s_sum[W], s_fin;
-  const cg::cluster_group cl = cg::this_cluster();
-  const int rank = (int)cl.block_rank();
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, base = t * E;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int t = threadIdx.x;
   cluster_arrive();                       // this CTA runs (see the waits)
   // the leader's first two pmax rows a thread, loaded under the merge
   int32_t pm[2];
@@ -391,97 +177,11 @@ __device__ __forceinline__ void cluster_topk(
     const int j = 1 + t + q * T;
     pm[q] = rank == 0 && j < tcount ? pmax[(int64_t)tstart + j] : 0;
   }
-  if (t == 0) s_fin = 0;
-  if (kk <= PRE_KK) {
-    u64 m = v[0];
-#pragma unroll
-    for (int j = 1; j < E; ++j) m = v[j] > m ? v[j] : m;
-    m = warp_sort(m, lane);
-    const u64 mine = __shfl_sync(0xffffffffu, m, kk / W - 1);
-    if (lane == 0) s_bound[warp] = mine;
-    __syncthreads();
-    u64 thr = s_bound[0];
-#pragma unroll
-    for (int w = 1; w < W; ++w) thr = s_bound[w] < thr ? s_bound[w] : thr;
-    const int M = compact<E>(v, thr, cand, s_sum);
-    // each CTA's list goes straight into run `rank` of the leader's
-    // `list` (CL kk keys there), once every CTA of the cluster runs
-    cluster_wait();
-    select_top<E>(cand, M, kk, xb,
-                     cl.map_shared_rank(list, 0u) + rank * kk);
-    cl.sync();                            // every list in the leader's
-    if (rank == 0) {
-      // the bound: the largest kk-th key of a list; where one list alone
-      // reaches it (M2 = kk), that list is the answer
-      u64 g8[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int g = 8 * t + j;
-        g8[j] = g < CL * kk ? list[g] : 0ull;
-        if (g < CL * kk && g % kk == kk - 1) s_bound[g / kk] = g8[j];
-      }
-      __syncthreads();
-      u64 thr2 = s_bound[0];
-      int best = 0;
-#pragma unroll
-      for (int c = 1; c < CL; ++c)
-        if (s_bound[c] > thr2) {
-          thr2 = s_bound[c];
-          best = c;
-        }
-      const int M2 = compact<8>(g8, thr2, cand, s_sum);
-      if (M2 == kk) {
-        if (t == 0) s_fin = best * kk;
-      } else {
-        select_top<8>(cand, M2, kk, xb, list);
-      }
-    }
-  } else {
-    int par = 0;
-    cta_top<E>(v, kk, xb, par);
-    const bool whole = kk == N;            // a CTA holds one list alone
-    const int F = whole ? 2 : (N / kk < CL ? N / kk : CL);
-    if (base < kk) {
-#pragma unroll
-      for (int j = 0; j < E; ++j) list[base + j] = v[j];
-    }
-    cluster_wait();
-    cl.sync();                            // every list written
-    for (int span = 1; span < CL; span *= F) {
-      if (rank % (span * F) == 0) {
-        // thread t's keys lie in run c at places p0 .. p0 + E - 1
-        const int c = whole ? 1 : base / kk, p0 = base % kk;
-        const int from = rank + span * c;
-        if (c > 0 && c < F && base < (whole ? kk : F * kk)) {
-          const bool up = whole || (c & 1);   // the run read mirrored
-          const u64* p = from < CL
-                             ? cl.map_shared_rank(list, (unsigned)from)
-                             : nullptr;
-#pragma unroll
-          for (int j = 0; j < E; ++j) {
-            const u64 w = p ? p[up ? kk - 1 - (p0 + j) : p0 + j] : 0ull;
-            v[j] = whole ? (v[j] > w ? v[j] : w) : w;
-          }
-        }
-        if (whole) {
-          for (int h = kk >> 1; h > 0; h >>= 1)
-            net_stage<E, false>(v, h, N, xb, par);
-        } else {
-          net_reduce<E>(v, kk, F * kk, xb, par);
-        }
-        // no CTA reads a receiver's list in its own level
-        if (base < kk && (span * F < CL || rank == 0)) {
-#pragma unroll
-          for (int j = 0; j < E; ++j) list[base + j] = v[j];
-        }
-      }
-      if (span * F < CL) cl.sync();       // the level's reads and lists done
-    }
-  }
+  const int at = cluster_select<E>(v, xb, cand, list, kk, CL);
   cluster_arrive();                       // my reads of the others are done
   if (rank == 0) {
     __syncthreads();
-    const u64* fin = list + s_fin;
+    const u64* fin = list + at;
     for (int i = t; i < kk; i += T) {
       const u64 key = fin[i];
       int32_t s = key_score(key);
@@ -543,7 +243,7 @@ __host__ __device__ constexpr int64_t pt_smem(int64_t front, int n,
 // The keys of a CTA's list: up to PRE_KK the leader's holds all CL
 // CTAs' lists
 __host__ __device__ constexpr int pt_list(int cl, int kk) {
-  return kk <= PRE_KK ? cl * kk : kk;
+  return cs_list(cl, kk);
 }
 
 // K5's stages: a CTA's TILE / CL rows in chunks of CH

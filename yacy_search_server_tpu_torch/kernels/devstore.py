@@ -1,6 +1,6 @@
 """The devstore's kernels: K5 `pruned_tile`, K6 `span_stats`, K7
 `span_score`, `topk_finish`, K8 `join_member`, and the batched exact scan
-(`span_stats_batch`, `span_score_batch`, `topk_finish_batch`).
+(`span_stats_batch`, `span_topk_batch`, `topk_finish_batch`).
 
 They read the device arena of index/devstore.py in place: features
 int16 [cap, 17], flags and docids int32 [cap] (-1 on pad rows), the
@@ -45,9 +45,9 @@ package's index/devstore.py decides; every kernel decides it itself.
   (`scan_batch_desc`), each slot with its own extents, filter and
   statistics; the slots whose extent lists are identical (a group) share
   one read of its rows; K7 keeps each slot's kk best itself and writes
-  the wave's [bs, 2kk]. Past FUSED_KK, `span_score_batch` writes each
-  slot's scores into a region of one buffer, kernel 3 selects a slot
-  and `topk_finish_batch` finishes the wave.
+  the wave's [bs, 2kk], at every kk (past FUSED_KK, or where a group's
+  lists would not fit beside the stages, each slot's list of a block lies
+  in device memory, its buffer in shared memory).
 - `join_member_batch` (csrc/join.cu), `join_stats_batch`
   (csrc/cardinal_stats.cu) and `join_score_batch` (csrc/cardinal_score.cu)
   replace _rank_join_batch_kernel / _rank_join_bm_batch_kernel and their
@@ -108,7 +108,10 @@ _PLAIN_ROWS = 1 << 20                # rows a plain scoring step holds
 DELTA_BUCKETS = (256, 1024, 4096, 16_384, 65_536, 262_144)
 BATCH_SLOTS = 16                     # slots of one batched-scan launch
 SLOT_DESC_WORDS = 1 + 2 * MAX_EXTENTS + 4   # n, (start, count) x 8, filter
-FUSED_KK = 2048                      # the largest kk span_topk_batch takes
+# the largest kk whose lists the batched K7 keeps in shared memory (past
+# it, in device memory) and the largest kk K7bp's selection takes
+FUSED_KK = 2048
+MAX_WAVE_KK = 1 << 30                # the largest kk span_topk_batch takes
 _STATS_SLOT = 2 * 38 + 1             # a batched K6 slot: stats, acc, ticket
 
 
@@ -1081,73 +1084,16 @@ def span_stats_batch(feats16, flags, docids, dead, desc):
     return out[:, :KC.STATS_LEN]
 
 
-# a slot's region of the batched K7's packed output starts on a 128-byte
-# boundary: kernel 3 reads its scores as 16-byte vectors
+# a slot's region of a join wave's buffers starts on a 128-byte boundary:
+# kernel 3 reads its scores as 16-byte vectors
 _REGION_ALIGN = 32
 
 
-def scan_batch_offsets(desc, kk: int) -> np.ndarray:
-    """The batched K7's packed output layout: int64 [bs + 1] region
-    starts, slot s in [off[s], off[s + 1]), max(its rows, kk) entries
-    (the solo scan's buffer, scan_query's) rounded up to _REGION_ALIGN.
-    Each slot's kernel 3 reads its first max(rows, kk) entries."""
-    lens = [max(sum(c for _a, c in ext), kk) for ext, _f in desc_scans(desc)]
-    off = np.zeros(len(lens) + 1, np.int64)
-    off[1:] = np.cumsum([-(-n // _REGION_ALIGN) * _REGION_ALIGN
-                         for n in lens])
-    return off
-
-
-def span_score_batch_plain(feats16, flags, docids, dead, desc, stats,
-                           consts, out_off):
-    """Plain PyTorch version of the batched K7: int32 [out_off[-1]]."""
-    return torch.cat([
-        span_score_plain(feats16, flags, docids, dead, ext, stats[i],
-                         consts, int(out_off[i + 1] - out_off[i]), filt)
-        for i, (ext, filt) in enumerate(desc_scans(desc))])
-
-
-def span_score_batch(feats16, flags, docids, dead, desc, stats, consts,
-                     out_off):
-    """Batched K7: each slot's rows scored against its row of `stats`
-    ([bs, 38], span_stats_batch's) under its filter, in extent order, into
-    its region [out_off[s], out_off[s + 1]) of one packed int32 buffer
-    (scan_batch_offsets; the region's entries past its rows
-    -(2^31-1)). One profile a wave (`consts`)."""
-    scans = desc_scans(desc)
-    out_off = np.ascontiguousarray(out_off, np.int64)
-    if out_off.shape != (len(scans) + 1,) or out_off[0] != 0 or any(
-            out_off[i + 1] - out_off[i] < sum(c for _a, c in ext)
-            for i, (ext, _f) in enumerate(scans)):
-        raise ValueError("out_off: bs + 1 region starts from 0, each "
-                         "region at least its slot's rows")
-    if feats16.device.type == "cpu":
-        return span_score_batch_plain(feats16, flags, docids, dead, desc,
-                                      stats, consts, out_off)
-    dev = feats16.device
-    cap = _require_arena(feats16, flags, docids, dead, dev)
-    desc = _check_wave(desc, cap)
-    bs = desc.shape[0]
-    if stats.dtype != torch.int32 or stats.device != dev \
-            or stats.shape != (bs, KC.STATS_LEN) or stats.stride(1) != 1:
-        raise ValueError("stats: int32 [bs, 38] rows on the card expected")
-    B.require(consts, "consts", (torch.int32,), 1, dev)
-    out = torch.empty(int(out_off[-1]), dtype=torch.int32, device=dev)
-    rc = B.library().yt_span_score_batch(
-        feats16.data_ptr(), flags.data_ptr(), docids.data_ptr(),
-        dead.data_ptr(), dead.shape[0], desc.ctypes.data, bs,
-        stats.data_ptr(), stats.stride(0), consts.data_ptr(), out.data_ptr(),
-        out_off.ctypes.data, B.stream_ptr(dev))
-    B.check(rc, "span_score_batch")
-    B.count_launch("span_score_batch", slots=bs)
-    return out
-
-
 def scan_groups(desc) -> list[list[int]]:
-    """The groups of a wave (scan_batch_desc), as the batched K6 reads it
-    (and K7 where its lists fit, common.cuh group_slots): the slots whose
-    extent lists are identical, in wave order, the groups in the order of
-    their first slots."""
+    """The groups of a wave (scan_batch_desc), as the batched K6 and K7
+    read it (common.cuh group_slots): the slots whose extent lists are
+    identical, in wave order, the groups in the order of their first
+    slots."""
     by_ext: dict = {}
     for i, (ext, _f) in enumerate(desc_scans(desc)):
         by_ext.setdefault(tuple(ext), []).append(i)
@@ -1177,10 +1123,13 @@ def span_topk_batch(feats16, flags, docids, dead, desc, stats, consts,
     order: the JAX merge's order) as scores and docids, (-(2^31-1), -1)
     where a slot has fewer rows above -(2^31-1): [bs, 2kk] int32
     (_rank_scan_batch_packed_kernel's output). One profile a wave
-    (`consts`); 1 <= kk <= FUSED_KK. The slots of a group (identical
-    extent lists) share one read of its rows."""
-    if not 1 <= kk <= FUSED_KK:
-        raise ValueError(f"kk={kk} outside [1, {FUSED_KK}]")
+    (`consts`); 1 <= kk <= MAX_WAVE_KK. The slots of a group (identical
+    extent lists) share one read of its rows. Past FUSED_KK each block's
+    lists lie in a scratch in device memory (up to twice the largest
+    group's rows a slot; also at a smaller kk where a group has more
+    slots than shared memory holds lists for)."""
+    if not 1 <= kk <= MAX_WAVE_KK:
+        raise ValueError(f"kk={kk} outside [1, {MAX_WAVE_KK}]")
     if feats16.device.type == "cpu":
         return span_topk_batch_plain(feats16, flags, docids, dead, desc,
                                      stats, consts, kk)
@@ -1221,10 +1170,11 @@ def topk_finish_batch_plain(top_s, top_rows, docids, desc):
 
 
 def topk_finish_batch(top_s, top_rows, docids, desc):
-    """The finish of a wave of batched scans: each slot's kk winners of
-    kernel 3 (top_s / top_rows [bs, kk] over its span_score_batch region) as
-    scores and docids, (-(2^31-1), -1) at or below -(2^31-1): [bs, 2kk]
-    int32 (_rank_scan_batch_packed_kernel's output)."""
+    """The finish of a join wave: each slot's kk winners of kernel 3
+    (top_s / top_rows [bs, kk], rows of the slot's one extent, a
+    scan_batch_desc) as scores and docids, (-(2^31-1), -1) at or below
+    -(2^31-1): [bs, 2kk] int32 (_rank_join_(bm_)batch_packed_kernel's
+    output)."""
     if top_s.device.type == "cpu":
         return topk_finish_batch_plain(top_s, top_rows, docids, desc)
     dev = top_s.device

@@ -1,13 +1,15 @@
-"""The batched exact scan alone at two shapes, on a synthetic arena of the
-smoke's run on the card: K6 `span_stats_batch` and K7 with its selection
-`span_topk_batch` (a tree without it: K7 `span_score_batch`, kernel 3 a
-slot and `topk_finish_batch`). Each wave's answer is held against an
-oracle built from the plain versions both trees have; then each
-kernel's call ms and device ms, the wave's device operations and the
-wall of `scan_batch_query` with its one fetch.
+"""The batched exact scan alone at two shapes and three kk, on a
+synthetic arena of the smoke's run on the card: K6 `span_stats_batch`
+and K7 with its selection `span_topk_batch` (a tree whose K7 selects only
+up to its FUSED_KK takes its former route past it: K7
+`span_score_batch` into a region a slot, kernel 3 a slot and
+`topk_finish_batch`). Each wave's answer is held against an oracle
+built from the plain versions both trees have; then each kernel's call
+ms and device ms, the wave's device operations and the wall of
+`scan_batch_query` with its one fetch.
 
     python -m yacy_search_server_tpu_torch.kernels.scan_batch_bench
-        [--tag T] [--out FILE] [--arena FILE] [--check]
+        [--tag T] [--out FILE] [--arena FILE] [--check] [--kk 128,4096]
     python -P yacy_search_server_tpu_torch/kernels/scan_batch_bench.py
         --tree DIR [--arena FILE]
 
@@ -15,7 +17,8 @@ wall of `scan_batch_query` with its one fetch.
 of this one (-P keeps this file's folder off the import path); --arena
 keeps the arena in a file (a git-ignored path): the first run writes it,
 the next ones read it, so that the trees of one call meet the same
-bytes; --check holds the answers and times nothing.
+bytes; --check holds the answers and times nothing; --kk the kk of the
+waves (default 128, 2048, 4096).
 
 The arena: the smoke's run, each term `bench.make_term(n, SEED + i)` in
 the store's packing order (`bench.arena_rows`), one after another behind
@@ -23,9 +26,9 @@ the store's packing order (`bench.arena_rows`), one after another behind
 1M, 100k, 20k, joinA (4M), joinB (30,000), joinC (2M); 1,000 docids
 tombstoned. Shape A: the smoke's 16-slot wave (the headline term's two
 spans and the 1M term, each under the filtered-scan mix's four filters
-at k = 10 and 100: 88.8M slot-rows, 11.1M distinct), kk = 128. Shape
-B: one slot a term under the mix's first filter, no span shared, kk =
-128.
+at k = 10 and 100: 88.8M slot-rows, 11.1M distinct). Shape B: one slot
+a term under the mix's first filter, no span shared. Each at kk = 128
+(the mix's k = 100), 2048 and 4096 (the mix's k = 3000).
 """
 
 import argparse
@@ -49,7 +52,7 @@ LO, HI = -(2**30), 2**30
 # language, a flag bit and a range, a start day
 FILTERS = ((EN, 5, 3_000, 27_000), (DE, -1, LO, HI), (0, 7, LO, 20_000),
            (0, -1, 10_000, HI))
-KK = 128
+KKS = (128, 2048, 4096)
 
 
 def make_arena(scale: float = 1.0, seed=None):
@@ -147,7 +150,7 @@ def run_shape(label, scans, arrays, consts, kk: int, check_only: bool):
     k6 = lambda: KD.span_stats_batch(f, fl, d, dead, desc)  # noqa: E731
     st = k6()
     fns = {"k6": k6}
-    if hasattr(KD, "span_topk_batch"):
+    if not (hasattr(KD, "span_score_batch") and kk > KD.FUSED_KK):
         fns["k7_select"] = lambda: KD.span_topk_batch(  # noqa: E731
             f, fl, d, dead, desc, st, consts, kk)
     else:
@@ -190,6 +193,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--arena", default=None)
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--kk", default=",".join(str(k) for k in KKS))
     args = ap.parse_args(argv)
     # this checkout's root, or the other tree's
     sys.path.insert(0, args.tree or os.path.dirname(os.path.dirname(
@@ -217,11 +221,12 @@ def main(argv=None) -> int:
     print(f"[{args.tag}] {card()}; set-up {time.time() - t0:.1f} s",
           flush=True)
     out = []
-    for label, scans in wave_shapes(spans).items():
-        row = {"tag": args.tag, **run_shape(label, scans, arrays, consts,
-                                            KK, args.check)}
-        print(json.dumps(row), flush=True)
-        out.append(row)
+    for kk in (int(k) for k in args.kk.split(",")):
+        for label, scans in wave_shapes(spans).items():
+            row = {"tag": args.tag, **run_shape(label, scans, arrays, consts,
+                                                kk, args.check)}
+            print(json.dumps(row), flush=True)
+            out.append(row)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(out, fh, indent=1)
