@@ -1117,11 +1117,14 @@ def main() -> int:
     note("dense_dot", "block of 1000 rows",
          diff(KDn.dense_rows_boost(blk, qv, spv, vv, 0.5),
               KDn.dense_rows_boost_plain(blk, qv, spv, vv, 0.5)))
-    for nq in (1, 16, 33):
+    for nq in (1, 16, 33, 40):
         qs = put(KB.unit_vectors(nq, drng, dtype=np.float32))
         sims = KDn.dense_sims(fwd_sd, qs)
         note("dense_dot", f"similarities of {nq} queries",
              diff(sims, KDn.dense_sims_plain(fwd_sd, qs)))
+        rg = fwd_sd[:fcap - 5]          # a ragged last tile
+        note("dense_dot", f"similarities of {nq} queries, {fcap - 5} rows",
+             diff(KDn.dense_sims(rg, qs), KDn.dense_sims_plain(rg, qs)))
         spf = put(drng.integers(0, 1000, (nq, fcap)).astype(np.float32))
         vf = put(drng.random((nq, fcap)) < 0.9)
         vf[0] = False
@@ -1129,7 +1132,7 @@ def main() -> int:
             note("hybrid_blend", f"{nq} slots alpha={alpha}",
                  diff(KDn.hybrid_blend(sims, spf, vf, alpha),
                       KDn.hybrid_blend_plain(sims, spf, vf, alpha)))
-    del fwd_s, fwd_sd, sims
+    del fwd_s, fwd_sd, sims, rg
 
     # K17 `power_iterate` on the card against its plain version on the CPU
     # (exact there: index_add_ adds in index order): the ranks to the bit
@@ -1159,6 +1162,12 @@ def main() -> int:
                               (70_001, 0, 0, 0.85)):
         k17_check(f"{n_} hosts, {e_} edges + a hub of {hub_}, damping "
                   f"{dmp}", KB.edge_list(n_, e_, KB.SEED + n_, hub_), dmp)
+    # the work tiers at their edges, a graph that stops after one step and
+    # one that runs all 50 (kernels/bench.k17_graphs)
+    for label_, g_, dmp_, steps_ in KB.k17_graphs(KBr.HUB_MIN):
+        got_ = k17_check(label_, g_, dmp_)[1]
+        if steps_ is not None and got_ != steps_:
+            fail(f"power_iterate {label_}: {got_} steps, not {steps_}")
     tq = time.time()
     hg = KB.host_graph()
     hg_want, hg_steps = k17_check(
@@ -4411,6 +4420,14 @@ def main() -> int:
         log(f"dense_boost_topk k={k}: {whole:.4f} ms a call (K9 and kernel "
             "3)")
     fwd_b16 = fwd_g.to(bf)
+    # a query element near 1e-35: its pass takes K9's mul + add variant
+    # (the others the leaf fma), both held against the plain version
+    qs_t = hq16[:16].clone()
+    qs_t[3, ::5] = 1e-35
+    note("dense_dot", f"similarities, B=16 over all {cap_g} rows, a query "
+         "element of 1e-35 (mul + add)",
+         diff(KDn.dense_sims(fwd_g, qs_t), KDn.dense_sims_plain(fwd_g, qs_t)))
+    del qs_t
     for b_ in (16, 1):
         qs_b = hq16[:b_].contiguous()
         sims = KDn.dense_sims(fwd_g, qs_b)
@@ -4522,10 +4539,12 @@ def main() -> int:
     del cent_b, idx_a, q_b, key_a
 
     # K17 at the realistic graph (1,000,000 hosts, about 5M edges): the
-    # row times `launch` over a prepared layout (every step queued, no
-    # host sync); the whole call (layout, steps, the one fetch) beside it.
-    # Bound: 12 bytes an edge and 8 a host each step (the JAX roofline's
-    # cost model). Yardstick: the same steps with cuSPARSE's CSR mat-vec
+    # row times `launch` over a prepared layout (the fill, the zero and one
+    # persistent kernel, no host sync); the whole call (layout, steps, the
+    # one fetch) beside it. Bound: 12 bytes an edge and 8 a host each step
+    # (the JAX roofline's cost model); the chain bound logged beside it:
+    # the largest in-degree's dependent adds, 4 cycles each at the card's
+    # maximum SM clock. Yardstick: the same steps with cuSPARSE's CSR mat-vec
     # (torch.sparse on the CSR by destination), the dangling sum and the
     # update in torch
     hg_d = [put(a) for a in hg]
@@ -4565,8 +4584,17 @@ def main() -> int:
     rows[-1]["steps"] = hg_steps
     rows[-1]["whole_call_ms"] = whole
     rows[-1]["layout_ms"] = lay_ms
+    max_in = int(np.bincount(hg[1], minlength=n_h).max())
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=30).stdout.split()[0])
+    chain_ms = max_in * hg_steps * 4 / (mhz * 1e3)
+    log(f"K17 chain bound: {max_in} dependent adds a step x {hg_steps} "
+        f"steps x 4 cycles at {mhz:.0f} MHz: {chain_ms:.4f} ms (bytes "
+        f"bound {rows[-1]['bound_ms']:.4f} ms)")
     # the device's busy time in one launch, from a profiler trace: the
-    # steps taken and the launches after the stop, which return at once
+    # fill, the zero and the kernel that runs every step
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof_:
         KBr.launch(lay, BRo.DAMPING)
@@ -4577,8 +4605,13 @@ def main() -> int:
             k_us.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
     busy = sum(sum(v) for v in k_us.values()) / 1e3
     rows[-1]["device_busy_ms"] = busy
+    n_ops = sum(len(v) for v in k_us.values())
+    rows[-1]["device_ops_in_trace"] = n_ops
+    if n_ops > 3:
+        fail(f"power_iterate: {n_ops} device operations in one launch's "
+             "trace, more than the fill, the zero and the kernel")
     log(f"K17 device busy in one launch: {busy:.4f} ms over "
-        f"{sum(len(v) for v in k_us.values())} device operations; by "
+        f"{n_ops} device operations; by "
         "kernel (count, sum us, first steps' us): " + "; ".join(
             f"{k}: {len(v)}, {sum(v):.1f}, {[round(x, 1) for x in v[:hg_steps]]}"
             for k, v in k_us.items()))

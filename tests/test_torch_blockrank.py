@@ -123,6 +123,86 @@ def test_power_iterate_plain_edge_graphs_equal_jax(case, damping):
     assert steps == _steps_np(g, damping, n)
 
 
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_power_iterate_plain_k17_graphs_equal_jax(case):
+    """kernels/bench.k17_graphs (the card tests' K17 edge graphs): the
+    plain version equals JAX to the bit and takes the steps JAX takes (the
+    star all 50, the ring one)."""
+    _label, g, damping, steps = KB.k17_graphs(KBr.HUB_MIN)[case]
+    n = len(g[3])
+    r, got = _plain(g, damping, n)
+    np.testing.assert_array_equal(_bits(r.numpy()),
+                                  _bits(_jax(g, damping, n)))
+    assert got == _steps_np(g, damping, n)
+    assert steps is None or got == steps
+
+
+def _work_list_np(deg, hub_min):
+    ids = np.arange(len(deg))
+    tiers = [ids[deg > hub_min], ids[(deg > KBr.LIGHT) & (deg <= hub_min)]]
+    tiers = [t[np.lexsort((t, -deg[t]))] for t in tiers]
+    return np.concatenate(tiers), len(tiers[0]), len(tiers[1])
+
+
+# K17's work list: hubs (more than hub_min in-edges) by descending
+# in-degree, ties by host id, then the medium destinations the same way;
+# the light ones (at most 32) are left out; degrees on every tier edge.
+# `layout` on CPU tensors of a graph with those in-degrees (edges in a
+# shuffled order), at the threshold given
+@pytest.mark.parametrize("hub_min", [32, 33, 100, 1024])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_work_list_matches_numpy(seed, hub_min):
+    rng = np.random.default_rng(seed)
+    deg = rng.choice(np.array([0, 1, 31, 32, 33, 34, 99, 100, 101, 1024,
+                               1025, 5000]), 3000)
+    n = len(deg)
+    dsts = rng.permutation(np.repeat(np.arange(n), deg)).astype(np.int32)
+    srcs = rng.integers(0, n, len(dsts)).astype(np.int32)
+    lay = KBr.layout(torch.from_numpy(srcs), torch.from_numpy(dsts),
+                     torch.ones(len(dsts)), torch.zeros(n, dtype=torch.bool),
+                     n, hub_min=hub_min)
+    want, w_hub, w_med = _work_list_np(deg, hub_min)
+    assert lay["order"].dtype == torch.int32
+    assert (lay["n_hub"], lay["n_med"]) == (w_hub, w_med)
+    np.testing.assert_array_equal(lay["order"].numpy(), want)
+    np.testing.assert_array_equal(
+        KBr.work_list(torch.from_numpy(deg), w_hub + w_med).numpy(), want)
+
+
+def test_layout_work_list_on_the_tier_graph():
+    """The card tests' tier graph laid out on the CPU: its 6 hubs longest
+    first (host 10's 20,000 in-edges, the three of HUB_MIN + 2,000 by id,
+    11's HUB_MIN + 1,000, 3's HUB_MIN + 1), then its 5 medium destinations
+    (2's HUB_MIN, the three of 100 by id, 1's 33); every other host (host
+    0's 32 in-edges among them) is light. The CSR keeps each
+    destination's edges in edge order."""
+    g = KB.tier_graph(KBr.HUB_MIN)
+    n = len(g[3])
+    lay = KBr.layout(*(torch.from_numpy(a) for a in g), n)
+    order = lay["order"].numpy()
+    h, m = lay["n_hub"], lay["n_med"]
+    assert order[:h].tolist() == [10, 4, 5, 6, 11, 3]
+    assert order[h:h + m].tolist() == [2, 7, 8, 9, 1]
+    assert len(order) == h + m
+    deg = np.diff(lay["rowptr"].numpy())
+    assert (deg[[0] + list(range(12, n))] <= KBr.LIGHT).all()
+    hm = KBr.HUB_MIN
+    assert deg[:12].tolist() == [32, 33, hm, hm + 1, hm + 2000, hm + 2000,
+                                 hm + 2000, 100, 100, 100, 20_000, hm + 1000]
+    assert g[3][10] and not g[3][11]
+    rp = lay["rowptr"].numpy()
+    for v in (0, 3, 10):
+        np.testing.assert_array_equal(lay["src_s"][rp[v]:rp[v + 1]].numpy(),
+                                      g[0][g[1] == v])
+
+
+def test_work_list_rejects_a_hub_threshold_below_a_threads_share():
+    g = [torch.zeros(4, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
+         torch.ones(4), torch.zeros(4, dtype=torch.bool)]
+    with pytest.raises(ValueError, match="hub_min"):
+        KBr.layout(*g, 4, hub_min=KBr.LIGHT - 1)
+
+
 def test_step_constants_round_as_xla():
     # r0 is a double 1/n rounded once to f32 (jnp.full of a Python
     # float); it equals 1 / f32(n) below 2^24 and differs above

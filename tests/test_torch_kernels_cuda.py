@@ -1719,6 +1719,52 @@ def test_dense_sims_and_blend_match_plain(dev, nq, n):
         assert torch.equal(s1.cpu(), ps) and torch.equal(i1.cpu(), pi)
 
 
+# K9's similarity mode on register tiles: one row (a tile of 64 with 63
+# unused rows), a ragged last tile, one to two passes of 32 queries and
+# every unit width (1-4 queries)
+@pytest.mark.parametrize("nq", [1, 16, 31, 32, 33, 40])
+@pytest.mark.parametrize("n", [1, 4099])
+def test_dense_sims_register_tiles_match_plain(dev, nq, n):
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    rng = np.random.default_rng(nq + 7 * n)
+    docs = torch.from_numpy(_fwd(n, seed=n + nq)).to(dev)
+    qs = torch.from_numpy(KBench.unit_vectors(nq, rng, dtype=np.float32)
+                          ).to(dev)
+    before = LAUNCHES["dense_dot"]
+    sims = KDn.dense_sims(docs, qs)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dense_dot"] == before + 1
+    assert torch.equal(sims, KDn.dense_sims_plain(docs, qs))
+
+
+def test_dense_sims_mul_add_and_fma_passes_match_plain(dev):
+    """40 queries in two passes: the first's elements all in [2^-100,
+    2^100] (the fma at the leaf pairs), the second's query 35 with
+    elements near 1e-35 (the pass takes mul + add)."""
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    rng = np.random.default_rng(35)
+    docs = torch.from_numpy(_fwd(4099, seed=3)).to(dev)
+    q = KBench.unit_vectors(40, rng, dtype=np.float32)
+    q[35, ::3] = rng.uniform(0.5e-35, 2e-35, len(q[35, ::3]))
+    qs = torch.from_numpy(q).to(dev)
+    assert torch.equal(KDn.dense_sims(docs, qs).cpu(),
+                       KDn.dense_sims_plain(docs.cpu(), qs.cpu()))
+
+
+def test_dense_sims_subnormal_products_match_plain(dev):
+    """Queries scaled to about 1e-37: every product is an f32 subnormal,
+    rounded on its own (an fma of the leaf pairs would round twice less
+    and differ), held against the plain version on the CPU."""
+    from yacy_search_server_tpu_torch.kernels import dense as KDn
+    rng = np.random.default_rng(37)
+    docs = torch.from_numpy(_fwd(1000, seed=4)).to(dev)
+    q = KBench.unit_vectors(16, rng, dtype=np.float32) * np.float32(1e-36)
+    qs = torch.from_numpy(q).to(dev)
+    got = KDn.dense_sims(docs, qs).cpu()
+    want = KDn.dense_sims_plain(docs.cpu(), qs.cpu())
+    assert torch.equal(got, want) and bool((want != 0).any())
+
+
 def test_dense_boost_topk_matches_plain(dev):
     from yacy_search_server_tpu_torch.ops import dense as DN
     rng = np.random.default_rng(8)
@@ -2440,16 +2486,22 @@ def test_dense_first_on_the_card_matches_cpu(dev):
     g.close()
 
 
-def _k17_matches_plain(dev, g, damping=0.85):
+def _k17_matches_plain(dev, g, damping=0.85, steps=None):
+    """K17 on the card against its plain version on the CPU: the ranks to
+    the bit, the trip count (and `steps` where given), one launch a
+    call."""
     from yacy_search_server_tpu_torch.kernels import blockrank as KBr
     n = len(g[3])
     cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in g]
     want, want_steps = KBr.power_iterate_plain(*cpu, damping, n)
     before = LAUNCHES["power_iterate"]
-    got, steps = KBr.power_iterate(*(a.to(dev) for a in cpu), damping, n)
+    got, got_steps = KBr.power_iterate(*(a.to(dev) for a in cpu), damping,
+                                       n)
     torch.cuda.synchronize()
     assert LAUNCHES["power_iterate"] == before + 1
-    assert steps == want_steps
+    assert got_steps == want_steps
+    if steps is not None:
+        assert want_steps == steps
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
@@ -2497,6 +2549,51 @@ def test_power_iterate_hubs_at_round_edges(dev):
     np.add.at(out_total, srcs, counts)
     _k17_matches_plain(dev, (srcs, dsts, counts / out_total[srcs],
                              out_total == 0.0))
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_power_iterate_edge_graphs(dev, case):
+    """kernels/bench.k17_graphs: the work tiers at their edges (in-degrees
+    32, 33, HUB_MIN, HUB_MIN + 1; equal-degree hubs and medium
+    destinations; a dangling hub and one that is a source), a ring that
+    stops after one step and a star that runs all 50."""
+    from yacy_search_server_tpu_torch.kernels import blockrank as KBr
+    _label, g, damping, steps = KBench.k17_graphs(KBr.HUB_MIN)[case]
+    _k17_matches_plain(dev, g, damping, steps)
+
+
+@pytest.mark.parametrize("hub_min", [32, 33, 1024])
+def test_power_iterate_other_hub_thresholds(dev, hub_min):
+    """The tier graph laid out with every destination past 32 in-edges a
+    hub (32), the threshold one above a thread's share (33), and a lower
+    one than HUB_MIN (1024); `launch` over that layout against the plain
+    version, to the bit and in as many steps, one launch."""
+    from yacy_search_server_tpu_torch.kernels import blockrank as KBr
+    g = KBench.tier_graph(hub_min)
+    n = len(g[3])
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in g]
+    want, want_steps = KBr.power_iterate_plain(*cpu, 0.85, n)
+    lay = KBr.layout(*(a.to(dev) for a in cpu), n, hub_min=hub_min)
+    assert lay["n_hub"] >= 6
+    before = LAUNCHES["power_iterate"]
+    KBr.launch(lay, 0.85)
+    st = lay["state"].cpu()
+    assert LAUNCHES["power_iterate"] == before + 1
+    assert int(st[1]) == want_steps
+    assert torch.equal(lay["rb"][int(st[4])].cpu().view(torch.int32),
+                       want.view(torch.int32))
+
+
+def test_power_iterate_is_one_kernel_a_call(dev):
+    """A launch is the fill, the state's zero and one kernel, whatever the
+    trip count (50 steps here)."""
+    from yacy_search_server_tpu_torch.kernels import blockrank as KBr
+    g = KBench.star_graph()
+    lay = KBr.layout(*(torch.from_numpy(a).to(dev) for a in g), len(g[3]))
+    ops = KBench.device_ops(lambda: KBr.launch(lay, 0.85))
+    assert int(lay["state"][1]) == 50
+    assert 1 <= len(ops) <= 3
+    assert sum("br_iterate" in o for o in ops) == 1
 
 
 def test_power_iterate_realistic_graph(dev):

@@ -751,6 +751,73 @@ def edge_list(n: int, e: int, seed: int = SEED, hub: int = 0):
     return srcs, dsts, counts / out_total[srcs], out_total == 0.0
 
 
+def _normalised(n: int, srcs, dsts, counts):
+    """(srcs, dsts, weights, dangling) as host_ranks_from_edges builds
+    them: counts normalised per source with f32 out totals."""
+    out_total = np.zeros(n, np.float32)
+    np.add.at(out_total, srcs, counts)
+    return (srcs.astype(np.int32), dsts.astype(np.int32),
+            counts / out_total[srcs], out_total == 0.0)
+
+
+def tier_graph(hub_min: int, seed: int = SEED, n: int = 30_011,
+               e: int = 60_000):
+    """K17's work tiers at their edges: uniform edges over n hosts and
+    destinations of exactly 32 (a thread's), 33 (a warp's), hub_min (the
+    last warp's) and hub_min + 1 (the first block's) in-edges; three hubs
+    of hub_min + 2,000 and three medium destinations of 100 (equal
+    degrees: ties by host id); a dangling hub of 20,000 (its out-edges
+    dropped) and a hub of hub_min + 1,000 that is a source (three
+    out-edges added). Edges mixed in a random order, counts in 1..4."""
+    rng = np.random.default_rng(seed)
+    special = [(0, 32), (1, 33), (2, hub_min), (3, hub_min + 1),
+               (4, hub_min + 2000), (5, hub_min + 2000),
+               (6, hub_min + 2000), (7, 100), (8, 100), (9, 100),
+               (10, 20_000), (11, hub_min + 1000)]
+    srcs = rng.integers(0, n, e)
+    dsts = rng.integers(0, n, e)
+    keep = (dsts >= len(special)) & (srcs != 10)
+    srcs, dsts = [srcs[keep]], [dsts[keep]]
+    for host, deg in special:
+        srcs.append(rng.integers(len(special), n, deg))
+        dsts.append(np.full(deg, host))
+    srcs.append(np.full(3, 11))
+    dsts.append(rng.integers(len(special), n, 3))
+    srcs, dsts = np.concatenate(srcs), np.concatenate(dsts)
+    order = rng.permutation(len(srcs))
+    counts = rng.integers(1, 5, len(srcs)).astype(np.float32)
+    return _normalised(n, srcs[order], dsts[order], counts)
+
+
+def ring_graph(n: int = 1000):
+    """Host i links host i + 1 (mod n), one count each: nothing dangles
+    and r stays uniform, so the iteration stops after its first step."""
+    src = np.arange(n)
+    return _normalised(n, src, (src + 1) % n, np.ones(n, np.float32))
+
+
+def star_graph(n: int = 5001):
+    """Host 0 links every other host and each of them links host 0 (one
+    count each): the ranks swing between the centre and the rim, a swing
+    that shrinks by the damping each step, so at 0.85 the iteration runs
+    all MAX_ITERS steps; the centre is a hub that is also a source."""
+    rim = np.arange(1, n)
+    return _normalised(n, np.concatenate([np.zeros(n - 1, np.int64), rim]),
+                       np.concatenate([rim, np.zeros(n - 1, np.int64)]),
+                       np.ones(2 * (n - 1), np.float32))
+
+
+def k17_graphs(hub_min: int, seed: int = SEED) -> list:
+    """K17's edge graphs beside the uniform ones: (label, (srcs, dsts,
+    weights, dangling), damping, the steps it must take or None). The
+    tiers at their edges (`tier_graph`), a ring that stops after one step,
+    and a star that runs all MAX_ITERS steps."""
+    return [(f"tiers at their edges (hub_min {hub_min})",
+             tier_graph(hub_min, seed), 0.85, None),
+            ("a ring of 1,000 hosts", ring_graph(), 0.85, 1),
+            ("a star of 5,001 hosts", star_graph(), 0.85, 50)]
+
+
 def host_graph(seed: int = SEED, n: int = 1_000_000,
                sources: int = 50_000, mean_degree: float = 165.0,
                max_degree: int = 2000, no_links: float = 0.05):

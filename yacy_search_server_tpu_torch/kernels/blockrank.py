@@ -11,9 +11,15 @@ and adds its edges' products in edge order, then r' = fma(d, acc,
 teleport) rounded once, and stops when max |r' - r| <= f32(1e-9) or after
 MAX_ITERS steps.
 
-`power_iterate` launches the kernel for CUDA tensors (every step without
-a host round trip; the state is fetched once at the end) and takes the
-plain version for CPU tensors only. Both return (r f32 [n], steps).
+`power_iterate` launches the kernel for CUDA tensors (one persistent
+launch runs every step, none after the stop; the state is fetched once
+at the end) and takes the plain version for CPU tensors only. Both return
+(r f32 [n], steps). `layout` also builds the kernel's work list (`order`):
+hubs of more than HUB_MIN in-edges by descending in-degree, ties by host
+id (a block each, the longest chains first), then the medium destinations
+(LIGHT + 1 .. HUB_MIN in-edges, a warp each) the same way; the light ones
+(a thread each) are the other hosts. A test may lay out at another
+threshold (`layout`'s hub_min); the entry point uses HUB_MIN.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ MAX_ITERS = 50
 TOL = 1e-9
 WINDOW = 32        # XLA's tree-reduction window (TreeReductionRewriter)
 LIGHT = 32         # csrc/blockrank.cu BR_LIGHT: in-degree of one thread
-STATE_LEN = 8      # csrc/blockrank.cu: done, steps, delta, dm, current
+HUB_MIN = 4096     # more in-edges than this: a hub, summed by a block
+STATE_LEN = 16     # csrc/blockrank.cu BR_STATE: done, steps, ..., current
 
 
 def step_consts(damping: float, n: int):
@@ -111,12 +118,25 @@ def power_iterate_plain(srcs, dsts, weights, dangling, damping: float,
     return r, steps
 
 
-def layout(srcs, dsts, weights, dangling, n: int) -> dict:
+def work_list(deg: torch.Tensor, n_heavy: int) -> torch.Tensor:
+    """The n_heavy hosts of most in-edges (`deg` [n]) by descending
+    in-degree, ties by host id, as int32: with n_heavy the count of more
+    than LIGHT in-edges, the hubs and then the medium destinations, each
+    tier in the kernel's order. One top-k on a key that breaks the ties,
+    no host sync."""
+    ids = torch.arange(deg.shape[0], dtype=torch.int64, device=deg.device)
+    key = deg.to(torch.int64) * 2**31 + (2**31 - 1 - ids)
+    return torch.topk(key, n_heavy).indices.to(torch.int32)
+
+
+def layout(srcs, dsts, weights, dangling, n: int,
+           hub_min: int = HUB_MIN) -> dict:
     """K17's input on the card, once a call: the edges as a CSR by
     destination (a stable sort keeps each destination's edges in edge
-    order, the order its sum must take), the hubs (more than LIGHT
-    in-edges), the rank buffers and the state. Checks what the kernel
-    does not take (one host sync: the edge ends' range)."""
+    order, the order its sum must take), the work list (`work_list`: hubs
+    of more than hub_min in-edges, then the medium destinations), the rank
+    buffers and the state. One host sync: the edge ends' range (what the
+    kernel does not check) and the tiers' sizes, fetched together."""
     dev = weights.device
     B.require(srcs, "srcs", (torch.int32,), 1, dev)
     B.require(dsts, "dsts", (torch.int32,), 1, dev)
@@ -125,23 +145,31 @@ def layout(srcs, dsts, weights, dangling, n: int) -> dict:
     e = weights.shape[0]
     if n < 1 or n >= 2**31 or dangling.shape[0] != n:
         raise ValueError("power_iterate: need 1 <= n < 2^31 and dangling [n]")
-    if srcs.shape[0] != e or dsts.shape[0] != e or e >= 2**31:
-        raise ValueError("power_iterate: srcs, dsts, weights must be [e]")
+    if srcs.shape[0] != e or dsts.shape[0] != e or e >= 2**31 - 2**10:
+        raise ValueError("power_iterate: srcs, dsts, weights must be [e], "
+                         "e < 2^31 - 2^10")
+    if hub_min < LIGHT:
+        raise ValueError(f"power_iterate: hub_min below LIGHT ({LIGHT})")
+    dst_s, order = torch.sort(dsts, stable=True)
+    rowptr = torch.searchsorted(
+        dst_s, torch.arange(n + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    deg = rowptr[1:] - rowptr[:-1]
+    n_heavy = n_hub = 0
     if e:
-        lohi = torch.stack([srcs.min(), srcs.max(), dsts.min(),
-                            dsts.max()]).cpu()
-        if int(lohi.min()) < 0 or int(lohi.max()) >= n:
+        got = torch.stack([srcs.min().long(), srcs.max().long(),
+                           dst_s[0].long(), dst_s[-1].long(),
+                           (deg > LIGHT).sum(), (deg > hub_min).sum()])
+        lo_s, hi_s, lo_d, hi_d, n_heavy, n_hub = got.tolist()
+        if min(lo_s, lo_d) < 0 or max(hi_s, hi_d) >= n:
             raise ValueError("power_iterate: an edge end outside [0, n)")
-    order = torch.sort(dsts, stable=True).indices
-    deg = torch.bincount(dsts, minlength=n)
-    rowptr = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    rowptr[1:] = torch.cumsum(deg, 0).to(torch.int32)
     nwin = -(-n // WINDOW) if n > WINDOW else 0
     lvl = -(-nwin // WINDOW)
     return {
         "n": n, "rowptr": rowptr, "dangling": dangling,
         "src_s": srcs[order].contiguous(), "w_s": weights[order].contiguous(),
-        "heavy": torch.nonzero(deg > LIGHT).flatten().to(torch.int32),
+        "order": work_list(deg, n_heavy), "n_hub": n_hub,
+        "n_med": n_heavy - n_hub,
         "rb": (torch.empty(n, dtype=torch.float32, device=dev),
                torch.empty(n, dtype=torch.float32, device=dev)),
         "part": torch.empty(max(nwin + 2 * lvl, 1), dtype=torch.float32,
@@ -150,9 +178,10 @@ def layout(srcs, dsts, weights, dangling, n: int) -> dict:
 
 
 def launch(lay: dict, damping: float) -> None:
-    """Launch K17 over a `layout`: r0 and the state set, MAX_ITERS steps
-    queued on the current stream, no host sync. Afterwards state[1] holds
-    the steps taken and rb[state[4]] the ranks."""
+    """Launch K17 over a `layout`: r0 and the state set, then one kernel
+    that runs every step on the current stream, no host sync. Three
+    device operations: the fill, the zero, the kernel. Afterwards state[1]
+    holds the steps taken and rb[state[4]] the ranks."""
     n = lay["n"]
     d, inv, tele, r0, tol = step_consts(damping, n)
     rb0, rb1 = lay["rb"]
@@ -162,8 +191,8 @@ def launch(lay: dict, damping: float) -> None:
             for x in (d, inv, tele, tol)]
     rc = B.library().yt_power_iterate(
         lay["rowptr"].data_ptr(), lay["src_s"].data_ptr(),
-        lay["w_s"].data_ptr(), lay["heavy"].data_ptr(),
-        int(lay["heavy"].numel()), lay["dangling"].data_ptr(), n,
+        lay["w_s"].data_ptr(), lay["order"].data_ptr(), lay["n_hub"],
+        lay["n_med"], lay["dangling"].data_ptr(), n,
         rb0.data_ptr(), rb1.data_ptr(), lay["part"].data_ptr(),
         lay["part"].numel(), lay["state"].data_ptr(), *bits, MAX_ITERS,
         B.stream_ptr(rb0.device))

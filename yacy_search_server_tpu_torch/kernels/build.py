@@ -96,8 +96,8 @@ SIGNATURES = {
     "yt_bm25_sums": [_P, _P, _I64, _P, _P],
     "yt_bm25_rows": [_P, _I, _P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I,
                      _P, _P, _P],
-    "yt_power_iterate": [_P, _P, _P, _P, _I, _P, _I64, _P, _P, _P, _I64, _P,
-                         _I, _I, _I, _I, _I, _P],
+    "yt_power_iterate": [_P, _P, _P, _P, _I, _I, _P, _I64, _P, _P, _P, _I64,
+                         _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -28,10 +28,29 @@
 //     slot), the descriptor and the output; at bs = 16, nb = 128 about
 //     1 MB, a third of a microsecond at 3.35 TB/s: the launch is what costs.
 //   block mode: one warp a row of a contiguous block, and the boost.
-//   similarity mode: one warp a row, the row held in registers while the
-//     warp loops over up to 32 queries staged (bf16-rounded) in shared
-//     memory: each row is read once for all of them. Bound: the block
-//     (1 GiB at 2^21 rows: 0.32 ms) and B x n x 4 bytes of output.
+//   similarity mode: no warp a row and no shuffle. Blocks of 4 warps,
+//     two an SM, stage tiles of 64 rows by 16-byte cp.async into a ring
+//     of two (32 KB each; a row's 16-byte groups placed by row & 7), the
+//     next tile's copies in flight while a tile is summed; each thread rounds
+//     the chunks it copied to bf16 in place (once a tile), and warp w
+//     takes the tile's chunks of 4 queries w, w + 4, ...: a thread holds
+//     2 rows (lane, lane + 32) x up to 4 queries of sums in registers and
+//     walks the 32 eight-element groups in the bit-reversed order of
+//     their lane (0, 16, 8, 24, 4, ...), where the butterfly's tree is a
+//     pairwise tree over consecutive groups (a binary counter of at most
+//     5 partials a pair). Queries (up to 32 a pass, rounded once a block)
+//     are read by broadcast; a query's outputs are stored 32 rows a warp
+//     store. Where every staged query element is 0 or within [2^-100,
+//     2^100], each group's leaf pairs are fma(d1, q1, d0 * q0): a bf16
+//     product is then exact in f32 (16 significant bits, above 2^-126),
+//     so the fma equals the add of the two products. Bound: the block
+//     read once (1 GiB at 2^21 rows: 0.32 ms) and B x n x 4 bytes of
+//     output; at B = 16 the ALU would bind first (383 operations a (row,
+//     query) pair with the fma, 511 without, 12.8G lane operations: about
+//     0.43 ms at ~30T a second), but the kernel runs at about half the
+//     issue rate (PERF.md: neither 8 warps an SM in one block, nor 4
+//     rows a thread over half-tiles, nor the 25 % fewer operations of the
+//     fma moved it much).
 //
 // K10, the sort: each slot's nb (a power of two <= 16384) lanes sorted
 // on (key, lane), key = the 64-bit (score half, docid half): the score
@@ -102,6 +121,12 @@ namespace yt {
 constexpr int DD_WARPS = 8;              // warps a block of K9
 constexpr int DD_THREADS = DD_WARPS * 32;
 constexpr int DD_SQ = 32;                // queries a K9 similarity pass
+constexpr int SIM_THREADS = 128;         // a K9 similarity block, 4 warps
+constexpr int SIM_ROWS = 64;             // rows a staged tile: 2 a lane
+constexpr int SIM_STAGE_BYTES = SIM_ROWS * DD_DIM * 2;    // 32 KB of f16
+constexpr int SIM_CHUNKS = SIM_STAGE_BYTES / 16 / SIM_THREADS;
+constexpr int SIM_STAGES = 2;            // the ring's tiles
+constexpr int SIM_SMEM = SIM_STAGES * SIM_STAGE_BYTES + DD_SQ * DD_DIM * 4;
 constexpr int RS_MAX_NB = 1 << 14;
 constexpr int RS_THREADS = 1024;         // a K10 block (fewer at nb < 1024)
 constexpr int RS_CHUNK = 512;            // lanes a CTA holds, cluster path
@@ -160,30 +185,231 @@ dense_rows(const __half* __restrict__ docs, int64_t n,
   if (l == 0) fout[w] = valid[w] ? boosted(sparse[w], sims, alpha) : SMALL;
 }
 
+// K9 similarity mode (head note): a block a run of tiles, SIM_ROWS rows a
+// tile staged by 16-byte cp.async into a ring of two tiles; each
+// thread converts the chunks it copied to bf16 in place, then computes a
+// register tile of 2 rows x up to 4 queries over the 32 groups in the
+// lanes' bit-reversed order, folding the butterfly's tree as a pairwise
+// tree over consecutive groups. No warp shuffle.
+
+// chunk c (16 bytes, the dot's group c) of a staged row r sits at 16-byte
+// place c ^ (r & 7) of its row: the 8 lanes of a quarter warp (8
+// consecutive rows) that read one group hit 8 different bank quads
+__device__ __forceinline__ int sim_place(int r, int c) {
+  return r * (DD_DIM / 8) + (c ^ (r & 7));
+}
+
+// 8 f16 values bf16-rounded (to nearest even), as bf16 pairs, low element
+// in the low half
+__device__ __forceinline__ uint4 sim_to_bf16(uint4 u) {
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(h[i]));
+    o[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// 8 bf16 values (4 pairs) as floats, exactly
+__device__ __forceinline__ void sim_unpack(const uint4 u, float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// a group's 8-product tree, ((p0+p1)+(p2+p3))+((p4+p5)+(p6+p7)); with FMA
+// each leaf pair is fma(d1, q1, d0 * q0), equal where the products are
+// exact (the kernel takes it only then)
+template <bool FMA>
+__device__ __forceinline__ float sim_group(const float* d, const float4 qa,
+                                           const float4 qb) {
+  float a0, a1, a2, a3;
+  if (FMA) {
+    a0 = __fmaf_rn(d[1], qa.y, __fmul_rn(d[0], qa.x));
+    a1 = __fmaf_rn(d[3], qa.w, __fmul_rn(d[2], qa.z));
+    a2 = __fmaf_rn(d[5], qb.y, __fmul_rn(d[4], qb.x));
+    a3 = __fmaf_rn(d[7], qb.w, __fmul_rn(d[6], qb.z));
+  } else {
+    a0 = __fadd_rn(__fmul_rn(d[0], qa.x), __fmul_rn(d[1], qa.y));
+    a1 = __fadd_rn(__fmul_rn(d[2], qa.z), __fmul_rn(d[3], qa.w));
+    a2 = __fadd_rn(__fmul_rn(d[4], qb.x), __fmul_rn(d[5], qb.y));
+    a3 = __fadd_rn(__fmul_rn(d[6], qb.z), __fmul_rn(d[7], qb.w));
+  }
+  return __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
+}
+
+// One unit: tile rows lane and lane + 32 against Q
+// staged queries (sq: Q x DD_DIM bf16-rounded floats), written to
+// out[q * n + row] for rows below n. Walk position k = 8m + jj visits
+// group brev5(k) = (brev3(jj) << 2) | brev2(m): in that order the
+// butterfly (lane l with l ^ 16 first, then ^ 8 .. ^ 1) is a pairwise
+// tree over consecutive positions, so a position's sum is folded with
+// the partials below it as a binary counter does (levels 0-2 inside the
+// 8 unrolled positions, levels 3-4 across m).
+template <int Q, bool FMA>
+__device__ __forceinline__ void sim_unit(const uint4* __restrict__ stage,
+                                         const float* __restrict__ sq,
+                                         int lane, int64_t row0, int64_t n,
+                                         float* __restrict__ out) {
+  const uint4* rows[2] = {stage + lane * (DD_DIM / 8),
+                          stage + (lane + 32) * (DD_DIM / 8)};
+  const int sw = lane & 7;            // r & 7 of both rows
+  float a3[2][Q], a4[2][Q], res[2][Q];
+#pragma unroll 1
+  for (int m = 0; m < 4; ++m) {
+    const int gm = ((m & 1) << 1) | (m >> 1);
+    const int x = gm ^ sw;
+    const float* qm = sq + 8 * gm;
+    float l0[2][Q], l1[2][Q], l2[2][Q], c3[2][Q];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int gs = (((jj & 1) << 2) | (jj & 2) | ((jj >> 2) & 1)) << 2;
+      float d[2][8];
+      sim_unpack(rows[0][gs ^ x], d[0]);
+      sim_unpack(rows[1][gs ^ x], d[1]);
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float4* qq =
+            reinterpret_cast<const float4*>(qm + q * DD_DIM + 8 * gs);
+        const float4 qa = qq[0], qb = qq[1];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float c = sim_group<FMA>(d[j], qa, qb);
+          if (jj & 1) {
+            c = __fadd_rn(l0[j][q], c);
+            if (jj & 2) {
+              c = __fadd_rn(l1[j][q], c);
+              if (jj & 4) {
+                c3[j][q] = __fadd_rn(l2[j][q], c);
+              } else {
+                l2[j][q] = c;
+              }
+            } else {
+              l1[j][q] = c;
+            }
+          } else {
+            l0[j][q] = c;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (m & 1) {
+          const float c = __fadd_rn(a3[j][q], c3[j][q]);
+          if (m & 2) {
+            res[j][q] = __fadd_rn(a4[j][q], c);
+          } else {
+            a4[j][q] = c;
+          }
+        } else {
+          a3[j][q] = c3[j][q];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int64_t row = row0 + lane + 32 * j;
+    if (row < n) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) out[(int64_t)q * n + row] = res[j][q];
+    }
+  }
+}
+
+template <bool FMA>
+__device__ __forceinline__ void sim_unit_q(int qc, const uint4* stage,
+                                           const float* sq, int lane,
+                                           int64_t row0, int64_t n,
+                                           float* out) {
+  switch (qc) {
+    case 4: sim_unit<4, FMA>(stage, sq, lane, row0, n, out); break;
+    case 3: sim_unit<3, FMA>(stage, sq, lane, row0, n, out); break;
+    case 2: sim_unit<2, FMA>(stage, sq, lane, row0, n, out); break;
+    default: sim_unit<1, FMA>(stage, sq, lane, row0, n, out); break;
+  }
+}
+
 // K9 similarity mode: sims[q, i] = dot(docs[i], qvecs[q]); grid.y passes
-// over the queries DD_SQ at a time
-__global__ void __launch_bounds__(DD_THREADS)
+// over the queries DD_SQ at a time, grid.x blocks take tiles i = x, x +
+// gridDim.x, ..., a block's warps the tile's chunks of 4 queries w, w + 4,
+// ... Dynamic shared memory: the ring, then the pass's queries.
+__global__ void __launch_bounds__(SIM_THREADS)
 dense_sims(const __half* __restrict__ docs, int64_t n,
            const float* __restrict__ qvecs, int nq,
            float* __restrict__ sims) {
-  __shared__ __align__(16) float sq[DD_SQ * DD_DIM];
+  extern __shared__ __align__(16) unsigned char sim_smem[];
+  uint4* ring = reinterpret_cast<uint4*>(sim_smem);
+  float* sq =
+      reinterpret_cast<float*>(sim_smem + SIM_STAGES * SIM_STAGE_BYTES);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.y * DD_SQ;
   const int nqb = min(DD_SQ, nq - q0);
-  for (int i = threadIdx.x; i < nqb * DD_DIM; i += DD_THREADS)
-    sq[i] = bf16r(__ldg(qvecs + (int64_t)q0 * DD_DIM + i));
-  __syncthreads();
-  const int64_t w = (int64_t)blockIdx.x * DD_WARPS + threadIdx.x / 32;
-  const int l = threadIdx.x & 31;
-  if (w >= n) return;
-  float d[8];
-  load8(docs + w * DD_DIM, l, d);
-  for (int q = 0; q < nqb; ++q) {
-    const float4* qq = reinterpret_cast<const float4*>(sq + q * DD_DIM) + 2 * l;
-    const float4 a = qq[0], b = qq[1];
-    const float qv[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    const float s = warp_sum(lane_sum(d, qv));
-    if (l == 0) sims[(int64_t)(q0 + q) * n + w] = s;
+  // the queries rounded once a block; FMA only where every product is
+  // exact: a nonzero rounded element in [2^-100, 2^100] times a doc element
+  // (|x| >= 2^-24 where nonzero, f16) stays a normal f32, 16 bits wide
+  int exact = 1;
+  for (int i = tid; i < nqb * DD_DIM; i += SIM_THREADS) {
+    const float x = bf16r(__ldg(qvecs + (int64_t)q0 * DD_DIM + i));
+    sq[i] = x;
+    const float ax = fabsf(x);
+    exact &= (x == 0.0f) | ((ax >= 0x1p-100f) & (ax <= 0x1p100f));
   }
+  const bool fma = __syncthreads_and(exact) != 0;
+  const int64_t ntiles = (n + SIM_ROWS - 1) / SIM_ROWS;
+  const int64_t mine =
+      ntiles > blockIdx.x ? (ntiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  // a thread's chunks of a tile: k = tid + SIM_THREADS * i, row k / 32,
+  // chunk k % 32 (neighbouring threads on neighbouring 16 bytes)
+  auto issue = [&](int64_t i) {
+    if (i < mine) {
+      const int64_t row0 = (blockIdx.x + i * gridDim.x) * SIM_ROWS;
+      uint4* st = ring + (i % SIM_STAGES) * (SIM_STAGE_BYTES / 16);
+#pragma unroll
+      for (int c = 0; c < SIM_CHUNKS; ++c) {
+        const int k = tid + SIM_THREADS * c, r = k >> 5;
+        if (row0 + r < n)
+          cp_async16(st + sim_place(r, k & 31),
+                     docs + (row0 + r) * DD_DIM + 8 * (k & 31));
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  const int nch = (nqb + 3) / 4;
+  for (int64_t i = 0; i < mine; ++i) {
+    const int64_t row0 = (blockIdx.x + i * gridDim.x) * SIM_ROWS;
+    uint4* st = ring + (i % SIM_STAGES) * (SIM_STAGE_BYTES / 16);
+    cp_async_wait<0>();                // this thread's copies of tile i
+#pragma unroll
+    for (int c = 0; c < SIM_CHUNKS; ++c) {
+      const int k = tid + SIM_THREADS * c, r = k >> 5;
+      if (row0 + r < n) {
+        uint4* p = st + sim_place(r, k & 31);
+        *p = sim_to_bf16(*p);
+      }
+    }
+    __syncthreads();   // the tile converted; every thread done with i - 1
+    issue(i + 1);                      // into the stage of tile i - 1
+    for (int ch = warp; ch < nch; ch += SIM_THREADS / 32) {
+      const int qc = min(4, nqb - 4 * ch);
+      float* out = sims + (int64_t)(q0 + 4 * ch) * n;
+      const float* sqc = sq + 4 * ch * DD_DIM;
+      if (fma)
+        sim_unit_q<true>(qc, st, sqc, lane, row0, n, out);
+      else
+        sim_unit_q<false>(qc, st, sqc, lane, row0, n, out);
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // K10's 64-bit key of a lane (head note)
@@ -566,12 +792,36 @@ extern "C" int yt_dense_rows(const void* docs, int64_t n, const void* qvec,
   return (int)cudaGetLastError();
 }
 
+// K9's similarity grid: two blocks an SM (each holds the ring and a
+// pass's queries, 96 KB); the smem cap raised once a device
+inline cudaError_t sim_grid(int* blocks) {
+  static bool raised[64];
+  static int sms[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  e = allow_smem(dense_sims, SIM_SMEM, raised);
+  if (e != cudaSuccess) return e;
+  if (!sms[dev]) {
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return e;
+  }
+  *blocks = 2 * sms[dev];
+  return cudaSuccess;
+}
+
 extern "C" int yt_dense_sims(const void* docs, int64_t n, const void* qvecs,
                              int nq, void* sims, void* stream) {
   if (n < 1 || nq < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((n + DD_WARPS - 1) / DD_WARPS),
+  int blocks = 0;
+  const cudaError_t e = sim_grid(&blocks);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t ntiles = (n + SIM_ROWS - 1) / SIM_ROWS;
+  const dim3 grid((unsigned)(ntiles < blocks ? ntiles : blocks),
                   (unsigned)((nq + DD_SQ - 1) / DD_SQ));
-  dense_sims<<<grid, DD_THREADS, 0, (cudaStream_t)stream>>>(
+  dense_sims<<<grid, SIM_THREADS, SIM_SMEM, (cudaStream_t)stream>>>(
       (const __half*)docs, n, (const float*)qvecs, nq, (float*)sims);
   return (int)cudaGetLastError();
 }
